@@ -16,7 +16,18 @@ Phases, each printed as it ends:
      launch counts of that run, frame and per-node times, peak memory, one
      profiled frame, the per-node cost of the float64 fused multiply-add
      emulation (core.math3d.fma); the output is checked (finite, in [0, 1], coverage > 0) and a 256x128
-     frame on the card is held against the same frame on the CPU path.
+     frame on the card is held against the same frame on the CPU path;
+  5. tracer kernels: the sweep intersector's kernels (B4 slab entry, B5
+     cluster sweep, closest and any hit) against their plain versions on
+     the path tracer's own rays (bench tracer scene, 512x512: the swizzled
+     camera rays and the incoherent bounce-1 rays of one sample and their
+     shadow rays), timed with CUDA events, with the bound of each;
+  6. trace: the bench tracer scene rendered at 512x512, 4 bounces, 16 spp
+     (the bench's 64 spp cut to 16): 1 warm-up + 3 timed renders, Mrays/s,
+     peak memory, launches per render (B4 = B5 = 2 * bounces * spp), the
+     device idle share of one profiled sample; the image is checked
+     (finite, >= 0) and a 64x64 render on the card is held against the same
+     render on the CPU path with the same uniforms.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure ends the run with
 a non-zero exit code and no result line.
@@ -40,6 +51,7 @@ SLICE_CONFIG = {
 }
 MINIMAL_GRAPH = ["DepthPrepass", "LinearizeDepth", "LightCulling",
                  "RenderScene", "EyeAdaptation"]
+TRACER = (512, 512, 4, 16)  # width, height, bounces, spp
 # H100 SXM published peaks (NVIDIA data sheet), used for the bound
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -261,7 +273,7 @@ def run_frames(scene, width, height, card):
     peak = torch.cuda.max_memory_allocated()
     _, _, per_node = fg.process_debug(scene, state)
     fma_cost(fg, scene, state, card)
-    profile_frame(fg, scene, state, card)  # last: frames after it run slower
+    profile(lambda: fg.process(scene, state), card, "profile")  # last: frames after it run slower
     print(f"frame {width}x{height}: warmup_ms={warm_ms:.2f} "
           f"frame_ms={[round(m, 3) for m in frame_ms]} "
           f"mean_ms={sum(frame_ms) / len(frame_ms):.3f} peak_mem_bytes={peak} on {card}")
@@ -280,20 +292,20 @@ def run_frames(scene, width, height, card):
     return launches
 
 
-def profile_frame(fg, scene, state, card):
-    """One frame under torch.profiler: device busy share of the frame's
-    wall time (union of kernel intervals) and device time by kernel."""
+def profile(fn, card, label):
+    """fn() under torch.profiler: device busy share of its wall time (union
+    of kernel intervals) and device time by kernel."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile as torch_profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall_ms, _ = _wall_ms(lambda: fg.process(scene, state))
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall_ms, _ = _wall_ms(fn)
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.device_type == DeviceType.CUDA)
     if not spans:
-        print("profile: the profiler recorded no device events")
+        print(f"{label}: the profiler recorded no device events")
         return
     busy, end = 0, spans[0][0]
     for a, b in spans:
@@ -304,9 +316,9 @@ def profile_frame(fg, scene, state, card):
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    print(f"profile: wall_ms={wall_ms:.3f} device_busy_ms={busy / 1e3:.3f} "
+    print(f"{label}: wall_ms={wall_ms:.3f} device_busy_ms={busy / 1e3:.3f} "
           f"device_idle_share={1 - busy / 1e3 / wall_ms:.3f} kernels={len(spans)} on {card}")
-    print("profile_top_device_us " + json.dumps({k[:60]: v for k, v in top}))
+    print(f"{label}_top_device_us " + json.dumps({k[:60]: v for k, v in top}))
 
 
 def fma_cost(fg, scene, state, card, reps: int = 4):
@@ -357,6 +369,179 @@ def check_small_frame():
     check(same >= 0.999 and close >= 0.999, "card frame disagrees with the CPU path")
 
 
+def tracer_passes(scene, cam, view, proj, width, height, seed=0):
+    """Every intersector pass of one sample of the tracer at width x height
+    with two bounces: [bounce-0 camera rays, their shadow rays, bounce-1
+    rays, their shadow rays], each as the kernels' inputs
+    (``sweep.prepare``). The passes are recorded by wrapping the tracer's
+    ``_isect`` for the length of one render."""
+    from sailor_tpu_torch.raytracing import path_tracer, sweep
+
+    isect, log = path_tracer._isect, []
+
+    def recording(scene, origin, direction, *, any_hit=False, active=None):
+        log.append(dict(origin=origin, direction=direction, any_hit=any_hit, active=active))
+        return isect(scene, origin, direction, any_hit=any_hit, active=active)
+
+    path_tracer._isect = recording
+    try:
+        path_tracer.render(scene, cam, view, proj, width=width, height=height, spp=1,
+                           max_bounces=2, seed=seed)
+    finally:
+        path_tracer._isect = isect
+    return [dict(sweep.prepare(scene.sweep, p["origin"], p["direction"],
+                               active=p["active"]), any_hit=p["any_hit"]) for p in log]
+
+
+def check_tracer_kernels(card):
+    """B4 and B5 against their plain versions on the tracer's own rays."""
+    import torch
+
+    from sailor_tpu_torch.raytracing import sweep
+    from sailor_tpu_torch.scenes import tracer_scene
+
+    scene, cam, view, proj = tracer_scene()
+    width, height = TRACER[:2]
+    sw = scene.sweep
+    names = ["bounce0", "bounce0_shadow", "bounce1", "bounce1_shadow"]
+    rows = {}
+    for name, p in zip(names, tracer_passes(scene, cam, view, proj, width, height)):
+        feats, tmax = p["feats"], p["tmax"]
+        rp, nc = feats.shape[0], sw.n_clusters
+        # ---- B4 slab entry: bit-equal
+        args4 = (feats, tmax, sw.cl_min, sw.cl_max)
+        e_k = sweep.slab_entry_cuda(*args4)
+        plain_ms, e_p = _wall_ms(lambda: sweep.slab_entry_plain(*args4))
+        ms = _time_ms(lambda: sweep.slab_entry_cuda(*args4), 20)
+        same = bool(torch.equal(e_k.view(torch.int32), e_p.view(torch.int32)))
+        # features (64 B) and tmax read per ray, boxes, the table written;
+        # ~30 operations per (ray, cluster): 6 products and differences, 6
+        # selects, 2 compares, the hit test and the entry
+        bound, by = _bound(rp * 68 + nc * 24 + rp // sweep.SUB * nc * 4, rp * nc * 30)
+        print(f"kernel slab_entry[{name}]: bit_equal={same} ms={ms:.4f} "
+              f"plain_ms={plain_ms:.2f} bound_ms={bound:.5f} ({by}) rays={rp} "
+              f"clusters={nc} on {card}")
+        check(same, f"slab entry kernel disagrees with its plain version ({name})")
+        rows.setdefault("slab_entry", {})[name] = dict(
+            max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+        # ---- B5 sweep: <= 16 mismatched ids, t within 1e-6 relative
+        any_hit = p["any_hit"]
+        args5 = (p["e_bits"], p["order"], p["blk_bits"], p["nlive"], feats, tmax,
+                 sw.g_cluster)
+        t_k, i_k = sweep.sweep_cuda(*args5, any_hit=any_hit)
+        work = {}
+        plain_ms, (t_p, i_p) = _wall_ms(lambda: sweep.sweep_plain(*args5, any_hit=any_hit,
+                                                                   work=work))
+        ms = _time_ms(lambda: sweep.sweep_cuda(*args5, any_hit=any_hit), 10)
+        mism = int((i_k != i_p).sum())
+        both = (i_k >= 0) & (i_p >= 0)
+        rel = ((t_k - t_p).abs() / t_p.abs().clamp(min=1e-30))[both]
+        err = rel.max().item() if rel.numel() else 0.0
+        pairs, tests = work["pairs"], work["tests"]
+        # per (sub-block, step) pair walked, the 25 rows of the cluster block
+        # the kernel reads (18 side, 4 num, 3 den: 25 KB); ~45 float
+        # operations (three 6-term sides, num, den, divide, compares) per
+        # test of a ray live at its step (any hit stops at a ray's first
+        # hit); rays' features, tmax and the tables read once, t and index
+        # written once
+        nbytes = (pairs * sweep.USED_ROWS * sweep.CLUSTER * 4 + rp * 76
+                  + 4 * (p["e_bits"].numel() + 2 * p["order"].numel() + p["nlive"].numel()))
+        bound, by = _bound(nbytes, tests * 45)
+        kind = "any" if any_hit else "closest"
+        print(f"kernel sweep_{kind}[{name}]: id_mismatch={mism} max_rel_err(t)={err:.3g} "
+              f"ms={ms:.4f} plain_ms={plain_ms:.2f} bound_ms={bound:.5f} ({by}) "
+              f"pairs={pairs} of {p['e_bits'].numel()} tests={tests} "
+              f"hits={int((i_k >= 0).sum())} on {card}")
+        check(mism <= 16 and err <= 1e-6, f"sweep kernel disagrees with its plain version ({name})")
+        rows.setdefault("sweep", {})[name] = dict(
+            max_abs_err=(t_k - t_p)[both].abs().max().item() if both.any() else 0.0,
+            ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+    # the JSON rows: the incoherent bounce-1 closest-hit pass
+    return [
+        dict(name="slab_entry", source="sailor_tpu_torch/csrc/slab_entry.cu",
+             replaces="sailor_tpu/raytracing/sweep.py:185", route="cuda", library_ms=None,
+             **rows["slab_entry"]["bounce1"]),
+        dict(name="sweep", source="sailor_tpu_torch/csrc/sweep.cu",
+             replaces="sailor_tpu/raytracing/sweep.py:379", route="cuda", library_ms=None,
+             **rows["sweep"]["bounce1"]),
+    ]
+
+
+def run_tracer(card):
+    """The tracer's main path: 1 warm-up + 3 timed renders of the bench
+    tracer scene at TRACER, launch counts of that run."""
+    import torch
+
+    from sailor_tpu_torch.kernels import cuda_lib
+    from sailor_tpu_torch.raytracing import path_tracer
+    from sailor_tpu_torch.scenes import tracer_scene
+
+    width, height, bounces, spp = TRACER
+    scene, cam, view, proj = tracer_scene()
+    print(f"tracer scene: {scene.sweep.num_tris} triangles in {scene.sweep.n_clusters} "
+          f"clusters, {width}x{height}, {bounces} bounces, {spp} spp")
+    kw = dict(width=width, height=height, spp=spp, max_bounces=bounces)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.LAUNCHES.clear()
+    renders = 4
+    warm_ms, _ = _wall_ms(lambda: path_tracer.render(scene, cam, view, proj, seed=0, **kw))
+    times, counts = [], []
+    for rep in range(renders - 1):
+        ms, (img, rays) = _wall_ms(
+            lambda: path_tracer.render(scene, cam, view, proj, seed=1 + rep, **kw))
+        times.append(ms)
+        counts.append(float(rays))
+    launches = dict(cuda_lib.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    mrays = [c / (ms / 1e3) / 1e6 for c, ms in zip(counts, times)]
+    print(f"trace {width}x{height} b{bounces} spp{spp}: warmup_ms={warm_ms:.1f} "
+          f"render_ms={[round(m, 1) for m in times]} rays={counts} "
+          f"mrays_per_s={[round(m, 4) for m in mrays]} best_mrays_per_s={max(mrays):.4f} "
+          f"peak_mem_bytes={peak} on {card}")
+    per_render = {k: v / renders for k, v in launches.items()}
+    print("trace_launches_per_render " + json.dumps(per_render))
+    for name in ("slab_entry", "sweep"):
+        check(per_render.get(name, 0) == 2 * bounces * spp,
+              f"{name}: {per_render.get(name, 0)} launches a render, not 2 * bounces * spp")
+    check(tuple(img.shape) == (height, width, 3), f"image has shape {tuple(img.shape)}")
+    check(bool(torch.isfinite(img).all()), "image has non-finite values")
+    check(img.min().item() >= 0.0, "image has negative radiance")
+    print(f"output: image in [{img.min().item():.4f}, {img.max().item():.4f}] "
+          f"mean={img.mean().item():.5f}")
+    profile(lambda: path_tracer.render(scene, cam, view, proj, seed=9,
+                                       **dict(kw, spp=1)), card, "profile_trace_sample")
+    return launches
+
+
+def check_small_trace():
+    """A 64x64 render (4 bounces, 2 spp) of the tracer scene on the card
+    against the same render on the CPU path (which the CPU tests hold to
+    the JAX package), same uniforms: >= 99% of pixels within
+    1e-3 * (1 + |cpu|)."""
+    import torch
+
+    from sailor_tpu_torch.raytracing import path_tracer
+    from sailor_tpu_torch.scenes import tracer_scene
+
+    w = h = 64
+    spp, bounces = 2, 4
+    gen = torch.Generator().manual_seed(7)
+    uniforms = torch.rand((spp, 5 * bounces, path_tracer.rays_per_sample(w, h)), generator=gen)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        scene, cam, view, proj = tracer_scene(dev)
+        img, rays = path_tracer.render(scene, cam, view, proj, width=w, height=h, spp=spp,
+                                       max_bounces=bounces, uniforms=uniforms)
+        out[dev] = (img.cpu(), float(rays))
+    ref = out["cpu"][0]
+    close = ((out["cuda"][0] - ref).abs().amax(-1) <= 1e-3 * (1 + ref.abs().amax(-1)))
+    share = close.float().mean().item()
+    print(f"small trace card vs cpu: within_1e-3={share:.5f} rays card={out['cuda'][1]} "
+          f"cpu={out['cpu'][1]}")
+    check(share >= 0.99, "card render disagrees with the CPU path")
+
+
 def main() -> int:
     import torch
 
@@ -390,6 +575,13 @@ def main() -> int:
     check_small_frame()
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)
+    del scene
+    tracer_kernels = check_tracer_kernels(card)
+    launches = run_tracer(card)
+    check_small_trace()
+    for k in tracer_kernels:
+        k["launches"] = launches.get(k["name"], 0)
+    kernels += tracer_kernels
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"card: {card}")

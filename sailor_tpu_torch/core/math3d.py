@@ -61,6 +61,36 @@ def cross(a, b):
     return fma(a1, b2, -(a2 * b1))
 
 
+def dot32(a, b, keepdims: bool = False):
+    """Sum of products over the last axis in plain float32: the path
+    tracer's dot. No integer of the tracer depends on the rounding of its
+    dots, so it does without ``fma``; its tests hold the image to a stated
+    tolerance instead."""
+    return (a * b).sum(-1, keepdim=keepdims)
+
+
+def normalize32(v, eps: float = 1e-12):
+    length = torch.sqrt(torch.clamp(dot32(v, v, keepdims=True), min=0.0))
+    return v * torch.reciprocal(torch.clamp(length, min=eps))
+
+
+def cross32(a, b):
+    """Cross product in plain float32 (the tracer's)."""
+    a1, a2 = torch.roll(a, -1, -1), torch.roll(a, 1, -1)
+    b1, b2 = torch.roll(b, -1, -1), torch.roll(b, 1, -1)
+    return a1 * b2 - a2 * b1
+
+
+def reflect(i, n):
+    """GLSL reflect: i - 2 * dot(n, i) * n (plain float32)."""
+    return i - 2.0 * dot32(n, i, keepdims=True) * n
+
+
+def homogenize(v4):
+    """(..., 4) clip-space -> (..., 3) by the perspective divide."""
+    return v4[..., :3] / v4[..., 3:4]
+
+
 def transform_point(m, p):
     """Apply a (4, 4) matrix to (..., 3) points (w=1). Returns (..., 3)."""
     return dot(m[:3, :3], p[..., None, :]) + m[:3, 3]

@@ -26,7 +26,7 @@ import threading
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_SOURCES = ("raster.cu", "resolve.cu", "shade.cu")
+_SOURCES = ("raster.cu", "resolve.cu", "shade.cu", "slab_entry.cu", "sweep.cu")
 # -fmad=false: the rounding rule of csrc/common.cuh
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -53,6 +53,11 @@ _SIGNATURES = {
     # out, K, height, width, stream
     "sailor_shade_forward_plus": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _P),
+    # feats, tmax, cl_min, cl_max, out, n_sub, n_clusters, stream
+    "sailor_slab_entry": (_P, _P, _P, _P, _P, _I, _I, _P),
+    # e_bits, order, blk_bits, nlive, feats, tmax, g_cluster, best_t, best_i,
+    # n_sub_blocks, sub-blocks per block, n_clusters, any_hit, stream
+    "sailor_sweep": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

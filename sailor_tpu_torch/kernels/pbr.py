@@ -47,6 +47,20 @@ def _pow5(x):
     return x * (x2 * x2)
 
 
+def ndf_ggx(cos_lh, roughness):
+    """GGX/Trowbridge-Reitz NDF with Disney alpha = roughness^2."""
+    alpha = roughness * roughness
+    alpha_sq = alpha * alpha
+    denom = (cos_lh * cos_lh) * (alpha_sq - 1.0) + 1.0
+    return alpha_sq / (math.pi * denom * denom)
+
+
+def geometry_smith_ibl(cos_li, cos_lo, roughness):
+    """Schlick-GGX Smith geometry with the IBL k remap (r^2 / 2)."""
+    k = (roughness * roughness) / 2.0
+    return (cos_li / (cos_li * (1.0 - k) + k)) * (cos_lo / (cos_lo * (1.0 - k) + k))
+
+
 def fresnel_schlick(f0, cos_theta):
     return f0 + (1.0 - f0) * _pow5(torch.clamp(1.0 - cos_theta, 0.0, 1.0))
 

@@ -1,8 +1,11 @@
-"""Blue-noise mask (host, numpy) for the LDR dither of EyeAdaptation.
+"""Blue-noise mask (host, numpy) for the LDR dither of EyeAdaptation and
+the path tracer's pixel jitter.
 
-A copy of ``blue_noise_mask`` from ``sailor_tpu/raytracing/bluenoise.py``:
-the void-and-cluster method (Ulichney 1993) generates a toroidal 2-D mask
-whose rank sequence has blue spectral distribution. Same seed, same mask.
+A copy of ``sailor_tpu/raytracing/bluenoise.py``: the void-and-cluster
+method (Ulichney 1993) generates a toroidal 2-D mask whose rank sequence
+has blue spectral distribution (same seed, same mask); the tracer tiles it
+as a per-pixel jitter and rotates it per sample (``pixel_jitter``,
+``rotate``).
 """
 
 from __future__ import annotations
@@ -10,6 +13,7 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
 _SIGMA = 0.8  # tight kernel: strongest nearest-neighbor repulsion
 
@@ -73,3 +77,27 @@ def blue_noise_mask(size: int = 64, seed: int = 17) -> np.ndarray:
         e += splat(p)
         rank[p] = r
     return (rank.astype(np.float32) + 0.5) / n
+
+
+_PHI2 = 1.32471795724474602596  # plastic constant: 2-D low-discrepancy step
+_A1 = 1.0 / _PHI2
+_A2 = 1.0 / (_PHI2 * _PHI2)
+
+
+def pixel_jitter(height: int, width: int, size: int = 64):
+    """Two decorrelated (H, W) float32 blue-noise planes (tiled mask; the
+    second plane is the first torus-shifted by half the tile)."""
+    m = blue_noise_mask(size)
+    ty = (np.arange(height) % size)[:, None]
+    tx = (np.arange(width) % size)[None, :]
+    u = m[ty, tx]
+    v = m[(ty + size // 2) % size, (tx + size // 3) % size]
+    return u.astype(np.float32), v.astype(np.float32)
+
+
+def rotate(base, sample_index):
+    """Cranley-Patterson rotation by the R2 low-discrepancy sequence:
+    sample s of a pixel is frac(base + s * alpha), on torch tensors."""
+    s = torch.as_tensor(sample_index, dtype=torch.float32, device=base[0].device)
+    return (torch.remainder(base[0] + s * _A1, 1.0),
+            torch.remainder(base[1] + s * _A2, 1.0))

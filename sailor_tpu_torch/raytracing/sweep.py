@@ -1,0 +1,385 @@
+"""Cluster sweep intersector (counterpart of sailor_tpu/raytracing/sweep.py).
+
+Triangles are sorted into spatial clusters of ``CLUSTER`` (the BVH leaf
+order of ``raytracing/bvh.py``) and re-expressed so that every per-(ray,
+triangle) quantity is a short dot product with the ray's features:
+
+- Plücker side tests: a ray (o, d) has line coordinates (d, m = o x d), the
+  edge A -> B has (A x B, B - A); the signed side is
+  s = d . (A x B) + m . (B - A). The triangle is hit iff its three sides
+  share a sign (two-sided test).
+- Depth: t = (k - n . o) / (n . d) with n = e1 x e2 and k = n . v0.
+
+``intersect`` runs two kernels:
+
+- B4, the slab entry (``slab_entry``; ``csrc/slab_entry.cu``): per 256-ray
+  sub-block, the least slab entry distance of its rays into each cluster's
+  AABB (+inf where none pierces it);
+- B5, the cluster sweep (``sweep``; ``csrc/sweep.cu``): each sub-block walks
+  the clusters of its 2048-ray block near to far (the stable argsort of the
+  block's entries), skips a step whose sub-block entry is not below the
+  sub-block's bound (the largest best t of its rays, compared as float32
+  bits: dead rays hold -1.0, whose bits are negative), stops once the
+  sorted block entry of the step reaches the bound, and tests every
+  (ray, triangle) pair of a live step. Closest hit keeps the least t, equal
+  t within a cluster going to the larger ``cid * CLUSTER + col`` and across
+  clusters to the earlier-visited one; any hit retires the ray with
+  t = -1 and index 0.
+
+Each kernel has a plain PyTorch twin here (``slab_entry_plain``,
+``sweep_plain``) that evaluates the same float32 operations in the same
+order; the wrappers take the twin only for tensors on the CPU. The winners'
+t/u/v are refined by one Moller-Trumbore test on the winner rows
+(``_refine``, plain PyTorch).
+
+The reference's ``sort_rays`` option is not ported, and the port reads no
+environment variable: ``CLUSTER``, ``RAY_BLOCK`` and ``SUB`` are constants.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from sailor_tpu_torch.core import math3d as m3
+from sailor_tpu_torch.kernels import cuda_lib
+from sailor_tpu_torch.raytracing import bvh
+
+CLUSTER = 256
+RAY_BLOCK = 2048
+SUB = 256
+FEATS = 16   # ray feature columns: [d, m, 0, 0 | o, 1, d, 0]
+ROWS = 40    # cluster feature rows, see SweepScene
+USED_ROWS = 25  # rows B5 reads: 18 side, 4 num, 3 den
+_PLAIN_CHUNK = 128  # sub-blocks sweep_plain tests at a time
+
+
+@dataclasses.dataclass
+class SweepScene:
+    # (C, 40, CLUSTER) float32 per-cluster features of the triangles in BVH
+    # leaf order: rows 8e..8e+5 = [A x B, B - A] of edge e (A->B, B->C,
+    # C->A), rows 24:27 = -n, row 27 = k, rows 36:39 = n; other rows zero.
+    # Padding triangles are all zero, so their n . d = 0 rejects them.
+    g_cluster: torch.Tensor
+    v0e1e2: torch.Tensor   # (Tp, 9) [v0, e1, e2] for the exact refinement
+    tri_id: torch.Tensor   # (Tp,) int32 original triangle id, -1 padding
+    cl_min: torch.Tensor   # (C, 3) cluster AABB
+    cl_max: torch.Tensor   # (C, 3)
+    num_tris: int
+    n_clusters: int
+
+
+def build_arrays(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray) -> dict:
+    """Cluster and featurise a triangle soup (host, numpy), with the
+    reference's calls in the reference's order."""
+    order = bvh.build(np.asarray(v0), np.asarray(v1), np.asarray(v2)).tri_index
+    a, bb, c = np.asarray(v0)[order], np.asarray(v1)[order], np.asarray(v2)[order]
+    t = a.shape[0]
+    tp = max(CLUSTER, -(-t // CLUSTER) * CLUSTER)
+
+    def pad(x):
+        return np.concatenate([x, np.full((tp - t,) + x.shape[1:], 0.0, x.dtype)])
+
+    a, bb, c = pad(a), pad(bb), pad(c)
+    tri_id = np.concatenate([order.astype(np.int32), np.full(tp - t, -1, np.int32)])
+    e1 = bb - a
+    e2 = c - a
+    n = np.cross(e1, e2)
+    k = np.sum(n * a, axis=1)
+    g = np.zeros((24, tp), np.float32)
+    for e, (p, q) in enumerate(((a, bb), (bb, c), (c, a))):
+        g[8 * e:8 * e + 6] = np.concatenate([np.cross(p, q), q - p], axis=1).T
+    gp = np.zeros((16, tp), np.float32)
+    gp[0:3] = -n.T
+    gp[3] = k
+    gp[12:15] = n.T
+    nc = tp // CLUSTER
+    tri_min = np.minimum(np.minimum(a, bb), c).reshape(nc, CLUSTER, 3)
+    tri_max = np.maximum(np.maximum(a, bb), c).reshape(nc, CLUSTER, 3)
+    gc = np.concatenate([g, gp], axis=0)
+    return {
+        "g_cluster": np.transpose(gc.reshape(ROWS, nc, CLUSTER), (1, 0, 2)).copy(),
+        "v0e1e2": np.concatenate([a, e1, e2], axis=1).astype(np.float32),
+        "tri_id": tri_id,
+        "cl_min": tri_min.min(axis=1),
+        "cl_max": tri_max.max(axis=1),
+        "num_tris": int(t),
+    }
+
+
+def sweep_scene_from_numpy(arrays: dict, device="cuda") -> SweepScene:
+    """A SweepScene from numpy arrays: ``build_arrays``' output, or the
+    fields of the JAX package's SweepScene of the same names."""
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    gc = t(arrays["g_cluster"]).to(torch.float32)
+    return SweepScene(g_cluster=gc, v0e1e2=t(arrays["v0e1e2"]).to(torch.float32),
+                      tri_id=t(arrays["tri_id"]).to(torch.int32),
+                      cl_min=t(arrays["cl_min"]).to(torch.float32),
+                      cl_max=t(arrays["cl_max"]).to(torch.float32),
+                      num_tris=int(arrays["num_tris"]), n_clusters=int(gc.shape[0]))
+
+
+def build(v0, v1, v2, device="cuda") -> SweepScene:
+    """Cluster and featurise a triangle soup on the host, then move it to
+    ``device``."""
+    return sweep_scene_from_numpy(build_arrays(v0, v1, v2), device)
+
+
+# ---------------------------------------------------------------- B4 slab entry
+
+def _order_sel(a, b):
+    """(lo, hi) of a and b by one comparison, as csrc/slab_entry.cu does
+    (no fminf/fmaxf, whose choice between -0 and +0 is unspecified)."""
+    lt = a < b
+    return torch.where(lt, a, b), torch.where(lt, b, a)
+
+
+def slab_entry_plain(feats, tmax, cl_min, cl_max):
+    """Plain PyTorch B4: (Rp // SUB, C) least slab entry per sub-block and
+    cluster. Per ray and axis, inv = 1/d where |d| > 1e-12 else 1e12, and
+    a, b = inv * box - o * inv; the ray enters the box at tn = max over
+    axes of min(a, b), leaves at tf = min of max(a, b), pierces it iff
+    tn <= min(tf, tmax) and tf > 0, and enters at max(tn, 0)."""
+    tn = tf = None
+    for k in range(3):
+        d = feats[:, k:k + 1]
+        inv = torch.where(d.abs() > 1e-12, 1.0 / d, 1e12)
+        oinv = feats[:, 8 + k:9 + k] * inv
+        lo, hi = _order_sel(inv * cl_min[None, :, k] - oinv, inv * cl_max[None, :, k] - oinv)
+        tn = lo if tn is None else torch.where(lo > tn, lo, tn)
+        tf = hi if tf is None else torch.where(hi < tf, hi, tf)
+    tm = tmax[:, None]
+    hit = (tn <= torch.where(tm < tf, tm, tf)) & (tf > 0.0)
+    entry = torch.where(hit, torch.where(tn > 0.0, tn, 0.0), torch.inf)
+    return entry.view(-1, SUB, entry.shape[1]).amin(1)
+
+
+def slab_entry_cuda(feats, tmax, cl_min, cl_max):
+    """B4 on the card: csrc/slab_entry.cu, one launch."""
+    dev = feats.device
+    rp, nc = feats.shape[0], cl_min.shape[0]
+    if rp % SUB or feats.shape[1] != FEATS:
+        raise ValueError(f"feats must be ({SUB}k, {FEATS})")
+    cuda_lib.require(feats, "feats", torch.float32)
+    cuda_lib.require(tmax, "tmax", torch.float32, (rp,), dev)
+    cuda_lib.require(cl_min, "cl_min", torch.float32, (nc, 3), dev)
+    cuda_lib.require(cl_max, "cl_max", torch.float32, (nc, 3), dev)
+    out = torch.empty(rp // SUB, nc, dtype=torch.float32, device=dev)
+    err = cuda_lib.load().sailor_slab_entry(
+        feats.data_ptr(), tmax.data_ptr(), cl_min.data_ptr(), cl_max.data_ptr(),
+        out.data_ptr(), rp // SUB, nc, cuda_lib.stream_of(feats))
+    cuda_lib.check(err, "sailor_slab_entry")
+    cuda_lib.LAUNCHES["slab_entry"] += 1
+    return out
+
+
+def slab_entry(feats, tmax, cl_min, cl_max):
+    fn = cuda_lib.dispatch(feats, slab_entry_plain, slab_entry_cuda)
+    return fn(feats, tmax, cl_min, cl_max)
+
+
+# -------------------------------------------------------------- B5 cluster sweep
+
+def _bits_max(t):
+    """Per sub-block, the largest float32 bit pattern of t as an int32."""
+    return t.view(torch.int32).view(-1, SUB).amax(1)
+
+
+def sweep_plain(e_bits, order, blk_bits, nlive, feats, tmax, g_cluster, *,
+                any_hit: bool, work: dict | None = None):
+    """Plain PyTorch B5, vectorised over sub-blocks: visit step by visit
+    step, every sub-block whose entry bits are below its bound tests all
+    (ray, triangle) pairs of the step's cluster, ``_PLAIN_CHUNK`` sub-blocks
+    at a time. The six-term dots are summed left to right as the kernel sums
+    them. ``work`` (a dict, if given) adds the work the kernel does on this
+    data: ``pairs``, the (sub-block, step) pairs walked, and ``tests``, the
+    (ray, triangle) tests of rays live at their step (best t > 1e-4; any hit
+    stops a ray's step at its first hit). Returns (best_t (Rp,), best_i (Rp,)
+    int32)."""
+    nb, nc = order.shape
+    nsb = feats.shape[0] // SUB
+    nsub = nsb // nb
+    t = tmax.clone()
+    idx = torch.full_like(t, -1, dtype=torch.int32)
+    tv, iv = t.view(nsb, SUB), idx.view(nsb, SUB)
+    bound = _bits_max(t)
+    blk_of = torch.arange(nsb, device=feats.device) // nsub
+    f = feats.view(nsb, SUB, FEATS)
+    col = torch.arange(CLUSTER, device=feats.device, dtype=torch.int32)
+    pairs = tests = 0
+    for j in range(nc):
+        live = (e_bits[:, j] < bound).nonzero()[:, 0]
+        if live.numel() == 0:
+            if bool((blk_bits[blk_of, j] >= bound).all()):
+                break  # entries are visit-sorted: no later step is live
+            continue
+        pairs += live.numel()
+        for c0 in range(0, live.numel(), _PLAIN_CHUNK):
+            s = live[c0:c0 + _PLAIN_CHUNK]
+            cid = order[blk_of[s], j]
+            g = g_cluster[cid.long()]                      # (n, 40, CLUSTER)
+            r = f[s]                                       # (n, SUB, 16)
+
+            def ray(k):
+                return r[:, :, k:k + 1]
+
+            def gr(k):
+                return g[:, k:k + 1, :]
+
+            side = []
+            for e in range(3):
+                acc = ray(0) * gr(8 * e)
+                for k in range(1, 6):
+                    acc = acc + ray(k) * gr(8 * e + k)
+                side.append(acc)
+            s0, s1, s2 = side
+            num = ((ray(8) * gr(24) + ray(9) * gr(25)) + ray(10) * gr(26)) + gr(27)
+            den = (ray(0) * gr(36) + ray(1) * gr(37)) + ray(2) * gr(38)
+            agree = (((s0 >= 0) & (s1 >= 0) & (s2 >= 0))
+                     | ((s0 <= 0) & (s1 <= 0) & (s2 <= 0)))
+            tval = num / torch.where(den == 0.0, 1.0, den)
+            best = tv[s][:, :, None]
+            ok = agree & (den != 0.0) & (tval > 1e-4) & (tval < best)
+            if work is not None:
+                n_test = torch.full(best.shape[:2], CLUSTER, device=feats.device)
+                if any_hit:
+                    first = ok.to(torch.uint8).argmax(2) + 1
+                    n_test = torch.where(ok.any(2), first, n_test)
+                tests += int(n_test[best[:, :, 0] > 1e-4].sum())
+            if any_hit:
+                found = ok.any(2)
+                tv[s] = torch.where(found, -1.0, tv[s])
+                iv[s] = torch.where(found, 0, iv[s])
+            else:
+                tm = torch.where(ok, tval, torch.inf)
+                row_best = tm.amin(2)
+                gidx = cid[:, None, None] * CLUSTER + col
+                row_idx = torch.where((tm == row_best[:, :, None]) & ok, gidx, -1).amax(2)
+                found = row_idx >= 0
+                tv[s] = torch.where(found, row_best, tv[s])
+                iv[s] = torch.where(found, row_idx, iv[s])
+            bound[s] = _bits_max(tv[s])
+    if work is not None:
+        work["pairs"] = work.get("pairs", 0) + pairs
+        work["tests"] = work.get("tests", 0) + tests
+    return t, idx
+
+
+def sweep_cuda(e_bits, order, blk_bits, nlive, feats, tmax, g_cluster, *,
+               any_hit: bool):
+    """B5 on the card: csrc/sweep.cu, one launch (one block per sub-block)."""
+    dev = feats.device
+    nb, nc = order.shape
+    rp = feats.shape[0]
+    if rp != nb * RAY_BLOCK or feats.shape[1] != FEATS:
+        raise ValueError(f"feats must be ({nb * RAY_BLOCK}, {FEATS})")
+    nsb = rp // SUB
+    cuda_lib.require(feats, "feats", torch.float32)
+    cuda_lib.require(e_bits, "e_bits", torch.int32, (nsb, nc), dev)
+    cuda_lib.require(order, "order", torch.int32, (nb, nc), dev)
+    cuda_lib.require(blk_bits, "blk_bits", torch.int32, (nb, nc), dev)
+    cuda_lib.require(nlive, "nlive", torch.int32, (nb,), dev)
+    cuda_lib.require(tmax, "tmax", torch.float32, (rp,), dev)
+    cuda_lib.require(g_cluster, "g_cluster", torch.float32, (nc, ROWS, CLUSTER), dev)
+    best_t = torch.empty(rp, dtype=torch.float32, device=dev)
+    best_i = torch.empty(rp, dtype=torch.int32, device=dev)
+    err = cuda_lib.load().sailor_sweep(
+        e_bits.data_ptr(), order.data_ptr(), blk_bits.data_ptr(), nlive.data_ptr(),
+        feats.data_ptr(), tmax.data_ptr(), g_cluster.data_ptr(), best_t.data_ptr(),
+        best_i.data_ptr(), nsb, RAY_BLOCK // SUB, nc, int(any_hit),
+        cuda_lib.stream_of(feats))
+    cuda_lib.check(err, "sailor_sweep")
+    cuda_lib.LAUNCHES["sweep"] += 1
+    return best_t, best_i
+
+
+def sweep(e_bits, order, blk_bits, nlive, feats, tmax, g_cluster, *, any_hit: bool):
+    fn = cuda_lib.dispatch(feats, sweep_plain, sweep_cuda)
+    return fn(e_bits, order, blk_bits, nlive, feats, tmax, g_cluster, any_hit=any_hit)
+
+
+# ---------------------------------------------------------------- intersect
+
+def prepare(scene: SweepScene, origin, direction, t_max=None, active=None):
+    """The kernels' inputs for R rays, padded to whole ray blocks with dead
+    rays (d = 1e-8, tmax = -1): dict of feats (Rp, 16), tmax (Rp,), and the
+    visit tables from B4's entries: e_bits (Rp/SUB, C) int32 (sub-block
+    entries in visit order, as float32 bits), order (B, C) int32 (visit
+    order: stable argsort of the block entries), blk_bits (B, C) int32
+    (sorted block entries) and nlive (B,) int32 (finite block entries)."""
+    r = origin.shape[0]
+    dev = origin.device
+    rpad = -(-max(r, RAY_BLOCK) // RAY_BLOCK) * RAY_BLOCK
+    nb, nsub, nc = rpad // RAY_BLOCK, RAY_BLOCK // SUB, scene.n_clusters
+    o = torch.zeros(rpad, 3, dtype=torch.float32, device=dev)
+    d = torch.full((rpad, 3), 1e-8, dtype=torch.float32, device=dev)
+    o[:r], d[:r] = origin, direction
+    tmax = torch.full((rpad,), -1.0, dtype=torch.float32, device=dev)
+    if t_max is None:
+        tmax[:r] = torch.inf
+    else:
+        tmax[:r] = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(r)
+    if active is not None:
+        tmax[:r] = torch.where(active, tmax[:r], -1.0)
+    m = m3.cross32(o, d)
+    z = torch.zeros(rpad, 1, dtype=torch.float32, device=dev)
+    feats = torch.cat([d, m, z, z, o, z + 1.0, d, z], 1).contiguous()
+    e_sub = slab_entry(feats, tmax, scene.cl_min, scene.cl_max).view(nb, nsub, nc)
+    e_blk = e_sub.amin(1)
+    order = torch.argsort(e_blk, dim=1, stable=True)
+    e_bits = torch.gather(e_sub, 2, order[:, None, :].expand(nb, nsub, nc))
+    blk_sorted = torch.gather(e_blk, 1, order)
+    return {
+        "feats": feats, "tmax": tmax,
+        "e_bits": e_bits.reshape(nb * nsub, nc).view(torch.int32).contiguous(),
+        "order": order.to(torch.int32).contiguous(),
+        "blk_bits": blk_sorted.view(torch.int32).contiguous(),
+        "nlive": torch.isfinite(blk_sorted).sum(1).to(torch.int32),
+    }
+
+
+def intersect(scene: SweepScene, origin, direction, t_max=None, *,
+              any_hit: bool = False, active=None, sort_rays: bool = False):
+    """Closest (or any) hit of R rays: dict(t, tri (original id), u, v,
+    hit), as the reference's ``intersect``."""
+    if sort_rays:
+        raise NotImplementedError("sweep.intersect(sort_rays=True) is not ported")
+    r = origin.shape[0]
+    p = prepare(scene, origin, direction, t_max, active)
+    best_t, best_i = sweep(p["e_bits"], p["order"], p["blk_bits"], p["nlive"],
+                           p["feats"], p["tmax"], scene.g_cluster, any_hit=any_hit)
+    best_t, best_i = best_t[:r], best_i[:r]
+    if any_hit:
+        hit = best_i >= 0
+        zero = torch.zeros(r, dtype=torch.float32, device=origin.device)
+        return {"t": torch.where(hit, 0.0, torch.inf), "tri": torch.where(hit, 0, -1),
+                "u": zero, "v": zero, "hit": hit}
+    return _refine(scene, origin, direction, best_t, best_i)
+
+
+def _refine(scene, origin, direction, best_t, best_i):
+    """Exact Moller-Trumbore on the winner rows: float32 t/u/v and the
+    original triangle id."""
+    hit = best_i >= 0
+    safe = best_i.clamp(min=0).long()
+    rows = scene.v0e1e2[safe]
+    v0, e1, e2 = rows[:, 0:3], rows[:, 3:6], rows[:, 6:9]
+    pvec = m3.cross32(direction, e2)
+    det = m3.dot32(e1, pvec)
+    inv_det = torch.where(det.abs() > 1e-12, 1.0 / det, 0.0)
+    tvec = origin - v0
+    u = m3.dot32(tvec, pvec) * inv_det
+    qvec = m3.cross32(tvec, e1)
+    v = m3.dot32(direction, qvec) * inv_det
+    t = m3.dot32(e2, qvec) * inv_det
+    return {
+        "t": torch.where(hit, t, torch.inf),
+        "tri": torch.where(hit, scene.tri_id[safe], -1),
+        "u": torch.where(hit, u, 0.0).clamp(0.0, 1.0),
+        "v": torch.where(hit, v, 0.0).clamp(0.0, 1.0),
+        "hit": hit,
+    }

@@ -20,6 +20,7 @@ from sailor_tpu_torch.config import resolve_device
 from sailor_tpu_torch.core import math3d as m3
 from sailor_tpu_torch.kernels.lights import DIRECTIONAL, POINT, Lights
 from sailor_tpu_torch.raster.setup import Geometry
+from sailor_tpu_torch.raytracing import path_tracer
 from sailor_tpu_torch.rhi.scene_view import SceneView
 from sailor_tpu_torch.rhi.types import FrameData
 
@@ -65,3 +66,32 @@ def flagship_scene(width: int, height: int, num_lights: int, num_objects: int,
     proj = m3.perspective(math.pi / 3, width / height, 0.1, 150.0, device=dev)
     frame = FrameData.create(view, proj, cam, 0.1, 150.0, dt=1 / 60)
     return SceneView.create(geo, lights, frame)
+
+
+def tracer_soup(rings: int = 24, sectors: int = 48, spheres: int = 8) -> dict:
+    """The path tracer's benchmark geometry as a primitive soup: the
+    defaults give the bench's 18,434 triangles (73 clusters of 256); fewer
+    ``rings``/``sectors``/``spheres`` give the tests' small versions."""
+    meshes = [(primitives.plane(40.0), np.eye(4))]
+    for i in range(spheres):
+        t = np.eye(4)
+        t[:3, 3] = [(i % 4 - 1.5) * 2.2, 0.9, (i // 4 - 0.5) * 2.4]
+        meshes.append((primitives.uv_sphere(0.9, rings, sectors), t))
+    return primitives.merge(meshes)
+
+
+def tracer_camera(device="cuda"):
+    """The bench tracer's camera: (camera_pos, view, proj)."""
+    f32 = dict(dtype=torch.float32, device=resolve_device(device))
+    cam = torch.tensor([0.0, 4.0, 9.0], **f32)
+    view = m3.look_at(cam, torch.tensor([0.0, 0.6, 0.0], **f32),
+                      torch.tensor([0.0, 1.0, 0.0], **f32))
+    return cam, view, m3.perspective(math.pi / 4, 1.0, 0.1, 100.0, device=f32["device"])
+
+
+def tracer_scene(device="cuda", **soup_kw):
+    """The path tracer's benchmark scene (default materials, analytic sky)
+    and camera: (TraceScene, camera_pos, view, proj)."""
+    dev = resolve_device(device)
+    scene = path_tracer.scene_from_mesh(tracer_soup(**soup_kw), device=dev)
+    return (scene, *tracer_camera(dev))

@@ -4,13 +4,21 @@
 from the rows' AABB columns in closed form; here it is held, exactly, to
 a brute-force count that applies the raster's own float32 AABB test to
 every pixel of every tile (256x128 flagship frame, CPU path).
+
+``sweep.sweep_plain``'s ``work`` counts the (sub-block, step) pairs B5's
+walk takes and the (ray, triangle) tests of rays live at their step; here
+they, and the walk's t and ids, are held exactly to a numpy walk of one
+sub-block at a time (a random soup of 1500 triangles, 4096 rays, some
+dead).
 """
 
+import numpy as np
 import pytest
 import torch
 
 import chip_smoke
 from sailor_tpu_torch.raster import tile_raster as tr
+from sailor_tpu_torch.raytracing import sweep
 from sailor_tpu_torch.scenes import flagship_scene
 
 W, H = 256, 128
@@ -56,3 +64,77 @@ def test_raster_work_counts_aabb_pairs(frame_rows, source):
     expected = _brute_pairs(blocks, tiles_x)
     assert expected > 1000
     assert pairs == expected
+
+
+def _walk(p, g_cluster, any_hit):
+    """B5's walk for one sub-block at a time, in numpy float32."""
+    sub, cl = sweep.SUB, sweep.CLUSTER
+    e_bits, order, blk_bits, nlive, feats, tmax = (
+        p[k].numpy() for k in ("e_bits", "order", "blk_bits", "nlive", "feats", "tmax"))
+    g_all = g_cluster.numpy()
+    nsub = sweep.RAY_BLOCK // sub
+    best_t, best_i = tmax.copy(), np.full(tmax.shape, -1, np.int32)
+    pairs = tests = 0
+    for sb in range(feats.shape[0] // sub):
+        b, rows = sb // nsub, slice(sb * sub, (sb + 1) * sub)
+        f, t, idx = feats[rows], best_t[rows], best_i[rows]
+        bound = t.view(np.int32).max()
+        for j in range(nlive[b]):
+            if blk_bits[b, j] >= bound:
+                break
+            if e_bits[sb, j] >= bound:
+                continue
+            pairs += 1
+            cid = order[b, j]
+            g = g_all[cid]
+            sides = []
+            for e in range(3):
+                acc = f[:, 0:1] * g[8 * e]
+                for k in range(1, 6):
+                    acc = acc + f[:, k:k + 1] * g[8 * e + k]
+                sides.append(acc)
+            s0, s1, s2 = sides
+            num = ((f[:, 8:9] * g[24] + f[:, 9:10] * g[25]) + f[:, 10:11] * g[26]) + g[27]
+            den = (f[:, 0:1] * g[36] + f[:, 1:2] * g[37]) + f[:, 2:3] * g[38]
+            agree = (((s0 >= 0) & (s1 >= 0) & (s2 >= 0))
+                     | ((s0 <= 0) & (s1 <= 0) & (s2 <= 0)))
+            tval = num / np.where(den == 0, np.float32(1), den)
+            ok = agree & (den != 0) & (tval > np.float32(1e-4)) & (tval < t[:, None])
+            live, found = t > np.float32(1e-4), ok.any(1)
+            if any_hit:
+                tests += int(np.where(found, ok.argmax(1) + 1, cl)[live].sum())
+                t[found], idx[found] = -1.0, 0
+            else:
+                tests += int(live.sum()) * cl
+                tm = np.where(ok, tval, np.float32(np.inf))
+                row_best = tm.min(1)
+                gidx = np.where((tm == row_best[:, None]) & ok, cid * cl + np.arange(cl), -1)
+                t[found], idx[found] = row_best[found], gidx.max(1)[found]
+            bound = t.view(np.int32).max()
+    return best_t, best_i, pairs, tests
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_sweep_work_counts_walked_pairs_and_live_tests(any_hit):
+    rng = np.random.default_rng(3)
+    v0 = rng.uniform(-5, 5, (1500, 3)).astype(np.float32)
+    v1 = v0 + rng.uniform(-1, 1, (1500, 3)).astype(np.float32)
+    v2 = v0 + rng.uniform(-1, 1, (1500, 3)).astype(np.float32)
+    scene = sweep.build(v0, v1, v2, device="cpu")
+    r = 2 * sweep.RAY_BLOCK
+    o = torch.from_numpy(rng.uniform(-8, 8, (r, 3)).astype(np.float32))
+    d = torch.nn.functional.normalize(torch.from_numpy(rng.normal(size=(r, 3)).astype(np.float32)),
+                                      dim=1)
+    active = torch.from_numpy(rng.random(r) > 0.3)
+    p = sweep.prepare(scene, o, d, active=active)
+    work = {}
+    t, i = sweep.sweep_plain(p["e_bits"], p["order"], p["blk_bits"], p["nlive"], p["feats"],
+                             p["tmax"], scene.g_cluster, any_hit=any_hit, work=work)
+    want_t, want_i, pairs, tests = _walk(p, scene.g_cluster, any_hit)
+    np.testing.assert_array_equal(t.numpy(), want_t)
+    np.testing.assert_array_equal(i.numpy(), want_i)
+    assert (i >= 0).sum() > 100
+    assert work == {"pairs": pairs, "tests": tests}
+    # dead rays (and, for any hit, the rest of a step after its first hit)
+    # are not charged: fewer tests than 256 x 256 a pair
+    assert 0 < tests < pairs * sweep.SUB * sweep.CLUSTER

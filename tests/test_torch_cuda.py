@@ -17,16 +17,23 @@ the kernel inputs its own nodes make. Tolerances, from the arithmetic:
 - resolve: exact on >= 99.999% of values (the same operations in the same
   order; the float64 fma emulation can double-round in ~2^-29 of cases),
   and every value within 1e-4 * (1 + |plain|), so a wrong row fails;
-- shade: 1e-5 relative (same order; rsqrt may differ by an ulp).
+- shade: 1e-5 relative (same order; rsqrt may differ by an ulp);
+- slab entry (B4): bit-equal (the same float32 operations and selects);
+- cluster sweep (B5), closest and any hit: ids and t bit-equal (the same
+  walk and the same left-to-right sums, -fmad=false).
+The tracer's kernels run on its own rays: every intersector pass of one
+128x128 sample of the bench tracer scene (camera, bounce-1 and shadow rays),
+and a 64x64 render on the card is held to the CPU path.
 """
 
 import pytest
 import torch
 
-from chip_smoke import check_small_frame, frame_inputs
+from chip_smoke import check_small_frame, check_small_trace, frame_inputs, tracer_passes
 from sailor_tpu_torch.kernels import cuda_lib, pbr_kernel
 from sailor_tpu_torch.raster import tile_raster as tr
-from sailor_tpu_torch.scenes import flagship_scene
+from sailor_tpu_torch.raytracing import sweep
+from sailor_tpu_torch.scenes import flagship_scene, tracer_scene
 
 pytestmark = pytest.mark.cuda
 W, H = 640, 384
@@ -97,3 +104,46 @@ def test_shade_kernel_matches_plain(card_frame):
 
 def test_frame_on_card_matches_cpu(card_frame):
     check_small_frame()
+
+
+@pytest.fixture(scope="module")
+def tracer_rays():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    cuda_lib.load()
+    scene, cam, view, proj = tracer_scene()
+    return scene, tracer_passes(scene, cam, view, proj, 128, 128)
+
+
+@pytest.mark.parametrize("npass", [0, 1, 2, 3],
+                         ids=["bounce0", "bounce0_shadow", "bounce1", "bounce1_shadow"])
+def test_slab_entry_kernel_matches_plain(tracer_rays, npass):
+    scene, passes = tracer_rays
+    p = passes[npass]
+    args = (p["feats"], p["tmax"], scene.sweep.cl_min, scene.sweep.cl_max)
+    before = cuda_lib.LAUNCHES["slab_entry"]
+    got = sweep.slab_entry_cuda(*args)
+    assert cuda_lib.LAUNCHES["slab_entry"] == before + 1
+    ref = sweep.slab_entry_plain(*args)
+    assert torch.isfinite(ref).any()
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("npass", [0, 1, 2, 3],
+                         ids=["bounce0", "bounce0_shadow", "bounce1", "bounce1_shadow"])
+def test_sweep_kernel_matches_plain(tracer_rays, npass):
+    scene, passes = tracer_rays
+    p = passes[npass]
+    args = (p["e_bits"], p["order"], p["blk_bits"], p["nlive"], p["feats"], p["tmax"],
+            scene.sweep.g_cluster)
+    before = cuda_lib.LAUNCHES["sweep"]
+    t_k, i_k = sweep.sweep_cuda(*args, any_hit=p["any_hit"])
+    assert cuda_lib.LAUNCHES["sweep"] == before + 1
+    t_p, i_p = sweep.sweep_plain(*args, any_hit=p["any_hit"])
+    assert int((i_p >= 0).sum()) > 10
+    assert torch.equal(i_k, i_p)
+    assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
+
+
+def test_trace_on_card_matches_cpu(tracer_rays):
+    check_small_trace()

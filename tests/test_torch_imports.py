@@ -6,7 +6,10 @@
 - entry points default to the CUDA device and raise when there is none;
 - kernel wrappers take CUDA tensors only, and the dispatch runs the plain
   version only for CPU tensors: nothing falls back;
-- configuration and nodes outside the slice raise NotImplementedError.
+- configuration and nodes outside the slice raise NotImplementedError;
+  so do the path tracer's parts that are not ported (textures, env-map
+  skies, the BVH8 tracer and scenes too large for the sweep, ray sorting
+  inside the intersector).
 """
 
 import os
@@ -21,7 +24,8 @@ import torch
 from sailor_tpu_torch.framegraph import FrameGraph, FrameGraphAsset
 from sailor_tpu_torch.kernels import pbr_kernel
 from sailor_tpu_torch.raster import tile_raster
-from sailor_tpu_torch.scenes import flagship_scene
+from sailor_tpu_torch.raytracing import path_tracer, sweep
+from sailor_tpu_torch.scenes import flagship_scene, tracer_camera, tracer_scene, tracer_soup
 from test_torch_scenes import MINIMAL_GRAPH, SLICE_CONFIG
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -64,6 +68,10 @@ def test_default_device_is_the_card(monkeypatch):
         FrameGraph(FrameGraphAsset.from_nodes(MINIMAL_GRAPH), 256, 128, SLICE_CONFIG)
     with pytest.raises(RuntimeError, match="CUDA"):
         flagship_scene(256, 128, 4, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tracer_scene(rings=4, sectors=8, spheres=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        path_tracer.scene_from_mesh(tracer_soup(4, 8, 1))
 
 
 def test_kernel_wrappers_take_cuda_tensors_only():
@@ -81,6 +89,14 @@ def test_kernel_wrappers_take_cuda_tensors_only():
                                     torch.zeros(16, 16, 4), torch.zeros(16, 16),
                                     torch.zeros(16, 16), torch.zeros(16, 16, 3),
                                     torch.zeros(16, 16, 3), None, torch.zeros(3))
+    feats = torch.zeros(2048, 16)
+    with pytest.raises(ValueError, match="cuda"):
+        sweep.slab_entry_cuda(feats, torch.zeros(2048), torch.zeros(2, 3), torch.zeros(2, 3))
+    i32 = torch.zeros(1, 2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="cuda"):
+        sweep.sweep_cuda(torch.zeros(8, 2, dtype=torch.int32), i32, i32,
+                         torch.zeros(1, dtype=torch.int32), feats, torch.zeros(2048),
+                         torch.zeros(2, 40, 256), any_hit=False)
     with pytest.raises(ValueError, match="no kernel"):
         tile_raster.rasterize_worklist(None, None, None, st, st, None, n_big, tiles_y=1,
                                        tiles_x=1, prebuilt=(rows.to("meta"), big.to("meta")))
@@ -117,3 +133,42 @@ def test_materials_raise():
                     device="cpu")
     with pytest.raises(NotImplementedError):
         fg.process(scene, fg.initial_state())
+
+
+def _small_tracer():
+    return tracer_scene("cpu", rings=4, sectors=8, spheres=1)
+
+
+@pytest.mark.parametrize("what", ["albedo_texture", "normal_texture", "orm_texture",
+                                  "emissive_texture", "images"])
+def test_tracer_textures_raise(what):
+    m = {"albedo": np.ones((1, 3), np.float32), "metallic": np.zeros(1, np.float32),
+         "roughness": np.ones(1, np.float32), "emissive": np.zeros((1, 3), np.float32)}
+    m[what] = [np.zeros((4, 4, 4), np.uint8)] if what == "images" else np.zeros(1, np.int32)
+    with pytest.raises(NotImplementedError, match="textured"):
+        path_tracer.scene_from_mesh(tracer_soup(4, 8, 1), m, device="cpu")
+
+
+def test_tracer_env_sky_and_bvh8_raise():
+    soup = tracer_soup(4, 8, 1)
+    with pytest.raises(NotImplementedError, match="sky"):
+        path_tracer.scene_from_mesh(soup, sky=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="bvh8"):
+        path_tracer.scene_from_mesh(soup, tracer="bvh8", device="cpu")
+
+
+def test_tracer_large_scene_raises():
+    n = path_tracer.MAX_SWEEP_TRIANGLES + 1
+    soup = {"position": np.zeros((3, 3), np.float32), "normal": np.zeros((3, 3), np.float32),
+            "uv": np.zeros((3, 2), np.float32), "material_id": np.zeros(n, np.int32),
+            "indices": np.tile(np.arange(3, dtype=np.int32), (n, 1))}
+    with pytest.raises(NotImplementedError, match="BVH8"):
+        path_tracer.scene_from_mesh(soup, device="cpu")
+
+
+def test_tracer_sort_rays_raises():
+    scene, *_ = _small_tracer()
+    o = torch.zeros(4, 3)
+    with pytest.raises(NotImplementedError, match="sort_rays"):
+        sweep.intersect(scene.sweep, o, o + 1.0, sort_rays=True)
+    assert tracer_camera("cpu")[0].device.type == "cpu"

@@ -6,6 +6,8 @@ dict that ``sailor_tpu_torch.rhi.scene_view.scene_from_numpy`` takes, so
 both packages render from identical inputs.
 """
 
+import os
+
 import jax
 import numpy as np
 import pytest
@@ -20,6 +22,17 @@ from sailor_tpu_torch.scenes import flagship_scene
 # intra-op thread pool in every worker oversubscribes them (its OpenMP
 # threads spin while they wait) and slowed these tests about fivefold.
 torch.set_num_threads(1)
+
+# Keep the JAX package's AOT executable cache off in the workers, as
+# `sailor_tpu.assets.aot_cache.enabled` means it to be in a CPU process that
+# builds several graphs. `test_engine_aux.py::test_cli_main` calls
+# `sailor_tpu.__main__.main(["--cpu", ...])`, which turns it on for the rest
+# of its process with `os.environ.setdefault("SAILOR_AOT_CACHE", "1")`; every
+# frame graph that worker builds afterwards then loads a stored executable,
+# and XLA:CPU fails the second one it loads ("Buffer Definition Event:
+# Function ... not found"). Each worker imports this module while it
+# collects, before any test runs, so that `setdefault` finds the key set.
+os.environ.setdefault("SAILOR_AOT_CACHE", "0")
 
 # the slice's configuration, for both packages
 SLICE_CONFIG = {
@@ -77,3 +90,34 @@ def test_flagship_scene_matches_bench_scene():
         np.testing.assert_allclose(getattr(got.frame, f).numpy(), ref[f"frame.{f}"],
                                    rtol=1e-6, atol=1e-6)
     np.testing.assert_array_equal(got.attrs_packed.numpy(), ref["attrs_packed"])
+
+
+def test_tracer_scene_matches_bench_trace_scene():
+    """``tracer_soup`` and ``tracer_camera`` rebuild bench.py's path-tracer
+    scene (``bench_trace``): the soup exactly (18,434 triangles, 73 sweep
+    clusters of 256), the camera within 1e-6 (float32 math in two
+    frameworks)."""
+    import jax.numpy as jnp
+
+    from sailor_tpu.assets import primitives as jax_primitives
+    from sailor_tpu.core import math3d as jax_m3
+    from sailor_tpu_torch.raytracing import sweep
+    from sailor_tpu_torch.scenes import tracer_camera, tracer_soup
+
+    meshes = [(jax_primitives.plane(40.0), np.eye(4))]
+    for i in range(8):
+        t = np.eye(4)
+        t[:3, 3] = [(i % 4 - 1.5) * 2.2, 0.9, (i // 4 - 0.5) * 2.4]
+        meshes.append((jax_primitives.uv_sphere(0.9, 24, 48), t))
+    ref = jax_primitives.merge(meshes)
+    got = tracer_soup()
+    for k in ("position", "normal", "uv", "indices", "material_id"):
+        np.testing.assert_array_equal(got[k], ref[k], k)
+    assert len(got["indices"]) == 18434
+    p, i = got["position"], got["indices"]
+    assert sweep.build_arrays(p[i[:, 0]], p[i[:, 1]], p[i[:, 2]])["g_cluster"].shape[0] == 73
+    cam = jnp.asarray([0.0, 4.0, 9.0])
+    want = (cam, jax_m3.look_at(cam, jnp.asarray([0.0, 0.6, 0.0]), jnp.asarray([0.0, 1.0, 0.0])),
+            jax_m3.perspective(jnp.pi / 4, 1.0, 0.1, 100.0))
+    for a, b in zip(want, tracer_camera("cpu")):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-6, atol=1e-6)

@@ -1,0 +1,185 @@
+"""The port's sweep intersector against the JAX package's, on the CPU.
+
+Same numpy inputs through both packages:
+- ``bvh.build`` and ``sweep.build``: every array exactly equal (the leaf
+  order fixes the clusters and the tie-break between equal t);
+- B4: the port's ``slab_entry_plain`` against the reference's fused kernel
+  ``_slab_entry_sub`` (Pallas interpret mode): finiteness equal, finite
+  entries within 1e-6 relative (XLA may contract a product into the
+  following subtraction; the port rounds the two separately);
+- B5 through ``intersect``: closest hit, any hit, ``active`` and ``t_max``
+  on a random soup and on the small tracer scene, and again against the
+  reference's grid kernel (``DMA_SWEEP`` off, B6): ``hit`` equal on
+  >= 99.9% of rays, ``tri`` equal on >= 99.9% of the rays both hit, and
+  where both hit the same triangle, t within 1e-5 * max(1, |ref|) and the
+  hit point that u and v give (|du| times the triangle's longest edge)
+  within 1e-5 * max(1, t) (the refinement's crosses and dots may be fused
+  by XLA).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sailor_tpu.raytracing import bvh as jax_bvh
+from sailor_tpu.raytracing import sweep as jax_sweep
+from sailor_tpu_torch.raytracing import bvh, sweep
+from sailor_tpu_torch.scenes import tracer_soup
+from test_torch_scenes import release_jax_executables  # noqa: F401
+
+
+def _soup(seed=1, t=1500):
+    rng = np.random.default_rng(seed)
+    v0 = rng.uniform(-5, 5, (t, 3)).astype(np.float32)
+    v1 = v0 + rng.uniform(-1, 1, (t, 3)).astype(np.float32)
+    v2 = v0 + rng.uniform(-1, 1, (t, 3)).astype(np.float32)
+    return v0, v1, v2
+
+
+def _tracer_tris():
+    soup = tracer_soup(12, 24, 2)  # a plane and two 12x24 spheres
+    p, i = soup["position"], soup["indices"]
+    return p[i[:, 0]], p[i[:, 1]], p[i[:, 2]]
+
+
+SCENES = {"soup": _soup, "tracer": _tracer_tris}
+
+
+@pytest.mark.parametrize("name", list(SCENES))
+def test_builds_match_reference(name):
+    v0, v1, v2 = SCENES[name]()
+    ref, got = jax_bvh.build(v0, v1, v2), bvh.build(v0, v1, v2)
+    for f in ("node_min", "node_max", "node_left", "node_start", "node_count",
+              "v0", "v1", "v2", "tri_index"):
+        np.testing.assert_array_equal(getattr(got, f), np.asarray(getattr(ref, f)), f)
+    ref_s, got_s = jax_sweep.build(v0, v1, v2), sweep.build_arrays(v0, v1, v2)
+    assert got_s["num_tris"] == ref_s.num_tris
+    for f in ("g_cluster", "v0e1e2", "tri_id", "cl_min", "cl_max"):
+        np.testing.assert_array_equal(got_s[f], np.asarray(getattr(ref_s, f)), f)
+    # the grid kernel's tables are the same rows, cluster-major
+    gc = got_s["g_cluster"].transpose(1, 0, 2).reshape(40, -1)
+    np.testing.assert_array_equal(gc[:24], np.asarray(ref_s.g_side))
+    np.testing.assert_array_equal(gc[24:], np.asarray(ref_s.g_plane))
+
+
+def test_slab_entry_plain_matches_reference():
+    v0, v1, v2 = _soup(7, t=1500)
+    ref_scene = jax_sweep.build(v0, v1, v2)
+    rng = np.random.default_rng(9)
+    rpad = sweep.RAY_BLOCK
+    o = rng.uniform(-8, 8, (rpad, 3)).astype(np.float32)
+    d = rng.normal(size=(rpad, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d[::7, 1] = 0.0  # axis-parallel rays take the 1e12 branch
+    tmax = np.full(rpad, np.inf, np.float32)
+    tmax[::5] = -1.0  # dead rays, as the tracer sends them
+    m = np.cross(o, d)
+    z = np.zeros((rpad, 1), np.float32)
+    feats = np.concatenate([d, m, z, z, o, z + 1, d, z], 1).astype(np.float32)
+    want = np.asarray(jax_sweep._slab_entry_sub(ref_scene, jnp.asarray(feats),
+                                                jnp.asarray(tmax), rpad))
+    got = sweep.slab_entry_plain(torch.from_numpy(feats), torch.from_numpy(tmax),
+                                 torch.from_numpy(np.asarray(ref_scene.cl_min)),
+                                 torch.from_numpy(np.asarray(ref_scene.cl_max))).numpy()
+    fin = np.isfinite(want)
+    assert fin.mean() > 0.5
+    np.testing.assert_array_equal(np.isfinite(got), fin)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=1e-6, atol=0)
+
+
+def _rays(name, rng, r=3000):
+    """Random rays for the soup; for the tracer scene, camera rays and
+    incoherent rays leaving points above the plane, as bounces send."""
+    if name == "soup":
+        o = rng.uniform(-8, 8, (r, 3))
+        d = rng.normal(size=(r, 3))
+    else:
+        n = r // 2
+        target = rng.uniform([-4, 0, -3], [4, 2, 3], (n, 3))
+        o = np.concatenate([np.tile([[0.0, 4.0, 9.0]], (n, 1)),
+                            rng.uniform([-6, 1e-3, -4], [6, 2, 4], (r - n, 3))])
+        d = np.concatenate([target - o[:n], rng.normal(size=(r - n, 3))])
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+CASES = {  # (any_hit, active, t_max)
+    "closest": (False, False, False),
+    "closest_active": (False, True, False),
+    "any_active": (True, True, False),
+    "closest_tmax": (False, False, True),
+}
+
+
+def _sorted_index(scene, tri):
+    """Row of each original triangle id in the scene's leaf order."""
+    ids = scene.tri_id.numpy()
+    where = np.empty(ids.max() + 1, np.int64)
+    where[ids[ids >= 0]] = np.nonzero(ids >= 0)[0]
+    return where[tri]
+
+
+def _check_intersect(name, case):
+    v0, v1, v2 = SCENES[name]()
+    ref_scene = jax_sweep.build(v0, v1, v2)
+    scene = sweep.build(v0, v1, v2, device="cpu")
+    rng = np.random.default_rng(11)
+    o, d = _rays(name, rng)
+    any_hit, use_active, use_tmax = CASES[case]
+    active = rng.random(len(o)) > 0.3
+    t_max = rng.uniform(1.0, 12.0, len(o)).astype(np.float32)
+    jkw = dict(any_hit=any_hit, active=jnp.asarray(active) if use_active else None,
+               t_max=jnp.asarray(t_max) if use_tmax else None)
+    tkw = dict(any_hit=any_hit, active=torch.from_numpy(active) if use_active else None,
+               t_max=torch.from_numpy(t_max) if use_tmax else None)
+    want = {k: np.asarray(v) for k, v in
+            jax_sweep.intersect(ref_scene, jnp.asarray(o), jnp.asarray(d), **jkw).items()}
+    got = {k: v.numpy() for k, v in
+           sweep.intersect(scene, torch.from_numpy(o), torch.from_numpy(d), **tkw).items()}
+    assert 0.1 < want["hit"].mean() < 0.95
+    assert (got["hit"] == want["hit"]).mean() >= 0.999
+    both = got["hit"] & want["hit"]
+    assert (got["tri"][both] == want["tri"][both]).mean() >= 0.999
+    same = both & (got["tri"] == want["tri"])
+    err = np.abs(got["t"][same] - want["t"][same])
+    assert (err <= 1e-5 * np.maximum(1.0, np.abs(want["t"][same]))).all(), err.max()
+    # u and v: the hit point they give, |du| * (longest edge), within 1e-5
+    # of the distance travelled (the refinement solves for them from
+    # origin - v0, so their rounding grows with t over the triangle's size)
+    e = scene.v0e1e2.numpy()[_sorted_index(scene, want["tri"][same])]
+    size = np.maximum(np.linalg.norm(e[:, 3:6], axis=1), np.linalg.norm(e[:, 6:9], axis=1))
+    for k in ("u", "v"):
+        err = np.abs(got[k][same] - want[k][same]) * size
+        assert (err <= 1e-5 * np.maximum(1.0, want["t"][same])).all(), (k, err.max())
+    if use_active:
+        assert not got["hit"][~active].any()
+    if use_tmax:
+        assert (got["t"][got["hit"]] <= t_max[got["hit"]] * (1 + 1e-5)).all()
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_intersect_matches_reference_soup(case):
+    _check_intersect("soup", case)
+
+
+@pytest.mark.parametrize("case", ["closest_active", "any_active"])
+def test_intersect_matches_reference_tracer_scene(case):
+    _check_intersect("tracer", case)
+
+
+@pytest.fixture
+def reference_grid_kernel(monkeypatch):
+    """The reference's dense (block, cluster) grid kernel (B6) in place of
+    its DMA walk; its jitted intersect is traced anew on both sides."""
+    monkeypatch.setattr(jax_sweep, "DMA_SWEEP", False)
+    jax.clear_caches()
+    yield
+    monkeypatch.undo()
+    jax.clear_caches()
+
+
+@pytest.mark.parametrize("case", ["closest", "any_active"])
+def test_intersect_matches_reference_grid_kernel(reference_grid_kernel, case):
+    _check_intersect("soup", case)
