@@ -7,22 +7,36 @@ CUDA device and the CUDA toolkit (nvcc); it imports nothing of JAX.
 Phases, each printed as it ends:
   1. card: nvidia-smi's name and power limit, torch's device name;
   2. build: compile the CUDA kernels (sailor_tpu_torch/csrc) and load them;
-  3. kernels: each kernel of the frame's path against its plain PyTorch
+  3. kernels: each kernel of the frame's paths against its plain PyTorch
      version on the flagship frame's own inputs (1920x1088, 1001 lights,
-     96 objects), with the tolerance stated, timed with CUDA events;
-  4. frame: the flagship scene through FrameGraph with the minimal graph
+     96 objects), with the tolerance stated, timed with CUDA events, with
+     the bound of each: B1-B3 of the work-list frame, then the raster
+     variants B7 (both plane forms), B8 and B9 (its first and its
+     big-triangle pass, with and without the AABB clamp), each also with
+     z bounds, bit-equal, and the grid-k resolve B10 on B7's winners;
+  4. raster configurations: the flagship frame in each raster
+     configuration the reference's frame graph accepts (work list, dense,
+     dma, grid-k stream, its MXU form, the gather resolve), 1 warm-up + 5
+     frames each: frame ms, BinOverflow, launches per frame; Depth and
+     TriId held to the work-list frame's (the dense frame to B1 and the
+     MXU frame to its plain twin, each over its own setup), Final to the
+     work-list frame's on all but 16 pixels;
+  5. frame: the flagship scene through FrameGraph with the minimal graph
      (DepthPrepass -> LinearizeDepth -> LightCulling -> RenderScene ->
      EyeAdaptation): 1 warm-up + 5 frames with the state threaded through;
      launch counts of that run, frame and per-node times, peak memory, one
      profiled frame, the per-node cost of the float64 fused multiply-add
-     emulation (core.math3d.fma); the output is checked (finite, in [0, 1], coverage > 0) and a 256x128
-     frame on the card is held against the same frame on the CPU path;
-  5. tracer kernels: the sweep intersector's kernels (B4 slab entry, B5
+     emulation (core.math3d.fma); the output is checked (finite, in [0, 1],
+     coverage > 0) and a 256x128 frame on the card is held against the same
+     frame on the CPU path, in every raster configuration;
+  6. rasterize: raster.rasterize on the flagship geometry at 1920x1088
+     (capacity 1024, 4 rounds), timed, with its stats;
+  7. tracer kernels: the sweep intersector's kernels (B4 slab entry, B5
      cluster sweep, closest and any hit) against their plain versions on
      the path tracer's own rays (bench tracer scene, 512x512: the swizzled
      camera rays and the incoherent bounce-1 rays of one sample and their
      shadow rays), timed with CUDA events, with the bound of each;
-  6. trace: the bench tracer scene rendered at 512x512, 4 bounces, 16 spp
+  8. trace: the bench tracer scene rendered at 512x512, 4 bounces, 16 spp
      (the bench's 64 spp cut to 16): 1 warm-up + 3 timed renders, Mrays/s,
      peak memory, launches per render (B4 = B5 = 2 * bounces * spp), the
      device idle share of one profiled sample; the image is checked
@@ -112,11 +126,15 @@ def _span(lo, hi, first, last):
     return torch.clamp(b - a + 1, min=0)
 
 
-def raster_work(rows, big_rows, starts, counts, n_big, tiles_y, tiles_x):
-    """What B1 must do on this data: (candidate rows, (pixel, candidate)
-    pairs). A tile's live rows are tested only at the tile's pixels inside
-    the row's screen AABB (every other pixel fails the AABB clamp), the big
-    list at the screen's pixels inside its AABB."""
+def raster_work(rows, big_rows, starts, counts, n_big, tiles_y, tiles_x,
+                clamp=True):
+    """What a tile raster must do on this data: (candidate rows, (pixel,
+    candidate) pairs). Tile t walks rows[starts[t]:starts[t] + counts[t]]
+    (columns as build_stream_rows lays them out: AABB at 12:16, id at 16);
+    with the AABB clamp a live row is tested only at the tile's pixels
+    inside its screen AABB (every other pixel fails the clamp), without it
+    at all of them; the big list is tested at the screen's pixels inside
+    its AABB."""
     import torch
 
     from sailor_tpu_torch.raster import tile_raster as tr
@@ -130,8 +148,11 @@ def raster_work(rows, big_rows, starts, counts, n_big, tiles_y, tiles_x):
     x0 = (tile % tiles_x).double() * tr.TILE_W
     y0 = (tile // tiles_x).double() * tr.TILE_H
     live = r[:, 16] >= 0
-    pairs = (_span(r[:, 12], r[:, 13], x0, x0 + tr.TILE_W - 1)
-             * _span(r[:, 14], r[:, 15], y0, y0 + tr.TILE_H - 1))[live].sum()
+    if clamp:
+        pairs = (_span(r[:, 12], r[:, 13], x0, x0 + tr.TILE_W - 1)
+                 * _span(r[:, 14], r[:, 15], y0, y0 + tr.TILE_H - 1))[live].sum()
+    else:
+        pairs = live.sum().double() * (tr.TILE_W * tr.TILE_H)
     b = big_rows[:int(n_big)]
     zero = torch.zeros(b.shape[0], dtype=torch.float64, device=dev)
     big_live = b[:, 16] >= 0
@@ -251,6 +272,305 @@ def check_kernels(scene, width, height, card):
     return results
 
 
+RASTER_CONFIGS = {  # the frame's raster configurations beside the work-list one
+    "dense": {"raster_mode": "dense"},
+    "dma": {"raster_mode": "dma"},
+    "stream": {"raster_worklist": False},
+    "stream_mxu": {"raster_worklist": False, "raster_mxu": True},
+    "gather_resolve": {"fused_resolve": False},
+}
+# the kernels each configuration's frame must launch
+CONFIG_KERNELS = {
+    "worklist": ("raster_worklist", "resolve_worklist", "shade_forward_plus"),
+    "dense": ("raster_dense", "shade_forward_plus"),
+    "dma": ("raster_dma", "shade_forward_plus"),
+    "stream": ("raster_stream", "resolve_stream", "shade_forward_plus"),
+    "stream_mxu": ("raster_stream_mxu", "resolve_stream", "shade_forward_plus"),
+    "gather_resolve": ("raster_worklist", "shade_forward_plus"),
+}
+
+
+def _raster_check(name, kernel, plain, args, kw, card, work, extra_bytes=0, reps=10):
+    """One raster variant against its plain twin on the card: depth and
+    tid bit-equal; CUDA-event ms, the twin's ms and the bound from
+    ``work`` = (candidate rows, pairs, bytes a candidate row)."""
+    import torch
+
+    d_k, t_k = kernel(*args, **kw)
+    plain_ms, (d_p, t_p) = _wall_ms(lambda: plain(*args, **kw))
+    ms = _time_ms(lambda: kernel(*args, **kw), reps)
+    same = bool(torch.equal(d_k, d_p)) and bool(torch.equal(t_k, t_p))
+    err = (d_k - d_p).abs().max().item()
+    cand, pairs, row_bytes = work
+    npix = d_k.numel()
+    # candidate rows read once, depth and tid written (8 bytes a pixel);
+    # 16 flops per (pixel, candidate) pair: 4 planes of fma + mul + add
+    bound, by = _bound(cand * row_bytes + npix * 8 + extra_bytes, pairs * 16)
+    print(f"kernel {name}: bit_equal={same} max_abs_err(depth)={err:.3g} "
+          f"tid_mismatch={int((t_k != t_p).sum())} ms={ms:.4f} plain_ms={plain_ms:.1f} "
+          f"bound_ms={bound:.5f} ({by}) candidates={cand} pairs={pairs} "
+          f"covered={int((t_k >= 0).sum())} on {card}")
+    check(same, f"{name} kernel disagrees with its plain version")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by), t_k
+
+
+def check_variant_kernels(scene, width, height, card):
+    """B7 (both plane forms), B8, B9 and B10 against their plain versions on
+    the flagship frame's own inputs, as each configuration's DepthPrepass
+    makes them (SLICE_CONFIG's capacity 1024 x 4 rounds: kmax 16 windows of
+    256 rows for B7, windows of 128 rows for B8, bin_all's passes for B9)."""
+    import torch
+
+    from sailor_tpu_torch.raster import setup as rsetup
+    from sailor_tpu_torch.raster import tile_raster as tr
+
+    sb, targets, inv_vp, _gb, tiles_y, tiles_x = frame_inputs(scene, width, height)
+    tri, aabb = targets["TriSetup"], targets["TriAABB"]
+    order, starts, counts, big_ids, n_big, _ = rsetup.bin_sorted(
+        tri.valid, aabb, tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tr.TILE_W, tile_h=tr.TILE_H)
+    cap, rounds = SLICE_CONFIG["bin_capacity"], SLICE_CONFIG["bin_rounds"]
+    chunk, kmax = 256, cap * rounds // 256
+    kw = dict(tiles_y=tiles_y, tiles_x=tiles_x)
+    npix = tiles_y * tr.TILE_H * tiles_x * tr.TILE_W
+    out = {}
+
+    # ---- B7: the fused stream path's shared rows (17 raster + 37 attribute
+    # columns), each tile's first max(spt, 1) whole windows
+    attrs = scene.attrs_packed[tri.src_id.long()]
+    rows, big, na = tr.build_stream_rows(tri, aabb, order, big_ids, attrs=attrs, chunk=chunk)
+    c0, spt, ovf = tr.stream_windows(starts, counts, chunk, kmax)
+    check(int(ovf) == 0, f"B7 drops {int(ovf)} candidates past kmax on the flagship frame")
+    walk = (c0 * chunk, torch.clamp(spt, min=1) * chunk)
+    cand, pairs = raster_work(rows, big, *walk, n_big, tiles_y, tiles_x)
+    for mxu in (False, True):
+        name = "raster_stream_mxu" if mxu else "raster_stream"
+        args = (rows, big, c0, spt, n_big)
+        out[name], t7 = _raster_check(
+            name, tr.rasterize_stream_cuda, tr.rasterize_stream_plain, args,
+            dict(kw, chunk=chunk, mxu=mxu), card, (cand, pairs, 17 * 4), ntiles_bytes(c0))
+        d7, _ = tr.rasterize_stream_cuda(*args, **kw, chunk=chunk, mxu=mxu)
+        zb = (torch.zeros_like(d7), torch.where(t7 >= 0, d7, 2.0))
+        _raster_check(name + "[z_bounds]", tr.rasterize_stream_cuda, tr.rasterize_stream_plain,
+                      args, dict(kw, chunk=chunk, mxu=mxu, z_bounds=zb), card,
+                      (cand, pairs, 17 * 4), ntiles_bytes(c0) + npix * 8, reps=3)
+        if not mxu:
+            tid7 = t7
+
+    # ---- B10: the grid-k resolve on B7's winners (full mode, 37 columns)
+    par = tr._resolve_params(inv_vp, scene.frame.camera_position, width, height, 0, rows.device)
+    args = (rows, big, tid7, starts, counts, c0, spt, par)
+    kw10 = dict(kw, na=na, chunk=chunk)
+    p_k = torch.stack(tr.resolve_stream_cuda(*args, **kw10))
+    plain_ms, p_p = _wall_ms(lambda: torch.stack(tr.resolve_stream_plain(*args, **kw10)))
+    ms = _time_ms(lambda: tr.resolve_stream_cuda(*args, **kw10), 20)
+    diff = (p_k - p_p).abs()
+    err = diff.max().item()
+    frac = (diff > 1e-5).float().mean().item()
+    winners = int(torch.unique(tid7[tid7 >= 0]).numel())
+    bound, by = _bound(npix * 4 + winners * (1 + na) * 4 + npix * p_k.shape[0] * 4,
+                       int((tid7 >= 0).sum()) * 115)
+    print(f"kernel resolve_stream: max_abs_err={err:.3g} frac_err>1e-5={frac:.3g} ms={ms:.4f} "
+          f"plain_ms={plain_ms:.1f} bound_ms={bound:.4f} ({by}) on {card}")
+    check(frac <= 1e-5 and bool((diff <= 1e-4 * (1 + p_p.abs())).all()),
+          "resolve_stream kernel disagrees with its plain version")
+    out["resolve_stream"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                 bound_by=by)
+
+    # ---- B8: its own 17-column rows in windows of 128, each tile's exact span
+    rows8, big8, _ = tr.build_stream_rows(tri, aabb, order, big_ids, attrs=None, chunk=128)
+    w0, nw = tr.dma_windows(starts, counts, 128)
+    work = raster_work(rows8, big8, w0 * 128, nw * 128, n_big, tiles_y, tiles_x)
+    args = (rows8, big8, w0, nw, n_big)
+    out["raster_dma"], t8 = _raster_check("raster_dma", tr.rasterize_dma_cuda,
+                                          tr.rasterize_dma_plain, args, dict(kw, dchunk=128),
+                                          card, work + (17 * 4,), ntiles_bytes(w0))
+    d8, _ = tr.rasterize_dma_cuda(*args, **kw, dchunk=128)
+    _raster_check("raster_dma[z_bounds]", tr.rasterize_dma_cuda, tr.rasterize_dma_plain, args,
+                  dict(kw, dchunk=128, z_bounds=(torch.zeros_like(d8),
+                                                 torch.where(t8 >= 0, d8, 2.0))),
+                  card, work + (17 * 4,), ntiles_bytes(w0) + npix * 8, reps=3)
+
+    # ---- B9: bin_all's first pass (the fullest) and its big-triangle pass
+    # (64 slots; the ground plane covers every pixel), each with and
+    # without the AABB clamp (the frame's dense path clamps,
+    # raster.rasterize does not); the first pass's numbers are reported
+    dtri, daabb = rsetup.triangle_setup(scene.geometry, scene.frame.view_projection,
+                                        width=width, height=height,
+                                        zplane_rounding="standalone")
+    passes, _ = rsetup.bin_all(dtri.valid, daabb, tiles_x=tiles_x, tiles_y=tiles_y,
+                               tile_w=tr.TILE_W, tile_h=tr.TILE_H, capacity=cap, rounds=rounds)
+    ntiles = tiles_y * tiles_x
+    for pname, (bins, pcounts) in (("", passes[0]), ("[big_pass]", passes[-1])):
+        pcounts = pcounts.reshape(-1).to(torch.int32).contiguous()
+        slots = (torch.arange(ntiles, device=bins.device) * bins.shape[-1]).to(torch.int32)
+        walked = (pcounts + tr.CHUNK - 1) // tr.CHUNK * tr.CHUNK
+        for clamp in (True, False):
+            rows9, ids9 = tr.dense_rows(dtri, bins, daabb if clamp else None)
+            # the walk's rows laid out as build_stream_rows does, for raster_work
+            as17 = torch.cat([rows9[:, :12], rows9[:, 12:16] if clamp else
+                              torch.zeros_like(rows9[:, :4]), ids9[:, None].float()], 1)
+            cand, pairs = raster_work(as17, as17[:0], slots, walked, 0, tiles_y, tiles_x,
+                                      clamp=clamp)
+            work = (cand, pairs, (rows9.shape[1] + 1) * 4)
+            args = (rows9, ids9, pcounts)
+            name = "raster_dense" + pname + ("" if clamp else "[no_aabb]")
+            res, t9 = _raster_check(name, tr.rasterize_tiles_cuda, tr.rasterize_tiles_plain,
+                                    args, kw, card, work, ntiles_bytes(pcounts))
+            if name == "raster_dense":
+                out["raster_dense"] = res
+            d9, _ = tr.rasterize_tiles_cuda(*args, **kw)
+            _raster_check(name + "[z_bounds]", tr.rasterize_tiles_cuda,
+                          tr.rasterize_tiles_plain, args,
+                          dict(kw, z_bounds=(torch.zeros_like(d9),
+                                             torch.where(t9 >= 0, d9, 2.0))),
+                          card, work, ntiles_bytes(pcounts) + npix * 8, reps=3)
+
+    replaces = {"raster_stream": ("raster_stream.cu", 194),
+                "raster_stream_mxu": ("raster_stream.cu", 657),
+                "raster_dma": ("raster_dma.cu", 751), "raster_dense": ("raster_dense.cu", 43),
+                "resolve_stream": ("resolve_stream.cu", 1159)}
+    return [dict(name=name, route="cuda", source=f"sailor_tpu_torch/csrc/{src}",
+                 replaces=f"sailor_tpu/raster/tile_raster.py:{line}", library_ms=None,
+                 **out[name]) for name, (src, line) in replaces.items()]
+
+
+def ntiles_bytes(per_tile):
+    """Bytes of the per-tile int32 window or count arrays a kernel reads."""
+    return per_tile.numel() * 8
+
+
+def worklist_raster(targets, width, height):
+    """Depth and TriId of the work-list raster (B1) over a frame's own
+    setup ("TriSetup", "TriAABB")."""
+    from sailor_tpu_torch.raster import setup as rsetup
+    from sailor_tpu_torch.raster import tile_raster as tr
+
+    tri, aabb = targets["TriSetup"], targets["TriAABB"]
+    tiles_y, tiles_x = -(-height // tr.TILE_H), -(-width // tr.TILE_W)
+    rb = rsetup.bin_sorted(tri.valid, aabb, tiles_x=tiles_x, tiles_y=tiles_y,
+                           tile_w=tr.TILE_W, tile_h=tr.TILE_H)
+    d, t, _ = tr.rasterize_worklist(tri, aabb, *rb[:5], tiles_y=tiles_y, tiles_x=tiles_x)
+    return {"Depth": d[:height, :width], "TriId": t[:height, :width]}
+
+
+def stream_mxu_raster(targets, width, height):
+    """Depth and TriId of B7's MXU form's plain twin over a frame's own
+    setup and raster rows, in the frame's windows (SLICE_CONFIG's capacity
+    x rounds: kmax 16 windows of 256 rows)."""
+    import torch
+
+    from sailor_tpu_torch.raster import setup as rsetup
+    from sailor_tpu_torch.raster import tile_raster as tr
+
+    tri, aabb = targets["TriSetup"], targets["TriAABB"]
+    tiles_y, tiles_x = -(-height // tr.TILE_H), -(-width // tr.TILE_W)
+    order, starts, counts, big_ids, n_big, _ = rsetup.bin_sorted(
+        tri.valid, aabb, tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tr.TILE_W, tile_h=tr.TILE_H)
+    chunk = 256
+    kmax = -(-SLICE_CONFIG["bin_capacity"] * SLICE_CONFIG["bin_rounds"] // chunk)
+    rows, big, _ = tr.build_stream_rows(tri, aabb, order, big_ids, attrs=None, chunk=chunk)
+    c0, spt, _ = tr.stream_windows(starts, counts, chunk, kmax)
+    d, t = tr.rasterize_stream_plain(rows, big, c0, spt, n_big.to(torch.int32).reshape(()),
+                                     tiles_y=tiles_y, tiles_x=tiles_x, chunk=chunk, mxu=True)
+    return {"Depth": d[:height, :width], "TriId": t[:height, :width]}
+
+
+def run_raster_configs(scene, width, height, card):
+    """The flagship frame in the work-list configuration and in each other
+    raster configuration, 1 warm-up + 5 frames each, with the launch counts
+    of that run (zeroed just before it). Each frame's Depth is bit-equal to
+    the work-list frame's and its TriId differs only where candidates tie
+    in depth, except two held to their own raster over their own setup:
+    the dense path (its setup rounds the depth plane as the reference's
+    standalone setup does) to B1, and the MXU form (its re-centred planes
+    round otherwise) to its plain twin, both bit-equal. Final is within
+    2/255 of the work-list frame's on all but 16 pixels (winners whose
+    depth or resolve rounds otherwise may shade otherwise). Returns
+    {config: launches}."""
+    import torch
+
+    from sailor_tpu_torch.framegraph import FrameGraph, FrameGraphAsset
+    from sailor_tpu_torch.kernels import cuda_lib
+
+    out, base = {}, None
+    for name, change in {"worklist": {}, **RASTER_CONFIGS}.items():
+        fg = FrameGraph(FrameGraphAsset.from_nodes(MINIMAL_GRAPH), width, height,
+                        dict(SLICE_CONFIG, **change))
+        state = fg.initial_state()
+        fg.prepare(scene, state)
+        torch.cuda.synchronize()
+        cuda_lib.LAUNCHES.clear()
+        warm_ms, (targets, state) = _wall_ms(lambda: fg.process(scene, state))
+        frame_ms = []
+        for _ in range(5):
+            ms, (targets, state) = _wall_ms(lambda: fg.process(scene, state))
+            frame_ms.append(ms)
+        launches = dict(cuda_lib.LAUNCHES)
+        out[name] = launches
+        for k in CONFIG_KERNELS[name]:
+            check(launches.get(k, 0) > 0, f"{k} was not launched in the {name} frame")
+        ovf = int(targets["BinOverflow"])
+        depth, tid, final = targets["Depth"], targets["TriId"], targets["Final"]
+        if base is None:
+            base = {k: targets[k] for k in ("Depth", "TriId", "Final")}
+        ref = base
+        if name == "dense":
+            ref = worklist_raster(targets, width, height)
+        elif name == "stream_mxu":
+            ref = stream_mxu_raster(targets, width, height)
+        derr = (depth - base["Depth"]).abs().max().item()
+        dsame = bool(torch.equal(depth, ref["Depth"]))
+        tid_mism = tid != ref["TriId"]
+        untied = int((tid_mism & (depth != ref["Depth"])).sum())
+        base_untied = int(((tid != base["TriId"]) & (depth != base["Depth"])).sum())
+        far = int(((final - base["Final"]).abs().amax(-1) > 2 / 255).sum())
+        print(f"frame[{name}] {width}x{height}: warmup_ms={warm_ms:.2f} "
+              f"frame_ms={[round(m, 3) for m in frame_ms]} "
+              f"mean_ms={sum(frame_ms) / len(frame_ms):.3f} bin_overflow={ovf} "
+              f"launches_per_frame={json.dumps({k: v / 6 for k, v in launches.items()})} "
+              f"depth_bit_equal={dsame} tid_mismatch={int(tid_mism.sum())} "
+              f"tid_mismatch_untied={untied} max_depth_diff_vs_worklist={derr:.3g} "
+              f"tid_mismatch_untied_vs_worklist={base_untied} "
+              f"final_px_outside_2/255_vs_worklist={far} on {card}")
+        check(ovf == 0, f"{name}: the flagship frame overflows its bins")
+        check(bool(torch.isfinite(final).all()), f"{name}: Final has non-finite values")
+        check(dsame and untied == 0, f"{name}: Depth or TriId differs from its reference raster")
+        check(far <= 16, f"{name}: Final leaves 2/255 of the work-list frame's on {far} px")
+    return out
+
+
+def run_rasterize(scene, width, height, card):
+    """raster.rasterize (setup -> bin_all -> B9 per pass -> resolve) on the
+    flagship geometry, with the slice's bin capacity: 1 warm-up + 3 timed
+    calls, its stats, and the launches of that run."""
+    import torch
+
+    from sailor_tpu_torch import raster
+    from sailor_tpu_torch.kernels import cuda_lib
+
+    kw = dict(width=width, height=height, capacity=SLICE_CONFIG["bin_capacity"],
+              rounds=SLICE_CONFIG["bin_rounds"])
+    geo, vp = scene.geometry, scene.frame.view_projection
+    torch.cuda.synchronize()
+    cuda_lib.LAUNCHES.clear()
+    warm_ms, _ = _wall_ms(lambda: raster.rasterize(geo, vp, **kw))
+    times = []
+    for _ in range(3):
+        ms, (gb, depth, tid, stats) = _wall_ms(lambda: raster.rasterize(geo, vp, **kw))
+        times.append(ms)
+    launches = dict(cuda_lib.LAUNCHES)
+    cov = (tid >= 0).float().mean().item()
+    print(f"rasterize {width}x{height}: warmup_ms={warm_ms:.2f} "
+          f"call_ms={[round(m, 3) for m in times]} bin_overflow={int(stats['bin_overflow'])} "
+          f"tile_tri_counts_max={int(stats['tile_tri_counts'].max())} coverage={cov:.4f} "
+          f"launches_per_call={json.dumps({k: v / 4 for k, v in launches.items()})} on {card}")
+    check(launches.get("raster_dense", 0) == 4 * (SLICE_CONFIG["bin_rounds"] + 1),
+          "raster.rasterize did not launch B9 once a pass")
+    check(tuple(depth.shape) == (height, width) and cov > 0.0, "rasterize rendered nothing")
+    check(bool(torch.isfinite(gb.world_position).all()), "rasterize's G-buffer is not finite")
+    return launches
+
+
 def run_frames(scene, width, height, card):
     import torch
 
@@ -346,10 +666,11 @@ def fma_cost(fg, scene, state, card, reps: int = 4):
               + f" on {card}")
 
 
-def check_small_frame():
+def check_small_frame(change=None):
     """A 256x128 frame on the card against the same frame on the CPU path
-    (which the CPU tests hold to the JAX package): TriId equal on >= 99.9%
-    of pixels, Final within 2/255 on >= 99.9%."""
+    (which the CPU tests hold to the JAX package), in the slice's
+    configuration with ``change`` applied: TriId equal on >= 99.9% of
+    pixels, Final within 2/255 on >= 99.9%."""
     import torch
 
     from sailor_tpu_torch.framegraph import FrameGraph, FrameGraphAsset
@@ -359,13 +680,14 @@ def check_small_frame():
     for dev in ("cuda", "cpu"):
         scene = flagship_scene(256, 128, 24, 10, device=dev)
         fg = FrameGraph(FrameGraphAsset.from_nodes(MINIMAL_GRAPH), 256, 128,
-                        dict(SLICE_CONFIG), device=dev)
+                        dict(SLICE_CONFIG, **(change or {})), device=dev)
         t, _ = fg.process(scene, fg.initial_state())
         out[dev] = {k: t[k].cpu() for k in ("TriId", "Final")}
     same = (out["cuda"]["TriId"] == out["cpu"]["TriId"]).float().mean().item()
     close = ((out["cuda"]["Final"] - out["cpu"]["Final"]).abs().amax(-1)
              <= 2 / 255).float().mean().item()
-    print(f"small frame card vs cpu: tid_equal={same:.5f} final_within_2/255={close:.5f}")
+    print(f"small frame {change or 'worklist'} card vs cpu: tid_equal={same:.5f} "
+          f"final_within_2/255={close:.5f}")
     check(same >= 0.999 and close >= 0.999, "card frame disagrees with the CPU path")
 
 
@@ -571,10 +893,21 @@ def main() -> int:
     print(f"scene: {scene.geometry.indices.shape[0]} triangles, "
           f"{scene.lights.num} lights, {width}x{height}")
     kernels = check_kernels(scene, width, height, card)
-    launches = run_frames(scene, width, height, card)
-    check_small_frame()
+    variants = check_variant_kernels(scene, width, height, card)
+    config_launches = run_raster_configs(scene, width, height, card)
+    run_rasterize(scene, width, height, card)
+    launches = run_frames(scene, width, height, card)  # profiles last: later frames run slower
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)
+    for k in variants:
+        config = {"raster_stream": "stream", "raster_stream_mxu": "stream_mxu",
+                  "raster_dma": "dma", "raster_dense": "dense",
+                  "resolve_stream": "stream"}[k["name"]]
+        k["launches"] = config_launches[config].get(k["name"], 0)
+    kernels += variants
+    check_small_frame()
+    for change in RASTER_CONFIGS.values():
+        check_small_frame(change)
     del scene
     tracer_kernels = check_tracer_kernels(card)
     launches = run_tracer(card)

@@ -132,14 +132,6 @@ def _check_config(config: dict, names: list[str]) -> None:
     unsupported = []
     if "DepthPrepass" in names and config.get("hiz_culling", True):
         unsupported.append("hiz_culling=True (needs the DepthHighZ node)")
-    if config.get("raster_mode", "stream") != "stream":
-        unsupported.append(f"raster_mode={config['raster_mode']!r}")
-    if not config.get("raster_worklist", True):
-        unsupported.append("raster_worklist=False")
-    if config.get("raster_mxu", False):
-        unsupported.append("raster_mxu=True")
-    if not config.get("fused_resolve", True):
-        unsupported.append("fused_resolve=False")
     if config.get("tonemap", "aces") != "aces":
         unsupported.append(f"tonemap={config['tonemap']!r}")
     if unsupported:

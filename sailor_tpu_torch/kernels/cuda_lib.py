@@ -26,7 +26,9 @@ import threading
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_SOURCES = ("raster.cu", "resolve.cu", "shade.cu", "slab_entry.cu", "sweep.cu")
+_SOURCES = ("raster.cu", "raster_stream.cu", "raster_dma.cu", "raster_dense.cu",
+            "resolve.cu", "resolve_stream.cu", "shade.cu", "slab_entry.cu",
+            "sweep.cu")
 # -fmad=false: the rounding rule of csrc/common.cuh
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -45,6 +47,21 @@ _SIGNATURES = {
     # depth, tid, tiles_y, tiles_x, chunk, stream
     "sailor_raster_worklist": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _P),
+    # rows, ncols, big_rows, nbig_rows, n_big*, c0, spt, zlo, zhi, depth,
+    # tid, tiles_y, tiles_x, chunk, mxu, stream
+    "sailor_raster_stream": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _P),
+    # rows, ncols, big_rows, nbig_rows, n_big*, w0, nw, zlo, zhi, depth,
+    # tid, tiles_y, tiles_x, dchunk, stream
+    "sailor_raster_dma": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _P),
+    # rows, width, ids, counts, cap, zlo, zhi, depth, tid, tiles_y,
+    # tiles_x, stream
+    "sailor_raster_dense": (_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P),
+    # rows, ncols, big_rows, nbig_rows, tid, starts, counts, c0, spt, par,
+    # out, n_out, tiles_y, tiles_x, chunk, stream
+    "sailor_resolve_stream": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _P),
     # rows, ncols, big_rows, nbig_rows, tid, starts, counts, par, out,
     # n_out, mode, tiles_y, tiles_x, stream
     "sailor_resolve_worklist": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I,

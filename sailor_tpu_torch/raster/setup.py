@@ -92,14 +92,24 @@ def _near_clip(clip_tri):
 
 
 def triangle_setup(geometry: Geometry, view_projection, *, width: int,
-                   height: int, cull: str = "back"):
+                   height: int, cull: str = "back",
+                   zplane_rounding: str = "frame"):
     """Project triangles to screen space and build raster coefficients.
 
     Pixel (0,0) is top-left with samples at pixel centres; NDC y up, screen
     y down; reverse-Z depth in [0, 1]. Triangles crossing the near plane are
     clipped into up to two sub-triangles. Returns (TriangleSetup,
     (xmin, xmax, ymin, ymax)).
+
+    ``zplane_rounding``: the reference's CPU build fuses the depth plane's
+    three-term sums in an order its fusion picks. Inside the frame graph's
+    stream and DMA paths z1*c1 is rounded first ("frame"); where the setup
+    compiles alone, as in ``raster.rasterize`` and beside the dense binning,
+    z0*c0 is rounded first for the x slope and the constant ("standalone").
+    The depth of every pixel follows, so the port takes the caller's.
     """
+    if zplane_rounding not in ("frame", "standalone"):
+        raise ValueError(f"unknown zplane_rounding {zplane_rounding!r}")
     p = geometry.position
     clip_pos = transform_point_h(view_projection, p)
     tri = geometry.indices.long()
@@ -159,7 +169,11 @@ def triangle_setup(geometry: Geometry, view_projection, *, width: int,
     c0 = torch.stack([y1 - y2, x2 - x1, m12], dim=-1)
     c1 = torch.stack([y2 - y0, x0 - x2, fma(x2, y0, -(x0 * y2))], dim=-1)
     c2 = torch.stack([y0 - y1, x1 - x0, fma(x0, y1, -(x1 * y0))], dim=-1)
-    zplane = fma(z2[:, None], c2, fma(z0[:, None], c0, z1[:, None] * c1)) * inv_det[:, None]
+    first = fma(z0[:, None], c0, z1[:, None] * c1)
+    if zplane_rounding == "standalone":
+        x_and_c = torch.tensor([True, False, True], device=first.device)
+        first = torch.where(x_and_c, fma(z1[:, None], c1, z0[:, None] * c0), first)
+    zplane = fma(z2[:, None], c2, first) * inv_det[:, None]
 
     xmin = tx.amin(dim=-1)
     xmax = tx.amax(dim=-1)
@@ -181,20 +195,13 @@ def _tile_index(v, tile: int, n: int):
         torch.int32).clamp(0, n - 1)
 
 
-def bin_sorted(valid, screen_aabb, *, tiles_x: int, tiles_y: int,
-               tile_w: int, tile_h: int, big_capacity: int = 64):
-    """Ragged sort-based binning: the sorted candidate array IS the bin.
-
-    Each small triangle (spanning <= 2x2 tiles) emits its distinct corner
-    tiles as keys tile * T + id; one sort groups them tile-major, so inside
-    a tile's segment the ids ascend and appear once. Bigger triangles go to
-    a separate compacted list that every tile tests.
-
-    Returns (order, starts, counts, big_ids, n_big, overflow) like the JAX
-    twin: order (4T,) int32 with -1 sentinels, starts/counts (Tiles,)
-    int32, big_ids (big_capacity,) int32 -1 padded, n_big and overflow
-    0-d int32.
-    """
+def _small_keys(valid, screen_aabb, *, tiles_x: int, tiles_y: int,
+                tile_w: int, tile_h: int):
+    """The sort shared by both binnings. Each small triangle (spanning <= 2x2
+    tiles) emits its distinct corner tiles as keys tile * T + id; one sort
+    groups them tile-major, so inside a tile's segment the ids ascend and
+    appear once. Returns (order (4T,) int32 with -1 sentinels, starts,
+    counts (Tiles,) int32, big (T,) bool, tile ranges (tx0, tx1, ty0, ty1))."""
     xmin, xmax, ymin, ymax = screen_aabb
     t = valid.shape[0]
     dev = valid.device
@@ -227,7 +234,25 @@ def bin_sorted(valid, screen_aabb, *, tiles_x: int, tiles_y: int,
     bounds = torch.searchsorted(s_tile, tile_ids).to(torch.int32)
     starts = bounds[:-1]
     counts = bounds[1:] - starts
+    return order, starts, counts, big, (tx0, tx1, ty0, ty1)
 
+
+def bin_sorted(valid, screen_aabb, *, tiles_x: int, tiles_y: int,
+               tile_w: int, tile_h: int, big_capacity: int = 64):
+    """Ragged sort-based binning: the sorted candidate array IS the bin.
+
+    Small triangles go to their tiles' segments (``_small_keys``); bigger
+    ones to a separate compacted list that every tile tests.
+
+    Returns (order, starts, counts, big_ids, n_big, overflow) like the JAX
+    twin: order (4T,) int32 with -1 sentinels, starts/counts (Tiles,)
+    int32, big_ids (big_capacity,) int32 -1 padded, n_big and overflow
+    0-d int32.
+    """
+    dev = valid.device
+    order, starts, counts, big, _ = _small_keys(
+        valid, screen_aabb, tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w,
+        tile_h=tile_h)
     big_idx = torch.nonzero(big).flatten().to(torch.int32)
     n_big_raw = big_idx.shape[0]
     big_ids = torch.full((big_capacity,), -1, dtype=torch.int32, device=dev)
@@ -237,3 +262,59 @@ def bin_sorted(valid, screen_aabb, *, tiles_x: int, tiles_y: int,
     overflow = torch.tensor(max(n_big_raw - big_capacity, 0),
                             dtype=torch.int32, device=dev)
     return order, starts, counts, big_ids, n_big, overflow
+
+
+def bin_all(valid, screen_aabb, *, tiles_x: int, tiles_y: int, tile_w: int,
+            tile_h: int, capacity: int, rounds: int = 1,
+            big_capacity: int = 64):
+    """Dense binning into fixed-capacity slot tables, for the dense raster.
+
+    The small triangles' sorted segments (``_small_keys``) are cut into
+    ``rounds`` passes of ``capacity`` slots per tile; the first
+    ``big_capacity`` big triangles (ascending id) make one more pass, each
+    tile listing those whose tile range covers it, live slots first.
+
+    Returns (passes, overflow): passes a list of (bins (Ty, Tx, C) int32
+    ids -1 padded, counts (Ty, Tx) int32), overflow a 0-d int32 of the
+    small candidates past rounds * capacity plus the big triangles past
+    big_capacity. The tables stay on the tensors' device.
+    """
+    t = valid.shape[0]
+    dev = valid.device
+    ntiles = tiles_y * tiles_x
+    # the reference packs sort keys tile * t + id into int32
+    if (ntiles + 1) * t >= 2**31:
+        raise ValueError(
+            f"bin_all: {t} raster triangles x {ntiles} tiles overflows the "
+            "int32 sort key — split the scene or raster in slices")
+    order, starts, counts, big, (tx0, tx1, ty0, ty1) = _small_keys(
+        valid, screen_aabb, tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w,
+        tile_h=tile_h)
+    passes = []
+    slots = torch.arange(capacity, dtype=torch.int32, device=dev)
+    for r in range(rounds):
+        off = r * capacity
+        ok = (off + slots[None, :]) < counts[:, None]
+        idx = torch.where(ok, starts[:, None] + off + slots[None, :],
+                          torch.zeros_like(ok, dtype=torch.int32))
+        bins = torch.where(ok, order[idx.long()], torch.full_like(idx, -1))
+        passes.append((bins.reshape(tiles_y, tiles_x, capacity),
+                       torch.clamp(counts - off, 0, capacity).reshape(tiles_y, tiles_x)))
+    overflow = torch.clamp(counts - rounds * capacity, min=0).sum().to(torch.int32)
+
+    big_idx = torch.nonzero(big).flatten().to(torch.int32)
+    n_big = big_idx.shape[0]
+    big_ids = torch.full((big_capacity,), -1, dtype=torch.int32, device=dev)
+    big_ids[:min(n_big, big_capacity)] = big_idx[:big_capacity]
+    safe = torch.clamp(big_ids, min=0).long()
+    cy = torch.arange(tiles_y, dtype=torch.int32, device=dev)[:, None, None]
+    cx = torch.arange(tiles_x, dtype=torch.int32, device=dev)[None, :, None]
+    ov = ((cy >= ty0[safe]) & (cy <= ty1[safe]) & (cx >= tx0[safe])
+          & (cx <= tx1[safe]) & (big_ids >= 0))               # (Ty, Tx, B)
+    big_bins = torch.where(ov, safe.to(torch.int32), torch.full_like(big_ids, -1))
+    # live slots first, in slot order (a stable sort of the dead flags)
+    perm = torch.sort((~ov).to(torch.uint8), dim=-1, stable=True).indices
+    big_bins = torch.gather(big_bins, -1, perm)
+    passes.append((big_bins, ov.sum(dim=-1, dtype=torch.int32)))
+    overflow = overflow + max(n_big - big_capacity, 0)
+    return passes, overflow.to(torch.int32)

@@ -1,19 +1,30 @@
-"""Visibility-buffer raster (B1) and fused attribute resolve (B2).
+"""Visibility-buffer raster and fused attribute resolve (counterpart of
+sailor_tpu/raster/tile_raster.py).
 
-Counterpart of sailor_tpu/raster/tile_raster.py, work-list path only:
+Each TPU kernel has a wrapper that launches its CUDA kernel for a CUDA
+tensor and runs its plain PyTorch twin for a CPU tensor; any other device
+raises and nothing falls back:
 
-- ``rasterize_worklist`` replaces the Pallas kernel ``_raster_kernel_worklist``
-  (with ``_test_chunk`` and ``_merge_chunk``): per 64x128 screen tile, test
-  the tile's binned candidate rows and keep the max reverse-Z winner id per
-  pixel. On a CUDA tensor it launches ``csrc/raster.cu``; on a CPU tensor it
-  runs ``rasterize_worklist_plain``, which walks the same work list in
-  Python with vectorised torch ops per window.
-- ``resolve_worklist`` replaces ``_resolve_kernel_worklist`` (with
-  ``_resolve_accumulate`` and ``_resolve_emit``): fetch each pixel's winning
-  attribute row and interpolate it along the pixel ray. ``csrc/resolve.cu``
-  on the card, ``resolve_worklist_plain`` on the CPU.
+- B1 ``rasterize_worklist`` (``_raster_kernel_worklist``): per 64x128 tile,
+  the tile's binned candidates over a flat work list of windows;
+  ``csrc/raster.cu``.
+- B7 ``rasterize_stream`` (``_raster_kernel_stream`` and
+  ``_raster_kernel_stream_mxu``): B1's math over each tile's first
+  ``kmax`` whole ``chunk``-aligned windows; ``csrc/raster_stream.cu``.
+- B8 ``rasterize_dma`` (``_raster_kernel_dma``): each tile walks its exact
+  span of ``dchunk`` windows, no cap; ``csrc/raster_dma.cu``.
+- B9 ``rasterize_tiles`` (``_raster_kernel``): fixed-capacity dense bins,
+  one pass per call, AABB clamp optional; ``csrc/raster_dense.cu``.
+- B2 ``resolve_worklist`` (``_resolve_kernel_worklist``) and B10
+  ``resolve_stream`` (``_resolve_kernel``): fetch each pixel's winning
+  attribute row and interpolate it along the pixel ray;
+  ``csrc/resolve.cu`` and ``csrc/resolve_stream.cu``.
 
-Any other device raises; nothing falls back.
+The raster twins share one merge rule, the reference's: candidates are
+tested in groups (32 rows, 128 for the MXU form); within a group the max
+reverse-Z wins and equal z goes to the larger id, a later group takes a
+pixel only with strictly greater z. Which rows share a group is part of
+each variant's walk, so each twin walks its own.
 """
 
 from __future__ import annotations
@@ -39,70 +50,32 @@ def _plane(a, b, c, px, py):
     return fma(a, px, b * py) + c
 
 
-def _test_chunk(s, px, py, zlo, zhi):
-    """Edge/depth-test a (C, >=17) row chunk against (P,) pixel centres.
+def _test_rows(s, ids, px, py, zlo, zhi, clamp=True, plane=_plane):
+    """Edge/depth-test (C, >=12) candidate rows against (P,) pixel centres.
 
-    Rows: edge coeffs (9), zplane (3), screen AABB (xmin, xmax, ymin,
-    ymax), float id (-1 dead). Returns (zm (C, P) masked reverse-Z or -1,
-    ids (C,) int32). The AABB clamp stops sub-pixel slivers from covering
-    their whole supporting line."""
-    col = [s[:, i:i + 1] for i in range(17)]
-    ids = s[:, 16].to(torch.int32)
-    inside = ((_plane(col[0], col[1], col[2], px, py) >= EPS)
-              & (_plane(col[3], col[4], col[5], px, py) >= EPS)
-              & (_plane(col[6], col[7], col[8], px, py) >= EPS))
-    inside &= ((px >= col[12] + EPS) & (px <= col[13] - EPS)
-               & (py >= col[14] + EPS) & (py <= col[15] - EPS))
-    z = _plane(col[9], col[10], col[11], px, py)
+    Rows: edge coeffs (9), zplane (3), with ``clamp`` the screen AABB
+    (xmin, xmax, ymin, ymax) at 12:16; ids (C,) int32, -1 dead. Returns zm
+    (C, P), the masked reverse-Z or -1. The AABB clamp stops sub-pixel
+    slivers from covering their whole supporting line."""
+    col = [s[:, i:i + 1] for i in range(16 if clamp else 12)]
+    inside = ((plane(col[0], col[1], col[2], px, py) >= EPS)
+              & (plane(col[3], col[4], col[5], px, py) >= EPS)
+              & (plane(col[6], col[7], col[8], px, py) >= EPS))
+    if clamp:
+        inside &= ((px >= col[12] + EPS) & (px <= col[13] - EPS)
+                   & (py >= col[14] + EPS) & (py <= col[15] - EPS))
+    z = plane(col[9], col[10], col[11], px, py)
     ok = inside & (ids >= 0)[:, None] & (z > 0.0) & (z <= 1.0)
     if zlo is not None:
         ok &= (z > zlo) & (z < zhi)
-    return torch.where(ok, z, torch.full_like(z, -1.0)), ids
+    return torch.where(ok, z, torch.full_like(z, -1.0))
 
 
-def _merge_chunk(best_z, best_id, zm, ids):
-    """Within a chunk the max z wins and equal z goes to the larger id; a
-    later chunk takes a pixel only with strictly greater z."""
-    k_z = zm.amax(dim=0)
-    k_id = torch.where(zm == k_z[None], ids[:, None],
-                       torch.full_like(zm, -1, dtype=torch.int32)).amax(dim=0)
-    take = k_z > best_z
-    return torch.where(take, k_z, best_z), torch.where(take, k_id, best_id)
-
-
-def _window_worklist(starts, counts, ntiles: int, chunk: int, nw_max: int):
-    """Flatten ragged per-tile window segments into per-window work arrays.
-
-    Returns (wt, wk, wabs, b0, b1) over nw_max steps: tile id, window index
-    within the tile (-1 for dead tail steps), absolute window-block index
-    into the sorted rows, and the live CHUNK range [b0, b1) in the window.
-    Every tile has >= 1 window, so the list is tile-major ascending."""
-    dev = starts.device
-    starts = starts.to(torch.int32)
-    counts = counts.to(torch.int32)
-    ends = starts + counts
-    c0 = torch.div(starts, chunk, rounding_mode="floor")
-    c1 = torch.maximum(torch.div(ends + chunk - 1, chunk, rounding_mode="floor"), c0 + 1)
-    spt = c1 - c0
-    off = torch.cumsum(spt, 0).to(torch.int32)
-    nw = off[-1]
-    w = torch.arange(nw_max, dtype=torch.int32, device=dev)
-    t = torch.searchsorted(off, w, right=True).to(torch.int32)
-    live = w < nw
-    last = torch.full_like(t, ntiles - 1)
-    t = torch.where(live, torch.clamp(t, max=ntiles - 1), last)
-    base = torch.where(t > 0, off[torch.clamp(t - 1, min=0).long()],
-                       torch.zeros_like(t))
-    k = w - base
-    wk = torch.where(live, k, torch.full_like(k, -1))
-    tail = torch.clamp(spt[ntiles - 1] - 1, min=0)
-    wabs = c0[t.long()] + torch.where(live, k, tail.expand_as(k))
-    lo = torch.clamp(starts[t.long()] - wabs * chunk, 0, chunk)
-    hi = torch.clamp(ends[t.long()] - wabs * chunk, 0, chunk)
-    zero = torch.zeros_like(lo)
-    b0 = torch.where(live, torch.div(lo, CHUNK, rounding_mode="floor"), zero)
-    b1 = torch.where(live, torch.div(hi + CHUNK - 1, CHUNK, rounding_mode="floor"), zero)
-    return t, wk, wabs, b0, b1
+def _test_chunk(s, px, py, zlo, zhi):
+    """_test_rows on (C, >=17) rows whose column 16 holds the float id.
+    Returns (zm (C, P), ids (C,) int32)."""
+    ids = s[:, 16].to(torch.int32)
+    return _test_rows(s, ids, px, py, zlo, zhi), ids
 
 
 def build_stream_rows(setup, screen_aabb, order, big_ids, attrs=None,
@@ -157,50 +130,33 @@ def _pad_bounds(z_bounds, H, W):
     return zlo.contiguous(), zhi.contiguous()
 
 
+def worklist_span(starts, counts):
+    """Per tile, the rows [lo, hi) that B1 walks after the big list. Its
+    work-list windows are ``chunk``-aligned and each walks its live 32-row
+    groups b0..b1 around the tile's [start, end) segment, so together they
+    walk floor(start / 32) * 32 .. ceil(end / 32) * 32 in order (``chunk``
+    is a multiple of 32)."""
+    lo = torch.div(starts, CHUNK, rounding_mode="floor") * CHUNK
+    hi = torch.div(starts + counts + CHUNK - 1, CHUNK, rounding_mode="floor") * CHUNK
+    return lo, hi
+
+
 def rasterize_worklist_plain(rows, big_rows, starts, counts, n_big, *,
                              tiles_y: int, tiles_x: int, z_bounds=None,
                              chunk: int = 128):
-    """Plain PyTorch B1: walk the work list window by window, in the
-    kernel's order (big list at each tile's first window, then the window's
-    live CHUNK groups), merging each group with _merge_chunk."""
+    """Plain PyTorch B1: per tile, the big list, then the live 32-row
+    groups of its work-list windows (``worklist_span``)."""
     dev = rows.device
-    H, W = tiles_y * TILE_H, tiles_x * TILE_W
-    ntiles = tiles_y * tiles_x
-    nw_max = ntiles + rows.shape[0] // chunk
-    wt, wk, wabs, b0, b1 = (x.tolist() for x in _window_worklist(
-        starts, counts, ntiles, chunk, nw_max))
-    nb = common.cdiv(int(n_big), CHUNK)
-    zlo = zhi = None
-    if z_bounds is not None:
-        zlo, zhi = _pad_bounds(z_bounds, H, W)
-    depth = torch.zeros(H, W, dtype=torch.float32, device=dev)
-    tid = torch.full((H, W), -1, dtype=torch.int32, device=dev)
-    best = None
-    for p in range(nw_max):
-        t, k = wt[p], wk[p]
-        if k < 0:
-            continue
-        ti, tj = divmod(t, tiles_x)
-        win = (slice(ti * TILE_H, (ti + 1) * TILE_H),
-               slice(tj * TILE_W, (tj + 1) * TILE_W))
-        if k == 0:
-            px, py = _tile_pixels(t, tiles_x, dev)
-            zl = zlo[win].reshape(-1) if zlo is not None else None
-            zh = zhi[win].reshape(-1) if zhi is not None else None
-            best = (torch.zeros(TILE_H * TILE_W, dtype=torch.float32, device=dev),
-                    torch.full((TILE_H * TILE_W,), -1, dtype=torch.int32, device=dev))
-            for b in range(nb):
-                zm, ids = _test_chunk(big_rows[b * CHUNK:(b + 1) * CHUNK],
-                                      px, py, zl, zh)
-                best = _merge_chunk(*best, zm, ids)
-        base = wabs[p] * chunk
-        for b in range(b0[p], b1[p]):
-            s = rows[base + b * CHUNK:base + (b + 1) * CHUNK]
-            zm, ids = _test_chunk(s, px, py, zl, zh)
-            best = _merge_chunk(*best, zm, ids)
-        depth[win] = best[0].reshape(TILE_H, TILE_W)
-        tid[win] = best[1].reshape(TILE_H, TILE_W)
-    return depth, tid
+    big = _rows_or_dead(big_rows, common.cdiv(int(n_big), CHUNK) * CHUNK)
+    lo, hi = (x.tolist() for x in worklist_span(starts, counts))
+
+    def tile_rows(t, px, py, zl, zh):
+        def test(s):
+            return _test_chunk(s, px, py, zl, zh)
+        best = _walk(_empty_best(dev), big, CHUNK, test)
+        return _walk(best, rows[lo[t]:hi[t]], CHUNK, test)
+
+    return _raster_tiles_plain(tiles_y, tiles_x, z_bounds, dev, tile_rows)
 
 
 def rasterize_worklist_cuda(rows, big_rows, starts, counts, n_big, *,
@@ -256,6 +212,369 @@ def rasterize_worklist(setup, screen_aabb, order, starts, counts, big_ids,
                     n_big.to(torch.int32).reshape(()), tiles_y=tiles_y,
                     tiles_x=tiles_x, z_bounds=z_bounds, chunk=chunk)
     return depth, tid, torch.zeros((), dtype=torch.int32, device=rows.device)
+
+
+# --------------------------------------------------------------------------
+# B7, B8, B9: the raster variants. Each twin lists, per tile, the candidate
+# rows of its variant's walk in walk order and merges them group by group.
+# --------------------------------------------------------------------------
+
+CHUNK_MXU = 128  # candidates per group of B7's MXU form
+MXU_STRIP = 8    # pixel rows per strip of the MXU form (the TPU's VMEM bound)
+_TWIN_ROWS = 512  # candidate rows a twin tests at once (bounds its memory)
+
+
+def _merge_groups(best_z, best_id, zm, ids):
+    """Merge G consecutive groups (zm (G, C, P), ids (G, C)) into the
+    running winners: within a group the max z wins and equal z goes to the
+    larger id; merging the groups one by one with strictly greater z keeps,
+    per pixel, the first group that reaches the maximum, and only if it
+    beats the running best."""
+    k_z = zm.amax(dim=1)
+    k_id = torch.where(zm == k_z[:, None], ids[:, :, None],
+                       torch.full_like(zm, -1, dtype=torch.int32)).amax(dim=1)
+    m = k_z.amax(dim=0)
+    g = torch.arange(k_z.shape[0], device=zm.device)[:, None]
+    first = torch.where(k_z == m[None], g, torch.full_like(g, k_z.shape[0])).amin(dim=0)
+    pick = k_id.gather(0, first[None]).squeeze(0)
+    take = m > best_z
+    return torch.where(take, m, best_z), torch.where(take, pick, best_id)
+
+
+def _walk(best, rows, group, test):
+    """Merge ``rows`` (N, cols), N a multiple of ``group``, into ``best`` in
+    consecutive groups of ``group`` rows; ``test(s) -> (zm, ids)``."""
+    step = max(group, _TWIN_ROWS // group * group)
+    for i in range(0, rows.shape[0], step):
+        zm, ids = test(rows[i:i + step])
+        g = zm.shape[0] // group
+        best = _merge_groups(*best, zm.reshape(g, group, -1), ids.reshape(g, group))
+    return best
+
+
+def _rows_or_dead(rows, n):
+    """The first n rows of ``rows``, padded with dead rows (id -1) to n."""
+    if rows.shape[0] >= n:
+        return rows[:n]
+    dead = torch.zeros(n - rows.shape[0], rows.shape[1], dtype=rows.dtype,
+                       device=rows.device)
+    dead[:, 16] = -1.0
+    return torch.cat([rows, dead])
+
+
+def _empty_best(dev):
+    return (torch.zeros(TILE_H * TILE_W, dtype=torch.float32, device=dev),
+            torch.full((TILE_H * TILE_W,), -1, dtype=torch.int32, device=dev))
+
+
+def _raster_tiles_plain(tiles_y, tiles_x, z_bounds, dev, tile_rows):
+    """Run ``tile_rows(t, px, py, zl, zh) -> (depth, tid)`` per tile and
+    assemble the (H, W) outputs."""
+    H, W = tiles_y * TILE_H, tiles_x * TILE_W
+    zlo = zhi = None
+    if z_bounds is not None:
+        zlo, zhi = _pad_bounds(z_bounds, H, W)
+    depth = torch.zeros(H, W, dtype=torch.float32, device=dev)
+    tid = torch.full((H, W), -1, dtype=torch.int32, device=dev)
+    for t in range(tiles_y * tiles_x):
+        ti, tj = divmod(t, tiles_x)
+        win = (slice(ti * TILE_H, (ti + 1) * TILE_H),
+               slice(tj * TILE_W, (tj + 1) * TILE_W))
+        px, py = _tile_pixels(t, tiles_x, dev)
+        zl = zlo[win].reshape(-1) if zlo is not None else None
+        zh = zhi[win].reshape(-1) if zhi is not None else None
+        d, i = tile_rows(t, px, py, zl, zh)
+        depth[win] = d.reshape(TILE_H, TILE_W)
+        tid[win] = i.reshape(TILE_H, TILE_W)
+    return depth, tid
+
+
+def _bounds_for_kernel(z_bounds, H, W, dev):
+    if z_bounds is None:
+        return None, None
+    zlo, zhi = _pad_bounds(z_bounds, H, W)
+    cuda_lib.require(zlo, "zlo", torch.float32, (H, W), dev)
+    cuda_lib.require(zhi, "zhi", torch.float32, (H, W), dev)
+    return zlo, zhi
+
+
+def _raster_window_checks(rows, big_rows, chunk, group):
+    ncols = rows.shape[1]
+    if ncols < 17 or big_rows.shape[1] != ncols:
+        raise ValueError("rows and big_rows need the same >= 17 columns")
+    if chunk % group or rows.shape[0] % chunk:
+        raise ValueError(f"windows of {chunk} rows must hold whole groups of "
+                         f"{group} and tile the rows")
+
+
+def _mxu_plane(ox, oy):
+    """The MXU form's plane: the constant re-centred on the tile origin,
+    c_t = c + a*ox + b*oy, then a dot of [a, b, c_t] with the tile-local
+    [dx, dy, 1] (rounding: core.math3d, as the reference's CPU build)."""
+    def plane(a, b, c, px, py):
+        o_x, o_y = (torch.full_like(c, o) for o in (ox, oy))
+        ct = fma(b, o_y, fma(a, o_x, c))
+        return fma(b, py - oy, a * (px - ox)) + ct
+    return plane
+
+
+def _test_chunk_mxu(ox, oy):
+    plane = _mxu_plane(ox, oy)
+
+    def test(s, px, py, zlo, zhi):
+        ids = s[:, 16].to(torch.int32)
+        return _test_rows(s, ids, px, py, zlo, zhi, plane=plane), ids
+    return test
+
+
+def stream_windows(starts, counts, chunk: int, kmax: int):
+    """B7's windows: per tile the first window c0 and the count spt of
+    chunk-aligned windows walked (>= 1, at most kmax), and the candidates
+    the kmax cap leaves out (the reference's overflow)."""
+    starts = starts.to(torch.int32)
+    ends = starts + counts.to(torch.int32)
+    c0 = torch.div(starts, chunk, rounding_mode="floor")
+    c1 = torch.maximum(torch.div(ends + chunk - 1, chunk, rounding_mode="floor"), c0 + 1)
+    spt = torch.clamp(c1 - c0, max=kmax)
+    overflow = torch.clamp(ends - (c0 + kmax) * chunk, min=0).sum().to(torch.int32)
+    return c0.contiguous(), spt.contiguous(), overflow
+
+
+def rasterize_stream_plain(rows, big_rows, c0, spt, n_big, *, tiles_y: int,
+                           tiles_x: int, z_bounds=None, chunk: int = 256,
+                           mxu: bool = False):
+    """Plain PyTorch B7: per tile, the big list, then the whole windows
+    c0 .. c0 + max(spt, 1) - 1 (rows of neighbouring tiles included, which
+    the AABB clamp rejects), in groups of 32 rows, or of 128 with the MXU
+    plane form."""
+    dev = rows.device
+    group = CHUNK_MXU if mxu else CHUNK
+    big = _rows_or_dead(big_rows, common.cdiv(int(n_big), group) * group)
+    c0l, sptl = c0.tolist(), spt.tolist()
+
+    def tile_rows(t, px, py, zl, zh):
+        ti, tj = divmod(t, tiles_x)
+        chunk_test = (_test_chunk_mxu(float(tj * TILE_W), float(ti * TILE_H))
+                      if mxu else _test_chunk)
+
+        def test(s):
+            return chunk_test(s, px, py, zl, zh)
+        best = _walk(_empty_best(dev), big, group, test)
+        win = rows[c0l[t] * chunk:(c0l[t] + max(sptl[t], 1)) * chunk]
+        return _walk(best, win, group, test)
+
+    return _raster_tiles_plain(tiles_y, tiles_x, z_bounds, dev, tile_rows)
+
+
+def rasterize_stream_cuda(rows, big_rows, c0, spt, n_big, *, tiles_y: int,
+                          tiles_x: int, z_bounds=None, chunk: int = 256,
+                          mxu: bool = False):
+    """B7 on the card: csrc/raster_stream.cu, one launch."""
+    dev = rows.device
+    ntiles = tiles_y * tiles_x
+    H, W = tiles_y * TILE_H, tiles_x * TILE_W
+    _raster_window_checks(rows, big_rows, chunk, CHUNK_MXU if mxu else CHUNK)
+    cuda_lib.require(rows, "rows", torch.float32)
+    cuda_lib.require(big_rows, "big_rows", torch.float32, device=dev)
+    cuda_lib.require(c0, "c0", torch.int32, (ntiles,), dev)
+    cuda_lib.require(spt, "spt", torch.int32, (ntiles,), dev)
+    cuda_lib.require(n_big, "n_big", torch.int32, (), dev)
+    zlo, zhi = _bounds_for_kernel(z_bounds, H, W, dev)
+    depth = torch.empty(H, W, dtype=torch.float32, device=dev)
+    tid = torch.empty(H, W, dtype=torch.int32, device=dev)
+    lib = cuda_lib.load()
+    err = lib.sailor_raster_stream(
+        rows.data_ptr(), rows.shape[1], big_rows.data_ptr(), big_rows.shape[0],
+        n_big.data_ptr(), c0.data_ptr(), spt.data_ptr(), cuda_lib.ptr(zlo),
+        cuda_lib.ptr(zhi), depth.data_ptr(), tid.data_ptr(), tiles_y, tiles_x,
+        chunk, 1 if mxu else 0, cuda_lib.stream_of(rows))
+    cuda_lib.check(err, "sailor_raster_stream")
+    cuda_lib.LAUNCHES["raster_stream_mxu" if mxu else "raster_stream"] += 1
+    return depth, tid
+
+
+def rasterize_stream(setup, screen_aabb, order, starts, counts, big_ids,
+                     n_big, *, tiles_y: int, tiles_x: int, z_bounds=None,
+                     chunk: int = 256, kmax: int = 16, prebuilt=None,
+                     mxu: bool = False):
+    """Raster from bin_sorted's ragged bins over each tile's first ``kmax``
+    whole ``chunk``-aligned windows (B7); ``mxu`` evaluates each plane
+    re-centred on the tile origin, 128 candidates a group.
+
+    ``prebuilt``: (rows, big_rows) from build_stream_rows, shared with the
+    fused resolve. Returns (depth, tid, overflow): the candidates past the
+    kmax cap are not tested, and overflow counts them."""
+    if mxu and (chunk % CHUNK_MXU or chunk < CHUNK_MXU):
+        raise ValueError(f"mxu=True requires chunk % {CHUNK_MXU} == 0, got {chunk}")
+    if mxu and TILE_H % MXU_STRIP:
+        raise ValueError(f"mxu=True requires TILE_H % {MXU_STRIP} == 0, got {TILE_H}")
+    if prebuilt is not None:
+        rows, big_rows = prebuilt
+    else:
+        rows, big_rows, _ = build_stream_rows(setup, screen_aabb, order,
+                                              big_ids, attrs=None, chunk=chunk)
+    c0, spt, overflow = stream_windows(starts, counts, chunk, kmax)
+    fn = cuda_lib.dispatch(rows, rasterize_stream_plain, rasterize_stream_cuda)
+    depth, tid = fn(rows, big_rows, c0, spt, n_big.to(torch.int32).reshape(()),
+                    tiles_y=tiles_y, tiles_x=tiles_x, z_bounds=z_bounds,
+                    chunk=chunk, mxu=mxu)
+    return depth, tid, overflow
+
+
+def dma_windows(starts, counts, dchunk: int):
+    """B8's windows: per tile the first window w0 and the count nw of
+    dchunk windows that cover its segment (0 for an empty tile)."""
+    starts = starts.to(torch.int32)
+    counts = counts.to(torch.int32)
+    w0 = torch.div(starts, dchunk, rounding_mode="floor")
+    nw = torch.where(counts > 0,
+                     torch.div(starts + counts + dchunk - 1, dchunk, rounding_mode="floor") - w0,
+                     torch.zeros_like(w0))
+    return w0.contiguous(), nw.contiguous()
+
+
+def rasterize_dma_plain(rows, big_rows, w0, nw, n_big, *, tiles_y: int,
+                        tiles_x: int, z_bounds=None, dchunk: int = 128):
+    """Plain PyTorch B8: per tile, the big list, then its whole windows
+    w0 .. w0 + nw - 1 of ``dchunk`` rows, in groups of 32 rows."""
+    dev = rows.device
+    big = _rows_or_dead(big_rows, common.cdiv(int(n_big), CHUNK) * CHUNK)
+    w0l, nwl = w0.tolist(), nw.tolist()
+
+    def tile_rows(t, px, py, zl, zh):
+        def test(s):
+            return _test_chunk(s, px, py, zl, zh)
+        best = _walk(_empty_best(dev), big, CHUNK, test)
+        return _walk(best, rows[w0l[t] * dchunk:(w0l[t] + nwl[t]) * dchunk], CHUNK, test)
+
+    return _raster_tiles_plain(tiles_y, tiles_x, z_bounds, dev, tile_rows)
+
+
+def rasterize_dma_cuda(rows, big_rows, w0, nw, n_big, *, tiles_y: int,
+                       tiles_x: int, z_bounds=None, dchunk: int = 128):
+    """B8 on the card: csrc/raster_dma.cu, one launch."""
+    dev = rows.device
+    ntiles = tiles_y * tiles_x
+    H, W = tiles_y * TILE_H, tiles_x * TILE_W
+    _raster_window_checks(rows, big_rows, dchunk, CHUNK)
+    cuda_lib.require(rows, "rows", torch.float32)
+    cuda_lib.require(big_rows, "big_rows", torch.float32, device=dev)
+    cuda_lib.require(w0, "w0", torch.int32, (ntiles,), dev)
+    cuda_lib.require(nw, "nw", torch.int32, (ntiles,), dev)
+    cuda_lib.require(n_big, "n_big", torch.int32, (), dev)
+    zlo, zhi = _bounds_for_kernel(z_bounds, H, W, dev)
+    depth = torch.empty(H, W, dtype=torch.float32, device=dev)
+    tid = torch.empty(H, W, dtype=torch.int32, device=dev)
+    lib = cuda_lib.load()
+    err = lib.sailor_raster_dma(
+        rows.data_ptr(), rows.shape[1], big_rows.data_ptr(), big_rows.shape[0],
+        n_big.data_ptr(), w0.data_ptr(), nw.data_ptr(), cuda_lib.ptr(zlo),
+        cuda_lib.ptr(zhi), depth.data_ptr(), tid.data_ptr(), tiles_y, tiles_x,
+        dchunk, cuda_lib.stream_of(rows))
+    cuda_lib.check(err, "sailor_raster_dma")
+    cuda_lib.LAUNCHES["raster_dma"] += 1
+    return depth, tid
+
+
+def rasterize_dma(setup, screen_aabb, order, starts, counts, big_ids, n_big,
+                  *, tiles_y: int, tiles_x: int, z_bounds=None,
+                  dchunk: int = 128):
+    """Raster from bin_sorted's ragged bins, each tile walking its exact
+    window span (B8). No per-tile cap: returns (depth, tid, overflow=0)."""
+    rows, big_rows, _ = build_stream_rows(setup, screen_aabb, order, big_ids,
+                                          attrs=None, chunk=dchunk)
+    w0, nw = dma_windows(starts, counts, dchunk)
+    fn = cuda_lib.dispatch(rows, rasterize_dma_plain, rasterize_dma_cuda)
+    depth, tid = fn(rows, big_rows, w0, nw, n_big.to(torch.int32).reshape(()),
+                    tiles_y=tiles_y, tiles_x=tiles_x, z_bounds=z_bounds,
+                    dchunk=dchunk)
+    return depth, tid, torch.zeros((), dtype=torch.int32, device=rows.device)
+
+
+def _dense_plane(a, b, c, px, py):
+    """B9's inline plane evaluation, a*px + b*py + c, in the rounding of
+    the reference's CPU build (core.math3d)."""
+    return fma(a, px, b * py) + c
+
+
+def rasterize_tiles_plain(rows, ids, counts, *, tiles_y: int, tiles_x: int,
+                          z_bounds=None):
+    """Plain PyTorch B9: per tile, slots 0 .. ceil(count / 32) * 32 of its
+    bin, in groups of 32; rows (Tiles * C, 12 | 16), with the AABB clamp
+    when they carry the screen AABB at 12:16; ids (Tiles * C,) int32."""
+    dev = rows.device
+    cap = rows.shape[0] // (tiles_y * tiles_x)
+    clamp = rows.shape[1] == 16
+    cl = counts.tolist()
+
+    def tile_rows(t, px, py, zl, zh):
+        sl = slice(t * cap, t * cap + common.cdiv(cl[t], CHUNK) * CHUNK)
+
+        def test(s):
+            i = s[:, -1].to(torch.int32)
+            return _test_rows(s[:, :-1], i, px, py, zl, zh, clamp, _dense_plane), i
+        both = torch.cat([rows[sl], ids[sl, None].to(torch.float32)], 1)
+        return _walk(_empty_best(dev), both, CHUNK, test)
+
+    return _raster_tiles_plain(tiles_y, tiles_x, z_bounds, dev, tile_rows)
+
+
+def rasterize_tiles_cuda(rows, ids, counts, *, tiles_y: int, tiles_x: int,
+                         z_bounds=None):
+    """B9 on the card: csrc/raster_dense.cu, one launch."""
+    dev = rows.device
+    ntiles = tiles_y * tiles_x
+    H, W = tiles_y * TILE_H, tiles_x * TILE_W
+    width = rows.shape[1]
+    if width not in (12, 16) or rows.shape[0] % ntiles:
+        raise ValueError("rows need 12 or 16 columns and one bin per tile")
+    cap = rows.shape[0] // ntiles
+    if cap % CHUNK:
+        raise ValueError(f"bin capacity must be a multiple of {CHUNK}")
+    cuda_lib.require(rows, "rows", torch.float32)
+    cuda_lib.require(ids, "ids", torch.int32, (rows.shape[0],), dev)
+    cuda_lib.require(counts, "counts", torch.int32, (ntiles,), dev)
+    zlo, zhi = _bounds_for_kernel(z_bounds, H, W, dev)
+    depth = torch.empty(H, W, dtype=torch.float32, device=dev)
+    tid = torch.empty(H, W, dtype=torch.int32, device=dev)
+    lib = cuda_lib.load()
+    err = lib.sailor_raster_dense(
+        rows.data_ptr(), width, ids.data_ptr(), counts.data_ptr(), cap,
+        cuda_lib.ptr(zlo), cuda_lib.ptr(zhi), depth.data_ptr(), tid.data_ptr(),
+        tiles_y, tiles_x, cuda_lib.stream_of(rows))
+    cuda_lib.check(err, "sailor_raster_dense")
+    cuda_lib.LAUNCHES["raster_dense"] += 1
+    return depth, tid
+
+
+def dense_rows(setup, bins, screen_aabb=None):
+    """B9's inputs from one pass of dense bins: the gathered rows (Tiles *
+    C, 12 | 16: edges, depth plane, with ``screen_aabb`` the AABB) and the
+    ids (Tiles * C,) int32."""
+    safe = torch.clamp(bins, min=0).long()
+    parts = [setup.edge.reshape(-1, 9), setup.zplane]
+    if screen_aabb is not None:
+        parts.append(torch.stack(screen_aabb, dim=1))
+    table = torch.cat(parts, dim=1)
+    rows = table[safe].reshape(-1, table.shape[1]).contiguous()
+    return rows, bins.reshape(-1).to(torch.int32).contiguous()
+
+
+def rasterize_tiles(setup, bins, *, tiles_y: int, tiles_x: int, counts=None,
+                    z_bounds=None, screen_aabb=None):
+    """Raster one pass of dense bins (B9): ``bins`` (Ty, Tx, C) candidate
+    ids, -1 padded; ``counts`` (Ty, Tx) live counts (from the bins when
+    omitted) end each tile's walk early. With ``screen_aabb`` the AABB
+    clamp applies, without it none. Returns (depth (H, W), tid (H, W))."""
+    if bins.shape[-1] % CHUNK:
+        raise ValueError("bin capacity must be a CHUNK multiple")
+    rows, ids = dense_rows(setup, bins, screen_aabb)
+    if counts is None:
+        counts = (bins >= 0).sum(dim=-1)
+    counts = counts.reshape(-1).to(torch.int32).contiguous()
+    fn = cuda_lib.dispatch(rows, rasterize_tiles_plain, rasterize_tiles_cuda)
+    return fn(rows, ids, counts, tiles_y=tiles_y, tiles_x=tiles_x,
+              z_bounds=z_bounds)
 
 
 # --------------------------------------------------------------------------
@@ -359,49 +678,40 @@ def _emit(a, par, px, py, n_out, mode):
     return out
 
 
-def resolve_worklist_plain(rows, big_rows, tid, starts, counts, par, *,
-                           tiles_y: int, tiles_x: int, na: int,
-                           chunk: int = 128, mode: str = "full"):
-    """Plain PyTorch B2: per work-list window, the one-hot selection of the
-    reference (row id == pixel tid, restricted to the tile's own
-    [start, end) segment; the big list unrestricted) accumulates each
-    pixel's winner row; the emit then interpolates. Pixels with no match
-    (tid < 0) get all-zero planes."""
+def _resolve_plain(rows, big_rows, tid, starts, ends, par, *, tiles_y: int,
+                   tiles_x: int, na: int, mode: str):
+    """The reference's one-hot selection, tile by tile: the big list and
+    the tile's rows [starts[t], ends[t]) whose id equals the pixel's tid
+    accumulate its winner row (pixels with none, tid < 0 among them, get
+    all-zero planes); the emit then interpolates."""
     dev = rows.device
     H, W = tiles_y * TILE_H, tiles_x * TILE_W
-    ntiles = tiles_y * tiles_x
     n_out = n_planes(na, mode)
-    nw_max = ntiles + rows.shape[0] // chunk
-    wt, wk, wabs, _, _ = (x.tolist() for x in _window_worklist(
-        starts, counts, ntiles, chunk, nw_max))
-    st, en = starts.tolist(), (starts + counts).tolist()
+    st, en = starts.tolist(), ends.tolist()
     acc = torch.zeros(na, H, W, dtype=torch.float32, device=dev)
-
-    def accumulate(s, ids_ok, tid_f, win):
-        match = ((s[:, 16:17] == tid_f[None]) & ids_ok[:, None]).to(torch.float32)
-        acc[(slice(None),) + win] += (s[:, 17:].T @ match).reshape(-1, TILE_H, TILE_W)
-
-    for p in range(nw_max):
-        t, k = wt[p], wk[p]
-        if k < 0:
-            continue
+    for t in range(tiles_y * tiles_x):
         ti, tj = divmod(t, tiles_x)
         win = (slice(ti * TILE_H, (ti + 1) * TILE_H),
                slice(tj * TILE_W, (tj + 1) * TILE_W))
         tid_f = tid[win].reshape(-1).to(torch.float32)
-        if k == 0:
-            accumulate(big_rows[:, :17 + na], big_rows[:, 16] >= 0, tid_f, win)
-        lo, hi = wabs[p] * chunk, wabs[p] * chunk + chunk
-        if min(en[t], hi) > max(st[t], lo):
-            ridx = torch.arange(lo, hi, device=dev)
-            ok = (rows[lo:hi, 16] >= 0) & (ridx >= st[t]) & (ridx < en[t])
-            accumulate(rows[lo:hi, :17 + na], ok, tid_f, win)
+        s = torch.cat([big_rows[:, :17 + na], rows[st[t]:max(en[t], st[t]), :17 + na]])
+        match = ((s[:, 16:17] == tid_f[None]) & (s[:, 16:17] >= 0)).to(torch.float32)
+        acc[(slice(None),) + win] = (s[:, 17:].T @ match).reshape(-1, TILE_H, TILE_W)
     a = acc.reshape(na, -1)
     ys = torch.arange(H, dtype=torch.float32, device=dev) + 0.5
     xs = torch.arange(W, dtype=torch.float32, device=dev) + 0.5
     py = ys[:, None].expand(H, W).reshape(-1)
     px = xs[None, :].expand(H, W).reshape(-1)
     return [o.reshape(H, W) for o in _emit(a, par, px, py, n_out, mode)]
+
+
+def resolve_worklist_plain(rows, big_rows, tid, starts, counts, par, *,
+                           tiles_y: int, tiles_x: int, na: int,
+                           chunk: int = 128, mode: str = "full"):
+    """Plain PyTorch B2: its work-list windows select from the tile's whole
+    [start, end) segment (``chunk`` changes only the walk's steps)."""
+    return _resolve_plain(rows, big_rows, tid, starts, starts + counts, par,
+                          tiles_y=tiles_y, tiles_x=tiles_x, na=na, mode=mode)
 
 
 def resolve_worklist_cuda(rows, big_rows, tid, starts, counts, par, *,
@@ -456,3 +766,64 @@ def resolve_worklist(rows, big_rows, tid, starts, counts, n_big,
               starts.to(torch.int32).contiguous(),
               counts.to(torch.int32).contiguous(), par, tiles_y=tiles_y,
               tiles_x=tiles_x, na=na, chunk=chunk, mode=mode)
+
+
+def resolve_stream_plain(rows, big_rows, tid, starts, counts, c0, spt, par, *,
+                         tiles_y: int, tiles_x: int, na: int,
+                         chunk: int = 256):
+    """Plain PyTorch B10: the tile's windows c0 .. c0 + max(spt, 1) - 1
+    select from the rows of its [start, end) segment before them; rows past
+    the kmax cap are never read. Full mode."""
+    ends = torch.minimum(starts + counts, (c0 + torch.clamp(spt, min=1)) * chunk)
+    return _resolve_plain(rows, big_rows, tid, starts, ends, par, tiles_y=tiles_y,
+                          tiles_x=tiles_x, na=na, mode="full")
+
+
+def resolve_stream_cuda(rows, big_rows, tid, starts, counts, c0, spt, par, *,
+                        tiles_y: int, tiles_x: int, na: int, chunk: int = 256):
+    """B10 on the card: csrc/resolve_stream.cu, one launch, one thread per
+    pixel; B2's row search bounded by the tile's kmax cap."""
+    dev = rows.device
+    ntiles = tiles_y * tiles_x
+    H, W = tiles_y * TILE_H, tiles_x * TILE_W
+    n_out = n_planes(na, "full")
+    ncols = rows.shape[1]
+    if ncols < 17 + na or big_rows.shape[1] != ncols:
+        raise ValueError(f"rows need >= {17 + na} columns")
+    cuda_lib.require(rows, "rows", torch.float32)
+    cuda_lib.require(big_rows, "big_rows", torch.float32, device=dev)
+    cuda_lib.require(tid, "tid", torch.int32, (H, W), dev)
+    for name, x in (("starts", starts), ("counts", counts), ("c0", c0), ("spt", spt)):
+        cuda_lib.require(x, name, torch.int32, (ntiles,), dev)
+    cuda_lib.require(par, "par", torch.float32, (32,), dev)
+    out = torch.empty(n_out, H, W, dtype=torch.float32, device=dev)
+    lib = cuda_lib.load()
+    err = lib.sailor_resolve_stream(
+        rows.data_ptr(), ncols, big_rows.data_ptr(), big_rows.shape[0],
+        tid.data_ptr(), starts.data_ptr(), counts.data_ptr(), c0.data_ptr(),
+        spt.data_ptr(), par.data_ptr(), out.data_ptr(), n_out, tiles_y,
+        tiles_x, chunk, cuda_lib.stream_of(rows))
+    cuda_lib.check(err, "sailor_resolve_stream")
+    cuda_lib.LAUNCHES["resolve_stream"] += 1
+    return list(out.unbind(0))
+
+
+def resolve_stream(rows, big_rows, tid, starts, counts, n_big, inv_vp,
+                   camera_position, *, tiles_y: int, tiles_x: int, na: int,
+                   width: int, full_height: int, row0=0, chunk: int = 256,
+                   kmax: int = 16):
+    """The fused resolve over B7's grid-k windows (full mode): expand each
+    pixel's winning row from the tile's first ``kmax`` windows and
+    interpolate. Returns the planes in resolve_worklist's order."""
+    H, W = tiles_y * TILE_H, tiles_x * TILE_W
+    if tuple(tid.shape) != (H, W):
+        tid = torch.nn.functional.pad(
+            tid, (0, W - tid.shape[1], 0, H - tid.shape[0]), value=-1)
+    c0, spt, _ = stream_windows(starts, counts, chunk, kmax)
+    par = _resolve_params(inv_vp, camera_position, width, full_height, row0,
+                          rows.device)
+    fn = cuda_lib.dispatch(rows, resolve_stream_plain, resolve_stream_cuda)
+    return fn(rows, big_rows, tid.to(torch.int32).contiguous(),
+              starts.to(torch.int32).contiguous(),
+              counts.to(torch.int32).contiguous(), c0, spt, par,
+              tiles_y=tiles_y, tiles_x=tiles_x, na=na, chunk=chunk)

@@ -3,7 +3,9 @@
 ``raster_work`` counts the (pixel, candidate) pairs the raster must test
 from the rows' AABB columns in closed form; here it is held, exactly, to
 a brute-force count that applies the raster's own float32 AABB test to
-every pixel of every tile (256x128 flagship frame, CPU path).
+every pixel of every tile (256x128 flagship frame, CPU path), over the
+rows each raster variant walks: B1's tile segments, B7's whole windows,
+B8's window spans, and B9's dense slots with and without the clamp.
 
 ``sweep.sweep_plain``'s ``work`` counts the (sub-block, step) pairs B5's
 walk takes and the (ray, triangle) tests of rays live at their step; here
@@ -24,15 +26,16 @@ from sailor_tpu_torch.scenes import flagship_scene
 W, H = 256, 128
 
 
-def _brute_pairs(blocks, tiles_x):
-    """blocks: per tile, its (C, >=17) candidate rows."""
+def _brute_pairs(blocks, tiles_x, clamp=True):
+    """blocks: per tile, its (C, >=17) candidate rows; without the clamp
+    every pixel of the tile is tested."""
     pairs = 0
     for t, q in enumerate(blocks):
         q = q[q[:, 16] >= 0]
         px, py = tr._tile_pixels(t, tiles_x, "cpu")
         ok = ((px >= q[:, 12:13] + tr.EPS) & (px <= q[:, 13:14] - tr.EPS)
               & (py >= q[:, 14:15] + tr.EPS) & (py <= q[:, 15:16] - tr.EPS))
-        pairs += int(ok.sum())
+        pairs += int(ok.sum()) if clamp else q.shape[0] * px.numel()
     return pairs
 
 
@@ -138,3 +141,38 @@ def test_sweep_work_counts_walked_pairs_and_live_tests(any_hit):
     # dead rays (and, for any hit, the rest of a step after its first hit)
     # are not charged: fewer tests than 256 x 256 a pair
     assert 0 < tests < pairs * sweep.SUB * sweep.CLUSTER
+
+
+@pytest.mark.parametrize("variant", ["stream", "dma", "dense_aabb", "dense_no_aabb"])
+def test_raster_work_counts_variant_walks(frame_rows, variant):
+    """The walks chip_smoke.check_variant_kernels charges each variant."""
+    sb, tiles_y, tiles_x = frame_rows
+    rows, big, starts, counts, n_big = (sb["rows"], sb["big_rows"], sb["starts"],
+                                        sb["counts"], sb["n_big"])
+    ntiles = tiles_y * tiles_x
+    clamp = variant != "dense_no_aabb"
+    if variant == "stream":
+        c0, spt, _ = tr.stream_windows(starts, counts, 256, 2)
+        first, walked = c0 * 256, torch.clamp(spt, min=1) * 256
+    elif variant == "dma":
+        w0, nw = tr.dma_windows(starts, counts, 128)
+        first, walked = w0 * 128, nw * 128
+    else:  # dense slots: each tile's segment copied into a bin of 256 slots
+        cap = 256
+        dense = torch.zeros(ntiles * cap, rows.shape[1])
+        dense[:, 16] = -1.0
+        for t, (s0, c) in enumerate(zip(starts.tolist(), counts.tolist())):
+            dense[t * cap:t * cap + min(c, cap)] = rows[s0:s0 + min(c, cap)]
+        rows, big, n_big = dense, rows[:0], 0
+        first = torch.arange(ntiles, dtype=torch.int32) * cap
+        walked = (torch.clamp(counts, max=cap) + 31) // 32 * 32
+    blocks = [torch.cat([rows[f:f + w], big[:int(n_big)]])
+              for f, w in zip(first.tolist(), walked.tolist())]
+    cand, pairs = chip_smoke.raster_work(rows, big, first, walked, n_big, tiles_y, tiles_x,
+                                         clamp=clamp)
+    assert cand == (sum(int((rows[f:f + w, 16] >= 0).sum())
+                        for f, w in zip(first.tolist(), walked.tolist()))
+                    + int((big[:int(n_big)][:, 16] >= 0).sum()))
+    expected = _brute_pairs(blocks, tiles_x, clamp)
+    assert expected > 1000
+    assert pairs == expected

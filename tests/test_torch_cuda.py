@@ -20,7 +20,10 @@ the kernel inputs its own nodes make. Tolerances, from the arithmetic:
 - shade: 1e-5 relative (same order; rsqrt may differ by an ulp);
 - slab entry (B4): bit-equal (the same float32 operations and selects);
 - cluster sweep (B5), closest and any hit: ids and t bit-equal (the same
-  walk and the same left-to-right sums, -fmad=false).
+  walk and the same left-to-right sums, -fmad=false);
+- the raster variants B7 (both plane forms), B8 and B9 (with and without
+  the AABB clamp): depth and ids bit-equal, with and without z bounds;
+- grid-k resolve (B10): held as the resolve above.
 The tracer's kernels run on its own rays: every intersector pass of one
 128x128 sample of the bench tracer scene (camera, bounce-1 and shadow rays),
 and a 64x64 render on the card is held to the CPU path.
@@ -31,6 +34,7 @@ import torch
 
 from chip_smoke import check_small_frame, check_small_trace, frame_inputs, tracer_passes
 from sailor_tpu_torch.kernels import cuda_lib, pbr_kernel
+from sailor_tpu_torch.raster import setup as rsetup
 from sailor_tpu_torch.raster import tile_raster as tr
 from sailor_tpu_torch.raytracing import sweep
 from sailor_tpu_torch.scenes import flagship_scene, tracer_scene
@@ -83,6 +87,91 @@ def test_resolve_kernel_matches_plain(card_frame, na, mode):
     got = torch.stack(tr.resolve_worklist_cuda(*args, **kw))
     ref = torch.stack(tr.resolve_worklist_plain(*args, **kw))
     assert got.shape[0] == {"full": 13 if na == 37 else 29, "alpha": 5}[mode]
+    assert (got == ref).float().mean().item() >= 1 - 1e-5
+    assert bool(((got - ref).abs() <= 1e-4 * (1 + ref.abs())).all())
+    assert not got[:, tid < 0].any()
+
+
+def _bounds(depth, tid):
+    return (torch.zeros_like(depth), torch.where(tid >= 0, depth, 2.0))
+
+
+def _equal_launch(name, kernel, plain, args, kw, bounded):
+    if bounded:
+        d0, t0 = kernel(*args, **kw)
+        kw = dict(kw, z_bounds=_bounds(d0, t0))
+    before = cuda_lib.LAUNCHES[name]
+    d_k, t_k = kernel(*args, **kw)
+    assert cuda_lib.LAUNCHES[name] == before + 1
+    d_p, t_p = plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert int((t_p >= 0).sum()) > 100
+    assert torch.equal(t_k, t_p)
+    assert torch.equal(d_k, d_p)
+
+
+@pytest.mark.parametrize("bounded", [False, True], ids=["no_bounds", "z_bounds"])
+@pytest.mark.parametrize("mxu", [False, True], ids=["vpu", "mxu"])
+def test_raster_stream_kernel_matches_plain(card_frame, mxu, bounded):
+    _, (sb, *_rest, tiles_y, tiles_x) = card_frame
+    c0, spt, _ = tr.stream_windows(sb["starts"], sb["counts"], 256, 16)
+    args = (sb["rows"], sb["big_rows"], c0, spt, sb["n_big"])
+    kw = dict(tiles_y=tiles_y, tiles_x=tiles_x, chunk=256, mxu=mxu)
+    _equal_launch("raster_stream_mxu" if mxu else "raster_stream", tr.rasterize_stream_cuda,
+                  tr.rasterize_stream_plain, args, kw, bounded)
+
+
+@pytest.mark.parametrize("bounded", [False, True], ids=["no_bounds", "z_bounds"])
+def test_raster_dma_kernel_matches_plain(card_frame, bounded):
+    _, (sb, *_rest, tiles_y, tiles_x) = card_frame
+    w0, nw = tr.dma_windows(sb["starts"], sb["counts"], 128)
+    args = (sb["rows"], sb["big_rows"], w0, nw, sb["n_big"])
+    kw = dict(tiles_y=tiles_y, tiles_x=tiles_x, dchunk=128)
+    _equal_launch("raster_dma", tr.rasterize_dma_cuda, tr.rasterize_dma_plain, args, kw,
+                  bounded)
+
+
+@pytest.mark.parametrize("bounded", [False, True], ids=["no_bounds", "z_bounds"])
+@pytest.mark.parametrize("clamp", [False, True], ids=["no_aabb", "aabb"])
+@pytest.mark.parametrize("npass", [0, -1], ids=["first_pass", "big_pass"])
+def test_raster_dense_kernel_matches_plain(card_frame, npass, clamp, bounded):
+    """B9 on bin_all's first pass and on its big-triangle pass (64 slots,
+    the ground plane over every pixel)."""
+    _, (sb, targets, *_rest, tiles_y, tiles_x) = card_frame
+    tri, aabb = targets["TriSetup"], targets["TriAABB"]
+    passes, _ = rsetup.bin_all(tri.valid, aabb, tiles_x=tiles_x, tiles_y=tiles_y,
+                               tile_w=tr.TILE_W, tile_h=tr.TILE_H, capacity=256, rounds=2)
+    kw = dict(tiles_y=tiles_y, tiles_x=tiles_x)
+
+    def dense_args(p):
+        bins, counts = passes[p]
+        assert int(counts.max()) > 0
+        rows, ids = tr.dense_rows(tri, bins, aabb if clamp else None)
+        return rows, ids, counts.reshape(-1).to(torch.int32).contiguous()
+
+    if bounded and npass:
+        # behind its own winners the big pass covers a few dozen pixels at
+        # this size: peel it behind the first pass's winners instead
+        kw["z_bounds"] = _bounds(*tr.rasterize_tiles_cuda(*dense_args(0), **kw))
+        bounded = False
+    _equal_launch("raster_dense", tr.rasterize_tiles_cuda, tr.rasterize_tiles_plain,
+                  dense_args(npass), kw, bounded)
+
+
+def test_resolve_stream_kernel_matches_plain(card_frame):
+    scene, (sb, targets, inv_vp, _gb, tiles_y, tiles_x) = card_frame
+    rows, big = sb["rows"], sb["big_rows"]
+    c0, spt, _ = tr.stream_windows(sb["starts"], sb["counts"], 256, 16)
+    tid = tr.rasterize_stream_cuda(rows, big, c0, spt, sb["n_big"], tiles_y=tiles_y,
+                                   tiles_x=tiles_x)[1]
+    par = tr._resolve_params(inv_vp, scene.frame.camera_position, W, H, 0, rows.device)
+    args = (rows, big, tid, sb["starts"], sb["counts"], c0, spt, par)
+    kw = dict(tiles_y=tiles_y, tiles_x=tiles_x, na=37, chunk=256)
+    before = cuda_lib.LAUNCHES["resolve_stream"]
+    got = torch.stack(tr.resolve_stream_cuda(*args, **kw))
+    assert cuda_lib.LAUNCHES["resolve_stream"] == before + 1
+    ref = torch.stack(tr.resolve_stream_plain(*args, **kw))
+    assert got.shape[0] == 13
     assert (got == ref).float().mean().item() >= 1 - 1e-5
     assert bool(((got - ref).abs() <= 1e-4 * (1 + ref.abs())).all())
     assert not got[:, tid < 0].any()

@@ -19,6 +19,12 @@ Tolerances (first test): Depth, TriId, LightIndices and LightCounts
 exact; Main within 1e-4 relative
 (to max(|ref|, 1e-3)) on >= 99.9% of pixels; Final within 2/255 on every
 pixel; adapted luminance within 1e-4 relative.
+
+The third test renders one frame in each other raster configuration the
+reference accepts (dense bins, per-tile DMA walk, grid-k stream with the
+fused grid-k resolve, its MXU plane form, the gather resolve) and holds it
+to the reference's frame in the same configuration at the first test's
+tolerances, with BinOverflow equal.
 """
 
 import jax
@@ -38,12 +44,14 @@ from test_torch_scenes import release_jax_executables  # noqa: F401 (autouse)
 W, H = 256, 128
 
 
+KEYS = ("Depth", "TriId", "LightIndices", "LightCounts", "Main", "Final")
+
+
 def _two_frames(fg, scene, state):
     out = []
     for _ in range(2):
         targets, state = fg.process(scene, state)
-        out.append(({k: np.asarray(targets[k]) for k in
-                     ("Depth", "TriId", "LightIndices", "LightCounts", "Main", "Final")},
+        out.append(({k: np.asarray(targets[k]) for k in KEYS},
                     float(np.asarray(state["avg_luminance"]))))
     return out
 
@@ -103,3 +111,38 @@ def test_frame_with_own_inverse_matches_jax(reference):
         assert (rel <= 1e-2).mean() >= 0.999
         assert (np.abs(got["Final"] - ref["Final"]).max(-1) <= 2 / 255).mean() >= 0.999
         assert abs(g_avg - r_avg) <= 1e-3 * r_avg
+
+
+RASTER_CONFIGS = {
+    "dense": {"raster_mode": "dense"},
+    "dma": {"raster_mode": "dma"},
+    "stream": {"raster_worklist": False},
+    "stream_mxu": {"raster_worklist": False, "raster_mxu": True},
+    "gather_resolve": {"fused_resolve": False},
+}
+
+
+@pytest.mark.parametrize("name", list(RASTER_CONFIGS))
+def test_frame_raster_config_matches_jax(reference, monkeypatch, name):
+    js = reference[0]
+    config = dict(SLICE_CONFIG, **RASTER_CONFIGS[name])
+    mp = pytest.MonkeyPatch()
+    mp.setattr(j_pk, "_rcp", lambda x: 1.0 / x)
+    try:
+        yaml_text = "frame:\n" + "".join(f" - name: {n}\n" for n in MINIMAL_GRAPH)
+        jfg = JFrameGraph(JAsset.from_yaml(yaml_text), W, H, config=config)
+        rt, _ = jfg.process(js, jfg.initial_state())
+        ref = {k: np.asarray(rt[k]) for k in KEYS + ("BinOverflow",)}
+    finally:
+        mp.undo()
+        jax.clear_caches()
+    inv = torch.from_numpy(np.array(jnp.linalg.inv(js.frame.view_projection)))
+    monkeypatch.setattr(t_nodes, "inverse_view_projection", lambda frame: inv)
+    fg = FrameGraph(FrameGraphAsset.from_nodes(MINIMAL_GRAPH), W, H, config, device="cpu")
+    gt, _ = fg.process(torch_scene(js), fg.initial_state())
+    got = {k: np.asarray(gt[k]) for k in KEYS + ("BinOverflow",)}
+    assert (ref["TriId"] >= 0).mean() > 0.3
+    for k in ("TriId", "Depth", "LightCounts", "LightIndices", "BinOverflow"):
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+    assert (_main_rel(got["Main"], ref["Main"]) <= 1e-4).mean() >= 0.999
+    assert np.abs(got["Final"] - ref["Final"]).max() <= 2 / 255

@@ -6,7 +6,8 @@
 - entry points default to the CUDA device and raise when there is none;
 - kernel wrappers take CUDA tensors only, and the dispatch runs the plain
   version only for CPU tensors: nothing falls back;
-- configuration and nodes outside the slice raise NotImplementedError;
+- configuration and nodes outside the ported slices raise
+  NotImplementedError, and every raster configuration builds;
   so do the path tracer's parts that are not ported (textures, env-map
   skies, the BVH8 tracer and scenes too large for the sweep, ray sorting
   inside the intersector).
@@ -102,14 +103,47 @@ def test_kernel_wrappers_take_cuda_tensors_only():
                                        tiles_x=1, prebuilt=(rows.to("meta"), big.to("meta")))
 
 
+@pytest.mark.parametrize("kernel", ["stream", "stream_mxu", "dma", "dense", "resolve_stream"])
+def test_variant_kernel_wrappers_take_cuda_tensors_only(kernel):
+    rows = torch.zeros(256, 54)
+    big = torch.zeros(128, 54)
+    st = torch.zeros(1, dtype=torch.int32)
+    n_big = torch.zeros((), dtype=torch.int32)
+    with pytest.raises(ValueError, match="cuda"):
+        if kernel.startswith("stream"):
+            tile_raster.rasterize_stream_cuda(rows, big, st, st, n_big, tiles_y=1, tiles_x=1,
+                                              mxu=kernel == "stream_mxu")
+        elif kernel == "dma":
+            tile_raster.rasterize_dma_cuda(rows, big, st, st, n_big, tiles_y=1, tiles_x=1)
+        elif kernel == "dense":
+            tile_raster.rasterize_tiles_cuda(torch.zeros(64, 16),
+                                             torch.zeros(64, dtype=torch.int32), st,
+                                             tiles_y=1, tiles_x=1)
+        else:
+            tile_raster.resolve_stream_cuda(rows, big, torch.zeros(64, 128, dtype=torch.int32),
+                                            st, st, st, st, torch.zeros(32), tiles_y=1,
+                                            tiles_x=1, na=37)
+
+
 @pytest.mark.parametrize("change", [
-    {"hiz_culling": True}, {"raster_mode": "dma"}, {"raster_worklist": False},
-    {"raster_mxu": True}, {"fused_resolve": False}, {"tonemap": "uncharted2"},
+    {"hiz_culling": True}, {"tonemap": "uncharted2"},
 ], ids=lambda c: next(iter(c)))
 def test_unsupported_config_raises(change):
     with pytest.raises(NotImplementedError):
         FrameGraph(FrameGraphAsset.from_nodes(MINIMAL_GRAPH), 256, 128,
                    dict(SLICE_CONFIG, **change), device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    {"raster_mode": "dense"}, {"raster_mode": "dma"}, {"raster_worklist": False},
+    {"raster_worklist": False, "raster_mxu": True}, {"fused_resolve": False},
+], ids=["dense", "dma", "stream", "stream_mxu", "gather_resolve"])
+def test_raster_configs_are_ported(change):
+    """Every raster configuration the reference's frame graph accepts builds
+    (test_torch_frame.py renders each against the reference)."""
+    fg = FrameGraph(FrameGraphAsset.from_nodes(MINIMAL_GRAPH), 256, 128,
+                    dict(SLICE_CONFIG, **change), device="cpu")
+    assert fg.config == dict(SLICE_CONFIG, **change)
 
 
 @pytest.mark.parametrize("name", ["DepthHighZ", "ShadowPrepass", "Sky", "Bloom"])

@@ -4,7 +4,7 @@ Inputs: the flagship scene at 512x256 (bench._build_scene, seed 11), fed to
 both packages through scene_from_numpy.
 
 Tolerances:
-- integers (validity, source ids, tile bins, work lists, row ids) exact;
+- integers (validity, source ids, tile bins, work-list walks, row ids) exact;
 - screen AABBs and zmax exact (the same float32 operations);
 - edge coefficients within 1e-6 of max(1, |row|) for every live triangle
   of nonzero area, depth-plane coefficients for every live triangle of at
@@ -98,15 +98,24 @@ def test_bin_sorted_matches_jax(setups):
 
 @pytest.mark.parametrize("chunk", [128, 256])
 def test_window_worklist_matches_jax(setups, chunk):
+    """B1's walk: the rows that the reference's live work-list steps (wabs,
+    b0..b1) cover, in step order, are per tile the rows that the port's
+    worklist_span gives."""
     (jt, ja), _ = setups
     order, starts, counts, *_ = j_setup.bin_sorted(
         jt.valid, ja, tiles_x=TX, tiles_y=TY, tile_w=128, tile_h=64)
     ntiles = TX * TY
     nw_max = ntiles + (order.shape[0] + 2 * chunk) // chunk
-    ref = j_tr._window_worklist(starts, counts, ntiles, chunk, nw_max)
-    got = t_tr._window_worklist(_t(starts), _t(counts), ntiles, chunk, nw_max)
-    for r, g in zip(ref, got):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    wt, wk, wabs, b0, b1 = (np.asarray(a) for a in j_tr._window_worklist(
+        starts, counts, ntiles, chunk, nw_max))
+    ref = [[] for _ in range(ntiles)]
+    for t, k, w, g0, g1 in zip(wt, wk, wabs, b0, b1):
+        if k >= 0:
+            ref[t].extend(range(w * chunk + g0 * 32, w * chunk + g1 * 32))
+    lo, hi = t_tr.worklist_span(_t(starts), _t(counts))
+    assert sum(map(len, ref)) > 0
+    for t in range(ntiles):
+        assert ref[t] == list(range(int(lo[t]), int(hi[t]))), t
 
 
 def test_build_stream_rows_matches_jax(scenes, setups):
@@ -124,3 +133,16 @@ def test_build_stream_rows_matches_jax(scenes, setups):
     np.testing.assert_array_equal(trows.numpy(), np.asarray(rows))
     np.testing.assert_array_equal(tbig.numpy(), np.asarray(big))
     assert jnp.asarray(rows).shape[0] % 256 == 0
+
+
+def test_triangle_setup_standalone_zplane_matches_jax(scenes, setups):
+    """With the rounding of the reference's setup compiled alone (as
+    raster.rasterize and the dense frame path compile it), the depth plane
+    of every live triangle is exact."""
+    js, ts = scenes
+    (jt, _), _ = setups
+    tt, _ = t_setup.triangle_setup(ts.geometry, _t(js.frame.view_projection), width=W,
+                                   height=H, cull="back", zplane_rounding="standalone")
+    valid = np.asarray(jt.valid)
+    assert valid.sum() > 1000
+    np.testing.assert_array_equal(tt.zplane.numpy()[valid], np.asarray(jt.zplane)[valid])
