@@ -32,16 +32,29 @@ Phases, each printed as it ends:
   6. rasterize: raster.rasterize on the flagship geometry at 1920x1088
      (capacity 1024, 4 rounds), timed, with its stats;
   7. tracer kernels: the sweep intersector's kernels (B4 slab entry, B5
-     cluster sweep, closest and any hit) against their plain versions on
-     the path tracer's own rays (bench tracer scene, 512x512: the swizzled
-     camera rays and the incoherent bounce-1 rays of one sample and their
-     shadow rays), timed with CUDA events, with the bound of each;
-  8. trace: the bench tracer scene rendered at 512x512, 4 bounces, 16 spp
-     (the bench's 64 spp cut to 16): 1 warm-up + 3 timed renders, Mrays/s,
-     peak memory, launches per render (B4 = B5 = 2 * bounces * spp), the
-     device idle share of one profiled sample; the image is checked
-     (finite, >= 0) and a 64x64 render on the card is held against the same
-     render on the CPU path with the same uniforms.
+     cluster sweep and B6 dense-grid sweep, closest and any hit) against
+     their plain versions on the path tracer's own rays (bench tracer
+     scene, 512x512: the swizzled camera rays and the incoherent bounce-1
+     rays of one sample and their shadow rays), B6 also against B5 (t bits
+     and ids), timed with CUDA events, with the bound of each;
+  8. trace: the bench tracer scene rendered by ``render_cached`` at
+     512x512, 4 bounces, 16 spp (the bench's 64 spp cut to 16): 1 warm-up +
+     3 timed renders, Mrays/s, peak memory, launches per render (B4 = B5 =
+     2 * bounces * spp), the device idle share of one profiled sample; the
+     image is checked (finite, >= 0) and a 64x64 render on the card is held
+     against the same render on the CPU path with the same uniforms;
+  9. grid trace: the same scene with DMA_SWEEP off (B6 in place of B5) at
+     4 spp: 1 warm-up + 2 renders, Mrays/s, peak memory, launches, a
+     profiled sample; the image equals the B5 render's at the same seed;
+ 10. material balls: the tracer demo scene (examples/trace.py's: ground and
+     eight spheres) at 512x512, 4 bounces, 4 spp, with the default
+     procedural sky baked for miss rays and procedural albedo, normal, ORM
+     and emissive maps on the ground: 1 warm-up + 2 renders with
+     ``render_cached``'s defaults (and a profiled sample), and again with
+     sample_batch=2 and SAILOR_SWEEP_SORT=1; ms, Mrays/s, peak memory,
+     finite and >= 0;
+ 11. small renders: 64x64 renders of the textured material balls with the
+     sky, and of the tracer scene on B6, on the card against the CPU path.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure ends the run with
 a non-zero exit code and no result line.
@@ -66,6 +79,7 @@ SLICE_CONFIG = {
 MINIMAL_GRAPH = ["DepthPrepass", "LinearizeDepth", "LightCulling",
                  "RenderScene", "EyeAdaptation"]
 TRACER = (512, 512, 4, 16)  # width, height, bounces, spp
+TRACER_SPP_CUT = 4  # spp of the grid-sweep and material-ball renders
 # H100 SXM published peaks (NVIDIA data sheet), used for the bound
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -707,16 +721,32 @@ def tracer_passes(scene, cam, view, proj, width, height, seed=0):
 
     path_tracer._isect = recording
     try:
-        path_tracer.render(scene, cam, view, proj, width=width, height=height, spp=1,
-                           max_bounces=2, seed=seed)
+        path_tracer.render_cached(scene, cam, view, proj, width=width, height=height, spp=1,
+                                  max_bounces=2, seed=seed)
     finally:
         path_tracer._isect = isect
     return [dict(sweep.prepare(scene.sweep, p["origin"], p["direction"],
                                active=p["active"]), any_hit=p["any_hit"]) for p in log]
 
 
+def _sweep_bound(p, work):
+    """The least time of a cluster sweep on the pass ``p`` from its twin's
+    ``work``: per (sub-block, step) pair walked, the 25 rows of the cluster
+    block the kernel reads (18 side, 4 num, 3 den: 25 KB); ~45 float
+    operations (three 6-term sides, num, den, divide, compares) per test of
+    a ray live at its step (any hit stops at a ray's first hit); rays'
+    features, tmax and the tables read once, t and index written once."""
+    from sailor_tpu_torch.raytracing import sweep
+
+    rp = p["feats"].shape[0]
+    nbytes = (work["pairs"] * sweep.USED_ROWS * sweep.CLUSTER * 4 + rp * 76
+              + 4 * (p["e_bits"].numel() + 2 * p["order"].numel() + p["nlive"].numel()))
+    return _bound(nbytes, work["tests"] * 45)
+
+
 def check_tracer_kernels(card):
-    """B4 and B5 against their plain versions on the tracer's own rays."""
+    """B4, B5 and B6 against their plain versions on the tracer's own rays,
+    and B6 against B5."""
     import torch
 
     from sailor_tpu_torch.raytracing import sweep
@@ -760,15 +790,7 @@ def check_tracer_kernels(card):
         rel = ((t_k - t_p).abs() / t_p.abs().clamp(min=1e-30))[both]
         err = rel.max().item() if rel.numel() else 0.0
         pairs, tests = work["pairs"], work["tests"]
-        # per (sub-block, step) pair walked, the 25 rows of the cluster block
-        # the kernel reads (18 side, 4 num, 3 den: 25 KB); ~45 float
-        # operations (three 6-term sides, num, den, divide, compares) per
-        # test of a ray live at its step (any hit stops at a ray's first
-        # hit); rays' features, tmax and the tables read once, t and index
-        # written once
-        nbytes = (pairs * sweep.USED_ROWS * sweep.CLUSTER * 4 + rp * 76
-                  + 4 * (p["e_bits"].numel() + 2 * p["order"].numel() + p["nlive"].numel()))
-        bound, by = _bound(nbytes, tests * 45)
+        bound, by = _sweep_bound(p, work)
         kind = "any" if any_hit else "closest"
         print(f"kernel sweep_{kind}[{name}]: id_mismatch={mism} max_rel_err(t)={err:.3g} "
               f"ms={ms:.4f} plain_ms={plain_ms:.2f} bound_ms={bound:.5f} ({by}) "
@@ -778,6 +800,28 @@ def check_tracer_kernels(card):
         rows.setdefault("sweep", {})[name] = dict(
             max_abs_err=(t_k - t_p)[both].abs().max().item() if both.any() else 0.0,
             ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+        # ---- B6 grid sweep: t bits and ids equal to its twin's and to B5's
+        args6 = (p["e_bits"], p["order"], feats, tmax, sw.g_cluster)
+        t_g, i_g = sweep.sweep_grid_cuda(*args6, any_hit=any_hit)
+        work6 = {}
+        plain_ms, (t_gp, i_gp) = _wall_ms(lambda: sweep.sweep_grid_plain(
+            *args6, any_hit=any_hit, work=work6))
+        ms = _time_ms(lambda: sweep.sweep_grid_cuda(*args6, any_hit=any_hit), 10)
+
+        def bits_equal(ta, ia, tb, ib):
+            return bool(torch.equal(ia, ib)) and bool(torch.equal(ta.view(torch.int32),
+                                                                  tb.view(torch.int32)))
+
+        to_twin, to_b5 = bits_equal(t_g, i_g, t_gp, i_gp), bits_equal(t_g, i_g, t_k, i_k)
+        bound, by = _sweep_bound(p, work6)
+        print(f"kernel sweep_grid_{kind}[{name}]: equal_to_twin={to_twin} equal_to_b5={to_b5} "
+              f"ms={ms:.4f} plain_ms={plain_ms:.2f} bound_ms={bound:.5f} ({by}) "
+              f"pairs={work6['pairs']} steps={p['e_bits'].numel()} tests={work6['tests']} "
+              f"b5_ms={rows['sweep'][name]['ms']:.4f} on {card}")
+        check(to_twin and to_b5 and work6 == work,
+              f"grid sweep kernel disagrees with its plain version or with B5 ({name})")
+        rows.setdefault("sweep_grid", {})[name] = dict(
+            max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
     # the JSON rows: the incoherent bounce-1 closest-hit pass
     return [
         dict(name="slab_entry", source="sailor_tpu_torch/csrc/slab_entry.cu",
@@ -786,6 +830,9 @@ def check_tracer_kernels(card):
         dict(name="sweep", source="sailor_tpu_torch/csrc/sweep.cu",
              replaces="sailor_tpu/raytracing/sweep.py:379", route="cuda", library_ms=None,
              **rows["sweep"]["bounce1"]),
+        dict(name="sweep_grid", source="sailor_tpu_torch/csrc/sweep_grid.cu",
+             replaces="sailor_tpu/raytracing/sweep.py:269", route="cuda", library_ms=None,
+             **rows["sweep_grid"]["bounce1"]),
     ]
 
 
@@ -807,11 +854,12 @@ def run_tracer(card):
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.LAUNCHES.clear()
     renders = 4
-    warm_ms, _ = _wall_ms(lambda: path_tracer.render(scene, cam, view, proj, seed=0, **kw))
+    warm_ms, _ = _wall_ms(lambda: path_tracer.render_cached(scene, cam, view, proj, seed=0,
+                                                            **kw))
     times, counts = [], []
     for rep in range(renders - 1):
         ms, (img, rays) = _wall_ms(
-            lambda: path_tracer.render(scene, cam, view, proj, seed=1 + rep, **kw))
+            lambda: path_tracer.render_cached(scene, cam, view, proj, seed=1 + rep, **kw))
         times.append(ms)
         counts.append(float(rays))
     launches = dict(cuda_lib.LAUNCHES)
@@ -831,19 +879,114 @@ def run_tracer(card):
     check(img.min().item() >= 0.0, "image has negative radiance")
     print(f"output: image in [{img.min().item():.4f}, {img.max().item():.4f}] "
           f"mean={img.mean().item():.5f}")
-    profile(lambda: path_tracer.render(scene, cam, view, proj, seed=9,
-                                       **dict(kw, spp=1)), card, "profile_trace_sample")
+    profile(lambda: path_tracer.render_cached(scene, cam, view, proj, seed=9,
+                                              **dict(kw, spp=1)), card, "profile_trace_sample")
     return launches
 
 
-def check_small_trace():
-    """A 64x64 render (4 bounces, 2 spp) of the tracer scene on the card
-    against the same render on the CPU path (which the CPU tests hold to
-    the JAX package), same uniforms: >= 99% of pixels within
-    1e-3 * (1 + |cpu|)."""
+def _timed_renders(label, render, card, renders=3):
+    """1 warm-up + ``renders - 1`` timed calls of ``render(seed)`` with the
+    launch counts cleared before: (last image, per-render launches)."""
     import torch
 
+    from sailor_tpu_torch.kernels import cuda_lib
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.LAUNCHES.clear()
+    warm_ms, _ = _wall_ms(lambda: render(0))
+    times, counts = [], []
+    for rep in range(renders - 1):
+        ms, (img, rays) = _wall_ms(lambda: render(1 + rep))
+        times.append(ms)
+        counts.append(float(rays))
+    launches = dict(cuda_lib.LAUNCHES)
+    per_render = {k: v / renders for k, v in launches.items()}
+    mrays = [c / (ms / 1e3) / 1e6 for c, ms in zip(counts, times)]
+    print(f"{label}: warmup_ms={warm_ms:.1f} render_ms={[round(m, 1) for m in times]} "
+          f"rays={counts} mrays_per_s={[round(m, 4) for m in mrays]} "
+          f"peak_mem_bytes={torch.cuda.max_memory_allocated()} on {card}")
+    print(f"{label}_launches_per_render " + json.dumps(per_render))
+    check(bool(torch.isfinite(img).all()), f"{label}: image has non-finite values")
+    check(img.min().item() >= 0.0, f"{label}: image has negative radiance")
+    return img, launches, per_render
+
+
+def run_tracer_grid(card):
+    """The tracer's main path with DMA_SWEEP off, through B6: the bench
+    tracer scene at TRACER's size and depth, TRACER_SPP_CUT spp; the image
+    must equal the B5 render's at the same seed."""
+    import torch
+
+    from sailor_tpu_torch.raytracing import path_tracer, sweep
+    from sailor_tpu_torch.scenes import tracer_scene
+
+    width, height, bounces, _ = TRACER
+    spp = TRACER_SPP_CUT
+    scene, cam, view, proj = tracer_scene()
+    kw = dict(width=width, height=height, spp=spp, max_bounces=bounces)
+    dma = sweep.DMA_SWEEP
+    try:
+        sweep.DMA_SWEEP = False
+        img, launches, per_render = _timed_renders(
+            f"trace_grid {width}x{height} b{bounces} spp{spp}",
+            lambda seed: path_tracer.render_cached(scene, cam, view, proj, seed=seed, **kw), card)
+        profile(lambda: path_tracer.render_cached(scene, cam, view, proj, seed=9,
+                                                  **dict(kw, spp=1)), card,
+                "profile_trace_grid_sample")
+        check(per_render.get("sweep_grid", 0) == 2 * bounces * spp and "sweep" not in per_render,
+              f"grid trace: {per_render} launches a render, not 2 * bounces * spp of sweep_grid")
+        sweep.DMA_SWEEP = True  # the last timed render's seed, through B5
+        ref, _ = path_tracer.render_cached(scene, cam, view, proj, seed=2, **kw)
+    finally:
+        sweep.DMA_SWEEP = dma
+    same = bool(torch.equal(img, ref))
+    print(f"trace_grid vs B5 render at the same seed: equal={same} "
+          f"max_abs_diff={(img - ref).abs().max().item():.3g}")
+    check(same, "the B6 render differs from the B5 render")
+    return launches
+
+
+def run_material_balls(card):
+    """The tracer demo scene at full width: the procedural sky baked for
+    miss rays, procedural maps on the ground; render_cached's defaults,
+    then sample_batch=2 with SAILOR_SWEEP_SORT=1."""
+    from sailor_tpu_torch.kernels.sky import SkyParams
     from sailor_tpu_torch.raytracing import path_tracer
+    from sailor_tpu_torch.scenes import material_balls
+
+    width, height, bounces, _ = TRACER
+    spp = TRACER_SPP_CUT
+    build_ms, (scene, cam, view, proj) = _wall_ms(
+        lambda: material_balls(sky=SkyParams.default(), textured=True))
+    print(f"material balls: {scene.sweep.num_tris} triangles, env {tuple(scene.env_map.shape)}, "
+          f"mips {scene.mip_sizes}, quad rows {tuple(scene.tex_quad.shape)}, "
+          f"build_ms={build_ms:.1f}, {width}x{height}, {bounces} bounces, {spp} spp")
+    kw = dict(width=width, height=height, spp=spp, max_bounces=bounces)
+    _timed_renders("balls[render_cached]", lambda seed: path_tracer.render_cached(
+        scene, cam, view, proj, seed=seed, **kw), card)
+    profile(lambda: path_tracer.render_cached(scene, cam, view, proj, seed=9, **dict(kw, spp=1)),
+            card, "profile_balls_sample")
+    sort = os.environ.get("SAILOR_SWEEP_SORT")
+    os.environ["SAILOR_SWEEP_SORT"] = "1"
+    try:
+        _timed_renders("balls[sample_batch=2,sort_rays]", lambda seed: path_tracer.render_cached(
+            scene, cam, view, proj, seed=seed, sample_batch=2, **kw), card)
+    finally:
+        if sort is None:
+            del os.environ["SAILOR_SWEEP_SORT"]
+        else:
+            os.environ["SAILOR_SWEEP_SORT"] = sort
+
+
+def check_small_trace(scene_fn=None, label="tracer", grid=False):
+    """A 64x64 render (4 bounces, 2 spp) of ``scene_fn(device)`` (the
+    tracer scene by default; ``grid``: through B6) on the card against the
+    same render on the CPU path (which the CPU tests hold to the JAX
+    package), same uniforms: >= 99% of pixels within 1e-3 * (1 + |cpu|)."""
+    import torch
+
+    from sailor_tpu_torch.raytracing import path_tracer, sweep
     from sailor_tpu_torch.scenes import tracer_scene
 
     w = h = 64
@@ -851,17 +994,31 @@ def check_small_trace():
     gen = torch.Generator().manual_seed(7)
     uniforms = torch.rand((spp, 5 * bounces, path_tracer.rays_per_sample(w, h)), generator=gen)
     out = {}
-    for dev in ("cuda", "cpu"):
-        scene, cam, view, proj = tracer_scene(dev)
-        img, rays = path_tracer.render(scene, cam, view, proj, width=w, height=h, spp=spp,
-                                       max_bounces=bounces, uniforms=uniforms)
-        out[dev] = (img.cpu(), float(rays))
+    dma = sweep.DMA_SWEEP
+    try:
+        sweep.DMA_SWEEP = not grid
+        for dev in ("cuda", "cpu"):
+            scene, cam, view, proj = (scene_fn or tracer_scene)(dev)
+            img, rays = path_tracer.render_cached(scene, cam, view, proj, width=w, height=h,
+                                                  spp=spp, max_bounces=bounces,
+                                                  uniforms=uniforms)
+            out[dev] = (img.cpu(), float(rays))
+    finally:
+        sweep.DMA_SWEEP = dma
     ref = out["cpu"][0]
     close = ((out["cuda"][0] - ref).abs().amax(-1) <= 1e-3 * (1 + ref.abs().amax(-1)))
     share = close.float().mean().item()
-    print(f"small trace card vs cpu: within_1e-3={share:.5f} rays card={out['cuda'][1]} "
+    print(f"small trace {label} card vs cpu: within_1e-3={share:.5f} rays card={out['cuda'][1]} "
           f"cpu={out['cpu'][1]}")
-    check(share >= 0.99, "card render disagrees with the CPU path")
+    check(share >= 0.99, f"card render disagrees with the CPU path ({label})")
+
+
+def textured_sky_balls(device):
+    """The material balls with the default sky and the procedural maps."""
+    from sailor_tpu_torch.kernels.sky import SkyParams
+    from sailor_tpu_torch.scenes import material_balls
+
+    return material_balls(device, sky=SkyParams.default(), textured=True)
 
 
 def main() -> int:
@@ -912,8 +1069,13 @@ def main() -> int:
     tracer_kernels = check_tracer_kernels(card)
     launches = run_tracer(card)
     check_small_trace()
+    launches["sweep_grid"] = run_tracer_grid(card).get("sweep_grid", 0)  # B6's main path
+    run_material_balls(card)
+    check_small_trace(textured_sky_balls, "balls_textured_sky")
+    check_small_trace(label="tracer_grid", grid=True)
     for k in tracer_kernels:
         k["launches"] = launches.get(k["name"], 0)
+        check(k["launches"] > 0, f"{k['name']} was not launched on its main path")
     kernels += tracer_kernels
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -28,7 +28,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _SOURCES = ("raster.cu", "raster_stream.cu", "raster_dma.cu", "raster_dense.cu",
             "resolve.cu", "resolve_stream.cu", "shade.cu", "slab_entry.cu",
-            "sweep.cu")
+            "sweep.cu", "sweep_grid.cu")
 # -fmad=false: the rounding rule of csrc/common.cuh
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -75,6 +75,9 @@ _SIGNATURES = {
     # e_bits, order, blk_bits, nlive, feats, tmax, g_cluster, best_t, best_i,
     # n_sub_blocks, sub-blocks per block, n_clusters, any_hit, stream
     "sailor_sweep": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # e_bits, order, feats, tmax, g_cluster, best_t, best_i, n_sub_blocks,
+    # sub-blocks per block, n_clusters, any_hit, stream
+    "sailor_sweep_grid": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

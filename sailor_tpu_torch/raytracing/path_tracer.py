@@ -10,36 +10,54 @@ refraction, Beer-Lambert and Henyey-Greenstein volume path. Between bounces
 the whole wavefront is sorted by a Morton key of its origins and a
 direction octant (``sort_bounces``), so rays that need the same clusters
 share sub-blocks; ``render`` generates its rays in a tile-swizzled order
-so every 2048-ray block is a compact pixel supertile. Both are on in
-``render``, as the reference's ``render_cached`` sets them with the sweep.
+so every 2048-ray block is a compact pixel supertile, and can pool
+``sample_batch`` samples into one wavefront. ``render`` takes the
+reference's defaults (one sample a pass, no bounce sort, swizzle on unless
+``SAILOR_TRACE_SWIZZLE=0``); ``render_cached`` resolves the three from the
+environment as the reference's does (bounce sort on unless
+``SAILOR_TRACE_BOUNCE_SORT=0``, ``SAILOR_TRACE_SAMPLE_BATCH``), without
+its executable cache. ``SAILOR_SWEEP_SORT=1`` sorts the rays inside every
+intersector pass (``sweep.intersect(sort_rays=True)``).
 
-Random numbers: each sample draws (5 * bounces, R) uniforms (bounce b uses
+Miss rays see an analytic sky gradient, or with ``scene_from_mesh(sky=...)``
+a lat-long map of the procedural sky (``kernels/sky.py``) baked without
+the sun. Hit points sample albedo, tangent-space normal, ORM and emissive
+maps: with the mip pyramid (``SAILOR_TRACE_MIPS``, on by default) through
+one combined quad table at a ray-cone level of detail, else bilinearly
+from mip 0 (``assets/materials.py``).
+
+Random numbers: each pass draws (5 * bounces, R) uniforms (bounce b uses
 rows 5b..5b+4: two for the lobe sample, one for the lobe choice, two for
 volume events), from a ``torch.Generator`` seeded by ``seed``, or takes
 them from the caller (``uniforms``), which is how the tests feed both
 packages the same numbers.
 
-Not ported (they raise NotImplementedError): textures, env-map skies
-(``sky=``), the BVH8 tracer and scenes over 262,144 triangles. Nor are
-the reference's ``sample_batch`` pooling and sharded ``trace_rays``.
+Not ported (they raise NotImplementedError): the BVH8 tracer and scenes
+over 262,144 triangles; nor is the reference's sharded ``trace_rays``. The
+reference leaves the sweep for BVH8 where the sweep's scalar tables would
+outgrow the TPU's 1 MiB scalar memory (``sweep.scalar_bytes``, from 4
+pooled samples at 512x512); the port has no such limit and keeps the sweep.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
+import os
 
 import numpy as np
 import torch
 
+from sailor_tpu_torch.assets import materials as mat_mod
 from sailor_tpu_torch.config import resolve_device
 from sailor_tpu_torch.core import math3d as m3
+from sailor_tpu_torch.kernels import sky as sky_mod
 from sailor_tpu_torch.raytracing import bluenoise
 from sailor_tpu_torch.raytracing import lighting_model as lm
 from sailor_tpu_torch.raytracing import sweep as sweep_mod
 
 MAX_SWEEP_TRIANGLES = 262144
-_TEXTURE_KEYS = ("albedo_texture", "normal_texture", "orm_texture", "emissive_texture")
 
 
 @dataclasses.dataclass
@@ -49,7 +67,7 @@ class TraceScene:
     # 17 transmission | 18 ior | 19:22 atten_color | 22 atten_dist |
     # 23 scatter | 24 hg_g | 25:31 corner uvs | 31 albedo_tex (-1) |
     # 32:35 face tangent | 35 bitangent sign | 36 normal_tex | 37 orm_tex |
-    # 38 emissive_tex | 39 texel density term | 40:48 zero
+    # 38 emissive_tex | 39 texel density term | 40 quad group | 41:48 zero
     tri_pack: torch.Tensor
     sweep: sweep_mod.SweepScene
     sun_direction: torch.Tensor  # (3,) from the sun toward the scene
@@ -57,6 +75,19 @@ class TraceScene:
     sky_zenith: torch.Tensor     # (3,)
     sky_horizon: torch.Tensor    # (3,)
     has_volumes: bool = False    # any transmissive material
+    # (He, We, 3) sun-less lat-long bake of the procedural sky, or None
+    env_map: torch.Tensor | None = None
+    # textures: the (N, S, S, 4) mip-0 stack, its (N * TPL, 4) mip table and
+    # the combined (G * TPL, C) quad rows with their blocks ((name, off, nch))
+    textures: torch.Tensor | None = None
+    tex_lod: torch.Tensor | None = None
+    mip_sizes: tuple = ()
+    tex_quad: torch.Tensor | None = None
+    quad_blocks: tuple = ()
+    has_textures: bool = False
+    has_normal_maps: bool = False
+    has_orm_maps: bool = False
+    has_emissive_maps: bool = False
 
     @property
     def device(self) -> torch.device:
@@ -64,28 +95,37 @@ class TraceScene:
 
 
 TRACE_KEYS = ("tri_pack", "sun_direction", "sun_intensity", "sky_zenith", "sky_horizon")
+OPTIONAL_KEYS = ("env_map", "textures", "tex_lod", "tex_quad")
+FLAGS = ("has_textures", "has_normal_maps", "has_orm_maps", "has_emissive_maps")
 
 
 def trace_scene_from_numpy(arrays: dict, sweep_arrays: dict, has_volumes: bool,
-                           device="cuda") -> TraceScene:
-    """A TraceScene from numpy arrays: ``arrays`` holds TRACE_KEYS and
-    ``sweep_arrays`` the SweepScene fields (``sweep.build_arrays``' output,
-    or the JAX package's TraceScene and SweepScene fields of those names)."""
+                           device="cuda", mip_sizes=(), quad_blocks=(),
+                           **flags) -> TraceScene:
+    """A TraceScene from numpy arrays: ``arrays`` holds TRACE_KEYS and those
+    of OPTIONAL_KEYS the scene has, ``sweep_arrays`` the SweepScene fields
+    (``sweep.build_arrays``' output, or the JAX package's TraceScene and
+    SweepScene fields of those names); ``flags`` are FLAGS."""
     dev = resolve_device(device)
-    t = {k: torch.from_numpy(np.ascontiguousarray(arrays[k], np.float32)).to(dev)
-         for k in TRACE_KEYS}
+    t = {k: torch.from_numpy(np.array(arrays[k], np.float32)).to(dev)
+         for k in TRACE_KEYS + OPTIONAL_KEYS if arrays.get(k) is not None}
     return TraceScene(sweep=sweep_mod.sweep_scene_from_numpy(sweep_arrays, dev),
-                      has_volumes=bool(has_volumes), **t)
+                      has_volumes=bool(has_volumes), mip_sizes=tuple(mip_sizes),
+                      quad_blocks=tuple(quad_blocks),
+                      **{k: bool(v) for k, v in flags.items()}, **t)
 
 
 def scene_from_mesh(soup: dict, materials: dict | None = None, *,
                     sun_direction=(-0.4, -0.8, -0.45), sun_intensity=(4.0, 3.8, 3.5),
                     sky_zenith=(0.25, 0.45, 0.85), sky_horizon=(0.8, 0.85, 0.95),
-                    tracer: str = "auto", sky=None, device="cuda") -> TraceScene:
+                    tracer: str = "auto", sky=None, env_size=(128, 256),
+                    device="cuda") -> TraceScene:
     """Build a TraceScene from a merged primitive soup (host numpy, then
-    moved to ``device``), with the reference's numpy calls."""
-    if sky is not None:
-        raise NotImplementedError("env-map skies (sky=) are not ported")
+    moved to ``device``), with the reference's numpy calls. ``sky``: a
+    ``kernels.sky.SkyParams`` whose sun-less radiance is baked on ``device``
+    into an ``env_size`` lat-long map for miss rays; None keeps the analytic
+    gradient."""
+    dev = resolve_device(device)
     if tracer not in ("auto", "sweep"):
         raise NotImplementedError(f"tracer={tracer!r} is not ported; the sweep is")
     pos = np.asarray(soup["position"], np.float32)
@@ -106,10 +146,16 @@ def scene_from_mesh(soup: dict, materials: dict | None = None, *,
             "emissive": np.zeros((1, 3), np.float32),
         }
     m = len(materials["albedo"])
-    if len(materials.get("images", [])) or any(
-            (np.asarray(materials.get(k, [-1])) >= 0).any() for k in _TEXTURE_KEYS):
-        raise NotImplementedError("textured materials are not ported")
     transmission = np.asarray(materials.get("transmission", np.zeros(m)), np.float32)
+    layers = {k: np.asarray(materials.get(f"{k}_texture", np.full(m, -1, np.int32)), np.int32)
+              for k in ("albedo", "normal", "orm", "emissive")}
+    textures = mat_mod.stack_textures(list(materials.get("images", [])),
+                                      int(materials.get("texture_size", 256)))
+    # mip pyramid for the ray-cone level of detail; SAILOR_TRACE_MIPS=0 keeps
+    # the single-level fetch
+    tex_lod, mip_sizes = None, ()
+    if textures.shape[0] and os.environ.get("SAILOR_TRACE_MIPS", "1") == "1":
+        tex_lod, mip_sizes = mat_mod.build_mip_stack(textures)
     tri_n = np.stack([nrm[idx[:, 0]], nrm[idx[:, 1]], nrm[idx[:, 2]]], axis=1)
     tri_uv = np.stack([uv[idx[:, 0]], uv[idx[:, 1]], uv[idx[:, 2]]], axis=1)
 
@@ -130,9 +176,9 @@ def scene_from_mesh(soup: dict, materials: dict | None = None, *,
     pack[:, 23] = matf("scatter", np.zeros(m))
     pack[:, 24] = matf("hg_g", np.zeros(m))
     pack[:, 25:31] = tri_uv.reshape(t_n, 6)
-    pack[:, 31] = -1.0
-    # uv-aligned face tangent and bitangent handedness (the reference's
-    # normal-map columns; kept so the table equals the reference's)
+    pack[:, 31] = layers["albedo"][mat].astype(np.float32)
+    # uv-aligned face tangent and bitangent handedness for normal maps
+    # (degenerate uvs fall back to e1)
     e1, e2 = v1 - v0, v2 - v0
     du1 = tri_uv[:, 1] - tri_uv[:, 0]
     du2 = tri_uv[:, 2] - tri_uv[:, 0]
@@ -146,32 +192,89 @@ def scene_from_mesh(soup: dict, materials: dict | None = None, *,
     gn = np.cross(e1, e2)
     pack[:, 32:35] = tang
     pack[:, 35] = np.where(np.sum(np.cross(gn, tang) * bitan, axis=1) >= 0.0, 1.0, -1.0)
-    pack[:, 36:39] = -1.0
+    for col, k in ((36, "normal"), (37, "orm"), (38, "emissive")):
+        pack[:, col] = layers[k][mat].astype(np.float32)
+    # texel-density term of the ray-cone LOD: 0.5 * log2(uv area / world area)
     world_a = np.maximum(np.linalg.norm(gn, axis=1), 1e-20)
     uv_a = np.maximum(np.abs(det), 1e-20)
     pack[:, 39] = np.clip(0.5 * np.log2(uv_a / world_a), -24.0, 24.0)
+
+    # combined quad stack: one row per (material group, level, texel) with
+    # every live map's 2x2 footprint; the group id goes to column 40
+    tex_quad, quad_blocks = None, ()
+    if tex_lod is not None and len(mip_sizes) > 1:
+        cand = [("albedo", 4, (1.0, 1.0, 1.0, 1.0)), ("normal", 3, (0.5, 0.5, 1.0)),
+                ("orm", 3, (1.0, 1.0, 1.0)), ("emissive", 3, (1.0, 1.0, 1.0))]
+        live = [(nm, nch, neu) for nm, nch, neu in cand if bool((layers[nm] >= 0).any())]
+        if live:
+            zeros = np.zeros(textures.shape[0], np.int32)
+            tex_quad, qgroup, _, _, qoffs, _ = mat_mod.build_quad_stack_blocks(
+                textures, [(layers[nm], nch, neu) for nm, nch, neu in live], zeros, zeros)
+            quad_blocks = tuple((nm, off, nch) for (nm, _, _), (off, nch) in zip(live, qoffs))
+            pack[:, 40] = qgroup[mat].astype(np.float32)
+
+    env_map = None
+    if sky is not None:
+        he, we = env_size
+        th = (np.arange(he, dtype=np.float32) + 0.5) / he * np.pi
+        ph = (np.arange(we, dtype=np.float32) + 0.5) / we * 2.0 * np.pi - np.pi
+        st, ct = np.sin(th)[:, None], np.cos(th)[:, None]
+        dgrid = np.stack([np.broadcast_to(st * np.cos(ph)[None, :], (he, we)),
+                          np.broadcast_to(ct, (he, we)),
+                          np.broadcast_to(st * np.sin(ph)[None, :], (he, we))],
+                         axis=-1).astype(np.float32)
+        env_map = sky_mod.sky_radiance(torch.from_numpy(dgrid).to(dev), sky,
+                                       with_sun=False).cpu().numpy()
 
     sun = np.asarray(sun_direction, np.float32)
     arrays = {"tri_pack": pack, "sun_direction": sun / np.linalg.norm(sun),
               "sun_intensity": np.asarray(sun_intensity, np.float32),
               "sky_zenith": np.asarray(sky_zenith, np.float32),
-              "sky_horizon": np.asarray(sky_horizon, np.float32)}
+              "sky_horizon": np.asarray(sky_horizon, np.float32),
+              "env_map": env_map, "textures": textures, "tex_lod": tex_lod,
+              "tex_quad": tex_quad}
     has_volumes = bool(transmission.max() > 0.0) if m else False
-    return trace_scene_from_numpy(arrays, sweep_mod.build_arrays(v0, v1, v2),
-                                  has_volumes, device)
+    return trace_scene_from_numpy(
+        arrays, sweep_mod.build_arrays(v0, v1, v2), has_volumes, dev,
+        mip_sizes=mip_sizes, quad_blocks=quad_blocks,
+        has_textures=any(bool((ls >= 0).any()) for ls in layers.values()),
+        **{f"has_{k}_maps": bool((layers[k] >= 0).any()) for k in ("normal", "orm", "emissive")})
 
 
 def _isect(scene: TraceScene, origin, direction, *, any_hit=False, active=None):
-    """One intersector pass (the sweep)."""
+    """One intersector pass (the sweep); ``SAILOR_SWEEP_SORT=1`` sorts its
+    rays first, as the reference reads it."""
     return sweep_mod.intersect(scene.sweep, origin, direction, any_hit=any_hit,
-                               active=active)
+                               active=active,
+                               sort_rays=os.environ.get("SAILOR_SWEEP_SORT", "0") == "1")
 
 
 def sky_radiance(scene: TraceScene, direction, include_sun: bool = True):
-    """Analytic sky gradient for miss rays, plus the sun disc unless the
-    sun was already counted by the shadow-ray estimator."""
-    t = torch.clamp(direction[..., 1] * 0.5 + 0.5, 0.0, 1.0)[..., None]
-    base = scene.sky_horizon * (1.0 - t) + scene.sky_zenith * t
+    """Miss-ray radiance: the bilinear fetch of the baked lat-long map
+    (u from atan2(z, x), v from the polar angle off +y, wrapped in azimuth,
+    clamped in elevation) or the analytic gradient, plus the sun disc unless
+    the shadow-ray estimator already counted the sun."""
+    if scene.env_map is not None:
+        he, we = scene.env_map.shape[:2]
+        flat = scene.env_map.reshape(he * we, 3)
+        d = direction
+        u = (torch.atan2(d[..., 2], d[..., 0]) + math.pi) / (2.0 * math.pi)
+        v = torch.acos(torch.clamp(d[..., 1], -1.0, 1.0)) / math.pi
+        fy = torch.clamp(v * he - 0.5, 0.0, he - 1.0)
+        fx = u * we - 0.5
+        y0 = torch.floor(fy).to(torch.int64)
+        x0f = torch.floor(fx)
+        x0 = x0f.to(torch.int64) % we
+        y1 = torch.clamp(y0 + 1, max=he - 1)
+        x1 = (x0 + 1) % we
+        wy = (fy - y0.to(torch.float32))[..., None]
+        wx = (fx - x0f)[..., None]
+        c00, c01 = flat[y0 * we + x0], flat[y0 * we + x1]
+        c10, c11 = flat[y1 * we + x0], flat[y1 * we + x1]
+        base = (c00 * (1 - wx) + c01 * wx) * (1 - wy) + (c10 * (1 - wx) + c11 * wx) * wy
+    else:
+        t = torch.clamp(direction[..., 1] * 0.5 + 0.5, 0.0, 1.0)[..., None]
+        base = scene.sky_horizon * (1.0 - t) + scene.sky_zenith * t
     if include_sun:
         cos_sun = m3.dot32(direction, -scene.sun_direction, keepdims=True)
         base = base + torch.where(cos_sun > 0.9995, scene.sun_intensity * 50.0, 0.0)
@@ -223,9 +326,34 @@ def camera_rays_flat(camera_pos, view, proj, width, height, px, py, u_jitter, v_
     return camera_pos.expand(d.shape), d
 
 
-def _shade_hit(scene: TraceScene, res, origin, direction):
+def _material(row, albedo, metallic, roughness, emissive):
+    return {
+        "albedo": albedo, "metallic": metallic, "roughness": roughness,
+        "emissive": emissive, "transmission": row[:, 17], "ior": row[:, 18],
+        "atten_color": row[:, 19:22], "atten_dist": row[:, 22],
+        "scatter": row[:, 23], "hg_g": row[:, 24],
+    }
+
+
+def _normal_mapped(row, n, n_ts, layer):
+    """The shading normal n tilted by a tangent-space normal n_ts: the
+    packed face tangent Gram-Schmidt'ed against n, the bitangent from the
+    packed handedness; n where the material has no normal map."""
+    t = row[:, 32:35]
+    t = m3.normalize32(t - n * m3.dot32(n, t, keepdims=True))
+    b = m3.cross32(n, t) * row[:, 35:36]
+    mapped = m3.normalize32(t * n_ts[:, 0:1] + b * n_ts[:, 1:2] + n * n_ts[:, 2:3])
+    return torch.where((layer >= 0)[:, None], mapped, n)
+
+
+def _shade_hit(scene: TraceScene, res, origin, direction, cone_width=None):
     """Hit-point attributes from one row gather: position, face-forward
-    shading normal, whether the ray enters the surface, material."""
+    shading normal, whether the ray enters the surface, material. With
+    textures the maps are sampled at the hit's uv; ``cone_width`` (the ray
+    cone's footprint at the hit) picks the mip level of the quad rows,
+    lod = log2(S0 * cone / max(|n . d|, 0.08)) + column 39. (The
+    reference's trilinear per-map fetch, ``sample_texture_lod``, serves a
+    mip pyramid without quad rows, which a textured scene never has.)"""
     row = scene.tri_pack[res["tri"].clamp(min=0).long()]
     u = res["u"][:, None]
     v = res["v"][:, None]
@@ -234,12 +362,55 @@ def _shade_hit(scene: TraceScene, res, origin, direction):
     entering = m3.dot32(n, direction) < 0.0
     n = torch.where(entering[:, None], n, -n)
     pos = origin + direction * res["t"][:, None]
-    return pos, n, entering, {
-        "albedo": row[:, 9:12], "metallic": row[:, 12], "roughness": row[:, 13],
-        "emissive": row[:, 14:17], "transmission": row[:, 17], "ior": row[:, 18],
-        "atten_color": row[:, 19:22], "atten_dist": row[:, 22],
-        "scatter": row[:, 23], "hg_g": row[:, 24],
-    }
+    albedo, metallic, roughness, emissive = row[:, 9:12], row[:, 12], row[:, 13], row[:, 14:17]
+    if not scene.has_textures:
+        return pos, n, entering, _material(row, albedo, metallic, roughness, emissive)
+    uvp = row[:, 25:27] * w0 + row[:, 27:29] * u + row[:, 29:31] * v
+    if cone_width is not None and scene.tex_quad is not None:
+        # the combined quad rows at the ray-cone level of detail: two row
+        # gathers fetch every map; a map a material lacks reads its neutral
+        cosr = torch.clamp(m3.dot32(n, direction).abs(), min=0.08)
+        lod = (torch.log2(scene.mip_sizes[0] * torch.clamp(cone_width, min=1e-8) / cosr)
+               + row[:, 39])
+        group = row[:, 40].to(torch.int32)
+        off = torch.zeros(group.shape, dtype=torch.bool, device=group.device)
+        blocks = mat_mod.sample_quad_blocks(
+            scene.tex_quad, scene.mip_sizes,
+            tuple((o, nch) for _, o, nch in scene.quad_blocks), group, uvp, lod,
+            wrapc=off, nearest=off)
+        bmap = {nm: b for (nm, _, _), b in zip(scene.quad_blocks, blocks)}
+        if "albedo" in bmap:
+            albedo = albedo * bmap["albedo"][..., :3]
+        if "normal" in bmap:
+            n = _normal_mapped(row, n, bmap["normal"] * 2.0 - 1.0, row[:, 36].to(torch.int32))
+        if "orm" in bmap:
+            roughness = roughness * bmap["orm"][..., 1]
+            metallic = metallic * bmap["orm"][..., 2]
+        if "emissive" in bmap:
+            emissive = emissive * bmap["emissive"]
+        return pos, n, entering, _material(row, albedo, metallic, roughness, emissive)
+
+    # bilinear fetches from mip 0, one map at a time
+    def sample_tex(layer, uvp):
+        return mat_mod._sample_texture_stack(scene.textures, layer, uvp)
+
+    layer = row[:, 31].to(torch.int32)
+    albedo = albedo * torch.where((layer >= 0)[:, None], sample_tex(layer, uvp)[..., :3], 1.0)
+    if scene.has_normal_maps:
+        nl = row[:, 36].to(torch.int32)
+        n = _normal_mapped(row, n, sample_tex(nl, uvp)[..., :3] * 2.0 - 1.0, nl)
+    if scene.has_orm_maps:
+        # glTF metallicRoughness: G scales roughness, B metallic; the
+        # occlusion channel is ignored (the tracer computes visibility)
+        ol = row[:, 37].to(torch.int32)
+        otex = sample_tex(ol, uvp)
+        roughness = torch.where(ol >= 0, roughness * otex[..., 1], roughness)
+        metallic = torch.where(ol >= 0, metallic * otex[..., 2], metallic)
+    if scene.has_emissive_maps:
+        el = row[:, 38].to(torch.int32)
+        emissive = torch.where((el >= 0)[:, None], emissive * sample_tex(el, uvp)[..., :3],
+                               emissive)
+    return pos, n, entering, _material(row, albedo, metallic, roughness, emissive)
 
 
 def _morton10(x):
@@ -266,16 +437,22 @@ def _bounce_sort_key(scene: TraceScene, origin, direction, live):
 
 
 def _trace_one_sample(scene: TraceScene, origin, direction, uniforms, max_bounces: int,
-                      ray_count, sort_bounces: bool = False):
+                      ray_count, sort_bounces: bool = False, cone_spread=None):
     """One radiance sample of the primary rays (origin, direction) (R, 3);
-    ``uniforms`` (5 * max_bounces, R). Returns (radiance (R, 3), ray_count
-    + rays traced, float32)."""
+    ``uniforms`` (5 * max_bounces, R). ``cone_spread``: the pixels' angular
+    footprint for the ray-cone texture LOD (the cone width at a hit is the
+    path length times it). Returns (radiance (R, 3), ray_count + rays
+    traced, float32)."""
     r = origin.shape[0]
     dev = origin.device
     radiance = torch.zeros(r, 3, device=dev)
     throughput = torch.ones(r, 3, device=dev)
     live = torch.ones(r, dtype=torch.bool, device=dev)
     orig_idx = torch.arange(r, device=dev)
+    use_cone = (cone_spread is not None and scene.tex_lod is not None
+                and len(scene.mip_sizes) > 1)
+    if use_cone:
+        dist = torch.zeros(r, device=dev)
     volumes = scene.has_volumes
     if volumes:
         med_absorb = torch.zeros(r, 3, device=dev)  # Beer-Lambert sigma_a
@@ -312,7 +489,11 @@ def _trace_one_sample(scene: TraceScene, origin, direction, uniforms, max_bounce
         radiance = radiance + torch.where(miss[:, None], throughput * sky, 0.0)
         live = live & (res["hit"] | scattered)
 
-        pos, n, entering, mat = _shade_hit(scene, res, origin, direction)
+        cone_w = None
+        if use_cone:
+            hit_dist = dist + torch.clamp(res["t"], 0.0, 1e8)
+            cone_w = hit_dist * cone_spread
+        pos, n, entering, mat = _shade_hit(scene, res, origin, direction, cone_width=cone_w)
         wo = -direction
         radiance = radiance + torch.where(hit[:, None], throughput * mat["emissive"], 0.0)
 
@@ -387,6 +568,12 @@ def _trace_one_sample(scene: TraceScene, origin, direction, uniforms, max_bounce
         origin = torch.where(scattered[:, None], origin, new_origin)
         direction = torch.where(scattered[:, None], direction, new_dir)
         throughput = torch.where(scattered[:, None], throughput, new_tp)
+        if use_cone:
+            # path length: surface hits advance to the hit, volume scatters
+            # by the sampled free-flight distance
+            dist = torch.where(hit, hit_dist, dist)
+            if volumes:
+                dist = torch.where(scattered, dist + t_sc, dist)
 
         if sort_bounces and bounce < max_bounces - 1:
             # permute the whole wavefront for the next bounce (a stable
@@ -398,6 +585,8 @@ def _trace_one_sample(scene: TraceScene, origin, direction, uniforms, max_bounce
             if volumes:
                 cols += [med_absorb, med_scatter[:, None], med_g[:, None],
                          in_medium.to(torch.float32)[:, None]]
+            if use_cone:
+                cols.append(dist[:, None])
             state = torch.cat(cols, 1)[perm]
             origin, direction = state[:, 0:3], state[:, 3:6]
             throughput, radiance = state[:, 6:9], state[:, 9:12]
@@ -405,6 +594,8 @@ def _trace_one_sample(scene: TraceScene, origin, direction, uniforms, max_bounce
             if volumes:
                 med_absorb, med_scatter, med_g = state[:, 13:16], state[:, 16], state[:, 17]
                 in_medium = state[:, 18] > 0.5
+            if use_cone:
+                dist = state[:, -1]
             orig_idx = orig_idx[perm]
 
     if sort_bounces:
@@ -419,9 +610,10 @@ def _sample_uniforms(gen, max_bounces: int, r: int, device):
 
 
 def trace_rays(scene: TraceScene, origin, direction, *, spp: int = 4, max_bounces: int = 3,
-               seed: int = 0, uniforms=None, sort_bounces: bool = False):
+               seed: int = 0, uniforms=None, sort_bounces: bool = False, cone_spread=None):
     """Trace given primary rays; average ``spp`` samples. ``uniforms``:
-    optional (spp, 5 * max_bounces, R). Returns ((R, 3) radiance, rays
+    optional (spp, 5 * max_bounces, R); ``cone_spread``: optional angular
+    footprint for the ray-cone texture LOD. Returns ((R, 3) radiance, rays
     traced)."""
     dev = scene.device
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -431,20 +623,34 @@ def trace_rays(scene: TraceScene, origin, direction, *, spp: int = 4, max_bounce
         u = (uniforms[s].to(dev) if uniforms is not None
              else _sample_uniforms(gen, max_bounces, origin.shape[0], dev))
         rad, rays = _trace_one_sample(scene, origin, direction, u, max_bounces, rays,
-                                      sort_bounces=sort_bounces)
+                                      sort_bounces=sort_bounces, cone_spread=cone_spread)
         acc = acc + rad
     return acc / spp, rays
 
 
 def render(scene: TraceScene, camera_pos, view, proj, *, width: int, height: int,
-           spp: int = 16, max_bounces: int = 4, seed: int = 0, uniforms=None):
+           spp: int = 16, max_bounces: int = 4, seed: int = 0, uniforms=None,
+           sample_batch: int = 1, sort_bounces: bool = False, swizzle: bool | None = None):
     """Render (H, W, 3) linear HDR; also returns the rays traced (float32).
 
-    Swizzled rays, bounce sort on, one sample per pass: the reference's
-    ``render_cached`` with the sweep intersector. ``uniforms``: optional
-    (spp, 5 * max_bounces, R), R = ``rays_per_sample(width, height)``."""
+    ``sample_batch`` samples are traced as one wavefront (their rays
+    concatenated sample-major), ``spp / sample_batch`` passes; ``spp`` must
+    be a multiple of it. ``sort_bounces`` sorts the wavefront between
+    bounces; ``swizzle`` (None: on unless ``SAILOR_TRACE_SWIZZLE=0``) orders
+    the rays in pixel supertiles. ``uniforms``: optional
+    (spp / sample_batch, 5 * max_bounces, sample_batch * R) with
+    R = ``rays_per_sample(width, height, swizzle)``."""
+    if swizzle is None:
+        swizzle = os.environ.get("SAILOR_TRACE_SWIZZLE", "1") == "1"
+    sb = sample_batch
+    if spp % sb != 0:
+        raise ValueError(f"spp {spp} not divisible by sample_batch {sb}")
     dev = scene.device
-    perm, inv, r = _swizzle_maps(height, width, sweep_mod.RAY_BLOCK, sweep_mod.SUB)
+    if swizzle:
+        perm, inv, r = _swizzle_maps(height, width, sweep_mod.RAY_BLOCK, sweep_mod.SUB)
+    else:
+        r = width * height
+        perm, inv = np.arange(r, dtype=np.int32), None
     px = torch.from_numpy(perm % width).to(dev)
     py = torch.from_numpy(perm // width).to(dev)
     # per-pixel blue-noise camera jitter, rotated per sample (R2 sequence)
@@ -452,21 +658,56 @@ def render(scene: TraceScene, camera_pos, view, proj, *, width: int, height: int
     bn = (torch.from_numpy(bn_u.reshape(-1)[perm]).to(dev),
           torch.from_numpy(bn_v.reshape(-1)[perm]).to(dev))
     camera_pos, view, proj = (x.to(dev, torch.float32) for x in (camera_pos, view, proj))
+    # the pixels' angular footprint: the vertical field of view spans
+    # ``height`` pixels, proj[1, 1] = 1 / tan(fov_y / 2)
+    cone_spread = None
+    if scene.tex_lod is not None and len(scene.mip_sizes) > 1:
+        cone_spread = 2.0 / (height * proj[1, 1])
     gen = torch.Generator(device=dev).manual_seed(seed)
     acc = torch.zeros(r, 3, device=dev)
     rays = torch.zeros((), dtype=torch.float32, device=dev)
-    for s in range(spp):
-        ju, jv = bluenoise.rotate(bn, float(s))
-        o, d = camera_rays_flat(camera_pos, view, proj, width, height, px, py, ju, jv)
-        u = uniforms[s].to(dev) if uniforms is not None else _sample_uniforms(
-            gen, max_bounces, r, dev)
-        radiance, rays = _trace_one_sample(scene, o, d, u, max_bounces, rays,
-                                           sort_bounces=True)
+    for p in range(spp // sb):
+        rays_o, rays_d = [], []
+        for j in range(sb):
+            ju, jv = bluenoise.rotate(bn, float(p * sb + j))
+            o, d = camera_rays_flat(camera_pos, view, proj, width, height, px, py, ju, jv)
+            rays_o.append(o)
+            rays_d.append(d)
+        origin = rays_o[0] if sb == 1 else torch.cat(rays_o)
+        direction = rays_d[0] if sb == 1 else torch.cat(rays_d)
+        u = uniforms[p].to(dev) if uniforms is not None else _sample_uniforms(
+            gen, max_bounces, sb * r, dev)
+        radiance, rays = _trace_one_sample(scene, origin, direction, u, max_bounces, rays,
+                                           sort_bounces=sort_bounces, cone_spread=cone_spread)
+        if sb > 1:
+            radiance = radiance.view(sb, r, 3).sum(0)
         acc = acc + radiance
-    acc = acc[torch.from_numpy(inv).to(dev).long()] / spp
+    acc = acc / spp
+    if swizzle:
+        acc = acc[torch.from_numpy(inv).to(dev).long()]
     return acc.reshape(height, width, 3), rays
 
 
-def rays_per_sample(width: int, height: int) -> int:
+def render_cached(scene: TraceScene, camera_pos, view, proj, *, width: int, height: int,
+                  spp: int = 16, max_bounces: int = 4, seed: int = 0, uniforms=None,
+                  sample_batch: int | None = None, sort_bounces: bool | None = None,
+                  swizzle: bool | None = None):
+    """``render`` with the settings the reference's ``render_cached``
+    resolves from the environment where the caller gives none:
+    ``SAILOR_TRACE_SAMPLE_BATCH`` (1), ``SAILOR_TRACE_BOUNCE_SORT`` (on) and
+    ``SAILOR_TRACE_SWIZZLE`` (on, resolved by ``render``). The reference's
+    executable cache has no counterpart: PyTorch runs eagerly."""
+    if sample_batch is None:
+        sample_batch = int(os.environ.get("SAILOR_TRACE_SAMPLE_BATCH", "1"))
+    if sort_bounces is None:
+        sort_bounces = os.environ.get("SAILOR_TRACE_BOUNCE_SORT", "1") == "1"
+    return render(scene, camera_pos, view, proj, width=width, height=height, spp=spp,
+                  max_bounces=max_bounces, seed=seed, uniforms=uniforms,
+                  sample_batch=sample_batch, sort_bounces=sort_bounces, swizzle=swizzle)
+
+
+def rays_per_sample(width: int, height: int, swizzle: bool = True) -> int:
     """Rays per sample of ``render`` (the swizzle pads to whole supertiles)."""
+    if not swizzle:
+        return width * height
     return _swizzle_maps(height, width, sweep_mod.RAY_BLOCK, sweep_mod.SUB)[2]

@@ -15,7 +15,9 @@ triangle) quantity is a short dot product with the ray's features:
 - B4, the slab entry (``slab_entry``; ``csrc/slab_entry.cu``): per 256-ray
   sub-block, the least slab entry distance of its rays into each cluster's
   AABB (+inf where none pierces it);
-- B5, the cluster sweep (``sweep``; ``csrc/sweep.cu``): each sub-block walks
+- with ``DMA_SWEEP`` on (the default; ``SAILOR_SWEEP_DMA=0`` turns it off,
+  read at import as the reference reads it) B5, the cluster sweep
+  (``sweep``; ``csrc/sweep.cu``): each sub-block walks
   the clusters of its 2048-ray block near to far (the stable argsort of the
   block's entries), skips a step whose sub-block entry is not below the
   sub-block's bound (the largest best t of its rays, compared as float32
@@ -24,21 +26,24 @@ triangle) quantity is a short dot product with the ray's features:
   (ray, triangle) pair of a live step. Closest hit keeps the least t, equal
   t within a cluster going to the larger ``cid * CLUSTER + col`` and across
   clusters to the earlier-visited one; any hit retires the ray with
-  t = -1 and index 0.
+  t = -1 and index 0;
+- with it off B6, the same function over the dense (block, step) grid
+  (``sweep_grid``; ``csrc/sweep_grid.cu``): each sub-block visits all the
+  steps of its block's visit order and skips the dead ones, with no stop.
 
 Each kernel has a plain PyTorch twin here (``slab_entry_plain``,
-``sweep_plain``) that evaluates the same float32 operations in the same
-order; the wrappers take the twin only for tensors on the CPU. The winners'
-t/u/v are refined by one Moller-Trumbore test on the winner rows
-(``_refine``, plain PyTorch).
-
-The reference's ``sort_rays`` option is not ported, and the port reads no
-environment variable: ``CLUSTER``, ``RAY_BLOCK`` and ``SUB`` are constants.
+``sweep_plain``, ``sweep_grid_plain``) that evaluates the same float32
+operations in the same order; the wrappers take the twin only for tensors
+on the CPU. The winners' t/u/v are refined by one Moller-Trumbore test on
+the winner rows (``_refine``, plain PyTorch). ``intersect(sort_rays=True)``
+first sorts the rays by the first cluster they enter and a direction code
+(plain PyTorch). ``CLUSTER``, ``RAY_BLOCK`` and ``SUB`` are constants.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -53,7 +58,9 @@ SUB = 256
 FEATS = 16   # ray feature columns: [d, m, 0, 0 | o, 1, d, 0]
 ROWS = 40    # cluster feature rows, see SweepScene
 USED_ROWS = 25  # rows B5 reads: 18 side, 4 num, 3 den
-_PLAIN_CHUNK = 128  # sub-blocks sweep_plain tests at a time
+_PLAIN_CHUNK = 128  # sub-blocks the sweep twins test at a time
+# B5's per-block walk (on) or B6's dense grid (off), as the reference reads it
+DMA_SWEEP = os.environ.get("SAILOR_SWEEP_DMA", "1") == "1"
 
 
 @dataclasses.dataclass
@@ -189,17 +196,15 @@ def _bits_max(t):
     return t.view(torch.int32).view(-1, SUB).amax(1)
 
 
-def sweep_plain(e_bits, order, blk_bits, nlive, feats, tmax, g_cluster, *,
-                any_hit: bool, work: dict | None = None):
-    """Plain PyTorch B5, vectorised over sub-blocks: visit step by visit
-    step, every sub-block whose entry bits are below its bound tests all
-    (ray, triangle) pairs of the step's cluster, ``_PLAIN_CHUNK`` sub-blocks
-    at a time. The six-term dots are summed left to right as the kernel sums
-    them. ``work`` (a dict, if given) adds the work the kernel does on this
-    data: ``pairs``, the (sub-block, step) pairs walked, and ``tests``, the
-    (ray, triangle) tests of rays live at their step (best t > 1e-4; any hit
-    stops a ray's step at its first hit). Returns (best_t (Rp,), best_i (Rp,)
-    int32)."""
+def _walk_plain(e_bits, order, blk_bits, feats, tmax, g_cluster, *, any_hit: bool,
+                work: dict | None):
+    """The sweeps' shared plain walk, vectorised over sub-blocks: visit step
+    by visit step, every sub-block whose entry bits are below its bound
+    tests all (ray, triangle) pairs of the step's cluster, ``_PLAIN_CHUNK``
+    sub-blocks at a time. With ``blk_bits`` (B5) the walk stops at the first
+    step where no sub-block is live and every block's sorted entry has
+    reached its sub-blocks' bounds; without (B6) it visits every step. The
+    six-term dots are summed left to right as the kernels sum them."""
     nb, nc = order.shape
     nsb = feats.shape[0] // SUB
     nsub = nsb // nb
@@ -214,7 +219,7 @@ def sweep_plain(e_bits, order, blk_bits, nlive, feats, tmax, g_cluster, *,
     for j in range(nc):
         live = (e_bits[:, j] < bound).nonzero()[:, 0]
         if live.numel() == 0:
-            if bool((blk_bits[blk_of, j] >= bound).all()):
+            if blk_bits is not None and bool((blk_bits[blk_of, j] >= bound).all()):
                 break  # entries are visit-sorted: no later step is live
             continue
         pairs += live.numel()
@@ -269,6 +274,19 @@ def sweep_plain(e_bits, order, blk_bits, nlive, feats, tmax, g_cluster, *,
     return t, idx
 
 
+def sweep_plain(e_bits, order, blk_bits, nlive, feats, tmax, g_cluster, *,
+                any_hit: bool, work: dict | None = None):
+    """Plain PyTorch B5 (``_walk_plain`` with the block-wide stop; ``nlive``
+    is implied by ``blk_bits``, whose dead steps hold +inf bits). ``work``
+    (a dict, if given) adds the work the kernel does on this data:
+    ``pairs``, the (sub-block, step) pairs walked, and ``tests``, the (ray,
+    triangle) tests of rays live at their step (best t > 1e-4; any hit
+    stops a ray's step at its first hit). Returns (best_t (Rp,), best_i
+    (Rp,) int32)."""
+    return _walk_plain(e_bits, order, blk_bits, feats, tmax, g_cluster,
+                       any_hit=any_hit, work=work)
+
+
 def sweep_cuda(e_bits, order, blk_bits, nlive, feats, tmax, g_cluster, *,
                any_hit: bool):
     """B5 on the card: csrc/sweep.cu, one launch (one block per sub-block)."""
@@ -302,19 +320,56 @@ def sweep(e_bits, order, blk_bits, nlive, feats, tmax, g_cluster, *, any_hit: bo
     return fn(e_bits, order, blk_bits, nlive, feats, tmax, g_cluster, any_hit=any_hit)
 
 
+# ------------------------------------------------------ B6 dense-grid sweep
+
+def sweep_grid_plain(e_bits, order, feats, tmax, g_cluster, *, any_hit: bool,
+                     work: dict | None = None):
+    """Plain PyTorch B6: every sub-block visits all the steps of its
+    block's visit order and tests those whose entry bits are below its
+    bound (``_walk_plain`` without the stop); ``work`` as ``sweep_plain``'s.
+    Equals B5 bit for bit."""
+    return _walk_plain(e_bits, order, None, feats, tmax, g_cluster,
+                       any_hit=any_hit, work=work)
+
+
+def sweep_grid_cuda(e_bits, order, feats, tmax, g_cluster, *, any_hit: bool):
+    """B6 on the card: csrc/sweep_grid.cu, one launch (one block per
+    sub-block)."""
+    dev = feats.device
+    nb, nc = order.shape
+    rp = feats.shape[0]
+    if rp != nb * RAY_BLOCK or feats.shape[1] != FEATS:
+        raise ValueError(f"feats must be ({nb * RAY_BLOCK}, {FEATS})")
+    nsb = rp // SUB
+    cuda_lib.require(feats, "feats", torch.float32)
+    cuda_lib.require(e_bits, "e_bits", torch.int32, (nsb, nc), dev)
+    cuda_lib.require(order, "order", torch.int32, (nb, nc), dev)
+    cuda_lib.require(tmax, "tmax", torch.float32, (rp,), dev)
+    cuda_lib.require(g_cluster, "g_cluster", torch.float32, (nc, ROWS, CLUSTER), dev)
+    best_t = torch.empty(rp, dtype=torch.float32, device=dev)
+    best_i = torch.empty(rp, dtype=torch.int32, device=dev)
+    err = cuda_lib.load().sailor_sweep_grid(
+        e_bits.data_ptr(), order.data_ptr(), feats.data_ptr(), tmax.data_ptr(),
+        g_cluster.data_ptr(), best_t.data_ptr(), best_i.data_ptr(), nsb,
+        RAY_BLOCK // SUB, nc, int(any_hit), cuda_lib.stream_of(feats))
+    cuda_lib.check(err, "sailor_sweep_grid")
+    cuda_lib.LAUNCHES["sweep_grid"] += 1
+    return best_t, best_i
+
+
+def sweep_grid(e_bits, order, feats, tmax, g_cluster, *, any_hit: bool):
+    fn = cuda_lib.dispatch(feats, sweep_grid_plain, sweep_grid_cuda)
+    return fn(e_bits, order, feats, tmax, g_cluster, any_hit=any_hit)
+
+
 # ---------------------------------------------------------------- intersect
 
-def prepare(scene: SweepScene, origin, direction, t_max=None, active=None):
-    """The kernels' inputs for R rays, padded to whole ray blocks with dead
-    rays (d = 1e-8, tmax = -1): dict of feats (Rp, 16), tmax (Rp,), and the
-    visit tables from B4's entries: e_bits (Rp/SUB, C) int32 (sub-block
-    entries in visit order, as float32 bits), order (B, C) int32 (visit
-    order: stable argsort of the block entries), blk_bits (B, C) int32
-    (sorted block entries) and nlive (B,) int32 (finite block entries)."""
+def _pad_rays(origin, direction, t_max, active):
+    """Rays padded to whole ray blocks with dead rays (d = 1e-8, tmax = -1):
+    (o, d, tmax), each Rp long."""
     r = origin.shape[0]
     dev = origin.device
     rpad = -(-max(r, RAY_BLOCK) // RAY_BLOCK) * RAY_BLOCK
-    nb, nsub, nc = rpad // RAY_BLOCK, RAY_BLOCK // SUB, scene.n_clusters
     o = torch.zeros(rpad, 3, dtype=torch.float32, device=dev)
     d = torch.full((rpad, 3), 1e-8, dtype=torch.float32, device=dev)
     o[:r], d[:r] = origin, direction
@@ -325,6 +380,14 @@ def prepare(scene: SweepScene, origin, direction, t_max=None, active=None):
         tmax[:r] = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(r)
     if active is not None:
         tmax[:r] = torch.where(active, tmax[:r], -1.0)
+    return o, d, tmax
+
+
+def _tables(scene: SweepScene, o, d, tmax):
+    """The kernels' inputs for padded rays (see ``prepare``)."""
+    rpad = o.shape[0]
+    dev = o.device
+    nb, nsub, nc = rpad // RAY_BLOCK, RAY_BLOCK // SUB, scene.n_clusters
     m = m3.cross32(o, d)
     z = torch.zeros(rpad, 1, dtype=torch.float32, device=dev)
     feats = torch.cat([d, m, z, z, o, z + 1.0, d, z], 1).contiguous()
@@ -342,16 +405,62 @@ def prepare(scene: SweepScene, origin, direction, t_max=None, active=None):
     }
 
 
+def prepare(scene: SweepScene, origin, direction, t_max=None, active=None):
+    """The kernels' inputs for R rays, padded to whole ray blocks with dead
+    rays (d = 1e-8, tmax = -1): dict of feats (Rp, 16), tmax (Rp,), and the
+    visit tables from B4's entries: e_bits (Rp/SUB, C) int32 (sub-block
+    entries in visit order, as float32 bits), order (B, C) int32 (visit
+    order: stable argsort of the block entries), blk_bits (B, C) int32
+    (sorted block entries) and nlive (B,) int32 (finite block entries)."""
+    return _tables(scene, *_pad_rays(origin, direction, t_max, active))
+
+
+def ray_order(scene: SweepScene, o, d, tmax):
+    """``sort_rays``' permutation of padded rays and its inverse: a stable
+    sort by the first cluster each ray's segment enters (the least slab
+    entry, the first such cluster on ties, ``n_clusters`` when it enters
+    none) times 64 plus a direction code (each component of d + 1 doubled,
+    truncated and clamped to 0..3). The slab pass is the reference's XLA
+    form, with t_n unclamped."""
+    nc = scene.n_clusters
+    tn = tf = None
+    for k in range(3):
+        inv = torch.where(d[:, k:k + 1].abs() > 1e-12, 1.0 / d[:, k:k + 1], 1e12)
+        oinv = o[:, k:k + 1] * inv
+        a = inv * scene.cl_min[None, :, k] - oinv
+        b = inv * scene.cl_max[None, :, k] - oinv
+        lo, hi = torch.minimum(a, b), torch.maximum(a, b)
+        tn = lo if tn is None else torch.maximum(tn, lo)
+        tf = hi if tf is None else torch.minimum(tf, hi)
+    hit = (tn <= torch.minimum(tf, tmax[:, None])) & (tf > 0.0)
+    entry = torch.where(hit, tn, torch.inf)
+    fc = torch.where(hit.any(1), entry.argmin(1), nc).to(torch.int32)
+    qd = ((d + 1.0) * 2.0).to(torch.int32).clamp(0, 3)
+    dq = (qd[:, 0] * 4 + qd[:, 1]) * 4 + qd[:, 2]
+    perm = torch.sort(fc * 64 + dq, stable=True).indices
+    return perm, torch.sort(perm, stable=True).indices
+
+
 def intersect(scene: SweepScene, origin, direction, t_max=None, *,
               any_hit: bool = False, active=None, sort_rays: bool = False):
     """Closest (or any) hit of R rays: dict(t, tri (original id), u, v,
-    hit), as the reference's ``intersect``."""
-    if sort_rays:
-        raise NotImplementedError("sweep.intersect(sort_rays=True) is not ported")
+    hit), as the reference's ``intersect``. ``sort_rays`` sorts the rays by
+    ``ray_order`` before the kernels and restores the winners' order after;
+    ``DMA_SWEEP`` picks B5 or B6."""
     r = origin.shape[0]
-    p = prepare(scene, origin, direction, t_max, active)
-    best_t, best_i = sweep(p["e_bits"], p["order"], p["blk_bits"], p["nlive"],
-                           p["feats"], p["tmax"], scene.g_cluster, any_hit=any_hit)
+    o, d, tmax = _pad_rays(origin, direction, t_max, active)
+    if sort_rays:
+        perm, inv = ray_order(scene, o, d, tmax)
+        o, d, tmax = o[perm], d[perm], tmax[perm]
+    p = _tables(scene, o, d, tmax)
+    if DMA_SWEEP:
+        best_t, best_i = sweep(p["e_bits"], p["order"], p["blk_bits"], p["nlive"],
+                               p["feats"], p["tmax"], scene.g_cluster, any_hit=any_hit)
+    else:
+        best_t, best_i = sweep_grid(p["e_bits"], p["order"], p["feats"], p["tmax"],
+                                    scene.g_cluster, any_hit=any_hit)
+    if sort_rays:
+        best_t, best_i = best_t[inv], best_i[inv]
     best_t, best_i = best_t[:r], best_i[:r]
     if any_hit:
         hit = best_i >= 0

@@ -6,6 +6,12 @@ alternating UV spheres (16x32) and cubes, one directional light plus
 ``num_lights`` point lights, no materials. It repeats the same numpy RNG
 calls in the same order, so both packages build the same scene from the
 same seed.
+
+``tracer_scene`` is the path tracer's benchmark scene (``bench_trace``);
+``material_balls`` is the JAX package's tracer demo scene
+(``examples/trace.py``), optionally with the procedural sky and with
+``procedural_test_maps`` on its ground: seeded numpy maps that stand in for
+a textured asset, which the repo does not hold.
 """
 
 from __future__ import annotations
@@ -94,4 +100,81 @@ def tracer_scene(device="cuda", **soup_kw):
     and camera: (TraceScene, camera_pos, view, proj)."""
     dev = resolve_device(device)
     scene = path_tracer.scene_from_mesh(tracer_soup(**soup_kw), device=dev)
+    return (scene, *tracer_camera(dev))
+
+
+def material_balls_soup(rings: int = 24, sectors: int = 48):
+    """The tracer demo's geometry and materials: a 40 m ground plane and
+    eight spheres, metallic 0 and 1 by roughness 0.08, 0.3, 0.6 and 0.9
+    (``examples/trace.py``'s default scene). Returns (soup, materials)."""
+    meshes = [(primitives.plane(40.0), np.eye(4))]
+    mats = {"albedo": [[0.65, 0.65, 0.65]], "metallic": [0.0], "roughness": [0.7],
+            "emissive": [[0, 0, 0]]}
+    mat_ids = [0]
+    for i, metallic in enumerate((0.0, 1.0)):
+        for j, rough in enumerate((0.08, 0.3, 0.6, 0.9)):
+            t = np.eye(4)
+            t[:3, 3] = [(j - 1.5) * 2.2, 0.9, (i - 0.5) * 2.4]
+            meshes.append((primitives.uv_sphere(0.9, rings, sectors), t))
+            mats["albedo"].append([0.8, 0.35, 0.25] if metallic < 0.5 else [0.95, 0.78, 0.45])
+            mats["metallic"].append(metallic)
+            mats["roughness"].append(rough)
+            mats["emissive"].append([0, 0, 0])
+            mat_ids.append(len(mat_ids))
+    soup = primitives.merge(meshes, mat_ids)
+    return soup, {k: np.asarray(v, np.float32) for k, v in mats.items()}
+
+
+def procedural_test_maps(seed: int = 0, size: int = 256) -> list:
+    """Seeded (size, size, 4) float32 maps for tests and the chip smoke run:
+    [albedo (tinted checker with noise), tangent-space normal (from a sum of
+    random waves), ORM (occlusion 1, roughness and metallic in tiles),
+    emissive (a few glowing stripes)]."""
+    rng = np.random.default_rng(seed)
+    y, x = (np.mgrid[0:size, 0:size] + 0.5) / size
+    cells = (np.floor(x * 8) + np.floor(y * 8)) % 2
+    tint = rng.uniform(0.3, 0.9, (2, 3))
+    albedo = np.where(cells[..., None] > 0, tint[0], tint[1])
+    albedo = np.clip(albedo * rng.uniform(0.85, 1.15, (size, size, 1)), 0.0, 1.0)
+    dh_dx = np.zeros((size, size))
+    dh_dy = np.zeros((size, size))
+    for _ in range(6):  # height = sum of a * sin(k . p + phase)
+        k = rng.uniform(-40.0, 40.0, 2)
+        a = rng.uniform(0.002, 0.01)
+        c = a * np.cos(k[0] * x + k[1] * y + rng.uniform(0, 2 * np.pi))
+        dh_dx += c * k[0]
+        dh_dy += c * k[1]
+    nrm = np.stack([-dh_dx, -dh_dy, np.ones_like(x)], -1)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    tiles = rng.random((4, 4))
+    ti = (np.floor(y * 4).astype(int), np.floor(x * 4).astype(int))
+    orm = np.stack([np.ones_like(x), 0.3 + 0.7 * tiles[ti], (tiles[ti] > 0.7) * 1.0], -1)
+    emissive = np.zeros((size, size, 3))
+    for yy in rng.uniform(0.05, 0.95, 3):
+        emissive[np.abs(y - yy) < 0.01] = rng.uniform(0.5, 1.0, 3)
+    alpha = np.ones((size, size, 1))
+    return [np.concatenate([m, alpha], -1).astype(np.float32)
+            for m in (albedo, nrm * 0.5 + 0.5, orm, emissive)]
+
+
+def material_balls(device="cuda", *, sky=None, textured: bool = False, seed: int = 0,
+                   **soup_kw):
+    """The tracer demo scene and camera: (TraceScene, camera_pos, view,
+    proj). ``sky``: a ``kernels.sky.SkyParams`` to bake for miss rays;
+    ``textured``: ``procedural_test_maps(seed)`` as the ground's albedo,
+    normal, ORM and emissive maps (its emissive factor then 0.5, so the
+    emissive map shows)."""
+    dev = resolve_device(device)
+    soup, mats = material_balls_soup(**soup_kw)
+    if textured:
+        maps = procedural_test_maps(seed)
+        m = len(mats["albedo"])
+        for i, k in enumerate(("albedo", "normal", "orm", "emissive")):
+            layer = np.full(m, -1, np.int32)
+            layer[0] = i
+            mats[f"{k}_texture"] = layer
+        mats["emissive"][0] = 0.5
+        mats["images"] = maps
+        mats["texture_size"] = maps[0].shape[0]
+    scene = path_tracer.scene_from_mesh(soup, mats, sky=sky, device=dev)
     return (scene, *tracer_camera(dev))

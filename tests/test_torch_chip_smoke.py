@@ -11,7 +11,8 @@ B8's window spans, and B9's dense slots with and without the clamp.
 walk takes and the (ray, triangle) tests of rays live at their step; here
 they, and the walk's t and ids, are held exactly to a numpy walk of one
 sub-block at a time (a random soup of 1500 triangles, 4096 rays, some
-dead).
+dead). ``sweep.sweep_grid_plain``'s (B6) are held the same way to a numpy
+walk over every step of the grid, with no stop.
 """
 
 import numpy as np
@@ -69,8 +70,9 @@ def test_raster_work_counts_aabb_pairs(frame_rows, source):
     assert pairs == expected
 
 
-def _walk(p, g_cluster, any_hit):
-    """B5's walk for one sub-block at a time, in numpy float32."""
+def _walk(p, g_cluster, any_hit, grid=False):
+    """B5's walk (B6's with ``grid``: every step, no stop) for one sub-block
+    at a time, in numpy float32."""
     sub, cl = sweep.SUB, sweep.CLUSTER
     e_bits, order, blk_bits, nlive, feats, tmax = (
         p[k].numpy() for k in ("e_bits", "order", "blk_bits", "nlive", "feats", "tmax"))
@@ -82,8 +84,8 @@ def _walk(p, g_cluster, any_hit):
         b, rows = sb // nsub, slice(sb * sub, (sb + 1) * sub)
         f, t, idx = feats[rows], best_t[rows], best_i[rows]
         bound = t.view(np.int32).max()
-        for j in range(nlive[b]):
-            if blk_bits[b, j] >= bound:
+        for j in range(order.shape[1] if grid else nlive[b]):
+            if not grid and blk_bits[b, j] >= bound:
                 break
             if e_bits[sb, j] >= bound:
                 continue
@@ -117,8 +119,7 @@ def _walk(p, g_cluster, any_hit):
     return best_t, best_i, pairs, tests
 
 
-@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
-def test_sweep_work_counts_walked_pairs_and_live_tests(any_hit):
+def _sweep_inputs():
     rng = np.random.default_rng(3)
     v0 = rng.uniform(-5, 5, (1500, 3)).astype(np.float32)
     v1 = v0 + rng.uniform(-1, 1, (1500, 3)).astype(np.float32)
@@ -129,11 +130,11 @@ def test_sweep_work_counts_walked_pairs_and_live_tests(any_hit):
     d = torch.nn.functional.normalize(torch.from_numpy(rng.normal(size=(r, 3)).astype(np.float32)),
                                       dim=1)
     active = torch.from_numpy(rng.random(r) > 0.3)
-    p = sweep.prepare(scene, o, d, active=active)
-    work = {}
-    t, i = sweep.sweep_plain(p["e_bits"], p["order"], p["blk_bits"], p["nlive"], p["feats"],
-                             p["tmax"], scene.g_cluster, any_hit=any_hit, work=work)
-    want_t, want_i, pairs, tests = _walk(p, scene.g_cluster, any_hit)
+    return scene, sweep.prepare(scene, o, d, active=active)
+
+
+def _check_work(t, i, work, want):
+    want_t, want_i, pairs, tests = want
     np.testing.assert_array_equal(t.numpy(), want_t)
     np.testing.assert_array_equal(i.numpy(), want_i)
     assert (i >= 0).sum() > 100
@@ -141,6 +142,28 @@ def test_sweep_work_counts_walked_pairs_and_live_tests(any_hit):
     # dead rays (and, for any hit, the rest of a step after its first hit)
     # are not charged: fewer tests than 256 x 256 a pair
     assert 0 < tests < pairs * sweep.SUB * sweep.CLUSTER
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_sweep_work_counts_walked_pairs_and_live_tests(any_hit):
+    scene, p = _sweep_inputs()
+    work = {}
+    t, i = sweep.sweep_plain(p["e_bits"], p["order"], p["blk_bits"], p["nlive"], p["feats"],
+                             p["tmax"], scene.g_cluster, any_hit=any_hit, work=work)
+    _check_work(t, i, work, _walk(p, scene.g_cluster, any_hit))
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_sweep_grid_work_counts_walked_pairs_and_live_tests(any_hit):
+    """B6's grid visits every step; it walks (stages and tests) the same
+    live pairs as B5, which the bound charges."""
+    scene, p = _sweep_inputs()
+    work = {}
+    t, i = sweep.sweep_grid_plain(p["e_bits"], p["order"], p["feats"], p["tmax"],
+                                  scene.g_cluster, any_hit=any_hit, work=work)
+    want = _walk(p, scene.g_cluster, any_hit, grid=True)
+    _check_work(t, i, work, want)
+    assert want[2:] == _walk(p, scene.g_cluster, any_hit)[2:]
 
 
 @pytest.mark.parametrize("variant", ["stream", "dma", "dense_aabb", "dense_no_aabb"])

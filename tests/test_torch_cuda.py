@@ -21,18 +21,24 @@ the kernel inputs its own nodes make. Tolerances, from the arithmetic:
 - slab entry (B4): bit-equal (the same float32 operations and selects);
 - cluster sweep (B5), closest and any hit: ids and t bit-equal (the same
   walk and the same left-to-right sums, -fmad=false);
+- dense-grid sweep (B6), closest and any hit: ids and t bit-equal to its
+  twin and to B5 (the same pairs in the same order), its work equal to
+  B5's;
 - the raster variants B7 (both plane forms), B8 and B9 (with and without
   the AABB clamp): depth and ids bit-equal, with and without z bounds;
 - grid-k resolve (B10): held as the resolve above.
 The tracer's kernels run on its own rays: every intersector pass of one
 128x128 sample of the bench tracer scene (camera, bounce-1 and shadow rays),
-and a 64x64 render on the card is held to the CPU path.
+and 64x64 renders on the card are held to the CPU path: the tracer scene
+through B5 and through B6, the material balls with the procedural sky and
+maps.
 """
 
 import pytest
 import torch
 
-from chip_smoke import check_small_frame, check_small_trace, frame_inputs, tracer_passes
+from chip_smoke import (check_small_frame, check_small_trace, frame_inputs, textured_sky_balls,
+                        tracer_passes)
 from sailor_tpu_torch.kernels import cuda_lib, pbr_kernel
 from sailor_tpu_torch.raster import setup as rsetup
 from sailor_tpu_torch.raster import tile_raster as tr
@@ -236,3 +242,34 @@ def test_sweep_kernel_matches_plain(tracer_rays, npass):
 
 def test_trace_on_card_matches_cpu(tracer_rays):
     check_small_trace()
+
+
+@pytest.mark.parametrize("npass", [0, 1, 2, 3],
+                         ids=["bounce0", "bounce0_shadow", "bounce1", "bounce1_shadow"])
+def test_sweep_grid_kernel_matches_plain_and_b5(tracer_rays, npass):
+    scene, passes = tracer_rays
+    p = passes[npass]
+    g = scene.sweep.g_cluster
+    args = (p["e_bits"], p["order"], p["feats"], p["tmax"], g)
+    before = cuda_lib.LAUNCHES["sweep_grid"]
+    t_k, i_k = sweep.sweep_grid_cuda(*args, any_hit=p["any_hit"])
+    assert cuda_lib.LAUNCHES["sweep_grid"] == before + 1
+    w6, w5 = {}, {}
+    t_p, i_p = sweep.sweep_grid_plain(*args, any_hit=p["any_hit"], work=w6)
+    t_5, i_5 = sweep.sweep_cuda(p["e_bits"], p["order"], p["blk_bits"], p["nlive"], p["feats"],
+                                p["tmax"], g, any_hit=p["any_hit"])
+    sweep.sweep_plain(p["e_bits"], p["order"], p["blk_bits"], p["nlive"], p["feats"], p["tmax"],
+                      g, any_hit=p["any_hit"], work=w5)
+    assert int((i_p >= 0).sum()) > 10
+    for t, i in ((t_p, i_p), (t_5, i_5)):
+        assert torch.equal(i_k, i)
+        assert torch.equal(t_k.view(torch.int32), t.view(torch.int32))
+    assert w6 == w5
+
+
+def test_grid_trace_on_card_matches_cpu(tracer_rays):
+    check_small_trace(label="tracer_grid", grid=True)
+
+
+def test_textured_sky_trace_on_card_matches_cpu(tracer_rays):
+    check_small_trace(textured_sky_balls, "balls_textured_sky")

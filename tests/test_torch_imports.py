@@ -8,9 +8,9 @@
   version only for CPU tensors: nothing falls back;
 - configuration and nodes outside the ported slices raise
   NotImplementedError, and every raster configuration builds;
-  so do the path tracer's parts that are not ported (textures, env-map
-  skies, the BVH8 tracer and scenes too large for the sweep, ray sorting
-  inside the intersector).
+  so do the path tracer's parts that are not ported (the BVH8 tracer and
+  scenes too large for the sweep), while its textures, env-map sky and
+  ray sorting inside the intersector run.
 """
 
 import os
@@ -24,6 +24,7 @@ import torch
 
 from sailor_tpu_torch.framegraph import FrameGraph, FrameGraphAsset
 from sailor_tpu_torch.kernels import pbr_kernel
+from sailor_tpu_torch.kernels.sky import SkyParams
 from sailor_tpu_torch.raster import tile_raster
 from sailor_tpu_torch.raytracing import path_tracer, sweep
 from sailor_tpu_torch.scenes import flagship_scene, tracer_camera, tracer_scene, tracer_soup
@@ -98,6 +99,9 @@ def test_kernel_wrappers_take_cuda_tensors_only():
         sweep.sweep_cuda(torch.zeros(8, 2, dtype=torch.int32), i32, i32,
                          torch.zeros(1, dtype=torch.int32), feats, torch.zeros(2048),
                          torch.zeros(2, 40, 256), any_hit=False)
+    with pytest.raises(ValueError, match="cuda"):
+        sweep.sweep_grid_cuda(torch.zeros(8, 2, dtype=torch.int32), i32, feats,
+                              torch.zeros(2048), torch.zeros(2, 40, 256), any_hit=True)
     with pytest.raises(ValueError, match="no kernel"):
         tile_raster.rasterize_worklist(None, None, None, st, st, None, n_big, tiles_y=1,
                                        tiles_x=1, prebuilt=(rows.to("meta"), big.to("meta")))
@@ -175,20 +179,36 @@ def _small_tracer():
 
 @pytest.mark.parametrize("what", ["albedo_texture", "normal_texture", "orm_texture",
                                   "emissive_texture", "images"])
-def test_tracer_textures_raise(what):
+def test_tracer_textures_are_ported(what):
+    """A material with one map (or images but no map) builds and renders."""
     m = {"albedo": np.ones((1, 3), np.float32), "metallic": np.zeros(1, np.float32),
-         "roughness": np.ones(1, np.float32), "emissive": np.zeros((1, 3), np.float32)}
-    m[what] = [np.zeros((4, 4, 4), np.uint8)] if what == "images" else np.zeros(1, np.int32)
-    with pytest.raises(NotImplementedError, match="textured"):
-        path_tracer.scene_from_mesh(tracer_soup(4, 8, 1), m, device="cpu")
+         "roughness": np.ones(1, np.float32), "emissive": np.ones((1, 3), np.float32),
+         "images": [np.full((4, 4, 4), 0.5, np.float32)], "texture_size": 8}
+    if what != "images":
+        m[what] = np.zeros(1, np.int32)
+    scene = path_tracer.scene_from_mesh(tracer_soup(4, 8, 1), m, device="cpu")
+    kind = what.split("_")[0]
+    assert scene.has_textures == (what != "images")
+    assert scene.textures.shape == (1, 8, 8, 4) and scene.mip_sizes == (8, 4)
+    assert [b[0] for b in scene.quad_blocks] == ([] if what == "images" else [kind])
+    for k in ("normal", "orm", "emissive"):
+        assert getattr(scene, f"has_{k}_maps") == (kind == k)
+    img, rays = path_tracer.render(scene, *tracer_camera("cpu"), width=16, height=16, spp=1,
+                                   max_bounces=2)
+    assert bool(torch.isfinite(img).all()) and float(rays) > 0
 
 
-def test_tracer_env_sky_and_bvh8_raise():
-    soup = tracer_soup(4, 8, 1)
-    with pytest.raises(NotImplementedError, match="sky"):
-        path_tracer.scene_from_mesh(soup, sky=object(), device="cpu")
+def test_tracer_env_sky_is_ported():
+    scene = path_tracer.scene_from_mesh(tracer_soup(4, 8, 1), sky=SkyParams.default(),
+                                        env_size=(8, 16), device="cpu")
+    assert scene.env_map.shape == (8, 16, 3) and bool((scene.env_map > 0).all())
+    d = torch.nn.functional.normalize(torch.randn(64, 3), dim=1)
+    assert bool(torch.isfinite(path_tracer.sky_radiance(scene, d)).all())
+
+
+def test_tracer_bvh8_raises():
     with pytest.raises(NotImplementedError, match="bvh8"):
-        path_tracer.scene_from_mesh(soup, tracer="bvh8", device="cpu")
+        path_tracer.scene_from_mesh(tracer_soup(4, 8, 1), tracer="bvh8", device="cpu")
 
 
 def test_tracer_large_scene_raises():
@@ -200,9 +220,16 @@ def test_tracer_large_scene_raises():
         path_tracer.scene_from_mesh(soup, device="cpu")
 
 
-def test_tracer_sort_rays_raises():
+def test_tracer_sort_rays_is_ported():
+    """Sorting the rays inside the intersector gives the unsorted hits."""
     scene, *_ = _small_tracer()
-    o = torch.zeros(4, 3)
-    with pytest.raises(NotImplementedError, match="sort_rays"):
-        sweep.intersect(scene.sweep, o, o + 1.0, sort_rays=True)
+    gen = torch.Generator().manual_seed(0)
+    o = torch.rand(3000, 3, generator=gen) * torch.tensor([8.0, 2.0, 8.0]) + torch.tensor(
+        [-4.0, 0.05, -4.0])
+    d = torch.nn.functional.normalize(torch.randn(3000, 3, generator=gen), dim=1)
+    plain = sweep.intersect(scene.sweep, o, d)
+    sorted_ = sweep.intersect(scene.sweep, o, d, sort_rays=True)
+    assert 0.1 < plain["hit"].float().mean() < 0.9
+    for k in ("hit", "tri", "t", "u", "v"):
+        assert torch.equal(sorted_[k], plain[k]), k
     assert tracer_camera("cpu")[0].device.type == "cpu"

@@ -17,6 +17,10 @@ package's own key splits, ``jax_uniforms``), through both packages:
   with default materials and once with a transmissive, scattering sphere
   (the volume path). A ray whose float32 arithmetic crosses an edge or a
   sort-key cell differently follows another path, hence the share;
+- the textured scenes (``BUILDS``: each texture kind of the reference's
+  texture tests on a plane, the material balls with procedural maps): the
+  shading table, the mip and quad tables exactly equal; their renders, and
+  the env-map sky's, are ``test_torch_trace_variants.py``'s;
 - ``trace_rays`` on 3000 given rays (one partial ray block), bounce sort
   off as the reference's default: the same bounds on its radiance.
 """
@@ -27,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from sailor_tpu.assets import primitives as jax_primitives
 from sailor_tpu.core import math3d as jax_m3
 from sailor_tpu.raytracing import bluenoise as jax_bn
 from sailor_tpu.raytracing import lighting_model as jax_lm
@@ -34,7 +39,7 @@ from sailor_tpu.raytracing import path_tracer as jax_pt
 from sailor_tpu_torch.core import math3d as m3
 from sailor_tpu_torch.raytracing import bluenoise, lighting_model as lm, path_tracer as pt
 from sailor_tpu_torch.raytracing import sweep
-from sailor_tpu_torch.scenes import tracer_soup
+from sailor_tpu_torch.scenes import material_balls_soup, procedural_test_maps, tracer_soup
 from test_torch_scenes import release_jax_executables  # noqa: F401
 
 GLASS = {
@@ -59,23 +64,85 @@ def _soup(materials):
 
 
 def _carry(ref) -> pt.TraceScene:
-    arrays = {k: np.asarray(getattr(ref, k)) for k in pt.TRACE_KEYS}
+    """The reference's TraceScene as the port's, array for array."""
+    arrays = {k: None if getattr(ref, k) is None else np.asarray(getattr(ref, k))
+              for k in pt.TRACE_KEYS + pt.OPTIONAL_KEYS}
+    if not ref.has_textures:
+        arrays["textures"] = None
     sw = {k: np.asarray(getattr(ref.sweep, k))
           for k in ("g_cluster", "v0e1e2", "tri_id", "cl_min", "cl_max")}
     sw["num_tris"] = ref.sweep.num_tris
-    return pt.trace_scene_from_numpy(arrays, sw, ref.has_volumes, device="cpu")
+    return pt.trace_scene_from_numpy(arrays, sw, ref.has_volumes, device="cpu",
+                                     mip_sizes=ref.mip_sizes, quad_blocks=ref.quad_blocks,
+                                     **{k: getattr(ref, k) for k in pt.FLAGS})
 
 
-@pytest.mark.parametrize("materials", [None, GLASS], ids=["default", "glass"])
+def _texture_plane(kind, mips=True):
+    """The reference's texture tests' scene: a 10 m plane with one 8x8 map
+    of ``kind`` (``tests/test_path_tracer.py:264-375``)."""
+    soup = jax_primitives.merge([(jax_primitives.plane(10.0), np.eye(4))], material_ids=[0])
+    mats = {"albedo": np.ones((1, 3), np.float32) * 0.8, "metallic": np.zeros(1, np.float32),
+            "roughness": np.asarray([0.6], np.float32), "emissive": np.zeros((1, 3), np.float32),
+            "texture_size": 8, f"{kind}_texture": np.asarray([0], np.int32)}
+    tex = np.zeros((8, 8, 4), np.float32)
+    if kind == "albedo":
+        tex[:, :4], tex[:, 4:] = [1, 0, 0, 1], [0, 0, 1, 1]
+    elif kind == "normal":
+        # a strong tilt, as the reference's test has it, but off the
+        # tangent axis: its [1, 0.5, 0.6] puts every shading normal on
+        # z = 0, where the tangent basis of the BRDF sampler flips with the
+        # sign of the last bit of n.z (ROADMAP C)
+        tex[...] = [1.0, 0.7, 0.6, 1.0]
+    elif kind == "orm":
+        tex[...] = [1.0, 0.5, 1.0, 1.0]
+        tex[:, 4:, 2] = 0.0              # metallic x0 on the right half
+        mats["metallic"] = np.ones(1, np.float32)
+    else:
+        tex[:, :4, :3] = 1.0             # the left half emits
+        mats["emissive"] = np.ones((1, 3), np.float32) * 2.0
+    mats["images"] = [tex]
+    return soup, mats
+
+
+def _balls():
+    soup, mats = material_balls_soup(8, 16)
+    maps = procedural_test_maps(1, 32)
+    for i, k in enumerate(("albedo", "normal", "orm", "emissive")):
+        mats[f"{k}_texture"] = np.asarray([i] + [-1] * 8, np.int32)
+    mats["emissive"][0] = 0.5
+    mats.update(images=maps, texture_size=32)
+    return soup, mats
+
+
+BUILDS = {
+    "default": lambda: (_soup(None), None),
+    "glass": lambda: (_soup(GLASS), GLASS),
+    "albedo_map": lambda: _texture_plane("albedo"),
+    "normal_map": lambda: _texture_plane("normal"),
+    "orm_map": lambda: _texture_plane("orm"),
+    "emissive_map": lambda: _texture_plane("emissive"),
+    "balls": _balls,
+}
+
+
+@pytest.mark.parametrize("materials", list(BUILDS))
 def test_scene_from_mesh_matches_reference(materials):
-    soup = _soup(materials)
-    ref = jax_pt.scene_from_mesh(soup, materials)
-    got = pt.scene_from_mesh(soup, materials, device="cpu")
+    soup, mats = BUILDS[materials]()
+    ref = jax_pt.scene_from_mesh(soup, mats)
+    got = pt.scene_from_mesh(soup, mats, device="cpu")
     carried = _carry(ref)
-    assert got.has_volumes == ref.has_volumes == (materials is GLASS)
-    for k in pt.TRACE_KEYS:
+    assert got.has_volumes == ref.has_volumes == (materials == "glass")
+    for k in pt.FLAGS:
+        assert getattr(got, k) == getattr(ref, k), k
+    assert got.mip_sizes == ref.mip_sizes and got.quad_blocks == ref.quad_blocks
+    for k in pt.TRACE_KEYS + ("tex_lod", "tex_quad"):
+        if getattr(ref, k) is None:
+            assert getattr(got, k) is None, k
+            continue
         np.testing.assert_array_equal(getattr(got, k).numpy(), np.asarray(getattr(ref, k)), k)
         assert torch.equal(getattr(carried, k), getattr(got, k))
+    if ref.has_textures:
+        np.testing.assert_array_equal(got.textures.numpy(), np.asarray(ref.textures))
     for k in ("g_cluster", "v0e1e2", "tri_id", "cl_min", "cl_max"):
         assert torch.equal(getattr(carried.sweep, k), getattr(got.sweep, k)), k
     assert got.sweep.n_clusters == ref.sweep.n_clusters
@@ -182,13 +249,16 @@ def test_rotate_morton_and_sort_key_exact():
     np.testing.assert_array_equal(got, want)
 
 
-def jax_uniforms(key, spp: int, bounces: int, r: int) -> np.ndarray:
-    """(spp, 5 * bounces, r) uniforms as the reference's render draws them:
-    one key per sample, 5 * bounces keys per sample, uniform(k, (r,))."""
+def jax_uniforms(key, spp: int, bounces: int, r: int, sample_batch: int = 1) -> np.ndarray:
+    """(spp / sb, 5 * bounces, sb * r) uniforms as the reference's render
+    draws them: one key per sample, of which each pass of sb samples uses
+    its first; 5 * bounces keys a pass, uniform(k, (sb * r,))."""
+    sb = sample_batch
+    keys = jax.random.split(key, spp).reshape(spp // sb, sb, -1)
     return np.stack([
-        np.stack([np.asarray(jax.random.uniform(k, (r,)))
-                  for k in jax.random.split(sk, 5 * bounces)])
-        for sk in jax.random.split(key, spp)])
+        np.stack([np.asarray(jax.random.uniform(k, (sb * r,)))
+                  for k in jax.random.split(sk[0], 5 * bounces)])
+        for sk in keys])
 
 
 @pytest.mark.parametrize("materials", [None, GLASS], ids=["default", "glass"])
@@ -206,7 +276,7 @@ def test_render_matches_reference(materials):
     uniforms = jax_uniforms(key, spp, bounces, pt.rays_per_sample(w, h))
     got, rays = pt.render(_carry(ref), *(torch.from_numpy(np.array(a)) for a in (cam, view, proj)),
                           width=w, height=h, spp=spp, max_bounces=bounces,
-                          uniforms=torch.from_numpy(uniforms))
+                          uniforms=torch.from_numpy(uniforms), sort_bounces=True)
     want = np.asarray(want)
     assert float(rays) == float(want_rays) > 2 * w * h * spp
     close = np.abs(got.numpy() - want).max(-1) <= 1e-3 * (1 + np.abs(want).max(-1))
@@ -231,3 +301,4 @@ def test_trace_rays_matches_reference():
     assert float(rays) == float(want_rays) > 2 * r * spp
     close = np.abs(got.numpy() - want).max(-1) <= 1e-3 * (1 + np.abs(want).max(-1))
     assert close.mean() >= 0.99, close.mean()
+

@@ -14,7 +14,12 @@ Same numpy inputs through both packages:
   where both hit the same triangle, t within 1e-5 * max(1, |ref|) and the
   hit point that u and v give (|du| times the triangle's longest edge)
   within 1e-5 * max(1, t) (the refinement's crosses and dots may be fused
-  by XLA).
+  by XLA);
+- B6, the port's grid sweep (``DMA_SWEEP`` off), against the reference's
+  grid kernel in all four cases at the same bounds, and its twin equal to
+  B5's twin bit for bit (t bits and ids) on the same tables;
+- ``intersect(sort_rays=True)`` against the reference's, on both scenes,
+  at the same bounds.
 """
 
 import jax
@@ -121,7 +126,7 @@ def _sorted_index(scene, tri):
     return where[tri]
 
 
-def _check_intersect(name, case):
+def _check_intersect(name, case, sort_rays=False):
     v0, v1, v2 = SCENES[name]()
     ref_scene = jax_sweep.build(v0, v1, v2)
     scene = sweep.build(v0, v1, v2, device="cpu")
@@ -131,9 +136,9 @@ def _check_intersect(name, case):
     active = rng.random(len(o)) > 0.3
     t_max = rng.uniform(1.0, 12.0, len(o)).astype(np.float32)
     jkw = dict(any_hit=any_hit, active=jnp.asarray(active) if use_active else None,
-               t_max=jnp.asarray(t_max) if use_tmax else None)
+               t_max=jnp.asarray(t_max) if use_tmax else None, sort_rays=sort_rays)
     tkw = dict(any_hit=any_hit, active=torch.from_numpy(active) if use_active else None,
-               t_max=torch.from_numpy(t_max) if use_tmax else None)
+               t_max=torch.from_numpy(t_max) if use_tmax else None, sort_rays=sort_rays)
     want = {k: np.asarray(v) for k, v in
             jax_sweep.intersect(ref_scene, jnp.asarray(o), jnp.asarray(d), **jkw).items()}
     got = {k: v.numpy() for k, v in
@@ -183,3 +188,70 @@ def reference_grid_kernel(monkeypatch):
 @pytest.mark.parametrize("case", ["closest", "any_active"])
 def test_intersect_matches_reference_grid_kernel(reference_grid_kernel, case):
     _check_intersect("soup", case)
+
+
+@pytest.fixture
+def port_grid_kernel(reference_grid_kernel, monkeypatch):
+    """Both packages on their grid kernels (B6): ``DMA_SWEEP`` off."""
+    monkeypatch.setattr(sweep, "DMA_SWEEP", False)
+    yield
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_grid_intersect_matches_reference_grid_kernel(port_grid_kernel, case):
+    _check_intersect("soup", case)
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_sweep_grid_plain_equals_sweep_plain(any_hit):
+    """B6's twin walks every step, B5's stops early: the same t bits, ids
+    and work on the tracer scene's camera and bounce rays, some dead."""
+    v0, v1, v2 = _tracer_tris()
+    scene = sweep.build(v0, v1, v2, device="cpu")
+    rng = np.random.default_rng(12)
+    o, d = _rays("tracer", rng, r=4000)
+    active = torch.from_numpy(rng.random(len(o)) > 0.2)
+    p = sweep.prepare(scene, torch.from_numpy(o), torch.from_numpy(d), active=active)
+    w5, w6 = {}, {}
+    t5, i5 = sweep.sweep_plain(p["e_bits"], p["order"], p["blk_bits"], p["nlive"], p["feats"],
+                               p["tmax"], scene.g_cluster, any_hit=any_hit, work=w5)
+    t6, i6 = sweep.sweep_grid_plain(p["e_bits"], p["order"], p["feats"], p["tmax"],
+                                    scene.g_cluster, any_hit=any_hit, work=w6)
+    assert (i5 >= 0).sum() > 500
+    assert torch.equal(i6, i5)
+    assert torch.equal(t6.view(torch.int32), t5.view(torch.int32))
+    assert w6 == w5
+
+
+@pytest.mark.parametrize("name,case", [("soup", "closest"), ("soup", "any_active"),
+                                       ("soup", "closest_tmax"),
+                                       ("tracer", "closest_active")])
+def test_intersect_sort_rays_matches_reference(name, case):
+    _check_intersect(name, case, sort_rays=True)
+
+
+def test_ray_order_sorts_by_first_cluster_and_direction():
+    """``ray_order`` is a stable sort by first cluster * 64 + direction
+    code, and its inverse undoes it; rays that enter no cluster (and the
+    padding) sort last."""
+    v0, v1, v2 = _tracer_tris()
+    scene = sweep.build(v0, v1, v2, device="cpu")
+    o, d = _rays("tracer", np.random.default_rng(2), r=3000)
+    po, pd, tmax = sweep._pad_rays(torch.from_numpy(o), torch.from_numpy(d), None, None)
+    perm, inv = sweep.ray_order(scene, po, pd, tmax)
+    n = po.shape[0]
+    assert torch.equal(perm[inv], torch.arange(n))
+    # the key, recomputed in numpy float32 from the reference's formulas
+    on, dn, tm = po.numpy(), pd.numpy(), tmax.numpy()
+    lo, hi = scene.cl_min.numpy(), scene.cl_max.numpy()
+    with np.errstate(divide="ignore"):
+        inv_d = np.where(np.abs(dn) > 1e-12, np.float32(1) / dn, np.float32(1e12))
+    a = inv_d[:, None, :] * lo[None] - (on * inv_d)[:, None, :]
+    b = inv_d[:, None, :] * hi[None] - (on * inv_d)[:, None, :]
+    tn, tf = np.minimum(a, b).max(2), np.maximum(a, b).min(2)
+    hit = (tn <= np.minimum(tf, tm[:, None])) & (tf > 0)
+    fc = np.where(hit.any(1), np.where(hit, tn, np.inf).argmin(1), scene.n_clusters)
+    qd = np.clip(((dn + 1) * 2).astype(np.int32), 0, 3)
+    key = fc * 64 + (qd[:, 0] * 4 + qd[:, 1]) * 4 + qd[:, 2]
+    np.testing.assert_array_equal(perm.numpy(), np.argsort(key, kind="stable"))
+    assert (fc[3000:] == scene.n_clusters).all() and 0 < (fc < scene.n_clusters).mean() < 1
