@@ -19,6 +19,7 @@ same places (csrc/common.cuh), so kernel and plain version agree bit for bit.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -132,6 +133,22 @@ def perspective(fov_y_rad: float, aspect: float, z_near: float, z_far: float,
     m[2, 3] = z_far * z_near / (z_far - z_near)
     m[3, 2] = -1.0
     return m.to(device) if device is not None else m
+
+
+def inverse(m):
+    """The float32 inverse of a (4, 4) matrix as the reference's
+    ``jnp.linalg.inv`` computes it on a CPU: LAPACK's LU factorisation with
+    partial pivoting (``getrf``), then the triangular solves against the
+    identity (``getrs``), which is what jaxlib's CPU kernels call; here
+    through scipy's, so the two agree bit for bit (``torch.linalg.inv``
+    differs in the last bit of some entries). Computed on the host: a
+    matrix on the card is copied back (64 bytes, one synchronise) and the
+    inverse returned to its device."""
+    import scipy.linalg
+
+    a = m.detach().to("cpu", torch.float32).numpy()
+    inv = scipy.linalg.lu_solve(scipy.linalg.lu_factor(a), np.eye(4, dtype=np.float32))
+    return torch.from_numpy(inv.astype(np.float32, copy=False)).to(m.device)
 
 
 def linear_to_srgb(c):

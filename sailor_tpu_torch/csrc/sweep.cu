@@ -12,22 +12,24 @@
 // bits are not below the bound is skipped; the walk stops at the first step
 // whose sorted block entry reaches the bound (the sorted block entry is a
 // lower bound of every later sub-block entry, so the stop is exact). A live
-// step tests every (ray, triangle) pair of the cluster: Plücker sides
-// s_e = [d, m] . edge_e, num = [o, 1] . [-n, k], den = d . n, a hit iff the
-// sides agree in sign, den != 0 and 1e-4 < num/den < best (exact division).
-// Closest hit keeps the least t, equal t within a cluster going to the
-// larger cid * 256 + col and across clusters to the earlier step; any hit
-// retires the ray with t = -1 and index 0. Sums run left to right with
-// -fmad=false, as in the twin, so the two agree bit for bit.
+// step tests every (ray, triangle) pair of the cluster for the rays still
+// live (best t > 1e-4), with the test and merge of sweep_common.cuh.
 //
 // Bound on the H100: about 45 float operations per (ray, triangle) test of
 // a ray live at its step, and the 25 used rows (25 KB) of the cluster block
 // read per (sub-block, step) pair the walk takes; chip_smoke.py counts both
-// from the run's data and reports the larger. Design: one block per
-// sub-block, one thread per ray; the staging, the test and the merge are
-// sweep_common.cuh's (shared with B6, sweep_grid.cu). The bound is a block
-// reduction (__reduce_max_sync per warp, then the 8 warp maxima) after each
-// live step.
+// from the run's data and reports the larger. With -fmad=false every
+// multiply and add issues alone, so the issue-rate floor is about twice that
+// bound.
+//
+// Design (sweep_common.cuh says how): one block per sub-block; the live
+// rays are packed per step, so idle lanes of dead, escaped and retired rays
+// cost nothing; thread k holds triangle k, each warp loops over the packed
+// rays four (any hit: three) at a time; the division runs only where a
+// lane's sides agree; the next live step's rows are copied with cp.async
+// while the current step tests; 3 blocks an SM. The step search is a warp
+// ballot over 32 steps of the sub-block's entry bits and the block's sorted
+// entries at a time.
 #include <cstdint>
 
 #include "sweep_common.cuh"
@@ -37,34 +39,36 @@ namespace {
 using namespace sweep_dev;
 
 template <bool ANY_HIT>
-__global__ void __launch_bounds__(SUB)
+__global__ void __launch_bounds__(SUB, BLOCKS_PER_SM)
 sweep_kernel(const int* __restrict__ e_bits, const int* __restrict__ order,
              const int* __restrict__ blk_bits, const int* __restrict__ nlive,
              const float* __restrict__ feats, const float* __restrict__ tmax,
              const float* __restrict__ g_cluster, float* __restrict__ best_t,
              int* __restrict__ best_i, int nsub, int nc) {
-  __shared__ __align__(16) float tri[CLUSTER * TRI];
-  __shared__ int scratch[WARPS];
-  const int sb = blockIdx.x;
-  const int b = sb / nsub;
-  const int64_t ray = static_cast<int64_t>(sb) * SUB + threadIdx.x;
-  float r[9];
-  load_ray(feats, ray, r);
-  float t = tmax[ray];
-  int idx = -1;
-  int bound = block_max(__float_as_int(t), scratch);
-
+  __shared__ __align__(16) Smem sm;
+  const int b = blockIdx.x / nsub;
+  const int* e_row = e_bits + static_cast<int64_t>(blockIdx.x) * nc;
+  const int* blk_row = blk_bits + static_cast<int64_t>(b) * nc;
   const int steps = nlive[b];
-  for (int j = 0; j < steps; ++j) {
-    if (blk_bits[b * nc + j] >= bound) break;
-    if (e_bits[static_cast<int64_t>(sb) * nc + j] >= bound) continue;
-    const int cid = order[b * nc + j];
-    stage_cluster(g_cluster, cid, tri);
-    test_cluster<ANY_HIT>(r, tri, cid, t, idx);
-    bound = block_max(__float_as_int(t), scratch);
-  }
-  best_t[ray] = t;
-  best_i[ray] = idx;
+  // the first step at or after `from` that is live, -1 once a sorted block
+  // entry reaches the bound (the walk's stop) or the live steps run out
+  auto next = [&](int from, int bound) {
+    const int lane = threadIdx.x & 31;
+    for (int base = from; base < steps; base += 32) {
+      const int j = base + lane;
+      const bool in = j < steps;
+      const unsigned stop = __ballot_sync(FULL, in && blk_row[j] >= bound);
+      const unsigned live = __ballot_sync(FULL, in && e_row[j] < bound);
+      const unsigned any = stop | live;
+      if (any != 0) {
+        const int f = __ffs(any) - 1;
+        return ((stop >> f) & 1u) ? -1 : base + f;
+      }
+    }
+    return -1;
+  };
+  walk<ANY_HIT>(order + static_cast<int64_t>(b) * nc, feats, tmax, g_cluster, best_t, best_i,
+                sm, next);
 }
 
 }  // namespace

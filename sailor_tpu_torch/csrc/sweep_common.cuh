@@ -1,18 +1,59 @@
 // Device code shared by the cluster sweeps B5 (sweep.cu, the per-block
-// walk) and B6 (sweep_grid.cu, the dense (block, step) grid): the staging
-// of one cluster, the (ray, triangle) test and the merge into a ray's best
-// hit. Each kernel keeps only its walk over visit steps.
+// walk) and B6 (sweep_grid.cu, the dense (block, step) grid): the staging of
+// a sub-block's rays, the packing of its live rays, the prefetch of a
+// cluster, the (ray, triangle) test of a step and the merge into each ray's
+// best hit. Each kernel keeps only its walk over visit steps.
 //
-// One block per 256-ray sub-block, one thread per ray. A step stages the 25
-// used feature rows of its cluster (18 side, 4 num, 3 den) in shared memory,
-// transposed to 28 floats per triangle, so each thread reads a triangle as
-// seven float4 broadcasts. The test: Plücker sides s_e = [d, m] . edge_e,
-// num = [o, 1] . [-n, k], den = d . n; a hit iff the sides agree in sign,
-// den != 0 and 1e-4 < num/den < best (exact division, den == 0 -> 1).
-// Closest hit keeps the least t, equal t within a cluster going to the larger
-// cid * 256 + col; any hit retires the ray with t = -1 and index 0. Sums run
-// left to right with -fmad=false, as in the plain twins, so the kernels and
-// the twins agree bit for bit.
+// The function (the plain twins' in raytracing/sweep.py): Plücker sides
+// s_e = [d, m] . edge_e, num = [o, 1] . [-n, k], den = d . n; a hit iff the
+// sides agree in sign, den != 0 and 1e-4 < num/den < best (exact division,
+// den == 0 -> 1). Closest hit keeps the least t, equal t within a cluster
+// going to the larger cid * 256 + col; any hit retires the ray with t = -1
+// and index 0. Sums run left to right with -fmad=false, as in the twins, so
+// the kernels and the twins agree bit for bit.
+//
+// The mapping: one block of 256 threads per 256-ray sub-block; the skip and
+// stop decisions stay per sub-block, from its bound (the largest float32 bit
+// pattern of its rays' best t), so no ray moves between sub-blocks.
+//  1. Live rays packed per step. Thread r owns ray r (its t and index live
+//     in registers). Before each step every warp ballots t > 1e-4, the block
+//     forms a prefix over the 8 warp counts, and each live owner writes its
+//     ray's features and best t to slot `pos` of a packed list of L entries.
+//     A step then costs L x 256 tests on 256 lanes, however sparse the pass:
+//     dead, escaped and retired rays take no lane time.
+//  2. Triangles across lanes. Thread k holds triangle k's 25 used values in
+//     registers; warp w loops over the L packed rays (read as broadcasts),
+//     four at a time (three for any hit), and tests its 32 triangles. The
+//     exact division runs only under a warp-uniform vote that some lane's
+//     sides agree with den != 0; the hit is decided on the rounded quotient.
+//     One vote covers the four rays' candidates, so most iterations are the
+//     sums, the side signs and one vote (a sign test of num against den
+//     before the vote would skip more divisions but cost every iteration
+//     more than it saves). Per (ray, warp), a ballot of the hits; only if it
+//     is nonzero a warp reduction to the least t (equal t to the larger k),
+//     which lane 0 writes into the ray's slot for the warp (a slot holds
+//     +inf otherwise). After a barrier each owner merges the 8 warps in k
+//     order (least t, equal t to the larger k) and resets its slots; a later
+//     step takes the ray only with a strictly smaller t (best is the t at
+//     the start of the step). Any hit: a hit writes -1 into the packed ray's
+//     best, which the other warps read before testing it and the owner reads
+//     after the step (a harmless race: the result is t = -1, index 0,
+//     whichever triangle hit).
+//  3. No restaging through a transposed tile: thread k copies its own
+//     column of the cluster's 25 feature-major rows (row r at r*256 + k, a
+//     coalesced 128 B a warp) with cp.async into its own column of a shared
+//     buffer, conflict-free, and reads it back into registers. Only thread k
+//     ever touches column k, so the copy needs no barrier, and the next live
+//     step's copy (found under the current bound) is issued before the
+//     current step tests. The bound only falls, so a prefetched step may turn
+//     out dead: that wastes bytes, never changes a result. Three barriers a
+//     step: the packed list, the (ray, warp) results, the next packing.
+//  4. Waves: four rays' independent sums need more than 64 registers
+//     (ptxas: 72-76), so __launch_bounds__(256, 3): 3 blocks (46 KB of
+//     shared memory each) on an SM, 396 at once, 2.6 waves of 1024
+//     sub-blocks. On the H100 this beat 64 registers and 4 blocks an SM;
+//     the kernel is bound by instruction issue (45 unfused float operations
+//     and about 10 others a test, per lane), not by memory.
 #pragma once
 
 #include <cstdint>
@@ -25,102 +66,245 @@ constexpr int SUB = 256;
 constexpr int CLUSTER = 256;
 constexpr int ROWS = 40;
 constexpr int FEATS = 16;
-constexpr int TRI = 28;  // staged floats per triangle: 18 side, 4 num, 3 den, pad
+constexpr int USED = 25;  // used rows a triangle: 18 side, 4 num, 3 den
 constexpr int WARPS = SUB / 32;
+constexpr int BLOCKS_PER_SM = 3;  // __launch_bounds__: at most 80 registers
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 
-// left-to-right six-term dot of [d, m] with an edge's six features
-__device__ __forceinline__ float side(const float* r, const float* g) {
-  float acc = mul(r[0], g[0]);
-#pragma unroll
-  for (int k = 1; k < 6; ++k) acc = add(acc, mul(r[k], g[k]));
-  return acc;
+// the used rows: edge e's six Plücker rows at 8e, then -n, k and n
+__device__ __forceinline__ int used_row(int r) {
+  return r < 18 ? 8 * (r / 6) + r % 6 : (r < 22 ? 24 + (r - 18) : 36 + (r - 22));
 }
 
-// The largest v over the block (every thread gets it). Its barriers also
-// keep the next step from restaging the cluster while a thread still tests.
-__device__ __forceinline__ int block_max(int v, int* scratch) {
-  const int w = __reduce_max_sync(0xffffffffu, v);
-  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = w;
+struct Smem {
+  float4 ray_dm[SUB];      // packed live rays: d0 d1 d2 m0
+  float4 ray_mo[SUB];      // m1 m2 o0 o1
+  float2 ray_ob[SUB];      // o2, best t at the step's start (-1: any hit found)
+  float part_t[WARPS][SUB];          // per (warp, packed ray): least t, +inf if none
+  unsigned char part_k[WARPS][SUB];  // its column
+  float buf[USED][CLUSTER];          // column k: thread k's cluster rows
+  int wmax[WARPS];
+  unsigned wmask[WARPS];
+};
+
+struct Pack {
+  int bound;  // the sub-block's bound: largest t bits
+  int count;  // L, live rays
+  int pos;    // this thread's ray's slot in the packed list, -1 if not live
+};
+
+// Pack the live rays (t > 1e-4) of the sub-block: every thread gets the
+// bound and L, each live owner its slot; the slots are filled in ray order.
+// Ends without a barrier: the caller's next barrier publishes the list.
+__device__ __forceinline__ Pack pack(float t, const float* __restrict__ feats, int64_t ray,
+                                     Smem& sm) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const bool live = t > 1e-4f;
+  const unsigned mask = __ballot_sync(FULL, live);
+  const int wmax = __reduce_max_sync(FULL, __float_as_int(t));
+  if (lane == 0) {
+    sm.wmax[w] = wmax;
+    sm.wmask[w] = mask;
+  }
   __syncthreads();
-  int m = scratch[0];
+  Pack p{sm.wmax[0], 0, -1};
+  int before = 0;
 #pragma unroll
-  for (int i = 1; i < WARPS; ++i) m = max(m, scratch[i]);
-  __syncthreads();  // scratch is rewritten by the next call
-  return m;
+  for (int v = 0; v < WARPS; ++v) {
+    const int c = __popc(sm.wmask[v]);
+    before += v < w ? c : 0;
+    p.count += c;
+    p.bound = max(p.bound, sm.wmax[v]);
+  }
+  if (live) {
+    p.pos = before + __popc(mask & ((1u << lane) - 1u));
+    const float4* f = reinterpret_cast<const float4*>(feats + ray * FEATS);
+    const float4 dm = __ldg(f), mz = __ldg(f + 1), o1 = __ldg(f + 2);
+    sm.ray_dm[p.pos] = dm;
+    sm.ray_mo[p.pos] = make_float4(mz.x, mz.y, o1.x, o1.y);
+    sm.ray_ob[p.pos] = make_float2(o1.z, t);
+  }
+  return p;
 }
 
-// This thread's ray: d (3), m (3), o (3) from its 16 feature columns.
-__device__ __forceinline__ void load_ray(const float* __restrict__ feats, int64_t ray,
-                                         float r[9]) {
-#pragma unroll
-  for (int k = 0; k < 6; ++k) r[k] = feats[ray * FEATS + k];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) r[6 + k] = feats[ray * FEATS + 8 + k];
-}
-
-// Thread k copies triangle k's used rows of cluster cid (coalesced across
-// threads), then the block waits for the whole cluster.
-__device__ __forceinline__ void stage_cluster(const float* __restrict__ g_cluster, int cid,
-                                              float* tri) {
+// Thread k: copy triangle k's used rows of cluster cid into column k of the
+// buffer, asynchronously (one group).
+__device__ __forceinline__ void prefetch(const float* __restrict__ g_cluster, int cid, Smem& sm) {
   const float* g = g_cluster + static_cast<int64_t>(cid) * ROWS * CLUSTER + threadIdx.x;
-  float* s = tri + threadIdx.x * TRI;
 #pragma unroll
-  for (int e = 0; e < 3; ++e)
-#pragma unroll
-    for (int k = 0; k < 6; ++k) s[6 * e + k] = g[(8 * e + k) * CLUSTER];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) s[18 + k] = g[(24 + k) * CLUSTER];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) s[22 + k] = g[(36 + k) * CLUSTER];
-  __syncthreads();
+  for (int r = 0; r < USED; ++r) {
+    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(&sm.buf[r][threadIdx.x]));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+                 "l"(g + used_row(r) * CLUSTER)
+                 : "memory");
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// Test the ray r against the staged cluster cid and merge into (t, idx). A
-// dead ray (t <= 1e-4) skips the tests: no t can pass both 1e-4 < t and
-// t < best.
-template <bool ANY_HIT>
-__device__ __forceinline__ void test_cluster(const float r[9], const float* tri, int cid,
-                                             float& t, int& idx) {
-  if (!(t > 1e-4f)) return;
-  const float best = t;
-  float cur = __int_as_float(0x7f800000);
-  int ci = -1;
-  for (int k = 0; k < CLUSTER; ++k) {
-    float q[TRI];
-    const float4* q4 = reinterpret_cast<const float4*>(tri + k * TRI);
+__device__ __forceinline__ void wait_prefetch() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Thread k: triangle k's rows, from its own column once its copy landed.
+__device__ __forceinline__ void take(const Smem& sm, float q[USED]) {
+  wait_prefetch();
 #pragma unroll
-    for (int v = 0; v < TRI / 4; ++v) {
-      const float4 x = q4[v];
-      q[4 * v] = x.x;
-      q[4 * v + 1] = x.y;
-      q[4 * v + 2] = x.z;
-      q[4 * v + 3] = x.w;
-    }
-    const float s0 = side(r, q), s1 = side(r, q + 6), s2 = side(r, q + 12);
-    const float num = add(add(add(mul(r[6], q[18]), mul(r[7], q[19])), mul(r[8], q[20])), q[21]);
-    const float den = add(add(mul(r[0], q[22]), mul(r[1], q[23])), mul(r[2], q[24]));
+  for (int r = 0; r < USED; ++r) q[r] = sm.buf[r][threadIdx.x];
+}
+
+// left-to-right six-term dot of [d, m] with an edge's six rows
+__device__ __forceinline__ float side(float d0, float d1, float d2, float m0, float m1,
+                                      float m2, const float* g) {
+  float acc = mul(d0, g[0]);
+  acc = add(acc, mul(d1, g[1]));
+  acc = add(acc, mul(d2, g[2]));
+  acc = add(acc, mul(m0, g[3]));
+  acc = add(acc, mul(m1, g[4]));
+  return add(acc, mul(m2, g[5]));
+}
+
+// Test packed rays i0 .. i0 + R - 1 against this thread's triangle q: the
+// R rays' sums first (R x 5 independent chains), then one vote for all R;
+// only a warp with a candidate lane goes on to the divisions and ballots.
+template <bool ANY_HIT, int R>
+__device__ __forceinline__ void test_rays(const float q[USED], Smem& sm, int i0) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const float inf = __int_as_float(0x7f800000);
+  float best[R], num[R], den[R];
+  bool may[R];
+#pragma unroll
+  for (int u = 0; u < R; ++u) {
+    const int i = i0 + u;
+    best[u] = sm.ray_ob[i].y;
+    if (ANY_HIT) best[u] = __shfl_sync(FULL, best[u], 0);  // another warp may retire it
+    const float4 dm = sm.ray_dm[i], mo = sm.ray_mo[i];
+    const float o2 = sm.ray_ob[i].x;
+    const float s0 = side(dm.x, dm.y, dm.z, dm.w, mo.x, mo.y, q);
+    const float s1 = side(dm.x, dm.y, dm.z, dm.w, mo.x, mo.y, q + 6);
+    const float s2 = side(dm.x, dm.y, dm.z, dm.w, mo.x, mo.y, q + 12);
+    num[u] = add(add(add(mul(mo.z, q[18]), mul(mo.w, q[19])), mul(o2, q[20])), q[21]);
+    den[u] = add(add(mul(dm.x, q[22]), mul(dm.y, q[23])), mul(dm.z, q[24]));
     const bool agree = (s0 >= 0.0f && s1 >= 0.0f && s2 >= 0.0f) ||
                        (s0 <= 0.0f && s1 <= 0.0f && s2 <= 0.0f);
-    const float tval = __fdiv_rn(num, den == 0.0f ? 1.0f : den);
-    const bool ok = agree && den != 0.0f && tval > 1e-4f && tval < best;
-    if (ok) {
-      if (ANY_HIT) {
-        ci = k;
-        break;
-      }
-      if (tval <= cur) {  // ascending k: equal t goes to the larger col
-        cur = tval;
-        ci = k;
+    may[u] = agree && den[u] != 0.0f && (!ANY_HIT || best[u] > 0.0f);
+  }
+  bool any_may = false;
+#pragma unroll
+  for (int u = 0; u < R; ++u) any_may = any_may || may[u];
+  if (!__any_sync(FULL, any_may)) return;
+#pragma unroll
+  for (int u = 0; u < R; ++u) {
+    const int i = i0 + u;
+    unsigned hits = 0;
+    float tval = inf;
+    if (__any_sync(FULL, may[u])) {
+      tval = __fdiv_rn(num[u], den[u] == 0.0f ? 1.0f : den[u]);
+      hits = __ballot_sync(FULL, may[u] && tval > 1e-4f && tval < best[u]);
+    }
+    if (ANY_HIT) {
+      if (hits != 0 && lane == 0) sm.ray_ob[i].y = -1.0f;
+      continue;
+    }
+    if (hits != 0) {  // the slot holds +inf otherwise (merge resets it)
+      const bool ok = (hits >> lane) & 1u;
+      float tmin = ok ? tval : inf;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) tmin = fminf(tmin, __shfl_xor_sync(FULL, tmin, o));
+      const int kmax =
+          __reduce_max_sync(FULL, (ok && tval == tmin) ? static_cast<int>(threadIdx.x) : -1);
+      if (lane == 0) {
+        sm.part_t[w][i] = tmin;
+        sm.part_k[w][i] = static_cast<unsigned char>(kmax);
       }
     }
   }
-  if (ci >= 0) {  // a later step takes the ray only with a strictly smaller t
-    t = ANY_HIT ? -1.0f : cur;
-    idx = ANY_HIT ? 0 : cid * CLUSTER + ci;
+}
+
+// Test the `count` packed rays against this thread's triangle q (column
+// threadIdx.x): per (ray, warp), one (t, k) into part_t/part_k (closest
+// hit) or the retire flag (any hit). Barriers before (the packed list) and
+// after (the results).
+template <bool ANY_HIT>
+__device__ __forceinline__ void test_step(const float q[USED], Smem& sm, int count) {
+  __syncthreads();
+  int i = 0;
+  // packed rays a warp tests an iteration (any hit keeps each ray's best
+  // live through the sums, so it takes three to stay within 80 registers)
+  constexpr int R = ANY_HIT ? 3 : 4;
+  for (; i + R <= count; i += R) test_rays<ANY_HIT, R>(q, sm, i);
+  for (; i < count; ++i) test_rays<ANY_HIT, 1>(q, sm, i);
+  __syncthreads();
+}
+
+// The owner of a packed ray folds the step's results into (t, idx).
+template <bool ANY_HIT>
+__device__ __forceinline__ void merge(Smem& sm, int pos, int cid, float& t, int& idx) {
+  if (pos < 0) return;
+  if (ANY_HIT) {
+    if (sm.ray_ob[pos].y < 0.0f) {
+      t = -1.0f;
+      idx = 0;
+    }
+    return;
   }
+  const float inf = __int_as_float(0x7f800000);
+  float cur = inf;
+  int ci = -1;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) {  // ascending k: equal t goes to the larger col
+    const float pt = sm.part_t[w][pos];
+    if (pt < inf && pt <= cur) {
+      cur = pt;
+      ci = sm.part_k[w][pos];
+    }
+    sm.part_t[w][pos] = inf;  // the packed slots only shrink: every later slot is reset
+  }
+  if (ci >= 0) {
+    t = cur;
+    idx = cid * CLUSTER + ci;
+  }
+}
+
+// One sub-block's walk, given the kernel's step search: next(from, bound)
+// is the first live step at or after `from` under `bound`, or -1. Every
+// thread computes the same steps (the same loads and the same bound).
+template <bool ANY_HIT, typename Next>
+__device__ __forceinline__ void walk(const int* __restrict__ order_row,
+                                     const float* __restrict__ feats,
+                                     const float* __restrict__ tmax,
+                                     const float* __restrict__ g_cluster,
+                                     float* __restrict__ best_t, int* __restrict__ best_i,
+                                     Smem& sm, Next next) {
+  const int64_t ray = static_cast<int64_t>(blockIdx.x) * SUB + threadIdx.x;
+  float t = tmax[ray];
+  int idx = -1;
+  if (!ANY_HIT)
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) sm.part_t[w][threadIdx.x] = __int_as_float(0x7f800000);
+  Pack pk = pack(t, feats, ray, sm);
+  int j = next(0, pk.bound);
+  int staged = -1;  // the step whose rows are in (or on their way to) the buffer
+  while (j >= 0) {
+    const int cid = order_row[j];
+    if (staged != j) {
+      wait_prefetch();  // a copy of a step that turned out dead may be in flight
+      prefetch(g_cluster, cid, sm);
+    }
+    float q[USED];
+    take(sm, q);
+    staged = next(j + 1, pk.bound);  // live now; may die before its turn
+    if (staged >= 0) prefetch(g_cluster, order_row[staged], sm);
+    test_step<ANY_HIT>(q, sm, pk.count);
+    merge<ANY_HIT>(sm, pk.pos, cid, t, idx);
+    pk = pack(t, feats, ray, sm);
+    j = next(j + 1, pk.bound);
+  }
+  wait_prefetch();
+  best_t[ray] = t;
+  best_i[ray] = idx;
 }
 
 }  // namespace sweep_dev

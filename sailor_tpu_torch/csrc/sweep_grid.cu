@@ -10,24 +10,28 @@
 // block's visit order, in order, and skips a step whose sub-block entry bits
 // are not below its bound (the largest float32 bit pattern of its rays' best
 // t; dead and retired rays hold -1.0, whose bits are negative). There is no
-// live-step count and no block-wide stop: a step past the last live one
-// costs one compare. A live step tests every (ray, triangle) pair of the
-// step's cluster order[b, j] with B5's test and merge (sweep_common.cuh),
-// so the output equals B5's bit for bit: equal t within a cluster goes to
-// the larger cid * 256 + col, across clusters strict < keeps the earlier
-// step, any hit retires the ray with t = -1 and index 0.
+// live-step count and no block-wide stop. A live step tests the rays still
+// live against the step's cluster order[b, j] with B5's test and merge
+// (sweep_common.cuh), so the output equals B5's bit for bit: equal t within
+// a cluster goes to the larger cid * 256 + col, across clusters strict <
+// keeps the earlier step, any hit retires the ray with t = -1 and index 0.
 //
 // The TPU kernel's hold-previous fetch table and its feature-major side and
-// plane blocks are Mosaic fetch tricks; here a live step reads its cluster's
-// rows from the cluster-major g_cluster through order[b, j], as B5 does.
+// plane blocks are Mosaic fetch tricks; here a live step copies its
+// cluster's rows from the cluster-major g_cluster through order[b, j], as
+// B5 does.
 //
-// Bound on the H100: about 45 float operations per (ray, triangle) test of a
-// ray live at its step, and the 25 used rows (25 KB) of the cluster block
-// read per live (sub-block, step) pair, counted over every step the grid
-// takes (the same pairs B5 walks); chip_smoke.py counts both from the run's
-// data and reports the larger. Design: one block per sub-block, one thread
-// per ray, one sequential walk over the steps (the across-cluster tie rule
-// needs the visit order); the step's entry bits are one broadcast load.
+// Bound on the H100: B5's (the same pairs and tests): about 45 float
+// operations per (ray, triangle) test of a ray live at its step, and 25 KB
+// of cluster rows per live (sub-block, step) pair; chip_smoke.py counts both
+// from the run's data and reports the larger.
+//
+// Design: B5's (sweep_common.cuh: live rays packed per step, triangles
+// across lanes, division only where sides agree, the next live step's rows
+// copied with cp.async during the current step, 3 blocks an SM); only the
+// step search differs. It ballots 32 of the sub-block's entry
+// bits at a time against the bound, over all nc steps: the dead steps past
+// the last live one cost one ballot per 32, not one pass of the walk each.
 #include <cstdint>
 
 #include "sweep_common.cuh"
@@ -37,32 +41,26 @@ namespace {
 using namespace sweep_dev;
 
 template <bool ANY_HIT>
-__global__ void __launch_bounds__(SUB)
+__global__ void __launch_bounds__(SUB, BLOCKS_PER_SM)
 sweep_grid_kernel(const int* __restrict__ e_bits, const int* __restrict__ order,
                   const float* __restrict__ feats, const float* __restrict__ tmax,
                   const float* __restrict__ g_cluster, float* __restrict__ best_t,
                   int* __restrict__ best_i, int nsub, int nc) {
-  __shared__ __align__(16) float tri[CLUSTER * TRI];
-  __shared__ int scratch[WARPS];
-  const int sb = blockIdx.x;
-  const int b = sb / nsub;
-  const int64_t ray = static_cast<int64_t>(sb) * SUB + threadIdx.x;
-  float r[9];
-  load_ray(feats, ray, r);
-  float t = tmax[ray];
-  int idx = -1;
-  int bound = block_max(__float_as_int(t), scratch);
-
-  const int* e_row = e_bits + static_cast<int64_t>(sb) * nc;
-  for (int j = 0; j < nc; ++j) {
-    if (e_row[j] >= bound) continue;
-    const int cid = order[b * nc + j];
-    stage_cluster(g_cluster, cid, tri);
-    test_cluster<ANY_HIT>(r, tri, cid, t, idx);
-    bound = block_max(__float_as_int(t), scratch);
-  }
-  best_t[ray] = t;
-  best_i[ray] = idx;
+  __shared__ __align__(16) Smem sm;
+  const int b = blockIdx.x / nsub;
+  const int* e_row = e_bits + static_cast<int64_t>(blockIdx.x) * nc;
+  // the first step at or after `from` whose entry bits are below the bound
+  auto next = [&](int from, int bound) {
+    const int lane = threadIdx.x & 31;
+    for (int base = from; base < nc; base += 32) {
+      const int j = base + lane;
+      const unsigned live = __ballot_sync(FULL, j < nc && e_row[j] < bound);
+      if (live != 0) return base + __ffs(live) - 1;
+    }
+    return -1;
+  };
+  walk<ANY_HIT>(order + static_cast<int64_t>(b) * nc, feats, tmax, g_cluster, best_t, best_i,
+                sm, next);
 }
 
 }  // namespace

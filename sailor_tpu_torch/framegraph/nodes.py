@@ -26,8 +26,9 @@ from sailor_tpu_torch.raster import tile_raster
 
 
 def inverse_view_projection(frame):
-    """inv(projection @ view), the resolve's unprojection matrix."""
-    return torch.linalg.inv(frame.view_projection)
+    """inv(projection @ view), the resolve's unprojection matrix, rounded
+    as the reference's (``math3d.inverse``)."""
+    return m3.inverse(frame.view_projection)
 
 
 def _make_raster(tri, valid, aabb, tiles_y, tiles_x, config, *, capacity,

@@ -14,6 +14,7 @@ import dataclasses
 import torch
 
 from sailor_tpu_torch.config import resolve_device
+from sailor_tpu_torch.core import math3d as m3
 from sailor_tpu_torch.kernels.common import round_up
 from sailor_tpu_torch.raster import interpolate, setup as rsetup, tile_raster
 
@@ -55,11 +56,11 @@ def rasterize(geometry, view_projection, camera_position=None, *, width: int,
     dev = resolve_device(device)
     geometry = dataclasses.replace(geometry, **{
         f.name: getattr(geometry, f.name).to(dev) for f in dataclasses.fields(geometry)})
+    inv_vp = m3.inverse(view_projection).to(dev)  # on the caller's copy
     view_projection = view_projection.to(dev, torch.float32)
     tiles_x = round_up(width, tile_raster.TILE_W) // tile_raster.TILE_W
     tiles_y = round_up(height, tile_raster.TILE_H) // tile_raster.TILE_H
 
-    inv_vp = torch.linalg.inv(view_projection)
     if camera_position is None:
         # the eye maps to clip (0, 0, c, 0) under a perspective VP, so
         # inv_vp @ (0, 0, 1, 0), inv_vp's third column, is its homogeneous point

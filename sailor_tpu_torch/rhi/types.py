@@ -7,6 +7,8 @@ import dataclasses
 
 import torch
 
+from sailor_tpu_torch.core import math3d as m3
+
 # channel count per texture format; every target is float32 in the port
 FORMATS: dict[str, int] = {
     "R8_UNORM": 1,
@@ -47,7 +49,7 @@ class FrameData:
         return cls(
             view=view,
             projection=projection,
-            inv_projection=torch.linalg.inv(projection),
+            inv_projection=m3.inverse(projection),
             camera_position=camera_position,
             camera_z_near_far=torch.tensor([z_near, z_far], **f32),
             current_time=torch.tensor(time, **f32),

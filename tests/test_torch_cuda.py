@@ -23,7 +23,9 @@ the kernel inputs its own nodes make. Tolerances, from the arithmetic:
   walk and the same left-to-right sums, -fmad=false);
 - dense-grid sweep (B6), closest and any hit: ids and t bit-equal to its
   twin and to B5 (the same pairs in the same order), its work equal to
-  B5's;
+  B5's; both also on the bounce-1 passes with 0, 1, 33 and all 256 rays of
+  each sub-block live (the packing's edges), and on clusters with exact
+  ties (the merge order);
 - the raster variants B7 (both plane forms), B8 and B9 (with and without
   the AABB clamp): depth and ids bit-equal, with and without z bounds;
 - grid-k resolve (B10): held as the resolve above.
@@ -37,8 +39,8 @@ maps.
 import pytest
 import torch
 
-from chip_smoke import (check_small_frame, check_small_trace, frame_inputs, textured_sky_balls,
-                        tracer_passes)
+from chip_smoke import (check_small_frame, check_small_trace, frame_inputs, sparse_pass,
+                        textured_sky_balls, tied_clusters, tracer_passes)
 from sailor_tpu_torch.kernels import cuda_lib, pbr_kernel
 from sailor_tpu_torch.raster import setup as rsetup
 from sailor_tpu_torch.raster import tile_raster as tr
@@ -273,3 +275,23 @@ def test_grid_trace_on_card_matches_cpu(tracer_rays):
 
 def test_textured_sky_trace_on_card_matches_cpu(tracer_rays):
     check_small_trace(textured_sky_balls, "balls_textured_sky")
+
+
+@pytest.mark.parametrize("live,tied", [(0, False), (1, False), (33, False), (256, False),
+                                       (256, True)],
+                         ids=["none", "one", "33", "all", "all_tied"])
+@pytest.mark.parametrize("npass", [2, 3], ids=["bounce1", "bounce1_shadow"])
+def test_sweep_kernels_match_plain_on_sparse_passes(tracer_rays, npass, live, tied):
+    scene, passes = tracer_rays
+    p = sparse_pass(scene.sweep, passes[npass], live)
+    g = tied_clusters(scene.sweep.g_cluster) if tied else scene.sweep.g_cluster
+    args = (p["e_bits"], p["order"], p["blk_bits"], p["nlive"], p["feats"], p["tmax"], g)
+    t_p, i_p = sweep.sweep_plain(*args, any_hit=p["any_hit"])
+    t_5, i_5 = sweep.sweep_cuda(*args, any_hit=p["any_hit"])
+    t_6, i_6 = sweep.sweep_grid_cuda(p["e_bits"], p["order"], p["feats"], p["tmax"], g,
+                                     any_hit=p["any_hit"])
+    hits = int((i_p >= 0).sum())
+    assert hits == 0 if live == 0 else (hits > 0 or live == 1)
+    for t, i in ((t_5, i_5), (t_6, i_6)):
+        assert torch.equal(i, i_p)
+        assert torch.equal(t.view(torch.int32), t_p.view(torch.int32))

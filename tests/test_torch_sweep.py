@@ -19,7 +19,13 @@ Same numpy inputs through both packages:
   grid kernel in all four cases at the same bounds, and its twin equal to
   B5's twin bit for bit (t bits and ids) on the same tables;
 - ``intersect(sort_rays=True)`` against the reference's, on both scenes,
-  at the same bounds.
+  at the same bounds;
+- the card kernels' mapping (``chip_smoke.packed_walk``: live rays packed
+  per step, 8 slices of 32 triangles each reduced to its least t with
+  equal t to the larger column, merged in slice order; any hit as a flag)
+  equal to ``sweep_plain`` bit for bit, at 0, 5, 50 and 100% of the rays
+  active, with a sub-block of exactly 1 and one of 33 live rays, and on
+  clusters with exact ties.
 """
 
 import jax
@@ -30,6 +36,7 @@ import torch
 
 from sailor_tpu.raytracing import bvh as jax_bvh
 from sailor_tpu.raytracing import sweep as jax_sweep
+from chip_smoke import packed_walk, tied_clusters
 from sailor_tpu_torch.raytracing import bvh, sweep
 from sailor_tpu_torch.scenes import tracer_soup
 from test_torch_scenes import release_jax_executables  # noqa: F401
@@ -255,3 +262,38 @@ def test_ray_order_sorts_by_first_cluster_and_direction():
     key = fc * 64 + (qd[:, 0] * 4 + qd[:, 1]) * 4 + qd[:, 2]
     np.testing.assert_array_equal(perm.numpy(), np.argsort(key, kind="stable"))
     assert (fc[3000:] == scene.n_clusters).all() and 0 < (fc < scene.n_clusters).mean() < 1
+
+
+@pytest.mark.parametrize("share", [0.0, 0.05, 0.5, 1.0])
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_kernel_mapping_matches_sweep_plain(any_hit, share):
+    """The kernels' mapping equals ``sweep_plain`` (t bits, ids) on the
+    tracer scene's rays with ``share`` of them active; sub-block 0 then has
+    exactly 1 live ray and sub-block 1 has 33. Every live ray of a walked
+    pair is packed: for closest hit, 256 tests each."""
+    v0, v1, v2 = _tracer_tris()
+    scene = sweep.build(v0, v1, v2, device="cpu")
+    rng = np.random.default_rng(13)
+    o, d = _rays("tracer", rng, r=2 * sweep.RAY_BLOCK)
+    active = rng.random(len(o)) < share
+    if share > 0:
+        active[0:2 * sweep.SUB] = False
+        active[0] = True
+        active[sweep.SUB:sweep.SUB + 33] = True
+    p = sweep.prepare(scene, torch.from_numpy(o), torch.from_numpy(d),
+                      active=torch.from_numpy(active))
+    for g in (scene.g_cluster, tied_clusters(scene.g_cluster)):
+        work = {}
+        t, i = sweep.sweep_plain(p["e_bits"], p["order"], p["blk_bits"], p["nlive"], p["feats"],
+                                 p["tmax"], g, any_hit=any_hit, work=work)
+        t_m, i_m, live = packed_walk(p, g, any_hit=any_hit)
+        assert torch.equal(i_m, i)
+        assert torch.equal(t_m.view(torch.int32), t.view(torch.int32))
+        assert int((i >= 0).sum()) >= 0.2 * active.sum()
+        if not any_hit:
+            assert live * sweep.CLUSTER == work["tests"]
+    if share == 0:
+        assert live == 0 and not bool((i >= 0).any())
+    if not any_hit and share >= 0.5:
+        col = i[i >= 0] % sweep.CLUSTER  # the tied run: the larger column wins every tie
+        assert not bool(((col < 32) | (col == 128)).any()) and bool(((col >= 32) & (col < 64)).any())
