@@ -10,7 +10,10 @@ Phases, each printed as it ends:
   3. kernels: each kernel of the frame's paths against its plain PyTorch
      version on the flagship frame's own inputs (1920x1088, 1001 lights,
      96 objects), with the tolerance stated, timed with CUDA events, with
-     the bound of each: B1-B3 of the work-list frame, then the raster
+     the bound of each: B1-B3 of the work-list frame (B1 bit-equal, also
+     with z bounds and on a crafted tile of several runs, and its mapping's
+     plain model ``worklist_runs`` with the tiles' imbalance and pixel
+     tests; B3 also with spot lights and a shadow factor), then the raster
      variants B7 (both plane forms), B8 and B9 (its first and its
      big-triangle pass, with and without the AABB clamp), each also with
      z bounds, bit-equal, and the grid-k resolve B10 on B7's winners;
@@ -177,6 +180,147 @@ def raster_work(rows, big_rows, starts, counts, n_big, tiles_y, tiles_x,
     return int(live.sum()) + int(big_live.sum()), int(pairs)
 
 
+def worklist_plan(starts, counts, n_big, nbig_rows, ntiles):
+    """B1's plan (csrc/raster.cu ``plan_kernel``) on the host: the big
+    list's groups, each tile's walk in 32-row groups, and R, the groups a
+    run, doubled from RUN_GROUPS until the runs of the tiles with more than
+    one fit ``worklist_slots``. Returns (R, nb, groups per tile)."""
+    from sailor_tpu_torch.raster import tile_raster as tr
+
+    nb = -(-min(max(int(n_big), 0), nbig_rows) // tr.CHUNK)
+    s, c = starts.long().cpu(), counts.long().cpu()
+    groups = nb + (s + c + tr.CHUNK - 1) // tr.CHUNK - s // tr.CHUNK
+    R, slots = tr.RUN_GROUPS, tr.worklist_slots(ntiles)
+    while True:
+        n = (groups + R - 1) // R
+        if int(n[n > 1].sum()) <= slots:
+            return R, nb, groups.tolist()
+        R *= 2
+
+
+def worklist_runs(rows, big_rows, starts, counts, n_big, *, tiles_y, tiles_x,
+                  z_bounds=None, stats=None):
+    """B1's mapping on the card (csrc/raster.cu) in plain PyTorch: each
+    tile's walk (the big list's groups, then its ``worklist_span`` in
+    32-row groups) cut into runs of R groups (``worklist_plan``); in each
+    run the rows of a group are tested only in the 16x8-pixel warp
+    rectangles whose ballot takes them (live, AABB touching the strip and
+    the rectangle), merged group by group (the kernel may split a group's
+    (rectangle, row) pairs over its warps: the in-group rule does not
+    depend on the order), and the runs' partials are
+    merged in run order, a later run taking a pixel only with strictly
+    greater z. Returns (depth, tid) as ``rasterize_worklist_plain`` does;
+    ``stats`` (a dict) gets R, the runs launched, the pixel tests (128 for
+    each (row, rectangle) the ballots take), for comparison those of the
+    earlier mapping that tested a strip's 1024 pixels for each live row
+    touching the strip, and the most rows one rectangle takes in a run."""
+    import torch
+
+    from sailor_tpu_torch.raster import tile_raster as tr
+
+    dev = rows.device
+    ntiles = tiles_y * tiles_x
+    R, nb, groups = worklist_plan(starts, counts, n_big, big_rows.shape[0], ntiles)
+    big = tr._rows_or_dead(big_rows, nb * tr.CHUNK)
+    lo = (starts.long().cpu() // tr.CHUNK * tr.CHUNK).tolist()
+    iy = torch.arange(tr.TILE_H, device=dev)[:, None].expand(tr.TILE_H, tr.TILE_W)
+    ix = torch.arange(tr.TILE_W, device=dev)[None, :].expand(tr.TILE_H, tr.TILE_W)
+    rect = ((iy // 8) * 8 + ix // 16).reshape(-1)  # the warp rectangle of each pixel
+    corner = torch.arange(64, device=dev)
+    rx = (corner % 8 * 16).float() + 0.5  # each rectangle's outermost centres, tile-local
+    ry = (corner // 8 * 8).float() + 0.5
+    tests, strip_tests, runs, longest = 0, 0, 0, 0
+
+    def tile_rows(t, px, py, zl, zh):
+        nonlocal tests, strip_tests, runs, longest
+        ti, tj = divmod(t, tiles_x)
+        ox, oy = float(tj * tr.TILE_W), float(ti * tr.TILE_H)
+        x_lo, x_hi, y_lo, y_hi = rx + ox, rx + ox + 15.0, ry + oy, ry + oy + 7.0
+        sx_lo, sx_hi = ox + 0.5, ox + tr.TILE_W - 0.5
+        walk = torch.cat([big, rows[lo[t]:lo[t] + (groups[t] - nb) * tr.CHUNK]])
+        best = tr._empty_best(dev)
+        nruns = max(1, -(-groups[t] // R))
+        runs += nruns
+        for r in range(nruns):
+            part = tr._empty_best(dev)
+            sel = walk[r * R * tr.CHUNK:(r + 1) * R * tr.CHUNK]
+            if sel.shape[0]:
+                zm, ids = tr._test_chunk(sel, px, py, zl, zh)
+                a = [sel[:, i:i + 1] for i in range(12, 16)]
+                strip_out = ((sx_hi < a[0] + tr.EPS) | (sx_lo > a[1] - tr.EPS)
+                             | (y_hi < a[2] + tr.EPS) | (y_lo > a[3] - tr.EPS))
+                rect_out = (x_hi < a[0] + tr.EPS) | (x_lo > a[1] - tr.EPS)
+                take = (ids >= 0)[:, None] & ~strip_out & ~rect_out  # (rows, rectangles)
+                tests += int(take.sum()) * 128
+                strip_tests += int(((ids >= 0)[:, None] & ~strip_out)[:, ::8].sum()) * 1024
+                longest = max(longest, int(take.sum(0).max()))
+                zm = torch.where(take[:, rect], zm, torch.full_like(zm, -1.0))
+                g = sel.shape[0] // tr.CHUNK
+                part = tr._merge_groups(*part, zm.reshape(g, tr.CHUNK, -1),
+                                        ids.reshape(g, tr.CHUNK))
+            later = part[0] > best[0]
+            best = (torch.where(later, part[0], best[0]), torch.where(later, part[1], best[1]))
+        return best
+
+    out = tr._raster_tiles_plain(tiles_y, tiles_x, z_bounds, dev, tile_rows)
+    if stats is not None:
+        stats.update(run_groups=R, runs=runs, pixel_tests=tests, strip_tests=strip_tests,
+                     longest_rectangle_walk=longest)
+    return out
+
+
+def heavy_tile_rows(seed=0):
+    """A crafted work list for B1 (CPU tensors): two 64x128 tiles, rows of
+    24 columns (the raster's 17 and padding). Tile 0 walks the 2 groups of
+    a 40-row big list and 14 window groups (its segment starts at row 13,
+    so it shares its first group with rows before it and its last with tile
+    1): 16 groups, 4 runs of RUN_GROUPS. Near rows are repeated with larger
+    ids, so equal z meets a larger id in the same group (the larger id
+    wins), in the next group of the same run and four groups later, in the
+    next run (the earlier copy wins). Returns (rows, big_rows, starts,
+    counts, n_big, tiles_y, tiles_x)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    next_id = iter(range(10**6))
+
+    def tri(cx, cy, size, z):
+        ang = np.sort(rng.uniform(0.0, 2 * np.pi, 3))
+        vx, vy = cx + size * np.cos(ang), cy + size * np.sin(ang)
+        row = []
+        for k in range(3):  # edge k opposite vertex k, positive inside, unit normal
+            i, j = (k + 1) % 3, (k + 2) % 3
+            a, b = vy[i] - vy[j], vx[j] - vx[i]
+            c = -(a * vx[i] + b * vy[i])
+            if a * vx[k] + b * vy[k] + c < 0:
+                a, b, c = -a, -b, -c
+            n = np.hypot(a, b)
+            row += [a / n, b / n, c / n]
+        gx, gy = rng.uniform(-5e-4, 5e-4, 2)
+        row += [gx, gy, z - gx * cx - gy * cy, vx.min(), vx.max(), vy.min(), vy.max(),
+                next(next_id)]
+        return row + [0.0] * 7
+
+    def rows_in(tile, n, zlo, zhi, smin, smax):
+        return [tri(rng.uniform(0, 128) + 128 * tile, rng.uniform(0, 64),
+                    rng.uniform(smin, smax), rng.uniform(zlo, zhi)) for _ in range(n)]
+
+    walk = rows_in(0, 447, 0.1, 0.7, 6.0, 40.0) + rows_in(1, 17, 0.1, 0.7, 6.0, 40.0)
+    for p in (40, 100, 170, 233, 300):  # a near row and its copies
+        walk[p] = tri(rng.uniform(10, 118), rng.uniform(8, 56), rng.uniform(15, 30), 0.9)
+        for q in (p + 1, p + 32, p + 128):
+            walk[q] = walk[p][:16] + [next(next_id)] + walk[p][17:]
+    dead = [0.0] * 16 + [-1.0] + [0.0] * 7
+    rows = torch.tensor(walk + [dead] * (640 - len(walk)), dtype=torch.float32)
+    big = torch.tensor([tri(rng.uniform(0, 256), rng.uniform(0, 64), rng.uniform(60, 200),
+                            rng.uniform(0.02, 0.3)) for _ in range(40)] + [dead] * 24,
+                       dtype=torch.float32)
+    starts = torch.tensor([13, 434], dtype=torch.int32)
+    counts = torch.tensor([421, 30], dtype=torch.int32)
+    return rows, big, starts, counts, torch.tensor(40, dtype=torch.int32), 1, 2
+
+
 def frame_inputs(scene, width, height):
     """The flagship frame's own kernel inputs, made by the graph's nodes."""
     from sailor_tpu_torch.framegraph import nodes as nodes_mod
@@ -211,23 +355,48 @@ def check_kernels(scene, width, height, card):
     results = []
     npix = tiles_y * tr.TILE_H * tiles_x * tr.TILE_W
 
-    # ---- B1 raster: exact arithmetic twin; depth <= 1e-6, tid mismatches <= 16
+    # ---- B1 raster: bit-equal to its twin, with and without z bounds, and
+    # on a crafted tile split into several runs; the plain model of its
+    # mapping (worklist_runs) too
     kw = dict(tiles_y=tiles_y, tiles_x=tiles_x, chunk=128)
     d_k, t_k = tr.rasterize_worklist_cuda(rows, big, starts, counts, n_big, **kw)
     plain_ms, (d_p, t_p) = _wall_ms(
         lambda: tr.rasterize_worklist_plain(rows, big, starts, counts, n_big, **kw))
-    ms = _time_ms(lambda: tr.rasterize_worklist_cuda(rows, big, starts, counts, n_big, **kw), 10)
+    ms = _time_ms(lambda: tr.rasterize_worklist_cuda(rows, big, starts, counts, n_big, **kw), 20)
+    same = bool(torch.equal(d_k, d_p)) and bool(torch.equal(t_k, t_p))
     err = (d_k - d_p).abs().max().item()
-    mism = int((t_k != t_p).sum())
     cand, pairs = raster_work(rows, big, starts, counts, n_big, tiles_y, tiles_x)
     # candidate rows' 17 raster columns read once, starts and counts, depth
     # and tid written; 16 flops per (pixel, candidate) pair: 4 planes of
     # fma + mul + add (an fma counts as two)
     bound, by = _bound(cand * 17 * 4 + counts.numel() * 8 + npix * 8, pairs * 16)
-    print(f"kernel raster_worklist: max_abs_err(depth)={err:.3g} tid_mismatch={mism} "
-          f"ms={ms:.4f} plain_ms={plain_ms:.1f} bound_ms={bound:.5f} ({by}) "
-          f"candidates={cand} pairs={pairs} at {width}x{height} on {card}")
-    check(err <= 1e-6 and mism <= 16, "raster kernel disagrees with its plain version")
+    print(f"kernel raster_worklist: bit_equal={same} max_abs_err(depth)={err:.3g} "
+          f"tid_mismatch={int((t_k != t_p).sum())} ms={ms:.4f} plain_ms={plain_ms:.1f} "
+          f"bound_ms={bound:.5f} ({by}) candidates={cand} pairs={pairs} "
+          f"at {width}x{height} on {card}")
+    check(same, "raster kernel disagrees with its plain version")
+    stats = {}
+    d_m, t_m = worklist_runs(rows, big, starts, counts, n_big, tiles_y=tiles_y,
+                             tiles_x=tiles_x, stats=stats)
+    check(bool(torch.equal(d_m, d_p)) and bool(torch.equal(t_m, t_p)),
+          "the raster kernel's mapping disagrees with the twin")
+    lo, hi = tr.worklist_span(starts, counts)
+    walked = (hi - lo).float()
+    print(f"raster_worklist mapping: rows_per_tile max={int(counts.max())} "
+          f"mean={counts.float().mean().item():.2f} walked_rows_per_tile max={int(walked.max())} "
+          f"mean={walked.mean().item():.2f} big_rows={int(n_big)} tiles={counts.numel()} "
+          f"run_groups={stats['run_groups']} runs={stats['runs']} "
+          f"blocks={stats['runs'] * tr.STRIPS} pixel_tests={stats['pixel_tests']} "
+          f"bound_pairs={pairs} strip_mapping_tests={stats['strip_tests']} "
+          f"longest_rectangle_walk={stats['longest_rectangle_walk']} of "
+          f"{stats['run_groups'] * tr.CHUNK} rows a run")
+    zb = (torch.zeros_like(d_k), torch.where(t_k >= 0, d_k, 2.0))
+    d_k, t_k = tr.rasterize_worklist_cuda(rows, big, starts, counts, n_big, **kw, z_bounds=zb)
+    d_p, t_p = tr.rasterize_worklist_plain(rows, big, starts, counts, n_big, **kw, z_bounds=zb)
+    same = bool(torch.equal(d_k, d_p)) and bool(torch.equal(t_k, t_p))
+    print(f"kernel raster_worklist[z_bounds]: bit_equal={same} covered={int((t_k >= 0).sum())}")
+    check(same, "raster kernel disagrees with its plain version (z bounds)")
+    check_heavy_tile()
     results.append(dict(name="raster_worklist", source="sailor_tpu_torch/csrc/raster.cu",
                         replaces="sailor_tpu/raster/tile_raster.py:442",
                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -258,11 +427,13 @@ def check_kernels(scene, width, height, card):
                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=bound, bound_by=by))
 
-    # ---- B3 shade: relative 1e-5 (same operation order; rsqrt may differ by an ulp)
-    lp = pbr_kernel.pack_tile_lights(scene.lights, targets["LightIndices"])
+    # ---- B3 shade: relative 1e-5 (same operation order; rsqrt may differ by
+    # an ulp), the light rows gathered in the kernel
+    table = pbr_kernel.pack_lights(scene.lights)
+    idx = targets["LightIndices"].to(torch.int32).contiguous()
     lc = targets["LightCounts"].to(torch.int32).contiguous()
     cam = scene.frame.camera_position.to(torch.float32).contiguous()
-    args = (lp, lc, gb.albedo.contiguous(), gb.metallic.contiguous(),
+    args = (table, idx, lc, gb.albedo.contiguous(), gb.metallic.contiguous(),
             gb.roughness.contiguous(), gb.normal.contiguous(),
             gb.world_position.contiguous(), None, cam)
     c_k = pbr_kernel.shade_tiles_cuda(*args)
@@ -270,15 +441,19 @@ def check_kernels(scene, width, height, card):
     ms = _time_ms(lambda: pbr_kernel.shade_tiles_cuda(*args), 20)
     err = (c_k - c_p).abs().max().item()
     rel = ((c_k - c_p).abs() / c_p.abs().clamp(min=1e-3)).max().item()
-    pairs = int(lc.sum()) * 256  # (pixel, live light) pairs
-    # G-buffer read (48 B) and radiance written (12 B) per pixel, live light
-    # rows once; ~130 flops per (pixel, light) in the loop body
-    bound, by = _bound(gb.metallic.numel() * 60 + int(lc.sum()) * 64 + lc.numel() * 4,
-                       pairs * 130)
+    live = int(lc.sum())
+    pairs = live * 256  # (pixel, live light) pairs
+    # G-buffer read (48 B) and radiance written (12 B) per pixel, each live
+    # slot's index and light row once, the counts; 108 operations per
+    # (pixel, point light), counted from the twin's _light_step without the
+    # terms of the light or the pixel alone (130 before that count)
+    bound, by = _bound(gb.metallic.numel() * 60 + live * 68 + lc.numel() * 4, pairs * 108)
     print(f"kernel shade_forward_plus: max_abs_err={err:.3g} max_rel_err={rel:.3g} "
           f"ms={ms:.4f} plain_ms={plain_ms:.1f} bound_ms={bound:.4f} ({by}) "
-          f"mean_lights_per_tile={lc.float().mean().item():.2f} on {card}")
+          f"mean_lights_per_tile={lc.float().mean().item():.2f} live_slots={live} "
+          f"pack_bytes_not_gathered={idx.numel() * pbr_kernel.NP * 4} on {card}")
     check(rel <= 1e-5, "shade kernel disagrees with its plain version")
+    check_spot_shadow(table, idx, lc, args[3:8], cam, card)
     results.append(dict(name="shade_forward_plus", source="sailor_tpu_torch/csrc/shade.cu",
                         replaces="sailor_tpu/kernels/pbr_pallas.py:48",
                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -286,6 +461,73 @@ def check_kernels(scene, width, height, card):
     for r in results:
         r.update(route="cuda", library_ms=None)  # no single PyTorch call computes these
     return results
+
+
+def check_heavy_tile():
+    """B1 on ``heavy_tile_rows`` (a tile of 4 runs whose repeated rows tie
+    in z in one group, across groups and across runs), with and without z
+    bounds: bit-equal to the twin and to the model of its mapping."""
+    import torch
+
+    from sailor_tpu_torch.raster import tile_raster as tr
+
+    rows, big, starts, counts, n_big, ty, tx = (
+        x.cuda() if torch.is_tensor(x) else x for x in heavy_tile_rows())
+    kw = dict(tiles_y=ty, tiles_x=tx)
+    zb = None
+    for label in ("", ",z_bounds"):
+        d_k, t_k = tr.rasterize_worklist_cuda(rows, big, starts, counts, n_big, **kw, z_bounds=zb)
+        d_p, t_p = tr.rasterize_worklist_plain(rows, big, starts, counts, n_big, **kw, z_bounds=zb)
+        stats = {}
+        d_m, t_m = worklist_runs(rows, big, starts, counts, n_big, **kw, z_bounds=zb,
+                                 stats=stats)
+        same = all(bool(torch.equal(a, b)) for a, b in ((d_k, d_p), (t_k, t_p), (d_m, d_p),
+                                                        (t_m, t_p)))
+        print(f"kernel raster_worklist[heavy_tile{label}]: bit_equal={same} runs={stats['runs']} "
+              f"covered={int((t_k >= 0).sum())}")
+        check(same and stats["runs"] > tx * ty,
+              f"raster kernel disagrees with its plain version on the heavy tile{label}")
+        zb = (torch.zeros_like(d_k), torch.where(t_k >= 0, d_k, 2.0))
+
+
+def spot_shadow_lights(table, seed=5):
+    """The light table with a third of its point lights turned into spot
+    lights (cone cutoffs cos 20 and 35 degrees, aimed down at the scene)."""
+    import torch
+
+    from sailor_tpu_torch.kernels.lights import SPOT
+
+    gen = torch.Generator(device=table.device).manual_seed(seed)
+    t = table.clone()
+    spot = (torch.rand(t.shape[0], generator=gen, device=t.device) < 1 / 3) & (t[:, 15] == 1.0)
+    d = torch.randn(t.shape[0], 3, generator=gen, device=t.device)
+    d[:, 1] = -d[:, 1].abs() - 1.0
+    d = d / d.norm(dim=1, keepdim=True)
+    t[spot, 3:6] = d[spot]
+    t[spot, 12] = 0.9397
+    t[spot, 13] = 0.8192
+    t[spot, 15] = float(SPOT)
+    return t
+
+
+def check_spot_shadow(table, idx, counts, gbuffer, cam, card):
+    """B3 against its twin on the frame's G-buffer (albedo, metallic,
+    roughness, normal, position) and light lists, with a third of the point
+    lights made spot lights and a shadow factor."""
+    import torch
+
+    from sailor_tpu_torch.kernels import pbr_kernel
+
+    t = spot_shadow_lights(table)
+    gen = torch.Generator(device=t.device).manual_seed(6)
+    shadow = torch.rand(gbuffer[1].shape, generator=gen, device=t.device)
+    args = (t, idx, counts, *gbuffer, shadow, cam)
+    got = pbr_kernel.shade_tiles_cuda(*args)
+    ref = pbr_kernel.shade_tiles_plain(*args)
+    rel = ((got - ref).abs() / ref.abs().clamp(min=1e-3)).max().item()
+    print(f"kernel shade_forward_plus[spot,shadow]: max_rel_err={rel:.3g} "
+          f"spot_lights={int((t[:, 15] == 2.0).sum())} on {card}")
+    check(rel <= 1e-5, "shade kernel disagrees with its plain version (spot lights, shadow)")
 
 
 RASTER_CONFIGS = {  # the frame's raster configurations beside the work-list one

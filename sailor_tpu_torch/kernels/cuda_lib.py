@@ -44,9 +44,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # rows, ncols, big_rows, nbig_rows, n_big*, starts, counts, zlo, zhi,
-    # depth, tid, tiles_y, tiles_x, chunk, stream
+    # depth, tid, tiles_y, tiles_x, run_groups, slots, workspace, stream
     "sailor_raster_worklist": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _P),
+                               _I, _I, _I, _I, _P, _P),
     # rows, ncols, big_rows, nbig_rows, n_big*, c0, spt, zlo, zhi, depth,
     # tid, tiles_y, tiles_x, chunk, mxu, stream
     "sailor_raster_stream": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
@@ -66,10 +66,10 @@ _SIGNATURES = {
     # n_out, mode, tiles_y, tiles_x, stream
     "sailor_resolve_worklist": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I,
                                 _I, _I, _P),
-    # lp, counts, albedo, metallic, roughness, normal, wpos, shadow, cam,
-    # out, K, height, width, stream
-    "sailor_shade_forward_plus": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _P),
+    # table, n_lights, indices, counts, albedo, metallic, roughness, normal,
+    # wpos, shadow, cam, out, K, height, width, stream
+    "sailor_shade_forward_plus": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _P, _P, _I, _I, _I, _P),
     # feats, tmax, cl_min, cl_max, out, n_sub, n_clusters, stream
     "sailor_slab_entry": (_P, _P, _P, _P, _P, _I, _I, _P),
     # e_bits, order, blk_bits, nlive, feats, tmax, g_cluster, best_t, best_i,

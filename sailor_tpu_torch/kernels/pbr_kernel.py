@@ -28,7 +28,7 @@ TILE = config.LIGHTS_CULLING_TILE_SIZE  # 16
 _EPS = 1e-5
 _PI = 3.14159265
 
-# light-param column order in the packed (Ty, Tx, K, 16) table
+# light-param column order of the packed (L + 1, 16) light table
 _P_FIELDS = (
     "px", "py", "pz", "dx", "dy", "dz", "ir", "ig", "ib",
     "a0", "a1", "a2", "c0", "c1", "radius", "type_valid",
@@ -36,9 +36,9 @@ _P_FIELDS = (
 NP = len(_P_FIELDS)
 
 
-def pack_tile_lights(lights, tile_light_indices):
-    """One gather of every tile's light slots into (Ty, Tx, K, 16) rows;
-    empty slots read a sentinel row whose type_valid is -1."""
+def pack_lights(lights):
+    """The (L + 1, 16) light table: one row of ``_P_FIELDS`` a light, then
+    the sentinel row (type_valid -1) that empty slots (index -1) read."""
     packed = torch.cat([
         lights.position, lights.direction, lights.intensity,
         lights.attenuation, lights.cutoff, lights.radius[:, None],
@@ -46,10 +46,7 @@ def pack_tile_lights(lights, tile_light_indices):
     ], dim=1)
     sentinel = torch.zeros(1, NP, dtype=torch.float32, device=packed.device)
     sentinel[0, 15] = -1.0
-    packed = torch.cat([packed, sentinel])
-    L = packed.shape[0] - 1
-    idx = tile_light_indices.long()
-    return packed[torch.where(idx >= 0, idx, torch.full_like(idx, L))].contiguous()
+    return torch.cat([packed, sentinel]).contiguous()
 
 
 def _light_step(lrow, n, wp, v, cos_lo, albedo, metallic, roughness, f0, shadow):
@@ -111,13 +108,15 @@ def _light_step(lrow, n, wp, v, cos_lo, albedo, metallic, roughness, f0, shadow)
             ch(f0[2], albedo[2], lib))
 
 
-def shade_tiles_plain(lp, counts, albedo, metallic, roughness, normal, wpos,
-                      shadow, camera_position):
-    """Plain PyTorch B3: (H, W, 3) direct radiance. Slot k of every pixel
-    reads its tile's row k; slots past a tile's count hold the sentinel
-    row and add exactly 0, so one loop to the largest count serves all."""
+def shade_tiles_plain(table, indices, counts, albedo, metallic, roughness, normal,
+                      wpos, shadow, camera_position):
+    """Plain PyTorch B3: (H, W, 3) direct radiance. Slot k of a tile reads
+    row ``indices[ty, tx, k]`` of the light table (-1: the sentinel, its
+    last row); a tile adds its first ``counts[ty, tx]`` slots."""
     H, W = metallic.shape
     kmax = int(counts.max()) if counts.numel() else 0
+    sentinel = table.shape[0] - 1
+    idx = indices.long()
     n = normal.unbind(-1)
     wp = wpos.unbind(-1)
     alb = albedo[..., :3].unbind(-1)
@@ -131,26 +130,32 @@ def shade_tiles_plain(lp, counts, albedo, metallic, roughness, normal, wpos,
     f0 = tuple(0.04 + (a - 0.04) * metallic for a in alb)
     if shadow is None:
         shadow = torch.ones_like(metallic)
+    live = counts.repeat_interleave(TILE, 0).repeat_interleave(TILE, 1)
     acc = [torch.zeros_like(metallic) for _ in range(3)]
     for k in range(kmax):
-        rows = lp[:, :, k, :].repeat_interleave(TILE, 0).repeat_interleave(TILE, 1)
-        lrow = rows.unbind(-1)
+        slot = idx[:, :, k]
+        rows = table[torch.where(slot >= 0, slot, sentinel)]
+        lrow = rows.repeat_interleave(TILE, 0).repeat_interleave(TILE, 1).unbind(-1)
         contrib = _light_step(lrow, n, wp, v, cos_lo, alb, metallic, roughness,
                               f0, shadow)
-        acc = [a + c for a, c in zip(acc, contrib)]
+        acc = [torch.where(live > k, a + c, a) for a, c in zip(acc, contrib)]
     return torch.stack(acc, dim=-1)
 
 
-def shade_tiles_cuda(lp, counts, albedo, metallic, roughness, normal, wpos,
-                     shadow, camera_position):
-    """B3 on the card: csrc/shade.cu, one block per 16x16 tile."""
-    dev = lp.device
+def shade_tiles_cuda(table, indices, counts, albedo, metallic, roughness, normal,
+                     wpos, shadow, camera_position):
+    """B3 on the card: csrc/shade.cu, one block per 16x16 tile, gathering
+    its light rows from the table itself."""
+    dev = table.device
     H, W = metallic.shape
     if H % TILE or W % TILE:
         raise ValueError(f"the frame ({H}x{W}) must pad to whole {TILE}x{TILE} tiles")
     ty, tx = H // TILE, W // TILE
-    K = lp.shape[2]
-    cuda_lib.require(lp, "lp", torch.float32, (ty, tx, K, NP))
+    K = indices.shape[-1]
+    cuda_lib.require(table, "table", torch.float32, (table.shape[0], NP))
+    if table.data_ptr() % 16:
+        raise ValueError("table: rows must be 16-byte aligned")
+    cuda_lib.require(indices, "indices", torch.int32, (ty, tx, K), dev)
     cuda_lib.require(counts, "counts", torch.int32, (ty, tx), dev)
     cuda_lib.require(albedo, "albedo", torch.float32, (H, W, 4), dev)
     cuda_lib.require(metallic, "metallic", torch.float32, (H, W), dev)
@@ -163,10 +168,10 @@ def shade_tiles_cuda(lp, counts, albedo, metallic, roughness, normal, wpos,
     out = torch.empty(H, W, 3, dtype=torch.float32, device=dev)
     lib = cuda_lib.load()
     err = lib.sailor_shade_forward_plus(
-        lp.data_ptr(), counts.data_ptr(), albedo.data_ptr(), metallic.data_ptr(),
-        roughness.data_ptr(), normal.data_ptr(), wpos.data_ptr(),
-        cuda_lib.ptr(shadow), camera_position.data_ptr(), out.data_ptr(),
-        K, H, W, cuda_lib.stream_of(lp))
+        table.data_ptr(), table.shape[0] - 1, indices.data_ptr(), counts.data_ptr(),
+        albedo.data_ptr(), metallic.data_ptr(), roughness.data_ptr(), normal.data_ptr(),
+        wpos.data_ptr(), cuda_lib.ptr(shadow), camera_position.data_ptr(), out.data_ptr(),
+        K, H, W, cuda_lib.stream_of(table))
     cuda_lib.check(err, "sailor_shade_forward_plus")
     cuda_lib.LAUNCHES["shade_forward_plus"] += 1
     return out
@@ -183,17 +188,18 @@ def shade_forward_plus_kernel(gbuffer, lights, tile_light_indices,
     ty, tx = H // TILE, W // TILE
     K = tile_light_indices.shape[-1]
     dev = gbuffer.normal.device
-    lp = pack_tile_lights(lights, tile_light_indices)
+    table = pack_lights(lights)
     if tile_light_counts is None:
         counts = torch.full((ty, tx), K, dtype=torch.int32, device=dev)
     else:
         counts = tile_light_counts.to(torch.int32).contiguous()
-    args = (lp, counts, gbuffer.albedo.contiguous(), gbuffer.metallic.contiguous(),
+    args = (table, tile_light_indices.to(torch.int32).contiguous(), counts,
+            gbuffer.albedo.contiguous(), gbuffer.metallic.contiguous(),
             gbuffer.roughness.contiguous(), gbuffer.normal.contiguous(),
             gbuffer.world_position.contiguous(),
             None if shadow_factors is None else shadow_factors.contiguous(),
             camera_position.to(torch.float32).contiguous())
-    color = cuda_lib.dispatch(lp, shade_tiles_plain, shade_tiles_cuda)(*args)
+    color = cuda_lib.dispatch(table, shade_tiles_plain, shade_tiles_cuda)(*args)
 
     if ibl_ambient is not None:
         color = color + ibl_ambient

@@ -123,14 +123,20 @@ def triangle_setup(geometry: Geometry, view_projection, *, width: int,
     w = t2[..., 3]
     inv_w = torch.where(w > 1e-12, 1.0 / w, torch.zeros_like(w))
     ndc = t2[..., :3] * inv_w[..., None]
-    tx = (ndc[..., 0] * 0.5 + 0.5) * width
-    ty = (0.5 - ndc[..., 1] * 0.5) * height
+    u = ndc[..., 0] * 0.5 + 0.5
+    v = 0.5 - ndc[..., 1] * 0.5
+    tx = u * width
+    ty = v * height
     tz = ndc[..., 2]
 
-    # fused like the reference: an exactly degenerate triangle keeps the
-    # rounding residue of the second product, as in the JAX package
-    area2 = fma(tx[:, 1] - tx[:, 0], ty[:, 2] - ty[:, 0],
-                -((ty[:, 1] - ty[:, 0]) * (tx[:, 2] - tx[:, 0])))
+    # fused like the reference: each screen difference is one fma over the
+    # other vertex's rounded product, u_i * width - u_0 * width as
+    # fma(u_i, width, -(u_0 * width)), and the area fma(dx1, dy2, -dy1 * dx2);
+    # so a triangle with coincident vertices keeps the rounding residue of
+    # u_0 * width (or v_0 * height), as in the JAX package
+    dx = fma(u[:, 1:], torch.full_like(u[:, 1:], width), -(u[:, :1] * width))
+    dy = fma(v[:, 1:], torch.full_like(v[:, 1:], height), -(v[:, :1] * height))
+    area2 = fma(dx[:, 0], dy[:, 1], -(dy[:, 0] * dx[:, 1]))
     if cull == "back":
         facing = area2 < 0.0
     elif cull == "front":

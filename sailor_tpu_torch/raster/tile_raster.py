@@ -159,10 +159,30 @@ def rasterize_worklist_plain(rows, big_rows, starts, counts, n_big, *,
     return _raster_tiles_plain(tiles_y, tiles_x, z_bounds, dev, tile_rows)
 
 
+#: B1's runs: each tile's walk is cut into runs of at most RUN_GROUPS
+#: groups (doubled on the device until the runs of the tiles with more than
+#: one fit ``worklist_slots``), one block per (run, strip); csrc/raster.cu
+RUN_GROUPS = 4
+STRIPS = TILE_H // 8  # B1's 8-row strips, one block each
+
+
+def worklist_slots(ntiles: int) -> int:
+    """Scratch runs of B1 (a partial depth and id per pixel of a run)."""
+    return max(ntiles, 64)
+
+
+def _worklist_workspace(ntiles: int, slots: int) -> int:
+    """int32 words of B1's workspace (csrc/raster.cu ``carve``): the run
+    records (8 words each), the arrival counts and the runs' partial depth
+    and id."""
+    return 8 * (ntiles + slots) + ntiles * STRIPS + 2 * slots * STRIPS * 8 * TILE_W
+
+
 def rasterize_worklist_cuda(rows, big_rows, starts, counts, n_big, *,
                             tiles_y: int, tiles_x: int, z_bounds=None,
                             chunk: int = 128):
-    """B1 on the card: csrc/raster.cu, one launch."""
+    """B1 on the card: csrc/raster.cu, its plan and raster kernels counted
+    as one launch; no host synchronisation."""
     dev = rows.device
     ntiles = tiles_y * tiles_x
     H, W = tiles_y * TILE_H, tiles_x * TILE_W
@@ -176,19 +196,17 @@ def rasterize_worklist_cuda(rows, big_rows, starts, counts, n_big, *,
     cuda_lib.require(starts, "starts", torch.int32, (ntiles,), dev)
     cuda_lib.require(counts, "counts", torch.int32, (ntiles,), dev)
     cuda_lib.require(n_big, "n_big", torch.int32, (), dev)
-    zlo = zhi = None
-    if z_bounds is not None:
-        zlo, zhi = _pad_bounds(z_bounds, H, W)
-        cuda_lib.require(zlo, "zlo", torch.float32, (H, W), dev)
-        cuda_lib.require(zhi, "zhi", torch.float32, (H, W), dev)
+    zlo, zhi = _bounds_for_kernel(z_bounds, H, W, dev)
     depth = torch.empty(H, W, dtype=torch.float32, device=dev)
     tid = torch.empty(H, W, dtype=torch.int32, device=dev)
+    slots = worklist_slots(ntiles)
+    ws = torch.empty(_worklist_workspace(ntiles, slots), dtype=torch.int32, device=dev)
     lib = cuda_lib.load()
     err = lib.sailor_raster_worklist(
         rows.data_ptr(), ncols, big_rows.data_ptr(), big_rows.shape[0],
         n_big.data_ptr(), starts.data_ptr(), counts.data_ptr(),
         cuda_lib.ptr(zlo), cuda_lib.ptr(zhi), depth.data_ptr(), tid.data_ptr(),
-        tiles_y, tiles_x, chunk, cuda_lib.stream_of(rows))
+        tiles_y, tiles_x, RUN_GROUPS, slots, ws.data_ptr(), cuda_lib.stream_of(rows))
     cuda_lib.check(err, "sailor_raster_worklist")
     cuda_lib.LAUNCHES["raster_worklist"] += 1
     return depth, tid

@@ -13,11 +13,13 @@ not use; ``-o addopts=""``: no xdist workers.)
 Inputs: the flagship scene at 640x384 (64 point lights, 24 objects) and
 the kernel inputs its own nodes make. Tolerances, from the arithmetic:
 - raster: depth and ids exact (the plain version's fma emulation rounds
-  like the kernel's fmaf);
+  like the kernel's fmaf), also on a crafted tile of several runs with
+  tied rows and under the sync debug mode "error" (no host sync);
 - resolve: exact on >= 99.999% of values (the same operations in the same
   order; the float64 fma emulation can double-round in ~2^-29 of cases),
   and every value within 1e-4 * (1 + |plain|), so a wrong row fails;
-- shade: 1e-5 relative (same order; rsqrt may differ by an ulp);
+- shade: 1e-5 relative (same order; rsqrt may differ by an ulp), also on
+  lights of all three types with a shadow factor and tiles of 0 and K slots;
 - slab entry (B4): bit-equal (the same float32 operations and selects);
 - cluster sweep (B5), closest and any hit: ids and t bit-equal (the same
   walk and the same left-to-right sums, -fmad=false);
@@ -39,8 +41,9 @@ maps.
 import pytest
 import torch
 
-from chip_smoke import (check_small_frame, check_small_trace, frame_inputs, sparse_pass,
-                        textured_sky_balls, tied_clusters, tracer_passes)
+from chip_smoke import (check_small_frame, check_small_trace, frame_inputs, heavy_tile_rows,
+                        sparse_pass, textured_sky_balls, tied_clusters, tracer_passes,
+                        worklist_runs)
 from sailor_tpu_torch.kernels import cuda_lib, pbr_kernel
 from sailor_tpu_torch.raster import setup as rsetup
 from sailor_tpu_torch.raster import tile_raster as tr
@@ -187,8 +190,9 @@ def test_resolve_stream_kernel_matches_plain(card_frame):
 
 def test_shade_kernel_matches_plain(card_frame):
     scene, (sb, targets, inv_vp, gb, tiles_y, tiles_x) = card_frame
-    lp = pbr_kernel.pack_tile_lights(scene.lights, targets["LightIndices"])
-    args = (lp, targets["LightCounts"].to(torch.int32).contiguous(), gb.albedo.contiguous(),
+    args = (pbr_kernel.pack_lights(scene.lights),
+            targets["LightIndices"].to(torch.int32).contiguous(),
+            targets["LightCounts"].to(torch.int32).contiguous(), gb.albedo.contiguous(),
             gb.metallic.contiguous(), gb.roughness.contiguous(), gb.normal.contiguous(),
             gb.world_position.contiguous(), None,
             scene.frame.camera_position.to(torch.float32).contiguous())
@@ -197,6 +201,115 @@ def test_shade_kernel_matches_plain(card_frame):
     assert ref.abs().max().item() > 0.1
     rel = ((got - ref).abs() / ref.abs().clamp(min=1e-3)).max().item()
     assert rel <= 1e-5, rel
+
+
+def _shade_case(seed=3, th=4, tw=8, n=60, K=128):
+    """B3's inputs at 64x128: n lights of all three types (the first
+    directional), a G-buffer of mixed surfaces, a shadow factor, and per
+    tile up to K slots: tile 0 has none, tile 1 all K, the others a seeded
+    count; unused slots hold -1."""
+    g = torch.Generator().manual_seed(seed)
+    H, W = 16 * th, 16 * tw
+    types = torch.randint(1, 3, (n,), generator=g).float()
+    types[0] = 0.0
+    dirs = torch.nn.functional.normalize(torch.randn(n, 3, generator=g), dim=1)
+    pos = torch.rand(n, 3, generator=g) * torch.tensor([12.0, 3.0, 12.0]) - torch.tensor(
+        [6.0, 0.0, 6.0])
+    table = torch.cat([pos, dirs, torch.rand(n, 3, generator=g) * 6 + 0.3,
+                       torch.tensor([[1.0, 0.0, 0.8]]).expand(n, 3),
+                       torch.tensor([[0.95, 0.7]]).expand(n, 2),
+                       torch.rand(n, 1, generator=g) * 6 + 2.0, types[:, None]], 1)
+    table = torch.cat([table, torch.tensor([[0.0] * 15 + [-1.0]])])
+    counts = torch.randint(0, K + 1, (th, tw), generator=g, dtype=torch.int32)
+    counts[0, 0], counts[0, 1] = 0, K
+    slot = torch.arange(K)[None, None]
+    idx = torch.randint(0, n, (th, tw, K), generator=g, dtype=torch.int32)
+    idx = torch.where(slot < counts[..., None], idx, torch.full_like(idx, -1))
+    nrm = torch.randn(H, W, 3, generator=g)
+    nrm[..., 1] = nrm[..., 1].abs() + 0.5
+    nrm = torch.nn.functional.normalize(nrm, dim=-1)
+    albedo = torch.cat([torch.rand(H, W, 3, generator=g) * 0.8 + 0.1, torch.ones(H, W, 1)], -1)
+    wpos = torch.rand(H, W, 3, generator=g) * torch.tensor([12.0, 2.0, 12.0]) - torch.tensor(
+        [6.0, 0.0, 6.0])
+    metallic = torch.tensor([0.0, 0.6, 1.0])[torch.randint(0, 3, (H, W), generator=g)]
+    rough = torch.rand(H, W, generator=g) * 0.8 + 0.2
+    shadow = torch.rand(H, W, generator=g)
+    cam = torch.tensor([4.0, 5.0, 9.0])
+    return (table, idx, counts, albedo, metallic, rough, nrm, wpos, shadow, cam)
+
+
+def test_shade_kernel_matches_plain_on_all_light_types(card_frame):
+    """Directional, point and spot lights with a shadow factor, tiles of 0
+    and of K slots: the paths the flagship frame (point lights, one
+    directional, no shadow input) does not take."""
+    args = [a.cuda().contiguous() for a in _shade_case()]
+    assert {0.0, 1.0, 2.0} <= set(args[0][:, 15].tolist())
+    before = cuda_lib.LAUNCHES["shade_forward_plus"]
+    got = pbr_kernel.shade_tiles_cuda(*args)
+    assert cuda_lib.LAUNCHES["shade_forward_plus"] == before + 1
+    ref = pbr_kernel.shade_tiles_plain(*args)
+    assert ref.abs().max().item() > 0.1
+    assert not got[:16, :16].any()  # the tile with no light slots
+    rel = ((got - ref).abs() / ref.abs().clamp(min=1e-3)).max().item()
+    assert rel <= 1e-5, rel
+
+
+@pytest.mark.parametrize("bounded", [False, True], ids=["no_bounds", "z_bounds"])
+def test_raster_kernel_matches_plain_on_heavy_tile(card_frame, bounded):
+    """B1 on a tile split into 4 runs whose repeated rows tie in z within
+    a group, across groups and across runs (chip_smoke.heavy_tile_rows)."""
+    rows, big, starts, counts, n_big, ty, tx = (
+        x.cuda() if torch.is_tensor(x) else x for x in heavy_tile_rows())
+    args = (rows, big, starts, counts, n_big)
+    kw = dict(tiles_y=ty, tiles_x=tx)
+    if bounded:
+        kw["z_bounds"] = _bounds(*tr.rasterize_worklist_cuda(*args, **kw))
+    stats = {}
+    worklist_runs(*args, **kw, stats=stats)
+    assert stats["runs"] > ty * tx
+    d_k, t_k = tr.rasterize_worklist_cuda(*args, **kw)
+    d_p, t_p = tr.rasterize_worklist_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert int((t_p >= 0).sum()) > 100
+    assert torch.equal(t_k, t_p)
+    assert torch.equal(d_k, d_p)
+
+
+def test_raster_kernel_matches_plain_with_doubled_runs(card_frame, monkeypatch):
+    """Scratch for 2 runs: the plan doubles R to 8, so a run's groups wrap
+    the 4-slot staging ring and the crafted tile still splits in two."""
+    monkeypatch.setattr(tr, "worklist_slots", lambda ntiles: 2)
+    rows, big, starts, counts, n_big, ty, tx = (
+        x.cuda() if torch.is_tensor(x) else x for x in heavy_tile_rows())
+    args, kw = (rows, big, starts, counts, n_big), dict(tiles_y=ty, tiles_x=tx)
+    stats = {}
+    worklist_runs(*args, **kw, stats=stats)
+    assert stats["run_groups"] == 8 and stats["runs"] > ty * tx
+    d_k, t_k = tr.rasterize_worklist_cuda(*args, **kw)
+    d_p, t_p = tr.rasterize_worklist_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(t_k, t_p)
+    assert torch.equal(d_k, d_p)
+
+
+def test_raster_worklist_makes_no_host_sync(card_frame):
+    """B1's wrapper and rasterize_worklist run under the sync debug mode
+    "error": no .item(), .tolist() or nonzero on the path."""
+    _, (sb, *_rest, tiles_y, tiles_x) = card_frame
+    args = (sb["rows"], sb["big_rows"], sb["starts"], sb["counts"], sb["n_big"])
+    kw = dict(tiles_y=tiles_y, tiles_x=tiles_x, chunk=128)
+    d0, t0 = tr.rasterize_worklist_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        d1, t1 = tr.rasterize_worklist_cuda(*args, **kw, z_bounds=_bounds(d0, t0))
+        d2, t2, _ = tr.rasterize_worklist(None, None, None, sb["starts"], sb["counts"], None,
+                                          sb["n_big"], prebuilt=(sb["rows"], sb["big_rows"]),
+                                          **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(d2, d0) and torch.equal(t2, t0)
+    assert torch.equal(t1, tr.rasterize_worklist_plain(*args, **kw, z_bounds=_bounds(d0, t0))[1])
 
 
 def test_frame_on_card_matches_cpu(card_frame):

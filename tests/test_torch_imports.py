@@ -87,8 +87,8 @@ def test_kernel_wrappers_take_cuda_tensors_only():
         tile_raster.resolve_worklist_cuda(rows, big, torch.zeros(64, 128, dtype=torch.int32),
                                           st, st, torch.zeros(32), tiles_y=1, tiles_x=1, na=37)
     with pytest.raises(ValueError, match="cuda"):
-        pbr_kernel.shade_tiles_cuda(torch.zeros(1, 1, 4, 16), st.reshape(1, 1),
-                                    torch.zeros(16, 16, 4), torch.zeros(16, 16),
+        pbr_kernel.shade_tiles_cuda(torch.zeros(5, 16), torch.zeros(1, 1, 4, dtype=torch.int32),
+                                    st.reshape(1, 1), torch.zeros(16, 16, 4), torch.zeros(16, 16),
                                     torch.zeros(16, 16), torch.zeros(16, 16, 3),
                                     torch.zeros(16, 16, 3), None, torch.zeros(3))
     feats = torch.zeros(2048, 16)

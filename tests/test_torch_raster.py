@@ -5,6 +5,9 @@ Inputs: the JAX package's own rows for the flagship scene at 256x128 (the
 setup, bins and row table it builds), handed to both packages as numpy.
 On the CPU the port's wrappers run their plain PyTorch versions.
 
+The plain model of B1's mapping on the card (``chip_smoke.worklist_runs``)
+is held to the twin on the same rows and on a crafted tile of several runs.
+
 Tolerances:
 - B1 depth and triangle id exact, with and without (zlo, zhi) bounds: the
   plain version evaluates each plane as fma(a, px, b * py) + c, the rounding
@@ -23,6 +26,7 @@ import torch
 from sailor_tpu.raster import setup as j_setup
 from sailor_tpu.raster import tile_raster as j_tr
 from sailor_tpu_torch.raster import tile_raster as t_tr
+from chip_smoke import heavy_tile_rows, worklist_runs
 from test_torch_scenes import jax_scene
 from test_torch_scenes import release_jax_executables  # noqa: F401 (autouse)
 
@@ -74,6 +78,54 @@ def test_rasterize_worklist_matches_jax(frame_rows, bounded):
         assert (jt >= 0).mean() > 0.3
     np.testing.assert_array_equal(tt, jt)
     np.testing.assert_array_equal(td, jd)
+
+
+def _worklist_cases(fr):
+    rows, big, starts, counts, n_big, ty, tx = heavy_tile_rows()
+    return {"frame_rows": ((_t(fr["rows"]), _t(fr["big"]), _t(fr["starts"]), _t(fr["counts"]),
+                            _t(fr["n_big"])), dict(tiles_y=TY, tiles_x=TX)),
+            "heavy_tile": ((rows, big, starts, counts, n_big), dict(tiles_y=ty, tiles_x=tx))}
+
+
+@pytest.mark.parametrize("bounded", [False, True], ids=["no_bounds", "z_bounds"])
+@pytest.mark.parametrize("case", ["frame_rows", "heavy_tile"])
+def test_kernel_mapping_matches_rasterize_worklist_plain(frame_rows, case, bounded):
+    """B1's mapping on the card (runs of groups merged in order, per-warp
+    rectangles; chip_smoke.worklist_runs) equals its twin bit for bit: on
+    the frame's rows, and on a crafted tile of 4 runs whose repeated rows
+    tie in z in one group, across groups and across runs."""
+    args, kw = _worklist_cases(frame_rows)[case]
+    if bounded:
+        d0, t0 = t_tr.rasterize_worklist_plain(*args, **kw)
+        kw["z_bounds"] = (torch.zeros_like(d0), torch.where(t0 >= 0, d0, 2.0))
+    stats = {}
+    d_m, t_m = worklist_runs(*args, **kw, stats=stats)
+    d_p, t_p = t_tr.rasterize_worklist_plain(*args, **kw)
+    assert int((t_p >= 0).sum()) > 100
+    assert stats["runs"] > kw["tiles_y"] * kw["tiles_x"]  # a tile is split
+    assert 0 < stats["pixel_tests"] < stats["strip_tests"]
+    torch.testing.assert_close(t_m, t_p, rtol=0, atol=0)
+    torch.testing.assert_close(d_m, d_p, rtol=0, atol=0)
+    if case == "heavy_tile" and not bounded:
+        # the ties decide: in-group the larger id, across groups and runs the first
+        ids = args[0][:, 16].long()
+        for p in (40, 100, 170, 233, 300):
+            assert int((t_p == ids[p + 1]).sum()) > 0
+            assert not (t_p == ids[p + 32]).any() and not (t_p == ids[p + 128]).any()
+
+
+def test_kernel_mapping_doubles_runs_to_fit_scratch(monkeypatch):
+    """With scratch for only 2 runs the plan doubles R from 4 to 8: the
+    crafted tile walks 2 runs of 8 groups, still the twin's result."""
+    monkeypatch.setattr(t_tr, "worklist_slots", lambda ntiles: 2)
+    rows, big, starts, counts, n_big, ty, tx = heavy_tile_rows()
+    args, kw = (rows, big, starts, counts, n_big), dict(tiles_y=ty, tiles_x=tx)
+    stats = {}
+    d_m, t_m = worklist_runs(*args, **kw, stats=stats)
+    d_p, t_p = t_tr.rasterize_worklist_plain(*args, **kw)
+    assert stats["run_groups"] == 8 and stats["runs"] == 3
+    torch.testing.assert_close(t_m, t_p, rtol=0, atol=0)
+    torch.testing.assert_close(d_m, d_p, rtol=0, atol=0)
 
 
 def _rows_with(fr, extra_cols):

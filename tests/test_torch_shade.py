@@ -117,6 +117,32 @@ def test_shade_kernel_matches_jax(inputs, monkeypatch, rcp):
     _close(got, ref, rtol=1e-4 if rcp == "exact" else 4 * 2**-8)
 
 
+def test_shade_kernel_with_shadow_matches_jax(inputs, monkeypatch):
+    """The directional light times a shadow factor, through the port's
+    gather-in-kernel path (the light table, LightIndices and the counts),
+    against the reference kernel with exact division."""
+    shadow = np.random.default_rng(4).uniform(0.0, 1.0, (H, W)).astype(np.float32)
+    monkeypatch.setattr(j_pk, "_rcp", lambda x: 1.0 / x)
+    jax.clear_caches()
+    try:
+        ref = np.asarray(j_pk.shade_forward_plus_pallas(
+            _jax_gbuffer(inputs["gb"]), JLights.from_host(**inputs["lkw"]),
+            jnp.asarray(inputs["idx"]), jnp.asarray(inputs["cam"]),
+            shadow_factors=jnp.asarray(shadow), tile_light_counts=jnp.asarray(inputs["counts"])))
+    finally:
+        monkeypatch.undo()
+        jax.clear_caches()
+    got = t_pk.shade_forward_plus_kernel(
+        _torch_gbuffer(inputs["gb"]), TLights.from_host(**inputs["lkw"], device="cpu"),
+        _t(inputs["idx"]), _t(inputs["cam"]), shadow_factors=_t(shadow),
+        tile_light_counts=_t(inputs["counts"])).numpy()
+    unshadowed = t_pk.shade_forward_plus_kernel(
+        _torch_gbuffer(inputs["gb"]), TLights.from_host(**inputs["lkw"], device="cpu"),
+        _t(inputs["idx"]), _t(inputs["cam"]), tile_light_counts=_t(inputs["counts"])).numpy()
+    assert np.abs(got - unshadowed).max() > 1e-2  # the shadow reaches the image
+    _close(got, ref)
+
+
 def test_shade_forward_plus_matches_jax(inputs):
     """The plain Forward+ loop (the JAX package's own reference) ported."""
     ref = np.asarray(j_pbr.shade_forward_plus(
