@@ -14,9 +14,11 @@ Phases, each printed as it ends:
      with z bounds and on a crafted tile of several runs, and its mapping's
      plain model ``worklist_runs`` with the tiles' imbalance and pixel
      tests; B3 also with spot lights and a shadow factor), then the raster
-     variants B7 (both plane forms), B8 and B9 (its first and its
-     big-triangle pass, with and without the AABB clamp), each also with
-     z bounds, bit-equal, and the grid-k resolve B10 on B7's winners;
+     variants B7 (both plane forms, on B1's kernel: also on the crafted
+     tile, and its mapping's plain model over the windows), B8 and B9 (its
+     first and its big-triangle pass, with and without the AABB clamp),
+     each also with z bounds, bit-equal, and the grid-k resolve B10 on B7's
+     winners;
   4. raster configurations: the flagship frame in each raster
      configuration the reference's frame graph accepts (work list, dense,
      dma, grid-k stream, its MXU form, the gather resolve), 1 warm-up + 5
@@ -34,19 +36,24 @@ Phases, each printed as it ends:
      frame on the CPU path, in every raster configuration;
   6. rasterize: raster.rasterize on the flagship geometry at 1920x1088
      (capacity 1024, 4 rounds), timed, with its stats;
-  7. tracer kernels: the sweep intersector's kernels (B4 slab entry, B5
-     cluster sweep and B6 dense-grid sweep, closest and any hit) against
-     their plain versions on the path tracer's own rays (bench tracer
-     scene, 512x512: the swizzled camera rays and the incoherent bounce-1
-     rays of one sample and their shadow rays), t bits and ids equal, B6
-     also to B5, timed with CUDA events, with the bound of each, the lane
-     use and the live rays a walked pair (``packed_walk``); then both on
-     the bounce-1 passes with 0, 1, 33 and all rays of a sub-block live;
+  7. tracer kernels: the sweep intersector's kernels (B4 slab entry with
+     the visit tables, B5 cluster sweep and B6 dense-grid sweep, closest
+     and any hit) against their plain versions on the path tracer's own
+     rays (bench tracer scene, 512x512: the swizzled camera rays and the
+     incoherent bounce-1 rays of one sample and their shadow rays): B4's
+     feature rows and four visit tables bit-equal, one launch with no host
+     sync, its visit order equal to the plain model of the rank rule
+     (``visit_order``); t bits
+     and ids equal, B6 also to B5, timed with CUDA events, with the bound of
+     each, the lane use and the live rays a walked pair (``packed_walk``);
+     then all three on the bounce-1 passes with 0, 1, 33 and all rays of a
+     sub-block live;
   8. trace: the bench tracer scene rendered by ``render_cached`` at
      512x512, 4 bounces, 16 spp (the bench's 64 spp cut to 16): 1 warm-up +
      3 timed renders, Mrays/s, peak memory, launches per render (B4 = B5 =
-     2 * bounces * spp), the device idle share of one profiled sample; the
-     image is checked (finite, >= 0) and a 64x64 render on the card is held
+     2 * bounces * spp), the device idle share and the kernels of one
+     profiled sample (with each port kernel's launches and mean device
+     time); the image is checked (finite, >= 0) and a 64x64 render on the card is held
      against the same render on the CPU path with the same uniforms;
   9. grid trace: the same scene with DMA_SWEEP off (B6 in place of B5) at
      4 spp: 1 warm-up + 2 renders, Mrays/s, peak memory, launches, a
@@ -180,17 +187,19 @@ def raster_work(rows, big_rows, starts, counts, n_big, tiles_y, tiles_x,
     return int(live.sum()) + int(big_live.sum()), int(pairs)
 
 
-def worklist_plan(starts, counts, n_big, nbig_rows, ntiles):
-    """B1's plan (csrc/raster.cu ``plan_kernel``) on the host: the big
-    list's groups, each tile's walk in 32-row groups, and R, the groups a
-    run, doubled from RUN_GROUPS until the runs of the tiles with more than
-    one fit ``worklist_slots``. Returns (R, nb, groups per tile)."""
+def worklist_plan(starts, counts, n_big, nbig_rows, ntiles, group=32, run_groups=None):
+    """B1's and B7's plan (csrc/raster.cu ``plan_kernel``) on the host: the
+    big list's groups, each tile's walk (rows starts .. starts + counts) in
+    groups of ``group`` rows, and R, the groups a run, doubled from
+    ``run_groups`` (RUN_GROUPS if None) until the runs of the tiles with
+    more than one fit ``worklist_slots``. Returns (R, nb, groups per
+    tile)."""
     from sailor_tpu_torch.raster import tile_raster as tr
 
-    nb = -(-min(max(int(n_big), 0), nbig_rows) // tr.CHUNK)
+    nb = -(-min(max(int(n_big), 0), nbig_rows) // group)
     s, c = starts.long().cpu(), counts.long().cpu()
-    groups = nb + (s + c + tr.CHUNK - 1) // tr.CHUNK - s // tr.CHUNK
-    R, slots = tr.RUN_GROUPS, tr.worklist_slots(ntiles)
+    groups = nb + (s + c + group - 1) // group - s // group
+    R, slots = run_groups or tr.RUN_GROUPS, tr.worklist_slots(ntiles)
     while True:
         n = (groups + R - 1) // R
         if int(n[n > 1].sum()) <= slots:
@@ -199,30 +208,33 @@ def worklist_plan(starts, counts, n_big, nbig_rows, ntiles):
 
 
 def worklist_runs(rows, big_rows, starts, counts, n_big, *, tiles_y, tiles_x,
-                  z_bounds=None, stats=None):
-    """B1's mapping on the card (csrc/raster.cu) in plain PyTorch: each
-    tile's walk (the big list's groups, then its ``worklist_span`` in
-    32-row groups) cut into runs of R groups (``worklist_plan``); in each
-    run the rows of a group are tested only in the 16x8-pixel warp
-    rectangles whose ballot takes them (live, AABB touching the strip and
-    the rectangle), merged group by group (the kernel may split a group's
-    (rectangle, row) pairs over its warps: the in-group rule does not
-    depend on the order), and the runs' partials are
-    merged in run order, a later run taking a pixel only with strictly
-    greater z. Returns (depth, tid) as ``rasterize_worklist_plain`` does;
-    ``stats`` (a dict) gets R, the runs launched, the pixel tests (128 for
-    each (row, rectangle) the ballots take), for comparison those of the
-    earlier mapping that tested a strip's 1024 pixels for each live row
-    touching the strip, and the most rows one rectangle takes in a run."""
+                  z_bounds=None, stats=None, group=32, mxu=False, run_groups=None):
+    """B1's and B7's mapping on the card (csrc/raster.cu) in plain
+    PyTorch: each tile's walk (the big list's groups, then its rows starts
+    .. starts + counts widened to whole groups of ``group`` rows: B1's
+    ``worklist_span``, or B7's windows: ``stream_runs``) cut into runs of
+    R groups (``worklist_plan``); in each run the rows of a group are
+    tested only in the 16x8-pixel warp rectangles whose ballot takes them
+    (live, AABB touching the strip and the rectangle), merged group by
+    group (the kernel may split a group's (rectangle, row) pairs over its
+    warps: the in-group rule does not depend on the order), and the runs'
+    partials are merged in run order, a later run taking a pixel only with
+    strictly greater z. ``mxu``: B7's MXU plane form (with groups of 128).
+    Returns (depth, tid) as the twin does; ``stats`` (a dict) gets R, the
+    runs launched, the pixel tests (128 for each (row, rectangle) the
+    ballots take), for comparison those of the earlier mapping that tested
+    a strip's 1024 pixels for each live row touching the strip, and the
+    most rows one rectangle takes in a run."""
     import torch
 
     from sailor_tpu_torch.raster import tile_raster as tr
 
     dev = rows.device
     ntiles = tiles_y * tiles_x
-    R, nb, groups = worklist_plan(starts, counts, n_big, big_rows.shape[0], ntiles)
-    big = tr._rows_or_dead(big_rows, nb * tr.CHUNK)
-    lo = (starts.long().cpu() // tr.CHUNK * tr.CHUNK).tolist()
+    R, nb, groups = worklist_plan(starts, counts, n_big, big_rows.shape[0], ntiles, group,
+                                  run_groups)
+    big = tr._rows_or_dead(big_rows, nb * group)
+    lo = (starts.long().cpu() // group * group).tolist()
     iy = torch.arange(tr.TILE_H, device=dev)[:, None].expand(tr.TILE_H, tr.TILE_W)
     ix = torch.arange(tr.TILE_W, device=dev)[None, :].expand(tr.TILE_H, tr.TILE_W)
     rect = ((iy // 8) * 8 + ix // 16).reshape(-1)  # the warp rectangle of each pixel
@@ -237,15 +249,16 @@ def worklist_runs(rows, big_rows, starts, counts, n_big, *, tiles_y, tiles_x,
         ox, oy = float(tj * tr.TILE_W), float(ti * tr.TILE_H)
         x_lo, x_hi, y_lo, y_hi = rx + ox, rx + ox + 15.0, ry + oy, ry + oy + 7.0
         sx_lo, sx_hi = ox + 0.5, ox + tr.TILE_W - 0.5
-        walk = torch.cat([big, rows[lo[t]:lo[t] + (groups[t] - nb) * tr.CHUNK]])
+        test = tr._test_chunk_mxu(ox, oy) if mxu else tr._test_chunk
+        walk = torch.cat([big, rows[lo[t]:lo[t] + (groups[t] - nb) * group]])
         best = tr._empty_best(dev)
         nruns = max(1, -(-groups[t] // R))
         runs += nruns
         for r in range(nruns):
             part = tr._empty_best(dev)
-            sel = walk[r * R * tr.CHUNK:(r + 1) * R * tr.CHUNK]
+            sel = walk[r * R * group:(r + 1) * R * group]
             if sel.shape[0]:
-                zm, ids = tr._test_chunk(sel, px, py, zl, zh)
+                zm, ids = test(sel, px, py, zl, zh)
                 a = [sel[:, i:i + 1] for i in range(12, 16)]
                 strip_out = ((sx_hi < a[0] + tr.EPS) | (sx_lo > a[1] - tr.EPS)
                              | (y_hi < a[2] + tr.EPS) | (y_lo > a[3] - tr.EPS))
@@ -255,9 +268,8 @@ def worklist_runs(rows, big_rows, starts, counts, n_big, *, tiles_y, tiles_x,
                 strip_tests += int(((ids >= 0)[:, None] & ~strip_out)[:, ::8].sum()) * 1024
                 longest = max(longest, int(take.sum(0).max()))
                 zm = torch.where(take[:, rect], zm, torch.full_like(zm, -1.0))
-                g = sel.shape[0] // tr.CHUNK
-                part = tr._merge_groups(*part, zm.reshape(g, tr.CHUNK, -1),
-                                        ids.reshape(g, tr.CHUNK))
+                g = sel.shape[0] // group
+                part = tr._merge_groups(*part, zm.reshape(g, group, -1), ids.reshape(g, group))
             later = part[0] > best[0]
             best = (torch.where(later, part[0], best[0]), torch.where(later, part[1], best[1]))
         return best
@@ -267,6 +279,47 @@ def worklist_runs(rows, big_rows, starts, counts, n_big, *, tiles_y, tiles_x,
         stats.update(run_groups=R, runs=runs, pixel_tests=tests, strip_tests=strip_tests,
                      longest_rectangle_walk=longest)
     return out
+
+
+def stream_span(c0, spt, chunk):
+    """B7's walk as a row span per tile (starts, counts): the windows c0 ..
+    c0 + max(spt, 1) - 1 of ``chunk`` rows."""
+    import torch
+
+    return c0 * chunk, torch.clamp(spt, min=1) * chunk
+
+
+def stream_runs(rows, big_rows, c0, spt, n_big, *, chunk, mxu, run_rows=None, **kw):
+    """B7's mapping on the card (``worklist_runs`` over the windows, in
+    groups of 32, or of 128 with the MXU plane form), its runs starting at
+    ``run_rows`` rows (the wrapper's STREAM_RUN_ROWS by default)."""
+    from sailor_tpu_torch.raster import tile_raster as tr
+
+    group = tr.CHUNK_MXU if mxu else tr.CHUNK
+    return worklist_runs(rows, big_rows, *stream_span(c0, spt, chunk), n_big, group=group,
+                         mxu=mxu, run_groups=(run_rows or tr.STREAM_RUN_ROWS) // group, **kw)
+
+
+def sub_entries(tables):
+    """B4's own function from its tables: the sub-block entries (Rp // SUB,
+    C) as int32 float bits in cluster order, e_sub[s, order[b, c]] =
+    e_bits[s, c] for the sub-blocks s of ray block b."""
+    e_bits, order = tables["e_bits"], tables["order"].long()
+    order = order.repeat_interleave(e_bits.shape[0] // order.shape[0], 0)
+    return e_bits.new_empty(e_bits.shape).scatter_(1, order, e_bits)
+
+
+def visit_order(e_blk):
+    """The visit order as csrc/slab_entry.cu computes it, by rank over the
+    block entries' int32 bits (B, C): rank(c) = #{c': e[c'] < e[c]} +
+    #{c' < c: e[c'] = e[c]}, order[rank(c)] = c."""
+    import torch
+
+    nc = e_blk.shape[1]
+    col = torch.arange(nc, device=e_blk.device)
+    e, v = e_blk[:, None, :], e_blk[:, :, None]  # e[b, ., c'] against v[b, c, .]
+    rank = ((e < v) | ((e == v) & (col[None, None, :] < col[None, :, None]))).sum(2)
+    return torch.empty_like(rank).scatter_(1, rank, col.expand_as(rank))
 
 
 def heavy_tile_rows(seed=0):
@@ -463,10 +516,13 @@ def check_kernels(scene, width, height, card):
     return results
 
 
-def check_heavy_tile():
-    """B1 on ``heavy_tile_rows`` (a tile of 4 runs whose repeated rows tie
-    in z in one group, across groups and across runs), with and without z
-    bounds: bit-equal to the twin and to the model of its mapping."""
+HEAVY_CHUNK = 128  # B7's windows on heavy_tile_rows (its 640 rows: 5 windows)
+
+
+def heavy_tile_cases():
+    """B1 and B7 (both forms) on ``heavy_tile_rows``, on the card: per
+    kernel name (kernel, twin, args, keywords, the plain model of the
+    kernel's mapping, which takes the same)."""
     import torch
 
     from sailor_tpu_torch.raster import tile_raster as tr
@@ -474,20 +530,37 @@ def check_heavy_tile():
     rows, big, starts, counts, n_big, ty, tx = (
         x.cuda() if torch.is_tensor(x) else x for x in heavy_tile_rows())
     kw = dict(tiles_y=ty, tiles_x=tx)
-    zb = None
-    for label in ("", ",z_bounds"):
-        d_k, t_k = tr.rasterize_worklist_cuda(rows, big, starts, counts, n_big, **kw, z_bounds=zb)
-        d_p, t_p = tr.rasterize_worklist_plain(rows, big, starts, counts, n_big, **kw, z_bounds=zb)
-        stats = {}
-        d_m, t_m = worklist_runs(rows, big, starts, counts, n_big, **kw, z_bounds=zb,
-                                 stats=stats)
-        same = all(bool(torch.equal(a, b)) for a, b in ((d_k, d_p), (t_k, t_p), (d_m, d_p),
-                                                        (t_m, t_p)))
-        print(f"kernel raster_worklist[heavy_tile{label}]: bit_equal={same} runs={stats['runs']} "
-              f"covered={int((t_k >= 0).sum())}")
-        check(same and stats["runs"] > tx * ty,
-              f"raster kernel disagrees with its plain version on the heavy tile{label}")
-        zb = (torch.zeros_like(d_k), torch.where(t_k >= 0, d_k, 2.0))
+    cases = {"raster_worklist": (tr.rasterize_worklist_cuda, tr.rasterize_worklist_plain,
+                                 (rows, big, starts, counts, n_big), kw, worklist_runs)}
+    c0, spt, _ = tr.stream_windows(starts, counts, HEAVY_CHUNK, 16)
+    for mxu in (False, True):
+        cases["raster_stream_mxu" if mxu else "raster_stream"] = (
+            tr.rasterize_stream_cuda, tr.rasterize_stream_plain, (rows, big, c0, spt, n_big),
+            dict(kw, chunk=HEAVY_CHUNK, mxu=mxu), stream_runs)
+    return cases
+
+
+def check_heavy_tile():
+    """B1 and B7 (both forms) on ``heavy_tile_rows`` (a tile of several
+    runs whose repeated rows tie in z in one group, across groups and
+    across runs), with and without z bounds: bit-equal to the twin and to
+    the model of the mapping."""
+    import torch
+
+    for name, (kernel, plain, args, kw, model) in heavy_tile_cases().items():
+        zb = None
+        for label in ("", ",z_bounds"):
+            d_k, t_k = kernel(*args, **kw, z_bounds=zb)
+            d_p, t_p = plain(*args, **kw, z_bounds=zb)
+            stats = {}
+            d_m, t_m = model(*args, **kw, z_bounds=zb, stats=stats)
+            same = all(bool(torch.equal(a, b)) for a, b in ((d_k, d_p), (t_k, t_p),
+                                                            (d_m, d_p), (t_m, t_p)))
+            print(f"kernel {name}[heavy_tile{label}]: bit_equal={same} runs={stats['runs']} "
+                  f"run_groups={stats['run_groups']} covered={int((t_k >= 0).sum())}")
+            check(same and stats["runs"] > kw["tiles_y"] * kw["tiles_x"],
+                  f"{name} kernel disagrees with its plain version on the heavy tile{label}")
+            zb = (torch.zeros_like(d_k), torch.where(t_k >= 0, d_k, 2.0))
 
 
 def spot_shadow_lights(table, seed=5):
@@ -598,7 +671,7 @@ def check_variant_kernels(scene, width, height, card):
     rows, big, na = tr.build_stream_rows(tri, aabb, order, big_ids, attrs=attrs, chunk=chunk)
     c0, spt, ovf = tr.stream_windows(starts, counts, chunk, kmax)
     check(int(ovf) == 0, f"B7 drops {int(ovf)} candidates past kmax on the flagship frame")
-    walk = (c0 * chunk, torch.clamp(spt, min=1) * chunk)
+    walk = stream_span(c0, spt, chunk)
     cand, pairs = raster_work(rows, big, *walk, n_big, tiles_y, tiles_x)
     for mxu in (False, True):
         name = "raster_stream_mxu" if mxu else "raster_stream"
@@ -607,6 +680,16 @@ def check_variant_kernels(scene, width, height, card):
             name, tr.rasterize_stream_cuda, tr.rasterize_stream_plain, args,
             dict(kw, chunk=chunk, mxu=mxu), card, (cand, pairs, 17 * 4), ntiles_bytes(c0))
         d7, _ = tr.rasterize_stream_cuda(*args, **kw, chunk=chunk, mxu=mxu)
+        # the plain model of the kernel's mapping (runs, rectangles), and its work
+        stats = {}
+        d_m, t_m = stream_runs(*args, **kw, chunk=chunk, mxu=mxu, stats=stats)
+        check(bool(torch.equal(d_m, d7)) and bool(torch.equal(t_m, t7)),
+              f"the {name} kernel's mapping disagrees with the kernel")
+        print(f"{name} mapping: walked_rows={int(walk[1].sum())} tiles={c0.numel()} "
+              f"run_groups={stats['run_groups']} runs={stats['runs']} "
+              f"blocks={stats['runs'] * tr.STRIPS} pixel_tests={stats['pixel_tests']} "
+              f"bound_pairs={pairs} strip_mapping_tests={stats['strip_tests']} "
+              f"longest_rectangle_walk={stats['longest_rectangle_walk']}")
         zb = (torch.zeros_like(d7), torch.where(t7 >= 0, d7, 2.0))
         _raster_check(name + "[z_bounds]", tr.rasterize_stream_cuda, tr.rasterize_stream_plain,
                       args, dict(kw, chunk=chunk, mxu=mxu, z_bounds=zb), card,
@@ -651,18 +734,22 @@ def check_variant_kernels(scene, width, height, card):
     # ---- B9: bin_all's first pass (the fullest) and its big-triangle pass
     # (64 slots; the ground plane covers every pixel), each with and
     # without the AABB clamp (the frame's dense path clamps,
-    # raster.rasterize does not); the first pass's numbers are reported
+    # raster.rasterize does not), and rounds 2-4 with the clamp; the
+    # first pass's numbers are reported, and the five passes of a dense
+    # frame summed
     dtri, daabb = rsetup.triangle_setup(scene.geometry, scene.frame.view_projection,
                                         width=width, height=height,
                                         zplane_rounding="standalone")
     passes, _ = rsetup.bin_all(dtri.valid, daabb, tiles_x=tiles_x, tiles_y=tiles_y,
                                tile_w=tr.TILE_W, tile_h=tr.TILE_H, capacity=cap, rounds=rounds)
     ntiles = tiles_y * tiles_x
-    for pname, (bins, pcounts) in (("", passes[0]), ("[big_pass]", passes[-1])):
+    names = [""] + [f"[round{i + 1}]" for i in range(1, len(passes) - 1)] + ["[big_pass]"]
+    frame_ms = frame_bound = 0.0
+    for pname, (bins, pcounts) in zip(names, passes):
         pcounts = pcounts.reshape(-1).to(torch.int32).contiguous()
         slots = (torch.arange(ntiles, device=bins.device) * bins.shape[-1]).to(torch.int32)
         walked = (pcounts + tr.CHUNK - 1) // tr.CHUNK * tr.CHUNK
-        for clamp in (True, False):
+        for clamp in (True, False) if pname in ("", "[big_pass]") else (True,):
             rows9, ids9 = tr.dense_rows(dtri, bins, daabb if clamp else None)
             # the walk's rows laid out as build_stream_rows does, for raster_work
             as17 = torch.cat([rows9[:, :12], rows9[:, 12:16] if clamp else
@@ -676,6 +763,11 @@ def check_variant_kernels(scene, width, height, card):
                                     args, kw, card, work, ntiles_bytes(pcounts))
             if name == "raster_dense":
                 out["raster_dense"] = res
+            if clamp:
+                frame_ms += res["ms"]
+                frame_bound += res["bound_ms"]
+            if pname.startswith("[round"):
+                continue
             d9, _ = tr.rasterize_tiles_cuda(*args, **kw)
             _raster_check(name + "[z_bounds]", tr.rasterize_tiles_cuda,
                           tr.rasterize_tiles_plain, args,
@@ -683,8 +775,11 @@ def check_variant_kernels(scene, width, height, card):
                                              torch.where(t9 >= 0, d9, 2.0))),
                           card, work, ntiles_bytes(pcounts) + npix * 8, reps=3)
 
-    replaces = {"raster_stream": ("raster_stream.cu", 194),
-                "raster_stream_mxu": ("raster_stream.cu", 657),
+    print(f"raster_dense per dense frame ({len(passes)} passes, clamped): ms={frame_ms:.4f} "
+          f"bound_ms={frame_bound:.5f} gap_ms={frame_ms - frame_bound:.4f} on {card}")
+
+    replaces = {"raster_stream": ("raster.cu", 194),
+                "raster_stream_mxu": ("raster.cu", 657),
                 "raster_dma": ("raster_dma.cu", 751), "raster_dense": ("raster_dense.cu", 43),
                 "resolve_stream": ("resolve_stream.cu", 1159)}
     return [dict(name=name, route="cuda", source=f"sailor_tpu_torch/csrc/{src}",
@@ -902,6 +997,16 @@ def profile(fn, card, label):
     print(f"{label}: wall_ms={wall_ms:.3f} device_busy_ms={busy / 1e3:.3f} "
           f"device_idle_share={1 - busy / 1e3 / wall_ms:.3f} kernels={len(spans)} on {card}")
     print(f"{label}_top_device_us " + json.dumps({k[:60]: v for k, v in top}))
+    # the port's own kernels (csrc/): launches and mean device us a launch
+    ours = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and "(anonymous namespace)::" in e.name \
+                and "at::native" not in e.name:
+            name = e.name.split("::")[-1].split("(")[0]
+            n, us = ours.get(name, (0, 0.0))
+            ours[name] = (n + 1, us + e.time_range.elapsed_us())
+    print(f"{label}_port_kernels " + json.dumps(
+        {k: {"launches": n, "mean_us": round(us / n, 3)} for k, (n, us) in ours.items()}))
 
 
 def fma_cost(fg, scene, state, card, reps: int = 4):
@@ -1091,15 +1196,43 @@ def _bits_equal(ta, ia, tb, ib):
                                                           tb.view(torch.int32)))
 
 
+TABLES = ("feats", "e_bits", "order", "blk_bits", "nlive")
+
+
+def bits_equal(a, b):
+    """Float tensors equal bit for bit, a NaN matching any NaN (some shadow
+    rays carry infinite coordinates, whose feature rows hold NaN; its bits
+    are no part of the result)."""
+    import torch
+
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))) and bool(torch.equal(
+        torch.where(nan, 0, a.view(torch.int32)), torch.where(nan, 0, b.view(torch.int32))))
+
+
+def tables_equal(a, b):
+    """B4's outputs equal, bit for bit: the feature rows and four tables."""
+    import torch
+
+    return bits_equal(a["feats"], b["feats"]) and all(
+        bool(torch.equal(a[k], b[k])) for k in TABLES[1:])
+
+
 def check_sparse_sweeps(sw, passes):
-    """B5 and B6 against their twin and each other (t bits, ids) on the
-    bounce-1 passes with 0, 1, 33 and all 256 rays of each sub-block live,
-    and with all live on clusters with exact ties."""
+    """B4's tables against their twin, and B5 and B6 against their twin and
+    each other (t bits, ids), on the bounce-1 passes with 0, 1, 33 and all
+    256 rays of each sub-block live, and with all live on clusters with
+    exact ties."""
     from sailor_tpu_torch.raytracing import sweep
 
     for name in ("bounce1", "bounce1_shadow"):
         for live, tied in ((0, False), (1, False), (33, False), (256, False), (256, True)):
             p = sparse_pass(sw, passes[name], live)
+            label = f"{name}, {live} live a sub-block{', tied' if tied else ''}"
+            o, d = p["feats"][:, 8:11].contiguous(), p["feats"][:, 0:3].contiguous()
+            check(tables_equal(p, sweep.visit_tables_plain(o, d, p["tmax"], sw.cl_min,
+                                                           sw.cl_max)),
+                  f"slab entry kernel disagrees with its plain version ({label})")
             g = tied_clusters(sw.g_cluster) if tied else sw.g_cluster
             a5 = (p["e_bits"], p["order"], p["blk_bits"], p["nlive"], p["feats"], p["tmax"], g)
             kw = dict(any_hit=p["any_hit"])
@@ -1107,8 +1240,7 @@ def check_sparse_sweeps(sw, passes):
             t6, i6 = sweep.sweep_grid_cuda(*a5[:2], *a5[4:], **kw)
             tp, ip = sweep.sweep_plain(*a5, **kw)
             ok = _bits_equal(t5, i5, tp, ip) and _bits_equal(t6, i6, tp, ip)
-            label = f"{name}, {live} live a sub-block{', tied' if tied else ''}"
-            print(f"sparse sweep[{label}]: b5_and_b6_equal_to_twin={ok} "
+            print(f"sparse sweep[{label}]: b4_tables_equal=True b5_and_b6_equal_to_twin={ok} "
                   f"hits={int((ip >= 0).sum())}")
             check(ok, f"sweep kernels disagree with their twin on a sparse pass ({label})")
 
@@ -1118,6 +1250,7 @@ def check_tracer_kernels(card):
     and B6 against B5."""
     import torch
 
+    from sailor_tpu_torch.kernels import cuda_lib
     from sailor_tpu_torch.raytracing import sweep
     from sailor_tpu_torch.scenes import tracer_scene
 
@@ -1130,20 +1263,35 @@ def check_tracer_kernels(card):
     for name, p in passes.items():
         feats, tmax = p["feats"], p["tmax"]
         rp, nc = feats.shape[0], sw.n_clusters
-        # ---- B4 slab entry: bit-equal
-        args4 = (feats, tmax, sw.cl_min, sw.cl_max)
-        e_k = sweep.slab_entry_cuda(*args4)
-        plain_ms, e_p = _wall_ms(lambda: sweep.slab_entry_plain(*args4))
-        ms = _time_ms(lambda: sweep.slab_entry_cuda(*args4), 20)
-        same = bool(torch.equal(e_k.view(torch.int32), e_p.view(torch.int32)))
-        # features (64 B) and tmax read per ray, boxes, the table written;
-        # ~30 operations per (ray, cluster): 6 products and differences, 6
+        # ---- B4 slab entry, feature rows and visit tables: all bit-equal
+        # (the rows also to the pass's own), one launch, no host sync
+        args4 = (feats[:, 8:11].contiguous(), feats[:, 0:3].contiguous(), tmax, sw.cl_min,
+                 sw.cl_max)
+        before = cuda_lib.LAUNCHES["slab_entry"]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            k4 = sweep.visit_tables_cuda(*args4)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        launched = cuda_lib.LAUNCHES["slab_entry"] - before
+        plain_ms, p4 = _wall_ms(lambda: sweep.visit_tables_plain(*args4))
+        ms = _time_ms(lambda: sweep.visit_tables_cuda(*args4), 20)
+        same = tables_equal(k4, p4) and bits_equal(k4["feats"], feats)
+        e_blk = sub_entries(p4).view(-1, sweep.RAY_BLOCK // sweep.SUB, nc).amin(1)
+        ranks_ok = bool(torch.equal(visit_order(e_blk).to(torch.int32), p4["order"]))
+        # origin, direction and tmax (28 B) read per ray, boxes; feature
+        # rows (64 B) and the four tables written; ~30 operations per (ray,
+        # cluster), none of them fused: 6 products and differences, 6
         # selects, 2 compares, the hit test and the entry
-        bound, by = _bound(rp * 68 + nc * 24 + rp // sweep.SUB * nc * 4, rp * nc * 30)
-        print(f"kernel slab_entry[{name}]: bit_equal={same} ms={ms:.4f} "
+        nsb, nb = rp // sweep.SUB, rp // sweep.RAY_BLOCK
+        bound, by = _bound(rp * (28 + 64) + nc * 24 + (nsb * nc + 2 * nb * nc + nb) * 4,
+                           rp * nc * 30)
+        print(f"kernel slab_entry[{name}]: bit_equal={same} launches={launched} "
+              f"no_host_sync=True rank_model_equal={ranks_ok} ms={ms:.4f} "
               f"plain_ms={plain_ms:.2f} bound_ms={bound:.5f} ({by}) rays={rp} "
-              f"clusters={nc} on {card}")
-        check(same, f"slab entry kernel disagrees with its plain version ({name})")
+              f"clusters={nc} live_block_steps={int(p4['nlive'].sum())} on {card}")
+        check(same and launched == 1 and ranks_ok,
+              f"slab entry kernel disagrees with its plain version ({name})")
         rows.setdefault("slab_entry", {})[name] = dict(
             max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
         # ---- B5 sweep: t bits and ids equal to its twin's

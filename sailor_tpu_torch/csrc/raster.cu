@@ -1,30 +1,45 @@
-// B1: work-list visibility raster for Hopper (sm_90a).
+// B1: work-list visibility raster, and B7: grid-k stream raster in its VPU
+// and MXU forms, for Hopper (sm_90a): one plan kernel and one raster
+// kernel over runs of a tile's walk.
 //
 // Replaces sailor_tpu/raster/tile_raster.py `_raster_kernel_worklist` (with
-// `_test_chunk` and `_merge_chunk`), called from `rasterize_worklist`. Its
-// plain twin is `rasterize_worklist_plain` in raster/tile_raster.py.
+// `_test_chunk` and `_merge_chunk`), called from `rasterize_worklist`, and
+// `_raster_kernel_stream` (with `_test_chunk`, `_merge_chunk`) and
+// `_raster_kernel_stream_mxu` (with `_test_chunk_mxu`, `_merge_chunk_mxu`),
+// called from `rasterize_stream`. Their plain twins are
+// `rasterize_worklist_plain` and `rasterize_stream_plain` in
+// raster/tile_raster.py.
 //
-// What it computes: per 64x128 screen tile, a walk of 32-row groups: the
-// big-triangle list first, then the rows floor(start/32)*32 ..
-// ceil(end/32)*32 of the sorted row table (`worklist_span`: the tile's
-// work-list windows, with the rows of neighbouring tiles that share an
-// aligned group). Each row is tested at each pixel centre: three edge
-// functions >= -0.05 px, the AABB sliver clamp, reverse-Z plane depth z in
-// (0, 1] and optional exclusive (zlo, zhi) bounds. Within a group the max z
-// wins and equal z goes to the larger id; a later group takes a pixel only
-// with strictly greater z. That is the TPU kernel's merge order and tie
-// rule, kept exactly so the winner ids match on shared edges.
+// What it computes: per 64x128 screen tile, a walk of G-row groups: the
+// big-triangle list first, then a contiguous range of the sorted row
+// table. B1 (G = 32) walks floor(start/32)*32 .. ceil(end/32)*32
+// (`worklist_span`: the tile's work-list windows, with the rows of
+// neighbouring tiles that share an aligned group). B7 walks the whole
+// `chunk`-row windows c0 .. c0 + max(spt, 1) - 1 (spt capped at kmax: rows
+// past the cap are never tested, the caller counts them as overflow), in
+// groups of 32 (VPU form) or 128 (MXU form); chunk is a multiple of G, so
+// the windows are exactly whole groups. Each row is tested at each pixel
+// centre: three edge functions >= -0.05 px, the AABB sliver clamp,
+// reverse-Z plane depth z in (0, 1] and optional exclusive (zlo, zhi)
+// bounds. Within a group the max z wins and equal z goes to the larger id;
+// a later group takes a pixel only with strictly greater z. That is the TPU
+// kernels' merge order and tie rule, kept exactly so the winner ids match
+// on shared edges. The MXU form, built for the TPU's matrix unit,
+// evaluates each plane re-centred on the tile origin, c_t = fma(b, oy,
+// fma(a, ox, c)), then fma(b, dy, a*dx) + c_t at the tile-local centre
+// (dx, dy); it rounds unlike the VPU form on a few pixels.
 //
 // Bound on the H100: bytes. The function must read the candidate rows' 17
 // raster columns once and write depth and tid (8 bytes a pixel); its
 // arithmetic is 16 float operations per (pixel, candidate) pair inside the
 // candidate's AABB. chip_smoke.py computes both from the frame's rows.
 //
-// What held the first version back: one block per 8-row strip walked all
+// What held the first versions back: one block per 8-row strip walked all
 // of its tile's groups in order, and the walk is very uneven (the flagship
-// frame's two heaviest tiles hold 24% of its rows, most tiles a group or
-// two), so the card waited on a few long walks; each group was tested at
-// all 1024 pixels of the strip for every row whose AABB touched the strip.
+// frame's two heaviest tiles hold 24% of B1's rows, most tiles a group or
+// two; B7 walks whole 256-row windows, mostly neighbours' rows), so the
+// card waited on a few long walks; each group was tested at all 1024
+// pixels of the strip for every row whose AABB touched the strip.
 // Design:
 //  1. Runs. A one-block plan kernel cuts each tile's walk into runs of at
 //     most R contiguous groups (the big list opens run 0) and writes one
@@ -46,7 +61,8 @@
 //     sequential walk bit for bit, ties on shared edges included.
 //  3. Per-rectangle rejects, balanced over the warps. The strip is cut into
 //     eight 16x8-pixel rectangles, one a warp. Lane r tests row r of a
-//     staged group against the strip and then the warp's rectangle (exact,
+//     staged group (rows r, r + 32, r + 64, r + 96 of a 128-row group: a
+//     ballot each) against the strip and then the warp's rectangle (exact,
 //     as the per-pixel AABB clamp: a row whose AABB misses every pixel
 //     centre of a rectangle rejects each of them) and one ballot gives the
 //     rows the rectangle takes. Where the rectangles' counts are near even
@@ -60,13 +76,18 @@
 //     larger id), and the owner of a rectangle merges it into its pixels
 //     with the across-group rule.
 //  4. Staging. Only the 17 used columns of a row are copied, with cp.async
-//     into a ring of 4 group slots (rows 16-byte aligned, read back as
-//     float4 broadcasts); the next groups' copies are in flight while a
-//     group is tested.
+//     into a ring of group slots (4 of 32 rows, 2 of 128; rows 16-byte
+//     aligned, read back as float4 broadcasts); the next groups' copies are
+//     in flight while a group is tested.
 //  5. Four blocks an SM (64 registers, a few spilled) in place of three
 //     without spills. tests/torch_kernel_variants.py times this choice, the
 //     balancing rule of 3 and the value of R against their alternatives.
-// Rounding: common.cuh (plane() is raster_common.cuh's, B7-B9's).
+//     B7's rows are mostly neighbours' that the rectangle tests reject, so
+//     its runs are longer: 512 rows (tile_raster.STREAM_RUN_ROWS). On an
+//     H100 80GB HBM3 at 700 W, on the flagship frame: B7 0.0995 / 0.0773 /
+//     0.0840 ms at 256 / 512 / 1024 rows a run, B7-MXU 0.0932 / 0.0710 /
+//     0.0764 ms.
+// Rounding: common.cuh (plane() is raster_common.cuh's, B8's and B9's).
 #include "raster_common.cuh"
 
 namespace {
@@ -74,7 +95,6 @@ namespace {
 using namespace sailor_raster;
 
 constexpr int RS = 20;           // staged row stride in floats: 17 used, 16-byte rows
-constexpr int NBUF = 4;          // group slots of the cp.async ring
 constexpr int RECT_W = 16;       // a warp's rectangle: 16 x STRIP_H pixels
 constexpr int PIX = STRIP_H * TILE_W;  // pixels of a strip
 constexpr int PLAN_THREADS = 256;
@@ -84,7 +104,7 @@ constexpr unsigned FULL = 0xffffffffu;
 
 // Workspace (int32; raster/tile_raster.py `_worklist_workspace` sizes it):
 //   runs  [tiles + slots][8]: per listed run (tile, first walk group, groups,
-//         the tile's runs; scratch slot or -1, first window group, big-list
+//         the tile's runs; scratch slot or -1, first row group, big-list
 //         groups, run index), tile -1 past the list
 //   count [tiles * STRIPS]: arrivals per (tile, strip)
 // then the scratch: partial z (float) and id, [slots][STRIPS][PIX] each.
@@ -138,25 +158,29 @@ __device__ __forceinline__ int block_exclusive(int v, int* red) {
   return before + inc - v;
 }
 
-// One block: R, the run records, zeroed arrival counts. The raster kernel
-// may start while it runs (programmatic dependent launch) and waits for
-// its end before it reads a record.
+// One block: R, the run records, zeroed arrival counts. A tile's rows are
+// starts[t] .. starts[t] + counts[t] (win = 0: B1) or the windows
+// starts[t] .. starts[t] + max(counts[t], 1) - 1 of `win` rows (B7's c0 and
+// spt), walked in groups of `group` rows. The raster kernel may start
+// while it runs (programmatic dependent launch) and waits for its end
+// before it reads a record.
 __global__ void __launch_bounds__(PLAN_THREADS)
 plan_kernel(const int* __restrict__ starts, const int* __restrict__ counts,
-            const int* __restrict__ n_big_ptr, int nbig_rows, int ntiles,
-            int run_groups, int slots, int* __restrict__ ws) {
+            const int* __restrict__ n_big_ptr, int nbig_rows, int ntiles, int group,
+            int win, int run_groups, int slots, int* __restrict__ ws) {
   asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
   __shared__ int red[PLAN_THREADS / 32];
   const Work w = carve(ws, ntiles, slots);
-  const int nb = cdiv(min(max(*n_big_ptr, 0), nbig_rows), CHUNK);
+  const int nb = cdiv(min(max(*n_big_ptr, 0), nbig_rows), group);
   // each thread plans a contiguous span of tiles, so runs list in tile order
   const int per = cdiv(ntiles, PLAN_THREADS);
   const int t0 = min(ntiles, static_cast<int>(threadIdx.x) * per);
   const int t1 = min(ntiles, t0 + per);
-  auto walk = [&](int t, int& g, int& first) {  // tile t's groups, first window group
-    const int start = starts[t];
-    first = start / CHUNK;
-    g = nb + (start + counts[t] + CHUNK - 1) / CHUNK - first;
+  auto walk = [&](int t, int& g, int& first) {  // tile t's groups, first row group
+    const int start = win ? starts[t] * win : starts[t];
+    const int end = win ? start + max(counts[t], 1) * win : start + counts[t];
+    first = start / group;
+    g = nb + cdiv(end, group) - first;
   };
   int R = run_groups;
   for (;;) {  // the runs of tiles with more than one must fit the scratch
@@ -223,46 +247,87 @@ __device__ __forceinline__ void wait_groups() {
 constexpr int WARPS = THREADS / 32;  // one 16x8 rectangle each
 constexpr int PER_RECT = 4 * 32;     // pixels of a rectangle: 4 a lane
 
-// A block's shared state of a group's test.
+// A block's shared state of a group's test (NW ballot words a rectangle:
+// G / 32).
+template <int NW>
 struct GroupTest {
   unsigned long long key[WARPS][PER_RECT];  // the group's best (z bits, id) a pixel, 0 none
   float zlo[WARPS][PER_RECT], zhi[WARPS][PER_RECT];  // the strip's z bounds
-  unsigned mask[WARPS];                     // the rows each rectangle takes
+  unsigned mask[WARPS][NW];                 // the rows each rectangle takes
 };
 
 // This thread's 4 pixels (in its warp's rectangle) and their running
 // winners; the strip and rectangle bounds.
 struct Pix {
   float py[4];
+  float dy[4];   // tile-local (the MXU form's)
   float bz[4];
   int bid[4];
   int64_t base;  // output index of pixel 0; pixel k is base + k * 2 * W
   int x0;        // the tile's first column
+  float ox, oy;  // the tile origin
   float rx_lo, rx_hi, ry_lo, ry_hi;  // the warp rectangle's outermost centres
   float sx_lo, sx_hi;                // the strip's (its rows are the rectangle's)
 };
 
-// The depth of staged row q (edges, plane, AABB) at pixel centre (px, py)
-// if the row covers it there, else -1: three edges >= EPS, the AABB clamp
-// (its x half `in_x` is the caller's), z in (0, 1] and inside (zl, zh).
-__device__ __forceinline__ float cover(const float4& e0, const float4& e1, const float4& e2,
-                                       const float4& bb, bool in_x, float px, float py,
+// A staged row's planes (a, b, c) x 4 (three edges, depth) in e0..e2, its
+// AABB in bb, its id. The MXU form replaces each c by c_t, the plane's
+// value at the tile origin.
+struct Row {
+  float4 e0, e1, e2, bb;
+  int id;
+};
+
+template <bool MXU>
+__device__ __forceinline__ Row load_row(const float* q, const Pix& p) {
+  Row r;
+  r.e0 = ld4(q);
+  r.e1 = ld4(q + 4);
+  r.e2 = ld4(q + 8);
+  r.bb = ld4(q + 12);
+  r.id = static_cast<int>(q[16]);
+  if (MXU) {
+    r.e0.z = __fmaf_rn(r.e0.y, p.oy, __fmaf_rn(r.e0.x, p.ox, r.e0.z));
+    r.e1.y = __fmaf_rn(r.e1.x, p.oy, __fmaf_rn(r.e0.w, p.ox, r.e1.y));
+    r.e2.x = __fmaf_rn(r.e1.w, p.oy, __fmaf_rn(r.e1.z, p.ox, r.e2.x));
+    r.e2.w = __fmaf_rn(r.e2.z, p.oy, __fmaf_rn(r.e2.y, p.ox, r.e2.w));
+  }
+  return r;
+}
+
+// a*x + b*y + c: the VPU form at the pixel centre (x, y) = (px, py), as
+// fma(a, px, b*py) + c; the MXU form at the tile-local centre (dx, dy), as
+// fma(b, dy, a*dx) + c_t.
+template <bool MXU>
+__device__ __forceinline__ float eval(float a, float b, float c, float x, float y) {
+  return MXU ? __fadd_rn(__fmaf_rn(b, y, __fmul_rn(a, x)), c) : plane(a, b, c, x, y);
+}
+
+// The depth of row r at the pixel whose plane coordinates are (x, y) and
+// whose centre row is py, if the row covers it there, else -1: three edges
+// >= EPS, the AABB clamp (its x half `in_x` is the caller's), z in (0, 1]
+// and inside (zl, zh).
+template <bool MXU>
+__device__ __forceinline__ float cover(const Row& r, bool in_x, float x, float y, float py,
                                        bool bounded, float zl, float zh) {
-  bool ok = plane(e0.x, e0.y, e0.z, px, py) >= EPS && plane(e0.w, e1.x, e1.y, px, py) >= EPS &&
-            plane(e1.z, e1.w, e2.x, px, py) >= EPS;
-  ok = ok && in_x && py >= bb.z + EPS && py <= bb.w - EPS;
-  const float z = plane(e2.y, e2.z, e2.w, px, py);
+  bool ok = eval<MXU>(r.e0.x, r.e0.y, r.e0.z, x, y) >= EPS &&
+            eval<MXU>(r.e0.w, r.e1.x, r.e1.y, x, y) >= EPS &&
+            eval<MXU>(r.e1.z, r.e1.w, r.e2.x, x, y) >= EPS;
+  ok = ok && in_x && py >= r.bb.z + EPS && py <= r.bb.w - EPS;
+  const float z = eval<MXU>(r.e2.y, r.e2.z, r.e2.w, x, y);
   ok = ok && z > 0.0f && z <= 1.0f;
   if (bounded) ok = ok && z > zl && z < zh;
   return ok ? z : -1.0f;
 }
 
-// Test the rows `m` of a staged group at this warp's own pixels and merge
-// the group into its running winners.
-__device__ __forceinline__ void test_own(const float* __restrict__ s, unsigned m, Pix& p,
-                                         const GroupTest& g, bool bounded) {
+// Test the rows `mine` of a staged group at this warp's own pixels and
+// merge the group into its running winners.
+template <int NW, bool MXU>
+__device__ __forceinline__ void test_own(const float* __restrict__ s, const unsigned (&mine)[NW],
+                                         Pix& p, const GroupTest<NW>& g, bool bounded) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const float px = static_cast<float>(p.x0 + warp * RECT_W + (lane & 15)) + 0.5f;
+  const float dx = static_cast<float>(warp * RECT_W + (lane & 15)) + 0.5f;
+  const float px = static_cast<float>(p.x0) + dx;
   float gz[4];
   int gid[4];
 #pragma unroll
@@ -270,21 +335,23 @@ __device__ __forceinline__ void test_own(const float* __restrict__ s, unsigned m
     gz[k] = -1.0f;
     gid[k] = -1;
   }
-  while (m) {
-    const int r = __ffs(m) - 1;
-    m &= m - 1;
-    const float* q = s + r * RS;
-    const float4 e0 = ld4(q), e1 = ld4(q + 4), e2 = ld4(q + 8), bb = ld4(q + 12);
-    const int id = static_cast<int>(q[16]);
-    const bool in_x = px >= bb.x + EPS && px <= bb.y - EPS;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int j = lane + 32 * k;
-      const float z = cover(e0, e1, e2, bb, in_x, px, p.py[k], bounded, g.zlo[warp][j],
-                            g.zhi[warp][j]);
-      if (z > gz[k] || (z == gz[k] && id > gid[k])) {
-        gz[k] = z;
-        gid[k] = id;
+  for (int w = 0; w < NW; ++w) {
+    unsigned m = mine[w];
+    while (m) {
+      const int r = 32 * w + __ffs(m) - 1;
+      m &= m - 1;
+      const Row row = load_row<MXU>(s + r * RS, p);
+      const bool in_x = px >= row.bb.x + EPS && px <= row.bb.y - EPS;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int j = lane + 32 * k;
+        const float z = cover<MXU>(row, in_x, MXU ? dx : px, MXU ? p.dy[k] : p.py[k], p.py[k],
+                                   bounded, g.zlo[warp][j], g.zhi[warp][j]);
+        if (z > gz[k] || (z == gz[k] && row.id > gid[k])) {
+          gz[k] = z;
+          gid[k] = row.id;
+        }
       }
     }
   }
@@ -297,69 +364,85 @@ __device__ __forceinline__ void test_own(const float* __restrict__ s, unsigned m
   }
 }
 
-// Test one staged group (`nvalid` rows present) and merge it into the
-// running winners. Each warp ballots the rows its rectangle takes. If one
-// rectangle takes far more than the average, the (rectangle, row) pairs of
-// all eight are split evenly over the warps, which keep each pixel's best
-// (max z, equal z to the larger id: a 64-bit max of (z bits, id)) in shared
-// memory, and the owner of a rectangle merges its pixels' group result, a
-// later group only with strictly greater z; otherwise each warp tests its
-// own rows (test_own).
+// Test one staged group (`nvalid` rows present, G = 32 * NW) and merge it
+// into the running winners. Each warp ballots the rows its rectangle takes
+// (lane r: rows r, r + 32, ...). If one rectangle takes far more than the
+// average, the (rectangle, row) pairs of all eight are split evenly over
+// the warps, which keep each pixel's best (max z, equal z to the larger
+// id: a 64-bit max of (z bits, id)) in shared memory, and the owner of a
+// rectangle merges its pixels' group result, a later group only with
+// strictly greater z; otherwise each warp tests its own rows (test_own).
+template <int NW, bool MXU>
 __device__ __forceinline__ void test_group(const float* __restrict__ s, int nvalid, Pix& p,
-                                           GroupTest& g, bool bounded) {
+                                           GroupTest<NW>& g, bool bounded) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  bool cand = false;
-  if (lane < nvalid) {
-    const float* q = s + lane * RS;
-    const float4 bb = ld4(q + 12);
-    const bool strip_out = p.sx_hi < bb.x + EPS || p.sx_lo > bb.y - EPS ||
-                           p.ry_hi < bb.z + EPS || p.ry_lo > bb.w - EPS;
-    const bool rect_out = p.rx_hi < bb.x + EPS || p.rx_lo > bb.y - EPS;
-    cand = static_cast<int>(q[16]) >= 0 && !strip_out && !rect_out;
+  unsigned mine[NW];
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    const int r = lane + 32 * w;
+    bool cand = false;
+    if (r < nvalid) {
+      const float* q = s + r * RS;
+      const float4 bb = ld4(q + 12);
+      const bool strip_out = p.sx_hi < bb.x + EPS || p.sx_lo > bb.y - EPS ||
+                             p.ry_hi < bb.z + EPS || p.ry_lo > bb.w - EPS;
+      const bool rect_out = p.rx_hi < bb.x + EPS || p.rx_lo > bb.y - EPS;
+      cand = static_cast<int>(q[16]) >= 0 && !strip_out && !rect_out;
+    }
+    mine[w] = __ballot_sync(FULL, cand);
+    if (lane == 0) g.mask[warp][w] = mine[w];
   }
-  const unsigned mine = __ballot_sync(FULL, cand);
-  if (lane == 0) g.mask[warp] = mine;
 #pragma unroll
   for (int k = 0; k < 4; ++k) g.key[warp][lane + 32 * k] = 0ull;
   __syncthreads();
   int total = 0, most = 0;
 #pragma unroll
   for (int v = 0; v < WARPS; ++v) {
-    const int c = __popc(g.mask[v]);
+    int c = 0;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) c += __popc(g.mask[v][w]);
     total += c;
     most = max(most, c);
   }
   if (most * WARPS <= 2 * total + 4 * WARPS) {
     // near even: each warp tests its own rows, no second barrier
-    test_own(s, mine, p, g, bounded);
+    test_own<NW, MXU>(s, mine, p, g, bounded);
     return;
   }
   int i = total * warp / WARPS;
   const int i1 = total * (warp + 1) / WARPS;
-  int rw = 0;  // the rectangle of pair i, and its rows from pair i on
-  unsigned mr = g.mask[0];
+  int rw = 0, wd = 0;  // the rectangle and ballot word of pair i, and its rows from pair i on
+  unsigned mr = g.mask[0][0];
+  auto next_word = [&]() {
+    if (++wd == NW) {
+      wd = 0;
+      ++rw;
+    }
+    mr = g.mask[rw][wd];
+  };
   if (i < i1) {
     int skip = i;
     while (skip >= __popc(mr)) {
       skip -= __popc(mr);
-      mr = g.mask[++rw];
+      next_word();
     }
     for (; skip > 0; --skip) mr &= mr - 1;
   }
   const int col = lane & 15;
   for (; i < i1; ++i) {
-    while (mr == 0) mr = g.mask[++rw];
-    const int r = __ffs(mr) - 1;
+    while (mr == 0) next_word();
+    const int r = 32 * wd + __ffs(mr) - 1;
     mr &= mr - 1;
-    const float* q = s + r * RS;
-    const float4 e0 = ld4(q), e1 = ld4(q + 4), e2 = ld4(q + 8), bb = ld4(q + 12);
-    const unsigned id = static_cast<unsigned>(static_cast<int>(q[16]));
-    const float px = static_cast<float>(p.x0 + rw * RECT_W + col) + 0.5f;
-    const bool in_x = px >= bb.x + EPS && px <= bb.y - EPS;
+    const Row row = load_row<MXU>(s + r * RS, p);
+    const float dx = static_cast<float>(rw * RECT_W + col) + 0.5f;
+    const float px = static_cast<float>(p.x0) + dx;
+    const bool in_x = px >= row.bb.x + EPS && px <= row.bb.y - EPS;
+    const unsigned id = static_cast<unsigned>(row.id);
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const int j = lane + 32 * k;
-      const float z = cover(e0, e1, e2, bb, in_x, px, p.py[k], bounded, g.zlo[rw][j], g.zhi[rw][j]);
+      const float z = cover<MXU>(row, in_x, MXU ? dx : px, MXU ? p.dy[k] : p.py[k], p.py[k],
+                                 bounded, g.zlo[rw][j], g.zhi[rw][j]);
       if (z > 0.0f)
         atomicMax(&g.key[rw][j], static_cast<unsigned long long>(__float_as_uint(z)) << 32 | id);
     }
@@ -376,14 +459,18 @@ __device__ __forceinline__ void test_group(const float* __restrict__ s, int nval
   }
 }
 
+// One block per (listed run, strip): G-row groups, MXU: B7's MXU plane form.
+template <int G, bool MXU>
 __global__ void __launch_bounds__(THREADS, 4)
-raster_worklist_kernel(const float* __restrict__ rows, int ncols,
-                       const float* __restrict__ big_rows, int nbig_rows,
-                       const float* __restrict__ zlo, const float* __restrict__ zhi,
-                       float* __restrict__ depth, int* __restrict__ tid, int tiles_x,
-                       int ntiles, int slots, int* __restrict__ ws) {
-  __shared__ __align__(16) float s[NBUF][CHUNK * RS];
-  __shared__ GroupTest g;
+raster_runs_kernel(const float* __restrict__ rows, int ncols,
+                   const float* __restrict__ big_rows, int nbig_rows,
+                   const float* __restrict__ zlo, const float* __restrict__ zhi,
+                   float* __restrict__ depth, int* __restrict__ tid, int tiles_x,
+                   int ntiles, int slots, int* __restrict__ ws) {
+  constexpr int NW = G / CHUNK;
+  constexpr int NBUF = G == CHUNK ? 4 : 2;  // group slots of the cp.async ring
+  __shared__ __align__(16) float s[NBUF][G * RS];
+  __shared__ GroupTest<NW> g;
   __shared__ int s_last;
   asm volatile("griddepcontrol.wait;" ::: "memory");  // the plan has ended
   const Work w = carve(ws, ntiles, slots);
@@ -408,11 +495,14 @@ raster_worklist_kernel(const float* __restrict__ rows, int ncols,
   p.sx_hi = static_cast<float>(tj * TILE_W + TILE_W - 1) + 0.5f;
   p.ry_lo = static_cast<float>(y0) + 0.5f;
   p.ry_hi = static_cast<float>(y0 + STRIP_H - 1) + 0.5f;
+  p.ox = static_cast<float>(tj * TILE_W);
+  p.oy = static_cast<float>(ti * TILE_H);
   p.base = static_cast<int64_t>(y0 + (lane >> 4)) * W + tj * TILE_W + warp * RECT_W + (lane & 15);
   const bool bounded = zlo != nullptr;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     p.py[k] = static_cast<float>(y0 + (lane >> 4) + 2 * k) + 0.5f;
+    p.dy[k] = static_cast<float>(strip * STRIP_H + (lane >> 4) + 2 * k) + 0.5f;
     p.bz[k] = 0.0f;
     p.bid[k] = -1;
     if (bounded) {  // read by whichever warp tests a row at the pixel
@@ -425,11 +515,11 @@ raster_worklist_kernel(const float* __restrict__ rows, int ncols,
   auto group = [&](int i, int& nvalid) -> const float* {
     const int g = g0 + i;
     if (g < nb) {
-      nvalid = min(CHUNK, nbig_rows - g * CHUNK);
-      return big_rows + static_cast<int64_t>(g) * CHUNK * ncols;
+      nvalid = min(G, nbig_rows - g * G);
+      return big_rows + static_cast<int64_t>(g) * G * ncols;
     }
-    nvalid = CHUNK;
-    return rows + static_cast<int64_t>(gw0 + g - nb) * CHUNK * ncols;
+    nvalid = G;
+    return rows + static_cast<int64_t>(gw0 + g - nb) * G * ncols;
   };
   auto stage_group = [&](int i) {
     int nvalid;
@@ -451,7 +541,7 @@ raster_worklist_kernel(const float* __restrict__ rows, int ncols,
     commit();
     int nvalid;
     group(i, nvalid);
-    test_group(s[i % NBUF], nvalid, p, g, bounded);
+    test_group<NW, MXU>(s[i % NBUF], nvalid, p, g, bounded);
   }
 
   if (nruns == 1) {
@@ -509,17 +599,13 @@ raster_worklist_kernel(const float* __restrict__ rows, int ncols,
   }
 }
 
-}  // namespace
-
-extern "C" int sailor_raster_worklist(const float* rows, int ncols,
-                                      const float* big_rows, int nbig_rows,
-                                      const int* n_big, const int* starts,
-                                      const int* counts, const float* zlo,
-                                      const float* zhi, float* depth, int* tid,
-                                      int tiles_y, int tiles_x, int run_groups,
-                                      int slots, int* ws, cudaStream_t stream) {
+template <int G, bool MXU>
+int launch_runs(const float* rows, int ncols, const float* big_rows, int nbig_rows,
+                const int* n_big, const int* starts, const int* counts, int win,
+                const float* zlo, const float* zhi, float* depth, int* tid, int tiles_y,
+                int tiles_x, int run_groups, int slots, int* ws, cudaStream_t stream) {
   const int ntiles = tiles_y * tiles_x;
-  plan_kernel<<<1, PLAN_THREADS, 0, stream>>>(starts, counts, n_big, nbig_rows, ntiles,
+  plan_kernel<<<1, PLAN_THREADS, 0, stream>>>(starts, counts, n_big, nbig_rows, ntiles, G, win,
                                               run_groups, slots, ws);
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
@@ -532,7 +618,42 @@ extern "C" int sailor_raster_worklist(const float* rows, int ncols,
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return static_cast<int>(cudaLaunchKernelEx(&cfg, raster_worklist_kernel, rows, ncols,
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, raster_runs_kernel<G, MXU>, rows, ncols,
                                              big_rows, nbig_rows, zlo, zhi, depth, tid,
                                              tiles_x, ntiles, slots, ws));
+}
+
+}  // namespace
+
+// B1: tile t walks rows starts[t] .. starts[t] + counts[t], widened to
+// whole 32-row groups.
+extern "C" int sailor_raster_worklist(const float* rows, int ncols,
+                                      const float* big_rows, int nbig_rows,
+                                      const int* n_big, const int* starts,
+                                      const int* counts, const float* zlo,
+                                      const float* zhi, float* depth, int* tid,
+                                      int tiles_y, int tiles_x, int run_groups,
+                                      int slots, int* ws, cudaStream_t stream) {
+  return launch_runs<CHUNK, false>(rows, ncols, big_rows, nbig_rows, n_big, starts, counts, 0,
+                                   zlo, zhi, depth, tid, tiles_y, tiles_x, run_groups, slots,
+                                   ws, stream);
+}
+
+// B7: tile t walks the windows c0[t] .. c0[t] + max(spt[t], 1) - 1 of
+// `chunk` rows, in groups of 32 (VPU form) or 128 (MXU form).
+extern "C" int sailor_raster_stream(const float* rows, int ncols,
+                                    const float* big_rows, int nbig_rows,
+                                    const int* n_big, const int* c0, const int* spt,
+                                    const float* zlo, const float* zhi, float* depth,
+                                    int* tid, int tiles_y, int tiles_x, int chunk, int mxu,
+                                    int run_groups, int slots, int* ws,
+                                    cudaStream_t stream) {
+  if (chunk % (mxu ? CHUNK_MXU : CHUNK)) return static_cast<int>(cudaErrorInvalidValue);
+  if (mxu)
+    return launch_runs<CHUNK_MXU, true>(rows, ncols, big_rows, nbig_rows, n_big, c0, spt,
+                                        chunk, zlo, zhi, depth, tid, tiles_y, tiles_x,
+                                        run_groups, slots, ws, stream);
+  return launch_runs<CHUNK, false>(rows, ncols, big_rows, nbig_rows, n_big, c0, spt, chunk,
+                                   zlo, zhi, depth, tid, tiles_y, tiles_x, run_groups, slots,
+                                   ws, stream);
 }

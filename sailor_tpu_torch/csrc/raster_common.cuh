@@ -1,10 +1,10 @@
-// Device code shared by the tile rasters B1 (raster.cu), B7
-// (raster_stream.cu), B8 (raster_dma.cu) and B9 (raster_dense.cu): the
-// counterparts of sailor_tpu/raster/tile_raster.py `_test_chunk`,
-// `_merge_chunk` and, for B7's MXU form, `_test_chunk_mxu`/`_merge_chunk_mxu`.
+// Device code shared by the tile rasters B1 and B7 (raster.cu), B8
+// (raster_dma.cu) and B9 (raster_dense.cu): the counterparts of
+// sailor_tpu/raster/tile_raster.py `_test_chunk` and `_merge_chunk`.
 //
-// Every raster runs one block per 8-row strip of a 64x128 tile (8 strips a
-// tile, 256 threads, 4 pixels a thread). A block stages a group of
+// Every raster runs blocks of 8-row strips of a 64x128 tile (8 strips a
+// tile, 256 threads, 4 pixels a thread); B8 and B9 one block a strip, with
+// the strip walk below (B1 and B7 cut a tile's walk into runs: raster.cu). A block stages a group of
 // candidate rows through shared memory (every thread then reads the same
 // row: a broadcast), tests it at its pixels and merges it into its running
 // winners by the reference's rule: within a group the max reverse-Z wins
@@ -22,7 +22,7 @@ namespace sailor_raster {
 constexpr int TILE_H = 64;
 constexpr int TILE_W = 128;
 constexpr int CHUNK = 32;       // rows per merge group (the tie-break unit)
-constexpr int CHUNK_MXU = 128;  // rows per group of B7's MXU form
+constexpr int CHUNK_MXU = 128;  // rows per group of B7's MXU form (raster.cu)
 constexpr int NCOL = 17;        // staged row: edge 9, zplane 3, aabb 4, id
 constexpr int STRIP_H = 8;      // pixel rows per block
 constexpr int STRIPS = TILE_H / STRIP_H;
@@ -38,9 +38,8 @@ __device__ __forceinline__ float plane(float a, float b, float c, float px, floa
 
 struct Strip {
   int tile;
-  float px, dx;            // this thread's pixel-centre x, and tile-local
-  float py[PX], dy[PX];    // its PX pixel-centre rows, and tile-local
-  float ox, oy;            // the tile origin
+  float px;                // this thread's pixel-centre x
+  float py[PX];            // its PX pixel-centre rows
   float x_lo, x_hi, y_lo, y_hi;  // the strip's outermost pixel centres
   float zlo[PX], zhi[PX];
   bool bounded;
@@ -59,9 +58,6 @@ __device__ __forceinline__ void init_strip(Strip& st, int tiles_x,
   const int col = threadIdx.x % TILE_W;
   const int lrow0 = strip * STRIP_H + threadIdx.x / TILE_W;
   st.tile = tile;
-  st.ox = static_cast<float>(tj * TILE_W);
-  st.oy = static_cast<float>(ti * TILE_H);
-  st.dx = static_cast<float>(col) + 0.5f;
   st.px = static_cast<float>(tj * TILE_W + col) + 0.5f;
   st.x_lo = static_cast<float>(tj * TILE_W) + 0.5f;
   st.x_hi = static_cast<float>(tj * TILE_W + TILE_W - 1) + 0.5f;
@@ -71,7 +67,6 @@ __device__ __forceinline__ void init_strip(Strip& st, int tiles_x,
 #pragma unroll
   for (int k = 0; k < PX; ++k) {
     const int ly = lrow0 + k * ROW_STEP;
-    st.dy[k] = static_cast<float>(ly) + 0.5f;
     st.py[k] = static_cast<float>(ti * TILE_H + ly) + 0.5f;
     st.pix[k] = static_cast<int64_t>(ti * TILE_H + ly) * W + tj * TILE_W + col;
     st.bz[k] = 0.0f;
@@ -105,9 +100,8 @@ __device__ __forceinline__ void stage(float* s, const float* src, int ncols, int
 
 // Test one staged group of G rows and merge it into the running winners.
 // CLAMP: the AABB sliver clamp (and the exact whole-strip reject it
-// allows); MXU: B7's MXU plane form, each plane re-centred on the tile
-// origin, c_t = fma(b, oy, fma(a, ox, c)), then fma(b, dy, a*dx) + c_t.
-template <int G, bool CLAMP, bool MXU>
+// allows).
+template <int G, bool CLAMP>
 __device__ __forceinline__ void test_group(const float* s, Strip& st) {
   float gz[PX];
   int gid[PX];
@@ -123,21 +117,11 @@ __device__ __forceinline__ void test_group(const float* s, Strip& st) {
     if (CLAMP && (st.x_hi < q[12] + EPS || st.x_lo > q[13] - EPS ||
                   st.y_hi < q[14] + EPS || st.y_lo > q[15] - EPS))
       continue;  // whole-strip AABB reject (the per-pixel comparisons)
-    float ct[4];
-    if (MXU) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        ct[j] = __fmaf_rn(q[3 * j + 1], st.oy, __fmaf_rn(q[3 * j], st.ox, q[3 * j + 2]));
-    }
 #pragma unroll
     for (int k = 0; k < PX; ++k) {
       float e[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float a = q[3 * j], b = q[3 * j + 1];
-        e[j] = MXU ? __fadd_rn(__fmaf_rn(b, st.dy[k], __fmul_rn(a, st.dx)), ct[j])
-                   : plane(a, b, q[3 * j + 2], st.px, st.py[k]);
-      }
+      for (int j = 0; j < 4; ++j) e[j] = plane(q[3 * j], q[3 * j + 1], q[3 * j + 2], st.px, st.py[k]);
       bool ok = e[0] >= EPS && e[1] >= EPS && e[2] >= EPS;
       if (CLAMP)
         ok = ok && st.px >= q[12] + EPS && st.px <= q[13] - EPS &&
@@ -164,25 +148,25 @@ __device__ __forceinline__ void test_group(const float* s, Strip& st) {
 }
 
 // The big-triangle list in groups of G: every tile tests it first.
-template <int G, bool MXU>
+template <int G>
 __device__ __forceinline__ void test_big(float* s, const float* big_rows, int ncols,
                                          int nbig_rows, int n_big, Strip& st) {
   const int nb = (n_big + G - 1) / G;
   for (int g = 0; g < nb; ++g) {
     stage<G>(s, big_rows + static_cast<int64_t>(g) * G * ncols, ncols,
              max(0, min(G, nbig_rows - g * G)));
-    test_group<G, true, MXU>(s, st);
+    test_group<G, true>(s, st);
   }
 }
 
 // Whole windows [w, w + nw) of `chunk` rows, in groups of G.
-template <int G, bool MXU>
+template <int G>
 __device__ __forceinline__ void test_windows(float* s, const float* rows, int ncols,
                                              int w, int nw, int chunk, Strip& st) {
   for (int i = w; i < w + nw; ++i)
     for (int b = 0; b < chunk / G; ++b) {
       stage<G>(s, rows + (static_cast<int64_t>(i) * chunk + b * G) * ncols, ncols, G);
-      test_group<G, true, MXU>(s, st);
+      test_group<G, true>(s, st);
     }
 }
 

@@ -49,7 +49,7 @@ raster_dense_kernel(const float* __restrict__ rows, int width,
   for (int g = 0; g < ng; ++g) {
     const int64_t slot = base + g * CHUNK;
     stage_slots(s, rows + slot * width, width, ids + slot);
-    test_group<CHUNK, CLAMP, false>(s, st);
+    test_group<CHUNK, CLAMP>(s, st);
   }
   write_strip(st, depth, tid);
 }

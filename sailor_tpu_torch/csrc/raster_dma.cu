@@ -30,8 +30,8 @@ raster_dma_kernel(const float* __restrict__ rows, int ncols,
   __shared__ float s[CHUNK * NCOL];
   Strip st;
   init_strip(st, tiles_x, zlo, zhi);
-  test_big<CHUNK, false>(s, big_rows, ncols, nbig_rows, *n_big_ptr, st);
-  test_windows<CHUNK, false>(s, rows, ncols, w0[st.tile], nw[st.tile], dchunk, st);
+  test_big<CHUNK>(s, big_rows, ncols, nbig_rows, *n_big_ptr, st);
+  test_windows<CHUNK>(s, rows, ncols, w0[st.tile], nw[st.tile], dchunk, st);
   write_strip(st, depth, tid);
 }
 

@@ -26,7 +26,7 @@ import threading
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_SOURCES = ("raster.cu", "raster_stream.cu", "raster_dma.cu", "raster_dense.cu",
+_SOURCES = ("raster.cu", "raster_dma.cu", "raster_dense.cu",
             "resolve.cu", "resolve_stream.cu", "shade.cu", "slab_entry.cu",
             "sweep.cu", "sweep_grid.cu")
 # -fmad=false: the rounding rule of csrc/common.cuh
@@ -48,9 +48,9 @@ _SIGNATURES = {
     "sailor_raster_worklist": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _P, _P),
     # rows, ncols, big_rows, nbig_rows, n_big*, c0, spt, zlo, zhi, depth,
-    # tid, tiles_y, tiles_x, chunk, mxu, stream
+    # tid, tiles_y, tiles_x, chunk, mxu, run_groups, slots, workspace, stream
     "sailor_raster_stream": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _P),
+                             _I, _I, _I, _I, _I, _I, _P, _P),
     # rows, ncols, big_rows, nbig_rows, n_big*, w0, nw, zlo, zhi, depth,
     # tid, tiles_y, tiles_x, dchunk, stream
     "sailor_raster_dma": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
@@ -70,8 +70,9 @@ _SIGNATURES = {
     # wpos, shadow, cam, out, K, height, width, stream
     "sailor_shade_forward_plus": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _P, _P, _I, _I, _I, _P),
-    # feats, tmax, cl_min, cl_max, out, n_sub, n_clusters, stream
-    "sailor_slab_entry": (_P, _P, _P, _P, _P, _I, _I, _P),
+    # origin, direction, tmax, cl_min, cl_max, feats, e_bits, order,
+    # blk_bits, nlive, n_blocks, n_clusters, stream
+    "sailor_slab_tables": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     # e_bits, order, blk_bits, nlive, feats, tmax, g_cluster, best_t, best_i,
     # n_sub_blocks, sub-blocks per block, n_clusters, any_hit, stream
     "sailor_sweep": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

@@ -10,7 +10,9 @@ raises and nothing falls back:
   ``csrc/raster.cu``.
 - B7 ``rasterize_stream`` (``_raster_kernel_stream`` and
   ``_raster_kernel_stream_mxu``): B1's math over each tile's first
-  ``kmax`` whole ``chunk``-aligned windows; ``csrc/raster_stream.cu``.
+  ``kmax`` whole ``chunk``-aligned windows; B1's kernel in
+  ``csrc/raster.cu``, over runs of 32-row groups, or of 128-row groups
+  with the MXU plane form.
 - B8 ``rasterize_dma`` (``_raster_kernel_dma``): each tile walks its exact
   span of ``dchunk`` windows, no cap; ``csrc/raster_dma.cu``.
 - B9 ``rasterize_tiles`` (``_raster_kernel``): fixed-capacity dense bins,
@@ -159,20 +161,25 @@ def rasterize_worklist_plain(rows, big_rows, starts, counts, n_big, *,
     return _raster_tiles_plain(tiles_y, tiles_x, z_bounds, dev, tile_rows)
 
 
-#: B1's runs: each tile's walk is cut into runs of at most RUN_GROUPS
-#: groups (doubled on the device until the runs of the tiles with more than
-#: one fit ``worklist_slots``), one block per (run, strip); csrc/raster.cu
+#: B1's and B7's runs: each tile's walk is cut into runs of at most
+#: RUN_GROUPS groups of 32 rows (B7: STREAM_RUN_ROWS rows, in groups of 32
+#: or of 128 for the MXU form; its rows are mostly neighbours' that the
+#: rectangle tests reject, so its runs are longer), doubled on the device
+#: until the runs of the tiles with more than one fit ``worklist_slots``,
+#: one block per (run, strip); csrc/raster.cu
 RUN_GROUPS = 4
+STREAM_RUN_ROWS = 512
 STRIPS = TILE_H // 8  # B1's 8-row strips, one block each
 
 
 def worklist_slots(ntiles: int) -> int:
-    """Scratch runs of B1 (a partial depth and id per pixel of a run)."""
+    """Scratch runs of B1 and B7 (a partial depth and id per pixel of a
+    run)."""
     return max(ntiles, 64)
 
 
 def _worklist_workspace(ntiles: int, slots: int) -> int:
-    """int32 words of B1's workspace (csrc/raster.cu ``carve``): the run
+    """int32 words of B1's and B7's workspace (csrc/raster.cu ``carve``): the run
     records (8 words each), the arrival counts and the runs' partial depth
     and id."""
     return 8 * (ntiles + slots) + ntiles * STRIPS + 2 * slots * STRIPS * 8 * TILE_W
@@ -387,7 +394,8 @@ def rasterize_stream_plain(rows, big_rows, c0, spt, n_big, *, tiles_y: int,
 def rasterize_stream_cuda(rows, big_rows, c0, spt, n_big, *, tiles_y: int,
                           tiles_x: int, z_bounds=None, chunk: int = 256,
                           mxu: bool = False):
-    """B7 on the card: csrc/raster_stream.cu, one launch."""
+    """B7 on the card: B1's plan and raster kernels (csrc/raster.cu) over
+    each tile's windows, counted as one launch; no host synchronisation."""
     dev = rows.device
     ntiles = tiles_y * tiles_x
     H, W = tiles_y * TILE_H, tiles_x * TILE_W
@@ -400,12 +408,15 @@ def rasterize_stream_cuda(rows, big_rows, c0, spt, n_big, *, tiles_y: int,
     zlo, zhi = _bounds_for_kernel(z_bounds, H, W, dev)
     depth = torch.empty(H, W, dtype=torch.float32, device=dev)
     tid = torch.empty(H, W, dtype=torch.int32, device=dev)
+    slots = worklist_slots(ntiles)
+    ws = torch.empty(_worklist_workspace(ntiles, slots), dtype=torch.int32, device=dev)
     lib = cuda_lib.load()
     err = lib.sailor_raster_stream(
         rows.data_ptr(), rows.shape[1], big_rows.data_ptr(), big_rows.shape[0],
         n_big.data_ptr(), c0.data_ptr(), spt.data_ptr(), cuda_lib.ptr(zlo),
         cuda_lib.ptr(zhi), depth.data_ptr(), tid.data_ptr(), tiles_y, tiles_x,
-        chunk, 1 if mxu else 0, cuda_lib.stream_of(rows))
+        chunk, 1 if mxu else 0, STREAM_RUN_ROWS // (CHUNK_MXU if mxu else CHUNK), slots,
+        ws.data_ptr(), cuda_lib.stream_of(rows))
     cuda_lib.check(err, "sailor_raster_stream")
     cuda_lib.LAUNCHES["raster_stream_mxu" if mxu else "raster_stream"] += 1
     return depth, tid

@@ -12,9 +12,11 @@ triangle) quantity is a short dot product with the ray's features:
 
 ``intersect`` runs two kernels:
 
-- B4, the slab entry (``slab_entry``; ``csrc/slab_entry.cu``): per 256-ray
-  sub-block, the least slab entry distance of its rays into each cluster's
-  AABB (+inf where none pierces it);
+- B4, the slab entry with the visit tables (``visit_tables``;
+  ``csrc/slab_entry.cu``): per 256-ray sub-block, the least slab entry
+  distance of its rays into each cluster's AABB (+inf where none pierces
+  it), and the rays' feature rows and, per 2048-ray block, the visit order
+  and the tables the sweeps read, in one launch;
 - with ``DMA_SWEEP`` on (the default; ``SAILOR_SWEEP_DMA=0`` turns it off,
   read at import as the reference reads it) B5, the cluster sweep
   (``sweep``; ``csrc/sweep.cu``): each sub-block walks
@@ -31,7 +33,7 @@ triangle) quantity is a short dot product with the ray's features:
   (``sweep_grid``; ``csrc/sweep_grid.cu``): each sub-block visits all the
   steps of its block's visit order and skips the dead ones, with no stop.
 
-Each kernel has a plain PyTorch twin here (``slab_entry_plain``,
+Each kernel has a plain PyTorch twin here (``visit_tables_plain``,
 ``sweep_plain``, ``sweep_grid_plain``) that evaluates the same float32
 operations in the same order; the wrappers take the twin only for tensors
 on the CPU. The winners' t/u/v are refined by one Moller-Trumbore test on
@@ -136,7 +138,7 @@ def build(v0, v1, v2, device="cuda") -> SweepScene:
     return sweep_scene_from_numpy(build_arrays(v0, v1, v2), device)
 
 
-# ---------------------------------------------------------------- B4 slab entry
+# ------------------------------------------- B4 slab entry and visit tables
 
 def _order_sel(a, b):
     """(lo, hi) of a and b by one comparison, as csrc/slab_entry.cu does
@@ -165,28 +167,70 @@ def slab_entry_plain(feats, tmax, cl_min, cl_max):
     return entry.view(-1, SUB, entry.shape[1]).amin(1)
 
 
-def slab_entry_cuda(feats, tmax, cl_min, cl_max):
-    """B4 on the card: csrc/slab_entry.cu, one launch."""
-    dev = feats.device
-    rp, nc = feats.shape[0], cl_min.shape[0]
-    if rp % SUB or feats.shape[1] != FEATS:
-        raise ValueError(f"feats must be ({SUB}k, {FEATS})")
-    cuda_lib.require(feats, "feats", torch.float32)
+def tables_from_entries(e_sub):
+    """The sweeps' visit tables from sub-block entries e_sub (Rp // SUB, C),
+    as the reference builds them after its slab kernel. With e_blk the
+    least entry of each 2048-ray block: order (B, C), its stable ascending
+    argsort; e_bits (Rp // SUB, C), each sub-block's entries in visit
+    order; blk_bits (B, C), e_blk in visit order; nlive (B,), the finite
+    block entries. Entries are int32 float bits."""
+    nsb, nc = e_sub.shape
+    nsub = RAY_BLOCK // SUB
+    nb = nsb // nsub
+    e = e_sub.view(nb, nsub, nc)
+    e_blk = e.amin(1)
+    order = torch.argsort(e_blk, dim=1, stable=True)
+    e_bits = torch.gather(e, 2, order[:, None, :].expand(nb, nsub, nc))
+    blk_sorted = torch.gather(e_blk, 1, order)
+    return {
+        "e_bits": e_bits.reshape(nsb, nc).view(torch.int32).contiguous(),
+        "order": order.to(torch.int32).contiguous(),
+        "blk_bits": blk_sorted.view(torch.int32).contiguous(),
+        "nlive": torch.isfinite(blk_sorted).sum(1).to(torch.int32),
+    }
+
+
+def visit_tables_plain(o, d, tmax, cl_min, cl_max):
+    """Plain PyTorch B4 with its tables: the rays' (Rp, 16) feature rows
+    [d, m, 0, 0 | o, 1, d, 0] (m = o x d in plain float32),
+    ``slab_entry_plain``, then ``tables_from_entries``."""
+    m = m3.cross32(o, d)
+    z = torch.zeros(o.shape[0], 1, dtype=torch.float32, device=o.device)
+    feats = torch.cat([d, m, z, z, o, z + 1.0, d, z], 1).contiguous()
+    return {"feats": feats,
+            **tables_from_entries(slab_entry_plain(feats, tmax, cl_min, cl_max))}
+
+
+def visit_tables_cuda(o, d, tmax, cl_min, cl_max):
+    """B4 on the card: csrc/slab_entry.cu, the feature rows, the entries
+    and the visit tables in one launch (one block per ray block), no host
+    synchronisation."""
+    dev = o.device
+    rp, nc = o.shape[0], cl_min.shape[0]
+    if rp % RAY_BLOCK:
+        raise ValueError(f"rays must fill whole blocks of {RAY_BLOCK}")
+    cuda_lib.require(o, "origin", torch.float32, (rp, 3))
+    cuda_lib.require(d, "direction", torch.float32, (rp, 3), dev)
     cuda_lib.require(tmax, "tmax", torch.float32, (rp,), dev)
     cuda_lib.require(cl_min, "cl_min", torch.float32, (nc, 3), dev)
     cuda_lib.require(cl_max, "cl_max", torch.float32, (nc, 3), dev)
-    out = torch.empty(rp // SUB, nc, dtype=torch.float32, device=dev)
-    err = cuda_lib.load().sailor_slab_entry(
-        feats.data_ptr(), tmax.data_ptr(), cl_min.data_ptr(), cl_max.data_ptr(),
-        out.data_ptr(), rp // SUB, nc, cuda_lib.stream_of(feats))
-    cuda_lib.check(err, "sailor_slab_entry")
+    nb = rp // RAY_BLOCK
+    out = {"feats": torch.empty(rp, FEATS, dtype=torch.float32, device=dev),
+           "e_bits": torch.empty(rp // SUB, nc, dtype=torch.int32, device=dev),
+           "order": torch.empty(nb, nc, dtype=torch.int32, device=dev),
+           "blk_bits": torch.empty(nb, nc, dtype=torch.int32, device=dev),
+           "nlive": torch.empty(nb, dtype=torch.int32, device=dev)}
+    err = cuda_lib.load().sailor_slab_tables(
+        o.data_ptr(), d.data_ptr(), tmax.data_ptr(), cl_min.data_ptr(), cl_max.data_ptr(),
+        *(t.data_ptr() for t in out.values()), nb, nc, cuda_lib.stream_of(o))
+    cuda_lib.check(err, "sailor_slab_tables")
     cuda_lib.LAUNCHES["slab_entry"] += 1
     return out
 
 
-def slab_entry(feats, tmax, cl_min, cl_max):
-    fn = cuda_lib.dispatch(feats, slab_entry_plain, slab_entry_cuda)
-    return fn(feats, tmax, cl_min, cl_max)
+def visit_tables(o, d, tmax, cl_min, cl_max):
+    fn = cuda_lib.dispatch(o, visit_tables_plain, visit_tables_cuda)
+    return fn(o, d, tmax, cl_min, cl_max)
 
 
 # -------------------------------------------------------------- B5 cluster sweep
@@ -385,31 +429,15 @@ def _pad_rays(origin, direction, t_max, active):
 
 def _tables(scene: SweepScene, o, d, tmax):
     """The kernels' inputs for padded rays (see ``prepare``)."""
-    rpad = o.shape[0]
-    dev = o.device
-    nb, nsub, nc = rpad // RAY_BLOCK, RAY_BLOCK // SUB, scene.n_clusters
-    m = m3.cross32(o, d)
-    z = torch.zeros(rpad, 1, dtype=torch.float32, device=dev)
-    feats = torch.cat([d, m, z, z, o, z + 1.0, d, z], 1).contiguous()
-    e_sub = slab_entry(feats, tmax, scene.cl_min, scene.cl_max).view(nb, nsub, nc)
-    e_blk = e_sub.amin(1)
-    order = torch.argsort(e_blk, dim=1, stable=True)
-    e_bits = torch.gather(e_sub, 2, order[:, None, :].expand(nb, nsub, nc))
-    blk_sorted = torch.gather(e_blk, 1, order)
-    return {
-        "feats": feats, "tmax": tmax,
-        "e_bits": e_bits.reshape(nb * nsub, nc).view(torch.int32).contiguous(),
-        "order": order.to(torch.int32).contiguous(),
-        "blk_bits": blk_sorted.view(torch.int32).contiguous(),
-        "nlive": torch.isfinite(blk_sorted).sum(1).to(torch.int32),
-    }
+    return {"tmax": tmax, **visit_tables(o.contiguous(), d.contiguous(), tmax,
+                                         scene.cl_min, scene.cl_max)}
 
 
 def prepare(scene: SweepScene, origin, direction, t_max=None, active=None):
     """The kernels' inputs for R rays, padded to whole ray blocks with dead
-    rays (d = 1e-8, tmax = -1): dict of feats (Rp, 16), tmax (Rp,), and the
-    visit tables from B4's entries: e_bits (Rp/SUB, C) int32 (sub-block
-    entries in visit order, as float32 bits), order (B, C) int32 (visit
+    rays (d = 1e-8, tmax = -1): dict of tmax (Rp,) and B4's outputs: feats
+    (Rp, 16) and the visit tables e_bits (Rp/SUB, C) int32 (the sub-block
+    entries, as float32 bits, in visit order), order (B, C) int32 (visit
     order: stable argsort of the block entries), blk_bits (B, C) int32
     (sorted block entries) and nlive (B,) int32 (finite block entries)."""
     return _tables(scene, *_pad_rays(origin, direction, t_max, active))

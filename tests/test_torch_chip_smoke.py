@@ -7,6 +7,14 @@ every pixel of every tile (256x128 flagship frame, CPU path), over the
 rows each raster variant walks: B1's tile segments, B7's whole windows,
 B8's window spans, and B9's dense slots with and without the clamp.
 
+``chip_smoke.stream_runs`` (``worklist_runs`` over B7's windows, in
+groups of 32, or of 128 with the MXU plane form) is the plain model of
+B7's mapping on the card (B1's runs of groups, merged in order, and
+per-warp rectangles); here it is held bit for bit to
+``rasterize_stream_plain`` in both forms, with and without z bounds, on the
+frame's rows (runs of 128 rows, so that every tile splits) and on
+``heavy_tile_rows`` cut into several runs of the wrapper's length.
+
 ``sweep.sweep_plain``'s ``work`` counts the (sub-block, step) pairs B5's
 walk takes and the (ray, triangle) tests of rays live at their step; here
 they, and the walk's t and ids, are held exactly to a numpy walk of one
@@ -199,3 +207,37 @@ def test_raster_work_counts_variant_walks(frame_rows, variant):
     expected = _brute_pairs(blocks, tiles_x, clamp)
     assert expected > 1000
     assert pairs == expected
+
+
+def _stream_case(frame_rows, case):
+    if case == "heavy_tile":
+        rows, big, starts, counts, n_big, ty, tx = chip_smoke.heavy_tile_rows()
+        chunk = chip_smoke.HEAVY_CHUNK
+    else:
+        sb, ty, tx = frame_rows
+        rows, big, starts, counts, n_big = (sb["rows"], sb["big_rows"], sb["starts"],
+                                            sb["counts"], sb["n_big"])
+        chunk = 256
+    c0, spt, _ = tr.stream_windows(starts, counts, chunk, 16)
+    return (rows, big, c0, spt, n_big.to(torch.int32).reshape(())), chunk, ty, tx
+
+
+@pytest.mark.parametrize("bounded", [False, True], ids=["no_bounds", "z_bounds"])
+@pytest.mark.parametrize("case", ["frame_rows", "heavy_tile"])
+@pytest.mark.parametrize("mxu", [False, True], ids=["vpu", "mxu"])
+def test_stream_mapping_matches_rasterize_stream_plain(frame_rows, mxu, case, bounded):
+    args, chunk, ty, tx = _stream_case(frame_rows, case)
+    kw = dict(tiles_y=ty, tiles_x=tx)
+    run_rows = 128 if case == "frame_rows" else tr.STREAM_RUN_ROWS
+    if bounded:
+        d0, t0 = tr.rasterize_stream_plain(*args, **kw, chunk=chunk, mxu=mxu)
+        kw["z_bounds"] = (torch.zeros_like(d0), torch.where(t0 >= 0, d0, 2.0))
+    d_p, t_p = tr.rasterize_stream_plain(*args, **kw, chunk=chunk, mxu=mxu)
+    stats = {}
+    d_m, t_m = chip_smoke.stream_runs(*args, **kw, chunk=chunk, mxu=mxu, run_rows=run_rows,
+                                      stats=stats)
+    assert int((t_p >= 0).sum()) > 100
+    assert stats["runs"] > ty * tx  # a tile is split
+    assert stats["run_groups"] * (tr.CHUNK_MXU if mxu else tr.CHUNK) == run_rows
+    torch.testing.assert_close(t_m, t_p, rtol=0, atol=0)
+    torch.testing.assert_close(d_m, d_p, rtol=0, atol=0)

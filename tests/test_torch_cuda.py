@@ -12,15 +12,19 @@ not use; ``-o addopts=""``: no xdist workers.)
 
 Inputs: the flagship scene at 640x384 (64 point lights, 24 objects) and
 the kernel inputs its own nodes make. Tolerances, from the arithmetic:
-- raster: depth and ids exact (the plain version's fma emulation rounds
-  like the kernel's fmaf), also on a crafted tile of several runs with
-  tied rows and under the sync debug mode "error" (no host sync);
+- raster (B1, and B7 in both plane forms on the same kernel): depth and
+  ids exact (the plain version's fma emulation rounds like the kernel's
+  fmaf), also on a crafted tile of several runs with tied rows and under
+  the sync debug mode "error" (no host sync);
 - resolve: exact on >= 99.999% of values (the same operations in the same
   order; the float64 fma emulation can double-round in ~2^-29 of cases),
   and every value within 1e-4 * (1 + |plain|), so a wrong row fails;
 - shade: 1e-5 relative (same order; rsqrt may differ by an ulp), also on
   lights of all three types with a shadow factor and tiles of 0 and K slots;
-- slab entry (B4): bit-equal (the same float32 operations and selects);
+- slab entry with the feature rows and visit tables (B4): rows and all
+  four tables bit-equal (the same float32 operations and selects; the
+  order by rank is the stable argsort), one launch, no host sync, also on
+  the sparse passes;
 - cluster sweep (B5), closest and any hit: ids and t bit-equal (the same
   walk and the same left-to-right sums, -fmad=false);
 - dense-grid sweep (B6), closest and any hit: ids and t bit-equal to its
@@ -41,8 +45,9 @@ maps.
 import pytest
 import torch
 
-from chip_smoke import (check_small_frame, check_small_trace, frame_inputs, heavy_tile_rows,
-                        sparse_pass, textured_sky_balls, tied_clusters, tracer_passes,
+from chip_smoke import (bits_equal, check_small_frame, check_small_trace, frame_inputs,
+                        heavy_tile_cases, heavy_tile_rows, sparse_pass, stream_runs,
+                        tables_equal, textured_sky_balls, tied_clusters, tracer_passes,
                         worklist_runs)
 from sailor_tpu_torch.kernels import cuda_lib, pbr_kernel
 from sailor_tpu_torch.raster import setup as rsetup
@@ -130,6 +135,55 @@ def test_raster_stream_kernel_matches_plain(card_frame, mxu, bounded):
     kw = dict(tiles_y=tiles_y, tiles_x=tiles_x, chunk=256, mxu=mxu)
     _equal_launch("raster_stream_mxu" if mxu else "raster_stream", tr.rasterize_stream_cuda,
                   tr.rasterize_stream_plain, args, kw, bounded)
+
+
+@pytest.mark.parametrize("bounded", [False, True], ids=["no_bounds", "z_bounds"])
+@pytest.mark.parametrize("mxu", [False, True], ids=["vpu", "mxu"])
+def test_raster_stream_kernel_matches_plain_on_heavy_tile(card_frame, mxu, bounded):
+    """B7 on a tile split into several runs whose repeated rows tie in z
+    within a group, across groups and across runs
+    (chip_smoke.heavy_tile_rows in windows of 128 rows)."""
+    name = "raster_stream_mxu" if mxu else "raster_stream"
+    kernel, plain, args, kw, model = heavy_tile_cases()[name]
+    if bounded:
+        kw = dict(kw, z_bounds=_bounds(*kernel(*args, **kw)))
+    stats = {}
+    d_m, t_m = model(*args, **kw, stats=stats)
+    assert stats["runs"] > kw["tiles_y"] * kw["tiles_x"]
+    before = cuda_lib.LAUNCHES[name]
+    d_k, t_k = kernel(*args, **kw)
+    assert cuda_lib.LAUNCHES[name] == before + 1
+    d_p, t_p = plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert int((t_p >= 0).sum()) > 100
+    for d, t in ((d_k, t_k), (d_m, t_m)):
+        assert torch.equal(t, t_p)
+        assert torch.equal(d, d_p)
+
+
+@pytest.mark.parametrize("mxu", [False, True], ids=["vpu", "mxu"])
+def test_raster_stream_makes_no_host_sync(card_frame, mxu):
+    """B7's wrapper and rasterize_stream run under the sync debug mode
+    "error", and the kernel's mapping (chip_smoke.stream_runs) equals it on
+    the frame."""
+    _, (sb, *_rest, tiles_y, tiles_x) = card_frame
+    c0, spt, _ = tr.stream_windows(sb["starts"], sb["counts"], 256, 16)
+    args = (sb["rows"], sb["big_rows"], c0, spt, sb["n_big"])
+    kw = dict(tiles_y=tiles_y, tiles_x=tiles_x, chunk=256, mxu=mxu)
+    d0, t0 = tr.rasterize_stream_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        d1, t1 = tr.rasterize_stream_cuda(*args, **kw, z_bounds=_bounds(d0, t0))
+        d2, t2, _ = tr.rasterize_stream(None, None, None, sb["starts"], sb["counts"], None,
+                                        sb["n_big"], prebuilt=(sb["rows"], sb["big_rows"]),
+                                        **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(d2, d0) and torch.equal(t2, t0)
+    assert torch.equal(t1, tr.rasterize_stream_plain(*args, **kw, z_bounds=_bounds(d0, t0))[1])
+    d_m, t_m = stream_runs(*args, **kw)
+    assert torch.equal(d_m, d0) and torch.equal(t_m, t0)
 
 
 @pytest.mark.parametrize("bounded", [False, True], ids=["no_bounds", "z_bounds"])
@@ -328,15 +382,34 @@ def tracer_rays():
 @pytest.mark.parametrize("npass", [0, 1, 2, 3],
                          ids=["bounce0", "bounce0_shadow", "bounce1", "bounce1_shadow"])
 def test_slab_entry_kernel_matches_plain(tracer_rays, npass):
+    """B4's feature rows and four tables, one launch, under the sync debug
+    mode "error"."""
     scene, passes = tracer_rays
     p = passes[npass]
-    args = (p["feats"], p["tmax"], scene.sweep.cl_min, scene.sweep.cl_max)
+    args = (p["feats"][:, 8:11].contiguous(), p["feats"][:, 0:3].contiguous(), p["tmax"],
+            scene.sweep.cl_min, scene.sweep.cl_max)
     before = cuda_lib.LAUNCHES["slab_entry"]
-    got = sweep.slab_entry_cuda(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = sweep.visit_tables_cuda(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     assert cuda_lib.LAUNCHES["slab_entry"] == before + 1
-    ref = sweep.slab_entry_plain(*args)
-    assert torch.isfinite(ref).any()
-    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    ref = sweep.visit_tables_plain(*args)
+    assert int(ref["nlive"].sum()) > 0
+    assert tables_equal(got, ref) and bits_equal(got["feats"], p["feats"])
+
+
+@pytest.mark.parametrize("live", [0, 1, 33, 256], ids=["none", "one", "33", "all"])
+@pytest.mark.parametrize("npass", [2, 3], ids=["bounce1", "bounce1_shadow"])
+def test_slab_entry_kernel_matches_plain_on_sparse_passes(tracer_rays, npass, live):
+    scene, passes = tracer_rays
+    p = sparse_pass(scene.sweep, passes[npass], live)  # tables from the kernel
+    ref = sweep.visit_tables_plain(p["feats"][:, 8:11].contiguous(),
+                                   p["feats"][:, 0:3].contiguous(), p["tmax"],
+                                   scene.sweep.cl_min, scene.sweep.cl_max)
+    assert tables_equal(p, ref)
 
 
 @pytest.mark.parametrize("npass", [0, 1, 2, 3],

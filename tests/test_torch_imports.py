@@ -93,7 +93,8 @@ def test_kernel_wrappers_take_cuda_tensors_only():
                                     torch.zeros(16, 16, 3), None, torch.zeros(3))
     feats = torch.zeros(2048, 16)
     with pytest.raises(ValueError, match="cuda"):
-        sweep.slab_entry_cuda(feats, torch.zeros(2048), torch.zeros(2, 3), torch.zeros(2, 3))
+        sweep.visit_tables_cuda(feats[:, :3], feats[:, :3], torch.zeros(2048), torch.zeros(2, 3),
+                                torch.zeros(2, 3))
     i32 = torch.zeros(1, 2, dtype=torch.int32)
     with pytest.raises(ValueError, match="cuda"):
         sweep.sweep_cuda(torch.zeros(8, 2, dtype=torch.int32), i32, i32,

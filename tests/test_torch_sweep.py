@@ -36,7 +36,7 @@ import torch
 
 from sailor_tpu.raytracing import bvh as jax_bvh
 from sailor_tpu.raytracing import sweep as jax_sweep
-from chip_smoke import packed_walk, tied_clusters
+from chip_smoke import packed_walk, sub_entries, tied_clusters, visit_order
 from sailor_tpu_torch.raytracing import bvh, sweep
 from sailor_tpu_torch.scenes import tracer_soup
 from test_torch_scenes import release_jax_executables  # noqa: F401
@@ -297,3 +297,84 @@ def test_kernel_mapping_matches_sweep_plain(any_hit, share):
     if not any_hit and share >= 0.5:
         col = i[i >= 0] % sweep.CLUSTER  # the tied run: the larger column wins every tie
         assert not bool(((col < 32) | (col == 128)).any()) and bool(((col >= 32) & (col < 64)).any())
+
+
+def _reference_tables(e_sub, nb):
+    """The reference's visit tables from its entries, as ``intersect``
+    builds them after ``_slab_entry_sub``."""
+    nsb, nc = e_sub.shape
+    e_blk = jnp.min(e_sub.reshape(nb, nsb // nb, nc), axis=1)
+    order = jnp.argsort(e_blk, axis=1).astype(jnp.int32)
+    e_sub_p = jnp.take_along_axis(e_sub.reshape(nb, nsb // nb, nc), order[:, None, :], axis=2)
+    blk_sorted = jnp.take_along_axis(e_blk, order, axis=1)
+    return {
+        "e_bits": np.asarray(jax.lax.bitcast_convert_type(e_sub_p, jnp.int32)).reshape(nsb, nc),
+        "order": np.asarray(order),
+        "blk_bits": np.asarray(jax.lax.bitcast_convert_type(blk_sorted, jnp.int32)),
+        "nlive": np.asarray(jnp.sum(jnp.isfinite(blk_sorted), axis=1).astype(jnp.int32)),
+    }
+
+
+@pytest.mark.parametrize("name", list(SCENES))
+def test_visit_tables_match_reference(name):
+    """B4's tables (``tables_from_entries``) built from the reference's own
+    entries (``_slab_entry_sub``, interpret mode) equal the reference's
+    tables exactly: order and nlive, and e_bits and blk_bits bit for bit, on
+    the soup's and the tracer scene's rays, dead ones included. The whole
+    plain path (``visit_tables_plain``) equals them where the port's entries
+    equal the reference's bit for bit (the soup: checked here); on the
+    tracer rays the reference's compiled slab contracts some products into
+    the following subtraction, which ``test_slab_entry_plain_matches_reference``
+    bounds."""
+    v0, v1, v2 = SCENES[name]() if name == "tracer" else _soup(7, t=1500)
+    ref_scene = jax_sweep.build(v0, v1, v2)
+    rng = np.random.default_rng(21)
+    rpad = 2 * sweep.RAY_BLOCK
+    o, d = _rays(name, rng, r=rpad)
+    tmax = np.full(rpad, np.inf, np.float32)
+    tmax[::5] = -1.0
+    tmax[sweep.RAY_BLOCK:] = -1.0  # a block of dead rays outside every box
+    o[sweep.RAY_BLOCK:] += np.float32(100.0)
+    m = np.cross(o, d)
+    z = np.zeros((rpad, 1), np.float32)
+    feats = np.concatenate([d, m, z, z, o, z + 1, d, z], 1).astype(np.float32)
+    e_ref = jax_sweep._slab_entry_sub(ref_scene, jnp.asarray(feats), jnp.asarray(tmax), rpad)
+    want = _reference_tables(e_ref, rpad // sweep.RAY_BLOCK)
+    assert want["nlive"][0] > 0 and want["nlive"][1] == 0
+    got = sweep.tables_from_entries(torch.from_numpy(np.asarray(e_ref)))
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k].numpy(), v, k)
+    if name == "soup":
+        plain = sweep.visit_tables_plain(
+            torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(tmax),
+            torch.from_numpy(np.asarray(ref_scene.cl_min)),
+            torch.from_numpy(np.asarray(ref_scene.cl_max)))
+        np.testing.assert_array_equal(plain["feats"].numpy(), feats)
+        np.testing.assert_array_equal(sub_entries(plain).numpy(),
+                                      np.asarray(e_ref).view(np.int32))
+        for k, v in want.items():
+            np.testing.assert_array_equal(plain[k].numpy(), v, k)
+
+
+def test_rank_order_matches_stable_argsort():
+    """The kernel's visit order by rank (``chip_smoke.visit_order``) equals
+    ``torch.argsort(stable=True)`` of the block entries on crafted rows:
+    finite entries tied in runs, a row of +inf only, +0 entries (tied with
+    each other and ahead of every positive one), and a mixed random row."""
+    inf = float("inf")
+    rows = torch.tensor([
+        [3.0, 1.0, 3.0, 1.0, 2.0, 3.0, 1.0, 0.5],
+        [inf] * 8,
+        [0.0, 2.0, 0.0, inf, 0.0, 1e-30, inf, 0.0],
+        [inf, 4.0, inf, 4.0, 0.0, inf, 4.0, 7.0],
+    ], dtype=torch.float32)
+    rng = np.random.default_rng(5)
+    mixed = rng.choice([0.0, 0.25, 1.5, 1.5, np.inf], size=(1, 8)).astype(np.float32)
+    rows = torch.cat([rows, torch.from_numpy(mixed)])
+    want = torch.argsort(rows, dim=1, stable=True)
+    assert torch.equal(visit_order(rows.view(torch.int32)), want)
+    # the same order from the tables' builder (one sub-block row a block)
+    e_sub = rows.repeat_interleave(sweep.RAY_BLOCK // sweep.SUB, 0)
+    tables = sweep.tables_from_entries(e_sub)
+    assert torch.equal(tables["order"], want.to(torch.int32))
+    assert torch.equal(tables["nlive"], torch.isfinite(rows).sum(1).to(torch.int32))

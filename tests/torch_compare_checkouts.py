@@ -1,0 +1,113 @@
+"""Two checkouts of the port on one NVIDIA GPU, in turns (A, B, B, A), on
+the same inputs: the intersector's table build (``sweep._tables``: B4 and
+whatever builds the sweeps' visit tables around it) and B4's own kernel
+(``slab_entry_cuda`` where the checkout has it, else
+``visit_tables_cuda``) on the bench tracer scene's rays (512x512:
+bounce-0 and bounce-1 rays of one sample and their shadow rays), and B7
+in both plane forms (``rasterize_stream_cuda``) on the flagship frame's
+rows (1920x1088, 1000 point lights, 96 objects). Not a test (it is not
+collected): a measurement for comparing a change with its parent.
+
+    python tests/torch_compare_checkouts.py PATH_A PATH_B
+
+Each run is a fresh process that imports the package of its checkout
+(which builds its kernels into its own build/). Times are device times:
+CUDA events around 20 calls queued while the card sleeps, so the host's
+launch time is not in them; kernels a call are counted with torch.profiler.
+Each run prints one JSON line.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+CHILD = r'''
+import json, sys, time
+sys.path.insert(0, ".")
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+import chip_smoke
+from sailor_tpu_torch.kernels import cuda_lib
+from sailor_tpu_torch.raster import setup as rsetup
+from sailor_tpu_torch.raster import tile_raster as tr
+from sailor_tpu_torch.raytracing import sweep
+from sailor_tpu_torch.scenes import flagship_scene, tracer_scene
+
+
+def device_ms(fn, reps=20):
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(reps * 10**6)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernels(fn):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+cuda_lib.load()
+out = {"checkout": sys.argv[1]}
+scene, cam, view, proj = tracer_scene()
+passes = chip_smoke.tracer_passes(scene, cam, view, proj, 512, 512)
+for name, p in zip(["bounce0", "bounce0_shadow", "bounce1", "bounce1_shadow"], passes):
+    o, d = p["feats"][:, 8:11].contiguous(), p["feats"][:, 0:3].contiguous()
+    call = lambda: sweep._tables(scene.sweep, o, d, p["tmax"])
+    out[f"tables_ms[{name}]"] = device_ms(call)
+    out[f"tables_kernels[{name}]"] = kernels(call)
+    if hasattr(sweep, "slab_entry_cuda"):  # B4 alone, before it wrote the tables
+        b4 = lambda: sweep.slab_entry_cuda(p["feats"], p["tmax"], scene.sweep.cl_min,
+                                           scene.sweep.cl_max)
+    else:
+        b4 = lambda: sweep.visit_tables_cuda(o, d, p["tmax"], scene.sweep.cl_min,
+                                             scene.sweep.cl_max)
+    out[f"b4_ms[{name}]"] = device_ms(b4)
+del scene, passes
+w, h, lights, objects = chip_smoke.FLAGSHIP
+fs = flagship_scene(w, h, lights, objects)
+_, targets, _, _, tiles_y, tiles_x = chip_smoke.frame_inputs(fs, w, h)
+tri, aabb = targets["TriSetup"], targets["TriAABB"]
+order, starts, counts, big_ids, n_big, _ = rsetup.bin_sorted(
+    tri.valid, aabb, tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tr.TILE_W, tile_h=tr.TILE_H)
+rows, big, _ = tr.build_stream_rows(tri, aabb, order, big_ids, attrs=None, chunk=256)
+c0, spt, _ = tr.stream_windows(starts, counts, 256, 16)
+n_big = n_big.to(torch.int32).reshape(())
+for mxu in (False, True):
+    kw = dict(tiles_y=tiles_y, tiles_x=tiles_x, chunk=256, mxu=mxu)
+    out["raster_stream_mxu_ms" if mxu else "raster_stream_ms"] = device_ms(
+        lambda: tr.rasterize_stream_cuda(rows, big, c0, spt, n_big, **kw))
+out["card"] = chip_smoke._card()
+print(json.dumps(out))
+'''
+
+
+def main():
+    if len(sys.argv) != 3:
+        print(__doc__, file=sys.stderr)
+        return 2
+    a, b = (os.path.abspath(p) for p in sys.argv[1:])
+    for path in (a, b, b, a):
+        run = subprocess.run([sys.executable, "-c", CHILD, path], cwd=path,
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        line = run.stdout.strip().splitlines()[-1] if run.stdout.strip() else ""
+        if run.returncode:
+            print(run.stdout[-4000:], file=sys.stderr)
+            return run.returncode
+        print(line, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

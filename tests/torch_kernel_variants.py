@@ -1,20 +1,27 @@
-"""B1 and B3 beside variants of themselves on one NVIDIA GPU, on the
-flagship frame's own inputs (1920x1088, 1000 point lights, 96 objects).
-Each variant is the kernel's source under csrc/ with one design choice
-undone by a text edit, built with the same nvcc flags into
-build/variants/; each is timed with CUDA events (50 launches after a
-warm-up) and held bit for bit to the kernel as built. Not a test (it is not
-collected): a measurement behind the design notes in csrc/raster.cu and
-csrc/shade.cu.
+"""B1, B3, B4 and B7 beside variants of themselves on one NVIDIA GPU, on
+the flagship frame's own inputs (1920x1088, 1000 point lights, 96 objects)
+and, for B4, on the bench tracer scene's bounce-1 rays (512x512). Each
+variant is the kernel's source under csrc/ with one design choice undone
+by a text edit, built with the same nvcc flags into build/variants/; each
+is timed with CUDA events (50 launches after a warm-up) and held bit for
+bit to the kernel as built. Not a test (it is not collected): a
+measurement behind the design notes in csrc/raster.cu, csrc/shade.cu and
+csrc/slab_entry.cu.
 
     python tests/torch_kernel_variants.py
 
 B1 variants: R (groups a run) 2 and 8 beside 4; every group's
 (rectangle, row) pairs balanced over the warps, or never (each warp its own
-rows); three blocks an SM in place of four. B3 variants: torch.clamp's max
-as three instructions (sailor::clamp_lo) in place of one; rsqrtf with its
-subnormal rescaling; five blocks an SM; __frcp_rn's range check on each of
-a pair's three reciprocals in place of one check for all three.
+rows); three blocks an SM in place of four. B7 (the same kernel over the
+stream windows): R 8, 16 and 32 groups of 32 rows, and for the MXU form R
+2, 4 and 8 groups of 128, each with scratch for every run, beside the
+wrapper (runs of STREAM_RUN_ROWS = 512 rows). B3 variants:
+torch.clamp's max as three instructions (sailor::clamp_lo) in place of
+one; rsqrtf with its subnormal rescaling; five blocks an SM; __frcp_rn's
+range check on each of a pair's three reciprocals in place of one check
+for all three. B4 variants: 2 rays a thread (1024 threads) in place of 4;
+one block a sub-block, the last of a ray block's 8 to arrive building the
+tables, with 4 and with 2 rays a thread.
 """
 
 import ctypes
@@ -35,14 +42,60 @@ from sailor_tpu_torch.scenes import flagship_scene  # noqa: E402
 CSRC = os.path.join(ROOT, "sailor_tpu_torch", "csrc")
 OUT = os.path.join(ROOT, "build", "variants")
 
-RASTER_LB = ("__global__ void __launch_bounds__(THREADS, 4)\nraster_worklist_kernel",
-             "__global__ void __launch_bounds__(THREADS, 3)\nraster_worklist_kernel")
+RASTER_LB = ("__global__ void __launch_bounds__(THREADS, 4)\nraster_runs_kernel",
+             "__global__ void __launch_bounds__(THREADS, 3)\nraster_runs_kernel")
 BALANCE = "  if (most * WARPS <= 2 * total + 4 * WARPS) {"
 RASTER = {
     "as built": [],
     "always balanced": [(BALANCE, "  if (false) {")],
     "never balanced": [(BALANCE, "  if (true) {")],
     "3 blocks an SM": [RASTER_LB],
+}
+RPT = ("constexpr int RPT = 4;", "constexpr int RPT = 2;")
+# The other block layout: one block a sub-block; each writes its entries
+# to scratch, and the last of a ray block's NSUB to arrive (a counter a ray
+# block, left zeroed) reads them back and builds the tables. The exported
+# function takes scratch and the counters before the stream.
+PER_SUB = [
+    ("constexpr int THREADS = NSUB * SUB / RPT;", "constexpr int THREADS = SUB / RPT;"),
+    ("int* __restrict__ nlive, int nc) {",
+     "int* __restrict__ nlive, int nc,\n"
+     "                   int* __restrict__ scratch, int* __restrict__ arrivals) {"),
+    ("  const int b = blockIdx.x;\n"
+     "  const int64_t ray0 = (static_cast<int64_t>(b) * NSUB + sub) * SUB + tid % SUB_THREADS;",
+     "  const int b = blockIdx.x / NSUB;\n"
+     "  const int64_t ray0 = static_cast<int64_t>(blockIdx.x) * SUB + tid % SUB_THREADS;"),
+    ("  // the block entries, then the visit order by rank\n", """\
+  {
+    __shared__ int s_last;
+    for (int i = tid; i < nc; i += THREADS)
+      scratch[static_cast<int64_t>(blockIdx.x) * nc + i] = e[i];
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) {
+      s_last = atomicAdd(&arrivals[b], 1) == NSUB - 1;
+      if (s_last) arrivals[b] = 0;
+    }
+    __syncthreads();
+    if (!s_last) return;
+    __threadfence();
+    for (int i = tid; i < NSUB * nc; i += THREADS)
+      e[i] = __ldcg(scratch + static_cast<int64_t>(b) * NSUB * nc + i);
+    __syncthreads();
+  }
+"""),
+    ("int n_blocks, int nc, cudaStream_t stream) {",
+     "int n_blocks, int nc, int* scratch, int* arrivals,\n"
+     "                                  cudaStream_t stream) {"),
+    ("slab_tables_kernel<<<n_blocks, THREADS, smem, stream>>>(", 
+     "slab_tables_kernel<<<n_blocks * NSUB, THREADS, smem, stream>>>("),
+    ("blk_bits, nlive, nc);", "blk_bits, nlive, nc, scratch, arrivals);"),
+]
+SLAB = {
+    "as built": [],
+    "2 rays a thread": [RPT],
+    "a block a sub-block": PER_SUB,
+    "a block a sub-block, 2 rays a thread": [*PER_SUB, RPT],
 }
 SHADE = {
     "as built": [],
@@ -66,7 +119,8 @@ def build(kernel, name, edits):
         if old not in src:
             raise RuntimeError(f"{kernel} [{name}]: the source no longer has {old!r}")
         src = src.replace(old, new)
-    stem = os.path.join(OUT, kernel.replace(".cu", "") + "_" + name.replace(" ", "_"))
+    label = name.replace(",", "").replace(" ", "_")
+    stem = os.path.join(OUT, kernel.replace(".cu", "") + "_" + label)
     with open(stem + ".cu", "w") as f:
         f.write(src)
     cmd = [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-I", CSRC, "-shared", stem + ".cu",
@@ -96,6 +150,7 @@ def main():
     os.makedirs(OUT, exist_ok=True)
     procs = {("raster.cu", k): build("raster.cu", k, e) for k, e in RASTER.items()}
     procs.update({("shade.cu", k): build("shade.cu", k, e) for k, e in SHADE.items()})
+    procs.update({("slab_entry.cu", k): build("slab_entry.cu", k, e) for k, e in SLAB.items()})
     cuda_lib.load()
     libs = {key: load(*procs[key], key) for key in procs}
     card = chip_smoke._card()
@@ -129,6 +184,8 @@ def main():
             same = bool(torch.equal(depth, d_ref)) and bool(torch.equal(tid, t_ref))
             print(f"raster_worklist [{name}, R={groups}]: ms={ms:.4f} bit_equal={same} "
                   f"ptxas: {regs} on {card}", flush=True)
+    stream_run_lengths(libs[("raster.cu", "as built")][0], scene, targets, tiles_y, tiles_x,
+                       card, stream)
 
     table = pbr_kernel.pack_lights(scene.lights)
     idx = targets["LightIndices"].to(torch.int32).contiguous()
@@ -152,7 +209,83 @@ def main():
         ms = chip_smoke._time_ms(run, 50)
         print(f"shade_forward_plus [{name}]: ms={ms:.4f} bit_equal={bool(torch.equal(out, c_ref))} "
               f"ptxas: {regs} on {card}", flush=True)
+    del scene, sb, targets, gb
+    slab_variants({k[1]: v for k, v in libs.items() if k[0] == "slab_entry.cu"}, card, stream)
     return 0
+
+
+def stream_run_lengths(lib, scene, targets, tiles_y, tiles_x, card, stream):
+    """B7 in both forms at several run lengths R, with scratch for every
+    run, against the wrapper (R from tile_raster.STREAM_RUN_ROWS)."""
+    from sailor_tpu_torch.raster import setup as rsetup
+
+    tri, aabb = targets["TriSetup"], targets["TriAABB"]
+    order, starts, counts, big_ids, n_big, _ = rsetup.bin_sorted(
+        tri.valid, aabb, tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tr.TILE_W, tile_h=tr.TILE_H)
+    chunk = 256
+    kmax = chip_smoke.SLICE_CONFIG["bin_capacity"] * chip_smoke.SLICE_CONFIG["bin_rounds"] // chunk
+    rows, big, _ = tr.build_stream_rows(tri, aabb, order, big_ids, attrs=None, chunk=chunk)
+    c0, spt, _ = tr.stream_windows(starts, counts, chunk, kmax)
+    n_big = n_big.to(torch.int32).reshape(())
+    ntiles = tiles_y * tiles_x
+    slots = 8 * ntiles
+    ws = torch.empty(tr._worklist_workspace(ntiles, slots), dtype=torch.int32, device="cuda")
+    for mxu, run_groups in ((False, (8, 16, 32)), (True, (2, 4, 8))):
+        kw = dict(tiles_y=tiles_y, tiles_x=tiles_x, chunk=chunk, mxu=mxu)
+        d_ref, t_ref = tr.rasterize_stream_cuda(rows, big, c0, spt, n_big, **kw)
+        wrapper_ms = chip_smoke._time_ms(
+            lambda: tr.rasterize_stream_cuda(rows, big, c0, spt, n_big, **kw), 50)
+        name = "raster_stream_mxu" if mxu else "raster_stream"
+        print(f"{name} [wrapper, its scratch]: ms={wrapper_ms:.4f} on {card}", flush=True)
+        for groups in run_groups:
+            depth, tid = torch.empty_like(d_ref), torch.empty_like(t_ref)
+
+            def run():
+                cuda_lib.check(lib.sailor_raster_stream(
+                    rows.data_ptr(), rows.shape[1], big.data_ptr(), big.shape[0],
+                    n_big.data_ptr(), c0.data_ptr(), spt.data_ptr(), None, None,
+                    depth.data_ptr(), tid.data_ptr(), tiles_y, tiles_x, chunk, int(mxu),
+                    groups, slots, ws.data_ptr(), stream), name)
+
+            ms = chip_smoke._time_ms(run, 50)
+            same = bool(torch.equal(depth, d_ref)) and bool(torch.equal(tid, t_ref))
+            print(f"{name} [R={groups}, scratch for {slots} runs]: ms={ms:.4f} "
+                  f"bit_equal={same} on {card}", flush=True)
+
+
+def slab_variants(libs, card, stream):
+    """B4 and its variants on the bench tracer scene's bounce-1 rays."""
+    from sailor_tpu_torch.raytracing import sweep
+    from sailor_tpu_torch.scenes import tracer_scene
+
+    scene, cam, view, proj = tracer_scene()
+    p = chip_smoke.tracer_passes(scene, cam, view, proj, *chip_smoke.TRACER[:2])[2]
+    sw = scene.sweep
+    args = (p["feats"][:, 8:11].contiguous(), p["feats"][:, 0:3].contiguous(), p["tmax"],
+            sw.cl_min, sw.cl_max)
+    ref = sweep.visit_tables_cuda(*args)
+    rp, nc = p["tmax"].shape[0], sw.n_clusters
+    nb = rp // sweep.RAY_BLOCK
+    scratch = torch.empty(rp // sweep.SUB * nc, dtype=torch.int32, device="cuda")
+    arrivals = torch.zeros(nb, dtype=torch.int32, device="cuda")
+    for name, (lib, regs) in libs.items():
+        out = {k: torch.empty_like(v) for k, v in ref.items()}
+        extra = ()
+        if "sub-block" in name:  # PER_SUB's two more arguments
+            sig = cuda_lib._SIGNATURES["sailor_slab_tables"]
+            lib.sailor_slab_tables.argtypes = [*sig[:-1], ctypes.c_void_p, ctypes.c_void_p,
+                                               sig[-1]]
+            extra = (scratch.data_ptr(), arrivals.data_ptr())
+
+        def run():
+            cuda_lib.check(lib.sailor_slab_tables(
+                *(t.data_ptr() for t in args), *(t.data_ptr() for t in out.values()), nb, nc,
+                *extra, stream), name)
+
+        ms = chip_smoke._time_ms(run, 50)
+        print(f"slab_entry [{name}]: ms={ms:.4f} bit_equal={chip_smoke.tables_equal(out, ref)} "
+              f"arrivals_left_zero={not bool(arrivals.any())} ptxas: {regs} on {card}",
+              flush=True)
 
 
 if __name__ == "__main__":
