@@ -15,9 +15,12 @@ Phases, each printed as it ends:
      plain model ``worklist_runs`` with the tiles' imbalance and pixel
      tests; B3 also with spot lights and a shadow factor), then the raster
      variants B7 (both plane forms, on B1's kernel: also on the crafted
-     tile, and its mapping's plain model over the windows), B8 and B9 (its
-     first and its big-triangle pass, with and without the AABB clamp),
-     each also with z bounds, bit-equal, and the grid-k resolve B10 on B7's
+     tile, and its mapping's plain model over the windows), B8 (B1's
+     kernel over each tile's window span: also on the crafted tile) and B9
+     (B1's kernel over each tile's bin slots, rows read by id: every pass
+     of a dense frame, with and without the AABB clamp), each also with z
+     bounds, bit-equal, and each held to the plain model of its mapping
+     (``dma_runs``, ``dense_runs``), and the grid-k resolve B10 on B7's
      winners;
   4. raster configurations: the flagship frame in each raster
      configuration the reference's frame graph accepts (work list, dense,
@@ -300,6 +303,55 @@ def stream_runs(rows, big_rows, c0, spt, n_big, *, chunk, mxu, run_rows=None, **
                          mxu=mxu, run_groups=(run_rows or tr.STREAM_RUN_ROWS) // group, **kw)
 
 
+def dma_runs(rows, big_rows, w0, nw, n_big, *, dchunk, run_rows=None, **kw):
+    """B8's mapping on the card (``worklist_runs`` over the rows w0 * dchunk
+    .. (w0 + nw) * dchunk, in groups of 32), its runs starting at
+    ``run_rows`` rows (the wrapper's DMA_RUN_ROWS by default)."""
+    from sailor_tpu_torch.raster import tile_raster as tr
+
+    return worklist_runs(rows, big_rows, w0 * dchunk, nw * dchunk, n_big,
+                         run_groups=(run_rows or tr.DMA_RUN_ROWS) // tr.CHUNK, **kw)
+
+
+def dense_slot_rows(table, ids):
+    """B9's staged rows, one a slot of the bins (slots, 17): a live slot's
+    table row (12 or 16 columns; with 12 the AABB open, (-inf, +inf, -inf,
+    +inf)) and its id; a dead slot zeros and id -1, no table row read."""
+    import torch
+
+    live = ids >= 0
+    rows = torch.zeros(ids.shape[0], 17, dtype=torch.float32, device=ids.device)
+    rows[live, :table.shape[1]] = table[ids[live].long()]
+    if table.shape[1] == 12:
+        rows[live, 12:16] = torch.tensor([-float("inf"), float("inf"), -float("inf"),
+                                          float("inf")], device=ids.device)
+    rows[:, 16] = ids.to(torch.float32)
+    return rows
+
+
+def dense_starts(ids, ntiles):
+    """The first slot t * C of each tile's bin: B9's walk of tile t is the
+    row span t * C .. t * C + count of ``dense_slot_rows``."""
+    import torch
+
+    cap = ids.shape[0] // ntiles
+    return torch.arange(0, ids.shape[0], cap, dtype=torch.int32, device=ids.device)
+
+
+def dense_runs(table, ids, counts, *, run_rows=None, **kw):
+    """B9's mapping on the card (``worklist_runs`` over each tile's slots,
+    rows read by id: ``dense_slot_rows``; no big list), its runs starting at
+    ``run_rows`` rows (the wrapper's DENSE_RUN_ROWS by default)."""
+    import torch
+
+    from sailor_tpu_torch.raster import tile_raster as tr
+
+    rows = dense_slot_rows(table, ids)
+    none = torch.zeros((), dtype=torch.int32, device=ids.device)
+    return worklist_runs(rows, rows[:0], dense_starts(ids, counts.numel()), counts, none,
+                         run_groups=(run_rows or tr.DENSE_RUN_ROWS) // tr.CHUNK, **kw)
+
+
 def sub_entries(tables):
     """B4's own function from its tables: the sub-block entries (Rp // SUB,
     C) as int32 float bits in cluster order, e_sub[s, order[b, c]] =
@@ -516,11 +568,11 @@ def check_kernels(scene, width, height, card):
     return results
 
 
-HEAVY_CHUNK = 128  # B7's windows on heavy_tile_rows (its 640 rows: 5 windows)
+HEAVY_CHUNK = 128  # B7's and B8's windows on heavy_tile_rows (its 640 rows: 5 windows)
 
 
 def heavy_tile_cases():
-    """B1 and B7 (both forms) on ``heavy_tile_rows``, on the card: per
+    """B1, B7 (both forms) and B8 on ``heavy_tile_rows``, on the card: per
     kernel name (kernel, twin, args, keywords, the plain model of the
     kernel's mapping, which takes the same)."""
     import torch
@@ -537,11 +589,14 @@ def heavy_tile_cases():
         cases["raster_stream_mxu" if mxu else "raster_stream"] = (
             tr.rasterize_stream_cuda, tr.rasterize_stream_plain, (rows, big, c0, spt, n_big),
             dict(kw, chunk=HEAVY_CHUNK, mxu=mxu), stream_runs)
+    w0, nw = tr.dma_windows(starts, counts, HEAVY_CHUNK)
+    cases["raster_dma"] = (tr.rasterize_dma_cuda, tr.rasterize_dma_plain,
+                           (rows, big, w0, nw, n_big), dict(kw, dchunk=HEAVY_CHUNK), dma_runs)
     return cases
 
 
 def check_heavy_tile():
-    """B1 and B7 (both forms) on ``heavy_tile_rows`` (a tile of several
+    """B1, B7 (both forms) and B8 on ``heavy_tile_rows`` (a tile of several
     runs whose repeated rows tie in z in one group, across groups and
     across runs), with and without z bounds: bit-equal to the twin and to
     the model of the mapping."""
@@ -642,7 +697,26 @@ def _raster_check(name, kernel, plain, args, kw, card, work, extra_bytes=0, reps
           f"bound_ms={bound:.5f} ({by}) candidates={cand} pairs={pairs} "
           f"covered={int((t_k >= 0).sum())} on {card}")
     check(same, f"{name} kernel disagrees with its plain version")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by), t_k
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by), d_k, t_k
+
+
+def _mapping_check(name, model, args, kw, kernel_out, walked, pairs):
+    """The plain model of a kernel's mapping (runs, rectangles) on the
+    kernel's inputs: depth and tid bit-equal to the kernel's; prints its
+    runs, walked rows and pixel tests."""
+    import torch
+
+    from sailor_tpu_torch.raster import tile_raster as tr
+
+    stats = {}
+    d_m, t_m = model(*args, **kw, stats=stats)
+    check(bool(torch.equal(d_m, kernel_out[0])) and bool(torch.equal(t_m, kernel_out[1])),
+          f"the {name} kernel's mapping disagrees with the kernel")
+    print(f"{name} mapping: walked_rows={walked} tiles={kw['tiles_y'] * kw['tiles_x']} "
+          f"run_groups={stats['run_groups']} runs={stats['runs']} "
+          f"blocks={stats['runs'] * tr.STRIPS} pixel_tests={stats['pixel_tests']} "
+          f"bound_pairs={pairs} strip_mapping_tests={stats['strip_tests']} "
+          f"longest_rectangle_walk={stats['longest_rectangle_walk']}")
 
 
 def check_variant_kernels(scene, width, height, card):
@@ -676,23 +750,14 @@ def check_variant_kernels(scene, width, height, card):
     for mxu in (False, True):
         name = "raster_stream_mxu" if mxu else "raster_stream"
         args = (rows, big, c0, spt, n_big)
-        out[name], t7 = _raster_check(
-            name, tr.rasterize_stream_cuda, tr.rasterize_stream_plain, args,
-            dict(kw, chunk=chunk, mxu=mxu), card, (cand, pairs, 17 * 4), ntiles_bytes(c0))
-        d7, _ = tr.rasterize_stream_cuda(*args, **kw, chunk=chunk, mxu=mxu)
-        # the plain model of the kernel's mapping (runs, rectangles), and its work
-        stats = {}
-        d_m, t_m = stream_runs(*args, **kw, chunk=chunk, mxu=mxu, stats=stats)
-        check(bool(torch.equal(d_m, d7)) and bool(torch.equal(t_m, t7)),
-              f"the {name} kernel's mapping disagrees with the kernel")
-        print(f"{name} mapping: walked_rows={int(walk[1].sum())} tiles={c0.numel()} "
-              f"run_groups={stats['run_groups']} runs={stats['runs']} "
-              f"blocks={stats['runs'] * tr.STRIPS} pixel_tests={stats['pixel_tests']} "
-              f"bound_pairs={pairs} strip_mapping_tests={stats['strip_tests']} "
-              f"longest_rectangle_walk={stats['longest_rectangle_walk']}")
+        kw7 = dict(kw, chunk=chunk, mxu=mxu)
+        out[name], d7, t7 = _raster_check(
+            name, tr.rasterize_stream_cuda, tr.rasterize_stream_plain, args, kw7, card,
+            (cand, pairs, 17 * 4), ntiles_bytes(c0))
+        _mapping_check(name, stream_runs, args, kw7, (d7, t7), int(walk[1].sum()), pairs)
         zb = (torch.zeros_like(d7), torch.where(t7 >= 0, d7, 2.0))
         _raster_check(name + "[z_bounds]", tr.rasterize_stream_cuda, tr.rasterize_stream_plain,
-                      args, dict(kw, chunk=chunk, mxu=mxu, z_bounds=zb), card,
+                      args, dict(kw7, z_bounds=zb), card,
                       (cand, pairs, 17 * 4), ntiles_bytes(c0) + npix * 8, reps=3)
         if not mxu:
             tid7 = t7
@@ -717,70 +782,77 @@ def check_variant_kernels(scene, width, height, card):
     out["resolve_stream"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                                  bound_by=by)
 
-    # ---- B8: its own 17-column rows in windows of 128, each tile's exact span
+    # ---- B8: its own 17-column rows in windows of 128, each tile's exact
+    # span, on B1's kernel; with and without z bounds, held to its twin and
+    # to the plain model of its mapping (dma_runs)
     rows8, big8, _ = tr.build_stream_rows(tri, aabb, order, big_ids, attrs=None, chunk=128)
     w0, nw = tr.dma_windows(starts, counts, 128)
     work = raster_work(rows8, big8, w0 * 128, nw * 128, n_big, tiles_y, tiles_x)
-    args = (rows8, big8, w0, nw, n_big)
-    out["raster_dma"], t8 = _raster_check("raster_dma", tr.rasterize_dma_cuda,
-                                          tr.rasterize_dma_plain, args, dict(kw, dchunk=128),
-                                          card, work + (17 * 4,), ntiles_bytes(w0))
-    d8, _ = tr.rasterize_dma_cuda(*args, **kw, dchunk=128)
-    _raster_check("raster_dma[z_bounds]", tr.rasterize_dma_cuda, tr.rasterize_dma_plain, args,
-                  dict(kw, dchunk=128, z_bounds=(torch.zeros_like(d8),
-                                                 torch.where(t8 >= 0, d8, 2.0))),
-                  card, work + (17 * 4,), ntiles_bytes(w0) + npix * 8, reps=3)
+    args, kw8 = (rows8, big8, w0, nw, n_big), dict(kw, dchunk=128)
+    zb = None
+    for label in ("", "[z_bounds]"):
+        res, d8, t8 = _raster_check("raster_dma" + label, tr.rasterize_dma_cuda,
+                                    tr.rasterize_dma_plain, args, dict(kw8, z_bounds=zb), card,
+                                    work + (17 * 4,),
+                                    ntiles_bytes(w0) + (npix * 8 if zb else 0), 10 if not zb else 3)
+        _mapping_check("raster_dma" + label, dma_runs, args, dict(kw8, z_bounds=zb), (d8, t8),
+                       int(nw.sum()) * 128, work[1])
+        out.setdefault("raster_dma", res)
+        zb = (torch.zeros_like(d8), torch.where(t8 >= 0, d8, 2.0))
 
-    # ---- B9: bin_all's first pass (the fullest) and its big-triangle pass
-    # (64 slots; the ground plane covers every pixel), each with and
-    # without the AABB clamp (the frame's dense path clamps,
-    # raster.rasterize does not), and rounds 2-4 with the clamp; the
-    # first pass's numbers are reported, and the five passes of a dense
-    # frame summed
+    # ---- B9: bin_all's five passes, the first (the fullest), rounds 2-4 (a
+    # few heavy tiles) and the big-triangle pass (64 slots; the ground plane
+    # covers every pixel), each with and without the AABB clamp (the frame's
+    # dense path clamps, raster.rasterize does not) and with z bounds; each
+    # held to its twin and to the plain model of its mapping (dense_runs),
+    # whose plan walks exactly ceil(count / 32) groups a tile. The first
+    # pass's numbers are reported, and the five passes of a dense frame
+    # summed (clamped)
     dtri, daabb = rsetup.triangle_setup(scene.geometry, scene.frame.view_projection,
                                         width=width, height=height,
                                         zplane_rounding="standalone")
     passes, _ = rsetup.bin_all(dtri.valid, daabb, tiles_x=tiles_x, tiles_y=tiles_y,
                                tile_w=tr.TILE_W, tile_h=tr.TILE_H, capacity=cap, rounds=rounds)
-    ntiles = tiles_y * tiles_x
+    tables = {clamp: tr.dense_table(dtri, daabb if clamp else None) for clamp in (True, False)}
     names = [""] + [f"[round{i + 1}]" for i in range(1, len(passes) - 1)] + ["[big_pass]"]
     frame_ms = frame_bound = 0.0
     for pname, (bins, pcounts) in zip(names, passes):
         pcounts = pcounts.reshape(-1).to(torch.int32).contiguous()
-        slots = (torch.arange(ntiles, device=bins.device) * bins.shape[-1]).to(torch.int32)
+        ids = bins.reshape(-1).to(torch.int32).contiguous()
         walked = (pcounts + tr.CHUNK - 1) // tr.CHUNK * tr.CHUNK
-        for clamp in (True, False) if pname in ("", "[big_pass]") else (True,):
-            rows9, ids9 = tr.dense_rows(dtri, bins, daabb if clamp else None)
-            # the walk's rows laid out as build_stream_rows does, for raster_work
-            as17 = torch.cat([rows9[:, :12], rows9[:, 12:16] if clamp else
-                              torch.zeros_like(rows9[:, :4]), ids9[:, None].float()], 1)
-            cand, pairs = raster_work(as17, as17[:0], slots, walked, 0, tiles_y, tiles_x,
+        starts9 = dense_starts(ids, pcounts.numel())
+        _, nb9, groups = worklist_plan(starts9, pcounts, 0, 0, ids.numel() // bins.shape[-1])
+        check(nb9 == 0 and groups == (walked // tr.CHUNK).tolist(),
+              f"B9's plan does not walk ceil(count / 32) groups a tile on pass {pname}")
+        for clamp in (True, False):
+            table = tables[clamp]
+            staged = dense_slot_rows(table, ids)  # a slot's row as the kernel stages it
+            cand, pairs = raster_work(staged, staged[:0], starts9, walked, 0, tiles_y, tiles_x,
                                       clamp=clamp)
-            work = (cand, pairs, (rows9.shape[1] + 1) * 4)
-            args = (rows9, ids9, pcounts)
+            work = (cand, pairs, (table.shape[1] + 1) * 4)
+            args = (table, ids, pcounts)
             name = "raster_dense" + pname + ("" if clamp else "[no_aabb]")
-            res, t9 = _raster_check(name, tr.rasterize_tiles_cuda, tr.rasterize_tiles_plain,
-                                    args, kw, card, work, ntiles_bytes(pcounts))
-            if name == "raster_dense":
-                out["raster_dense"] = res
-            if clamp:
-                frame_ms += res["ms"]
-                frame_bound += res["bound_ms"]
-            if pname.startswith("[round"):
-                continue
-            d9, _ = tr.rasterize_tiles_cuda(*args, **kw)
-            _raster_check(name + "[z_bounds]", tr.rasterize_tiles_cuda,
-                          tr.rasterize_tiles_plain, args,
-                          dict(kw, z_bounds=(torch.zeros_like(d9),
-                                             torch.where(t9 >= 0, d9, 2.0))),
-                          card, work, ntiles_bytes(pcounts) + npix * 8, reps=3)
+            zb = None
+            for label in ("", "[z_bounds]"):
+                res, d9, t9 = _raster_check(
+                    name + label, tr.rasterize_tiles_cuda, tr.rasterize_tiles_plain, args,
+                    dict(kw, z_bounds=zb), card, work,
+                    ntiles_bytes(pcounts) + (npix * 8 if zb else 0), 10 if not zb else 3)
+                _mapping_check(name + label, dense_runs, args, dict(kw, z_bounds=zb), (d9, t9),
+                               int(walked.sum()), pairs)
+                if name == "raster_dense" and not zb:
+                    out["raster_dense"] = res
+                if clamp and not zb:
+                    frame_ms += res["ms"]
+                    frame_bound += res["bound_ms"]
+                zb = (torch.zeros_like(d9), torch.where(t9 >= 0, d9, 2.0))
 
     print(f"raster_dense per dense frame ({len(passes)} passes, clamped): ms={frame_ms:.4f} "
           f"bound_ms={frame_bound:.5f} gap_ms={frame_ms - frame_bound:.4f} on {card}")
 
     replaces = {"raster_stream": ("raster.cu", 194),
                 "raster_stream_mxu": ("raster.cu", 657),
-                "raster_dma": ("raster_dma.cu", 751), "raster_dense": ("raster_dense.cu", 43),
+                "raster_dma": ("raster.cu", 751), "raster_dense": ("raster.cu", 43),
                 "resolve_stream": ("resolve_stream.cu", 1159)}
     return [dict(name=name, route="cuda", source=f"sailor_tpu_torch/csrc/{src}",
                  replaces=f"sailor_tpu/raster/tile_raster.py:{line}", library_ms=None,

@@ -1,24 +1,36 @@
-// B1: work-list visibility raster, and B7: grid-k stream raster in its VPU
-// and MXU forms, for Hopper (sm_90a): one plan kernel and one raster
-// kernel over runs of a tile's walk.
+// The tile rasters for Hopper (sm_90a): B1 work-list raster, B7 grid-k
+// stream raster in its VPU and MXU forms, B8 per-tile window raster and B9
+// dense-bin raster, on one plan kernel and one raster kernel over runs of
+// a tile's walk.
 //
 // Replaces sailor_tpu/raster/tile_raster.py `_raster_kernel_worklist` (with
-// `_test_chunk` and `_merge_chunk`), called from `rasterize_worklist`, and
+// `_test_chunk` and `_merge_chunk`), called from `rasterize_worklist`;
 // `_raster_kernel_stream` (with `_test_chunk`, `_merge_chunk`) and
 // `_raster_kernel_stream_mxu` (with `_test_chunk_mxu`, `_merge_chunk_mxu`),
-// called from `rasterize_stream`. Their plain twins are
-// `rasterize_worklist_plain` and `rasterize_stream_plain` in
-// raster/tile_raster.py.
+// called from `rasterize_stream`; `_raster_kernel_dma`, called from
+// `rasterize_dma`; and `_raster_kernel`, called from `rasterize_tiles`.
+// Their plain twins are `rasterize_worklist_plain`,
+// `rasterize_stream_plain`, `rasterize_dma_plain` and
+// `rasterize_tiles_plain` in raster/tile_raster.py.
 //
 // What it computes: per 64x128 screen tile, a walk of G-row groups: the
-// big-triangle list first, then a contiguous range of the sorted row
-// table. B1 (G = 32) walks floor(start/32)*32 .. ceil(end/32)*32
+// big-triangle list first, then a contiguous range of a row table. B1 (G =
+// 32) walks floor(start/32)*32 .. ceil(end/32)*32 of the sorted rows
 // (`worklist_span`: the tile's work-list windows, with the rows of
 // neighbouring tiles that share an aligned group). B7 walks the whole
 // `chunk`-row windows c0 .. c0 + max(spt, 1) - 1 (spt capped at kmax: rows
 // past the cap are never tested, the caller counts them as overflow), in
 // groups of 32 (VPU form) or 128 (MXU form); chunk is a multiple of G, so
-// the windows are exactly whole groups. Each row is tested at each pixel
+// the windows are exactly whole groups. B8 is B1's walk over the rows
+// w0*dchunk .. (w0 + nw)*dchunk (dchunk a multiple of 32, so whole groups;
+// a tile with nw = 0 walks the big list alone). B9 has no big list and
+// walks the slots t*cap .. t*cap + ceil(count/32)*32 of its tile's bin
+// (cap a multiple of 32); slot s holds a triangle id, and its row is read
+// by that id from a per-triangle table of 12 columns (edges, depth plane)
+// or 16 (and the screen AABB); with 12 the AABB is staged as (-inf, +inf,
+// -inf, +inf), which every strip, rectangle and pixel test passes: the
+// reference's test without the clamp. A dead slot (-1) stages id -1 and
+// reads no table row. Each row is tested at each pixel
 // centre: three edge functions >= -0.05 px, the AABB sliver clamp,
 // reverse-Z plane depth z in (0, 1] and optional exclusive (zlo, zhi)
 // bounds. Within a group the max z wins and equal z goes to the larger id;
@@ -30,16 +42,20 @@
 // (dx, dy); it rounds unlike the VPU form on a few pixels.
 //
 // Bound on the H100: bytes. The function must read the candidate rows' 17
-// raster columns once and write depth and tid (8 bytes a pixel); its
-// arithmetic is 16 float operations per (pixel, candidate) pair inside the
-// candidate's AABB. chip_smoke.py computes both from the frame's rows.
+// raster columns once (B9: each walked slot's id and each live slot's 12
+// or 16 columns) and write depth and tid (8 bytes a pixel); its arithmetic
+// is 16 float operations per (pixel, candidate) pair inside the
+// candidate's AABB (B9 without the AABB: every pixel of the tile).
+// chip_smoke.py computes both from the frame's rows.
 //
 // What held the first versions back: one block per 8-row strip walked all
 // of its tile's groups in order, and the walk is very uneven (the flagship
 // frame's two heaviest tiles hold 24% of B1's rows, most tiles a group or
-// two; B7 walks whole 256-row windows, mostly neighbours' rows), so the
-// card waited on a few long walks; each group was tested at all 1024
-// pixels of the strip for every row whose AABB touched the strip.
+// two; B7 walks whole 256-row windows, mostly neighbours' rows; B9's later
+// rounds live on a few tiles of up to 32 groups), so the card waited on a
+// few long walks; each group was staged with no overlap and tested at all
+// 1024 pixels of the strip for every row whose AABB touched the strip; B9
+// also gathered every slot's row into a (tiles x cap, 16) table a pass.
 // Design:
 //  1. Runs. A one-block plan kernel cuts each tile's walk into runs of at
 //     most R contiguous groups (the big list opens run 0) and writes one
@@ -78,7 +94,9 @@
 //  4. Staging. Only the 17 used columns of a row are copied, with cp.async
 //     into a ring of group slots (4 of 32 rows, 2 of 128; rows 16-byte
 //     aligned, read back as float4 broadcasts); the next groups' copies are
-//     in flight while a group is tested.
+//     in flight while a group is tested. B9 reads a group's 32 ids and
+//     copies each live id's table row (48 or 64 bytes, 16 at a time) into
+//     the ring: the same staged layout, with no gathered rows in memory.
 //  5. Four blocks an SM (64 registers, a few spilled) in place of three
 //     without spills. tests/torch_kernel_variants.py times this choice, the
 //     balancing rule of 3 and the value of R against their alternatives.
@@ -86,8 +104,15 @@
 //     its runs are longer: 512 rows (tile_raster.STREAM_RUN_ROWS). On an
 //     H100 80GB HBM3 at 700 W, on the flagship frame: B7 0.0995 / 0.0773 /
 //     0.0840 ms at 256 / 512 / 1024 rows a run, B7-MXU 0.0932 / 0.0710 /
-//     0.0764 ms.
-// Rounding: common.cuh (plane() is raster_common.cuh's, B8's and B9's).
+//     0.0764 ms. B8 walks whole 128-row windows: 256 rows a run
+//     (tile_raster.DMA_RUN_ROWS; the plan doubles 128 to the same R = 8),
+//     0.0524 / 0.0519 / 0.0579 ms at 128 / 256 / 512. B9's later rounds
+//     live on a few tiles of up to 32 groups: 64 rows a run
+//     (DENSE_RUN_ROWS), a dense frame's five clamped passes 0.1140 /
+//     0.1107 / 0.1213 ms at 32 / 64 / 128 (without the clamp 0.3624 /
+//     0.3819 / 0.4220).
+// Rounding: common.cuh; plane() is raster_common.cuh's (B9's plane is the
+// same fma(a, px, b*py) + c).
 #include "raster_common.cuh"
 
 namespace {
@@ -159,9 +184,10 @@ __device__ __forceinline__ int block_exclusive(int v, int* red) {
 }
 
 // One block: R, the run records, zeroed arrival counts. A tile's rows are
-// starts[t] .. starts[t] + counts[t] (win = 0: B1) or the windows
+// starts[t] .. starts[t] + counts[t] (win = 0: B1, B8, B9) or the windows
 // starts[t] .. starts[t] + max(counts[t], 1) - 1 of `win` rows (B7's c0 and
-// spt), walked in groups of `group` rows. The raster kernel may start
+// spt), walked in groups of `group` rows after the *n_big_ptr big rows (none
+// when n_big_ptr is null). The raster kernel may start
 // while it runs (programmatic dependent launch) and waits for its end
 // before it reads a record.
 __global__ void __launch_bounds__(PLAN_THREADS)
@@ -171,7 +197,7 @@ plan_kernel(const int* __restrict__ starts, const int* __restrict__ counts,
   asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
   __shared__ int red[PLAN_THREADS / 32];
   const Work w = carve(ws, ntiles, slots);
-  const int nb = cdiv(min(max(*n_big_ptr, 0), nbig_rows), group);
+  const int nb = n_big_ptr ? cdiv(min(max(*n_big_ptr, 0), nbig_rows), group) : 0;
   // each thread plans a contiguous span of tiles, so runs list in tile order
   const int per = cdiv(ntiles, PLAN_THREADS);
   const int t0 = min(ntiles, static_cast<int>(threadIdx.x) * per);
@@ -233,6 +259,17 @@ __device__ __forceinline__ float4 ld4(const float* p) {
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+// B9's AABB without the clamp: (-inf, +inf, -inf, +inf) passes every test.
+__device__ __forceinline__ float4 open_aabb() {
+  const float inf = __int_as_float(0x7f800000);
+  return make_float4(-inf, inf, -inf, inf);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
 }
 
 __device__ __forceinline__ void commit() {
@@ -459,11 +496,14 @@ __device__ __forceinline__ void test_group(const float* __restrict__ s, int nval
   }
 }
 
-// One block per (listed run, strip): G-row groups, MXU: B7's MXU plane form.
-template <int G, bool MXU>
+// One block per (listed run, strip): G-row groups, MXU: B7's MXU plane form,
+// BY_ID: B9's rows, row ids[s] of the (rows, ncols) triangle table for slot
+// s of the walk (no big list).
+template <int G, bool MXU, bool BY_ID>
 __global__ void __launch_bounds__(THREADS, 4)
 raster_runs_kernel(const float* __restrict__ rows, int ncols,
                    const float* __restrict__ big_rows, int nbig_rows,
+                   const int* __restrict__ ids,
                    const float* __restrict__ zlo, const float* __restrict__ zhi,
                    float* __restrict__ depth, int* __restrict__ tid, int tiles_x,
                    int ntiles, int slots, int* __restrict__ ws) {
@@ -522,9 +562,23 @@ raster_runs_kernel(const float* __restrict__ rows, int ncols,
     return rows + static_cast<int64_t>(gw0 + g - nb) * G * ncols;
   };
   auto stage_group = [&](int i) {
+    float* dst = s[i % NBUF];
+    if (BY_ID) {  // four threads a slot: 16 bytes of its row each, or the open AABB
+      const int64_t slot0 = static_cast<int64_t>(gw0 + g0 + i) * G;
+      for (int e = threadIdx.x; e < G * 4; e += THREADS) {
+        const int row = e >> 2, q = e & 3;
+        const int id = ids[slot0 + row];
+        float* d = dst + row * RS;
+        if (id >= 0 && 4 * q < ncols)
+          cp_async16(d + 4 * q, rows + static_cast<int64_t>(id) * ncols + 4 * q);
+        else if (id >= 0 && q == 3)
+          *reinterpret_cast<float4*>(d + 12) = open_aabb();
+        if (q == 0) d[16] = static_cast<float>(id);
+      }
+      return;
+    }
     int nvalid;
     const float* src = group(i, nvalid);
-    float* dst = s[i % NBUF];
     for (int e = threadIdx.x; e < nvalid * NCOL; e += THREADS) {
       const int row = e / NCOL, c = e - row * NCOL;
       cp_async4(dst + row * RS + c, src + static_cast<int64_t>(row) * ncols + c);
@@ -599,11 +653,12 @@ raster_runs_kernel(const float* __restrict__ rows, int ncols,
   }
 }
 
-template <int G, bool MXU>
+template <int G, bool MXU, bool BY_ID = false>
 int launch_runs(const float* rows, int ncols, const float* big_rows, int nbig_rows,
                 const int* n_big, const int* starts, const int* counts, int win,
                 const float* zlo, const float* zhi, float* depth, int* tid, int tiles_y,
-                int tiles_x, int run_groups, int slots, int* ws, cudaStream_t stream) {
+                int tiles_x, int run_groups, int slots, int* ws, cudaStream_t stream,
+                const int* ids = nullptr) {
   const int ntiles = tiles_y * tiles_x;
   plan_kernel<<<1, PLAN_THREADS, 0, stream>>>(starts, counts, n_big, nbig_rows, ntiles, G, win,
                                               run_groups, slots, ws);
@@ -618,15 +673,16 @@ int launch_runs(const float* rows, int ncols, const float* big_rows, int nbig_ro
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return static_cast<int>(cudaLaunchKernelEx(&cfg, raster_runs_kernel<G, MXU>, rows, ncols,
-                                             big_rows, nbig_rows, zlo, zhi, depth, tid,
-                                             tiles_x, ntiles, slots, ws));
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, raster_runs_kernel<G, MXU, BY_ID>, rows,
+                                             ncols, big_rows, nbig_rows, ids, zlo, zhi,
+                                             depth, tid, tiles_x, ntiles, slots, ws));
 }
 
 }  // namespace
 
 // B1: tile t walks rows starts[t] .. starts[t] + counts[t], widened to
-// whole 32-row groups.
+// whole 32-row groups. B8 calls it with starts w0 * dchunk and counts nw *
+// dchunk.
 extern "C" int sailor_raster_worklist(const float* rows, int ncols,
                                       const float* big_rows, int nbig_rows,
                                       const int* n_big, const int* starts,
@@ -656,4 +712,21 @@ extern "C" int sailor_raster_stream(const float* rows, int ncols,
   return launch_runs<CHUNK, false>(rows, ncols, big_rows, nbig_rows, n_big, c0, spt, chunk,
                                    zlo, zhi, depth, tid, tiles_y, tiles_x, run_groups, slots,
                                    ws, stream);
+}
+
+// B9: tile t walks the slots starts[t] .. starts[t] + counts[t] (its bin:
+// starts[t] = t * cap, cap a multiple of 32), widened to whole 32-row
+// groups; slot s stages row ids[s] of the (rows, width) triangle table,
+// width 12 (the AABB staged open: no clamp) or 16 (with the AABB clamp).
+// The table must be 16-byte aligned.
+extern "C" int sailor_raster_dense(const float* table, int width, const int* ids,
+                                   const int* starts, const int* counts, const float* zlo,
+                                   const float* zhi, float* depth, int* tid, int tiles_y,
+                                   int tiles_x, int run_groups, int slots, int* ws,
+                                   cudaStream_t stream) {
+  if ((width != 12 && width != 16) || reinterpret_cast<uintptr_t>(table) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_runs<CHUNK, false, true>(table, width, nullptr, 0, nullptr, starts, counts, 0,
+                                         zlo, zhi, depth, tid, tiles_y, tiles_x, run_groups,
+                                         slots, ws, stream, ids);
 }

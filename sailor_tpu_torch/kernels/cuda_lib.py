@@ -26,8 +26,7 @@ import threading
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_SOURCES = ("raster.cu", "raster_dma.cu", "raster_dense.cu",
-            "resolve.cu", "resolve_stream.cu", "shade.cu", "slab_entry.cu",
+_SOURCES = ("raster.cu", "resolve.cu", "resolve_stream.cu", "shade.cu", "slab_entry.cu",
             "sweep.cu", "sweep_grid.cu")
 # -fmad=false: the rounding rule of csrc/common.cuh
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -51,13 +50,10 @@ _SIGNATURES = {
     # tid, tiles_y, tiles_x, chunk, mxu, run_groups, slots, workspace, stream
     "sailor_raster_stream": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _P, _P),
-    # rows, ncols, big_rows, nbig_rows, n_big*, w0, nw, zlo, zhi, depth,
-    # tid, tiles_y, tiles_x, dchunk, stream
-    "sailor_raster_dma": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                          _I, _I, _I, _P),
-    # rows, width, ids, counts, cap, zlo, zhi, depth, tid, tiles_y,
-    # tiles_x, stream
-    "sailor_raster_dense": (_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P),
+    # table, width, ids, starts, counts, zlo, zhi, depth, tid, tiles_y,
+    # tiles_x, run_groups, slots, workspace, stream
+    "sailor_raster_dense": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _P, _P),
     # rows, ncols, big_rows, nbig_rows, tid, starts, counts, c0, spt, par,
     # out, n_out, tiles_y, tiles_x, chunk, stream
     "sailor_resolve_stream": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,

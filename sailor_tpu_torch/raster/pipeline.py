@@ -25,12 +25,13 @@ def raster_merge(tri, passes, tiles_y, tiles_x, z_bounds=None,
     later pass takes a pixel only with strictly greater reverse-Z. With
     ``screen_aabb`` B9 clamps each candidate to its screen AABB (the frame
     graph's dense path); without it, as ``rasterize`` calls it, it does
-    not."""
+    not. The passes share one per-triangle row table (``dense_table``)."""
     depth = tid = None
+    table = tile_raster.dense_table(tri, screen_aabb)
     for bins, counts in passes:
         d_r, t_r = tile_raster.rasterize_tiles(
             tri, bins, tiles_y=tiles_y, tiles_x=tiles_x, counts=counts,
-            z_bounds=z_bounds, screen_aabb=screen_aabb)
+            z_bounds=z_bounds, prebuilt=table)
         if depth is None:
             depth, tid = d_r, t_r
         else:

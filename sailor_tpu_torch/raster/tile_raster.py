@@ -14,9 +14,10 @@ raises and nothing falls back:
   ``csrc/raster.cu``, over runs of 32-row groups, or of 128-row groups
   with the MXU plane form.
 - B8 ``rasterize_dma`` (``_raster_kernel_dma``): each tile walks its exact
-  span of ``dchunk`` windows, no cap; ``csrc/raster_dma.cu``.
+  span of ``dchunk`` windows, no cap; B1's kernel over that row span.
 - B9 ``rasterize_tiles`` (``_raster_kernel``): fixed-capacity dense bins,
-  one pass per call, AABB clamp optional; ``csrc/raster_dense.cu``.
+  one pass per call, AABB clamp optional; B1's kernel over each tile's
+  slots, each slot's row read by its id from a per-triangle table.
 - B2 ``resolve_worklist`` (``_resolve_kernel_worklist``) and B10
   ``resolve_stream`` (``_resolve_kernel``): fetch each pixel's winning
   attribute row and interpolate it along the pixel ray;
@@ -161,25 +162,28 @@ def rasterize_worklist_plain(rows, big_rows, starts, counts, n_big, *,
     return _raster_tiles_plain(tiles_y, tiles_x, z_bounds, dev, tile_rows)
 
 
-#: B1's and B7's runs: each tile's walk is cut into runs of at most
-#: RUN_GROUPS groups of 32 rows (B7: STREAM_RUN_ROWS rows, in groups of 32
-#: or of 128 for the MXU form; its rows are mostly neighbours' that the
-#: rectangle tests reject, so its runs are longer), doubled on the device
-#: until the runs of the tiles with more than one fit ``worklist_slots``,
-#: one block per (run, strip); csrc/raster.cu
+#: B1's, B7's, B8's and B9's runs: each tile's walk is cut into runs of at
+#: most RUN_GROUPS groups of 32 rows (B7: STREAM_RUN_ROWS rows, in groups of
+#: 32 or of 128 for the MXU form; its rows are mostly neighbours' that the
+#: rectangle tests reject, so its runs are longer; B8: DMA_RUN_ROWS; B9:
+#: DENSE_RUN_ROWS), doubled on the device until the runs of the tiles with
+#: more than one fit ``worklist_slots``, one block per (run, strip);
+#: csrc/raster.cu. tests/torch_kernel_variants.py times each length.
 RUN_GROUPS = 4
 STREAM_RUN_ROWS = 512
+DMA_RUN_ROWS = 256
+DENSE_RUN_ROWS = 64
 STRIPS = TILE_H // 8  # B1's 8-row strips, one block each
 
 
 def worklist_slots(ntiles: int) -> int:
-    """Scratch runs of B1 and B7 (a partial depth and id per pixel of a
-    run)."""
+    """Scratch runs of B1, B7, B8 and B9 (a partial depth and id per pixel
+    of a run)."""
     return max(ntiles, 64)
 
 
 def _worklist_workspace(ntiles: int, slots: int) -> int:
-    """int32 words of B1's and B7's workspace (csrc/raster.cu ``carve``): the run
+    """int32 words of the run kernel's workspace (csrc/raster.cu ``carve``): the run
     records (8 words each), the arrival counts and the runs' partial depth
     and id."""
     return 8 * (ntiles + slots) + ntiles * STRIPS + 2 * slots * STRIPS * 8 * TILE_W
@@ -481,26 +485,33 @@ def rasterize_dma_plain(rows, big_rows, w0, nw, n_big, *, tiles_y: int,
 
 def rasterize_dma_cuda(rows, big_rows, w0, nw, n_big, *, tiles_y: int,
                        tiles_x: int, z_bounds=None, dchunk: int = 128):
-    """B8 on the card: csrc/raster_dma.cu, one launch."""
+    """B8 on the card: B1's plan and raster kernels (csrc/raster.cu) over
+    each tile's rows w0 * dchunk .. (w0 + nw) * dchunk, in runs of
+    DMA_RUN_ROWS rows, counted as one launch; no host synchronisation."""
     dev = rows.device
     ntiles = tiles_y * tiles_x
     H, W = tiles_y * TILE_H, tiles_x * TILE_W
     _raster_window_checks(rows, big_rows, dchunk, CHUNK)
+    if big_rows.shape[0] % CHUNK:
+        raise ValueError(f"big_rows must pad to whole groups of {CHUNK}")
     cuda_lib.require(rows, "rows", torch.float32)
     cuda_lib.require(big_rows, "big_rows", torch.float32, device=dev)
     cuda_lib.require(w0, "w0", torch.int32, (ntiles,), dev)
     cuda_lib.require(nw, "nw", torch.int32, (ntiles,), dev)
     cuda_lib.require(n_big, "n_big", torch.int32, (), dev)
     zlo, zhi = _bounds_for_kernel(z_bounds, H, W, dev)
+    starts, counts = w0 * dchunk, nw * dchunk
     depth = torch.empty(H, W, dtype=torch.float32, device=dev)
     tid = torch.empty(H, W, dtype=torch.int32, device=dev)
+    slots = worklist_slots(ntiles)
+    ws = torch.empty(_worklist_workspace(ntiles, slots), dtype=torch.int32, device=dev)
     lib = cuda_lib.load()
-    err = lib.sailor_raster_dma(
+    err = lib.sailor_raster_worklist(
         rows.data_ptr(), rows.shape[1], big_rows.data_ptr(), big_rows.shape[0],
-        n_big.data_ptr(), w0.data_ptr(), nw.data_ptr(), cuda_lib.ptr(zlo),
+        n_big.data_ptr(), starts.data_ptr(), counts.data_ptr(), cuda_lib.ptr(zlo),
         cuda_lib.ptr(zhi), depth.data_ptr(), tid.data_ptr(), tiles_y, tiles_x,
-        dchunk, cuda_lib.stream_of(rows))
-    cuda_lib.check(err, "sailor_raster_dma")
+        DMA_RUN_ROWS // CHUNK, slots, ws.data_ptr(), cuda_lib.stream_of(rows))
+    cuda_lib.check(err, "sailor_raster_worklist")
     cuda_lib.LAUNCHES["raster_dma"] += 1
     return depth, tid
 
@@ -526,84 +537,93 @@ def _dense_plane(a, b, c, px, py):
     return fma(a, px, b * py) + c
 
 
-def rasterize_tiles_plain(rows, ids, counts, *, tiles_y: int, tiles_x: int,
+def dense_table(setup, screen_aabb=None):
+    """B9's per-triangle table (R, 12 | 16) float32: edges and depth plane,
+    with ``screen_aabb`` the AABB (the clamp applies only then). Built once
+    a call; a slot's row is read by its id."""
+    parts = [setup.edge.reshape(-1, 9), setup.zplane]
+    if screen_aabb is not None:
+        parts.append(torch.stack(screen_aabb, dim=1))
+    return torch.cat(parts, dim=1).contiguous()
+
+
+def rasterize_tiles_plain(table, ids, counts, *, tiles_y: int, tiles_x: int,
                           z_bounds=None):
     """Plain PyTorch B9: per tile, slots 0 .. ceil(count / 32) * 32 of its
-    bin, in groups of 32; rows (Tiles * C, 12 | 16), with the AABB clamp
-    when they carry the screen AABB at 12:16; ids (Tiles * C,) int32."""
-    dev = rows.device
-    cap = rows.shape[0] // (tiles_y * tiles_x)
-    clamp = rows.shape[1] == 16
+    bin (``ids`` (Tiles * C,) int32, -1 dead), in groups of 32, each live
+    slot's row gathered by its id from ``table`` (R, 12 | 16), with the AABB
+    clamp when the table carries the screen AABB at 12:16."""
+    dev = table.device
+    cap = ids.shape[0] // (tiles_y * tiles_x)
+    clamp = table.shape[1] == 16
     cl = counts.tolist()
 
     def tile_rows(t, px, py, zl, zh):
-        sl = slice(t * cap, t * cap + common.cdiv(cl[t], CHUNK) * CHUNK)
+        i = ids[t * cap:t * cap + common.cdiv(cl[t], CHUNK) * CHUNK]
 
         def test(s):
-            i = s[:, -1].to(torch.int32)
-            return _test_rows(s[:, :-1], i, px, py, zl, zh, clamp, _dense_plane), i
-        both = torch.cat([rows[sl], ids[sl, None].to(torch.float32)], 1)
-        return _walk(_empty_best(dev), both, CHUNK, test)
+            n = s[:, -1].to(torch.int32)
+            return _test_rows(s[:, :-1], n, px, py, zl, zh, clamp, _dense_plane), n
+        rows = table[torch.clamp(i, min=0).long()]
+        return _walk(_empty_best(dev), torch.cat([rows, i[:, None].to(torch.float32)], 1),
+                     CHUNK, test)
 
     return _raster_tiles_plain(tiles_y, tiles_x, z_bounds, dev, tile_rows)
 
 
-def rasterize_tiles_cuda(rows, ids, counts, *, tiles_y: int, tiles_x: int,
+def rasterize_tiles_cuda(table, ids, counts, *, tiles_y: int, tiles_x: int,
                          z_bounds=None):
-    """B9 on the card: csrc/raster_dense.cu, one launch."""
-    dev = rows.device
+    """B9 on the card: B1's plan and raster kernels (csrc/raster.cu) over
+    each tile's slots t * C .. t * C + count, in runs of DENSE_RUN_ROWS
+    rows, each slot's row read by id from the table in the kernel; counted
+    as one launch, no host synchronisation."""
+    dev = table.device
     ntiles = tiles_y * tiles_x
     H, W = tiles_y * TILE_H, tiles_x * TILE_W
-    width = rows.shape[1]
-    if width not in (12, 16) or rows.shape[0] % ntiles:
-        raise ValueError("rows need 12 or 16 columns and one bin per tile")
-    cap = rows.shape[0] // ntiles
+    width = table.shape[-1]
+    if table.dim() != 2 or width not in (12, 16) or ids.shape[0] % ntiles:
+        raise ValueError("the table needs 12 or 16 columns and the ids one bin per tile")
+    cap = ids.shape[0] // ntiles
     if cap % CHUNK:
         raise ValueError(f"bin capacity must be a multiple of {CHUNK}")
-    cuda_lib.require(rows, "rows", torch.float32)
-    cuda_lib.require(ids, "ids", torch.int32, (rows.shape[0],), dev)
+    cuda_lib.require(table, "table", torch.float32)
+    cuda_lib.require(ids, "ids", torch.int32, (ids.shape[0],), dev)
     cuda_lib.require(counts, "counts", torch.int32, (ntiles,), dev)
+    if table.data_ptr() % 16:
+        raise ValueError("table: expected 16-byte alignment")
     zlo, zhi = _bounds_for_kernel(z_bounds, H, W, dev)
+    starts = torch.arange(0, ntiles * cap, cap, dtype=torch.int32, device=dev)
     depth = torch.empty(H, W, dtype=torch.float32, device=dev)
     tid = torch.empty(H, W, dtype=torch.int32, device=dev)
+    slots = worklist_slots(ntiles)
+    ws = torch.empty(_worklist_workspace(ntiles, slots), dtype=torch.int32, device=dev)
     lib = cuda_lib.load()
     err = lib.sailor_raster_dense(
-        rows.data_ptr(), width, ids.data_ptr(), counts.data_ptr(), cap,
-        cuda_lib.ptr(zlo), cuda_lib.ptr(zhi), depth.data_ptr(), tid.data_ptr(),
-        tiles_y, tiles_x, cuda_lib.stream_of(rows))
+        table.data_ptr(), width, ids.data_ptr(), starts.data_ptr(), counts.data_ptr(),
+        cuda_lib.ptr(zlo), cuda_lib.ptr(zhi), depth.data_ptr(), tid.data_ptr(), tiles_y,
+        tiles_x, DENSE_RUN_ROWS // CHUNK, slots, ws.data_ptr(), cuda_lib.stream_of(table))
     cuda_lib.check(err, "sailor_raster_dense")
     cuda_lib.LAUNCHES["raster_dense"] += 1
     return depth, tid
 
 
-def dense_rows(setup, bins, screen_aabb=None):
-    """B9's inputs from one pass of dense bins: the gathered rows (Tiles *
-    C, 12 | 16: edges, depth plane, with ``screen_aabb`` the AABB) and the
-    ids (Tiles * C,) int32."""
-    safe = torch.clamp(bins, min=0).long()
-    parts = [setup.edge.reshape(-1, 9), setup.zplane]
-    if screen_aabb is not None:
-        parts.append(torch.stack(screen_aabb, dim=1))
-    table = torch.cat(parts, dim=1)
-    rows = table[safe].reshape(-1, table.shape[1]).contiguous()
-    return rows, bins.reshape(-1).to(torch.int32).contiguous()
-
-
 def rasterize_tiles(setup, bins, *, tiles_y: int, tiles_x: int, counts=None,
-                    z_bounds=None, screen_aabb=None):
+                    z_bounds=None, screen_aabb=None, prebuilt=None):
     """Raster one pass of dense bins (B9): ``bins`` (Ty, Tx, C) candidate
     ids, -1 padded; ``counts`` (Ty, Tx) live counts (from the bins when
     omitted) end each tile's walk early. With ``screen_aabb`` the AABB
-    clamp applies, without it none. Returns (depth (H, W), tid (H, W))."""
+    clamp applies, without it none. ``prebuilt``: ``dense_table(setup,
+    screen_aabb)``, shared by a frame's passes. Returns (depth (H, W), tid
+    (H, W))."""
     if bins.shape[-1] % CHUNK:
         raise ValueError("bin capacity must be a CHUNK multiple")
-    rows, ids = dense_rows(setup, bins, screen_aabb)
+    table = prebuilt if prebuilt is not None else dense_table(setup, screen_aabb)
     if counts is None:
         counts = (bins >= 0).sum(dim=-1)
     counts = counts.reshape(-1).to(torch.int32).contiguous()
-    fn = cuda_lib.dispatch(rows, rasterize_tiles_plain, rasterize_tiles_cuda)
-    return fn(rows, ids, counts, tiles_y=tiles_y, tiles_x=tiles_x,
-              z_bounds=z_bounds)
+    ids = bins.reshape(-1).to(torch.int32).contiguous()
+    fn = cuda_lib.dispatch(table, rasterize_tiles_plain, rasterize_tiles_cuda)
+    return fn(table, ids, counts, tiles_y=tiles_y, tiles_x=tiles_x, z_bounds=z_bounds)
 
 
 # --------------------------------------------------------------------------

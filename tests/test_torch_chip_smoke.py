@@ -14,6 +14,12 @@ per-warp rectangles); here it is held bit for bit to
 ``rasterize_stream_plain`` in both forms, with and without z bounds, on the
 frame's rows (runs of 128 rows, so that every tile splits) and on
 ``heavy_tile_rows`` cut into several runs of the wrapper's length.
+``chip_smoke.dma_runs`` (B8: ``worklist_runs`` over each tile's window
+span) is held the same way to ``rasterize_dma_plain``, and
+``chip_smoke.dense_runs`` (B9: ``worklist_runs`` over each tile's bin
+slots, rows read by id, the AABB open with 12 columns) to
+``rasterize_tiles_plain`` on ``bin_all``'s first and big-triangle passes,
+with and without the clamp; a dead slot reads no table row.
 
 ``sweep.sweep_plain``'s ``work`` counts the (sub-block, step) pairs B5's
 walk takes and the (ray, triangle) tests of rays live at their step; here
@@ -28,6 +34,7 @@ import pytest
 import torch
 
 import chip_smoke
+from sailor_tpu_torch.raster import setup as rsetup
 from sailor_tpu_torch.raster import tile_raster as tr
 from sailor_tpu_torch.raytracing import sweep
 from sailor_tpu_torch.scenes import flagship_scene
@@ -241,3 +248,113 @@ def test_stream_mapping_matches_rasterize_stream_plain(frame_rows, mxu, case, bo
     assert stats["run_groups"] * (tr.CHUNK_MXU if mxu else tr.CHUNK) == run_rows
     torch.testing.assert_close(t_m, t_p, rtol=0, atol=0)
     torch.testing.assert_close(d_m, d_p, rtol=0, atol=0)
+
+
+def _same_raster(got, want):
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+
+
+def _second_layer(depth, tid):
+    return torch.zeros_like(depth), torch.where(tid >= 0, depth, 2.0)
+
+
+@pytest.mark.parametrize("bounded", [False, True], ids=["no_bounds", "z_bounds"])
+@pytest.mark.parametrize("case", ["frame_rows", "heavy_tile"])
+def test_dma_mapping_matches_rasterize_dma_plain(frame_rows, case, bounded):
+    """B8 on B1's kernel: the big list, then each tile's rows w0 * dchunk ..
+    (w0 + nw) * dchunk, cut into runs (of 64 rows on the frame, so that
+    tiles split; of the wrapper's length on the heavy tile)."""
+    if case == "heavy_tile":
+        rows, big, starts, counts, n_big, ty, tx = chip_smoke.heavy_tile_rows()
+        dchunk, run_rows = chip_smoke.HEAVY_CHUNK, tr.DMA_RUN_ROWS
+    else:
+        sb, ty, tx = frame_rows
+        rows, big, starts, counts, n_big = (sb["rows"], sb["big_rows"], sb["starts"],
+                                            sb["counts"], sb["n_big"])
+        dchunk, run_rows = 128, 64
+    w0, nw = tr.dma_windows(starts, counts, dchunk)
+    args = (rows, big, w0, nw, n_big.to(torch.int32).reshape(()))
+    kw = dict(tiles_y=ty, tiles_x=tx, dchunk=dchunk)
+    if bounded:
+        kw["z_bounds"] = _second_layer(*tr.rasterize_dma_plain(*args, **kw))
+    want = tr.rasterize_dma_plain(*args, **kw)
+    stats = {}
+    got = chip_smoke.dma_runs(*args, **kw, run_rows=run_rows, stats=stats)
+    assert int((want[1] >= 0).sum()) > 100
+    assert stats["runs"] > ty * tx  # a tile is split
+    assert stats["run_groups"] * tr.CHUNK == run_rows
+    _same_raster(got, want)
+
+
+@pytest.fixture(scope="module")
+def dense_frame():
+    """The flagship scene at 512x256 (4x4 tiles: a triangle over more than
+    2x2 of them is big) through the dense path's setup and bin_all
+    (capacity 512, 2 rounds): the setup, the AABB and the passes."""
+    w, h = 2 * W, 2 * H
+    scene = flagship_scene(w, h, 24, 10, device="cpu")
+    tri, aabb = rsetup.triangle_setup(scene.geometry, scene.frame.view_projection, width=w,
+                                      height=h, zplane_rounding="standalone")
+    passes, _ = rsetup.bin_all(tri.valid, aabb, tiles_x=w // tr.TILE_W, tiles_y=h // tr.TILE_H,
+                               tile_w=tr.TILE_W, tile_h=tr.TILE_H, capacity=512, rounds=2)
+    return tri, aabb, passes, dict(tiles_y=h // tr.TILE_H, tiles_x=w // tr.TILE_W)
+
+
+def _dense_case(dense_frame, npass, clamp):
+    """B9's inputs from pass ``npass``: the per-triangle table (with the
+    AABB when ``clamp``), the ids and counts."""
+    tri, aabb, passes, kw = dense_frame
+    bins, counts = passes[npass]
+    table = tr.dense_table(tri, aabb if clamp else None)
+    args = (table, bins.reshape(-1).to(torch.int32).contiguous(),
+            counts.reshape(-1).to(torch.int32).contiguous())
+    return args, dict(kw)
+
+
+@pytest.mark.parametrize("bounded", [False, True], ids=["no_bounds", "z_bounds"])
+@pytest.mark.parametrize("clamp", [True, False], ids=["aabb", "no_aabb"])
+@pytest.mark.parametrize("npass", [0, -1], ids=["first_pass", "big_pass"])
+def test_dense_mapping_matches_rasterize_tiles_plain(dense_frame, npass, clamp, bounded):
+    """B9 on B1's kernel: each tile's slots t * C .. t * C + count in runs
+    of one group, each slot's row read by id (the AABB open without the
+    clamp); bounded: behind the first pass's winners."""
+    args, kw = _dense_case(dense_frame, npass, clamp)
+    unbounded = tr.rasterize_tiles_plain(*args, **kw)
+    if bounded:
+        first, _ = _dense_case(dense_frame, 0, clamp)
+        kw["z_bounds"] = _second_layer(*tr.rasterize_tiles_plain(*first, **kw))
+    want = tr.rasterize_tiles_plain(*args, **kw)
+    stats = {}
+    got = chip_smoke.dense_runs(*args, **kw, run_rows=tr.CHUNK, stats=stats)
+    assert int((unbounded[1] >= 0).sum()) > 1000
+    assert bounded != torch.equal(want[1], unbounded[1])
+    if npass == 0:
+        assert stats["runs"] > kw["tiles_y"] * kw["tiles_x"]  # a tile is split
+    _same_raster(got, want)
+
+
+def test_open_aabb_equals_clamp_free_twin(dense_frame):
+    """The AABB (-inf, +inf, -inf, +inf) that B9 stages for a 12-column
+    table passes every clamp test: the clamped twin on it equals the
+    clamp-free twin."""
+    (table, ids, counts), kw = _dense_case(dense_frame, 0, False)
+    inf = float("inf")
+    open_aabb = torch.tensor([-inf, inf, -inf, inf]).expand(table.shape[0], 4)
+    want = tr.rasterize_tiles_plain(table, ids, counts, **kw)
+    assert int((want[1] >= 0).sum()) > 100
+    _same_raster(tr.rasterize_tiles_plain(torch.cat([table, open_aabb], 1), ids, counts, **kw),
+                 want)
+
+
+@pytest.mark.parametrize("raster", ["twin", "mapping"])
+def test_dense_dead_slot_reads_no_table_row(dense_frame, raster):
+    """A table row at index -1 that would cover every pixel nearest leaves
+    B9's output unchanged: a dead slot (-1) in a tile's walk reads no row."""
+    (table, ids, counts), kw = _dense_case(dense_frame, 0, True)
+    cap = ids.shape[0] // counts.numel()
+    assert any(c % tr.CHUNK and ids[t * cap + c] < 0 for t, c in enumerate(counts.tolist()))
+    poison = torch.tensor([[0.0, 0.0, 1.0] * 3 + [0.0, 0.0, 0.99, -1e4, 1e4, -1e4, 1e4]])
+    fn = tr.rasterize_tiles_plain if raster == "twin" else chip_smoke.dense_runs
+    want = fn(table, ids, counts, **kw)
+    _same_raster(fn(torch.cat([table, poison]), ids, counts, **kw), want)

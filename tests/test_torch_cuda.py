@@ -33,7 +33,10 @@ the kernel inputs its own nodes make. Tolerances, from the arithmetic:
   each sub-block live (the packing's edges), and on clusters with exact
   ties (the merge order);
 - the raster variants B7 (both plane forms), B8 and B9 (with and without
-  the AABB clamp): depth and ids bit-equal, with and without z bounds;
+  the AABB clamp), all on B1's kernel: depth and ids bit-equal to the twin
+  and to the plain model of the kernel's mapping, with and without z
+  bounds, B8 also on the crafted tile of several runs; B9 also with a
+  poisoned table row before the table (a dead slot reads none);
 - grid-k resolve (B10): held as the resolve above.
 The tracer's kernels run on its own rays: every intersector pass of one
 128x128 sample of the bench tracer scene (camera, bounce-1 and shadow rays),
@@ -45,10 +48,10 @@ maps.
 import pytest
 import torch
 
-from chip_smoke import (bits_equal, check_small_frame, check_small_trace, frame_inputs,
-                        heavy_tile_cases, heavy_tile_rows, sparse_pass, stream_runs,
-                        tables_equal, textured_sky_balls, tied_clusters, tracer_passes,
-                        worklist_runs)
+from chip_smoke import (bits_equal, check_small_frame, check_small_trace, dense_runs, dma_runs,
+                        frame_inputs, heavy_tile_cases, heavy_tile_rows, sparse_pass,
+                        stream_runs, tables_equal, textured_sky_balls, tied_clusters,
+                        tracer_passes, worklist_runs)
 from sailor_tpu_torch.kernels import cuda_lib, pbr_kernel
 from sailor_tpu_torch.raster import setup as rsetup
 from sailor_tpu_torch.raster import tile_raster as tr
@@ -112,7 +115,9 @@ def _bounds(depth, tid):
     return (torch.zeros_like(depth), torch.where(tid >= 0, depth, 2.0))
 
 
-def _equal_launch(name, kernel, plain, args, kw, bounded):
+def _equal_launch(name, kernel, plain, args, kw, bounded, model=None):
+    """One launch of the kernel, bit-equal to its twin and, given, to the
+    plain model of its mapping."""
     if bounded:
         d0, t0 = kernel(*args, **kw)
         kw = dict(kw, z_bounds=_bounds(d0, t0))
@@ -124,6 +129,9 @@ def _equal_launch(name, kernel, plain, args, kw, bounded):
     assert int((t_p >= 0).sum()) > 100
     assert torch.equal(t_k, t_p)
     assert torch.equal(d_k, d_p)
+    if model is not None:
+        d_m, t_m = model(*args, **kw)
+        assert torch.equal(t_m, t_p) and torch.equal(d_m, d_p)
 
 
 @pytest.mark.parametrize("bounded", [False, True], ids=["no_bounds", "z_bounds"])
@@ -193,7 +201,19 @@ def test_raster_dma_kernel_matches_plain(card_frame, bounded):
     args = (sb["rows"], sb["big_rows"], w0, nw, sb["n_big"])
     kw = dict(tiles_y=tiles_y, tiles_x=tiles_x, dchunk=128)
     _equal_launch("raster_dma", tr.rasterize_dma_cuda, tr.rasterize_dma_plain, args, kw,
-                  bounded)
+                  bounded, dma_runs)
+
+
+@pytest.mark.parametrize("bounded", [False, True], ids=["no_bounds", "z_bounds"])
+def test_raster_dma_kernel_matches_plain_on_heavy_tile(card_frame, bounded):
+    """B8 on chip_smoke.heavy_tile_rows in windows of 128 rows: a tile of
+    several runs whose repeated rows tie in z within a group, across groups
+    and across runs."""
+    kernel, plain, args, kw, model = heavy_tile_cases()["raster_dma"]
+    stats = {}
+    model(*args, **kw, stats=stats)
+    assert stats["runs"] > kw["tiles_y"] * kw["tiles_x"]
+    _equal_launch("raster_dma", kernel, plain, args, kw, bounded, model)
 
 
 @pytest.mark.parametrize("bounded", [False, True], ids=["no_bounds", "z_bounds"])
@@ -208,11 +228,13 @@ def test_raster_dense_kernel_matches_plain(card_frame, npass, clamp, bounded):
                                tile_w=tr.TILE_W, tile_h=tr.TILE_H, capacity=256, rounds=2)
     kw = dict(tiles_y=tiles_y, tiles_x=tiles_x)
 
+    table = tr.dense_table(tri, aabb if clamp else None)
+
     def dense_args(p):
         bins, counts = passes[p]
         assert int(counts.max()) > 0
-        rows, ids = tr.dense_rows(tri, bins, aabb if clamp else None)
-        return rows, ids, counts.reshape(-1).to(torch.int32).contiguous()
+        return (table, bins.reshape(-1).to(torch.int32).contiguous(),
+                counts.reshape(-1).to(torch.int32).contiguous())
 
     if bounded and npass:
         # behind its own winners the big pass covers a few dozen pixels at
@@ -220,7 +242,35 @@ def test_raster_dense_kernel_matches_plain(card_frame, npass, clamp, bounded):
         kw["z_bounds"] = _bounds(*tr.rasterize_tiles_cuda(*dense_args(0), **kw))
         bounded = False
     _equal_launch("raster_dense", tr.rasterize_tiles_cuda, tr.rasterize_tiles_plain,
-                  dense_args(npass), kw, bounded)
+                  dense_args(npass), kw, bounded, dense_runs)
+
+
+def test_raster_dense_dead_slot_reads_no_table_row(card_frame):
+    """B9 on a table that starts 16 rows into its storage, whose row -1
+    would cover every pixel nearest: the output equals the twin's, and
+    B9 makes no host sync."""
+    _, (sb, targets, *_rest, tiles_y, tiles_x) = card_frame
+    tri, aabb = targets["TriSetup"], targets["TriAABB"]
+    passes, _ = rsetup.bin_all(tri.valid, aabb, tiles_x=tiles_x, tiles_y=tiles_y,
+                               tile_w=tr.TILE_W, tile_h=tr.TILE_H, capacity=256, rounds=2)
+    bins, counts = passes[0]
+    ids = bins.reshape(-1).to(torch.int32).contiguous()
+    counts = counts.reshape(-1).to(torch.int32).contiguous()
+    table = tr.dense_table(tri, aabb)
+    store = torch.zeros(table.shape[0] + 16, 16, device=table.device)
+    store[:16] = torch.tensor([0.0, 0.0, 1.0] * 3 + [0.0, 0.0, 0.99, -1e4, 1e4, -1e4, 1e4],
+                              device=table.device)
+    store[16:] = table
+    kw = dict(tiles_y=tiles_y, tiles_x=tiles_x)
+    want = tr.rasterize_tiles_plain(table, ids, counts, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tr.rasterize_tiles_cuda(store[16:], ids, counts, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool((ids < 0).any())
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
 
 
 def test_resolve_stream_kernel_matches_plain(card_frame):

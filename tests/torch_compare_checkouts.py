@@ -4,8 +4,14 @@ whatever builds the sweeps' visit tables around it) and B4's own kernel
 (``slab_entry_cuda`` where the checkout has it, else
 ``visit_tables_cuda``) on the bench tracer scene's rays (512x512:
 bounce-0 and bounce-1 rays of one sample and their shadow rays), and B7
-in both plane forms (``rasterize_stream_cuda``) on the flagship frame's
-rows (1920x1088, 1000 point lights, 96 objects). Not a test (it is not
+in both plane forms (``rasterize_stream_cuda``), B8
+(``rasterize_dma_cuda``) and B9 on the flagship frame (1920x1088, 1000
+point lights, 96 objects): B9's kernel alone on each pass of the dense
+frame, with and without the AABB clamp (``rasterize_tiles_cuda`` on the
+per-triangle table where the checkout has ``dense_table``, else on the
+gathered rows of ``dense_rows``), the entry ``rasterize_tiles`` on each
+pass (its row table or gather included) and ``pipeline.raster_merge``
+over the five passes (with its kernels counted). Not a test (it is not
 collected): a measurement for comparing a change with its parent.
 
     python tests/torch_compare_checkouts.py PATH_A PATH_B
@@ -31,6 +37,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke
 from sailor_tpu_torch.kernels import cuda_lib
+from sailor_tpu_torch.raster import pipeline
 from sailor_tpu_torch.raster import setup as rsetup
 from sailor_tpu_torch.raster import tile_raster as tr
 from sailor_tpu_torch.raytracing import sweep
@@ -88,6 +95,35 @@ for mxu in (False, True):
     kw = dict(tiles_y=tiles_y, tiles_x=tiles_x, chunk=256, mxu=mxu)
     out["raster_stream_mxu_ms" if mxu else "raster_stream_ms"] = device_ms(
         lambda: tr.rasterize_stream_cuda(rows, big, c0, spt, n_big, **kw))
+rows8, big8, _ = tr.build_stream_rows(tri, aabb, order, big_ids, attrs=None, chunk=128)
+w0, nw = tr.dma_windows(starts, counts, 128)
+out["raster_dma_ms"] = device_ms(lambda: tr.rasterize_dma_cuda(
+    rows8, big8, w0, nw, n_big, tiles_y=tiles_y, tiles_x=tiles_x, dchunk=128))
+dtri, daabb = rsetup.triangle_setup(fs.geometry, fs.frame.view_projection, width=w, height=h,
+                                    zplane_rounding="standalone")
+cfg = chip_smoke.SLICE_CONFIG
+passes, _ = rsetup.bin_all(dtri.valid, daabb, tiles_x=tiles_x, tiles_y=tiles_y,
+                           tile_w=tr.TILE_W, tile_h=tr.TILE_H, capacity=cfg["bin_capacity"],
+                           rounds=cfg["bin_rounds"])
+kw = dict(tiles_y=tiles_y, tiles_x=tiles_x)
+names = ["first"] + [f"round{i + 1}" for i in range(1, len(passes) - 1)] + ["big_pass"]
+for clamp in (True, False):
+    box = daabb if clamp else None
+    tag = "" if clamp else ",no_aabb"
+    for pname, (bins, pcounts) in zip(names, passes):
+        ids = bins.reshape(-1).to(torch.int32).contiguous()
+        pc = pcounts.reshape(-1).to(torch.int32).contiguous()
+        if hasattr(tr, "dense_table"):
+            src = tr.dense_table(dtri, box)
+        else:  # the parent's gathered rows and ids
+            src, ids = tr.dense_rows(dtri, bins, box)
+        out[f"raster_dense_ms[{pname}{tag}]"] = device_ms(
+            lambda: tr.rasterize_tiles_cuda(src, ids, pc, **kw))
+        out[f"rasterize_tiles_ms[{pname}{tag}]"] = device_ms(
+            lambda: tr.rasterize_tiles(dtri, bins, counts=pcounts, screen_aabb=box, **kw))
+    merge = lambda: pipeline.raster_merge(dtri, passes, tiles_y, tiles_x, screen_aabb=box)
+    out[f"raster_merge_ms[{'aabb' if clamp else 'no_aabb'}]"] = device_ms(merge)
+    out[f"raster_merge_kernels[{'aabb' if clamp else 'no_aabb'}]"] = kernels(merge)
 out["card"] = chip_smoke._card()
 print(json.dumps(out))
 '''

@@ -1,4 +1,4 @@
-"""B1, B3, B4 and B7 beside variants of themselves on one NVIDIA GPU, on
+"""B1, B3, B4, B7, B8 and B9 beside variants of themselves on one NVIDIA GPU, on
 the flagship frame's own inputs (1920x1088, 1000 point lights, 96 objects)
 and, for B4, on the bench tracer scene's bounce-1 rays (512x512). Each
 variant is the kernel's source under csrc/ with one design choice undone
@@ -15,7 +15,12 @@ B1 variants: R (groups a run) 2 and 8 beside 4; every group's
 rows); three blocks an SM in place of four. B7 (the same kernel over the
 stream windows): R 8, 16 and 32 groups of 32 rows, and for the MXU form R
 2, 4 and 8 groups of 128, each with scratch for every run, beside the
-wrapper (runs of STREAM_RUN_ROWS = 512 rows). B3 variants:
+wrapper (runs of STREAM_RUN_ROWS = 512 rows). B8 (the same kernel over
+each tile's window span) and B9 (over each tile's bin slots, rows read by
+id: every pass of the dense frame, with and without the AABB clamp) at
+their wrappers' run lengths (DMA_RUN_ROWS, DENSE_RUN_ROWS), at half and
+at twice that, each with the wrapper's scratch (R doubles where the split
+tiles' runs do not fit; the R the plan takes is printed). B3 variants:
 torch.clamp's max as three instructions (sailor::clamp_lo) in place of
 one; rsqrtf with its subnormal rescaling; five blocks an SM; __frcp_rn's
 range check on each of a pair's three reciprocals in place of one check
@@ -186,6 +191,8 @@ def main():
                   f"ptxas: {regs} on {card}", flush=True)
     stream_run_lengths(libs[("raster.cu", "as built")][0], scene, targets, tiles_y, tiles_x,
                        card, stream)
+    span_run_lengths(libs[("raster.cu", "as built")][0], scene, targets, tiles_y, tiles_x,
+                     card, stream)
 
     table = pbr_kernel.pack_lights(scene.lights)
     idx = targets["LightIndices"].to(torch.int32).contiguous()
@@ -251,6 +258,69 @@ def stream_run_lengths(lib, scene, targets, tiles_y, tiles_x, card, stream):
             same = bool(torch.equal(depth, d_ref)) and bool(torch.equal(tid, t_ref))
             print(f"{name} [R={groups}, scratch for {slots} runs]: ms={ms:.4f} "
                   f"bit_equal={same} on {card}", flush=True)
+
+
+def span_run_lengths(lib, scene, targets, tiles_y, tiles_x, card, stream):
+    """B8 on the flagship frame's rows (windows of 128) and B9 on each pass
+    of its dense frame (SLICE_CONFIG's capacity and rounds, the dense
+    path's setup), at half, once and twice the wrapper's run length, with
+    the wrapper's scratch, held bit for bit to the wrapper."""
+    from sailor_tpu_torch.raster import setup as rsetup
+
+    ntiles = tiles_y * tiles_x
+    slots = tr.worklist_slots(ntiles)
+    ws = torch.empty(tr._worklist_workspace(ntiles, slots), dtype=torch.int32, device="cuda")
+    kw = dict(tiles_y=tiles_y, tiles_x=tiles_x)
+
+    def lengths(name, ref, starts, counts, n_big, nbig_rows, wrapper_rows, launch):
+        for run_rows in (wrapper_rows // 2, wrapper_rows, 2 * wrapper_rows):
+            depth, tid = torch.empty_like(ref[0]), torch.empty_like(ref[1])
+            groups = run_rows // tr.CHUNK
+            R = chip_smoke.worklist_plan(starts, counts, n_big, nbig_rows, ntiles,
+                                         run_groups=groups)[0]
+            ms = chip_smoke._time_ms(lambda: cuda_lib.check(launch(depth, tid, groups), name),
+                                     50)
+            same = bool(torch.equal(depth, ref[0])) and bool(torch.equal(tid, ref[1]))
+            print(f"{name} [{run_rows} rows a run, R={R}]: ms={ms:.4f} bit_equal={same} "
+                  f"walked_rows={int(counts.sum())} on {card}", flush=True)
+
+    tri, aabb = targets["TriSetup"], targets["TriAABB"]
+    order, starts, counts, big_ids, n_big, _ = rsetup.bin_sorted(
+        tri.valid, aabb, tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tr.TILE_W, tile_h=tr.TILE_H)
+    rows, big, _ = tr.build_stream_rows(tri, aabb, order, big_ids, attrs=None, chunk=128)
+    w0, nw = tr.dma_windows(starts, counts, 128)
+    n_big = n_big.to(torch.int32).reshape(())
+    s8, c8 = w0 * 128, nw * 128
+    lengths("raster_dma", tr.rasterize_dma_cuda(rows, big, w0, nw, n_big, **kw, dchunk=128),
+            s8, c8, n_big, big.shape[0], tr.DMA_RUN_ROWS,
+            lambda depth, tid, groups: lib.sailor_raster_worklist(
+                rows.data_ptr(), rows.shape[1], big.data_ptr(), big.shape[0], n_big.data_ptr(),
+                s8.data_ptr(), c8.data_ptr(), None, None, depth.data_ptr(), tid.data_ptr(),
+                tiles_y, tiles_x, groups, slots, ws.data_ptr(), stream))
+
+    width, height = tiles_x * tr.TILE_W, tiles_y * tr.TILE_H
+    dtri, daabb = rsetup.triangle_setup(scene.geometry, scene.frame.view_projection,
+                                        width=width, height=height,
+                                        zplane_rounding="standalone")
+    passes, _ = rsetup.bin_all(dtri.valid, daabb, tiles_x=tiles_x, tiles_y=tiles_y,
+                               tile_w=tr.TILE_W, tile_h=tr.TILE_H,
+                               capacity=chip_smoke.SLICE_CONFIG["bin_capacity"],
+                               rounds=chip_smoke.SLICE_CONFIG["bin_rounds"])
+    names = ["first"] + [f"round{i + 1}" for i in range(1, len(passes) - 1)] + ["big_pass"]
+    none = torch.zeros((), dtype=torch.int32, device="cuda")
+    for clamp in (True, False):
+        table = tr.dense_table(dtri, daabb if clamp else None)
+        for pname, (bins, pcounts) in zip(names, passes):
+            ids = bins.reshape(-1).to(torch.int32).contiguous()
+            pcounts = pcounts.reshape(-1).to(torch.int32).contiguous()
+            s9 = chip_smoke.dense_starts(ids, ntiles)
+            lengths(f"raster_dense[{pname}{'' if clamp else ',no_aabb'}]",
+                    tr.rasterize_tiles_cuda(table, ids, pcounts, **kw), s9, pcounts, none,
+                    0, tr.DENSE_RUN_ROWS,
+                    lambda depth, tid, groups: lib.sailor_raster_dense(
+                        table.data_ptr(), table.shape[1], ids.data_ptr(), s9.data_ptr(),
+                        pcounts.data_ptr(), None, None, depth.data_ptr(), tid.data_ptr(),
+                        tiles_y, tiles_x, groups, slots, ws.data_ptr(), stream))
 
 
 def slab_variants(libs, card, stream):
