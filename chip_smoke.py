@@ -39,6 +39,21 @@ Phases, each printed as it ends:
      frame on the CPU path, in every raster configuration;
   6. rasterize: raster.rasterize on the flagship geometry at 1920x1088
      (capacity 1024, 4 rounds), timed, with its stats;
+  6b. shadow kernels: B1 on each of the four sun cascades' inputs
+     (1024x1024, ``cull="none"``, ``clip=False``) bit-equal to its twin,
+     cascade 0 timed with its bound; B3 with the frame's EVSM shadow factor
+     against its twin (relative 1e-5);
+  6c. frame[shadow_hiz]: the flagship scene through the shadowed,
+     HiZ-culled graph (DepthPrepass with the HiZ cull -> LinearizeDepth ->
+     LightCulling -> ShadowPrepass -> DepthHighZ -> RenderScene with the
+     EVSM factor -> EyeAdaptation; ``SHADOW_HIZ_CONFIG``): 1 warm-up (dirty:
+     B1 5 times) + 5 cached frames (B1 once), launches checked per frame,
+     HiZCulledCount of each, frame 2 against frame 1 (maps bit-equal; Depth
+     and TriId equal but where frame 1's winner was culled, which the
+     reference's cull does too; Main equal outside those pixels' light
+     tiles), 3 frames made dirty again, per-node ms of a cached and a
+     dirty frame, peak memory and a profiled cached frame; later a 256x128
+     shadowed frame on the card is held against the CPU path;
   7. tracer kernels: the sweep intersector's kernels (B4 slab entry with
      the visit tables, B5 cluster sweep and B6 dense-grid sweep, closest
      and any hit) against their plain versions on the path tracer's own
@@ -93,6 +108,15 @@ SLICE_CONFIG = {
 }
 MINIMAL_GRAPH = ["DepthPrepass", "LinearizeDepth", "LightCulling",
                  "RenderScene", "EyeAdaptation"]
+# the shadowed, HiZ-culled frame: bench.py's flagship config with the
+# reference's defaults for HiZ culling, the CSM cache and the cascades, and
+# DefaultRenderer.renderer's node order without the nodes not yet ported
+SHADOW_HIZ_CONFIG = dict(
+    SLICE_CONFIG, hiz_culling=True, csm_cache=True, shadow_resolution=1024,
+    shadow_bin_capacity=512, shadow_stride=4)
+SHADOW_HIZ_GRAPH = ["DepthPrepass", "LinearizeDepth", "LightCulling", "ShadowPrepass",
+                    "DepthHighZ", "RenderScene", "EyeAdaptation"]
+SHADOW_HIZ_VALUES = {"Shadow.EvsmBlurRadius": 4}
 TRACER = (512, 512, 4, 16)  # width, height, bounces, spp
 TRACER_SPP_CUT = 4  # spp of the grid-sweep and material-ball renders
 # H100 SXM published peaks (NVIDIA data sheet), used for the bound
@@ -1131,6 +1155,253 @@ def check_small_frame(change=None):
     check(same >= 0.999 and close >= 0.999, "card frame disagrees with the CPU path")
 
 
+def cascade_inputs(scene, cascade: int, config=SHADOW_HIZ_CONFIG):
+    """B1's inputs for one sun cascade, made as ShadowPrepass makes them
+    (``triangle_setup(cull="none", clip=False)`` at ``shadow_resolution``,
+    the ragged bins, the row table): (rows, big_rows, starts, counts, n_big,
+    tiles_y, tiles_x)."""
+    from sailor_tpu_torch.framegraph import nodes
+    from sailor_tpu_torch.raster import setup as rsetup
+    from sailor_tpu_torch.raster import tile_raster as tr
+
+    s = int(config["shadow_resolution"])
+    tiles_y, tiles_x = -(-s // tr.TILE_H), -(-s // tr.TILE_W)
+    mat = nodes.light_matrices(scene, config)[cascade]
+    tri, aabb = rsetup.triangle_setup(scene.geometry, mat, width=s, height=s, cull="none",
+                                      clip=False)
+    order, starts, counts, big_ids, n_big, _ = rsetup.bin_sorted(
+        tri.valid, aabb, tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tr.TILE_W, tile_h=tr.TILE_H)
+    rows, big, _ = tr.build_stream_rows(tri, aabb, order, big_ids, chunk=128)
+    return rows, big, starts, counts, n_big, tiles_y, tiles_x
+
+
+def evsm_shadow_factor(scene, width, height, gbuffer):
+    """The sun's EVSM shadow factor of the shadowed frame on ``gbuffer``,
+    as its ShadowPrepass and RenderScene compute it (no CSM cache)."""
+    from sailor_tpu_torch.framegraph import nodes
+    from sailor_tpu_torch.framegraph.graph import RenderContext
+
+    ctx = RenderContext(width=width, height=height, scene=scene, state={},
+                        values=dict(SHADOW_HIZ_VALUES), config=dict(SHADOW_HIZ_CONFIG))
+    targets = nodes.ShadowPrepassNode().process(ctx, {})
+    return nodes.RenderSceneNode._shadow(ctx, targets, gbuffer)
+
+
+def check_shadow_kernels(scene, width, height, card):
+    """B1 on each sun cascade's inputs against its twin (bit-equal; cascade
+    0 timed, with its bound by the frame's rule), and B3 with the frame's
+    EVSM shadow factor against its twin (relative 1e-5, check_spot_shadow's
+    bar)."""
+    import torch
+
+    from sailor_tpu_torch.kernels import pbr_kernel
+    from sailor_tpu_torch.raster import tile_raster as tr
+
+    s = SHADOW_HIZ_CONFIG["shadow_resolution"]
+    for c in range(4):
+        rows, big, starts, counts, n_big, tiles_y, tiles_x = cascade_inputs(scene, c)
+        args = (rows, big, starts, counts, n_big)
+        kw = dict(tiles_y=tiles_y, tiles_x=tiles_x, chunk=128)
+        d_k, t_k = tr.rasterize_worklist_cuda(*args, **kw)
+        plain_ms, (d_p, t_p) = _wall_ms(lambda: tr.rasterize_worklist_plain(*args, **kw))
+        same = bool(torch.equal(d_k, d_p)) and bool(torch.equal(t_k, t_p))
+        line = (f"kernel raster_worklist[cascade {c}]: bit_equal={same} "
+                f"covered={int((t_k >= 0).sum())} of {s * s} plain_ms={plain_ms:.1f}")
+        if c == 0:
+            ms = _time_ms(lambda: tr.rasterize_worklist_cuda(*args, **kw), 20)
+            cand, pairs = raster_work(rows, big, starts, counts, n_big, tiles_y, tiles_x)
+            npix = tiles_y * tr.TILE_H * tiles_x * tr.TILE_W
+            bound, by = _bound(cand * 17 * 4 + counts.numel() * 8 + npix * 8, pairs * 16)
+            line += (f" ms={ms:.4f} bound_ms={bound:.5f} ({by}) candidates={cand} "
+                     f"pairs={pairs} rows={rows.shape[0]} big={int(n_big)}")
+        print(line + f" at {s}x{s} on {card}")
+        check(same, f"raster kernel disagrees with its plain version on cascade {c}")
+
+    sb, targets, _, gb, *_ = frame_inputs(scene, width, height)
+    shadow = evsm_shadow_factor(scene, width, height, gb)
+    table = pbr_kernel.pack_lights(scene.lights)
+    args = (table, targets["LightIndices"].to(torch.int32).contiguous(),
+            targets["LightCounts"].to(torch.int32).contiguous(), gb.albedo.contiguous(),
+            gb.metallic.contiguous(), gb.roughness.contiguous(), gb.normal.contiguous(),
+            gb.world_position.contiguous(), shadow.contiguous(),
+            scene.frame.camera_position.to(torch.float32).contiguous())
+    got = pbr_kernel.shade_tiles_cuda(*args)
+    ref = pbr_kernel.shade_tiles_plain(*args)
+    rel = ((got - ref).abs() / ref.abs().clamp(min=1e-3)).max().item()
+    cov = gb.coverage > 0
+    print(f"kernel shade_forward_plus[evsm_shadow]: max_rel_err={rel:.3g} "
+          f"below_0.9_share={(shadow[cov] < 0.9).float().mean().item():.4f} "
+          f"below_0.5_share={(shadow[cov] < 0.5).float().mean().item():.4f} "
+          f"factor_mean={shadow[cov].mean().item():.4f} on {card}")
+    check(rel <= 1e-5, "shade kernel disagrees with its plain version (EVSM shadow)")
+    check(bool((shadow[cov] < 0.9).any()), "the EVSM factor shadows no pixel")
+
+
+def _shadow_hiz_graph(width, height, device="cuda", config=None):
+    from sailor_tpu_torch.framegraph import FrameGraph, FrameGraphAsset
+
+    return FrameGraph(FrameGraphAsset.from_nodes(SHADOW_HIZ_GRAPH, SHADOW_HIZ_VALUES),
+                      width, height, dict(config or SHADOW_HIZ_CONFIG), device=device)
+
+
+def hiz_culled_ids(targets, prev_state, width, height):
+    """The raster triangles a frame's DepthPrepass culled: its setup
+    ("TriSetup", "TriAABB") tested against the pyramid of ``prev_state``,
+    as the node tests it."""
+    from sailor_tpu_torch.raster import hiz_cull
+
+    tri, aabb = targets["TriSetup"], targets["TriAABB"]
+    mips = [prev_state[k] for k in sorted(prev_state) if k.startswith("hiz/mip")]
+    flat, offsets, shapes = hiz_cull.build_flat_pyramid(mips)
+    kept = hiz_cull.occlusion_cull(tri.valid, aabb, tri.zmax, flat, offsets=offsets,
+                                   shapes=shapes, base_w=width, base_h=height)
+    return tri.valid & ~kept
+
+
+def compare_culled_frame(first, second, culled, card):
+    """Frame 2 (culled against frame 1's pyramid, maps from the CSM cache)
+    against frame 1 with the static camera: ShadowMaps and EvsmMaps equal
+    bit for bit (the cache), and Depth and TriId equal except at pixels
+    whose frame-1 winner frame 2 culled. The reference's cull drops such
+    visible triangles too: the raster accepts pixel centres up to 0.05 px
+    outside a triangle's edges, where its depth plane passes the vertex
+    maximum ``zmax`` the cull compares, so the pyramid can hold a
+    triangle's own depth above its zmax. Main may differ only in the light
+    tiles (16x16) that hold such a pixel and their neighbours (the shadow
+    factor is pooled over 4x4 blocks and upsampled bilinearly across
+    them)."""
+    import torch
+
+    for k in ("ShadowMaps", "EvsmMaps"):
+        check(bool(torch.equal(second[k], first[k])), f"the CSM cache changed {k}")
+    moved = (second["Depth"] != first["Depth"]) | (second["TriId"] != first["TriId"])
+    winners = first["TriId"][moved]
+    explained = bool(culled[winners.clamp(min=0).long()].all()) and bool((winners >= 0).all())
+    t = 16
+    hp, wp = -(-moved.shape[0] // t) * t, -(-moved.shape[1] // t) * t
+    tiles = torch.nn.functional.pad(moved, (0, wp - moved.shape[1], 0, hp - moved.shape[0]))
+    tiles = tiles.reshape(hp // t, t, wp // t, t).any(3).any(1)
+    tiles = torch.nn.functional.max_pool2d(tiles[None].float(), 3, 1, 1)[0] > 0
+    near = tiles.repeat_interleave(t, 0).repeat_interleave(t, 1)[:moved.shape[0], :moved.shape[1]]
+    main_moved = (second["Main"] != first["Main"]).any(-1)
+    print(f"frame[shadow_hiz] frame 2 vs frame 1: maps_bit_equal=True depth_or_tid_moved_px="
+          f"{int(moved.sum())} all_at_culled_winners={explained} "
+          f"culled_visible_triangles={int(torch.unique(winners).numel())} "
+          f"main_moved_px={int(main_moved.sum())} main_moved_outside_their_tile_blocks="
+          f"{int((main_moved & ~near).sum())} on {card}")
+    check(explained, "frame 2's Depth or TriId moved at a pixel whose winner was not culled")
+    check(not bool((main_moved & ~near).any()),
+          "frame 2's Main moved away from the light tiles of the culled winners")
+
+
+def run_shadow_hiz_frames(scene, width, height, card):
+    """frame[shadow_hiz]: the shadowed, HiZ-culled flagship frame, 1 warm-up
+    + 5 frames with the state threaded through, launches counted per frame.
+    Frame 1 (the warm-up) renders the cascades (dirty: B1 5 times); frames
+    2-6 take them from the CSM cache (B1 once) and cull against the
+    previous frame's pyramid; with the static camera frame 2 is held to
+    frame 1 (``compare_culled_frame``). Then 3 frames made dirty by
+    resetting the cache key, per-node ms of a cached and a dirty frame, and
+    one profiled cached frame. Returns the launches of frames 1-6."""
+    import torch
+
+    from sailor_tpu_torch.kernels import cuda_lib
+
+    fg = _shadow_hiz_graph(width, height)
+    state = fg.initial_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, per_frame, culled, keep = [], [], [], []
+    total = {}
+    for i in range(6):
+        prev = state
+        cuda_lib.LAUNCHES.clear()
+        ms, (targets, state) = _wall_ms(lambda: fg.process(scene, state))
+        launches = dict(cuda_lib.LAUNCHES)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        times.append(ms)
+        per_frame.append(launches)
+        culled.append(int(targets["HiZCulledCount"]))
+        if i < 2:
+            keep.append({k: targets[k].clone() for k in
+                         ("Depth", "TriId", "Main", "ShadowMaps", "EvsmMaps")})
+        if i == 1:
+            culled_ids = hiz_culled_ids(targets, prev, width, height)
+            check(int(culled_ids.sum()) == culled[1], "the recomputed cull differs from the node's")
+    peak = torch.cuda.max_memory_allocated()
+    for i, launches in enumerate(per_frame):
+        for name in ("raster_worklist", "resolve_worklist", "shade_forward_plus"):
+            want = 5 if (i == 0 and name == "raster_worklist") else 1
+            check(launches.get(name, 0) == want,
+                  f"frame {i + 1} launched {name} {launches.get(name, 0)} times, not {want}")
+    check(culled[0] == 0, "the zero pyramid culled triangles")
+    compare_culled_frame(keep[0], keep[1], culled_ids, card)
+
+    dirty_ms = []
+    for _ in range(3):
+        dirty = dict(state, **{"csm/key": torch.full_like(state["csm/key"], -1e30)})
+        cuda_lib.LAUNCHES.clear()
+        ms, (targets, _) = _wall_ms(lambda: fg.process(scene, dirty))
+        dirty_ms.append(ms)
+        check(cuda_lib.LAUNCHES.get("raster_worklist", 0) == 5, "a dirty frame skipped a cascade")
+    _, _, per_node = fg.process_debug(scene, state)
+    dirty = dict(state, **{"csm/key": torch.full_like(state["csm/key"], -1e30)})
+    _, _, per_node_dirty = fg.process_debug(scene, dirty)
+    profile(lambda: fg.process(scene, state), card, "profile_shadow_hiz")
+    mean = sum(times[1:]) / 5
+    print(f"frame[shadow_hiz] {width}x{height}: dirty_frame1_ms={times[0]:.3f} "
+          f"cached_frame_ms={[round(m, 3) for m in times[1:]]} cached_mean_ms={mean:.3f} "
+          f"dirty_again_ms={[round(m, 3) for m in dirty_ms]} peak_mem_bytes={peak} "
+          f"hiz_culled={culled} on {card}")
+    print("frame[shadow_hiz] per_node_ms_cached "
+          + json.dumps({k: round(v, 3) for k, v in per_node.items()}))
+    print("frame[shadow_hiz] per_node_ms_dirty "
+          + json.dumps({k: round(v, 3) for k, v in per_node_dirty.items()}))
+    print("frame[shadow_hiz] launches_per_frame " + json.dumps(per_frame))
+    final = targets["Final"]
+    cov = (targets["TriId"] >= 0).float().mean().item()
+    check(bool(torch.isfinite(final).all()) and final.min().item() >= 0.0
+          and final.max().item() <= 1.0, "frame[shadow_hiz]: Final is not finite in [0, 1]")
+    check(cov > 0.0, "frame[shadow_hiz]: nothing was rasterized")
+    print(f"frame[shadow_hiz] output: coverage={cov:.4f} "
+          f"shadow_maps_covered={(targets['ShadowMaps'] > 0).float().mean().item():.4f}")
+    return total
+
+
+def check_small_shadow_frame():
+    """A 256x128 shadowed, culled frame (shadow_resolution 128), two frames,
+    on the card against the same frames on the CPU path (which the CPU
+    tests hold to the JAX package): ShadowMaps, Depth and TriId equal on
+    >= 99.9% of texels and pixels, Main within 1e-4 relative on >= 99.5% of
+    pixels, Final within 2/255 on >= 99.9%; HiZCulledCount printed."""
+    import torch
+
+    from sailor_tpu_torch.scenes import flagship_scene
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        scene = flagship_scene(256, 128, 24, 10, device=dev)
+        fg = _shadow_hiz_graph(256, 128, dev, dict(SHADOW_HIZ_CONFIG, shadow_resolution=128))
+        state = fg.initial_state()
+        out[dev] = []
+        for _ in range(2):
+            t, state = fg.process(scene, state)
+            out[dev].append({k: t[k].cpu() for k in ("ShadowMaps", "Depth", "TriId", "Main",
+                                                     "Final", "HiZCulledCount")})
+    for i, (g, r) in enumerate(zip(out["cuda"], out["cpu"])):
+        eq = {k: (g[k] == r[k]).float().mean().item() for k in ("ShadowMaps", "Depth", "TriId")}
+        rel = ((g["Main"] - r["Main"]).abs() / r["Main"].abs().clamp(min=1e-3)).amax(-1)
+        main = (rel <= 1e-4).float().mean().item()
+        final = ((g["Final"] - r["Final"]).abs().amax(-1) <= 2 / 255).float().mean().item()
+        print(f"small frame[shadow_hiz] {i + 1} card vs cpu: "
+              + " ".join(f"{k}_equal={v:.5f}" for k, v in eq.items())
+              + f" main_within_1e-4={main:.5f} final_within_2/255={final:.5f} "
+              f"hiz_culled={int(g['HiZCulledCount'])}/{int(r['HiZCulledCount'])}")
+        check(min(eq.values()) >= 0.999 and main >= 0.995 and final >= 0.999,
+              "card shadow frame disagrees with the CPU path")
+
+
 def tracer_passes(scene, cam, view, proj, width, height, seed=0):
     """Every intersector pass of one sample of the tracer at width x height
     with two bounces: [bounce-0 camera rays, their shadow rays, bounce-1
@@ -1643,6 +1914,10 @@ def main() -> int:
     config_launches = run_raster_configs(scene, width, height, card)
     run_rasterize(scene, width, height, card)
     launches = run_frames(scene, width, height, card)  # profiles last: later frames run slower
+    check_shadow_kernels(scene, width, height, card)
+    shadow_launches = run_shadow_hiz_frames(scene, width, height, card)
+    for name in ("raster_worklist", "resolve_worklist", "shade_forward_plus"):
+        check(shadow_launches.get(name, 0) > 0, f"{name} was not launched on the shadow path")
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)
     for k in variants:
@@ -1654,6 +1929,7 @@ def main() -> int:
     check_small_frame()
     for change in RASTER_CONFIGS.values():
         check_small_frame(change)
+    check_small_shadow_frame()
     del scene
     tracer_kernels = check_tracer_kernels(card)
     launches = run_tracer(card)

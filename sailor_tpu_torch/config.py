@@ -12,6 +12,13 @@ import torch
 LIGHTS_CULLING_TILE_SIZE = 16
 #: Max lights shaded per tile (LIGHTS_PER_TILE).
 LIGHTS_PER_TILE = 128
+#: Number of cascaded-shadow-map cascades (NUM_CSM_CASCADES).
+NUM_CSM_CASCADES = 4
+#: Cascade split fractions of zFar (Constants.glsl ShadowCascadeLevels).
+SHADOW_CASCADE_LEVELS = (0.05, 0.1, 0.333333, 0.5)
+#: EVSM exponents (Lighting.glsl EVSM_C1/C2).
+EVSM_C1 = 40.0
+EVSM_C2 = 40.0
 #: Luminance weights used across histogram/tonemap passes (RTR vol4 pg. 278).
 RGB_TO_LUM = (0.2125, 0.7154, 0.0721)
 

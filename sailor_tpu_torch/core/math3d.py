@@ -135,6 +135,26 @@ def perspective(fov_y_rad: float, aspect: float, z_near: float, z_far: float,
     return m.to(device) if device is not None else m
 
 
+def ortho(left, right, bottom, top, z_near, z_far, reverse_z: bool = False):
+    """Vulkan-style orthographic projection, depth in [0, 1]; the bounds
+    are 0-d float32 tensors (or floats) on the matrix's device."""
+    left, right, bottom, top, z_near, z_far = (
+        torch.as_tensor(v, dtype=torch.float32) for v in (left, right, bottom, top, z_near, z_far))
+    m = torch.zeros(4, 4, dtype=torch.float32, device=left.device)
+    m[0, 0] = 2.0 / (right - left)
+    m[1, 1] = 2.0 / (top - bottom)
+    m[0, 3] = -(right + left) / (right - left)
+    m[1, 3] = -(top + bottom) / (top - bottom)
+    if reverse_z:
+        m[2, 2] = 1.0 / (z_far - z_near)
+        m[2, 3] = z_far / (z_far - z_near)
+    else:
+        m[2, 2] = -1.0 / (z_far - z_near)
+        m[2, 3] = -z_near / (z_far - z_near)
+    m[3, 3] = 1.0
+    return m
+
+
 def inverse(m):
     """The float32 inverse of a (4, 4) matrix as the reference's
     ``jnp.linalg.inv`` computes it on a CPU: LAPACK's LU factorisation with

@@ -16,16 +16,17 @@ from typing import Any
 
 import torch
 
+from sailor_tpu_torch import config as cfg
 from sailor_tpu_torch.config import resolve_device
+from sailor_tpu_torch.kernels import sampling
 from sailor_tpu_torch.rhi.types import RenderTargets, TargetSpec
 
 _NODE_REGISTRY: dict[str, type] = {}
 
 # nodes of the JAX package's registry that this port does not have yet
 UNPORTED_NODES = (
-    "Clear", "ShadowPrepass", "Sky", "Environment", "PostProcess",
-    "RenderTransparent", "Bloom", "Blit", "DepthHighZ", "DebugDraw",
-    "RenderOverlay", "CopyTextureToRam", "Particles",
+    "Clear", "Sky", "Environment", "PostProcess", "RenderTransparent", "Bloom",
+    "Blit", "DebugDraw", "RenderOverlay", "CopyTextureToRam", "Particles",
 )
 
 
@@ -84,6 +85,10 @@ class RenderContext:
     def fh(self) -> int:
         return self.full_height if self.full_height is not None else self.height
 
+    def upsample(self, src, dst_hw):
+        """Integer-factor bilinear upsample (``sampling.upsample_bilinear_pow2``)."""
+        return sampling.upsample_bilinear_pow2(src, dst_hw)
+
 
 @dataclasses.dataclass
 class FrameGraphAsset:
@@ -130,8 +135,6 @@ def _check_config(config: dict, names: list[str]) -> None:
     """Raise on configuration this port does not implement yet, instead of
     silently rendering something else."""
     unsupported = []
-    if "DepthPrepass" in names and config.get("hiz_culling", True):
-        unsupported.append("hiz_culling=True (needs the DepthHighZ node)")
     if config.get("tonemap", "aces") != "aces":
         unsupported.append(f"tonemap={config['tonemap']!r}")
     if unsupported:
@@ -174,8 +177,30 @@ class FrameGraph:
                              config=self.config)
 
     def initial_state(self) -> dict:
-        return {"avg_luminance": torch.tensor(0.18, dtype=torch.float32,
-                                              device=self.device)}
+        """Exposure 0.18; with the CSM cache and a ShadowPrepass node, zero
+        maps and moments and a key of -1e30 (the first frame is dirty); with
+        HiZ culling, a zero pyramid (reverse-Z 0 culls nothing) of the
+        shapes DepthHighZ publishes: the culling levels ``mips[2:]`` of its
+        ``levels`` (default 8)."""
+        f32 = dict(dtype=torch.float32, device=self.device)
+        state = {"avg_luminance": torch.tensor(0.18, **f32)}
+        names = [n.node_name for n in self.nodes]
+        if self.config.get("csm_cache", True) and "ShadowPrepass" in names:
+            s = int(self.config.get("shadow_resolution", 1024))
+            c = cfg.NUM_CSM_CASCADES
+            state["csm/maps"] = torch.zeros(c, s, s, **f32)
+            state["csm/evsm"] = torch.zeros(c, s, s, 4, **f32)
+            state["csm/key"] = torch.full((c * 16 + 3,), -1e30, **f32)
+        if self.config.get("hiz_culling", True):
+            levels = 8
+            for n in self.nodes:
+                if n.node_name == "DepthHighZ":
+                    levels = int(n.p("levels", 8))
+            mips = sampling.build_min_pyramid(
+                torch.zeros(self.height, self.width, **f32), levels)
+            for i, m in enumerate(mips[2:]):
+                state[f"hiz/mip{i}"] = m
+        return state
 
     def prepare(self, scene, state) -> None:
         """Host-side node prep; call once per frame before process."""

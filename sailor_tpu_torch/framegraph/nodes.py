@@ -1,11 +1,15 @@
-"""Frame-graph nodes of the visibility Forward+ slice (counterpart of
-sailor_tpu/framegraph/nodes.py): DepthPrepass, LinearizeDepth,
-LightCulling, RenderScene and EyeAdaptation.
+"""Frame-graph nodes of the shadowed, HiZ-culled visibility Forward+ frame
+(counterpart of sailor_tpu/framegraph/nodes.py): DepthPrepass (with the
+HiZ cull), LinearizeDepth, LightCulling, ShadowPrepass, DepthHighZ,
+RenderScene and EyeAdaptation.
 
 Data flows through the ``targets`` dict: "Depth", "TriId", "TriSetup",
-"BinOverflow", "StreamBins" (the raster's bin windows, consumed by
-RenderScene's fused resolve), "LinearDepth", "LightIndices"/"LightCounts",
-"Main", "Final", and temporal state via "state_out" (avg luminance).
+"BinOverflow", "HiZCulledCount", "StreamBins" (the raster's bin windows,
+consumed by RenderScene's fused resolve), "LinearDepth",
+"LightIndices"/"LightCounts", "ShadowMaps", "LightMatrices", "EvsmMaps",
+"EvsmMap", "HiZ/mip1".."HiZ/mip4", "Main", "Final", and temporal state via
+"state_out" (avg luminance, the CSM cache "csm/*", the HiZ pyramid
+"hiz/mip*").
 """
 
 from __future__ import annotations
@@ -15,12 +19,14 @@ import torch
 from sailor_tpu_torch import config as cfg
 from sailor_tpu_torch.core import math3d as m3
 from sailor_tpu_torch.framegraph.graph import BaseNode, node
+from sailor_tpu_torch.kernels import blur as blur_k
 from sailor_tpu_torch.kernels import histogram as hist_k
-from sailor_tpu_torch.kernels import light_culling, pbr, pbr_kernel
+from sailor_tpu_torch.kernels import light_culling, pbr, pbr_kernel, sampling
 from sailor_tpu_torch.kernels import postprocess as pp
+from sailor_tpu_torch.kernels import shadow as shadow_k
 from sailor_tpu_torch.kernels import tonemap as tm
 from sailor_tpu_torch.kernels.common import round_up
-from sailor_tpu_torch.raster import interpolate, pipeline
+from sailor_tpu_torch.raster import hiz_cull, interpolate, pipeline
 from sailor_tpu_torch.raster import setup as rsetup
 from sailor_tpu_torch.raster import tile_raster
 
@@ -29,6 +35,17 @@ def inverse_view_projection(frame):
     """inv(projection @ view), the resolve's unprojection matrix, rounded
     as the reference's (``math3d.inverse``)."""
     return m3.inverse(frame.view_projection)
+
+
+def light_matrices(scene, config):
+    """The sun's cascade view-projections (C, 4, 4) on the scene's device,
+    fitted on the host (``shadow.cascade_matrices``: the view and
+    projection are copied back, a synchronise)."""
+    frame = scene.frame
+    mats = shadow_k.cascade_matrices(
+        frame.view.cpu(), frame.projection.cpu(), scene.sky.sun_direction,
+        float(config.get("z_near", 0.1)), float(config.get("z_far", 100.0)))
+    return mats.to(frame.view.device)
 
 
 def _make_raster(tri, valid, aabb, tiles_y, tiles_x, config, *, capacity,
@@ -120,10 +137,13 @@ def _make_raster(tri, valid, aabb, tiles_y, tiles_x, config, *, capacity,
 @node("DepthPrepass")
 class DepthPrepassNode(BaseNode):
     """Visibility raster: depth + triangle id (DepthPrepassNode.cpp), opaque
-    queue, through the configured raster backend (``_make_raster``). On
-    the fused stream path the raster's bin windows and the combined row
-    table are handed on to RenderScene's fused resolve ("StreamBins");
-    otherwise RenderScene gathers from "TriSetup"."""
+    queue, through the configured raster backend (``_make_raster``). With
+    ``hiz_culling`` (the default) and a pyramid in the state, triangles
+    that the previous frame's HiZ pyramid hides are dropped before the
+    raster ("HiZCulledCount"). On the fused stream path the raster's bin
+    windows and the combined row table are handed on to RenderScene's fused
+    resolve ("StreamBins"); otherwise RenderScene gathers from
+    "TriSetup"."""
 
     def process(self, ctx, targets):
         scene = ctx.scene
@@ -137,6 +157,17 @@ class DepthPrepassNode(BaseNode):
         tri, aabb = rsetup.triangle_setup(
             geo, scene.frame.view_projection, width=w, height=ctx.fh, cull="back",
             zplane_rounding="standalone" if dense else "frame")
+        valid = tri.valid
+        state = ctx.state or {}
+        if ctx.config.get("hiz_culling", True) and "hiz/mip0" in state:
+            # the reference's key order: sorted names
+            mips = [state[k] for k in sorted(state) if k.startswith("hiz/mip")]
+            flat, offsets, shapes = hiz_cull.build_flat_pyramid(mips)
+            culled = hiz_cull.occlusion_cull(
+                valid, aabb, tri.zmax, flat, offsets=offsets, shapes=shapes,
+                base_w=w, base_h=ctx.fh)
+            targets["HiZCulledCount"] = (valid & ~culled).sum(dtype=torch.int32)
+            valid = culled
         attrs = None
         if (ctx.config.get("fused_resolve", True)
                 and ctx.config.get("raster_mode", "stream") == "stream"):
@@ -146,7 +177,7 @@ class DepthPrepassNode(BaseNode):
             else:
                 attrs = interpolate.pack_triangle_attributes(geo, tri.src_id)
         raster, overflow, stream_bins = _make_raster(
-            tri, tri.valid, aabb, tiles_y, tiles_x, ctx.config,
+            tri, valid, aabb, tiles_y, tiles_x, ctx.config,
             capacity=capacity, rounds=rounds, attrs=attrs)
         if stream_bins is not None:
             targets["StreamBins"] = [stream_bins]
@@ -189,6 +220,104 @@ class LightCullingNode(BaseNode):
         return targets
 
 
+@node("ShadowPrepass")
+class ShadowPrepassNode(BaseNode):
+    """Cascaded shadow maps with EVSM moments for every cascade
+    (ShadowPrepassNode.cpp). Each cascade rasters the scene's depth through
+    the frame's raster backend (``triangle_setup(cull="none", clip=False)``,
+    ``shadow_bin_capacity`` a tile); the moments of each map are blurred
+    along both axes (``Shadow.EvsmBlurRadius``).
+
+    With ``csm_cache`` (the default) the maps are reused while the cascade
+    matrices and the geometry signature are unchanged since the last frame
+    (LightingECS CSMLightState::Equals): one host read of the dirty flag a
+    frame, a synchronise, decides whether the four rasters run at all."""
+
+    def process(self, ctx, targets):
+        scene = ctx.scene
+        mats = light_matrices(scene, ctx.config)
+        s = int(ctx.config.get("shadow_resolution", 1024))
+        tiles_x = round_up(s, tile_raster.TILE_W) // tile_raster.TILE_W
+        tiles_y = round_up(s, tile_raster.TILE_H) // tile_raster.TILE_H
+        capacity = int(ctx.config.get("shadow_bin_capacity", 512))
+        radius = int(ctx.value("Shadow.EvsmBlurRadius", 4))
+        dense = ctx.config.get("raster_mode", "stream") not in ("stream", "dma")
+
+        def render_all():
+            maps = []
+            for c in range(cfg.NUM_CSM_CASCADES):
+                tri, aabb = rsetup.triangle_setup(
+                    scene.geometry, mats[c], width=s, height=s, cull="none", clip=False,
+                    zplane_rounding="standalone" if dense else "frame")
+                raster, _, _ = _make_raster(tri, tri.valid, aabb, tiles_y, tiles_x,
+                                            ctx.config, capacity=capacity)
+                maps.append(raster()[0][:s, :s])
+            maps = torch.stack(maps)
+            moments = shadow_k.evsm_warp(maps)  # (C, S, S, 4)
+            return maps, blur_k.blur_1d(blur_k.blur_1d(moments, radius, 1), radius, 2)
+
+        state = ctx.state or {}
+        if ctx.config.get("csm_cache", True) and "csm/maps" in state:
+            # the signature changes under any rigid motion of any object:
+            # fixed pseudo-random per-vertex weights catch rotations about
+            # the centroid, which sum(p) and sum(p * p) miss
+            pos = scene.geometry.position
+            widx = torch.arange(pos.shape[0], dtype=torch.float32, device=pos.device)[:, None]
+            phase = torch.arange(3, dtype=torch.float32, device=pos.device)[None, :] * 78.233
+            wgt = torch.sin(widx * 12.9898 + phase)
+            geo_sig = torch.stack([
+                (pos * 0.37331).sum(), (pos * wgt).sum() * 0.11217,
+                torch.tensor(float(scene.geometry.indices.shape[0]), device=pos.device)])
+            key = torch.cat([mats.reshape(-1), geo_sig])
+            if bool(((key - state["csm/key"]).abs() > 0.0).any()):  # the host read
+                maps, moments = render_all()
+            else:
+                maps, moments = state["csm/maps"], state["csm/evsm"]
+            out = targets.setdefault("state_out", {})
+            out["csm/maps"], out["csm/evsm"], out["csm/key"] = maps, moments, key
+        else:
+            maps, moments = render_all()
+        targets["ShadowMaps"] = maps
+        targets["LightMatrices"] = mats
+        targets["EvsmMaps"] = moments
+        targets["EvsmMap"] = moments[0]
+        return targets
+
+
+@node("DepthHighZ")
+class DepthHighZNode(BaseNode):
+    """HiZ min pyramid of the frame's depth (ComputeDepthHighZ.shader):
+    "HiZ/mip1".."HiZ/mip4", and with ``hiz_culling`` the culling levels
+    ``mips[2:]`` (texels of 4 px and up) into the state for the next
+    frame's DepthPrepass. ``levels`` (default 8) must reach coarse texels:
+    a triangle is tested only at a level where it spans at most 2x2
+    texels."""
+
+    def process(self, ctx, targets):
+        mips = sampling.build_min_pyramid(targets["Depth"], int(self.p("levels", 8)))
+        for i, m in enumerate(mips[1:5], 1):
+            targets[f"HiZ/mip{i}"] = m
+        if ctx.config.get("hiz_culling", True):
+            out = targets.setdefault("state_out", {})
+            for i, m in enumerate(mips[2:]):
+                out[f"hiz/mip{i}"] = m
+        return targets
+
+
+def _pool(x, q: int, w):
+    """Coverage-weighted mean of q x q blocks (partial blocks at the far
+    edges dropped): sum(x * w) / max(sum(w), 1e-6)."""
+    h, wd = (x.shape[0] // q) * q, (x.shape[1] // q) * q
+
+    def block_sum(v):
+        v = v[:h, :wd]
+        return v.reshape((h // q, q, wd // q, q) + tuple(v.shape[2:])).sum(dim=(1, 3))
+
+    xs = x * (w if x.ndim == 2 else w[..., None])
+    sw = torch.clamp(block_sum(w), min=1e-6)
+    return block_sum(xs) / (sw if x.ndim == 2 else sw[..., None])
+
+
 @node("RenderScene")
 class RenderSceneNode(BaseNode):
     """Forward+ shading of the visibility buffer (RenderSceneNode.cpp): the
@@ -198,8 +327,8 @@ class RenderSceneNode(BaseNode):
     def process(self, ctx, targets):
         scene = ctx.scene
         state = ctx.state or {}
-        if any(k in targets for k in ("EvsmMaps", "ShadowMaps")) or "env/irradiance" in state:
-            raise NotImplementedError("shadow and IBL inputs are not ported yet")
+        if "env/irradiance" in state:
+            raise NotImplementedError("the IBL input is not ported yet")
         inv_vp = inverse_view_projection(scene.frame)
         if "StreamBins" in targets:
             # fused path: winner rows from the raster's own bin windows;
@@ -218,6 +347,7 @@ class RenderSceneNode(BaseNode):
                 row0=ctx.row0)
         if "AO" in targets:
             gbuffer.ao = targets["AO"]
+        shadow = self._shadow(ctx, targets, gbuffer)
 
         t = cfg.LIGHTS_CULLING_TILE_SIZE
         ph, pw = round_up(ctx.height, t), round_up(ctx.width, t)
@@ -228,20 +358,47 @@ class RenderSceneNode(BaseNode):
                 return torch.nn.functional.pad(x, pad)
 
             gb_p = gbuffer.map(pad2)
+            shadow = pad2(shadow) if shadow is not None else None
         if ctx.config.get("pallas_shading", False):
             hdr = pbr_kernel.shade_forward_plus_kernel(
                 gb_p, scene.lights, targets["LightIndices"],
-                scene.frame.camera_position,
+                scene.frame.camera_position, shadow_factors=shadow,
                 tile_light_counts=targets.get("LightCounts"))
         else:
             hdr = pbr.shade_forward_plus(gb_p, scene.lights, targets["LightIndices"],
-                                         scene.frame.camera_position)
+                                         scene.frame.camera_position,
+                                         shadow_factors=shadow)
         hdr = hdr[:ctx.height, :ctx.width]
         if "Sky" in targets:
             covered = gbuffer.coverage[..., None]
             hdr = hdr * covered + targets["Sky"] * (1.0 - covered)
         targets["Main"] = hdr
         return targets
+
+    @staticmethod
+    def _shadow(ctx, targets, gbuffer):
+        """The sun's CSM factor at 1/``shadow_stride`` resolution from the
+        coverage-weighted pooled position and normal, upsampled to the
+        frame; None without a shadow input. EVSM moments of every cascade
+        when ShadowPrepass gave them, else PCF with EVSM on cascade 0."""
+        if "EvsmMaps" not in targets and "ShadowMaps" not in targets:
+            return None
+        scene = ctx.scene
+        q = int(ctx.config.get("shadow_stride", 4))
+        cov = gbuffer.coverage
+        wpos_q = _pool(gbuffer.world_position, q, cov)
+        n_q = m3.normalize(_pool(gbuffer.normal, q, cov))
+        z_far = float(ctx.config.get("z_far", 100.0))
+        if "EvsmMaps" in targets:
+            shadow_q = shadow_k.csm_shadow_factor_evsm(
+                wpos_q, n_q, scene.frame.view, scene.sky.sun_direction,
+                targets["LightMatrices"], targets["EvsmMaps"], z_far=z_far)
+        else:
+            shadow_q = shadow_k.csm_shadow_factor(
+                wpos_q, n_q, scene.frame.view, scene.sky.sun_direction,
+                targets["LightMatrices"], targets["ShadowMaps"], targets.get("EvsmMap"),
+                z_far=z_far, use_evsm=True)
+        return ctx.upsample(shadow_q, (ctx.height, ctx.width))
 
 
 @node("EyeAdaptation")

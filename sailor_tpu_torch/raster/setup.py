@@ -30,13 +30,14 @@ class Geometry:
 
 @dataclasses.dataclass
 class TriangleSetup:
-    """Per-raster-triangle screen-space data (2 slots per source triangle)."""
+    """Per-raster-triangle screen-space data: R = 2T slots (two per source
+    triangle) with the near clipper, R = T without it."""
 
-    edge: torch.Tensor    # (2T, 3, 3) E_j = A x + B y + C; inside => all >= 0
-    zplane: torch.Tensor  # (2T, 3) reverse-Z depth plane z = A x + B y + C
-    valid: torch.Tensor   # (2T,) bool live (on-screen, front-facing)
-    src_id: torch.Tensor  # (2T,) int32 source triangle index
-    zmax: torch.Tensor    # (2T,) max vertex reverse-Z
+    edge: torch.Tensor    # (R, 3, 3) E_j = A x + B y + C; inside => all >= 0
+    zplane: torch.Tensor  # (R, 3) reverse-Z depth plane z = A x + B y + C
+    valid: torch.Tensor   # (R,) bool live (on-screen, front-facing)
+    src_id: torch.Tensor  # (R,) int32 source triangle index
+    zmax: torch.Tensor    # (R,) max vertex reverse-Z
 
 
 def _edge_coeffs(xa, ya, xb, yb):
@@ -92,7 +93,7 @@ def _near_clip(clip_tri):
 
 
 def triangle_setup(geometry: Geometry, view_projection, *, width: int,
-                   height: int, cull: str = "back",
+                   height: int, cull: str = "back", clip: bool = True,
                    zplane_rounding: str = "frame"):
     """Project triangles to screen space and build raster coefficients.
 
@@ -100,6 +101,11 @@ def triangle_setup(geometry: Geometry, view_projection, *, width: int,
     y down; reverse-Z depth in [0, 1]. Triangles crossing the near plane are
     clipped into up to two sub-triangles. Returns (TriangleSetup,
     (xmin, xmax, ymin, ymax)).
+
+    ``clip=False`` (orthographic projections, where every w is 1, as the
+    shadow cascades') skips the near clipper: one raster slot per source
+    triangle (``src_id`` = arange(T)), live only if all three w exceed the
+    clip epsilon.
 
     ``zplane_rounding``: the reference's CPU build fuses the depth plane's
     three-term sums in an order its fusion picks. Inside the frame graph's
@@ -114,11 +120,15 @@ def triangle_setup(geometry: Geometry, view_projection, *, width: int,
     clip_pos = transform_point_h(view_projection, p)
     tri = geometry.indices.long()
     clip_tri = clip_pos[tri]                          # (T, 3, 4)
-    clipped, clip_valid = _near_clip(clip_tri)
-    t2 = clipped.reshape(-1, 3, 4)
-    src_id = torch.arange(tri.shape[0], dtype=torch.int32,
-                          device=p.device).repeat_interleave(2)
-    tw_ok = clip_valid.reshape(-1)
+    src_id = torch.arange(tri.shape[0], dtype=torch.int32, device=p.device)
+    if clip:
+        clipped, clip_valid = _near_clip(clip_tri)
+        t2 = clipped.reshape(-1, 3, 4)
+        src_id = src_id.repeat_interleave(2)
+        tw_ok = clip_valid.reshape(-1)
+    else:
+        t2 = clip_tri
+        tw_ok = (clip_tri[..., 3] > _EPS_W).all(dim=-1)
 
     w = t2[..., 3]
     inv_w = torch.where(w > 1e-12, 1.0 / w, torch.zeros_like(w))

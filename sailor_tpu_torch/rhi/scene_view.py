@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from sailor_tpu_torch.kernels.lights import Lights
+from sailor_tpu_torch.kernels.sky import SkyParams
 from sailor_tpu_torch.raster.setup import Geometry
 from sailor_tpu_torch.rhi.types import FrameData
 
@@ -25,7 +26,7 @@ class SceneView:
     geometry: Geometry
     lights: Lights
     frame: FrameData
-    sky: Any = None          # the Sky node is not ported yet
+    sky: SkyParams | None = None  # the sun (ShadowPrepass, RenderScene's shadow)
     materials: Any = None    # MaterialTable: not ported yet (raises in the graph)
     attrs_packed: torch.Tensor | None = None  # (T, 37) pack_source_attributes
 
@@ -38,7 +39,8 @@ class SceneView:
             from sailor_tpu_torch.raster.interpolate import pack_source_attributes
 
             attrs_packed = pack_source_attributes(geometry)
-        return cls(geometry=geometry, lights=lights, frame=frame, sky=sky,
+        return cls(geometry=geometry, lights=lights, frame=frame,
+                   sky=sky if sky is not None else SkyParams.default(),
                    materials=materials, attrs_packed=attrs_packed)
 
 
@@ -55,7 +57,9 @@ def scene_from_numpy(arrays: dict[str, np.ndarray], device) -> SceneView:
 
     Keys: ``geometry.<f>`` for f in GEOMETRY_KEYS, ``lights.<f>`` for f in
     LIGHT_KEYS, ``frame.<f>`` for f in FRAME_KEYS and, optionally,
-    ``attrs_packed`` (T, 37); without it the table is packed here."""
+    ``attrs_packed`` (T, 37), without which the table is packed here, and
+    ``sky.sun_direction`` (3,), taken as given (already normalised) into
+    the default sky."""
     def t(key):
         return torch.from_numpy(np.array(arrays[key])).to(device)
 
@@ -64,4 +68,8 @@ def scene_from_numpy(arrays: dict[str, np.ndarray], device) -> SceneView:
                     num=int(arrays["lights.num"]))
     frame = FrameData(**{f: t(f"frame.{f}") for f in FRAME_KEYS})
     packed = t("attrs_packed") if "attrs_packed" in arrays else None
-    return SceneView.create(geo, lights, frame, attrs_packed=packed)
+    sky = SkyParams.default()
+    if "sky.sun_direction" in arrays:
+        sky = dataclasses.replace(
+            sky, sun_direction=np.array(arrays["sky.sun_direction"], np.float32))
+    return SceneView.create(geo, lights, frame, sky=sky, attrs_packed=packed)

@@ -25,6 +25,7 @@ from sailor_tpu_torch.assets import primitives
 from sailor_tpu_torch.config import resolve_device
 from sailor_tpu_torch.core import math3d as m3
 from sailor_tpu_torch.kernels.lights import DIRECTIONAL, POINT, Lights
+from sailor_tpu_torch.kernels.sky import SkyParams
 from sailor_tpu_torch.raster.setup import Geometry
 from sailor_tpu_torch.raytracing import path_tracer
 from sailor_tpu_torch.rhi.scene_view import SceneView
@@ -71,7 +72,8 @@ def flagship_scene(width: int, height: int, num_lights: int, num_objects: int,
                       torch.tensor([0.0, 1.0, 0.0], **f32))
     proj = m3.perspective(math.pi / 3, width / height, 0.1, 150.0, device=dev)
     frame = FrameData.create(view, proj, cam, 0.1, 150.0, dt=1 / 60)
-    return SceneView.create(geo, lights, frame)
+    sky = SkyParams.default(sun_direction=(-0.35, -0.7, -0.3))
+    return SceneView.create(geo, lights, frame, sky=sky)
 
 
 def tracer_soup(rings: int = 24, sectors: int = 48, spheres: int = 8) -> dict:

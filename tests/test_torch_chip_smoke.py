@@ -21,6 +21,11 @@ slots, rows read by id, the AABB open with 12 columns) to
 ``rasterize_tiles_plain`` on ``bin_all``'s first and big-triangle passes,
 with and without the clamp; a dead slot reads no table row.
 
+``chip_smoke.cascade_inputs`` and ``evsm_shadow_factor`` make the card's
+shadow checks' inputs; here B1's twin on each cascade's inputs is held to
+the shadowed frame's own ShadowMaps, and the factor to the one its
+RenderScene shades with (256x128, 128x128 maps, exact).
+
 ``sweep.sweep_plain``'s ``work`` counts the (sub-block, step) pairs B5's
 walk takes and the (ray, triangle) tests of rays live at their step; here
 they, and the walk's t and ids, are held exactly to a numpy walk of one
@@ -358,3 +363,43 @@ def test_dense_dead_slot_reads_no_table_row(dense_frame, raster):
     fn = tr.rasterize_tiles_plain if raster == "twin" else chip_smoke.dense_runs
     want = fn(table, ids, counts, **kw)
     _same_raster(fn(torch.cat([table, poison]), ids, counts, **kw), want)
+
+
+
+@pytest.fixture(scope="module")
+def shadow_frame():
+    """The shadowed frame at 256x128 (128x128 maps), with the factor its
+    RenderScene shaded with and the G-buffer it came from."""
+    from sailor_tpu_torch.framegraph import FrameGraph, FrameGraphAsset, nodes
+
+    config = dict(chip_smoke.SHADOW_HIZ_CONFIG, shadow_resolution=128)
+    scene = flagship_scene(W, H, 24, 10, device="cpu")
+    fg = FrameGraph(FrameGraphAsset.from_nodes(chip_smoke.SHADOW_HIZ_GRAPH,
+                                               chip_smoke.SHADOW_HIZ_VALUES),
+                    W, H, config, device="cpu")
+    shadows = []
+    real = nodes.RenderSceneNode._shadow
+    mp = pytest.MonkeyPatch()
+    mp.setattr(nodes.RenderSceneNode, "_shadow", staticmethod(
+        lambda ctx, targets, gb: shadows.append((real(ctx, targets, gb), gb)) or shadows[-1][0]))
+    try:
+        targets, _ = fg.process(scene, fg.initial_state())
+    finally:
+        mp.undo()
+    return scene, config, targets, shadows[0]
+
+
+@pytest.mark.parametrize("cascade", [0, 1, 2, 3])
+def test_cascade_inputs_are_the_shadow_frames(shadow_frame, cascade):
+    scene, config, targets, _ = shadow_frame
+    rows, big, starts, counts, n_big, tiles_y, tiles_x = chip_smoke.cascade_inputs(
+        scene, cascade, config)
+    d, _ = tr.rasterize_worklist_plain(rows, big, starts, counts, n_big, tiles_y=tiles_y,
+                                       tiles_x=tiles_x)
+    assert torch.equal(d[:128, :128], targets["ShadowMaps"][cascade])
+
+
+def test_evsm_shadow_factor_is_the_shadow_frames(shadow_frame, monkeypatch):
+    scene, config, _, (factor, gb) = shadow_frame
+    monkeypatch.setattr(chip_smoke, "SHADOW_HIZ_CONFIG", config)
+    assert torch.equal(chip_smoke.evsm_shadow_factor(scene, W, H, gb), factor)

@@ -37,7 +37,13 @@ the kernel inputs its own nodes make. Tolerances, from the arithmetic:
   and to the plain model of the kernel's mapping, with and without z
   bounds, B8 also on the crafted tile of several runs; B9 also with a
   poisoned table row before the table (a dead slot reads none);
-- grid-k resolve (B10): held as the resolve above.
+- grid-k resolve (B10): held as the resolve above;
+- the shadowed, HiZ-culled frame: B1 on each sun cascade's inputs (the
+  frame's 1024x1024 cascades, ``cull="none"``, ``clip=False``) bit-equal;
+  B3 with the frame's EVSM shadow factor at the shade bar; a 256x128
+  shadowed, culled frame on the card against the CPU path (ShadowMaps,
+  Depth, TriId equal on >= 99.9%, Main within 1e-4 relative on >= 99.5%,
+  Final within 2/255 on >= 99.9%).
 The tracer's kernels run on its own rays: every intersector pass of one
 128x128 sample of the bench tracer scene (camera, bounce-1 and shadow rays),
 and 64x64 renders on the card are held to the CPU path: the tracer scene
@@ -48,10 +54,11 @@ maps.
 import pytest
 import torch
 
-from chip_smoke import (bits_equal, check_small_frame, check_small_trace, dense_runs, dma_runs,
-                        frame_inputs, heavy_tile_cases, heavy_tile_rows, sparse_pass,
-                        stream_runs, tables_equal, textured_sky_balls, tied_clusters,
-                        tracer_passes, worklist_runs)
+from chip_smoke import (bits_equal, cascade_inputs, check_small_frame,
+                        check_small_shadow_frame, check_small_trace, dense_runs, dma_runs,
+                        evsm_shadow_factor, frame_inputs, heavy_tile_cases, heavy_tile_rows,
+                        sparse_pass, stream_runs, tables_equal, textured_sky_balls,
+                        tied_clusters, tracer_passes, worklist_runs)
 from sailor_tpu_torch.kernels import cuda_lib, pbr_kernel
 from sailor_tpu_torch.raster import setup as rsetup
 from sailor_tpu_torch.raster import tile_raster as tr
@@ -418,6 +425,37 @@ def test_raster_worklist_makes_no_host_sync(card_frame):
 
 def test_frame_on_card_matches_cpu(card_frame):
     check_small_frame()
+
+
+@pytest.mark.parametrize("cascade", [0, 1, 2, 3])
+def test_raster_kernel_matches_plain_on_cascade(card_frame, cascade):
+    scene, _ = card_frame
+    rows, big, starts, counts, n_big, tiles_y, tiles_x = cascade_inputs(scene, cascade)
+    args = (rows, big, starts, counts, n_big)
+    kw = dict(tiles_y=tiles_y, tiles_x=tiles_x, chunk=128)
+    d_k, t_k = tr.rasterize_worklist_cuda(*args, **kw)
+    d_p, t_p = tr.rasterize_worklist_plain(*args, **kw)
+    assert (t_p >= 0).any()
+    assert torch.equal(d_k, d_p) and torch.equal(t_k, t_p)
+
+
+def test_shade_kernel_matches_plain_with_evsm_shadow(card_frame):
+    scene, (_, targets, _, gb, *_) = card_frame
+    shadow = evsm_shadow_factor(scene, W, H, gb)
+    assert bool((shadow[gb.coverage > 0] < 0.9).any())
+    args = (pbr_kernel.pack_lights(scene.lights),
+            targets["LightIndices"].to(torch.int32).contiguous(),
+            targets["LightCounts"].to(torch.int32).contiguous(), gb.albedo.contiguous(),
+            gb.metallic.contiguous(), gb.roughness.contiguous(), gb.normal.contiguous(),
+            gb.world_position.contiguous(), shadow.contiguous(),
+            scene.frame.camera_position.to(torch.float32).contiguous())
+    got = pbr_kernel.shade_tiles_cuda(*args)
+    ref = pbr_kernel.shade_tiles_plain(*args)
+    assert ((got - ref).abs() / ref.abs().clamp(min=1e-3)).max().item() <= 1e-5
+
+
+def test_shadow_frame_on_card_matches_cpu(card_frame):
+    check_small_shadow_frame()
 
 
 @pytest.fixture(scope="module")

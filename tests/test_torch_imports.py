@@ -6,8 +6,9 @@
 - entry points default to the CUDA device and raise when there is none;
 - kernel wrappers take CUDA tensors only, and the dispatch runs the plain
   version only for CPU tensors: nothing falls back;
-- configuration and nodes outside the ported slices raise
-  NotImplementedError, and every raster configuration builds;
+- configuration, nodes and inputs outside the ported slices raise
+  NotImplementedError (the IBL input among them), and every raster
+  configuration builds, as do HiZ culling, ShadowPrepass and DepthHighZ;
   so do the path tracer's parts that are not ported (the BVH8 tracer and
   scenes too large for the sweep), while its textures, env-map sky and
   ray sorting inside the intersector run.
@@ -28,7 +29,7 @@ from sailor_tpu_torch.kernels.sky import SkyParams
 from sailor_tpu_torch.raster import tile_raster
 from sailor_tpu_torch.raytracing import path_tracer, sweep
 from sailor_tpu_torch.scenes import flagship_scene, tracer_camera, tracer_scene, tracer_soup
-from test_torch_scenes import MINIMAL_GRAPH, SLICE_CONFIG
+from test_torch_scenes import MINIMAL_GRAPH, SHADOW_HIZ_CONFIG, SHADOW_HIZ_GRAPH, SLICE_CONFIG
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "sailor_tpu_torch")
@@ -131,7 +132,7 @@ def test_variant_kernel_wrappers_take_cuda_tensors_only(kernel):
 
 
 @pytest.mark.parametrize("change", [
-    {"hiz_culling": True}, {"tonemap": "uncharted2"},
+    {"tonemap": "uncharted2"},
 ], ids=lambda c: next(iter(c)))
 def test_unsupported_config_raises(change):
     with pytest.raises(NotImplementedError):
@@ -151,11 +152,31 @@ def test_raster_configs_are_ported(change):
     assert fg.config == dict(SLICE_CONFIG, **change)
 
 
-@pytest.mark.parametrize("name", ["DepthHighZ", "ShadowPrepass", "Sky", "Bloom"])
+@pytest.mark.parametrize("name", ["Environment", "PostProcess", "Sky", "Bloom"])
 def test_unported_node_raises(name):
     with pytest.raises(NotImplementedError):
         FrameGraph(FrameGraphAsset.from_nodes(MINIMAL_GRAPH + [name]), 256, 128,
                    SLICE_CONFIG, device="cpu")
+
+
+def test_shadow_hiz_frame_is_ported():
+    """HiZ culling (the reference's default), ShadowPrepass and DepthHighZ
+    build, and the state carries the CSM cache and the HiZ pyramid."""
+    fg = FrameGraph(FrameGraphAsset.from_nodes(SHADOW_HIZ_GRAPH), 256, 128,
+                    dict(SHADOW_HIZ_CONFIG, shadow_resolution=64), device="cpu")
+    state = fg.initial_state()
+    assert state["csm/maps"].shape == (4, 64, 64) and state["csm/evsm"].shape == (4, 64, 64, 4)
+    assert [state[f"hiz/mip{i}"].shape for i in range(6)] == [
+        (32, 64), (16, 32), (8, 16), (4, 8), (2, 4), (1, 2)]
+
+
+def test_ibl_input_raises():
+    scene = flagship_scene(64, 64, 2, 2, device="cpu")
+    fg = FrameGraph(FrameGraphAsset.from_nodes(MINIMAL_GRAPH), 64, 64, SLICE_CONFIG,
+                    device="cpu")
+    state = dict(fg.initial_state(), **{"env/irradiance": torch.zeros(1)})
+    with pytest.raises(NotImplementedError, match="IBL"):
+        fg.process(scene, state)
 
 
 def test_sharding_raises():

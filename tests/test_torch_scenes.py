@@ -44,6 +44,15 @@ SLICE_CONFIG = {
 }
 MINIMAL_GRAPH = ["DepthPrepass", "LinearizeDepth", "LightCulling",
                  "RenderScene", "EyeAdaptation"]
+# the shadowed, HiZ-culled frame: bench.py's flagship config with the
+# reference's defaults for HiZ culling, the CSM cache and the cascades, and
+# DefaultRenderer.renderer's node order without the nodes not yet ported
+SHADOW_HIZ_CONFIG = dict(
+    SLICE_CONFIG, hiz_culling=True, csm_cache=True, shadow_resolution=1024,
+    shadow_bin_capacity=512, shadow_stride=4)
+SHADOW_HIZ_GRAPH = ["DepthPrepass", "LinearizeDepth", "LightCulling", "ShadowPrepass",
+                    "DepthHighZ", "RenderScene", "EyeAdaptation"]
+SHADOW_HIZ_VALUES = {"Shadow.EvsmBlurRadius": 4}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -66,6 +75,7 @@ def scene_arrays(scene) -> dict:
     out.update({f"lights.{f}": np.asarray(getattr(scene.lights, f)) for f in LIGHT_KEYS})
     out.update({f"frame.{f}": np.asarray(getattr(scene.frame, f)) for f in FRAME_KEYS})
     out["attrs_packed"] = np.asarray(scene.attrs_packed)
+    out["sky.sun_direction"] = np.asarray(scene.sky.sun_direction)
     return out
 
 
@@ -75,9 +85,9 @@ def torch_scene(scene):
 
 def test_flagship_scene_matches_bench_scene():
     """Same seed, same RNG calls: the port's flagship_scene reproduces the
-    JAX package's benchmark scene. Geometry and lights are host numpy and
-    match exactly; camera matrices are float32 math in two frameworks
-    (tolerance 1e-6 relative)."""
+    JAX package's benchmark scene. Geometry, lights and the sun direction
+    are host numpy and match exactly; camera matrices are float32 math in
+    two frameworks (tolerance 1e-6 relative)."""
     ref = scene_arrays(jax_scene(192, 128, 12, 6))
     got = flagship_scene(192, 128, 12, 6, device="cpu")
     for f in GEOMETRY_KEYS:
@@ -90,6 +100,7 @@ def test_flagship_scene_matches_bench_scene():
         np.testing.assert_allclose(getattr(got.frame, f).numpy(), ref[f"frame.{f}"],
                                    rtol=1e-6, atol=1e-6)
     np.testing.assert_array_equal(got.attrs_packed.numpy(), ref["attrs_packed"])
+    np.testing.assert_array_equal(got.sky.sun_direction, ref["sky.sun_direction"])
 
 
 def test_tracer_scene_matches_bench_trace_scene():
