@@ -54,6 +54,18 @@ Phases, each printed as it ends:
      tiles), 3 frames made dirty again, per-node ms of a cached and a
      dirty frame, peak memory and a profiled cached frame; later a 256x128
      shadowed frame on the card is held against the CPU path;
+  6d. frame[full]: the flagship scene through all of
+     content/DefaultRenderer.renderer (``FULL_CONFIG``: bench.py's config
+     with the reference's defaults): 1 warm-up (dirty cascades) + 5 cached
+     frames, ``prepare`` before each, launches checked per frame (B1 5 / 1,
+     B2 and B3 once), HiZCulledCount of each, per-node ms of a cached
+     frame and of a frame whose sky the turned camera made dirty, the
+     environment's full bake and one incremental face (``prepare`` timed),
+     peak memory, the output checked, a profiled cached frame; later the
+     card's HiZ cull is held to the CPU path at a nonzero count (the
+     occlusion scene, two frames: HiZCulledCount, Depth and TriId exact)
+     and a 256x128 DefaultRenderer frame, two frames (the second turned,
+     its sun moved), is held to the CPU path;
   7. tracer kernels: the sweep intersector's kernels (B4 slab entry with
      the visit tables, B5 cluster sweep and B6 dense-grid sweep, closest
      and any hit) against their plain versions on the path tracer's own
@@ -117,6 +129,14 @@ SHADOW_HIZ_CONFIG = dict(
 SHADOW_HIZ_GRAPH = ["DepthPrepass", "LinearizeDepth", "LightCulling", "ShadowPrepass",
                     "DepthHighZ", "RenderScene", "EyeAdaptation"]
 SHADOW_HIZ_VALUES = {"Shadow.EvsmBlurRadius": 4}
+# the whole DefaultRenderer frame: bench.py's flagship config (bench.py:338-350)
+# with the reference's defaults for the rest
+RENDERER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "content",
+                        "DefaultRenderer.renderer")
+FULL_CONFIG = dict(
+    SHADOW_HIZ_CONFIG, env_resolution=32, raster_mxu=False, sky_cache=True,
+    sky_downsample=2, sky_clouds=True, cloud_stride=2, sky_cache_hz=4.0,
+    env_incremental=True, ao_stride=2, ibl_stride=4)
 TRACER = (512, 512, 4, 16)  # width, height, bounces, spp
 TRACER_SPP_CUT = 4  # spp of the grid-sweep and material-ball renders
 # H100 SXM published peaks (NVIDIA data sheet), used for the bound
@@ -1402,6 +1422,269 @@ def check_small_shadow_frame():
               "card shadow frame disagrees with the CPU path")
 
 
+CULL_GRAPH = ["DepthPrepass", "LinearizeDepth", "LightCulling", "DepthHighZ", "RenderScene",
+              "EyeAdaptation"]
+
+
+def check_culled_frame():
+    """The HiZ cull on the card against the CPU path at a nonzero count:
+    ``scenes.occlusion_scene`` (24 cubes behind a wall, 128x96) through
+    DepthPrepass -> LinearizeDepth -> LightCulling -> DepthHighZ ->
+    RenderScene -> EyeAdaptation, two frames with the state threaded
+    through. Frame 2 culls the hidden cubes against frame 1's pyramid;
+    its HiZCulledCount (> 0), Depth and TriId must equal the CPU path's
+    exactly, as must frame 1's."""
+    import torch
+
+    from sailor_tpu_torch.framegraph import FrameGraph, FrameGraphAsset
+    from sailor_tpu_torch.scenes import occlusion_scene
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        scene = occlusion_scene(128, 96, device=dev)
+        fg = FrameGraph(FrameGraphAsset.from_nodes(CULL_GRAPH), 128, 96,
+                        dict(SLICE_CONFIG, bin_capacity=256, bin_rounds=2, hiz_culling=True),
+                        device=dev)
+        state = fg.initial_state()
+        out[dev] = []
+        for _ in range(2):
+            t, state = fg.process(scene, state)
+            out[dev].append({k: t[k].cpu() for k in ("Depth", "TriId", "HiZCulledCount")})
+    counts = [(int(g["HiZCulledCount"]), int(r["HiZCulledCount"]))
+              for g, r in zip(out["cuda"], out["cpu"])]
+    same = all(torch.equal(g[k], r[k]) for g, r in zip(out["cuda"], out["cpu"])
+               for k in ("Depth", "TriId", "HiZCulledCount"))
+    print(f"culled frame card vs cpu: hiz_culled (card, cpu) per frame={counts} "
+          f"depth_tid_count_equal={same}")
+    check(counts[1][0] > 0, "the culled frame culled nothing on the card")
+    check(same, "the card's culled frame differs from the CPU path")
+
+
+def _full_graph(width, height, device="cuda", config=None):
+    from sailor_tpu_torch.framegraph import FrameGraph, FrameGraphAsset
+
+    return FrameGraph(FrameGraphAsset.load(RENDERER), width, height,
+                      dict(config or FULL_CONFIG), device=device)
+
+
+def _turned(scene, yaw):
+    """The scene with its camera turned by ``yaw`` rad about y (the same
+    position, the previous frame's camera kept for MotionBlur)."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from sailor_tpu_torch.core import math3d as m3
+    from sailor_tpu_torch.rhi.types import FrameData
+
+    f = scene.frame
+    cam = f.camera_position
+    c, s = math.cos(yaw), math.sin(yaw)
+    rot = torch.tensor([[c, 0, s], [0, 1, 0], [-s, 0, c]], device=cam.device)
+    target = cam + rot @ (torch.tensor([0.0, 0.5, 0.0], device=cam.device) - cam)
+    view = m3.look_at(cam, target, torch.tensor([0.0, 1.0, 0.0], device=cam.device))
+    frame = FrameData.create(view, f.projection, cam, 0.1, 150.0, dt=1 / 60)
+    return dataclasses.replace(scene, frame=frame, prev_frame=f)
+
+
+def _moved_sun(scene, sun=(-0.25, -0.75, -0.35)):
+    import dataclasses
+
+    import numpy as np
+
+    d = np.asarray(sun, np.float32)
+    return dataclasses.replace(scene, sky=dataclasses.replace(
+        scene.sky, sun_direction=(d / np.linalg.norm(d)).astype(np.float32)))
+
+
+def run_full_frames(scene, width, height, card):
+    """frame[full]: the flagship scene through all of
+    content/DefaultRenderer.renderer (``FULL_CONFIG``), 1 warm-up + 5
+    frames with the state threaded through and ``prepare`` before each,
+    launches counted per frame (B1 5 on the dirty warm-up, 1 cached; B2
+    and B3 once). Then per-node ms of a cached frame; one frame with the
+    sky made dirty (the camera turned 2e-3 rad, so the cascades re-raster
+    too: B1 5, B2 and B3 once, checked) and its per-node ms; the
+    environment's full bake (a new Environment node, the sun moved:
+    ``prepare`` timed) and one incremental face refresh of the graph's own
+    node; peak memory; the output (finite, in [0, 1]); one profiled
+    cached frame, last. Returns the launches of frames 1-6."""
+    import torch
+
+    from sailor_tpu_torch.framegraph.nodes import EnvironmentNode
+    from sailor_tpu_torch.framegraph.graph import RenderContext
+    from sailor_tpu_torch.kernels import cuda_lib
+
+    fg = _full_graph(width, height)
+    state = fg.initial_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, per_frame, culled, total = [], [], [], {}
+    for i in range(6):
+        cuda_lib.LAUNCHES.clear()
+
+        def frame():
+            fg.prepare(scene, state)
+            return fg.process(scene, state)
+
+        ms, (targets, state) = _wall_ms(frame)
+        launches = dict(cuda_lib.LAUNCHES)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        times.append(ms)
+        per_frame.append(launches)
+        culled.append(int(targets["HiZCulledCount"]))
+    peak = torch.cuda.max_memory_allocated()
+    for i, launches in enumerate(per_frame):
+        for name in ("raster_worklist", "resolve_worklist", "shade_forward_plus"):
+            want = 5 if (i == 0 and name == "raster_worklist") else 1
+            check(launches.get(name, 0) == want,
+                  f"frame[full] {i + 1} launched {name} {launches.get(name, 0)} times, not {want}")
+    final, sky = targets["Final"], targets["Sky"]
+    cov = (targets["TriId"] >= 0).float().mean().item()
+    check(tuple(final.shape) == (height, width, 3), f"frame[full]: Final has shape {final.shape}")
+    check(bool(torch.isfinite(final).all()) and final.min().item() >= 0.0
+          and final.max().item() <= 1.0, "frame[full]: Final is not finite in [0, 1]")
+    check(cov > 0.0 and bool(torch.isfinite(sky).all()), "frame[full]: nothing rendered")
+    _, _, per_node = fg.process_debug(scene, state)
+
+    turned = _turned(scene, 2e-3)
+    fg.prepare(turned, state)
+    cuda_lib.LAUNCHES.clear()
+    dirty_ms, (t_dirty, _) = _wall_ms(lambda: fg.process(turned, state))
+    dirty_launches = dict(cuda_lib.LAUNCHES)
+    for name, want in (("raster_worklist", 5), ("resolve_worklist", 1), ("shade_forward_plus", 1)):
+        check(dirty_launches.get(name, 0) == want,
+              f"frame[full] sky-dirty launched {name} {dirty_launches.get(name, 0)} times, "
+              f"not {want}")
+    check(not torch.equal(t_dirty["Sky"], sky), "frame[full]: the turned camera kept the sky")
+    _, _, per_node_dirty = fg.process_debug(turned, state)
+
+    moved = _moved_sun(scene)
+    fresh = EnvironmentNode({})
+    ctx = RenderContext(width=width, height=height, scene=moved, state={}, config=fg.config)
+    bake_ms, _ = _wall_ms(lambda: fresh.prepare(ctx))
+    check(sorted(ctx.state) == sorted(k for k in state if k.startswith("env/")),
+          "frame[full]: the bake published other maps")
+    bake_parts = env_bake_parts(moved, fg.config)
+    sky_parts = sky_march_parts(turned, width, height, fg.config)
+    env = next(n for n in fg.nodes if n.node_name == "Environment")
+    face_state = dict(state)
+    face_ms, _ = _wall_ms(lambda: env.prepare(RenderContext(
+        width=width, height=height, scene=moved, state=face_state, config=fg.config)))
+    check(env._next_face == 1, "frame[full]: the incremental refresh did not render one face")
+    profile(lambda: fg.process(scene, state), card, "profile_full")
+    mean = sum(times[1:]) / 5
+    print(f"frame[full] {width}x{height}: dirty_frame1_ms={times[0]:.3f} "
+          f"cached_frame_ms={[round(m, 3) for m in times[1:]]} cached_mean_ms={mean:.3f} "
+          f"sky_dirty_frame_ms={dirty_ms:.3f} env_bake_ms={bake_ms:.3f} "
+          f"env_face_ms={face_ms:.3f} peak_mem_bytes={peak} hiz_culled={culled} on {card}")
+    print("frame[full] per_node_ms_cached "
+          + json.dumps({k: round(v, 3) for k, v in per_node.items()}))
+    print("frame[full] per_node_ms_sky_dirty "
+          + json.dumps({k: round(v, 3) for k, v in per_node_dirty.items()}))
+    print("frame[full] env_bake_parts_ms " + json.dumps(bake_parts) + f" on {card}")
+    print("frame[full] sky_march_parts_ms " + json.dumps(sky_parts) + f" on {card}")
+    print("frame[full] launches_per_frame " + json.dumps(per_frame)
+          + " sky_dirty_frame " + json.dumps(dirty_launches))
+    print(f"frame[full] output: coverage={cov:.4f} Final in [{final.min().item():.4f}, "
+          f"{final.max().item():.4f}] sky_mean={sky.mean().item():.4f} "
+          f"ao_mean={targets['AO'].mean().item():.4f} "
+          f"avg_luminance={state['avg_luminance'].item():.5f}")
+    return total
+
+
+def env_bake_parts(scene, config):
+    """Wall ms of each step of the environment's full bake, synchronised:
+    the cube from the sky, the irradiance map, the four prefiltered mips,
+    the BRDF LUT, the SH9 projection."""
+    from sailor_tpu_torch.kernels import cubemap as cm
+    from sailor_tpu_torch.kernels import ibl
+    from sailor_tpu_torch.kernels import sky as sky_k
+
+    res = int(config.get("env_resolution", 64))
+    dev = scene.frame.view.device
+    parts = {}
+    ms, env = _wall_ms(lambda: cm.render_cubemap(
+        lambda d: sky_k.sky_radiance(d, scene.sky, 0.0, with_clouds=False), res, dev))
+    parts["cube"] = ms
+    for name, fn in (("irradiance", lambda: ibl.irradiance_map(env, 16, 128)),
+                     ("prefiltered_mips", lambda: ibl.prefiltered_env_mips(env, 4, 32)),
+                     ("brdf_lut", lambda: ibl.brdf_lut(64, 128, device=dev)),
+                     ("sh9", lambda: ibl.sh9_project(env))):
+        parts[name] = _wall_ms(fn)[0]
+    return {k: round(v, 3) for k, v in parts.items()}
+
+
+def sky_march_parts(scene, width, height, config):
+    """Wall ms of the Sky node's steps on a dirty frame, synchronised: the
+    rays, the cloud march at 1/(downsample * stride), the atmosphere and
+    sun (``sky_radiance`` with the clouds given) at 1/downsample, and the
+    upsample to the frame."""
+    from sailor_tpu_torch.core import math3d as m3
+    from sailor_tpu_torch.kernels import sampling
+    from sailor_tpu_torch.kernels import sky as sky_k
+    from sailor_tpu_torch.raster import interpolate
+
+    q = int(config.get("sky_downsample", 2))
+    cs = int(config.get("cloud_stride", 2))
+    inv_vp = m3.inverse(scene.frame.view_projection)
+    cam, t = scene.frame.camera_position, scene.frame.current_time
+    hq, wq = -(-height // q), -(-width // q)
+    parts = {}
+    parts["rays"], (d, d_c) = _wall_ms(lambda: (
+        interpolate.pixel_rays_strided(inv_vp, cam, height, width, q, fused=False),
+        interpolate.pixel_rays_strided(inv_vp, cam, height, width, q * cs, fused=False)))
+    parts["clouds"], (cl, ct) = _wall_ms(lambda: sky_k.clouds(d_c, scene.sky, t))
+    over = (sampling.upsample_bilinear_pow2(cl, (hq, wq)),
+            sampling.upsample_bilinear_pow2(ct[..., None], (hq, wq))[..., 0])
+    parts["atmosphere_and_sun"], color = _wall_ms(
+        lambda: sky_k.sky_radiance(d, scene.sky, t, cloud_override=over))
+    parts["upsample"], _ = _wall_ms(
+        lambda: sampling.upsample_bilinear_pow2(color, (height, width)))
+    return {k: round(v, 3) for k, v in parts.items()}
+
+
+def check_small_full_frame():
+    """A 256x128 DefaultRenderer frame (``FULL_CONFIG``, shadow_resolution
+    128) on the card against the CPU path (which the CPU tests hold to the
+    JAX package), two frames with ``prepare`` before each, the second
+    turned 0.05 rad with the sun moved: Depth, TriId, ShadowMaps and
+    HiZCulledCount exact, Sky within 5e-5 * (1 + |cpu|), Main within 1e-4
+    relative (to max(|cpu|, 1e-3)) on >= 99.5% of pixels, Final within
+    2/255 on every pixel."""
+    import torch
+
+    from sailor_tpu_torch.scenes import flagship_scene
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        scene = flagship_scene(256, 128, 24, 10, device=dev)
+        fg = _full_graph(256, 128, dev, dict(FULL_CONFIG, shadow_resolution=128))
+        state = fg.initial_state()
+        out[dev] = []
+        for s in (scene, _moved_sun(_turned(scene, 0.05))):
+            fg.prepare(s, state)
+            t, state = fg.process(s, state)
+            out[dev].append({k: t[k].cpu() for k in ("Depth", "TriId", "ShadowMaps",
+                                                     "HiZCulledCount", "Sky", "Main",
+                                                     "Final")})
+    for i, (g, r) in enumerate(zip(out["cuda"], out["cpu"])):
+        exact = {k: bool(torch.equal(g[k], r[k]))
+                 for k in ("Depth", "TriId", "ShadowMaps", "HiZCulledCount")}
+        sky = ((g["Sky"] - r["Sky"]).abs() / (1 + r["Sky"].abs())).max().item()
+        rel = ((g["Main"] - r["Main"]).abs() / r["Main"].abs().clamp(min=1e-3)).amax(-1)
+        main = (rel <= 1e-4).float().mean().item()
+        final = (g["Final"] - r["Final"]).abs().max().item()
+        print(f"small frame[full] {i + 1} card vs cpu: "
+              + " ".join(f"{k}_equal={v}" for k, v in exact.items())
+              + f" sky_rel_err={sky:.3g} main_within_1e-4={main:.5f} "
+              f"final_max_err={final:.3g} hiz_culled={int(g['HiZCulledCount'])}")
+        check(all(exact.values()) and sky <= 5e-5 and main >= 0.995 and final <= 2 / 255,
+              "card full frame disagrees with the CPU path")
+
+
 def tracer_passes(scene, cam, view, proj, width, height, seed=0):
     """Every intersector pass of one sample of the tracer at width x height
     with two bounces: [bounce-0 camera rays, their shadow rays, bounce-1
@@ -1894,6 +2177,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     card = _card()
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card} | torch: {kind} | torch {torch.__version__} cuda {torch.version.cuda}")
@@ -1918,6 +2202,9 @@ def main() -> int:
     shadow_launches = run_shadow_hiz_frames(scene, width, height, card)
     for name in ("raster_worklist", "resolve_worklist", "shade_forward_plus"):
         check(shadow_launches.get(name, 0) > 0, f"{name} was not launched on the shadow path")
+    full_launches = run_full_frames(scene, width, height, card)
+    for name in ("raster_worklist", "resolve_worklist", "shade_forward_plus"):
+        check(full_launches.get(name, 0) > 0, f"{name} was not launched on the full frame")
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)
     for k in variants:
@@ -1930,6 +2217,8 @@ def main() -> int:
     for change in RASTER_CONFIGS.values():
         check_small_frame(change)
     check_small_shadow_frame()
+    check_culled_frame()
+    check_small_full_frame()
     del scene
     tracer_kernels = check_tracer_kernels(card)
     launches = run_tracer(card)
@@ -1944,6 +2233,7 @@ def main() -> int:
     kernels += tracer_kernels
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(f"card: {card}")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -24,10 +24,7 @@ from sailor_tpu_torch.rhi.types import RenderTargets, TargetSpec
 _NODE_REGISTRY: dict[str, type] = {}
 
 # nodes of the JAX package's registry that this port does not have yet
-UNPORTED_NODES = (
-    "Clear", "Sky", "Environment", "PostProcess", "RenderTransparent", "Bloom",
-    "Blit", "DebugDraw", "RenderOverlay", "CopyTextureToRam", "Particles",
-)
+UNPORTED_NODES = ("Clear", "Blit", "CopyTextureToRam", "Particles")
 
 
 def node(name: str):
@@ -77,6 +74,7 @@ class RenderContext:
     config: dict | None = None
     full_height: int | None = None
     row0: int = 0
+    _inv_vp: Any = dataclasses.field(default=None, repr=False)  # the frame's, once computed
 
     def value(self, key: str, default: float = 0.0) -> float:
         return (self.values or {}).get(key, default)
@@ -179,7 +177,9 @@ class FrameGraph:
     def initial_state(self) -> dict:
         """Exposure 0.18; with the CSM cache and a ShadowPrepass node, zero
         maps and moments and a key of -1e30 (the first frame is dirty); with
-        HiZ culling, a zero pyramid (reverse-Z 0 culls nothing) of the
+        the sky cache and a Sky node, a zero (H, W, 3) buffer and an (18,)
+        key of -1e30 (never inf: inf - inf is nan, and nan > 0 is false);
+        with HiZ culling, a zero pyramid (reverse-Z 0 culls nothing) of the
         shapes DepthHighZ publishes: the culling levels ``mips[2:]`` of its
         ``levels`` (default 8)."""
         f32 = dict(dtype=torch.float32, device=self.device)
@@ -191,6 +191,9 @@ class FrameGraph:
             state["csm/maps"] = torch.zeros(c, s, s, **f32)
             state["csm/evsm"] = torch.zeros(c, s, s, 4, **f32)
             state["csm/key"] = torch.full((c * 16 + 3,), -1e30, **f32)
+        if self.config.get("sky_cache", True) and "Sky" in names:
+            state["sky/buf"] = torch.zeros(self.height, self.width, 3, **f32)
+            state["sky/key"] = torch.full((18,), -1e30, **f32)
         if self.config.get("hiz_culling", True):
             levels = 8
             for n in self.nodes:
@@ -218,7 +221,8 @@ class FrameGraph:
             if timings is not None:
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
-                timings[f"{i:02d}_{n.node_name}"] = (time.perf_counter() - t0) * 1e3
+                label = n.node_name + (f"/{n.p('shader')}" if n.p("shader") else "")
+                timings[f"{i:02d}_{label}"] = (time.perf_counter() - t0) * 1e3
         new_state = dict(state)
         new_state.update(targets.pop("state_out", {}))
         return targets, new_state

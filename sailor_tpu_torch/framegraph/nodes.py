@@ -1,15 +1,19 @@
-"""Frame-graph nodes of the shadowed, HiZ-culled visibility Forward+ frame
-(counterpart of sailor_tpu/framegraph/nodes.py): DepthPrepass (with the
-HiZ cull), LinearizeDepth, LightCulling, ShadowPrepass, DepthHighZ,
-RenderScene and EyeAdaptation.
+"""Frame-graph nodes of the visibility Forward+ frame (counterpart of
+sailor_tpu/framegraph/nodes.py): DepthPrepass (with the HiZ cull),
+LinearizeDepth, LightCulling, ShadowPrepass, Sky, Environment, DepthHighZ,
+PostProcess (HBAO, HBAO_Blur, SunShafts, MotionBlur, ChromaticAberration,
+Debug), RenderScene (with the IBL ambient), RenderTransparent, DebugDraw,
+Bloom, EyeAdaptation and RenderOverlay: every entry of
+content/DefaultRenderer.renderer.
 
 Data flows through the ``targets`` dict: "Depth", "TriId", "TriSetup",
 "BinOverflow", "HiZCulledCount", "StreamBins" (the raster's bin windows,
 consumed by RenderScene's fused resolve), "LinearDepth",
 "LightIndices"/"LightCounts", "ShadowMaps", "LightMatrices", "EvsmMaps",
-"EvsmMap", "HiZ/mip1".."HiZ/mip4", "Main", "Final", and temporal state via
-"state_out" (avg luminance, the CSM cache "csm/*", the HiZ pyramid
-"hiz/mip*").
+"EvsmMap", "Sky", "AO", "HiZ/mip1".."HiZ/mip4", "Main", "Final", and
+temporal state via "state_out" (avg luminance, the CSM cache "csm/*", the
+sky cache "sky/*", the HiZ pyramid "hiz/mip*"); the Environment node's bake
+is published into the state in ``prepare`` ("env/*").
 """
 
 from __future__ import annotations
@@ -19,11 +23,15 @@ import torch
 from sailor_tpu_torch import config as cfg
 from sailor_tpu_torch.core import math3d as m3
 from sailor_tpu_torch.framegraph.graph import BaseNode, node
+from sailor_tpu_torch.kernels import bloom as bloom_k
 from sailor_tpu_torch.kernels import blur as blur_k
+from sailor_tpu_torch.kernels import cubemap as cm
 from sailor_tpu_torch.kernels import histogram as hist_k
+from sailor_tpu_torch.kernels import ibl as ibl_k
 from sailor_tpu_torch.kernels import light_culling, pbr, pbr_kernel, sampling
 from sailor_tpu_torch.kernels import postprocess as pp
 from sailor_tpu_torch.kernels import shadow as shadow_k
+from sailor_tpu_torch.kernels import sky as sky_k
 from sailor_tpu_torch.kernels import tonemap as tm
 from sailor_tpu_torch.kernels.common import round_up
 from sailor_tpu_torch.raster import hiz_cull, interpolate, pipeline
@@ -33,8 +41,17 @@ from sailor_tpu_torch.raster import tile_raster
 
 def inverse_view_projection(frame):
     """inv(projection @ view), the resolve's unprojection matrix, rounded
-    as the reference's (``math3d.inverse``)."""
+    as the reference's (``math3d.inverse``: the matrix is copied back to
+    the host)."""
     return m3.inverse(frame.view_projection)
+
+
+def _inv_vp(ctx):
+    """The frame's inverse view-projection, computed once a frame and
+    shared by the nodes that unproject (Sky, RenderScene, MotionBlur)."""
+    if ctx._inv_vp is None:
+        ctx._inv_vp = inverse_view_projection(ctx.scene.frame)
+    return ctx._inv_vp
 
 
 def light_matrices(scene, config):
@@ -284,6 +301,141 @@ class ShadowPrepassNode(BaseNode):
         return targets
 
 
+@node("Sky")
+class SkyNode(BaseNode):
+    """Procedural sky for the background pixels (SkyNode.cpp), rendered at
+    1/``sky_downsample`` resolution (default 2) with the clouds marched at
+    a further 1/``cloud_stride`` (default 2), each upsampled bilinearly.
+
+    With ``sky_cache`` (the default) the buffer is a change snapshot, as
+    the CSM cache: the sky depends only on the ray directions, the sun and
+    the cloud time, so the key is the four corner rays of a 2x2 grid (they
+    pin the projective ray grid) rounded to 1e-5, the sun, and the cloud
+    time floored at ``sky_cache_hz``. One host read of the dirty flag a
+    frame (a synchronise) decides whether the sky is rendered at all; a
+    translating camera reuses the buffer."""
+
+    def process(self, ctx, targets):
+        scene = ctx.scene
+        w, h = ctx.width, ctx.height
+        q = max(1, int(ctx.config.get("sky_downsample", 2)))
+        hq, wq = -(-h // q), -(-w // q)
+        inv_vp = _inv_vp(ctx)
+        cam = scene.frame.camera_position
+        with_clouds = bool(ctx.config.get("sky_clouds", True))
+        cs = int(ctx.config.get("cloud_stride", 2))
+        time_ = scene.frame.current_time
+
+        def render_sky():
+            # the reference's frame rounds the sky's rays unfused
+            d = interpolate.pixel_rays_strided(inv_vp, cam, h, w, q, ctx.row0,
+                                               ctx.full_height, fused=False)
+            cloud_override = None
+            if with_clouds and cs > 1:
+                d_c = interpolate.pixel_rays_strided(inv_vp, cam, h, w, q * cs, ctx.row0,
+                                                     ctx.full_height, fused=False)
+                cl_q, ct_q = sky_k.clouds(d_c, scene.sky, time_)
+                cloud_override = (ctx.upsample(cl_q, (hq, wq)),
+                                  ctx.upsample(ct_q[..., None], (hq, wq))[..., 0])
+            color = sky_k.sky_radiance(d, scene.sky, time_, with_clouds=with_clouds,
+                                       cloud_override=cloud_override)
+            return ctx.upsample(color, (h, w)) if q > 1 else color
+
+        state = ctx.state or {}
+        if ctx.config.get("sky_cache", True) and "sky/buf" in state:
+            p_ = scene.sky.on(cam.device)
+            # row0 = 0: every slice of a frame computes the same key
+            corners = torch.round(interpolate.pixel_rays_strided(
+                inv_vp, cam, 2, 2, 1, 0, ctx.full_height).reshape(-1) * 1e5)
+            hz = float(ctx.config.get("sky_cache_hz", 4.0))
+            tq = torch.floor(time_ * hz) if with_clouds else torch.zeros((), device=cam.device)
+            key = torch.cat([corners, p_["sun_direction"], torch.stack([
+                p_["sun_intensity"], p_["clouds_coverage"], tq.to(torch.float32)])])
+            if bool(((key - state["sky/key"]).abs() > 0.0).any()):  # the host read
+                color = render_sky()
+            else:
+                color = state["sky/buf"][ctx.row0:ctx.row0 + h]
+            out = targets.setdefault("state_out", {})
+            out["sky/buf"], out["sky/key"] = color, key
+        else:
+            color = render_sky()
+        targets["Sky"] = color
+        return targets
+
+
+@node("Environment")
+class EnvironmentNode(BaseNode):
+    """IBL bake of the sky without clouds (EnvironmentNode.cpp): the
+    environment cube at ``env_resolution`` (default 64), its irradiance
+    cube, four prefiltered specular mips (also packed at the cube's
+    resolution, "env/spec_stack"), the split-sum BRDF LUT and the SH9
+    projection, published into the state ("env/*").
+
+    The bake runs in ``prepare`` and is cached per node instance on a host
+    key of the sky (the SkyParams leaves are host numpy: no device read).
+    With ``env_incremental`` (the default) a changed sky re-renders one
+    cube face per ``prepare`` into the cached cube; the derived maps are
+    rebuilt when a sweep of six faces has held the same key
+    (SkyNode.h m_updateEnvCubemapPattern)."""
+
+    _cache_key = None
+    _cache = None
+    _next_face = 0
+    _pending_key = None
+
+    @staticmethod
+    def _derive(env, res):
+        """Irradiance, specular mips, LUT and SH9 from an environment cube."""
+        mips = ibl_k.prefiltered_env_mips(env, num_mips=4, samples=32)
+        return {
+            "env/cube": env,
+            "env/irradiance": ibl_k.irradiance_map(env, resolution=16, samples=128),
+            "env/sh9": ibl_k.sh9_project(env),
+            "env/brdf_lut": ibl_k.brdf_lut(resolution=64, samples=128, device=env.device),
+            "env/spec_stack": torch.stack([cm.upsample_cubemap(m, res) for m in mips]),
+            **{f"env/mip{i}": m for i, m in enumerate(mips)},
+        }
+
+    def prepare(self, ctx):
+        p = ctx.scene.sky
+        res = int(ctx.config.get("env_resolution", 64))
+        key = (res,) + tuple(round(float(v), 4) for v in (
+            p.sun_direction[0], p.sun_direction[1], p.sun_direction[2], p.sun_intensity,
+            p.clouds_coverage))
+        if key == self._cache_key:
+            ctx.state.update(self._cache)
+            return
+        dev = ctx.scene.frame.view.device
+
+        def radiance(d):
+            return sky_k.sky_radiance(d, p, 0.0, with_clouds=False)
+
+        if self._cache is not None and ctx.config.get("env_incremental", True):
+            if key != self._pending_key:
+                self._pending_key = key
+                self._next_face = 0
+            face = self._next_face
+            env = self._cache["env/cube"].clone()
+            env[face] = radiance(cm.face_directions(res, dev)[face])
+            self._next_face += 1
+            if self._next_face >= 6 and key == self._pending_key:
+                # clean only when the key held for the whole sweep
+                self._cache = self._derive(env, res)
+                self._cache_key = key
+                self._pending_key = None
+                self._next_face = 0
+            else:
+                self._cache = dict(self._cache, **{"env/cube": env})
+            ctx.state.update(self._cache)
+            return
+        self._cache = self._derive(cm.render_cubemap(radiance, res, dev), res)
+        self._cache_key = key
+        ctx.state.update(self._cache)
+
+    def process(self, ctx, targets):
+        return targets  # the maps are in the state already
+
+
 @node("DepthHighZ")
 class DepthHighZNode(BaseNode):
     """HiZ min pyramid of the frame's depth (ComputeDepthHighZ.shader):
@@ -304,32 +456,100 @@ class DepthHighZNode(BaseNode):
         return targets
 
 
+@node("PostProcess")
+class PostProcessNode(BaseNode):
+    """Fullscreen pass selected by ``shader`` (PostProcessNode.cpp): HBAO
+    (at 1/``ao_stride``, default 2, upsampled), HBAO_Blur (``direction``
+    V or H), MotionBlur (4 samples against the scene's previous frame),
+    SunShafts, ChromaticAberration and Debug (``mode``: none, ao,
+    light_tiles, cascades)."""
+
+    def process(self, ctx, targets):
+        shader = self.p("shader", "")
+        scene = ctx.scene
+        if shader == "HBAO":
+            q = int(ctx.config.get("ao_stride", 2))
+            ld = targets["LinearDepth"]
+            if q > 1:
+                ld = pp.window_sum(ld, q) * (1.0 / (q * q))
+            ao_q = pp.hbao(ld, scene.frame.inv_projection, height=ctx.height // q,
+                           width=ctx.width // q, radius=float(ctx.value("AO.Radius", 0.5)),
+                           power=float(ctx.value("AO.Power", 1.5)))
+            targets["AO"] = (ctx.upsample(ao_q[..., None], (ctx.height, ctx.width))[..., 0]
+                             if q > 1 else ao_q)
+        elif shader == "HBAO_Blur":
+            axis = 0 if self.p("direction", "V") == "V" else 1
+            targets["AO"] = blur_k.blur_1d(targets["AO"], 4, axis)
+        elif shader == "MotionBlur":
+            targets["Main"] = pp.motion_blur(
+                targets["Main"], targets["Depth"], scene.prev_frame.view_projection,
+                _inv_vp(ctx),
+                intensity=float(ctx.value("MotionBlur.Intensity", 1.0)), num_samples=4,
+                row0=ctx.row0, full_height=ctx.full_height)
+        elif shader == "SunShafts":
+            p_ = scene.sky.on(targets["Main"].device)
+            tint = torch.tensor([1.0, 0.9, 0.75], device=targets["Main"].device)
+            targets["Main"] = pp.sun_shafts(
+                targets["Main"], targets["Depth"], scene.frame.view_projection,
+                p_["sun_direction"], p_["sun_intensity"] * tint,
+                intensity=float(ctx.value("SunShafts.Intensity", 0.45)),
+                num_samples=int(ctx.value("SunShafts.Distance", 24)),
+                row0=ctx.row0, full_height=ctx.full_height)
+        elif shader == "ChromaticAberration":
+            targets["Main"] = pp.chromatic_aberration(
+                targets["Main"], float(ctx.value("CA.Strength", 0.003)))
+        elif shader == "Debug":
+            self._debug(ctx, targets)
+        else:
+            raise KeyError(f"unknown PostProcess shader '{shader}'")
+        return targets
+
+    def _debug(self, ctx, targets):
+        """Debug.shader's AO, LIGHT_TILES and CASCADES views over the LDR
+        frame (Final, else Main); "none" passes through."""
+        mode = self.p("mode", "none")
+        dst = "Final" if "Final" in targets else "Main"
+        z_far = float(ctx.config.get("z_far", 150.0))
+        if mode == "ao" and "AO" in targets:
+            targets[dst] = targets["AO"][..., None].expand(-1, -1, 3).clone()
+        elif mode == "light_tiles" and "LightCounts" in targets:
+            t = cfg.LIGHTS_CULLING_TILE_SIZE
+            base = targets["LinearDepth"] / z_far
+            heat = targets["LightCounts"].to(torch.float32).repeat_interleave(t, 0) \
+                .repeat_interleave(t, 1)[:ctx.height, :ctx.width] * 0.05
+            targets[dst] = torch.stack([base + heat, base + heat, base], dim=-1)
+        elif mode == "cascades" and "ShadowMaps" in targets:
+            levels = cfg.SHADOW_CASCADE_LEVELS
+            lin = targets["LinearDepth"]
+            layer = torch.full(lin.shape, len(levels), dtype=torch.int64, device=lin.device)
+            for i in reversed(range(len(levels))):
+                layer = torch.where(lin < z_far * levels[i], i, layer)
+            palette = torch.tensor([[0, 1, 0], [1, 1, 0], [0, 1, 1], [1, 0, 0], [1, 1, 1]],
+                                   dtype=torch.float32, device=lin.device)
+            luma = torch.clamp(targets[dst].mean(-1, keepdim=True), 0.15, 1.0)
+            targets[dst] = palette[torch.clamp(layer, max=4)] * luma
+
+
 def _pool(x, q: int, w):
     """Coverage-weighted mean of q x q blocks (partial blocks at the far
-    edges dropped): sum(x * w) / max(sum(w), 1e-6)."""
-    h, wd = (x.shape[0] // q) * q, (x.shape[1] // q) * q
-
-    def block_sum(v):
-        v = v[:h, :wd]
-        return v.reshape((h // q, q, wd // q, q) + tuple(v.shape[2:])).sum(dim=(1, 3))
-
+    edges dropped): sum(x * w) / max(sum(w), 1e-6), each sum in the
+    reference's ``reduce_window`` order (``postprocess.window_sum``)."""
     xs = x * (w if x.ndim == 2 else w[..., None])
-    sw = torch.clamp(block_sum(w), min=1e-6)
-    return block_sum(xs) / (sw if x.ndim == 2 else sw[..., None])
+    sw = torch.clamp(pp.window_sum(w, q), min=1e-6)
+    return pp.window_sum(xs, q) / (sw if x.ndim == 2 else sw[..., None])
 
 
 @node("RenderScene")
 class RenderSceneNode(BaseNode):
     """Forward+ shading of the visibility buffer (RenderSceneNode.cpp): the
     fused resolve (B2 or B10) or the gather resolve builds the G-buffer,
-    the shade kernel (B3) lights it."""
+    the shade kernel (B3) lights it, with the sun's shadow factor and,
+    when the Environment node has baked, the IBL ambient added after it;
+    background pixels take the Sky."""
 
     def process(self, ctx, targets):
         scene = ctx.scene
-        state = ctx.state or {}
-        if "env/irradiance" in state:
-            raise NotImplementedError("the IBL input is not ported yet")
-        inv_vp = inverse_view_projection(scene.frame)
+        inv_vp = _inv_vp(ctx)
         if "StreamBins" in targets:
             # fused path: winner rows from the raster's own bin windows;
             # pop, so the row table does not outlive the resolve
@@ -348,6 +568,7 @@ class RenderSceneNode(BaseNode):
         if "AO" in targets:
             gbuffer.ao = targets["AO"]
         shadow = self._shadow(ctx, targets, gbuffer)
+        ibl_ambient = self._ibl_ambient(ctx, gbuffer)
 
         t = cfg.LIGHTS_CULLING_TILE_SIZE
         ph, pw = round_up(ctx.height, t), round_up(ctx.width, t)
@@ -359,21 +580,49 @@ class RenderSceneNode(BaseNode):
 
             gb_p = gbuffer.map(pad2)
             shadow = pad2(shadow) if shadow is not None else None
+            ibl_ambient = pad2(ibl_ambient) if ibl_ambient is not None else None
         if ctx.config.get("pallas_shading", False):
             hdr = pbr_kernel.shade_forward_plus_kernel(
                 gb_p, scene.lights, targets["LightIndices"],
                 scene.frame.camera_position, shadow_factors=shadow,
-                tile_light_counts=targets.get("LightCounts"))
+                ibl_ambient=ibl_ambient, tile_light_counts=targets.get("LightCounts"))
         else:
             hdr = pbr.shade_forward_plus(gb_p, scene.lights, targets["LightIndices"],
                                          scene.frame.camera_position,
-                                         shadow_factors=shadow)
+                                         shadow_factors=shadow, ibl_ambient=ibl_ambient)
         hdr = hdr[:ctx.height, :ctx.width]
         if "Sky" in targets:
             covered = gbuffer.coverage[..., None]
             hdr = hdr * covered + targets["Sky"] * (1.0 - covered)
         targets["Main"] = hdr
         return targets
+
+    @staticmethod
+    def _ibl_ambient(ctx, gbuffer):
+        """The IBL ambient at 1/``ibl_stride`` resolution (default 4) from
+        the coverage-weighted pooled G-buffer, upsampled and masked by the
+        coverage; None without the Environment node's bake. The packed
+        stack (SH9 diffuse, analytic BRDF) when the bake has it, else the
+        list of mips with the LUT."""
+        state = ctx.state or {}
+        if "env/irradiance" not in state:
+            return None
+        q = int(ctx.config.get("ibl_stride", 4))
+        cov = gbuffer.coverage
+        wpos_q = _pool(gbuffer.world_position, q, cov)
+        n_q = m3.normalize(_pool(gbuffer.normal, q, cov))
+        view_q = m3.normalize(wpos_q - ctx.scene.frame.camera_position)
+        args = (_pool(gbuffer.albedo, q, cov), _pool(gbuffer.metallic, q, cov),
+                _pool(gbuffer.roughness, q, cov), _pool(gbuffer.ao, q, cov), n_q, view_q)
+        if "env/spec_stack" in state:
+            amb_q = ibl_k.ambient_ibl_packed(*args, state["env/irradiance"],
+                                             state["env/spec_stack"],
+                                             irradiance_sh=state.get("env/sh9"))
+        else:
+            mips = [state[k] for k in sorted(state) if k.startswith("env/mip")]
+            amb_q = ibl_k.ambient_ibl(*args, state["env/irradiance"], mips,
+                                      state["env/brdf_lut"])
+        return ctx.upsample(amb_q, (ctx.height, ctx.width)) * cov[..., None]
 
     @staticmethod
     def _shadow(ctx, targets, gbuffer):
@@ -399,6 +648,43 @@ class RenderSceneNode(BaseNode):
                 targets["LightMatrices"], targets["ShadowMaps"], targets.get("EvsmMap"),
                 z_far=z_far, use_evsm=True)
         return ctx.upsample(shadow_q, (ctx.height, ctx.width))
+
+
+@node("RenderTransparent")
+class RenderTransparentNode(BaseNode):
+    """The transparent queue (depth peel and back-to-front blend). A scene
+    without transparent materials passes through, as in the reference;
+    the peel itself is not ported and raises."""
+
+    def process(self, ctx, targets):
+        mats = ctx.scene.materials
+        if mats is None or not getattr(mats, "has_transparent", True):
+            return targets
+        raise NotImplementedError("the transparent queue (depth peel) is not ported yet")
+
+
+@node("Bloom")
+class BloomNode(BaseNode):
+    """Bloom added to Main (BloomNode.cpp), with the procedural lens dirt
+    when ``Bloom.DirtIntensity`` > 0 (made once per resolution and device
+    and kept by the node)."""
+
+    _dirt = None
+
+    def process(self, ctx, targets):
+        kw = dict(threshold=float(ctx.value("Bloom.Threshold", 1.0)),
+                  knee=float(ctx.value("Bloom.Knee", 0.5)),
+                  intensity=float(ctx.value("Bloom.Intensity", 0.35)))
+        dirt_i = float(ctx.value("Bloom.DirtIntensity", 0.0))
+        main = targets["Main"]
+        if dirt_i > 0.0:
+            key = (ctx.fh, ctx.width, main.device)
+            if self._dirt is None or self._dirt[0] != key:
+                self._dirt = (key, torch.from_numpy(bloom_k.lens_dirt(ctx.fh, ctx.width))
+                              .to(main.device))
+            kw["dirt"], kw["dirt_intensity"] = self._dirt[1], dirt_i
+        targets["Main"] = main + bloom_k.bloom(main, **kw)
+        return targets
 
 
 @node("EyeAdaptation")
@@ -437,3 +723,28 @@ class EyeAdaptationNode(BaseNode):
         targets["Final"] = torch.clamp(srgb, 0.0, 1.0)
         targets.setdefault("state_out", {})["avg_luminance"] = avg
         return targets
+
+
+@node("DebugDraw")
+class DebugDrawNode(BaseNode):
+    """Debug lines over Main (DebugDrawNode.cpp). Without a debug context,
+    or one with no lines, it passes through, as in the reference; drawing
+    lines is not ported and raises."""
+
+    def process(self, ctx, targets):
+        dbg = ctx.config.get("debug_context")
+        if dbg is None or not dbg.has_lines:
+            return targets
+        raise NotImplementedError("debug lines (rhi/debug_context) are not ported yet")
+
+
+@node("RenderOverlay")
+class RenderOverlayNode(BaseNode):
+    """The HUD canvas over Final (RenderImGuiNode.cpp). Without an
+    "overlay/canvas" in the state, or without Final, it passes through, as
+    in the reference; compositing a canvas is not ported and raises."""
+
+    def process(self, ctx, targets):
+        if (ctx.state or {}).get("overlay/canvas") is None or "Final" not in targets:
+            return targets
+        raise NotImplementedError("the overlay canvas (engine/overlay) is not ported yet")

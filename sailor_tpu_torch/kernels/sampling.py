@@ -1,28 +1,88 @@
 """Texture sampling, min pyramids and gather-free upsampling (counterpart of
 sailor_tpu/kernels/sampling.py).
 
-What the port has: ``sample_nearest`` (the shadow lookups),
-``downsample2x_min`` and ``build_min_pyramid`` (DepthHighZ and the HiZ
-cull), and ``upsample_bilinear_pow2`` (RenderScene's reduced-resolution
-terms). Plain PyTorch on the input's device; the sharded upsample belongs
-to multi-device rendering, which is not ported.
+What the port has: ``sample_nearest`` and ``sample_bilinear`` with the
+clamp, repeat and mirror wraps (shadow lookups, cubemaps, the BRDF LUT,
+chromatic aberration), ``blit``, ``downsample2x_min`` and
+``build_min_pyramid`` (DepthHighZ and the HiZ cull), and
+``upsample_bilinear_pow2`` (the reduced-resolution terms). Plain PyTorch
+on the input's device; the sharded upsample belongs to multi-device
+rendering, which is not ported.
 """
 
 from __future__ import annotations
 
 import torch
 
+from sailor_tpu_torch.core.math3d import fma
 
-def sample_nearest(img, uv):
-    """Nearest-texel sample with clamp-to-edge. ``img``: (H, W, C) or
-    (H, W); ``uv``: (..., 2) in [0, 1] with (u, v) = (x, y), v = 0 at the
-    top row. (The reference's other wrap modes serve textures, which are
-    not ported on the raster path.)"""
+
+def _wrap_index(i, n: int, mode: str):
+    """Integer texel coordinates wrapped into [0, n): clamp to the edge,
+    repeat (``torch.remainder`` takes the divisor's sign, as
+    ``jnp.remainder``) or mirror."""
+    if mode == "clamp":
+        return torch.clamp(i, 0, n - 1)
+    if mode == "repeat":
+        return torch.remainder(i, n)
+    if mode == "mirror":
+        period = 2 * n - 2 if n > 1 else 1
+        i = torch.remainder(i, period)
+        return torch.where(i >= n, period - i, i)
+    raise ValueError(f"unknown wrap mode {mode}")
+
+
+def _fetch(img, y, x):
+    """Texels at integer (y, x) through one flat row index."""
     h, w = img.shape[0], img.shape[1]
-    x = torch.clamp(torch.floor(uv[..., 0] * w).to(torch.int32), 0, w - 1)
-    y = torch.clamp(torch.floor(uv[..., 1] * h).to(torch.int32), 0, h - 1)
     flat = img.reshape((h * w,) + tuple(img.shape[2:]))
-    return flat[(y * w + x).long()]
+    return flat[y.long() * w + x.long()]
+
+
+def sample_nearest(img, uv, wrap: str = "clamp"):
+    """Nearest-texel sample. ``img``: (H, W, C) or (H, W); ``uv``: (..., 2)
+    in [0, 1] with (u, v) = (x, y), v = 0 at the top row."""
+    h, w = img.shape[0], img.shape[1]
+    x = _wrap_index(torch.floor(uv[..., 0] * w).to(torch.int32), w, wrap)
+    y = _wrap_index(torch.floor(uv[..., 1] * h).to(torch.int32), h, wrap)
+    return _fetch(img, y, x)
+
+
+def sample_bilinear(img, uv, wrap: str = "clamp"):
+    """Bilinear sample with the texel-centre convention (uv * size - 0.5)."""
+    h, w = img.shape[0], img.shape[1]
+    fx = uv[..., 0] * w - 0.5
+    fy = uv[..., 1] * h - 0.5
+    x0f, y0f = torch.floor(fx), torch.floor(fy)
+    tx, ty = fx - x0f, fy - y0f
+    if img.ndim == 3:
+        tx, ty = tx[..., None], ty[..., None]
+    x0, y0 = x0f.to(torch.int32), y0f.to(torch.int32)
+    x0c, x1c = _wrap_index(x0, w, wrap), _wrap_index(x0 + 1, w, wrap)
+    y0c, y1c = _wrap_index(y0, h, wrap), _wrap_index(y0 + 1, h, wrap)
+    c00, c10 = _fetch(img, y0c, x0c), _fetch(img, y0c, x1c)
+    c01, c11 = _fetch(img, y1c, x0c), _fetch(img, y1c, x1c)
+    tx, ty = tx.expand(c00.shape), ty.expand(c00.shape)
+    # each lerp one fused multiply-add, as the reference's compiled code
+    top = fma(c10 - c00, tx, c00)
+    bot = fma(c11 - c01, tx, c01)
+    return fma(bot - top, ty, top)
+
+
+def blit(src, dst_hw: tuple[int, int], *, filter: str = "bilinear"):
+    """Resize-copy ``src`` to ``dst_hw`` (BlitNode): the same size returns
+    ``src`` itself, a resize samples at the destination's texel centres."""
+    h, w = dst_hw
+    if (src.shape[0], src.shape[1]) == (h, w):
+        return src
+    dev = src.device
+    ys = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5) / h
+    xs = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) / w
+    yy, xx = torch.meshgrid(ys, xs, indexing="ij")
+    uv = torch.stack([xx, yy], dim=-1)
+    if filter == "nearest":
+        return sample_nearest(src, uv)
+    return sample_bilinear(src, uv)
 
 
 def _upsample_axis(x, f: int, axis: int):

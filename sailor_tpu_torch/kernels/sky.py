@@ -4,9 +4,10 @@ functions of the view direction over any (..., 3) batch.
 
 What the port has: ``SkyParams``, ``phase_rayleigh``, ``phase_hg``,
 ``_ray_sphere_exit``, ``atmosphere``, ``clouds``, ``sun_disc`` and
-``sky_radiance`` with ``cloud_stride=1``; the path tracer bakes its
-environment map with them. Stars and ``cloud_stride > 1`` belong to the
-raster Sky node, which is not ported, and raise ``NotImplementedError``.
+``sky_radiance`` (with ``cloud_stride`` and ``cloud_override``); the path
+tracer bakes its environment map and the frame graph's Sky and
+Environment nodes render with them. Stars (``assets/stars.py``, which no
+ported scene supplies) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 
 from sailor_tpu_torch.core import math3d as m3
 from sailor_tpu_torch.core.noise import fbm3
+from sailor_tpu_torch.kernels import sampling
 
 EARTH_R = 6371e3
 ATMOSPHERE_H = 100e3
@@ -171,7 +173,11 @@ def clouds(d, params: SkyParams, time=0.0, *, steps: int = 12):
     cos_t = m3.dot32(d, to_sun)
     phase = (p_["phase_influence1"] * phase_hg(cos_t, p_["eccentricity1"])
              + p_["phase_influence2"] * phase_hg(cos_t, p_["eccentricity2"]))
-    drift = _vec([time * 0.005, 0.0, 0.0], d)
+    if torch.is_tensor(time):  # the frame's clock, on the device
+        zero = torch.zeros((), device=d.device)
+        drift = torch.stack([time.to(d.device, torch.float32) * 0.005, zero, zero])
+    else:
+        drift = _vec([time * 0.005, 0.0, 0.0], d)
 
     def density(p, octaves: int = 5):
         q = p * 2.5e-4 + drift
@@ -208,20 +214,30 @@ def sun_disc(d, params: SkyParams, transmittance):
 
 def sky_radiance(d, params: SkyParams, time=0.0, star_dirs=None, star_colors=None, *,
                  with_clouds: bool = True, with_stars: bool = False, with_sun: bool = True,
-                 cloud_stride: int = 1):
+                 cloud_stride: int = 1, cloud_override=None):
     """Full sky for directions d (..., 3): atmosphere, clouds, sun disc,
-    and the ground fade below the horizon."""
+    and the ground fade below the horizon.
+
+    ``cloud_stride``: on a 2-D ray grid (H, W, 3), march the clouds on every
+    stride-th ray and upsample them. ``cloud_override``: precomputed
+    (cloud colour, cloud transmittance) at d's resolution, used in place of
+    the march."""
     if with_stars:
-        raise NotImplementedError("stars belong to the raster Sky node, which is not ported")
-    if with_clouds and cloud_stride > 1 and d.dim() == 3:
-        raise NotImplementedError("cloud_stride > 1 belongs to the raster Sky node, "
-                                  "which is not ported")
+        raise NotImplementedError("stars are not ported (no ported scene supplies a catalog)")
     p_ = params.on(d.device)
     atm, trans = atmosphere(d, p_["sun_direction"], p_["sun_intensity"])
     color = atm
     cloud_t = torch.ones(d.shape[:-1], device=d.device)
-    if with_clouds:
-        cl, cloud_t = clouds(d, params, time)
+    if cloud_override is not None:
+        cl, cloud_t = cloud_override
+        color = color * cloud_t[..., None] + cl
+    elif with_clouds:
+        if cloud_stride > 1 and d.dim() == 3:
+            cl_q, ct_q = clouds(d[::cloud_stride, ::cloud_stride], params, time)
+            cl = sampling.upsample_bilinear_pow2(cl_q, tuple(d.shape[:2]))
+            cloud_t = sampling.upsample_bilinear_pow2(ct_q[..., None], tuple(d.shape[:2]))[..., 0]
+        else:
+            cl, cloud_t = clouds(d, params, time)
         color = color * cloud_t[..., None] + cl
     if with_sun:
         color = color + sun_disc(d, params, trans) * cloud_t[..., None]

@@ -39,19 +39,20 @@ def _unproject_rays(inv_vp, camera_position, ndc_x, ndc_y, fused: bool = True):
     return torch.stack([mv(i) * inv_w for i in range(3)], dim=-1) - camera_position
 
 
-def _pixel_ndc(height: int, width: int, row0, full_height: int, device):
-    """NDC (ndc_x, ndc_y) of the pixel centres, (H, W) each; local row y
-    maps through (y + row0 + 0.5) / full_height. The reference's CPU build
+def _pixel_ndc(height: int, width: int, row0, full_height: int, device, stride: int = 1):
+    """NDC (ndc_x, ndc_y) of every ``stride``-th pixel centre,
+    (ceil(H / stride), ceil(W / stride)) each; local row y maps through
+    (y * stride + row0 + 0.5) / full_height. The reference's CPU build
     divides by the static sizes as products with their float32 reciprocals,
     folds the doubling into them and fuses the offset:
     ndc_x = fma(x + 0.5, 2 * (1 / width), -1), and likewise y."""
     def ndc(n, size, offset, sign):
         k = 2.0 * float(torch.tensor(1.0 / size, dtype=torch.float32))
-        c = torch.arange(n, dtype=torch.float32, device=device) + 0.5 + offset
+        c = torch.arange(n, dtype=torch.float32, device=device) * stride + 0.5 + offset
         return fma(c, torch.full_like(c, sign * k), torch.full_like(c, -sign))
 
-    ndc_y, ndc_x = torch.meshgrid(ndc(height, full_height, row0, -1.0),
-                                  ndc(width, width, 0, 1.0), indexing="ij")
+    ndc_y, ndc_x = torch.meshgrid(ndc(-(-height // stride), full_height, row0, -1.0),
+                                  ndc(-(-width // stride), width, 0, 1.0), indexing="ij")
     return ndc_x, ndc_y
 
 
@@ -62,6 +63,20 @@ def pixel_rays(inv_view_projection, camera_position, height: int, width: int,
     ndc_x, ndc_y = _pixel_ndc(height, width, row0, fh, inv_view_projection.device)
     return _unproject_rays(inv_view_projection.to(torch.float32),
                            camera_position.to(torch.float32), ndc_x, ndc_y)
+
+
+def pixel_rays_strided(inv_view_projection, camera_position, height: int, width: int,
+                       stride: int, row0=0, full_height: int | None = None,
+                       fused: bool = True):
+    """Rays of every ``stride``-th pixel, (ceil(H / stride), ceil(W /
+    stride), 3): the centres 0.5, stride + 0.5, ... of the full grid, as
+    ``x[::stride, ::stride]`` of ``pixel_rays``. ``fused`` as in
+    ``_unproject_rays``: the reference's Sky node rounds its rays unfused
+    (found against its frame graph), its cache key's corners fused."""
+    fh = full_height if full_height is not None else height
+    ndc_x, ndc_y = _pixel_ndc(height, width, row0, fh, inv_view_projection.device, stride)
+    return _unproject_rays(inv_view_projection.to(torch.float32),
+                           camera_position.to(torch.float32), ndc_x, ndc_y, fused=fused)
 
 
 def pack_triangle_attributes(geometry, src_id, materials=None):

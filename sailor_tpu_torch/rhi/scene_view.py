@@ -26,13 +26,18 @@ class SceneView:
     geometry: Geometry
     lights: Lights
     frame: FrameData
-    sky: SkyParams | None = None  # the sun (ShadowPrepass, RenderScene's shadow)
+    sky: SkyParams | None = None  # sun and sky (ShadowPrepass, Sky, Environment, ...)
     materials: Any = None    # MaterialTable: not ported yet (raises in the graph)
     attrs_packed: torch.Tensor | None = None  # (T, 37) pack_source_attributes
+    prev_frame: FrameData | None = None  # last frame's camera (MotionBlur); frame if None
+
+    def __post_init__(self):
+        if self.prev_frame is None:
+            self.prev_frame = self.frame
 
     @classmethod
     def create(cls, geometry, lights, frame, sky=None, materials=None,
-               pack_attrs: bool = True, attrs_packed=None):
+               pack_attrs: bool = True, attrs_packed=None, prev_frame=None):
         if materials is not None:
             raise NotImplementedError("materials are not ported yet")
         if pack_attrs and attrs_packed is None and geometry is not None:
@@ -41,7 +46,8 @@ class SceneView:
             attrs_packed = pack_source_attributes(geometry)
         return cls(geometry=geometry, lights=lights, frame=frame,
                    sky=sky if sky is not None else SkyParams.default(),
-                   materials=materials, attrs_packed=attrs_packed)
+                   materials=materials, attrs_packed=attrs_packed,
+                   prev_frame=prev_frame if prev_frame is not None else frame)
 
 
 GEOMETRY_KEYS = ("position", "normal", "uv", "color", "indices", "material_id")
@@ -57,9 +63,10 @@ def scene_from_numpy(arrays: dict[str, np.ndarray], device) -> SceneView:
 
     Keys: ``geometry.<f>`` for f in GEOMETRY_KEYS, ``lights.<f>`` for f in
     LIGHT_KEYS, ``frame.<f>`` for f in FRAME_KEYS and, optionally,
-    ``attrs_packed`` (T, 37), without which the table is packed here, and
-    ``sky.sun_direction`` (3,), taken as given (already normalised) into
-    the default sky."""
+    ``prev_frame.<f>`` for f in FRAME_KEYS (else the previous frame is the
+    frame), ``attrs_packed`` (T, 37), without which the table is packed
+    here, and ``sky.<f>`` for any field of ``SkyParams``, taken as given
+    (the sun direction already normalised) into the default sky."""
     def t(key):
         return torch.from_numpy(np.array(arrays[key])).to(device)
 
@@ -67,9 +74,12 @@ def scene_from_numpy(arrays: dict[str, np.ndarray], device) -> SceneView:
     lights = Lights(**{f: t(f"lights.{f}") for f in LIGHT_KEYS if f != "num"},
                     num=int(arrays["lights.num"]))
     frame = FrameData(**{f: t(f"frame.{f}") for f in FRAME_KEYS})
+    prev = None
+    if f"prev_frame.{FRAME_KEYS[0]}" in arrays:
+        prev = FrameData(**{f: t(f"prev_frame.{f}") for f in FRAME_KEYS})
     packed = t("attrs_packed") if "attrs_packed" in arrays else None
-    sky = SkyParams.default()
-    if "sky.sun_direction" in arrays:
-        sky = dataclasses.replace(
-            sky, sun_direction=np.array(arrays["sky.sun_direction"], np.float32))
-    return SceneView.create(geo, lights, frame, sky=sky, attrs_packed=packed)
+    sky = dataclasses.replace(SkyParams.default(), **{
+        f.name: np.array(arrays[f"sky.{f.name}"], np.float32)
+        for f in dataclasses.fields(SkyParams) if f"sky.{f.name}" in arrays})
+    return SceneView.create(geo, lights, frame, sky=sky, attrs_packed=packed,
+                            prev_frame=prev)

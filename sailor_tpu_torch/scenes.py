@@ -7,6 +7,10 @@ alternating UV spheres (16x32) and cubes, one directional light plus
 calls in the same order, so both packages build the same scene from the
 same seed.
 
+``occlusion_scene`` is the HiZ test scene of the JAX package's
+``tests/test_hiz_culling.py``: a wall that hides 24 cubes from the
+camera, so a frame after the first culls them.
+
 ``tracer_scene`` is the path tracer's benchmark scene (``bench_trace``);
 ``material_balls`` is the JAX package's tracer demo scene
 (``examples/trace.py``), optionally with the procedural sky and with
@@ -74,6 +78,39 @@ def flagship_scene(width: int, height: int, num_lights: int, num_objects: int,
     frame = FrameData.create(view, proj, cam, 0.1, 150.0, dt=1 / 60)
     sky = SkyParams.default(sun_direction=(-0.35, -0.7, -0.3))
     return SceneView.create(geo, lights, frame, sky=sky)
+
+
+def occlusion_scene(width: int = 128, height: int = 96, device="cuda") -> SceneView:
+    """A 12 m wall at z = 0 in front of the camera (0, 2, 10), 24 cubes of
+    0.8 m behind it from a seeded generator, a 60 m ground and one
+    directional light; no materials."""
+    dev = resolve_device(device)
+    rot = np.array([[1, 0, 0, 0], [0, 0, -1, 0], [0, 1, 0, 0], [0, 0, 0, 1]], np.float32)
+    t_wall = rot.copy()
+    t_wall[:3, 3] = [0, 2.0, 0.0]
+    items = [(primitives.plane(60.0), np.eye(4)), (primitives.plane(12.0), t_wall)]
+    rng = np.random.default_rng(5)
+    for _ in range(24):
+        t = np.eye(4, dtype=np.float32)
+        t[:3, 3] = [rng.uniform(-3, 3), rng.uniform(0.5, 3.5), rng.uniform(-8, -3)]
+        items.append((primitives.cube(0.8), t))
+    soup = primitives.merge(items)
+
+    def t32(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    geo = Geometry(**{k: t32(soup[k]) for k in ("position", "normal", "uv", "color",
+                                                 "indices", "material_id")})
+    lights = Lights.from_host(types=[DIRECTIONAL], positions=[[0, 0, 0]],
+                              directions=[[0.0, -0.7, -0.7]], intensities=[[3.0, 3.0, 3.0]],
+                              device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    cam = torch.tensor([0.0, 2.0, 10.0], **f32)
+    view = m3.look_at(cam, torch.tensor([0.0, 2.0, 0.0], **f32),
+                      torch.tensor([0.0, 1.0, 0.0], **f32))
+    proj = m3.perspective(math.pi / 3, width / height, 0.1, 100.0, device=dev)
+    frame = FrameData.create(view, proj, cam, 0.1, 100.0, time=0.0, dt=1 / 60)
+    return SceneView.create(geo, lights, frame)
 
 
 def tracer_soup(rings: int = 24, sectors: int = 48, spheres: int = 8) -> dict:

@@ -43,7 +43,12 @@ the kernel inputs its own nodes make. Tolerances, from the arithmetic:
   B3 with the frame's EVSM shadow factor at the shade bar; a 256x128
   shadowed, culled frame on the card against the CPU path (ShadowMaps,
   Depth, TriId equal on >= 99.9%, Main within 1e-4 relative on >= 99.5%,
-  Final within 2/255 on >= 99.9%).
+  Final within 2/255 on >= 99.9%); the HiZ cull on the card at a nonzero
+  count (the occlusion scene, two frames: HiZCulledCount > 0, Depth and
+  TriId exactly the CPU path's); a 256x128 DefaultRenderer frame, two
+  frames (the second turned, its sun moved), against the CPU path (Depth,
+  TriId, ShadowMaps, HiZCulledCount exact, Sky within 5e-5 * (1 + |cpu|),
+  Main within 1e-4 relative on >= 99.5%, Final within 2/255).
 The tracer's kernels run on its own rays: every intersector pass of one
 128x128 sample of the bench tracer scene (camera, bounce-1 and shadow rays),
 and 64x64 renders on the card are held to the CPU path: the tracer scene
@@ -54,8 +59,8 @@ maps.
 import pytest
 import torch
 
-from chip_smoke import (bits_equal, cascade_inputs, check_small_frame,
-                        check_small_shadow_frame, check_small_trace, dense_runs, dma_runs,
+from chip_smoke import (bits_equal, cascade_inputs, check_culled_frame, check_small_frame,
+                        check_small_full_frame, check_small_shadow_frame, check_small_trace, dense_runs, dma_runs,
                         evsm_shadow_factor, frame_inputs, heavy_tile_cases, heavy_tile_rows,
                         sparse_pass, stream_runs, tables_equal, textured_sky_balls,
                         tied_clusters, tracer_passes, worklist_runs)
@@ -456,6 +461,21 @@ def test_shade_kernel_matches_plain_with_evsm_shadow(card_frame):
 
 def test_shadow_frame_on_card_matches_cpu(card_frame):
     check_small_shadow_frame()
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    cuda_lib.load()
+
+
+def test_culled_frame_on_card_matches_cpu(card):
+    check_culled_frame()
+
+
+def test_full_frame_on_card_matches_cpu(card):
+    check_small_full_frame()
 
 
 @pytest.fixture(scope="module")

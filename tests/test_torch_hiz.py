@@ -25,9 +25,10 @@ from sailor_tpu.raster import hiz_cull as j_hiz
 from sailor_tpu_torch.framegraph import FrameGraph, FrameGraphAsset
 from sailor_tpu_torch.kernels import sampling
 from sailor_tpu_torch.raster import hiz_cull
+from sailor_tpu_torch.scenes import occlusion_scene
 from test_hiz_culling import _GRAPH, H, W, _occlusion_scene
 from test_torch_scenes import release_jax_executables  # noqa: F401 (autouse)
-from test_torch_scenes import torch_scene
+from test_torch_scenes import scene_arrays, torch_scene
 
 SHAPES = [(37, 54), (64, 128), (33, 1), (96, 128, 3)]
 
@@ -139,3 +140,24 @@ def test_culled_frame_equals_unculled_frame(occlusion_frames):
     _, got = occlusion_frames
     for k in ("Depth", "TriId", "Main"):
         np.testing.assert_array_equal(got[1][k], got[0][k], err_msg=k)
+
+
+def test_occlusion_scene_matches_reference():
+    """``scenes.occlusion_scene``, which the card's cull check renders,
+    rebuilds test_hiz_culling's scene: geometry, lights and sky exactly,
+    the camera within 1e-6 (float32 math in two frameworks)."""
+    ref = scene_arrays(_occlusion_scene())
+    got = occlusion_scene(W, H, device="cpu")
+    for key, want in ref.items():
+        group, _, field = key.partition(".")
+        if group == "attrs_packed":
+            have = got.attrs_packed
+        elif group == "sky":
+            have = torch.as_tensor(np.asarray(getattr(got.sky, field)))
+        else:
+            have = getattr(getattr(got, group), field)
+        have = np.asarray(have.numpy() if torch.is_tensor(have) else have)
+        if group in ("frame", "prev_frame"):
+            np.testing.assert_allclose(have, want, rtol=1e-6, atol=1e-6, err_msg=key)
+        else:
+            np.testing.assert_array_equal(have, want, err_msg=key)

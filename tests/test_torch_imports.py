@@ -7,8 +7,9 @@
 - kernel wrappers take CUDA tensors only, and the dispatch runs the plain
   version only for CPU tensors: nothing falls back;
 - configuration, nodes and inputs outside the ported slices raise
-  NotImplementedError (the IBL input among them), and every raster
-  configuration builds, as do HiZ culling, ShadowPrepass and DepthHighZ;
+  NotImplementedError, and every raster configuration builds, as do HiZ
+  culling, ShadowPrepass, DepthHighZ and the whole DefaultRenderer graph
+  (content/DefaultRenderer.renderer) at the flagship size;
   so do the path tracer's parts that are not ported (the BVH8 tracer and
   scenes too large for the sweep), while its textures, env-map sky and
   ray sorting inside the intersector run.
@@ -24,12 +25,14 @@ import pytest
 import torch
 
 from sailor_tpu_torch.framegraph import FrameGraph, FrameGraphAsset
-from sailor_tpu_torch.kernels import pbr_kernel
+from sailor_tpu_torch.kernels import cubemap, ibl, pbr_kernel
 from sailor_tpu_torch.kernels.sky import SkyParams
 from sailor_tpu_torch.raster import tile_raster
 from sailor_tpu_torch.raytracing import path_tracer, sweep
 from sailor_tpu_torch.scenes import flagship_scene, tracer_camera, tracer_scene, tracer_soup
-from test_torch_scenes import MINIMAL_GRAPH, SHADOW_HIZ_CONFIG, SHADOW_HIZ_GRAPH, SLICE_CONFIG
+from sailor_tpu_torch.framegraph.graph import UNPORTED_NODES
+from test_torch_scenes import (FULL_CONFIG, MINIMAL_GRAPH, SHADOW_HIZ_CONFIG, SHADOW_HIZ_GRAPH,
+                               SLICE_CONFIG)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "sailor_tpu_torch")
@@ -75,6 +78,12 @@ def test_default_device_is_the_card(monkeypatch):
         tracer_scene(rings=4, sectors=8, spheres=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         path_tracer.scene_from_mesh(tracer_soup(4, 8, 1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cubemap.face_directions(4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cubemap.render_cubemap(lambda d: d, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ibl.brdf_lut(4, 4)
 
 
 def test_kernel_wrappers_take_cuda_tensors_only():
@@ -152,7 +161,7 @@ def test_raster_configs_are_ported(change):
     assert fg.config == dict(SLICE_CONFIG, **change)
 
 
-@pytest.mark.parametrize("name", ["Environment", "PostProcess", "Sky", "Bloom"])
+@pytest.mark.parametrize("name", ["Clear", "Blit", "CopyTextureToRam", "Particles"])
 def test_unported_node_raises(name):
     with pytest.raises(NotImplementedError):
         FrameGraph(FrameGraphAsset.from_nodes(MINIMAL_GRAPH + [name]), 256, 128,
@@ -170,13 +179,15 @@ def test_shadow_hiz_frame_is_ported():
         (32, 64), (16, 32), (8, 16), (4, 8), (2, 4), (1, 2)]
 
 
-def test_ibl_input_raises():
-    scene = flagship_scene(64, 64, 2, 2, device="cpu")
-    fg = FrameGraph(FrameGraphAsset.from_nodes(MINIMAL_GRAPH), 64, 64, SLICE_CONFIG,
-                    device="cpu")
-    state = dict(fg.initial_state(), **{"env/irradiance": torch.zeros(1)})
-    with pytest.raises(NotImplementedError, match="IBL"):
-        fg.process(scene, state)
+def test_default_renderer_is_ported():
+    """Every entry of content/DefaultRenderer.renderer builds at the
+    flagship size with bench.py's config; the state carries the sky cache."""
+    fg = FrameGraph(FrameGraphAsset.load(os.path.join(REPO, "content", "DefaultRenderer.renderer")),
+                    1920, 1088, dict(FULL_CONFIG), device="cpu")
+    assert len(fg.nodes) == 18
+    assert not {n.node_name for n in fg.nodes} & set(UNPORTED_NODES)
+    state = fg.initial_state()
+    assert state["sky/buf"].shape == (1088, 1920, 3) and state["sky/key"].shape == (18,)
 
 
 def test_sharding_raises():

@@ -6,6 +6,7 @@ dict that ``sailor_tpu_torch.rhi.scene_view.scene_from_numpy`` takes, so
 both packages render from identical inputs.
 """
 
+import dataclasses
 import os
 
 import jax
@@ -16,6 +17,7 @@ import torch
 import bench
 from sailor_tpu_torch.rhi.scene_view import (
     FRAME_KEYS, GEOMETRY_KEYS, LIGHT_KEYS, scene_from_numpy)
+from sailor_tpu_torch.kernels.sky import SkyParams
 from sailor_tpu_torch.scenes import flagship_scene
 
 # The suite runs in several xdist workers on a few cores. PyTorch's own
@@ -53,6 +55,12 @@ SHADOW_HIZ_CONFIG = dict(
 SHADOW_HIZ_GRAPH = ["DepthPrepass", "LinearizeDepth", "LightCulling", "ShadowPrepass",
                     "DepthHighZ", "RenderScene", "EyeAdaptation"]
 SHADOW_HIZ_VALUES = {"Shadow.EvsmBlurRadius": 4}
+# the whole DefaultRenderer frame: bench.py's flagship config (bench.py:338-350)
+# with the reference's defaults for the rest
+FULL_CONFIG = dict(
+    SHADOW_HIZ_CONFIG, env_resolution=32, raster_mxu=False, sky_cache=True,
+    sky_downsample=2, sky_clouds=True, cloud_stride=2, sky_cache_hz=4.0,
+    env_incremental=True, ao_stride=2, ibl_stride=4)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -74,8 +82,11 @@ def scene_arrays(scene) -> dict:
     out = {f"geometry.{f}": np.asarray(getattr(scene.geometry, f)) for f in GEOMETRY_KEYS}
     out.update({f"lights.{f}": np.asarray(getattr(scene.lights, f)) for f in LIGHT_KEYS})
     out.update({f"frame.{f}": np.asarray(getattr(scene.frame, f)) for f in FRAME_KEYS})
+    out.update({f"prev_frame.{f}": np.asarray(getattr(scene.prev_frame, f))
+                for f in FRAME_KEYS})
     out["attrs_packed"] = np.asarray(scene.attrs_packed)
-    out["sky.sun_direction"] = np.asarray(scene.sky.sun_direction)
+    out.update({f"sky.{f.name}": np.asarray(getattr(scene.sky, f.name))
+                for f in dataclasses.fields(SkyParams)})
     return out
 
 
