@@ -66,6 +66,21 @@ Phases, each printed as it ends:
      occlusion scene, two frames: HiZCulledCount, Depth and TriId exact)
      and a 256x128 DefaultRenderer frame, two frames (the second turned,
      its sun moved), is held to the CPU path;
+  6e. queues: flagship_queue_scene (the flagship geometry, lights and
+     camera; a third of the objects Opaque, a third Masked with striped
+     alpha, a third Transparent, procedural albedo and normal maps) at
+     1920x1088: the material forms of the path's kernels against their
+     plain versions on its own rows (B1 z-bounded on RenderTransparent's
+     two-sided setup, bit-equal; B2's 29 planes from the 49-column rows of
+     the opaque and masked bin sets and its 5-plane alpha emit; B10's 29
+     planes from 49-column grid-k bins; B2's bar); then frame[queues]: all
+     of content/DefaultRenderer.renderer (``QUEUE_CONFIG``: FULL_CONFIG
+     with 3 masked and 3 transparent layers), 1 warm-up + 5 frames with
+     ``prepare`` before each, launches checked per frame (B1, B2 full and
+     alpha, B3), the masked peel's layers, the synchronising calls of a
+     cached frame, per-node ms, peak memory, a profiled cached frame, and
+     one frame on the grid-k path (B7 and B10); later a 256x128 queue
+     frame on the card is held to the CPU path;
   7. tracer kernels: the sweep intersector's kernels (B4 slab entry with
      the visit tables, B5 cluster sweep and B6 dense-grid sweep, closest
      and any hit) against their plain versions on the path tracer's own
@@ -104,6 +119,7 @@ a non-zero exit code and no result line.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -551,30 +567,16 @@ def check_kernels(scene, width, height, card):
                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=bound, bound_by=by))
 
-    # ---- B2 resolve (full mode, 37 attribute columns): <= 1e-5 on all but
-    # 1e-5 of values, and every value within 1e-4 * (1 + |plain|)
+    # ---- B2 resolve (full mode, 37 attribute columns): ray, barycentrics,
+    # 12 lerps per covered pixel
     tid = t_k.contiguous()
     par = tr._resolve_params(inv_vp, scene.frame.camera_position, width, height, 0, rows.device)
     kw2 = dict(tiles_y=tiles_y, tiles_x=tiles_x, na=int(sb["na"]), chunk=int(sb["chunk"]))
-    p_k = torch.stack(tr.resolve_worklist_cuda(rows, big, tid, starts, counts, par, **kw2))
-    plain_ms, p_p = _wall_ms(lambda: torch.stack(
-        tr.resolve_worklist_plain(rows, big, tid, starts, counts, par, **kw2)))
-    ms = _time_ms(lambda: tr.resolve_worklist_cuda(rows, big, tid, starts, counts, par, **kw2), 20)
-    diff = (p_k - p_p).abs()
-    err = diff.max().item()
-    frac = (diff > 1e-5).float().mean().item()
-    winners = int(torch.unique(tid[tid >= 0]).numel())
-    n_out = p_k.shape[0]
-    flops = int((tid >= 0).sum()) * 115  # ray, barycentrics, 12 lerps per pixel
-    bound, by = _bound(npix * 4 + winners * (1 + sb["na"]) * 4 + npix * n_out * 4, flops)
-    print(f"kernel resolve_worklist: max_abs_err={err:.3g} frac_err>1e-5={frac:.3g} "
-          f"ms={ms:.4f} plain_ms={plain_ms:.1f} bound_ms={bound:.4f} ({by}) on {card}")
-    check(frac <= 1e-5 and bool((diff <= 1e-4 * (1 + p_p.abs())).all()),
-          "resolve kernel disagrees with its plain version")
+    res = _resolve_check("resolve_worklist", tr.resolve_worklist_cuda, tr.resolve_worklist_plain,
+                         (rows, big, tid, starts, counts, par), kw2, card, tid,
+                         int(sb["na"]), 115)
     results.append(dict(name="resolve_worklist", source="sailor_tpu_torch/csrc/resolve.cu",
-                        replaces="sailor_tpu/raster/tile_raster.py:1310",
-                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        bound_ms=bound, bound_by=by))
+                        replaces="sailor_tpu/raster/tile_raster.py:1310", **res))
 
     # ---- B3 shade: relative 1e-5 (same operation order; rsqrt may differ by
     # an ulp), the light rows gathered in the kernel
@@ -718,6 +720,31 @@ CONFIG_KERNELS = {
     "stream_mxu": ("raster_stream_mxu", "resolve_stream", "shade_forward_plus"),
     "gather_resolve": ("raster_worklist", "shade_forward_plus"),
 }
+
+
+def _resolve_check(name, kernel, plain, args, kw, card, tid, na, flops_px):
+    """One resolve form against its plain twin: <= 1e-5 on all but 1e-5 of
+    values and every value within 1e-4 * (1 + |plain|) (B2's bar);
+    CUDA-event ms, the twin's ms and the bound (tid read, the winners'
+    rows read once, the planes written; ``flops_px`` a covered pixel)."""
+    import torch
+
+    p_k = torch.stack(kernel(*args, **kw))
+    plain_ms, p_p = _wall_ms(lambda: torch.stack(plain(*args, **kw)))
+    ms = _time_ms(lambda: kernel(*args, **kw), 20)
+    diff = (p_k - p_p).abs()
+    err = diff.max().item()
+    frac = (diff > 1e-5).float().mean().item()
+    npix = tid.numel()
+    winners = int(torch.unique(tid[tid >= 0]).numel())
+    bound, by = _bound(npix * 4 + winners * (1 + na) * 4 + npix * p_k.shape[0] * 4,
+                       int((tid >= 0).sum()) * flops_px)
+    print(f"kernel {name}: planes={p_k.shape[0]} columns={na} max_abs_err={err:.3g} "
+          f"frac_err>1e-5={frac:.3g} ms={ms:.4f} plain_ms={plain_ms:.1f} "
+          f"bound_ms={bound:.4f} ({by}) covered={int((tid >= 0).sum())} on {card}")
+    check(frac <= 1e-5 and bool((diff <= 1e-4 * (1 + p_p.abs())).all()),
+          f"{name} kernel disagrees with its plain version")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
 
 
 def _raster_check(name, kernel, plain, args, kw, card, work, extra_bytes=0, reps=10):
@@ -1685,6 +1712,281 @@ def check_small_full_frame():
               "card full frame disagrees with the CPU path")
 
 
+# the queue frame (materials on the raster path): flagship_queue_scene's
+# Opaque, Masked and Transparent queues through all of DefaultRenderer.renderer
+QUEUE_CONFIG = dict(FULL_CONFIG, masked_layers=3, transparent_layers=3)
+
+
+def queue_inputs(qscene, width, height, config=None):
+    """The queue frame's kernel inputs, made by its nodes (no HiZ pyramid
+    yet): DepthPrepass (the opaque bins, the masked bins and the masked
+    peel), LinearizeDepth and LightCulling, and RenderTransparent's
+    two-sided setup with its own bins. Returns (ctx, targets, (tri_t,
+    aabb_t, bins_t))."""
+    from sailor_tpu_torch.framegraph import nodes as nodes_mod
+    from sailor_tpu_torch.framegraph.graph import RenderContext, node_types
+
+    nodes = node_types()
+    ctx = RenderContext(width=width, height=height, scene=qscene, state={}, values={},
+                        config=dict(config or QUEUE_CONFIG))
+    targets = {}
+    for name in ("DepthPrepass", "LinearizeDepth", "LightCulling"):
+        targets = nodes[name]().process(ctx, targets)
+    tri_t, aabb_t, _, sb_t = nodes_mod.transparent_raster(ctx)
+    return ctx, targets, (tri_t, aabb_t, sb_t)
+
+
+def check_queue_kernels(qscene, width, height, card):
+    """The material forms of the queue frame's kernels against their plain
+    versions, on flagship_queue_scene's own rows at full size: B1 z-bounded
+    on RenderTransparent's two-sided setup (its first peel layer, behind
+    nothing and in front of Depth; then its second) bit-equal; B2's 29
+    planes from the 49-column rows of the opaque and the masked bin sets,
+    and its 5-plane ``mode="alpha"`` emit on the masked queue's nearest
+    layer, and B10's 29 planes from 49-column grid-k bins of the opaque
+    queue, each within B2's bar. Returns the kernel-line entries."""
+    import torch
+
+    from sailor_tpu_torch.framegraph import nodes as nodes_mod
+    from sailor_tpu_torch.raster import tile_raster as tr
+
+    ctx, targets, (_, _, sb_t) = queue_inputs(qscene, width, height)
+    tiles_y, tiles_x = -(-height // tr.TILE_H), -(-width // tr.TILE_W)
+    kw = dict(tiles_y=tiles_y, tiles_x=tiles_x)
+    npix = tiles_y * tr.TILE_H * tiles_x * tr.TILE_W
+    sb_o, sb_m = targets["StreamBins"]
+    out = {}
+
+    # ---- B1 on the two-sided transparent setup, z-bounded as the peel runs it
+    args = (sb_t["rows"], sb_t["big_rows"], sb_t["starts"], sb_t["counts"], sb_t["n_big"])
+    cand, pairs = raster_work(*args, tiles_y, tiles_x)
+    zb = (targets["Depth"], torch.full_like(targets["Depth"], 2.0))
+    out["raster_worklist[two_sided_peel]"], d1, t1 = _raster_check(
+        "raster_worklist[two_sided_peel]", tr.rasterize_worklist_cuda,
+        tr.rasterize_worklist_plain, args, dict(kw, z_bounds=zb), card,
+        (cand, pairs, 17 * 4), ntiles_bytes(sb_t["starts"]) + npix * 8)
+    h, w = height, width
+    zb = (targets["Depth"], torch.where(t1[:h, :w] >= 0, d1[:h, :w], 0.0))
+    _raster_check("raster_worklist[two_sided_peel_layer2]", tr.rasterize_worklist_cuda,
+                  tr.rasterize_worklist_plain, args, dict(kw, z_bounds=zb), card,
+                  (cand, pairs, 17 * 4), ntiles_bytes(sb_t["starts"]) + npix * 8, reps=3)
+    check(int((t1 >= 0).sum()) > 0, "the transparent peel covered no pixel")
+
+    # ---- B2 from the 49-column rows: 29 planes (opaque and masked sets)
+    inv_vp = nodes_mod.inverse_view_projection(qscene.frame)
+    par = tr._resolve_params(inv_vp, qscene.frame.camera_position, width, height, 0,
+                             sb_o["rows"].device)
+    tid = torch.nn.functional.pad(targets["TriId"], (0, tiles_x * tr.TILE_W - width,
+                                                     0, tiles_y * tr.TILE_H - height),
+                                  value=-1).contiguous()
+    for label, sb in (("", sb_o), ("[masked_set]", sb_m)):
+        kw2 = dict(kw, na=int(sb["na"]), chunk=int(sb["chunk"]))
+        res = _resolve_check("resolve_worklist[49]" + label, tr.resolve_worklist_cuda,
+                             tr.resolve_worklist_plain,
+                             (sb["rows"], sb["big_rows"], tid, sb["starts"], sb["counts"], par),
+                             kw2, card, tid, int(sb["na"]), 127)
+        out.setdefault("resolve_worklist[49]", res)
+
+    # ---- B2's 5-plane alpha emit on the masked queue's nearest layer
+    ma = (sb_m["rows"], sb_m["big_rows"], sb_m["starts"], sb_m["counts"], sb_m["n_big"])
+    _, tid_m = tr.rasterize_worklist_cuda(*ma, **kw)
+    check(int((tid_m >= 0).sum()) > 0, "the masked queue covers no pixel")
+    kw2 = dict(kw, na=int(sb_m["na"]), chunk=int(sb_m["chunk"]), mode="alpha")
+    out["resolve_worklist[alpha]"] = _resolve_check(
+        "resolve_worklist[alpha]", tr.resolve_worklist_cuda, tr.resolve_worklist_plain,
+        (sb_m["rows"], sb_m["big_rows"], tid_m, sb_m["starts"], sb_m["counts"], par), kw2,
+        card, tid_m, int(sb_m["na"]), 91)
+
+    # ---- B10 from 49-column grid-k bins (the opaque queue, B7's winners)
+    tri, aabb = targets["TriSetup"], targets["TriAABB"]
+    queue = nodes_mod._queue_of_raster_tris(qscene, tri)
+    cfg = dict(QUEUE_CONFIG, raster_worklist=False)
+    raster, ovf, sb10 = nodes_mod._make_raster(
+        tri, tri.valid & (queue == 0), aabb, tiles_y, tiles_x, cfg,
+        capacity=cfg["bin_capacity"], rounds=cfg["bin_rounds"],
+        attrs=nodes_mod._packed_attrs(qscene, tri, cfg))
+    check(int(ovf) == 0, f"B7 drops {int(ovf)} candidates past kmax on the queue frame")
+    _, tid10 = raster()
+    c0, spt, _ = tr.stream_windows(sb10["starts"], sb10["counts"], sb10["chunk"], sb10["kmax"])
+    out["resolve_stream[49]"] = _resolve_check(
+        "resolve_stream[49]", tr.resolve_stream_cuda, tr.resolve_stream_plain,
+        (sb10["rows"], sb10["big_rows"], tid10.contiguous(), sb10["starts"], sb10["counts"],
+         c0, spt, par), dict(kw, na=int(sb10["na"]), chunk=int(sb10["chunk"])), card,
+        tid10, int(sb10["na"]), 127)
+
+    sources = {"raster_worklist[two_sided_peel]": ("raster.cu", 442),
+               "resolve_worklist[49]": ("resolve.cu", 1310),
+               "resolve_worklist[alpha]": ("resolve.cu", 1310),
+               "resolve_stream[49]": ("resolve_stream.cu", 1159)}
+    return [dict(name=name, route="cuda", source=f"sailor_tpu_torch/csrc/{src}",
+                 replaces=f"sailor_tpu/raster/tile_raster.py:{line}", library_ms=None,
+                 **out[name]) for name, (src, line) in sources.items()]
+
+
+@contextlib.contextmanager
+def sync_counter():
+    """The CUDA sync debug mode on: yields a function giving the
+    synchronising calls made so far (each warns once)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield lambda: sum("synchroniz" in str(c.message) for c in caught)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+@contextlib.contextmanager
+def around_node(name, measure):
+    """Wraps the process of the frame-graph node type ``name``: yields a
+    one-item list that sums measure()'s growth over each call."""
+    from sailor_tpu_torch.framegraph.graph import node_types
+
+    cls = node_types()[name]
+    inner, acc = cls.process, [0]
+
+    def process(self, ctx, targets):
+        m0 = measure()
+        try:
+            return inner(self, ctx, targets)
+        finally:
+            acc[0] += measure() - m0
+
+    cls.process = process
+    try:
+        yield acc
+    finally:
+        cls.process = inner
+
+
+def run_queue_frames(qscene, width, height, card):
+    """frame[queues]: flagship_queue_scene through all of
+    content/DefaultRenderer.renderer (``QUEUE_CONFIG``), 1 warm-up + 5
+    frames with the state threaded through and ``prepare`` before each:
+    frame ms, the masked peel's layers per frame, launches per frame (B1
+    1 + peel layers + 3 transparent layers, + 4 cascades on the dirty
+    warm-up; B2 2 + 3 full, one alpha a peel layer; B3 once). Then the
+    synchronising calls of a cached frame, per-node ms of a cached frame,
+    peak memory, the output (finite, in [0, 1], all three queues on
+    screen), one profiled cached frame; and one frame on the grid-k path
+    (``raster_worklist`` off: B7, and B10 from the 49-column rows, the
+    masked alpha through B10's full emit). Returns (launches of frames
+    1-6, launches of the grid-k frame); the launches' key
+    "raster_worklist[two_sided_peel]" counts the B1 launches made inside
+    RenderTransparent."""
+    import torch
+
+    from sailor_tpu_torch.kernels import cuda_lib
+
+    fg = _full_graph(width, height, config=QUEUE_CONFIG)
+    state = fg.initial_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, per_frame, layers, total = [], [], [], {}
+    for i in range(6):
+        cuda_lib.LAUNCHES.clear()
+
+        def frame():
+            fg.prepare(qscene, state)
+            return fg.process(qscene, state)
+
+        with around_node("RenderTransparent",
+                         lambda: cuda_lib.LAUNCHES.get("raster_worklist", 0)) as peel:
+            ms, (targets, state) = _wall_ms(frame)
+        launches = dict(cuda_lib.LAUNCHES, **{"raster_worklist[two_sided_peel]": peel[0]})
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        times.append(ms)
+        per_frame.append(launches)
+        layers.append(targets["MaskedPeelLayers"])
+    peak = torch.cuda.max_memory_allocated()
+    for i, (launches, n) in enumerate(zip(per_frame, layers)):
+        want = {"raster_worklist": 1 + n + 3 + (4 if i == 0 else 0),
+                "raster_worklist[two_sided_peel]": 3,
+                "resolve_worklist": 2 + 3 + n, "resolve_worklist_alpha": n,
+                "shade_forward_plus": 1}
+        for name, k in want.items():
+            check(launches.get(name, 0) == k,
+                  f"frame[queues] {i + 1} launched {name} {launches.get(name, 0)} times, not {k}")
+    with sync_counter() as syncs, around_node("DepthPrepass", syncs) as prepass_syncs:
+        fg.prepare(qscene, state)
+        fg.process(qscene, state)
+        frame_syncs = syncs()
+    _, _, per_node = fg.process_debug(qscene, state)
+    final = targets["Final"]
+    tid = targets["TriId"]
+    src = targets["TriSetup"].src_id.long()
+    queue = qscene.materials.queue[qscene.geometry.material_id[src[tid.clamp(min=0).long()]]
+                                   .long()]
+    on_screen = [int(((tid >= 0) & (queue == q)).sum()) for q in (0, 1)]
+    check(tuple(final.shape) == (height, width, 3), f"frame[queues]: Final has shape {final.shape}")
+    check(bool(torch.isfinite(final).all()) and final.min().item() >= 0.0
+          and final.max().item() <= 1.0, "frame[queues]: Final is not finite in [0, 1]")
+    check(min(on_screen) > 0, f"frame[queues]: opaque and masked winners {on_screen}")
+    profile(lambda: (fg.prepare(qscene, state), fg.process(qscene, state)), card,
+            "profile_queues")
+    gfg = _full_graph(width, height, config=dict(QUEUE_CONFIG, raster_worklist=False))
+    gstate = gfg.initial_state()
+    gfg.prepare(qscene, gstate)
+    cuda_lib.LAUNCHES.clear()
+    grid_ms, (gt, _) = _wall_ms(lambda: gfg.process(qscene, gstate))
+    grid = dict(cuda_lib.LAUNCHES)
+    check(grid.get("resolve_stream", 0) == 2 + 3 + gt["MaskedPeelLayers"]
+          and grid.get("raster_stream", 0) == 1 + gt["MaskedPeelLayers"] + 3 + 4,
+          f"frame[queues] grid-k launched {grid}")
+    mean = sum(times[1:]) / 5
+    print(f"frame[queues] {width}x{height}: dirty_frame1_ms={times[0]:.3f} "
+          f"cached_frame_ms={[round(m, 3) for m in times[1:]]} cached_mean_ms={mean:.3f} "
+          f"masked_peel_layers={layers} host_syncs_cached_frame={frame_syncs} "
+          f"(DepthPrepass {prepass_syncs[0]} of them) peak_mem_bytes={peak} on {card}")
+    print("frame[queues] per_node_ms_cached "
+          + json.dumps({k: round(v, 3) for k, v in per_node.items()}))
+    print("frame[queues] launches_per_frame " + json.dumps(per_frame))
+    print(f"frame[queues] grid-k frame: ms={grid_ms:.3f} launches " + json.dumps(grid))
+    print(f"frame[queues] output: coverage={(tid >= 0).float().mean().item():.4f} "
+          f"opaque_px={on_screen[0]} masked_px={on_screen[1]} Final in "
+          f"[{final.min().item():.4f}, {final.max().item():.4f}] "
+          f"avg_luminance={state['avg_luminance'].item():.5f}")
+    return total, grid
+
+
+def check_small_queue_frame():
+    """A 256x128 queue frame (``QUEUE_CONFIG``, shadow_resolution 128) on
+    the card against the CPU path (which the CPU tests hold to the JAX
+    package): Depth, TriId and ShadowMaps exact, Main within 1e-4
+    relative (to max(|cpu|, 1e-3)) on >= 99.5% of pixels, Final within
+    2/255 on every pixel."""
+    import torch
+
+    from sailor_tpu_torch.scenes import flagship_queue_scene
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        scene = flagship_queue_scene(256, 128, 24, 10, device=dev)[0]
+        fg = _full_graph(256, 128, dev, dict(QUEUE_CONFIG, shadow_resolution=128))
+        state = fg.initial_state()
+        fg.prepare(scene, state)
+        t, _ = fg.process(scene, state)
+        out[dev] = {k: t[k].cpu() for k in ("Depth", "TriId", "ShadowMaps", "Main", "Final")}
+        out[dev]["layers"] = t["MaskedPeelLayers"]
+    g, r = out["cuda"], out["cpu"]
+    exact = {k: bool(torch.equal(g[k], r[k])) for k in ("Depth", "TriId", "ShadowMaps")}
+    rel = ((g["Main"] - r["Main"]).abs() / r["Main"].abs().clamp(min=1e-3)).amax(-1)
+    main = (rel <= 1e-4).float().mean().item()
+    final = (g["Final"] - r["Final"]).abs().max().item()
+    print("small frame[queues] card vs cpu: "
+          + " ".join(f"{k}_equal={v}" for k, v in exact.items())
+          + f" main_within_1e-4={main:.5f} final_max_err={final:.3g} "
+          f"masked_peel_layers={g['layers']}/{r['layers']}")
+    check(all(exact.values()) and main >= 0.995 and final <= 2 / 255,
+          "card queue frame disagrees with the CPU path")
+
+
 def tracer_passes(scene, cam, view, proj, width, height, seed=0):
     """Every intersector pass of one sample of the tracer at width x height
     with two bounces: [bounce-0 camera rays, their shadow rays, bounce-1
@@ -2173,7 +2475,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from sailor_tpu_torch.kernels import cuda_lib
-    from sailor_tpu_torch.scenes import flagship_scene
+    from sailor_tpu_torch.scenes import flagship_queue_scene, flagship_scene
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2205,6 +2507,21 @@ def main() -> int:
     full_launches = run_full_frames(scene, width, height, card)
     for name in ("raster_worklist", "resolve_worklist", "shade_forward_plus"):
         check(full_launches.get(name, 0) > 0, f"{name} was not launched on the full frame")
+    qscene = flagship_queue_scene(width, height, n_lights, n_objects)[0]
+    queue_kernels = check_queue_kernels(qscene, width, height, card)
+    queue_launches, grid_launches = run_queue_frames(qscene, width, height, card)
+    for name in ("raster_worklist", "resolve_worklist", "resolve_worklist_alpha",
+                 "shade_forward_plus"):
+        check(queue_launches.get(name, 0) > 0, f"{name} was not launched on the queue frame")
+    del qscene
+    queue_path = {"raster_worklist[two_sided_peel]":
+                  queue_launches["raster_worklist[two_sided_peel]"],
+                  "resolve_worklist[49]": (queue_launches["resolve_worklist"]
+                                           - queue_launches["resolve_worklist_alpha"]),
+                  "resolve_worklist[alpha]": queue_launches["resolve_worklist_alpha"],
+                  "resolve_stream[49]": grid_launches.get("resolve_stream", 0)}
+    for k in queue_kernels:
+        k["launches"] = queue_path[k["name"]]
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)
     for k in variants:
@@ -2212,13 +2529,14 @@ def main() -> int:
                   "raster_dma": "dma", "raster_dense": "dense",
                   "resolve_stream": "stream"}[k["name"]]
         k["launches"] = config_launches[config].get(k["name"], 0)
-    kernels += variants
+    kernels += variants + queue_kernels
     check_small_frame()
     for change in RASTER_CONFIGS.values():
         check_small_frame(change)
     check_small_shadow_frame()
     check_culled_frame()
     check_small_full_frame()
+    check_small_queue_frame()
     del scene
     tracer_kernels = check_tracer_kernels(card)
     launches = run_tracer(card)

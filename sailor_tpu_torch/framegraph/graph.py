@@ -17,6 +17,7 @@ from typing import Any
 import torch
 
 from sailor_tpu_torch import config as cfg
+from sailor_tpu_torch.assets.materials import MaterialTable
 from sailor_tpu_torch.config import resolve_device
 from sailor_tpu_torch.kernels import sampling
 from sailor_tpu_torch.rhi.types import RenderTargets, TargetSpec
@@ -168,8 +169,9 @@ class FrameGraph:
         ]
 
     def _ctx(self, scene, state) -> RenderContext:
-        if scene.materials is not None:
-            raise NotImplementedError("materials are not ported yet")
+        if scene.materials is not None and not isinstance(scene.materials, MaterialTable):
+            raise TypeError("scene.materials must be an assets.materials.MaterialTable, "
+                            f"not {type(scene.materials).__name__}")
         return RenderContext(width=self.width, height=self.height, scene=scene,
                              state=state, values=self.asset.values,
                              config=self.config)

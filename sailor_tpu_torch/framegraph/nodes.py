@@ -151,30 +151,68 @@ def _make_raster(tri, valid, aabb, tiles_y, tiles_x, config, *, capacity,
     return raster, overflow, None
 
 
+def _queue_of_raster_tris(scene, tri):
+    """Per-raster-triangle render queue (0 Opaque, 1 Masked, 2
+    Transparent), or None when the scene has the opaque queue alone."""
+    mats = scene.materials
+    if mats is None or not (mats.has_masked or mats.has_transparent):
+        return None
+    return mats.queue[scene.geometry.material_id[tri.src_id.long()].long()]
+
+
+def _packed_attrs(scene, tri, config):
+    """The fused resolve's per-raster-triangle attributes (37 columns, 49
+    with materials) on the fused stream path, else None: the scene's
+    packed source table gathered by ``src_id``, packed here when the table
+    is missing or of the other width."""
+    if not (config.get("fused_resolve", True)
+            and config.get("raster_mode", "stream") == "stream"):
+        return None
+    want = tile_raster.A_MAT if scene.materials is not None else tile_raster.A_BASE
+    if scene.attrs_packed is not None and scene.attrs_packed.shape[1] == want:
+        return scene.attrs_packed[tri.src_id.long()]
+    return interpolate.pack_triangle_attributes(scene.geometry, tri.src_id, scene.materials)
+
+
+def _tiles(ctx):
+    tw, th = tile_raster.TILE_W, tile_raster.TILE_H
+    return round_up(ctx.height, th) // th, round_up(ctx.width, tw) // tw
+
+
 @node("DepthPrepass")
 class DepthPrepassNode(BaseNode):
-    """Visibility raster: depth + triangle id (DepthPrepassNode.cpp), opaque
-    queue, through the configured raster backend (``_make_raster``). With
-    ``hiz_culling`` (the default) and a pyramid in the state, triangles
-    that the previous frame's HiZ pyramid hides are dropped before the
-    raster ("HiZCulledCount"). On the fused stream path the raster's bin
-    windows and the combined row table are handed on to RenderScene's fused
-    resolve ("StreamBins"); otherwise RenderScene gathers from
-    "TriSetup"."""
+    """Visibility raster: depth + triangle id (DepthPrepassNode.cpp) through
+    the configured raster backend (``_make_raster``). With ``hiz_culling``
+    (the default) and a pyramid in the state, opaque triangles that the
+    previous frame's HiZ pyramid hides are dropped before the raster
+    ("HiZCulledCount"). On the fused stream path the raster's bin windows
+    and the combined row table are handed on to RenderScene's fused
+    resolve ("StreamBins"); otherwise RenderScene gathers from "TriSetup".
+
+    With a material table the opaque queue rasters first; the Masked queue
+    then peels up to ``masked_layers`` (default 3) alpha-tested layers
+    (Standard.shader's discard): each layer is the nearest masked fragment
+    behind the last one peeled and in front of the depth so far, alpha-
+    tested against its cutoff (``resolve_alpha_stream``, or
+    ``resolve_alpha`` on the gather path), and the pixels that fail peel
+    on. Where the reference skips a layer with ``lax.cond``, the port reads
+    whether any pixel is undecided on the host, once a layer from the
+    second on; a skipped layer would change nothing. "MaskedPeelLayers":
+    the layers that ran; the masked queue's bins join "StreamBins"."""
 
     def process(self, ctx, targets):
         scene = ctx.scene
         geo = scene.geometry
         w, h = ctx.width, ctx.height
-        tw, th = tile_raster.TILE_W, tile_raster.TILE_H
-        tiles_x, tiles_y = round_up(w, tw) // tw, round_up(h, th) // th
+        tiles_y, tiles_x = _tiles(ctx)
         capacity = int(ctx.config.get("bin_capacity", 512))
         rounds = int(ctx.config.get("bin_rounds", 2))
         dense = ctx.config.get("raster_mode", "stream") not in ("stream", "dma")
         tri, aabb = rsetup.triangle_setup(
             geo, scene.frame.view_projection, width=w, height=ctx.fh, cull="back",
             zplane_rounding="standalone" if dense else "frame")
-        valid = tri.valid
+        queue_of = _queue_of_raster_tris(scene, tri)
+        valid = tri.valid if queue_of is None else tri.valid & (queue_of == 0)
         state = ctx.state or {}
         if ctx.config.get("hiz_culling", True) and "hiz/mip0" in state:
             # the reference's key order: sorted names
@@ -185,14 +223,7 @@ class DepthPrepassNode(BaseNode):
                 base_w=w, base_h=ctx.fh)
             targets["HiZCulledCount"] = (valid & ~culled).sum(dtype=torch.int32)
             valid = culled
-        attrs = None
-        if (ctx.config.get("fused_resolve", True)
-                and ctx.config.get("raster_mode", "stream") == "stream"):
-            if (scene.attrs_packed is not None
-                    and scene.attrs_packed.shape[1] == tile_raster.A_BASE):
-                attrs = scene.attrs_packed[tri.src_id.long()]
-            else:
-                attrs = interpolate.pack_triangle_attributes(geo, tri.src_id)
+        attrs = _packed_attrs(scene, tri, ctx.config)
         raster, overflow, stream_bins = _make_raster(
             tri, valid, aabb, tiles_y, tiles_x, ctx.config,
             capacity=capacity, rounds=rounds, attrs=attrs)
@@ -200,11 +231,54 @@ class DepthPrepassNode(BaseNode):
             targets["StreamBins"] = [stream_bins]
         targets["BinOverflow"] = overflow
         depth, tid = raster()
-        targets["Depth"] = depth[:h, :w]
-        targets["TriId"] = tid[:h, :w]
+        depth, tid = depth[:h, :w], tid[:h, :w]
+        if queue_of is not None and scene.materials.has_masked:
+            depth, tid = self._masked_peel(ctx, targets, tri, aabb, queue_of, attrs,
+                                           depth, tid)
+        targets["Depth"] = depth
+        targets["TriId"] = tid
         targets["TriSetup"] = tri
         targets["TriAABB"] = aabb
         return targets
+
+    @staticmethod
+    def _masked_peel(ctx, targets, tri, aabb, queue_of, attrs, depth, tid):
+        scene = ctx.scene
+        mats = scene.materials
+        w, h = ctx.width, ctx.height
+        tiles_y, tiles_x = _tiles(ctx)
+        raster_m, _, sb_m = _make_raster(
+            tri, tri.valid & (queue_of == 1), aabb, tiles_y, tiles_x, ctx.config,
+            capacity=int(ctx.config.get("bin_capacity", 512)), attrs=attrs)
+        if sb_m is not None:
+            targets["StreamBins"].append(sb_m)
+        inv_vp = _inv_vp(ctx)
+        cam = scene.frame.camera_position
+        zhi = torch.full((h, w), 2.0, device=depth.device)
+        undecided = torch.ones((h, w), dtype=torch.bool, device=depth.device)
+        ran = 0
+        for layer in range(int(ctx.config.get("masked_layers", 3))):
+            if layer > 0 and not bool(undecided.any()):  # the host read
+                break
+            d_k, t_k = raster_m((depth, zhi))
+            d_k, t_k = d_k[:h, :w], t_k[:h, :w]
+            if sb_m is not None:
+                alpha, cutoff = interpolate.resolve_alpha_stream(
+                    sb_m, t_k, inv_vp, cam, mats, width=w, height=h, tiles_y=tiles_y,
+                    tiles_x=tiles_x, full_height=ctx.full_height, row0=ctx.row0)
+            else:
+                alpha, cutoff = interpolate.resolve_alpha(
+                    scene.geometry, tri, t_k, inv_vp, cam, mats, ctx.row0,
+                    ctx.full_height)
+            hit = t_k >= 0
+            passed = hit & (alpha >= cutoff) & undecided
+            depth = torch.where(passed, d_k, depth)
+            tid = torch.where(passed, t_k, tid)
+            zhi = torch.where(hit, d_k, 0.0)
+            undecided = undecided & hit & ~passed
+            ran += 1
+        targets["MaskedPeelLayers"] = ran
+        return depth, tid
 
 
 @node("LinearizeDepth")
@@ -542,7 +616,8 @@ def _pool(x, q: int, w):
 @node("RenderScene")
 class RenderSceneNode(BaseNode):
     """Forward+ shading of the visibility buffer (RenderSceneNode.cpp): the
-    fused resolve (B2 or B10) or the gather resolve builds the G-buffer,
+    fused resolve (B2 or B10) or the gather resolve builds the G-buffer
+    (with the scene's materials: their maps and normal mapping),
     the shade kernel (B3) lights it, with the sun's shadow factor and,
     when the Environment node has baked, the IBL ambient added after it;
     background pixels take the Sky."""
@@ -551,20 +626,20 @@ class RenderSceneNode(BaseNode):
         scene = ctx.scene
         inv_vp = _inv_vp(ctx)
         if "StreamBins" in targets:
-            # fused path: winner rows from the raster's own bin windows;
-            # pop, so the row table does not outlive the resolve
-            tw, th = tile_raster.TILE_W, tile_raster.TILE_H
+            # fused path: winner rows from the raster's own bin windows (the
+            # opaque and the masked queue's); pop, so the row tables do not
+            # outlive the resolve
+            tiles_y, tiles_x = _tiles(ctx)
             gbuffer, _uv, _mat_id = interpolate.resolve_gbuffer_stream(
                 targets.pop("StreamBins"), targets["TriId"], inv_vp,
-                scene.frame.camera_position, width=ctx.width, height=ctx.height,
-                tiles_y=round_up(ctx.height, th) // th,
-                tiles_x=round_up(ctx.width, tw) // tw,
+                scene.frame.camera_position, materials=scene.materials,
+                width=ctx.width, height=ctx.height, tiles_y=tiles_y, tiles_x=tiles_x,
                 full_height=ctx.full_height, row0=ctx.row0)
         else:
             gbuffer, _uv, _mat_id = interpolate.resolve_gbuffer(
                 scene.geometry, targets["TriSetup"], targets["TriId"], inv_vp,
-                scene.frame.camera_position, full_height=ctx.full_height,
-                row0=ctx.row0)
+                scene.frame.camera_position, materials=scene.materials,
+                full_height=ctx.full_height, row0=ctx.row0)
         if "AO" in targets:
             gbuffer.ao = targets["AO"]
         shadow = self._shadow(ctx, targets, gbuffer)
@@ -650,17 +725,79 @@ class RenderSceneNode(BaseNode):
         return ctx.upsample(shadow_q, (ctx.height, ctx.width))
 
 
+def transparent_raster(ctx):
+    """RenderTransparent's peel raster: the two-sided setup (``cull="none"``,
+    you see a glass sphere's inside through its front), the Transparent
+    queue's triangles alone, and their own packed rows. Returns (tri, aabb,
+    raster, stream_bins or None). The setup rounds its depth plane as
+    DepthPrepass's does (ROADMAP C 2)."""
+    scene = ctx.scene
+    tiles_y, tiles_x = _tiles(ctx)
+    dense = ctx.config.get("raster_mode", "stream") not in ("stream", "dma")
+    tri, aabb = rsetup.triangle_setup(
+        scene.geometry, scene.frame.view_projection, width=ctx.width, height=ctx.fh,
+        cull="none", zplane_rounding="standalone" if dense else "frame")
+    tvalid = tri.valid & (_queue_of_raster_tris(scene, tri) == 2)
+    raster, _, sb = _make_raster(tri, tvalid, aabb, tiles_y, tiles_x, ctx.config,
+                                 capacity=int(ctx.config.get("bin_capacity", 512)),
+                                 attrs=_packed_attrs(scene, tri, ctx.config))
+    return tri, aabb, raster, sb
+
+
 @node("RenderTransparent")
 class RenderTransparentNode(BaseNode):
-    """The transparent queue (depth peel and back-to-front blend). A scene
-    without transparent materials passes through, as in the reference;
-    the peel itself is not ported and raises."""
+    """The Transparent queue: a K-layer depth peel and a back-to-front blend
+    over Main (the reference blends its Transparent-tagged materials after
+    the opaque scene; a visibility buffer cannot blend in raster order).
+    The nearest ``transparent_layers`` (default 3) transparent layers in
+    front of Depth are peeled with the z-bounded raster (B1 on the
+    two-sided setup), each resolved with its materials (B2's 29 planes),
+    shaded by the plain Forward+ function ``pbr.shade_forward_plus`` as the
+    reference shades them (not its shade kernel), and blended by albedo
+    alpha x opacity x coverage. A scene without transparent materials
+    passes through."""
 
     def process(self, ctx, targets):
-        mats = ctx.scene.materials
-        if mats is None or not getattr(mats, "has_transparent", True):
+        scene = ctx.scene
+        mats = scene.materials
+        if mats is None or not mats.has_transparent:
             return targets
-        raise NotImplementedError("the transparent queue (depth peel) is not ported yet")
+        w, h = ctx.width, ctx.height
+        tiles_y, tiles_x = _tiles(ctx)
+        tri, _, raster_t, sb_t = transparent_raster(ctx)
+        zlo = targets["Depth"]
+        zhi = torch.full((h, w), 2.0, device=zlo.device)
+        layers = []
+        for _ in range(int(ctx.config.get("transparent_layers", 3))):
+            d_k, t_k = raster_t((zlo, zhi))
+            d_k, t_k = d_k[:h, :w], t_k[:h, :w]
+            layers.append(t_k)
+            zhi = torch.where(t_k >= 0, d_k, 0.0)
+        inv_vp = _inv_vp(ctx)
+        cam = scene.frame.camera_position
+        t = cfg.LIGHTS_CULLING_TILE_SIZE
+        ph, pw = round_up(h, t), round_up(w, t)
+        color = targets["Main"]
+        for t_k in reversed(layers):
+            if sb_t is not None:
+                gb, _, _, extras = interpolate.resolve_gbuffer_stream(
+                    sb_t, t_k, inv_vp, cam, materials=mats, width=w, height=h,
+                    tiles_y=tiles_y, tiles_x=tiles_x, full_height=ctx.full_height,
+                    row0=ctx.row0, return_extras=True)
+                opacity = extras["opacity"]
+            else:
+                gb, _, mat_id = interpolate.resolve_gbuffer(
+                    scene.geometry, tri, t_k, inv_vp, cam, materials=mats,
+                    full_height=ctx.full_height, row0=ctx.row0)
+                opacity = mats.opacity[mat_id.long()]
+            gb_p = gb.map(lambda x: torch.nn.functional.pad(
+                x, [0, 0] * (x.ndim - 2) + [0, pw - w, 0, ph - h]))
+            hdr = pbr.shade_forward_plus(gb_p, scene.lights, targets["LightIndices"],
+                                         cam)[:h, :w]
+            a = (gb.albedo[..., 3] * opacity * gb.coverage)[..., None]
+            color = color * (1.0 - a) + hdr * a
+        targets["Main"] = color
+        return targets
 
 
 @node("Bloom")

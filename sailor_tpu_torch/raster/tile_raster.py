@@ -793,6 +793,8 @@ def resolve_worklist_cuda(rows, big_rows, tid, starts, counts, par, *,
         cuda_lib.stream_of(rows))
     cuda_lib.check(err, "sailor_resolve_worklist")
     cuda_lib.LAUNCHES["resolve_worklist"] += 1
+    if mode == "alpha":  # the masked peel's 5-plane form, counted apart as well
+        cuda_lib.LAUNCHES["resolve_worklist_alpha"] += 1
     return list(out.unbind(0))
 
 

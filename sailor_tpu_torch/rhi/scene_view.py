@@ -1,8 +1,9 @@
 """SceneView: the render-thread snapshot of the world (counterpart of
 sailor_tpu/rhi/scene_view.py, Runtime/RHI/SceneView.h).
 
-It holds geometry, lights, frame matrices and the packed per-source-triangle
-attribute table — the state a frame renders from, made once per scene.
+It holds geometry, lights, frame matrices, the material table (if any) and
+the packed per-source-triangle attribute table, 49 columns wide with
+materials — the state a frame renders from, made once per scene.
 """
 
 from __future__ import annotations
@@ -27,8 +28,8 @@ class SceneView:
     lights: Lights
     frame: FrameData
     sky: SkyParams | None = None  # sun and sky (ShadowPrepass, Sky, Environment, ...)
-    materials: Any = None    # MaterialTable: not ported yet (raises in the graph)
-    attrs_packed: torch.Tensor | None = None  # (T, 37) pack_source_attributes
+    materials: Any = None    # assets.materials.MaterialTable, or None (vertex colours)
+    attrs_packed: torch.Tensor | None = None  # (T, 37 | 49) pack_source_attributes
     prev_frame: FrameData | None = None  # last frame's camera (MotionBlur); frame if None
 
     def __post_init__(self):
@@ -38,12 +39,10 @@ class SceneView:
     @classmethod
     def create(cls, geometry, lights, frame, sky=None, materials=None,
                pack_attrs: bool = True, attrs_packed=None, prev_frame=None):
-        if materials is not None:
-            raise NotImplementedError("materials are not ported yet")
         if pack_attrs and attrs_packed is None and geometry is not None:
             from sailor_tpu_torch.raster.interpolate import pack_source_attributes
 
-            attrs_packed = pack_source_attributes(geometry)
+            attrs_packed = pack_source_attributes(geometry, materials)
         return cls(geometry=geometry, lights=lights, frame=frame,
                    sky=sky if sky is not None else SkyParams.default(),
                    materials=materials, attrs_packed=attrs_packed,
@@ -64,9 +63,12 @@ def scene_from_numpy(arrays: dict[str, np.ndarray], device) -> SceneView:
     Keys: ``geometry.<f>`` for f in GEOMETRY_KEYS, ``lights.<f>`` for f in
     LIGHT_KEYS, ``frame.<f>`` for f in FRAME_KEYS and, optionally,
     ``prev_frame.<f>`` for f in FRAME_KEYS (else the previous frame is the
-    frame), ``attrs_packed`` (T, 37), without which the table is packed
-    here, and ``sky.<f>`` for any field of ``SkyParams``, taken as given
-    (the sun direction already normalised) into the default sky."""
+    frame), ``attrs_packed`` (T, 37 | 49), without which the table is
+    packed here, ``sky.<f>`` for any field of ``SkyParams``, taken as given
+    (the sun direction already normalised) into the default sky, and
+    ``materials.<f>`` for the fields of a ``MaterialTable`` (its tensors
+    as arrays, its host bools and tuples as they are; see
+    ``MaterialTable.from_arrays``), without which the scene has none."""
     def t(key):
         return torch.from_numpy(np.array(arrays[key])).to(device)
 
@@ -81,5 +83,10 @@ def scene_from_numpy(arrays: dict[str, np.ndarray], device) -> SceneView:
     sky = dataclasses.replace(SkyParams.default(), **{
         f.name: np.array(arrays[f"sky.{f.name}"], np.float32)
         for f in dataclasses.fields(SkyParams) if f"sky.{f.name}" in arrays})
-    return SceneView.create(geo, lights, frame, sky=sky, attrs_packed=packed,
-                            prev_frame=prev)
+    materials = None
+    if any(k.startswith("materials.") for k in arrays):
+        from sailor_tpu_torch.assets.materials import MaterialTable
+
+        materials = MaterialTable.from_arrays(arrays, "materials.", device)
+    return SceneView.create(geo, lights, frame, sky=sky, materials=materials,
+                            attrs_packed=packed, prev_frame=prev)

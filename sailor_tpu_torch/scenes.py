@@ -7,6 +7,10 @@ alternating UV spheres (16x32) and cubes, one directional light plus
 calls in the same order, so both packages build the same scene from the
 same seed.
 
+``flagship_queue_scene`` is the same scene with a material table: the
+ground and a third of the objects Opaque, a third Masked (striped alpha)
+and a third Transparent, all textured with ``procedural_test_maps``.
+
 ``occlusion_scene`` is the HiZ test scene of the JAX package's
 ``tests/test_hiz_culling.py``: a wall that hides 24 cubes from the
 camera, so a frame after the first culls them.
@@ -40,7 +44,11 @@ def flagship_scene(width: int, height: int, num_lights: int, num_objects: int,
                    seed: int = 11, device="cuda") -> SceneView:
     """The flagship scene at ``width`` x ``height``; 1920x1088 with 1000
     lights and 96 objects is the benchmark frame."""
-    dev = resolve_device(device)
+    return _flagship(width, height, num_lights, num_objects, seed, resolve_device(device))
+
+
+def _flagship(width, height, num_lights, num_objects, seed, dev, material_ids=None,
+              materials=None) -> SceneView:
     rng = np.random.default_rng(seed)
     instances = [(primitives.plane(60.0), np.eye(4))]
     for i in range(num_objects):
@@ -49,7 +57,7 @@ def flagship_scene(width: int, height: int, num_lights: int, num_objects: int,
         mesh = (primitives.cube(rng.uniform(0.8, 2.0)) if i % 2
                 else primitives.uv_sphere(rng.uniform(0.4, 1.0), 16, 32))
         instances.append((mesh, t))
-    soup = primitives.merge(instances)
+    soup = primitives.merge(instances, material_ids)
 
     def t32(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -77,7 +85,55 @@ def flagship_scene(width: int, height: int, num_lights: int, num_objects: int,
     proj = m3.perspective(math.pi / 3, width / height, 0.1, 150.0, device=dev)
     frame = FrameData.create(view, proj, cam, 0.1, 150.0, dt=1 / 60)
     sky = SkyParams.default(sun_direction=(-0.35, -0.7, -0.3))
-    return SceneView.create(geo, lights, frame, sky=sky)
+    return SceneView.create(geo, lights, frame, sky=sky, materials=materials)
+
+
+#: flagship_queue_scene's texture size (bench.py's material scenes use 256)
+QUEUE_TEXTURE_SIZE = 256
+
+
+def queue_materials(texture_size: int = QUEUE_TEXTURE_SIZE):
+    """The host rows and images of ``flagship_queue_scene``'s four
+    materials: 0 the ground and 1 the opaque objects, with
+    ``procedural_test_maps(0)``'s albedo and normal maps; 2 Masked (cutoff
+    0.5) with a copy of the albedo whose alpha is 0/1 stripes
+    floor(8 y) % 2; 3 Transparent (opacity 0.5) with the albedo map.
+    Returns (table, images) for ``MaterialTable.from_host``."""
+    maps = procedural_test_maps(0, texture_size)
+    y = (np.arange(texture_size) + 0.5) / texture_size
+    stripes = maps[0].copy()
+    stripes[..., 3] = (np.floor(8 * y) % 2)[:, None]
+    table = {
+        "albedo": np.array([[0.9, 0.9, 0.9], [1.0, 1.0, 1.0], [0.9, 0.85, 0.7],
+                            [0.6, 0.8, 1.0]], np.float32),
+        "metallic": np.array([0.0, 0.2, 0.0, 0.0], np.float32),
+        "roughness": np.array([0.7, 0.45, 0.6, 0.1], np.float32),
+        "emissive": np.zeros((4, 3), np.float32),
+        "albedo_texture": np.array([0, 0, 2, 0], np.int32),
+        "normal_texture": np.array([1, 1, -1, -1], np.int32),
+        "queue": np.array([0, 0, 1, 2], np.int32),
+        "alpha_cutoff": np.full(4, 0.5, np.float32),
+        "opacity": np.array([1.0, 1.0, 1.0, 0.5], np.float32),
+    }
+    return table, [maps[0], maps[1], stripes]
+
+
+def flagship_queue_scene(width: int, height: int, num_lights: int, num_objects: int,
+                         seed: int = 11, device="cuda"):
+    """The flagship scene with materials on the raster path: the same
+    geometry, lights, camera and sun from the same RNG calls, the ground
+    material 0 and object i material 1 + (i % 3) (from the index, never
+    the RNG), so a third of the objects, spheres and cubes alike, land in
+    each of the Opaque, Masked and Transparent queues
+    (``queue_materials``). Returns (SceneView, table, images)."""
+    from sailor_tpu_torch.assets.materials import MaterialTable
+
+    dev = resolve_device(device)
+    table, images = queue_materials()
+    mats = MaterialTable.from_host(table, images, texture_size=QUEUE_TEXTURE_SIZE, device=dev)
+    ids = [0] + [1 + i % 3 for i in range(num_objects)]
+    scene = _flagship(width, height, num_lights, num_objects, seed, dev, ids, mats)
+    return scene, table, images
 
 
 def occlusion_scene(width: int = 128, height: int = 96, device="cuda") -> SceneView:

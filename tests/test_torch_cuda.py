@@ -49,6 +49,13 @@ the kernel inputs its own nodes make. Tolerances, from the arithmetic:
   frames (the second turned, its sun moved), against the CPU path (Depth,
   TriId, ShadowMaps, HiZCulledCount exact, Sky within 5e-5 * (1 + |cpu|),
   Main within 1e-4 relative on >= 99.5%, Final within 2/255).
+- the queue frame (``flagship_queue_scene`` at 640x384): B1 on
+  RenderTransparent's two-sided setup, z-bounded over two peel layers,
+  bit-equal; B2's 29 planes from the 49-column rows of the opaque and
+  the masked bin sets and its 5-plane alpha emit, and B10's 29 planes
+  from 49-column grid-k bins, held as the resolve above; a 256x128 queue
+  frame on the card against the CPU path (Depth, TriId, ShadowMaps exact,
+  Main within 1e-4 relative on >= 99.5%, Final within 2/255).
 The tracer's kernels run on its own rays: every intersector pass of one
 128x128 sample of the bench tracer scene (camera, bounce-1 and shadow rays),
 and 64x64 renders on the card are held to the CPU path: the tracer scene
@@ -60,15 +67,18 @@ import pytest
 import torch
 
 from chip_smoke import (bits_equal, cascade_inputs, check_culled_frame, check_small_frame,
-                        check_small_full_frame, check_small_shadow_frame, check_small_trace, dense_runs, dma_runs,
+                        check_small_full_frame, check_small_queue_frame,
+                        check_small_shadow_frame, check_small_trace, dense_runs, dma_runs,
                         evsm_shadow_factor, frame_inputs, heavy_tile_cases, heavy_tile_rows,
+                        queue_inputs,
                         sparse_pass, stream_runs, tables_equal, textured_sky_balls,
                         tied_clusters, tracer_passes, worklist_runs)
+from sailor_tpu_torch.framegraph import nodes
 from sailor_tpu_torch.kernels import cuda_lib, pbr_kernel
 from sailor_tpu_torch.raster import setup as rsetup
 from sailor_tpu_torch.raster import tile_raster as tr
 from sailor_tpu_torch.raytracing import sweep
-from sailor_tpu_torch.scenes import flagship_scene, tracer_scene
+from sailor_tpu_torch.scenes import flagship_queue_scene, flagship_scene, tracer_scene
 
 pytestmark = pytest.mark.cuda
 W, H = 640, 384
@@ -476,6 +486,87 @@ def test_culled_frame_on_card_matches_cpu(card):
 
 def test_full_frame_on_card_matches_cpu(card):
     check_small_full_frame()
+
+
+@pytest.fixture(scope="module")
+def queue_frame(card):
+    scene = flagship_queue_scene(W, H, 64, 24)[0]
+    return scene, queue_inputs(scene, W, H)
+
+
+def test_raster_kernel_matches_plain_on_two_sided_peel(queue_frame):
+    """B1 on RenderTransparent's two-sided setup, z-bounded as the peel
+    runs it (in front of Depth, then behind the first layer)."""
+    _, (_, targets, (_, _, sb)) = queue_frame
+    args = (sb["rows"], sb["big_rows"], sb["starts"], sb["counts"], sb["n_big"])
+    tiles_y, tiles_x = -(-H // tr.TILE_H), -(-W // tr.TILE_W)
+    zhi = torch.full_like(targets["Depth"], 2.0)
+    covered = 0
+    for _ in range(2):
+        kw = dict(tiles_y=tiles_y, tiles_x=tiles_x, z_bounds=(targets["Depth"], zhi))
+        d_k, t_k = tr.rasterize_worklist_cuda(*args, **kw)
+        d_p, t_p = tr.rasterize_worklist_plain(*args, **kw)
+        assert torch.equal(t_k, t_p) and torch.equal(d_k, d_p)
+        covered += int((t_k >= 0).sum())
+        zhi = torch.where(t_k[:H, :W] >= 0, d_k[:H, :W], 0.0)
+    assert covered > 100
+
+
+@pytest.mark.parametrize("bins,mode", [(0, "full"), (1, "full"), (1, "alpha")],
+                         ids=["opaque_29", "masked_29", "masked_alpha"])
+def test_resolve_kernel_matches_plain_on_material_rows(queue_frame, bins, mode):
+    """B2 from the queue frame's own 49-column rows: 29 planes of the
+    opaque and the masked bin sets on the frame's winners, and the 5-plane
+    alpha emit on the masked queue's nearest layer."""
+    scene, (_, targets, _) = queue_frame
+    sb = targets["StreamBins"][bins]
+    tiles_y, tiles_x = -(-H // tr.TILE_H), -(-W // tr.TILE_W)
+    kw = dict(tiles_y=tiles_y, tiles_x=tiles_x)
+    if mode == "alpha":
+        tid = tr.rasterize_worklist_cuda(sb["rows"], sb["big_rows"], sb["starts"], sb["counts"],
+                                         sb["n_big"], **kw)[1]
+    else:
+        tid = torch.nn.functional.pad(targets["TriId"], (0, tiles_x * tr.TILE_W - W,
+                                                         0, tiles_y * tr.TILE_H - H), value=-1)
+    inv_vp = nodes.inverse_view_projection(scene.frame)
+    par = tr._resolve_params(inv_vp, scene.frame.camera_position, W, H, 0, tid.device)
+    kw = dict(kw, na=int(sb["na"]), chunk=int(sb["chunk"]), mode=mode)
+    args = (sb["rows"], sb["big_rows"], tid.contiguous(), sb["starts"], sb["counts"], par)
+    before = cuda_lib.LAUNCHES["resolve_worklist_alpha"]
+    got = torch.stack(tr.resolve_worklist_cuda(*args, **kw))
+    assert cuda_lib.LAUNCHES["resolve_worklist_alpha"] == before + (mode == "alpha")
+    ref = torch.stack(tr.resolve_worklist_plain(*args, **kw))
+    assert sb["na"] == 49 and got.shape[0] == (5 if mode == "alpha" else 29)
+    assert int((got[-1] != 0).sum()) > 100  # cutoff (alpha) or opacity planes
+    assert (got == ref).float().mean().item() >= 1 - 1e-5
+    assert bool(((got - ref).abs() <= 1e-4 * (1 + ref.abs())).all())
+
+
+def test_resolve_stream_kernel_matches_plain_on_material_rows(queue_frame):
+    """B10 from 49-column grid-k bins of the queue frame's opaque queue."""
+    scene, (ctx, targets, _) = queue_frame
+    tri, aabb = targets["TriSetup"], targets["TriAABB"]
+    tiles_y, tiles_x = -(-H // tr.TILE_H), -(-W // tr.TILE_W)
+    cfg = dict(ctx.config, raster_worklist=False)
+    queue = nodes._queue_of_raster_tris(scene, tri)
+    raster, _, sb = nodes._make_raster(tri, tri.valid & (queue == 0), aabb, tiles_y, tiles_x,
+                                       cfg, capacity=1024, rounds=4,
+                                       attrs=nodes._packed_attrs(scene, tri, cfg))
+    tid = raster()[1].contiguous()
+    c0, spt, _ = tr.stream_windows(sb["starts"], sb["counts"], sb["chunk"], sb["kmax"])
+    par = tr._resolve_params(nodes.inverse_view_projection(scene.frame),
+                             scene.frame.camera_position, W, H, 0, tid.device)
+    args = (sb["rows"], sb["big_rows"], tid, sb["starts"], sb["counts"], c0, spt, par)
+    kw = dict(tiles_y=tiles_y, tiles_x=tiles_x, na=int(sb["na"]), chunk=int(sb["chunk"]))
+    got = torch.stack(tr.resolve_stream_cuda(*args, **kw))
+    ref = torch.stack(tr.resolve_stream_plain(*args, **kw))
+    assert sb["na"] == 49 and got.shape[0] == 29
+    assert (got == ref).float().mean().item() >= 1 - 1e-5
+    assert bool(((got - ref).abs() <= 1e-4 * (1 + ref.abs())).all())
+
+
+def test_queue_frame_on_card_matches_cpu(card):
+    check_small_queue_frame()
 
 
 @pytest.fixture(scope="module")

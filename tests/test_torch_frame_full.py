@@ -29,8 +29,9 @@ Also: the port's render of tests/test_golden.py's ``forward_frame`` scene
 and config against tests/golden/forward_frame.png at test_golden's own bar
 (mean |diff| < 2.5 and p99 < 12 in u8); the port's counterparts of
 test_framegraph.py's full-pipeline, debug-compose, incremental
-environment and sky-cache tests; and the refusals (stars, and a
-pass-through node given what its full path needs).
+environment and sky-cache tests; the refusals (stars, and DebugDraw and
+RenderOverlay given what their full paths need) and RenderTransparent's
+blend over Main given a transparent queue.
 """
 
 import os
@@ -324,12 +325,12 @@ class _Lines:
     has_lines = True
 
 
-class _Transparent:
-    has_transparent = True
-
-
 @pytest.mark.parametrize("node", ["RenderTransparent", "DebugDraw", "RenderOverlay"])
 def test_pass_through_node_refuses_full_path(node):
+    """With nothing to draw each node passes Main through. DebugDraw and
+    RenderOverlay refuse their full paths; RenderTransparent's is ported
+    (test_torch_frame_queues.py holds it to the reference): given a
+    transparent queue it blends over Main."""
     scene = _framegraph_scene()
     main = torch.rand(FH, FW, 3)
     targets = {"Main": main, "Final": main.clone()}
@@ -339,8 +340,16 @@ def test_pass_through_node_refuses_full_path(node):
     out = cls({}).process(ctx, dict(targets))  # nothing to draw: pass through
     assert out["Main"] is main
     if node == "RenderTransparent":
-        scene.materials = _Transparent()
-    elif node == "DebugDraw":
+        from sailor_tpu_torch.scenes import flagship_queue_scene
+
+        ctx.scene = flagship_queue_scene(FW, FH, 4, 6, device="cpu")[0]
+        lin = torch.zeros(FH, FW)
+        t = 16  # the light tiles: every light in every tile
+        idx = torch.arange(5, dtype=torch.int32).repeat(FH // t, FW // t, 1)
+        out = cls({}).process(ctx, dict(targets, Depth=lin, LightIndices=idx))
+        assert out["Main"] is not main and not torch.equal(out["Main"], main)
+        return
+    if node == "DebugDraw":
         ctx.config = {"debug_context": _Lines()}
     else:
         ctx.state = {"overlay/canvas": torch.zeros(8, 8, 4)}

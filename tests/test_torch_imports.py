@@ -9,7 +9,9 @@
 - configuration, nodes and inputs outside the ported slices raise
   NotImplementedError, and every raster configuration builds, as do HiZ
   culling, ShadowPrepass, DepthHighZ and the whole DefaultRenderer graph
-  (content/DefaultRenderer.renderer) at the flagship size;
+  (content/DefaultRenderer.renderer) at the flagship size; a scene's
+  material table renders (Masked and Transparent queues included) and
+  anything else in its place raises TypeError;
   so do the path tracer's parts that are not ported (the BVH8 tracer and
   scenes too large for the sweep), while its textures, env-map sky and
   ray sorting inside the intersector run.
@@ -29,7 +31,8 @@ from sailor_tpu_torch.kernels import cubemap, ibl, pbr_kernel
 from sailor_tpu_torch.kernels.sky import SkyParams
 from sailor_tpu_torch.raster import tile_raster
 from sailor_tpu_torch.raytracing import path_tracer, sweep
-from sailor_tpu_torch.scenes import flagship_scene, tracer_camera, tracer_scene, tracer_soup
+from sailor_tpu_torch.scenes import (flagship_queue_scene, flagship_scene, tracer_camera,
+                                     tracer_scene, tracer_soup)
 from sailor_tpu_torch.framegraph.graph import UNPORTED_NODES
 from test_torch_scenes import (FULL_CONFIG, MINIMAL_GRAPH, SHADOW_HIZ_CONFIG, SHADOW_HIZ_GRAPH,
                                SLICE_CONFIG)
@@ -198,11 +201,15 @@ def test_sharding_raises():
 
 
 def test_materials_raise():
-    scene = flagship_scene(64, 64, 2, 2, device="cpu")
+    """Materials are ported: a MaterialTable renders, anything else in its
+    place raises."""
+    scene, _, _ = flagship_queue_scene(64, 64, 2, 3, device="cpu")
+    fg = FrameGraph(FrameGraphAsset.from_nodes(MINIMAL_GRAPH + ["RenderTransparent"]), 64, 64,
+                    SLICE_CONFIG, device="cpu")
+    targets, _ = fg.process(scene, fg.initial_state())
+    assert bool(torch.isfinite(targets["Final"]).all())
     scene.materials = np.zeros(1)
-    fg = FrameGraph(FrameGraphAsset.from_nodes(MINIMAL_GRAPH), 64, 64, SLICE_CONFIG,
-                    device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         fg.process(scene, fg.initial_state())
 
 
