@@ -111,7 +111,22 @@ Phases, each printed as it ends:
      sample_batch=2 and SAILOR_SWEEP_SORT=1; ms, Mrays/s, peak memory,
      finite and >= 0;
  11. small renders: 64x64 renders of the textured material balls with the
-     sky, and of the tracer scene on B6, on the card against the CPU path.
+     sky, and of the tracer scene on B6, on the card against the CPU path;
+ 12. bvh8 kernel: the BVH8 traversal (csrc/bvh8.cu, no TPU counterpart)
+     against its plain twin on the bounce-1 rays and their shadow rays of
+     both BVH8 cells (512x512; 4 pooled samples of the bench tracer scene,
+     one sample of the dense scene): t, tri, u, v bit-equal, timed with
+     CUDA events, its bound from the rows the twin counts, dropped pushes;
+ 13. BVH8 cells, each 1 warm-up + 2 renders through ``render_cached`` at
+     512x512, 4 bounces, every pass on the BVH8 traversal (launches
+     checked: 2 * bounces * passes, no sweep, no slab entry): tracer-512-
+     batch4 (the bench tracer scene with sample_batch 4, whose sweep table
+     the reference's rule sends away, 16 spp) and tracer-512-dense
+     (``scenes.dense_tracer_scene``, 294,914 triangles, "auto" builds no
+     sweep, 4 spp: the host table build timed, a profiled 1-spp sample);
+     render ms, Mrays/s, peak bytes against tracer-512's;
+ 14. a 64x64 render of the dense scene (BVH8 route) on the card against
+     the CPU path.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure ends the run with
 a non-zero exit code and no result line.
@@ -154,7 +169,8 @@ FULL_CONFIG = dict(
     sky_downsample=2, sky_clouds=True, cloud_stride=2, sky_cache_hz=4.0,
     env_incremental=True, ao_stride=2, ibl_stride=4)
 TRACER = (512, 512, 4, 16)  # width, height, bounces, spp
-TRACER_SPP_CUT = 4  # spp of the grid-sweep and material-ball renders
+TRACER_SPP_CUT = 4  # spp of the grid-sweep, material-ball and dense renders
+BATCH4 = 4  # tracer-512-batch4's sample_batch: every pass leaves the sweep
 # H100 SXM published peaks (NVIDIA data sheet), used for the bound
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -1987,13 +2003,13 @@ def check_small_queue_frame():
           "card queue frame disagrees with the CPU path")
 
 
-def tracer_passes(scene, cam, view, proj, width, height, seed=0):
-    """Every intersector pass of one sample of the tracer at width x height
-    with two bounces: [bounce-0 camera rays, their shadow rays, bounce-1
-    rays, their shadow rays], each as the kernels' inputs
-    (``sweep.prepare``). The passes are recorded by wrapping the tracer's
-    ``_isect`` for the length of one render."""
-    from sailor_tpu_torch.raytracing import path_tracer, sweep
+def record_passes(scene, cam, view, proj, width, height, seed=0, sample_batch=1):
+    """Every intersector pass of one ``render_cached`` pass of
+    ``sample_batch`` samples at width x height with two bounces: [bounce-0
+    camera rays, their shadow rays, bounce-1 rays, their shadow rays], each
+    a dict of origin, direction, any_hit and active, recorded by wrapping
+    the tracer's ``_isect`` for the length of one render."""
+    from sailor_tpu_torch.raytracing import path_tracer
 
     isect, log = path_tracer._isect, []
 
@@ -2003,12 +2019,22 @@ def tracer_passes(scene, cam, view, proj, width, height, seed=0):
 
     path_tracer._isect = recording
     try:
-        path_tracer.render_cached(scene, cam, view, proj, width=width, height=height, spp=1,
-                                  max_bounces=2, seed=seed)
+        path_tracer.render_cached(scene, cam, view, proj, width=width, height=height,
+                                  spp=sample_batch, max_bounces=2, seed=seed,
+                                  sample_batch=sample_batch)
     finally:
         path_tracer._isect = isect
+    return log
+
+
+def tracer_passes(scene, cam, view, proj, width, height, seed=0):
+    """``record_passes`` of one sample, each as the sweep kernels' inputs
+    (``sweep.prepare``)."""
+    from sailor_tpu_torch.raytracing import sweep
+
     return [dict(sweep.prepare(scene.sweep, p["origin"], p["direction"],
-                               active=p["active"]), any_hit=p["any_hit"]) for p in log]
+                               active=p["active"]), any_hit=p["any_hit"])
+            for p in record_passes(scene, cam, view, proj, width, height, seed)]
 
 
 def _sweep_bound(p, work):
@@ -2283,7 +2309,8 @@ def check_tracer_kernels(card):
 
 def run_tracer(card):
     """The tracer's main path: 1 warm-up + 3 timed renders of the bench
-    tracer scene at TRACER, launch counts of that run."""
+    tracer scene at TRACER: (launch counts of that run, peak device
+    bytes)."""
     import torch
 
     from sailor_tpu_torch.kernels import cuda_lib
@@ -2326,12 +2353,151 @@ def run_tracer(card):
           f"mean={img.mean().item():.5f}")
     profile(lambda: path_tracer.render_cached(scene, cam, view, proj, seed=9,
                                               **dict(kw, spp=1)), card, "profile_trace_sample")
-    return launches
+    return launches, peak
+
+
+def _bvh8_bound(rays, work):
+    """The least time of a BVH8 traversal from its twin's ``work``: each
+    distinct row the rays read, once (the half its flag selects and the
+    flag: 284 B of a leaf, 228 B of an internal row), rays' origin,
+    direction, t0 and active (29 B) read and t, tri, u, v (16 B) written
+    once; ~50 float operations a triangle slot, ~25 a child of every row
+    read."""
+    from sailor_tpu_torch.raytracing import bvh8
+
+    nbytes = (work["distinct_leaf_rows"] * bvh8.LEAF_ROW_BYTES
+              + work["distinct_inner_rows"] * bvh8.INNER_ROW_BYTES + rays * (29 + 16))
+    return _bound(nbytes, work["leaf_rows"] * 7 * 50 + work["inner_rows"] * 8 * 25)
+
+
+def bvh8_cells():
+    """The two cells whose passes take the BVH8 traversal: (label, scene
+    maker, sample_batch, spp)."""
+    from sailor_tpu_torch.scenes import dense_tracer_scene, tracer_scene
+
+    return [("tracer-512-batch4", tracer_scene, BATCH4, TRACER[3]),
+            ("tracer-512-dense", dense_tracer_scene, 1, TRACER_SPP_CUT)]
+
+
+@contextlib.contextmanager
+def around_call(module, name):
+    """Wraps ``module.name``: yields a list of each call's wall seconds."""
+    inner, secs = getattr(module, name), []
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return inner(*args, **kwargs)
+        finally:
+            secs.append(time.perf_counter() - t0)
+
+    setattr(module, name, timed)
+    try:
+        yield secs
+    finally:
+        setattr(module, name, inner)
+
+
+def check_bvh8_kernel(scene, cam, view, proj, label, sample_batch, card):
+    """The BVH8 traversal (csrc/bvh8.cu) against its plain twin on the
+    cell's bounce-1 rays, closest and any hit (with their active masks):
+    t, tri, u, v bit-equal; timed, with its bound from the twin's work, the
+    row bytes its rays read in all and the pushes dropped at MAX_STACK.
+    Returns the rows by pass."""
+    import torch
+
+    from sailor_tpu_torch.kernels import cuda_lib
+    from sailor_tpu_torch.raytracing import bvh8
+
+    width, height = TRACER[:2]
+    rows = {}
+    passes = record_passes(scene, cam, view, proj, width, height, sample_batch=sample_batch)
+    for name, p in (("bounce1", passes[2]), ("bounce1_shadow", passes[3])):
+        args = bvh8.ray_inputs(p["origin"], p["direction"], None, p["active"])
+        any_hit = p["any_hit"]
+        before = cuda_lib.LAUNCHES["bvh8_intersect"]
+        got = bvh8.intersect_cuda(scene.bvh.table, *args, any_hit=any_hit)
+        launched = cuda_lib.LAUNCHES["bvh8_intersect"] - before
+        work = {}
+        plain_ms, want = _wall_ms(lambda: bvh8.intersect_plain(
+            scene.bvh.table, *args, any_hit=any_hit, work=work))
+        same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(got, want))
+        ms = _time_ms(lambda: bvh8.intersect_cuda(scene.bvh.table, *args, any_hit=any_hit), 20)
+        r = args[0].shape[0]
+        bound, by = _bvh8_bound(r, work)
+        live = int(args[3].sum())
+        row_read = (work["leaf_rows"] * bvh8.LEAF_ROW_BYTES
+                    + work["inner_rows"] * bvh8.INNER_ROW_BYTES)
+        print(f"kernel bvh8_intersect[{label}/{name}]: bit_equal={same} launches={launched} "
+              f"ms={ms:.4f} plain_ms={plain_ms:.2f} bound_ms={bound:.5f} ({by}) rays={r} "
+              f"active={live} hits={int((want[1] >= 0).sum())} "
+              f"rows_per_active_ray={(work['leaf_rows'] + work['inner_rows']) / max(1, live):.2f} "
+              f"leaf_rows={work['leaf_rows']} inner_rows={work['inner_rows']} "
+              f"distinct_rows={work['distinct_leaf_rows'] + work['distinct_inner_rows']} "
+              f"row_read_bytes={row_read} "
+              f"iterations={work['iterations']} dropped_pushes={work['dropped_pushes']} "
+              f"table_rows={scene.bvh.table.shape[0]} on {card}")
+        check(same and launched == 1,
+              f"bvh8 kernel disagrees with its plain version ({label}/{name})")
+        rows[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                          bound_by=by)
+    return rows
+
+
+def run_bvh8_cells(card, tracer_peak):
+    """The two cells whose every pass takes the BVH8 traversal, through
+    ``render_cached`` at TRACER's size and depth: tracer-512-batch4 (the
+    bench tracer scene, ``sample_batch`` 4: the reference's scalar table
+    outgrows 1 MiB, 16 spp, bounce sort on) and tracer-512-dense (294,914
+    triangles, "auto" builds no sweep, 4 spp). Each scene is built once
+    (its host table build timed inside it) and first holds the kernel to
+    its twin (``check_bvh8_kernel``); then 1 warm-up + 2 renders, launches
+    per render checked (bvh8_intersect 2 * bounces * passes, no sweep, no
+    slab entry), peak bytes against tracer-512's ``tracer_peak`` and, on
+    the dense cell, a profiled 1-spp sample. Returns (the JSON row: the
+    batch4 cell's bounce-1 closest-hit pass, the launches of both cells'
+    renders)."""
+    from sailor_tpu_torch.raytracing import bvh8, path_tracer
+
+    width, height, bounces, _ = TRACER
+    total, rows = {}, {}
+    for label, make, sb, spp in bvh8_cells():
+        with around_call(bvh8, "build_table") as table_s:
+            build_ms, (scene, cam, view, proj) = _wall_ms(make)
+        print(f"{label}: {scene.tri_pack.shape[0]} triangles, sweep "
+              f"{'none' if scene.sweep is None else scene.sweep.n_clusters}, "
+              f"bvh8 rows {scene.bvh.table.shape[0]} of {bvh8.ROW} floats, "
+              f"bvh8 host build_s={table_s[0]:.3f}, scene build_ms={build_ms:.1f}, "
+              f"{width}x{height}, {bounces} bounces, {spp} spp, sample_batch {sb}")
+        rows[label] = check_bvh8_kernel(scene, cam, view, proj, label, sb, card)
+        kw = dict(width=width, height=height, spp=spp, max_bounces=bounces, sample_batch=sb)
+        cell = f"{label} {width}x{height} b{bounces} spp{spp}"
+        _, launches, per_render, peak = _timed_renders(
+            cell, lambda seed: path_tracer.render_cached(scene, cam, view, proj, seed=seed, **kw),
+            card)
+        want = 2 * bounces * spp // sb
+        check(per_render.get("bvh8_intersect", 0) == want
+              and not per_render.get("sweep") and not per_render.get("slab_entry"),
+              f"{label}: {per_render} launches a render, not {want} of bvh8_intersect alone")
+        print(f"{label} peak_mem_bytes={peak} against tracer-512's {tracer_peak} on {card}")
+        if label == "tracer-512-dense":
+            profile(lambda: path_tracer.render_cached(scene, cam, view, proj, seed=9,
+                                                      **dict(kw, spp=1)), card,
+                    "profile_dense_sample")
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        del scene
+    row = dict(name="bvh8_intersect", source="sailor_tpu_torch/csrc/bvh8.cu",
+               replaces="sailor_tpu/raytracing/bvh8.py:213", route="cuda", library_ms=None,
+               **rows["tracer-512-batch4"]["bounce1"])
+    return row, total
 
 
 def _timed_renders(label, render, card, renders=3):
     """1 warm-up + ``renders - 1`` timed calls of ``render(seed)`` with the
-    launch counts cleared before: (last image, per-render launches)."""
+    launch counts cleared before: (last image, launches, per-render
+    launches, peak device bytes)."""
     import torch
 
     from sailor_tpu_torch.kernels import cuda_lib
@@ -2348,13 +2514,14 @@ def _timed_renders(label, render, card, renders=3):
     launches = dict(cuda_lib.LAUNCHES)
     per_render = {k: v / renders for k, v in launches.items()}
     mrays = [c / (ms / 1e3) / 1e6 for c, ms in zip(counts, times)]
+    peak = torch.cuda.max_memory_allocated()
     print(f"{label}: warmup_ms={warm_ms:.1f} render_ms={[round(m, 1) for m in times]} "
           f"rays={counts} mrays_per_s={[round(m, 4) for m in mrays]} "
-          f"peak_mem_bytes={torch.cuda.max_memory_allocated()} on {card}")
+          f"peak_mem_bytes={peak} on {card}")
     print(f"{label}_launches_per_render " + json.dumps(per_render))
     check(bool(torch.isfinite(img).all()), f"{label}: image has non-finite values")
     check(img.min().item() >= 0.0, f"{label}: image has negative radiance")
-    return img, launches, per_render
+    return img, launches, per_render, peak
 
 
 def run_tracer_grid(card):
@@ -2373,7 +2540,7 @@ def run_tracer_grid(card):
     dma = sweep.DMA_SWEEP
     try:
         sweep.DMA_SWEEP = False
-        img, launches, per_render = _timed_renders(
+        img, launches, per_render, _ = _timed_renders(
             f"trace_grid {width}x{height} b{bounces} spp{spp}",
             lambda seed: path_tracer.render_cached(scene, cam, view, proj, seed=seed, **kw), card)
         profile(lambda: path_tracer.render_cached(scene, cam, view, proj, seed=9,
@@ -2475,7 +2642,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from sailor_tpu_torch.kernels import cuda_lib
-    from sailor_tpu_torch.scenes import flagship_queue_scene, flagship_scene
+    from sailor_tpu_torch.scenes import dense_tracer_scene, flagship_queue_scene, flagship_scene
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2539,16 +2706,20 @@ def main() -> int:
     check_small_queue_frame()
     del scene
     tracer_kernels = check_tracer_kernels(card)
-    launches = run_tracer(card)
+    launches, tracer_peak = run_tracer(card)
     check_small_trace()
     launches["sweep_grid"] = run_tracer_grid(card).get("sweep_grid", 0)  # B6's main path
     run_material_balls(card)
     check_small_trace(textured_sky_balls, "balls_textured_sky")
     check_small_trace(label="tracer_grid", grid=True)
-    for k in tracer_kernels:
+    bvh8_row, bvh8_launches = run_bvh8_cells(card, tracer_peak)
+    bvh8_kernels = [bvh8_row]
+    launches["bvh8_intersect"] = bvh8_launches.get("bvh8_intersect", 0)
+    check_small_trace(dense_tracer_scene, "tracer_dense_bvh8")
+    for k in tracer_kernels + bvh8_kernels:
         k["launches"] = launches.get(k["name"], 0)
         check(k["launches"] > 0, f"{k['name']} was not launched on its main path")
-    kernels += tracer_kernels
+    kernels += tracer_kernels + bvh8_kernels
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

@@ -26,8 +26,8 @@ import threading
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_SOURCES = ("raster.cu", "resolve.cu", "resolve_stream.cu", "shade.cu", "slab_entry.cu",
-            "sweep.cu", "sweep_grid.cu")
+_SOURCES = ("bvh8.cu", "raster.cu", "resolve.cu", "resolve_stream.cu", "shade.cu",
+            "slab_entry.cu", "sweep.cu", "sweep_grid.cu")
 # -fmad=false: the rounding rule of csrc/common.cuh
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -42,6 +42,9 @@ build_log = ""
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
+    # table, origin, direction, t0, active, t, tri, u, v, n_rays, any_hit,
+    # stream
+    "sailor_bvh8_intersect": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     # rows, ncols, big_rows, nbig_rows, n_big*, starts, counts, zlo, zhi,
     # depth, tid, tiles_y, tiles_x, run_groups, slots, workspace, stream
     "sailor_raster_worklist": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,

@@ -3,21 +3,32 @@ PathTracer.cpp of the reference renderer).
 
 All pixels of a sample are traced as one batch: a fixed-depth bounce loop
 in which every bounce does one closest-hit pass and one sun shadow any-hit
-pass through the sweep intersector (``raytracing/sweep.py``: kernels B4 and
-B5 on the card), one-sample MIS between a cosine and a GGX/Beckmann lobe,
-and masked termination. Scenes with transmissive materials add the
+pass through an intersector (below), one-sample MIS between a cosine and a
+GGX/Beckmann lobe, and masked termination. Scenes with transmissive materials add the
 refraction, Beer-Lambert and Henyey-Greenstein volume path. Between bounces
 the whole wavefront is sorted by a Morton key of its origins and a
 direction octant (``sort_bounces``), so rays that need the same clusters
 share sub-blocks; ``render`` generates its rays in a tile-swizzled order
 so every 2048-ray block is a compact pixel supertile, and can pool
 ``sample_batch`` samples into one wavefront. ``render`` takes the
-reference's defaults (one sample a pass, no bounce sort, swizzle on unless
-``SAILOR_TRACE_SWIZZLE=0``); ``render_cached`` resolves the three from the
-environment as the reference's does (bounce sort on unless
+reference's defaults (one sample a pass, no bounce sort, swizzle on when
+the scene has a sweep unless ``SAILOR_TRACE_SWIZZLE=0``);
+``render_cached`` resolves the three from the environment as the
+reference's does (bounce sort on with a sweep unless
 ``SAILOR_TRACE_BOUNCE_SORT=0``, ``SAILOR_TRACE_SAMPLE_BATCH``), without
-its executable cache. ``SAILOR_SWEEP_SORT=1`` sorts the rays inside every
-intersector pass (``sweep.intersect(sort_rays=True)``).
+its executable cache. Bounce sort needs the sweep's cluster bounds and is
+off without one, as in the reference.
+
+Intersectors, routed per pass as the reference routes them (``_isect``):
+the cluster sweep (``raytracing/sweep.py``: kernels B4 and B5, or B6) when
+the scene has one and its scalar entry table for the pass's ray count,
+``sweep.scalar_bytes``, stays within ``sweep.SMEM_BUDGET`` (1 MiB: from 4
+pooled samples at 512x512 it does not), else the BVH8 traversal
+(``raytracing/bvh8.py``: the kernel ``csrc/bvh8.cu``). ``scene_from_mesh``
+always builds the BVH8 table on the host and builds the sweep for
+``tracer="sweep"``, or for ``"auto"`` up to ``MAX_SWEEP_TRIANGLES``
+(262,144); ``"bvh8"`` builds none. ``SAILOR_SWEEP_SORT=1`` sorts the rays
+inside every sweep pass (``sweep.intersect(sort_rays=True)``).
 
 Miss rays see an analytic sky gradient, or with ``scene_from_mesh(sky=...)``
 a lat-long map of the procedural sky (``kernels/sky.py``) baked without
@@ -32,11 +43,7 @@ volume events), from a ``torch.Generator`` seeded by ``seed``, or takes
 them from the caller (``uniforms``), which is how the tests feed both
 packages the same numbers.
 
-Not ported (they raise NotImplementedError): the BVH8 tracer and scenes
-over 262,144 triangles; nor is the reference's sharded ``trace_rays``. The
-reference leaves the sweep for BVH8 where the sweep's scalar tables would
-outgrow the TPU's 1 MiB scalar memory (``sweep.scalar_bytes``, from 4
-pooled samples at 512x512); the port has no such limit and keeps the sweep.
+Not ported: the reference's sharded ``trace_rays``.
 """
 
 from __future__ import annotations
@@ -54,10 +61,12 @@ from sailor_tpu_torch.config import resolve_device
 from sailor_tpu_torch.core import math3d as m3
 from sailor_tpu_torch.kernels import sky as sky_mod
 from sailor_tpu_torch.raytracing import bluenoise
+from sailor_tpu_torch.raytracing import bvh8 as bvh8_mod
 from sailor_tpu_torch.raytracing import lighting_model as lm
 from sailor_tpu_torch.raytracing import sweep as sweep_mod
 
-MAX_SWEEP_TRIANGLES = 262144
+MAX_SWEEP_TRIANGLES = 262144  # "auto" builds the sweep up to this many triangles
+TRACERS = ("auto", "sweep", "bvh8")
 
 
 @dataclasses.dataclass
@@ -69,7 +78,7 @@ class TraceScene:
     # 32:35 face tangent | 35 bitangent sign | 36 normal_tex | 37 orm_tex |
     # 38 emissive_tex | 39 texel density term | 40 quad group | 41:48 zero
     tri_pack: torch.Tensor
-    sweep: sweep_mod.SweepScene
+    bvh: bvh8_mod.BVH8           # always built; reports original triangle ids
     sun_direction: torch.Tensor  # (3,) from the sun toward the scene
     sun_intensity: torch.Tensor  # (3,)
     sky_zenith: torch.Tensor     # (3,)
@@ -88,6 +97,9 @@ class TraceScene:
     has_normal_maps: bool = False
     has_orm_maps: bool = False
     has_emissive_maps: bool = False
+    # the cluster sweep, built for tracer="sweep" or "auto" up to
+    # MAX_SWEEP_TRIANGLES; passes it serves are routed by ``_isect``
+    sweep: sweep_mod.SweepScene | None = None
 
     @property
     def device(self) -> torch.device:
@@ -99,17 +111,22 @@ OPTIONAL_KEYS = ("env_map", "textures", "tex_lod", "tex_quad")
 FLAGS = ("has_textures", "has_normal_maps", "has_orm_maps", "has_emissive_maps")
 
 
-def trace_scene_from_numpy(arrays: dict, sweep_arrays: dict, has_volumes: bool,
+def trace_scene_from_numpy(arrays: dict, sweep_arrays: dict | None, has_volumes: bool,
                            device="cuda", mip_sizes=(), quad_blocks=(),
                            **flags) -> TraceScene:
-    """A TraceScene from numpy arrays: ``arrays`` holds TRACE_KEYS and those
-    of OPTIONAL_KEYS the scene has, ``sweep_arrays`` the SweepScene fields
-    (``sweep.build_arrays``' output, or the JAX package's TraceScene and
-    SweepScene fields of those names); ``flags`` are FLAGS."""
+    """A TraceScene from numpy arrays: ``arrays`` holds TRACE_KEYS, the
+    packed (N, 72) float32 BVH8 table under "bvh_table" (``bvh8.build_table``'
+    output, or the JAX package's ``TraceScene.bvh.table``) and those of
+    OPTIONAL_KEYS the scene has; ``sweep_arrays`` the SweepScene fields
+    (``sweep.build_arrays``' output, or the JAX package's SweepScene fields
+    of those names), or None for a scene without a sweep; ``flags`` are
+    FLAGS."""
     dev = resolve_device(device)
     t = {k: torch.from_numpy(np.array(arrays[k], np.float32)).to(dev)
          for k in TRACE_KEYS + OPTIONAL_KEYS if arrays.get(k) is not None}
-    return TraceScene(sweep=sweep_mod.sweep_scene_from_numpy(sweep_arrays, dev),
+    sweep = None if sweep_arrays is None else sweep_mod.sweep_scene_from_numpy(sweep_arrays, dev)
+    bvh = bvh8_mod.from_numpy(arrays["bvh_table"], len(arrays["tri_pack"]), dev)
+    return TraceScene(bvh=bvh, sweep=sweep,
                       has_volumes=bool(has_volumes), mip_sizes=tuple(mip_sizes),
                       quad_blocks=tuple(quad_blocks),
                       **{k: bool(v) for k, v in flags.items()}, **t)
@@ -121,19 +138,17 @@ def scene_from_mesh(soup: dict, materials: dict | None = None, *,
                     tracer: str = "auto", sky=None, env_size=(128, 256),
                     device="cuda") -> TraceScene:
     """Build a TraceScene from a merged primitive soup (host numpy, then
-    moved to ``device``), with the reference's numpy calls. ``sky``: a
-    ``kernels.sky.SkyParams`` whose sun-less radiance is baked on ``device``
-    into an ``env_size`` lat-long map for miss rays; None keeps the analytic
-    gradient."""
+    moved to ``device``), with the reference's numpy calls. ``tracer``:
+    "auto" builds the sweep up to MAX_SWEEP_TRIANGLES triangles, "sweep"
+    always, "bvh8" never; the BVH8 table is always built (host C++,
+    ``bvh8.build_table``). ``sky``: a ``kernels.sky.SkyParams`` whose
+    sun-less radiance is baked on ``device`` into an ``env_size`` lat-long
+    map for miss rays; None keeps the analytic gradient."""
     dev = resolve_device(device)
-    if tracer not in ("auto", "sweep"):
-        raise NotImplementedError(f"tracer={tracer!r} is not ported; the sweep is")
+    if tracer not in TRACERS:
+        raise ValueError(f"tracer={tracer!r}: one of {TRACERS}")
     pos = np.asarray(soup["position"], np.float32)
     idx = np.asarray(soup["indices"], np.int32)
-    if len(idx) > MAX_SWEEP_TRIANGLES:
-        raise NotImplementedError(
-            f"{len(idx)} triangles: scenes over {MAX_SWEEP_TRIANGLES} take the "
-            "BVH8 tracer, which is not ported")
     nrm = np.asarray(soup["normal"], np.float32)
     uv = np.asarray(soup["uv"], np.float32)
     mat = np.asarray(soup["material_id"], np.int32)
@@ -232,21 +247,28 @@ def scene_from_mesh(soup: dict, materials: dict | None = None, *,
               "sky_zenith": np.asarray(sky_zenith, np.float32),
               "sky_horizon": np.asarray(sky_horizon, np.float32),
               "env_map": env_map, "textures": textures, "tex_lod": tex_lod,
-              "tex_quad": tex_quad}
+              "tex_quad": tex_quad, "bvh_table": bvh8_mod.build_table(v0, v1, v2)}
     has_volumes = bool(transmission.max() > 0.0) if m else False
+    with_sweep = tracer == "sweep" or (tracer == "auto" and len(idx) <= MAX_SWEEP_TRIANGLES)
     return trace_scene_from_numpy(
-        arrays, sweep_mod.build_arrays(v0, v1, v2), has_volumes, dev,
+        arrays, sweep_mod.build_arrays(v0, v1, v2) if with_sweep else None, has_volumes, dev,
         mip_sizes=mip_sizes, quad_blocks=quad_blocks,
         has_textures=any(bool((ls >= 0).any()) for ls in layers.values()),
         **{f"has_{k}_maps": bool((layers[k] >= 0).any()) for k in ("normal", "orm", "emissive")})
 
 
 def _isect(scene: TraceScene, origin, direction, *, any_hit=False, active=None):
-    """One intersector pass (the sweep); ``SAILOR_SWEEP_SORT=1`` sorts its
-    rays first, as the reference reads it."""
-    return sweep_mod.intersect(scene.sweep, origin, direction, any_hit=any_hit,
-                               active=active,
-                               sort_rays=os.environ.get("SAILOR_SWEEP_SORT", "0") == "1")
+    """One intersector pass, routed as the reference's ``_isect``: the sweep
+    when the scene has one and ``sweep.scalar_bytes`` of this pass's ray
+    count (samples pooled, swizzle padding included) is within
+    ``sweep.SMEM_BUDGET`` (``SAILOR_SWEEP_SORT=1`` sorts its rays first, as
+    the reference reads it), else the BVH8 traversal."""
+    if scene.sweep is not None and (sweep_mod.scalar_bytes(scene.sweep, origin.shape[0])
+                                    <= sweep_mod.SMEM_BUDGET):
+        return sweep_mod.intersect(scene.sweep, origin, direction, any_hit=any_hit,
+                                   active=active,
+                                   sort_rays=os.environ.get("SAILOR_SWEEP_SORT", "0") == "1")
+    return bvh8_mod.intersect(scene.bvh, origin, direction, any_hit=any_hit, active=active)
 
 
 def sky_radiance(scene: TraceScene, direction, include_sun: bool = True):
@@ -323,6 +345,31 @@ def camera_rays_flat(camera_pos, inv_vp, width, height, px, py, u_jitter, v_jitt
                        torch.ones_like(xs)], -1)
     d = m3.normalize32(m3.homogenize(ndc @ inv_vp.T) - camera_pos)
     return camera_pos.expand(d.shape), d
+
+
+def camera_rays(camera_pos, view, proj, width: int, height: int, u_jitter, v_jitter):
+    """Primary rays through every pixel of a ``height`` x ``width`` image,
+    scanline order, with jitters (scalars or (H, W)): (origin, direction),
+    each (H * W, 3), rounded as the reference's eager ``camera_rays``: the
+    inverse view-projection from the host (``math3d.inverse``), its product
+    with the NDC points as one fused chain over the components 0, 2, 1, 3
+    (XLA:CPU's dot), and the length's square root correctly rounded (torch's
+    CPU sqrt is not, in the last bit)."""
+    dev = camera_pos.device
+    inv_vp = m3.inverse(proj.float() @ view.float()).to(dev)
+    ones = torch.ones(height, width, device=dev)
+    ys = (torch.arange(height, dtype=torch.float32, device=dev)[:, None] + v_jitter) / height
+    xs = (torch.arange(width, dtype=torch.float32, device=dev)[None, :] + u_jitter) / width
+    ndc = (xs * 2.0 - 1.0 * ones, 1.0 - 2.0 * ys * ones,
+           torch.full((height, width), 0.5, device=dev), ones)
+    p = ndc[0][..., None] * inv_vp[:, 0]
+    for j in (2, 1, 3):
+        p = m3.fma(ndc[j][..., None], inv_vp[:, j], p)
+    v = m3.homogenize(p) - camera_pos
+    sq = (v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]) + v[..., 2] * v[..., 2]
+    length = torch.sqrt(torch.clamp(sq, min=0.0).double()).float()[..., None]
+    d = v * (1.0 / torch.clamp(length, min=1e-12))
+    return camera_pos.expand(d.shape).reshape(-1, 3), d.reshape(-1, 3)
 
 
 def _material(row, albedo, metallic, roughness, emissive):
@@ -444,6 +491,7 @@ def _trace_one_sample(scene: TraceScene, origin, direction, uniforms, max_bounce
     traced, float32)."""
     r = origin.shape[0]
     dev = origin.device
+    sort_bounces = sort_bounces and scene.sweep is not None  # its key needs the clusters
     radiance = torch.zeros(r, 3, device=dev)
     throughput = torch.ones(r, 3, device=dev)
     live = torch.ones(r, dtype=torch.bool, device=dev)
@@ -635,12 +683,13 @@ def render(scene: TraceScene, camera_pos, view, proj, *, width: int, height: int
     ``sample_batch`` samples are traced as one wavefront (their rays
     concatenated sample-major), ``spp / sample_batch`` passes; ``spp`` must
     be a multiple of it. ``sort_bounces`` sorts the wavefront between
-    bounces; ``swizzle`` (None: on unless ``SAILOR_TRACE_SWIZZLE=0``) orders
-    the rays in pixel supertiles. ``uniforms``: optional
+    bounces (scenes with a sweep only); ``swizzle`` (None: on when the scene
+    has a sweep, unless ``SAILOR_TRACE_SWIZZLE=0``) orders the rays in pixel
+    supertiles. ``uniforms``: optional
     (spp / sample_batch, 5 * max_bounces, sample_batch * R) with
     R = ``rays_per_sample(width, height, swizzle)``."""
     if swizzle is None:
-        swizzle = os.environ.get("SAILOR_TRACE_SWIZZLE", "1") == "1"
+        swizzle = scene.sweep is not None and os.environ.get("SAILOR_TRACE_SWIZZLE", "1") == "1"
     sb = sample_batch
     if spp % sb != 0:
         raise ValueError(f"spp {spp} not divisible by sample_batch {sb}")
@@ -694,8 +743,9 @@ def render_cached(scene: TraceScene, camera_pos, view, proj, *, width: int, heig
                   swizzle: bool | None = None):
     """``render`` with the settings the reference's ``render_cached``
     resolves from the environment where the caller gives none:
-    ``SAILOR_TRACE_SAMPLE_BATCH`` (1), ``SAILOR_TRACE_BOUNCE_SORT`` (on) and
-    ``SAILOR_TRACE_SWIZZLE`` (on, resolved by ``render``). The reference's
+    ``SAILOR_TRACE_SAMPLE_BATCH`` (1), ``SAILOR_TRACE_BOUNCE_SORT`` (on;
+    a scene without a sweep never sorts) and ``SAILOR_TRACE_SWIZZLE`` (on
+    when the scene has a sweep, resolved by ``render``). The reference's
     executable cache has no counterpart: PyTorch runs eagerly."""
     if sample_batch is None:
         sample_batch = int(os.environ.get("SAILOR_TRACE_SAMPLE_BATCH", "1"))

@@ -63,6 +63,21 @@ USED_ROWS = 25  # rows B5 reads: 18 side, 4 num, 3 den
 _PLAIN_CHUNK = 128  # sub-blocks the sweep twins test at a time
 # B5's per-block walk (on) or B6's dense grid (off), as the reference reads it
 DMA_SWEEP = os.environ.get("SAILOR_SWEEP_DMA", "1") == "1"
+# The reference's routing rule, not a limit of the card: its sweep keeps the
+# per-(sub-block, cluster) entry table in the TPU's scalar memory, and the
+# path tracer leaves the sweep for the BVH8 traversal when that table
+# (``scalar_bytes``) outgrows SMEM_BUDGET, read from SAILOR_SWEEP_SMEM as the
+# reference reads it (1 MiB by default). The port routes by the same rule so
+# that every pass takes the reference's intersector.
+SMEM_BUDGET = int(os.environ.get("SAILOR_SWEEP_SMEM", str(1 << 20)))
+
+
+def scalar_bytes(scene: "SweepScene", num_rays: int) -> int:
+    """Bytes of the reference's scalar entry table for ``num_rays`` rays:
+    4 * (sub-blocks + blocks) * clusters over the rays padded to whole
+    2048-ray blocks."""
+    nb = -(-max(num_rays, RAY_BLOCK) // RAY_BLOCK)
+    return 4 * (nb * (RAY_BLOCK // SUB) + nb) * scene.n_clusters
 
 
 @dataclasses.dataclass

@@ -15,7 +15,9 @@ and a third Transparent, all textured with ``procedural_test_maps``.
 ``tests/test_hiz_culling.py``: a wall that hides 24 cubes from the
 camera, so a frame after the first culls them.
 
-``tracer_scene`` is the path tracer's benchmark scene (``bench_trace``);
+``tracer_scene`` is the path tracer's benchmark scene (``bench_trace``),
+``dense_tracer_scene`` the same with finer spheres (294,914 triangles,
+past the sweep's limit);
 ``material_balls`` is the JAX package's tracer demo scene
 (``examples/trace.py``), optionally with the procedural sky and with
 ``procedural_test_maps`` on its ground: seeded numpy maps that stand in for
@@ -190,12 +192,20 @@ def tracer_camera(device="cuda"):
     return cam, view, m3.perspective(math.pi / 4, 1.0, 0.1, 100.0, device=f32["device"])
 
 
-def tracer_scene(device="cuda", **soup_kw):
+def tracer_scene(device="cuda", tracer: str = "auto", **soup_kw):
     """The path tracer's benchmark scene (default materials, analytic sky)
-    and camera: (TraceScene, camera_pos, view, proj)."""
+    and camera: (TraceScene, camera_pos, view, proj). ``tracer`` is
+    ``scene_from_mesh``'s; ``soup_kw`` go to ``tracer_soup``."""
     dev = resolve_device(device)
-    scene = path_tracer.scene_from_mesh(tracer_soup(**soup_kw), device=dev)
+    scene = path_tracer.scene_from_mesh(tracer_soup(**soup_kw), tracer=tracer, device=dev)
     return (scene, *tracer_camera(dev))
+
+
+def dense_tracer_scene(device="cuda"):
+    """The bench tracer scene with its spheres at 96x192: 8 x 36,864 + 2 =
+    294,914 triangles, over ``path_tracer.MAX_SWEEP_TRIANGLES``, so "auto"
+    builds no sweep and every pass takes the BVH8 traversal."""
+    return tracer_scene(device, rings=96, sectors=192)
 
 
 def material_balls_soup(rings: int = 24, sectors: int = 48):

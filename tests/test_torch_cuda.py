@@ -60,13 +60,21 @@ The tracer's kernels run on its own rays: every intersector pass of one
 128x128 sample of the bench tracer scene (camera, bounce-1 and shadow rays),
 and 64x64 renders on the card are held to the CPU path: the tracer scene
 through B5 and through B6, the material balls with the procedural sky and
-maps.
+maps. The BVH8 traversal (``csrc/bvh8.cu``) is held to its twin bit for bit
+(t, u, v bits and ids: the same float32 operations, -fmad=false), closest
+and any hit, with and without a finite t_max and an active mask, on the
+soups of ``tests/torch_bvh8_soups.py`` (the deep one drops pushes at
+MAX_STACK) and with every ray inactive, and on the passes of one 128x128
+render of the bench tracer scene with 4 pooled samples (BVH8 route); a
+64x64 render of the dense scene (BVH8 route) on the card is held to the
+CPU path.
 """
 
 import pytest
 import torch
 
 from chip_smoke import (bits_equal, cascade_inputs, check_culled_frame, check_small_frame,
+                        record_passes,
                         check_small_full_frame, check_small_queue_frame,
                         check_small_shadow_frame, check_small_trace, dense_runs, dma_runs,
                         evsm_shadow_factor, frame_inputs, heavy_tile_cases, heavy_tile_rows,
@@ -77,8 +85,10 @@ from sailor_tpu_torch.framegraph import nodes
 from sailor_tpu_torch.kernels import cuda_lib, pbr_kernel
 from sailor_tpu_torch.raster import setup as rsetup
 from sailor_tpu_torch.raster import tile_raster as tr
-from sailor_tpu_torch.raytracing import sweep
-from sailor_tpu_torch.scenes import flagship_queue_scene, flagship_scene, tracer_scene
+from sailor_tpu_torch.raytracing import bvh8, sweep
+from sailor_tpu_torch.scenes import (dense_tracer_scene, flagship_queue_scene, flagship_scene,
+                                     tracer_scene)
+from torch_bvh8_soups import SOUPS, rays, soup
 
 pytestmark = pytest.mark.cuda
 W, H = 640, 384
@@ -680,3 +690,48 @@ def test_sweep_kernels_match_plain_on_sparse_passes(tracer_rays, npass, live, ti
     for t, i in ((t_5, i_5), (t_6, i_6)):
         assert torch.equal(i, i_p)
         assert torch.equal(t.view(torch.int32), t_p.view(torch.int32))
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    cuda_lib.load()
+
+
+def _bvh8_equal(got, want):
+    return all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("name", SOUPS)
+def test_bvh8_kernel_matches_plain(card, name, any_hit):
+    table = torch.from_numpy(bvh8.build_table(*soup(name))).cuda()
+    o, d, act = (torch.from_numpy(x).cuda() for x in rays())
+    work = {}
+    for t_max, active in ((None, None), (4.0, act), (None, torch.zeros_like(act))):
+        args = bvh8.ray_inputs(o, d, t_max, active)
+        before = cuda_lib.LAUNCHES["bvh8_intersect"]
+        got = bvh8.intersect_cuda(table, *args, any_hit=any_hit)
+        assert cuda_lib.LAUNCHES["bvh8_intersect"] == before + 1
+        want = bvh8.intersect_plain(table, *args, any_hit=any_hit, work=work)
+        assert _bvh8_equal(got, want)
+        assert int((want[1] >= 0).sum()) > (0 if active is None or bool(active.any()) else -1)
+    if name == "deep" and not any_hit:
+        assert work["dropped_pushes"] > 0
+
+
+@pytest.mark.parametrize("npass", [0, 1, 2, 3],
+                         ids=["bounce0", "bounce0_shadow", "bounce1", "bounce1_shadow"])
+def test_bvh8_kernel_matches_plain_on_tracer_passes(card, npass):
+    scene, cam, view, proj = tracer_scene(tracer="bvh8")
+    p = record_passes(scene, cam, view, proj, 128, 128, sample_batch=4)[npass]
+    args = bvh8.ray_inputs(p["origin"], p["direction"], None, p["active"])
+    got = bvh8.intersect_cuda(scene.bvh.table, *args, any_hit=p["any_hit"])
+    want = bvh8.intersect_plain(scene.bvh.table, *args, any_hit=p["any_hit"])
+    assert int((want[1] >= 0).sum()) > 10
+    assert _bvh8_equal(got, want)
+
+
+def test_dense_bvh8_trace_on_card_matches_cpu(card):
+    check_small_trace(dense_tracer_scene, "tracer_dense_bvh8")

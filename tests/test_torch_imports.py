@@ -1,7 +1,9 @@
 """The port stands alone and refuses what it does not implement.
 
 - Importing every module of sailor_tpu_torch, and chip_smoke, loads no jax
-  and no sailor_tpu module (checked in a fresh interpreter);
+  and no sailor_tpu module, and building a BVH8 table loads the port's own
+  host library, not the JAX package's native/libsailor_native.so (checked
+  in a fresh interpreter);
 - no source line of the port imports them;
 - entry points default to the CUDA device and raise when there is none;
 - kernel wrappers take CUDA tensors only, and the dispatch runs the plain
@@ -11,10 +13,10 @@
   culling, ShadowPrepass, DepthHighZ and the whole DefaultRenderer graph
   (content/DefaultRenderer.renderer) at the flagship size; a scene's
   material table renders (Masked and Transparent queues included) and
-  anything else in its place raises TypeError;
-  so do the path tracer's parts that are not ported (the BVH8 tracer and
-  scenes too large for the sweep), while its textures, env-map sky and
-  ray sorting inside the intersector run.
+  anything else in its place raises TypeError; the path tracer's textures,
+  env-map sky and ray sorting inside the intersector run, and so do
+  ``tracer="bvh8"`` (no sweep built) and "auto" over MAX_SWEEP_TRIANGLES
+  (no sweep; every pass takes the BVH8 traversal).
 """
 
 import os
@@ -31,8 +33,8 @@ from sailor_tpu_torch.kernels import cubemap, ibl, pbr_kernel
 from sailor_tpu_torch.kernels.sky import SkyParams
 from sailor_tpu_torch.raster import tile_raster
 from sailor_tpu_torch.raytracing import path_tracer, sweep
-from sailor_tpu_torch.scenes import (flagship_queue_scene, flagship_scene, tracer_camera,
-                                     tracer_scene, tracer_soup)
+from sailor_tpu_torch.scenes import (dense_tracer_scene, flagship_queue_scene, flagship_scene,
+                                     tracer_camera, tracer_scene, tracer_soup)
 from sailor_tpu_torch.framegraph.graph import UNPORTED_NODES
 from test_torch_scenes import (FULL_CONFIG, MINIMAL_GRAPH, SHADOW_HIZ_CONFIG, SHADOW_HIZ_GRAPH,
                                SLICE_CONFIG)
@@ -47,6 +49,12 @@ import sailor_tpu_torch
 for m in pkgutil.walk_packages(sailor_tpu_torch.__path__, "sailor_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
+import numpy as np
+from sailor_tpu_torch.raytracing import bvh8
+v = np.random.default_rng(0).random((3, 20, 3)).astype(np.float32)
+assert len(bvh8.build_table(*v)) > 1
+maps = open("/proc/self/maps").read()
+assert "libsailor_torch_host" in maps and "libsailor_native" not in maps
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "flax", "sailor_tpu"))
 print("BAD", bad)
@@ -246,18 +254,38 @@ def test_tracer_env_sky_is_ported():
     assert bool(torch.isfinite(path_tracer.sky_radiance(scene, d)).all())
 
 
-def test_tracer_bvh8_raises():
-    with pytest.raises(NotImplementedError, match="bvh8"):
-        path_tracer.scene_from_mesh(tracer_soup(4, 8, 1), tracer="bvh8", device="cpu")
+def _count_passes(monkeypatch):
+    """Count the intersector passes each route takes."""
+    counts = {"sweep": 0, "bvh8": 0}
+    for name, mod in (("sweep", path_tracer.sweep_mod), ("bvh8", path_tracer.bvh8_mod)):
+        def counted(*args, _f=mod.intersect, _n=name, **kw):
+            counts[_n] += 1
+            return _f(*args, **kw)
+        monkeypatch.setattr(mod, "intersect", counted)
+    return counts
 
 
-def test_tracer_large_scene_raises():
-    n = path_tracer.MAX_SWEEP_TRIANGLES + 1
-    soup = {"position": np.zeros((3, 3), np.float32), "normal": np.zeros((3, 3), np.float32),
-            "uv": np.zeros((3, 2), np.float32), "material_id": np.zeros(n, np.int32),
-            "indices": np.tile(np.arange(3, dtype=np.int32), (n, 1))}
-    with pytest.raises(NotImplementedError, match="BVH8"):
-        path_tracer.scene_from_mesh(soup, device="cpu")
+def test_tracer_bvh8_builds_no_sweep_and_traces(monkeypatch):
+    scene = path_tracer.scene_from_mesh(tracer_soup(4, 8, 1), tracer="bvh8", device="cpu")
+    assert scene.sweep is None and scene.bvh.num_tris == scene.tri_pack.shape[0]
+    counts = _count_passes(monkeypatch)
+    img, rays = path_tracer.render(scene, *tracer_camera("cpu"), width=16, height=16, spp=1,
+                                   max_bounces=2)
+    assert counts == {"sweep": 0, "bvh8": 4}
+    assert bool(torch.isfinite(img).all()) and float(rays) > 16 * 16
+    with pytest.raises(ValueError, match="tracer"):
+        path_tracer.scene_from_mesh(tracer_soup(4, 8, 1), tracer="binary", device="cpu")
+
+
+def test_tracer_auto_over_the_sweep_limit_routes_to_bvh8(monkeypatch):
+    scene, cam, view, proj = dense_tracer_scene("cpu")
+    assert scene.tri_pack.shape[0] == 294914 > path_tracer.MAX_SWEEP_TRIANGLES
+    assert scene.sweep is None
+    counts = _count_passes(monkeypatch)
+    img, rays = path_tracer.render_cached(scene, cam, view, proj, width=8, height=8, spp=1,
+                                          max_bounces=2)
+    assert counts == {"sweep": 0, "bvh8": 4}
+    assert bool(torch.isfinite(img).all()) and float(rays) > 64
 
 
 def test_tracer_sort_rays_is_ported():

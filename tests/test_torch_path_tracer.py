@@ -2,8 +2,9 @@
 
 Same numpy inputs, and for renders the same uniforms (drawn from the JAX
 package's own key splits, ``jax_uniforms``), through both packages:
-- scene build: the 48-column shading table and the sweep's arrays exactly
-  equal; ``trace_scene_from_numpy`` carries the reference's scene across;
+- scene build: the 48-column shading table, the sweep's arrays and the
+  BVH8 table exactly equal; ``trace_scene_from_numpy`` carries the
+  reference's scene across;
 - lighting model: every function within 1e-6 * (1 + |ref|) on the same
   inputs (roughness 0.15..1, both NDFs), the half-vector samplers and the
   BRDF's pdfs within 1e-5 * (1 + |ref|) (float32 on both sides: sqrt, sin,
@@ -69,9 +70,12 @@ def _carry(ref) -> pt.TraceScene:
               for k in pt.TRACE_KEYS + pt.OPTIONAL_KEYS}
     if not ref.has_textures:
         arrays["textures"] = None
-    sw = {k: np.asarray(getattr(ref.sweep, k))
-          for k in ("g_cluster", "v0e1e2", "tri_id", "cl_min", "cl_max")}
-    sw["num_tris"] = ref.sweep.num_tris
+    arrays["bvh_table"] = np.asarray(ref.bvh.table)
+    sw = None
+    if ref.sweep is not None:
+        sw = {k: np.asarray(getattr(ref.sweep, k))
+              for k in ("g_cluster", "v0e1e2", "tri_id", "cl_min", "cl_max")}
+        sw["num_tris"] = ref.sweep.num_tris
     return pt.trace_scene_from_numpy(arrays, sw, ref.has_volumes, device="cpu",
                                      mip_sizes=ref.mip_sizes, quad_blocks=ref.quad_blocks,
                                      **{k: getattr(ref, k) for k in pt.FLAGS})
@@ -146,6 +150,10 @@ def test_scene_from_mesh_matches_reference(materials):
     for k in ("g_cluster", "v0e1e2", "tri_id", "cl_min", "cl_max"):
         assert torch.equal(getattr(carried.sweep, k), getattr(got.sweep, k)), k
     assert got.sweep.n_clusters == ref.sweep.n_clusters
+    np.testing.assert_array_equal(got.bvh.table.numpy().view(np.int32),
+                                  np.asarray(ref.bvh.table).view(np.int32))
+    assert torch.equal(carried.bvh.table.view(torch.int32), got.bvh.table.view(torch.int32))
+    assert got.bvh.num_tris == ref.bvh.num_tris
 
 
 def _lighting_inputs(n=4096):
