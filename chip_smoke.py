@@ -112,14 +112,20 @@ Phases, each printed as it ends:
      finite and >= 0;
  11. small renders: 64x64 renders of the textured material balls with the
      sky, and of the tracer scene on B6, on the card against the CPU path;
- 12. bvh8 kernel: the BVH8 traversal (csrc/bvh8.cu, no TPU counterpart)
+ 12. bvh8 kernel: the BVH8 traversal (csrc/bvh8.cu, no TPU counterpart;
+     its registers, shared and local bytes and resident blocks printed)
      against its plain twin on the bounce-1 rays and their shadow rays of
      both BVH8 cells (512x512; 4 pooled samples of the bench tracer scene,
      one sample of the dense scene): t, tri, u, v bit-equal, timed with
-     CUDA events, its bound from the rows the twin counts, dropped pushes;
+     CUDA events in turns with the one-thread-a-ray kernel it replaced
+     (tests/torch_bvh8_thread_per_ray.cu, built beside the port's kernels;
+     ``parent_ms``), its bound from the rows the twin counts, dropped
+     pushes, the lane use of both warp schedules (the old one from the
+     twin's counts, the kernel's from its plain model ``bvh8_schedule``);
  13. BVH8 cells, each 1 warm-up + 2 renders through ``render_cached`` at
      512x512, 4 bounces, every pass on the BVH8 traversal (launches
-     checked: 2 * bounces * passes, no sweep, no slab entry): tracer-512-
+     checked: 2 * bounces * passes, no sweep, no slab entry; then the
+     same renders on the one-thread-a-ray kernel, the same image): tracer-512-
      batch4 (the bench tracer scene with sample_batch 4, whose sweep table
      the reference's rule sends away, 16 spp) and tracer-512-dense
      (``scenes.dense_tracer_scene``, 294,914 triangles, "auto" builds no
@@ -2370,6 +2376,108 @@ def _bvh8_bound(rays, work):
     return _bound(nbytes, work["leaf_rows"] * 7 * 50 + work["inner_rows"] * 8 * 25)
 
 
+def bvh8_walks(table, args, any_hit):
+    """Each ray's walk through the BVH8 twin: (t, tri, u, v, work, walks),
+    ``walks`` = (start, length, kinds) numpy arrays: ray i's rows are
+    kinds[start[i]:start[i] + length[i]] in order (True for a leaf), as
+    ``intersect_plain``'s ``on_step`` sees them."""
+    import torch
+
+    from sailor_tpu_torch.raytracing import bvh8
+
+    record, work = [], {}
+    out = bvh8.intersect_plain(table, *args, any_hit=any_hit, work=work,
+                               on_step=lambda idx, leaf: record.append((idx, leaf)))
+    n = args[0].shape[0]
+    if record:
+        idx = torch.cat([i for i, _ in record]).cpu()
+        leaf = torch.cat([f for _, f in record]).cpu()
+    else:
+        idx, leaf = torch.zeros(0, dtype=torch.int64), torch.zeros(0, dtype=torch.bool)
+    length = torch.bincount(idx, minlength=n)
+    start = torch.cumsum(length, 0) - length
+    kinds = leaf[torch.sort(idx, stable=True).indices]  # iteration order within a ray
+    return (*out, work, (start.numpy(), length.numpy(), kinds.numpy()))
+
+
+def bvh8_schedule(walks, active, warps, refill_idle, leaf_wait):
+    """The BVH8 kernel's schedule (csrc/bvh8.cu) in plain numpy, on the
+    walks of ``bvh8_walks``: ``warps`` persistent warps run in lockstep,
+    one iteration each a step. An iteration: every warp that has no ray
+    pending and at least ``refill_idle`` idle lanes (and has not seen the
+    counter pass the rays) fetches the next 32 rays in warp order; the
+    active ones wait, in ray order, and idle lanes take them in lane
+    order; then the warp steps its internal rows, and its leaf rows when it
+    has no internal row or after ``leaf_wait`` internal steps with a leaf
+    waiting; a ray whose walk ends frees its lane. Returns the rows each
+    ray stepped, ``lane_steps``, ``warp_steps`` (warp iterations with a
+    ray), ``warp_branch_steps`` (branches run: one or two an iteration),
+    ``longest_warp`` (the most branches one warp ran) and ``iterations``.
+    With ``refill_idle`` 32 and ``leaf_wait`` 0 and a warp for every 32
+    rays, this is the one-thread-a-ray mapping that the twin's ``work``
+    counts."""
+    import numpy as np
+
+    start, length, kinds = walks
+    act = np.asarray(active, bool)
+    n = len(act)
+    lane = np.arange(32)
+    ray = np.full((warps, 32), -1)
+    pos = np.zeros((warps, 32), np.int64)
+    pend = np.full((warps, 32), -1)
+    head, count = np.zeros(warps, np.int64), np.zeros(warps, np.int64)
+    drained = np.zeros(warps, bool)
+    waited = np.zeros(warps, np.int64)
+    branches = np.zeros(warps, np.int64)
+    rows = np.zeros(n, np.int64)
+    counter = lane_steps = warp_steps = iterations = 0
+    while True:
+        idle = ray < 0
+        nidle = idle.sum(1)
+        fetch = np.nonzero(~drained & (head == count) & (nidle >= refill_idle))[0]
+        if len(fetch):
+            base = counter + 32 * np.arange(len(fetch))
+            counter += 32 * len(fetch)
+            drained[fetch] = base >= n - 32
+            ids = base[:, None] + lane
+            ok = ids < n
+            ok[ok] = act[ids[ok]]
+            # the active rays of each batch, in ray order, then -1
+            order = np.argsort(~ok, axis=1, kind="stable")
+            pend[fetch] = np.where(np.take_along_axis(ok, order, 1),
+                                   np.take_along_axis(ids, order, 1), -1)
+            head[fetch], count[fetch] = 0, ok.sum(1)
+        take = np.minimum(nidle, count - head)
+        rank = np.cumsum(idle, 1) - 1
+        w, l = np.nonzero(idle & (rank < take[:, None]))
+        ray[w, l] = pend[w, head[w] + rank[w, l]]
+        pos[w, l] = 0
+        head += take
+        busy = ray >= 0
+        if not busy.any():
+            if drained.all():
+                break
+            continue
+        iterations += 1
+        leaf = busy & kinds[np.where(busy, start[np.maximum(ray, 0)] + pos, 0)]
+        inner = busy & ~leaf
+        inner_turn = inner.any(1)
+        leaves = leaf.any(1)
+        leaf_turn = leaves & (~inner_turn | (waited >= leaf_wait))
+        waited = np.where(leaf_turn, 0, waited + leaves)
+        stepped = (inner & inner_turn[:, None]) | (leaf & leaf_turn[:, None])
+        warp_steps += int(busy.any(1).sum())
+        branches += inner_turn.astype(np.int64) + leaf_turn
+        lane_steps += int(stepped.sum())
+        np.add.at(rows, ray[stepped], 1)
+        pos[stepped] += 1
+        done = stepped & (pos == length[np.maximum(ray, 0)])
+        ray[done] = -1
+    return dict(rows=rows, lane_steps=lane_steps, warp_steps=warp_steps,
+                warp_branch_steps=int(branches.sum()), longest_warp=int(branches.max()),
+                iterations=iterations)
+
+
 def bvh8_cells():
     """The two cells whose passes take the BVH8 traversal: (label, scene
     maker, sample_batch, spp)."""
@@ -2398,70 +2506,173 @@ def around_call(module, name):
         setattr(module, name, inner)
 
 
-def check_bvh8_kernel(scene, cam, view, proj, label, sample_batch, card):
+THREAD_PER_RAY = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                              "torch_bvh8_thread_per_ray.cu")
+
+
+def start_thread_per_ray_build():
+    """Start nvcc on the BVH8 traversal's one-thread-a-ray form
+    (tests/torch_bvh8_thread_per_ray.cu: the kernel that the persistent one
+    replaced, not in the port's library), to be built beside the port's
+    kernels: (process or None if already built, library path)."""
+    import hashlib
+
+    from sailor_tpu_torch.kernels import cuda_lib
+
+    with open(THREAD_PER_RAY, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(cuda_lib.NVCC_FLAGS).encode())
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "thread_per_ray",
+                       digest.hexdigest()[:16])
+    lib = os.path.join(out, "libbvh8_thread_per_ray.so")
+    if os.path.exists(lib):
+        return None, lib
+    os.makedirs(out, exist_ok=True)
+    cmd = [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-I", cuda_lib._CSRC, "-shared",
+           THREAD_PER_RAY, "-o", lib + f".{os.getpid()}.tmp"]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True), lib
+
+
+def thread_per_ray_kernel(build):
+    """Wait for ``start_thread_per_ray_build``'s nvcc (printing its ptxas
+    lines) and load it: a function (table, args, any_hit) -> (t, tri, u, v)
+    that launches the one-thread-a-ray kernel on ``bvh8.ray_inputs``'s
+    args. Its launches are not counted: it is no kernel of the port."""
+    import ctypes
+
+    import torch
+
+    from sailor_tpu_torch.kernels import cuda_lib
+
+    proc, path = build
+    if proc is not None:
+        out, _ = proc.communicate()
+        check(proc.returncode == 0, f"nvcc failed on {THREAD_PER_RAY}:\n{out}")
+        os.replace(path + f".{os.getpid()}.tmp", path)
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line:
+                print("  one thread a ray: " + line.strip())
+    fn = ctypes.CDLL(path).sailor_bvh8_intersect
+    sig = cuda_lib._SIGNATURES["sailor_bvh8_intersect"]
+    fn.argtypes = list(sig[:-2] + sig[-1:])  # no ray counter
+    fn.restype = ctypes.c_int
+
+    def run(table, args, any_hit):
+        r = args[0].shape[0]
+        out = (torch.empty(r, device=table.device),
+               torch.empty(r, dtype=torch.int32, device=table.device),
+               torch.empty(r, device=table.device), torch.empty(r, device=table.device))
+        cuda_lib.check(fn(table.data_ptr(), *(a.data_ptr() for a in args),
+                          *(o.data_ptr() for o in out), r, int(any_hit),
+                          cuda_lib.stream_of(table)), "one-thread-a-ray bvh8")
+        return out
+
+    return run
+
+
+def check_bvh8_kernel(scene, cam, view, proj, label, sample_batch, card, thread_per_ray):
     """The BVH8 traversal (csrc/bvh8.cu) against its plain twin on the
     cell's bounce-1 rays, closest and any hit (with their active masks):
-    t, tri, u, v bit-equal; timed, with its bound from the twin's work, the
-    row bytes its rays read in all and the pushes dropped at MAX_STACK.
-    Returns the rows by pass."""
+    t, tri, u, v bit-equal; timed in turns with the one-thread-a-ray kernel
+    it replaced (``thread_per_ray``: that one, this one twice, that one),
+    with its bound from the twin's work, the row bytes its rays read in all,
+    the pushes dropped at MAX_STACK, and the warp schedules' lane use: the
+    one-thread-a-ray mapping's from the twin's work (lane steps over 32 x
+    warp steps, and over 32 x warp branch steps) and the kernel's from its
+    plain model (``bvh8_schedule`` on the card's resident warps). Returns
+    the rows by pass."""
     import torch
 
     from sailor_tpu_torch.kernels import cuda_lib
     from sailor_tpu_torch.raytracing import bvh8
 
+    def equal(a, b):
+        return all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(a, b))
+
     width, height = TRACER[:2]
+    table = scene.bvh.table
+    info = bvh8.kernel_info()
+    warps = info["resident_blocks"] * info["threads"] // 32
     rows = {}
     passes = record_passes(scene, cam, view, proj, width, height, sample_batch=sample_batch)
     for name, p in (("bounce1", passes[2]), ("bounce1_shadow", passes[3])):
         args = bvh8.ray_inputs(p["origin"], p["direction"], None, p["active"])
         any_hit = p["any_hit"]
         before = cuda_lib.LAUNCHES["bvh8_intersect"]
-        got = bvh8.intersect_cuda(scene.bvh.table, *args, any_hit=any_hit)
+        got = bvh8.intersect_cuda(table, *args, any_hit=any_hit)
         launched = cuda_lib.LAUNCHES["bvh8_intersect"] - before
-        work = {}
-        plain_ms, want = _wall_ms(lambda: bvh8.intersect_plain(
-            scene.bvh.table, *args, any_hit=any_hit, work=work))
-        same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
-                   for a, b in zip(got, want))
-        ms = _time_ms(lambda: bvh8.intersect_cuda(scene.bvh.table, *args, any_hit=any_hit), 20)
+        plain_ms, want = _wall_ms(lambda: bvh8.intersect_plain(table, *args, any_hit=any_hit))
+        *_, work, walks = bvh8_walks(table, args, any_hit)
+        same = equal(got, want)
+        parent_same = equal(thread_per_ray(table, args, any_hit), want)
+
+        def kernel():
+            return bvh8.intersect_cuda(table, *args, any_hit=any_hit)
+
+        def parent():
+            return thread_per_ray(table, args, any_hit)
+
+        turns = [_time_ms(fn, 20) for fn in (parent, kernel, kernel, parent)]
+        ms, parent_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        model = bvh8_schedule(walks, args[3].cpu().numpy(), warps, info["refill_idle"], 0)
         r = args[0].shape[0]
         bound, by = _bvh8_bound(r, work)
         live = int(args[3].sum())
         row_read = (work["leaf_rows"] * bvh8.LEAF_ROW_BYTES
                     + work["inner_rows"] * bvh8.INNER_ROW_BYTES)
+        steps = max(1, work["lane_steps"])
         print(f"kernel bvh8_intersect[{label}/{name}]: bit_equal={same} launches={launched} "
-              f"ms={ms:.4f} plain_ms={plain_ms:.2f} bound_ms={bound:.5f} ({by}) rays={r} "
+              f"ms={ms:.4f} parent_ms={parent_ms:.4f} (one thread a ray, bit_equal="
+              f"{parent_same}; turns {[round(t, 4) for t in turns]}) "
+              f"plain_ms={plain_ms:.2f} bound_ms={bound:.5f} ({by}) rays={r} "
               f"active={live} hits={int((want[1] >= 0).sum())} "
               f"rows_per_active_ray={(work['leaf_rows'] + work['inner_rows']) / max(1, live):.2f} "
               f"leaf_rows={work['leaf_rows']} inner_rows={work['inner_rows']} "
               f"distinct_rows={work['distinct_leaf_rows'] + work['distinct_inner_rows']} "
               f"row_read_bytes={row_read} "
               f"iterations={work['iterations']} dropped_pushes={work['dropped_pushes']} "
-              f"table_rows={scene.bvh.table.shape[0]} on {card}")
-        check(same and launched == 1,
+              f"table_rows={table.shape[0]} lane_steps={work['lane_steps']} "
+              f"one_thread_a_ray: lane_use={steps / (32 * max(1, work['warp_steps'])):.3f} "
+              f"branch_use={steps / (32 * max(1, work['warp_branch_steps'])):.3f} "
+              f"persistent_model ({warps} warps, refill at {info['refill_idle']}): "
+              f"lane_use={model['lane_steps'] / (32 * max(1, model['warp_steps'])):.3f} "
+              f"branch_use={model['lane_steps'] / (32 * max(1, model['warp_branch_steps'])):.3f} "
+              f"longest_warp_branches={model['longest_warp']} on {card}")
+        check(same and launched == 1 and parent_same,
               f"bvh8 kernel disagrees with its plain version ({label}/{name})")
+        check(bool((model["rows"] == walks[1]).all()),
+              f"bvh8 schedule model lost rows ({label}/{name})")
         rows[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                           bound_by=by)
     return rows
 
 
-def run_bvh8_cells(card, tracer_peak):
+def run_bvh8_cells(card, tracer_peak, thread_per_ray):
     """The two cells whose every pass takes the BVH8 traversal, through
     ``render_cached`` at TRACER's size and depth: tracer-512-batch4 (the
     bench tracer scene, ``sample_batch`` 4: the reference's scalar table
     outgrows 1 MiB, 16 spp, bounce sort on) and tracer-512-dense (294,914
     triangles, "auto" builds no sweep, 4 spp). Each scene is built once
     (its host table build timed inside it) and first holds the kernel to
-    its twin (``check_bvh8_kernel``); then 1 warm-up + 2 renders, launches
+    its twin (``check_bvh8_kernel``, beside ``thread_per_ray``); then 1
+    warm-up + 2 renders, launches
     per render checked (bvh8_intersect 2 * bounces * passes, no sweep, no
-    slab entry), peak bytes against tracer-512's ``tracer_peak`` and, on
+    slab entry), the same renders with ``thread_per_ray`` in the kernel's
+    place (Mrays/s and peak bytes beside the kernel's; the same image),
+    peak bytes against tracer-512's ``tracer_peak`` and, on
     the dense cell, a profiled 1-spp sample. Returns (the JSON row: the
     batch4 cell's bounce-1 closest-hit pass, the launches of both cells'
     renders)."""
+    import torch
+
     from sailor_tpu_torch.raytracing import bvh8, path_tracer
 
     width, height, bounces, _ = TRACER
     total, rows = {}, {}
+    info = bvh8.kernel_info()
+    print(f"bvh8 kernel: registers={info['registers']} shared_bytes={info['shared_bytes']} "
+          f"local_bytes={info['local_bytes']} resident_blocks={info['resident_blocks']} of "
+          f"{info['threads']} threads, refill at {info['refill_idle']} idle lanes on {card}")
     for label, make, sb, spp in bvh8_cells():
         with around_call(bvh8, "build_table") as table_s:
             build_ms, (scene, cam, view, proj) = _wall_ms(make)
@@ -2470,17 +2681,31 @@ def run_bvh8_cells(card, tracer_peak):
               f"bvh8 rows {scene.bvh.table.shape[0]} of {bvh8.ROW} floats, "
               f"bvh8 host build_s={table_s[0]:.3f}, scene build_ms={build_ms:.1f}, "
               f"{width}x{height}, {bounces} bounces, {spp} spp, sample_batch {sb}")
-        rows[label] = check_bvh8_kernel(scene, cam, view, proj, label, sb, card)
+        rows[label] = check_bvh8_kernel(scene, cam, view, proj, label, sb, card,
+                                        thread_per_ray)
         kw = dict(width=width, height=height, spp=spp, max_bounces=bounces, sample_batch=sb)
         cell = f"{label} {width}x{height} b{bounces} spp{spp}"
-        _, launches, per_render, peak = _timed_renders(
-            cell, lambda seed: path_tracer.render_cached(scene, cam, view, proj, seed=seed, **kw),
-            card)
+
+        def render(seed):
+            return path_tracer.render_cached(scene, cam, view, proj, seed=seed, **kw)
+
+        img, launches, per_render, peak = _timed_renders(cell, render, card)
         want = 2 * bounces * spp // sb
         check(per_render.get("bvh8_intersect", 0) == want
               and not per_render.get("sweep") and not per_render.get("slab_entry"),
               f"{label}: {per_render} launches a render, not {want} of bvh8_intersect alone")
-        print(f"{label} peak_mem_bytes={peak} against tracer-512's {tracer_peak} on {card}")
+        # the same renders on the one-thread-a-ray kernel: the same image
+        kernel = bvh8.intersect_cuda
+        bvh8.intersect_cuda = lambda table, *args, any_hit: thread_per_ray(table, args, any_hit)
+        try:
+            parent_img, _, _, parent_peak = _timed_renders(
+                f"{cell} on the one-thread-a-ray kernel", render, card)
+        finally:
+            bvh8.intersect_cuda = kernel
+        check(torch.equal(img, parent_img),
+              f"{label}: the render differs on the one-thread-a-ray kernel")
+        print(f"{label} peak_mem_bytes={peak} (on the one-thread-a-ray kernel {parent_peak}) "
+              f"against tracer-512's {tracer_peak} on {card}")
         if label == "tracer-512-dense":
             profile(lambda: path_tracer.render_cached(scene, cam, view, proj, seed=9,
                                                       **dict(kw, spp=1)), card,
@@ -2652,11 +2877,13 @@ def main() -> int:
     print(f"card: {card} | torch: {kind} | torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
+    parent_build = start_thread_per_ray_build()  # nvcc beside the port's
     cuda_lib.load()
     print(f"build: {time.perf_counter() - t0:.1f} s")
     for line in cuda_lib.build_log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip())
+    thread_per_ray = thread_per_ray_kernel(parent_build)
 
     width, height, n_lights, n_objects = FLAGSHIP
     scene = flagship_scene(width, height, n_lights, n_objects)
@@ -2712,7 +2939,7 @@ def main() -> int:
     run_material_balls(card)
     check_small_trace(textured_sky_balls, "balls_textured_sky")
     check_small_trace(label="tracer_grid", grid=True)
-    bvh8_row, bvh8_launches = run_bvh8_cells(card, tracer_peak)
+    bvh8_row, bvh8_launches = run_bvh8_cells(card, tracer_peak, thread_per_ray)
     bvh8_kernels = [bvh8_row]
     launches["bvh8_intersect"] = bvh8_launches.get("bvh8_intersect", 0)
     check_small_trace(dense_tracer_scene, "tracer_dense_bvh8")

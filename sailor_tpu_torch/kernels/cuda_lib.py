@@ -43,8 +43,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # table, origin, direction, t0, active, t, tri, u, v, n_rays, any_hit,
-    # stream
-    "sailor_bvh8_intersect": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # ray counter (scratch), stream
+    "sailor_bvh8_intersect": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P),
+    # info (6 int32: registers, shared bytes, local bytes, resident blocks,
+    # threads a block, refill threshold)
+    "sailor_bvh8_info": (_P,),
     # rows, ncols, big_rows, nbig_rows, n_big*, starts, counts, zlo, zhi,
     # depth, tid, tiles_y, tiles_x, run_groups, slots, workspace, stream
     "sailor_raster_worklist": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,

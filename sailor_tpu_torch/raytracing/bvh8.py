@@ -18,10 +18,12 @@ collapse), otherwise by a numpy copy of the reference's ``_collapse`` over
 
 ``intersect`` traverses it. The reference runs all rays in one lockstep
 ``lax.while_loop`` in which each ray's state evolves on its own (a dead
-ray parks on row 0 and changes nothing), so one thread per ray gives the
-same result per ray: the kernel ``csrc/bvh8.cu`` (no TPU counterpart; one
-launch per pass) and its plain twin ``intersect_plain`` evaluate the same
-float32 operations in the same order. Per iteration a ray reads its row:
+ray parks on row 0 and changes nothing), so any schedule that runs each
+ray's steps in order gives the same result per ray: the kernel
+``csrc/bvh8.cu`` (no TPU counterpart; one launch per pass; persistent warps
+whose lanes take a new ray as theirs finish) and its plain twin
+``intersect_plain`` evaluate the same float32 operations in the same order.
+Per iteration a ray reads its row:
 
 - a leaf tests its triangles (|det| > 1e-10, u >= 0, v >= 0, u + v <= 1,
   1e-4 < t < best t) and takes the least t; among the triangles at that t
@@ -209,15 +211,27 @@ def _low_bit_index(low):
     return (low.to(torch.float32).view(torch.int32) >> 23) - 127
 
 
+def _warps_with(idx, lanes):
+    """The count of 32-ray warps (by ray index; ``idx`` ascending) that hold
+    a ray where ``lanes`` is true."""
+    return int(torch.unique_consecutive(idx[lanes] // 32).numel())
+
+
 def intersect_plain(table, origin, direction, t0, active, *, any_hit: bool,
-                    work: dict | None = None):
+                    work: dict | None = None, on_step=None):
     """Plain PyTorch traversal: the reference's loop body on the rays still
     live, until none is (one host read an iteration). ``t0`` (R,) float32 is
     each ray's start bound; ``active`` (R,) bool. Returns (t, tri, u, v).
     ``work`` (a dict, if given) adds the rows read (``leaf_rows``,
     ``inner_rows``), the distinct rows read by this call
-    (``distinct_leaf_rows``, ``distinct_inner_rows``), the ``iterations``
-    and the ``dropped_pushes``."""
+    (``distinct_leaf_rows``, ``distinct_inner_rows``), the ``iterations``,
+    the ``dropped_pushes`` and what a one-thread-a-ray mapping would run,
+    warps being 32 consecutive rays: ``lane_steps`` (rows stepped, leaf
+    and internal), ``warp_steps`` (over warps, the rows of the longest
+    walk) and ``warp_branch_steps`` (warp steps that run the leaf branch
+    plus those that run the internal branch). ``on_step(idx, is_leaf)``,
+    if given, sees each iteration's live rays (ascending) and whether each
+    one's row is a leaf."""
     dev = origin.device
     r = origin.shape[0]
     t_out, u_out, v_out = t0.clone(), torch.zeros(r, device=dev), torch.zeros(r, device=dev)
@@ -233,7 +247,8 @@ def intersect_plain(table, origin, direction, t0, active, *, any_hit: bool,
     tri_best = torch.full((n,), -1, dtype=torch.int32, device=dev)
     u_best, v_best = torch.zeros(n, device=dev), torch.zeros(n, device=dev)
     bits = (1 << torch.arange(MAX_CHILDREN, device=dev, dtype=torch.int32))
-    counts = {"leaf_rows": 0, "inner_rows": 0, "iterations": 0, "dropped_pushes": 0}
+    counts = {"leaf_rows": 0, "inner_rows": 0, "iterations": 0, "dropped_pushes": 0,
+              "lane_steps": 0, "warp_steps": 0, "warp_branch_steps": 0}
     seen = torch.zeros(table.shape[0], dtype=torch.bool, device=dev)
     while idx.numel():
         seen[node] = True
@@ -317,6 +332,13 @@ def intersect_plain(table, origin, direction, t0, active, *, any_hit: bool,
         counts["leaf_rows"] += nleaf
         counts["inner_rows"] += n - nleaf
         counts["iterations"] += 1
+        if work is not None:
+            counts["lane_steps"] += n
+            counts["warp_steps"] += _warps_with(idx, slice(None))
+            counts["warp_branch_steps"] += (_warps_with(idx, is_leaf)
+                                            + _warps_with(idx, ~is_leaf))
+        if on_step is not None:
+            on_step(idx, is_leaf)
         keep = has & (tri_best < 0) if any_hit else has
         # retire the rays that stopped, keep the others
         gone = ~keep
@@ -338,12 +360,16 @@ def intersect_plain(table, origin, direction, t0, active, *, any_hit: bool,
 
 
 def intersect_cuda(table, origin, direction, t0, active, *, any_hit: bool):
-    """The traversal on the card: csrc/bvh8.cu, one thread per ray, one
-    launch."""
+    """The traversal on the card: csrc/bvh8.cu, persistent warps that refill
+    finished lanes, one launch. The table's rows are read as float4s, so it
+    must start on a 16-byte boundary."""
     dev = origin.device
     r = origin.shape[0]
     nrows = table.shape[0]
     cuda_lib.require(table, "table", torch.float32, (nrows, ROW))
+    if table.data_ptr() % 16:
+        raise ValueError("table: the kernel reads rows as float4s; expected a 16-byte "
+                         "aligned start")
     cuda_lib.require(origin, "origin", torch.float32, (r, 3), table.device)
     cuda_lib.require(direction, "direction", torch.float32, (r, 3), dev)
     cuda_lib.require(t0, "t0", torch.float32, (r,), dev)
@@ -352,13 +378,27 @@ def intersect_cuda(table, origin, direction, t0, active, *, any_hit: bool):
     tri = torch.empty(r, dtype=torch.int32, device=dev)
     u = torch.empty(r, dtype=torch.float32, device=dev)
     v = torch.empty(r, dtype=torch.float32, device=dev)
+    counter = torch.empty(1, dtype=torch.int32, device=dev)  # cleared by the C entry
     err = cuda_lib.load().sailor_bvh8_intersect(
         table.data_ptr(), origin.data_ptr(), direction.data_ptr(), t0.data_ptr(),
         active.data_ptr(), t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), r,
-        int(any_hit), cuda_lib.stream_of(origin))
+        int(any_hit), counter.data_ptr(), cuda_lib.stream_of(origin))
     cuda_lib.check(err, "sailor_bvh8_intersect")
     cuda_lib.LAUNCHES["bvh8_intersect"] += 1
     return t, tri, u, v
+
+
+def kernel_info() -> dict:
+    """The traversal kernel as built for the current card: registers a
+    thread, static shared and local bytes, resident blocks on all SMs (a
+    launch's grid when it has the rays to fill them), threads a block and
+    the idle lanes at which a warp fetches more rays (``refill_idle``)."""
+    import ctypes
+
+    info = (ctypes.c_int * 6)()
+    cuda_lib.check(cuda_lib.load().sailor_bvh8_info(ctypes.addressof(info)), "sailor_bvh8_info")
+    return dict(zip(("registers", "shared_bytes", "local_bytes", "resident_blocks",
+                     "threads", "refill_idle"), info))
 
 
 def ray_inputs(origin, direction, t_max=None, active=None):

@@ -22,7 +22,10 @@ packages:
   hits differ, by 2 ulp);
 - the binary traversal ``bvh.intersect`` against the reference's
   ``bvh.intersect``: reordered triangle index, t, u, v bit-equal;
-- ``sweep.scalar_bytes`` and ``SMEM_BUDGET``: the reference's routing rule.
+- ``sweep.scalar_bytes`` and ``SMEM_BUDGET``: the reference's routing rule;
+- the twin's counts of a one-thread-a-ray warp schedule (``lane_steps``,
+  ``warp_steps``, ``warp_branch_steps``) against a brute-force count over
+  each ray's walk, on the UV sphere and the deep soup.
 """
 
 import jax.numpy as jnp
@@ -152,6 +155,40 @@ def test_intersect_edge_cases_match_reference():
                          active=torch.from_numpy(off))
     _assert_same(got, want, min_hits=0)
     assert bool((got["t"] == 7.0).all()) and not got["u"].any() and not got["v"].any()
+
+
+@pytest.mark.parametrize("case", ["closest", "any_t_max_active"])
+@pytest.mark.parametrize("name", ["uv", "deep"])
+def test_warp_counts_match_brute_force(name, case):
+    """``work``'s lane_steps, warp_steps and warp_branch_steps against a
+    count over each ray's walk (its rows' kinds in order, from ``on_step``),
+    warps being 32 consecutive rays: lane steps are all rows; a warp runs
+    as many steps as its longest walk; step j runs the leaf branch if one
+    of its rays' row j is a leaf, the internal branch if one is not."""
+    any_hit, t_max, use_active = CASES[case]
+    table = torch.from_numpy(bvh8.build_table(*soup(name)))
+    o, d, active = rays()
+    args = bvh8.ray_inputs(torch.from_numpy(o), torch.from_numpy(d), t_max,
+                           torch.from_numpy(active) if use_active else None)
+    record, work = [], {}
+    bvh8.intersect_plain(table, *args, any_hit=any_hit, work=work,
+                         on_step=lambda idx, leaf: record.append((idx.numpy().copy(),
+                                                                  leaf.numpy().copy())))
+    walks = [[] for _ in range(len(o))]
+    for idx, leaf in record:
+        for i, f in zip(idx, leaf):
+            walks[i].append(bool(f))
+    lane = warp = branch = 0
+    for w0 in range(0, len(walks), 32):
+        group = walks[w0:w0 + 32]
+        longest = max(len(w) for w in group)
+        lane += sum(len(w) for w in group)
+        warp += longest
+        branch += sum(len({w[j] for w in group if len(w) > j}) for j in range(longest))
+    assert work["lane_steps"] == lane == work["leaf_rows"] + work["inner_rows"]
+    assert work["warp_steps"] == warp
+    assert work["warp_branch_steps"] == branch
+    assert warp <= branch <= 2 * warp and 32 * warp >= lane
 
 
 @pytest.mark.parametrize("name", TABLE_SOUPS)

@@ -32,6 +32,13 @@ they, and the walk's t and ids, are held exactly to a numpy walk of one
 sub-block at a time (a random soup of 1500 triangles, 4096 rays, some
 dead). ``sweep.sweep_grid_plain``'s (B6) are held the same way to a numpy
 walk over every step of the grid, with no stop.
+
+``chip_smoke.bvh8_schedule`` is the plain model of the BVH8 kernel's
+persistent warps; here, on the walks of the twin (``bvh8_walks``), it
+runs every ray's rows exactly once under any warp count, refill threshold
+and leaf wait, and with a warp for every 32 rays, no refill and no wait it
+is the one-thread-a-ray mapping whose lane, warp and warp-branch steps the
+twin's ``work`` counts.
 """
 
 import numpy as np
@@ -41,8 +48,9 @@ import torch
 import chip_smoke
 from sailor_tpu_torch.raster import setup as rsetup
 from sailor_tpu_torch.raster import tile_raster as tr
-from sailor_tpu_torch.raytracing import sweep
+from sailor_tpu_torch.raytracing import bvh8, sweep
 from sailor_tpu_torch.scenes import flagship_scene
+from torch_bvh8_soups import rays, soup
 
 W, H = 256, 128
 
@@ -403,3 +411,25 @@ def test_evsm_shadow_factor_is_the_shadow_frames(shadow_frame, monkeypatch):
     scene, config, _, (factor, gb) = shadow_frame
     monkeypatch.setattr(chip_smoke, "SHADOW_HIZ_CONFIG", config)
     assert torch.equal(chip_smoke.evsm_shadow_factor(scene, W, H, gb), factor)
+
+
+@pytest.mark.parametrize("name", ["uv", "deep", "leaf_root"])
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_bvh8_schedule_model_walks_every_row(name, any_hit):
+    table = torch.from_numpy(bvh8.build_table(*soup(name)))
+    o, d, act = (torch.from_numpy(x) for x in rays(1000, seed=3))
+    args = bvh8.ray_inputs(o, d, None, act)
+    *out, work, walks = chip_smoke.bvh8_walks(table, args, any_hit)
+    for got, want in zip(out, bvh8.intersect_plain(table, *args, any_hit=any_hit)):
+        assert torch.equal(got, want)
+    active = act.numpy()
+    n = len(active)
+    old = chip_smoke.bvh8_schedule(walks, active, (n + 31) // 32, 32, 0)
+    for key in ("lane_steps", "warp_steps", "warp_branch_steps"):
+        assert old[key] == work[key], key
+    assert work["lane_steps"] == work["leaf_rows"] + work["inner_rows"] == walks[1].sum()
+    for warps, refill, wait in ((4, 8, 0), (3, 1, 2), (7, 32, 1 << 30), (50, 16, 4)):
+        m = chip_smoke.bvh8_schedule(walks, active, warps, refill, wait)
+        assert (m["rows"] == walks[1]).all()
+        assert m["lane_steps"] == work["lane_steps"]
+        assert m["warp_branch_steps"] >= m["warp_steps"] >= -(-m["lane_steps"] // 32)

@@ -65,11 +65,15 @@ maps. The BVH8 traversal (``csrc/bvh8.cu``) is held to its twin bit for bit
 and any hit, with and without a finite t_max and an active mask, on the
 soups of ``tests/torch_bvh8_soups.py`` (the deep one drops pushes at
 MAX_STACK) and with every ray inactive, and on the passes of one 128x128
-render of the bench tracer scene with 4 pooled samples (BVH8 route); a
+render of the bench tracer scene with 4 pooled samples (BVH8 route); also
+on the edges of its persistent schedule (0, 1 and 33 rays, none or 12%
+active, more rays than the grid's lanes, two launches in a row, the deep
+soup, the one-row table), and a table off a 16-byte boundary is refused; a
 64x64 render of the dense scene (BVH8 route) on the card is held to the
 CPU path.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -731,6 +735,63 @@ def test_bvh8_kernel_matches_plain_on_tracer_passes(card, npass):
     want = bvh8.intersect_plain(scene.bvh.table, *args, any_hit=p["any_hit"])
     assert int((want[1] >= 0).sum()) > 10
     assert _bvh8_equal(got, want)
+
+
+def _bvh8_case(case):
+    """(table, origin, direction, t_max, active) of a schedule edge case."""
+    rng = np.random.default_rng(6)
+    name = {"deep": "deep", "leaf_root": "leaf_root"}.get(case, "tracer")
+    table = torch.from_numpy(bvh8.build_table(*soup(name))).cuda()
+    n = {"n0": 0, "n1": 1, "n33": 33}.get(case, 3000)
+    if case == "refill":  # more rays than the persistent grid has lanes
+        info = bvh8.kernel_info()
+        n = 3 * info["resident_blocks"] * info["threads"]
+    o, d, _ = (torch.from_numpy(x).cuda() for x in rays(max(n, 1), seed=7))
+    o, d = o[:n], d[:n]
+    active = None
+    if case == "inactive":
+        active = torch.zeros(n, dtype=torch.bool, device="cuda")
+    elif case == "active12":
+        active = torch.from_numpy(rng.random(n) < 0.12).cuda()
+    return table, o, d, (4.0 if case == "active12" else None), active
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("case", ["n0", "n1", "n33", "inactive", "active12", "refill",
+                                  "twice", "deep", "leaf_root"])
+def test_bvh8_kernel_schedule_edges(card, case, any_hit):
+    """The persistent schedule's edges, each bit-equal to the twin with one
+    launch: 0, 1 and 33 rays; every ray inactive; 12% active; three times
+    the rays the grid's lanes hold (lanes refill); two launches in a row on
+    the same inputs (the ray counter is cleared each launch); the deep
+    soup's dropped pushes; the one-row leaf-root table."""
+    table, o, d, t_max, active = _bvh8_case(case)
+    args = bvh8.ray_inputs(o, d, t_max, active)
+    work = {}
+    want = bvh8.intersect_plain(table, *args, any_hit=any_hit, work=work)
+    for _ in range(2 if case == "twice" else 1):
+        before = cuda_lib.LAUNCHES["bvh8_intersect"]
+        got = bvh8.intersect_cuda(table, *args, any_hit=any_hit)
+        assert cuda_lib.LAUNCHES["bvh8_intersect"] == before + 1
+        assert _bvh8_equal(got, want)
+    if case == "deep" and not any_hit:
+        assert work["dropped_pushes"] > 0
+    if case in ("inactive", "n0"):
+        assert work["lane_steps"] == 0
+    else:
+        assert int((want[1] >= 0).sum()) > 0 or case == "n1"
+
+
+def test_bvh8_kernel_refuses_misaligned_table(card):
+    """The kernel reads rows as float4s: a table that starts off a 16-byte
+    boundary raises."""
+    rows = torch.from_numpy(bvh8.build_table(*soup("tracer"))).cuda()
+    store = torch.empty(rows.numel() + 1, device="cuda")
+    table = store[1:].view(rows.shape)
+    table.copy_(rows)
+    args = bvh8.ray_inputs(*(torch.from_numpy(x).cuda() for x in rays(64)[:2]))
+    with pytest.raises(ValueError, match="16-byte"):
+        bvh8.intersect_cuda(table, *args, any_hit=False)
 
 
 def test_dense_bvh8_trace_on_card_matches_cpu(card):
