@@ -81,6 +81,20 @@ Phases, each printed as it ends:
      cached frame, per-node ms, peak memory, a profiled cached frame, and
      one frame on the grid-k path (B7 and B10); later a 256x128 queue
      frame on the card is held to the CPU path;
+  6f. engine: the engine loop through the whole DefaultRenderer frame.
+     engine-editor-world: ``python -m sailor_tpu_torch`` run in process
+     over a temporary copy of content/ (Editor.world, 1920x1088, 8
+     frames, the console's stats.memory and profile): frame ms and
+     synchronising calls of each frame, peak memory, the PNG checked, B1
+     and B2 launched and B3 not (the CLI's config shades plainly), a
+     profiled frame. engine-flagship-world: EngineLoop over
+     ``flagship_world_doc(1000, 96)`` (1,099 game objects, 1,001 lights,
+     an orbiting camera) with FULL_CONFIG, 1 warm-up + 5 frames: host ms
+     of world.tick, scene_view and push_frame, frame ms, synchronising
+     calls by step, B1-B3 launches checked per frame, peak memory,
+     per-node ms, a profiled frame. Then flagship_world_doc(24, 6) at 256x128, 2
+     frames, on the card against the CPU path, and a frame graph that
+     raises torch.AcceleratorError once: the frame retries on the card;
   7. tracer kernels: the sweep intersector's kernels (B4 slab entry with
      the visit tables, B5 cluster sweep and B6 dense-grid sweep, closest
      and any hit) against their plain versions on the path tracer's own
@@ -1716,22 +1730,34 @@ def check_small_full_frame():
         for s in (scene, _moved_sun(_turned(scene, 0.05))):
             fg.prepare(s, state)
             t, state = fg.process(s, state)
-            out[dev].append({k: t[k].cpu() for k in ("Depth", "TriId", "ShadowMaps",
-                                                     "HiZCulledCount", "Sky", "Main",
-                                                     "Final")})
+            out[dev].append({k: t[k].cpu() for k in FULL_FRAME_KEYS})
     for i, (g, r) in enumerate(zip(out["cuda"], out["cpu"])):
-        exact = {k: bool(torch.equal(g[k], r[k]))
-                 for k in ("Depth", "TriId", "ShadowMaps", "HiZCulledCount")}
-        sky = ((g["Sky"] - r["Sky"]).abs() / (1 + r["Sky"].abs())).max().item()
-        rel = ((g["Main"] - r["Main"]).abs() / r["Main"].abs().clamp(min=1e-3)).amax(-1)
-        main = (rel <= 1e-4).float().mean().item()
-        final = (g["Final"] - r["Final"]).abs().max().item()
-        print(f"small frame[full] {i + 1} card vs cpu: "
-              + " ".join(f"{k}_equal={v}" for k, v in exact.items())
-              + f" sky_rel_err={sky:.3g} main_within_1e-4={main:.5f} "
-              f"final_max_err={final:.3g} hiz_culled={int(g['HiZCulledCount'])}")
-        check(all(exact.values()) and sky <= 5e-5 and main >= 0.995 and final <= 2 / 255,
-              "card full frame disagrees with the CPU path")
+        ok, line = full_frame_agreement(g, r)
+        print(f"small frame[full] {i + 1} card vs cpu: {line}")
+        check(ok, "card full frame disagrees with the CPU path")
+
+
+FULL_FRAME_KEYS = ("Depth", "TriId", "ShadowMaps", "HiZCulledCount", "Sky", "Main", "Final")
+
+
+def full_frame_agreement(got, ref):
+    """A full frame on the card (``got``) against the CPU path's (``ref``),
+    dicts of FULL_FRAME_KEYS on the CPU: Depth, TriId, ShadowMaps and
+    HiZCulledCount exact, Sky within 5e-5 * (1 + |ref|), Main within 1e-4
+    relative (to max(|ref|, 1e-3)) on >= 99.5% of pixels, Final within
+    2/255 on every pixel. Returns (ok, the measured figures as a line)."""
+    import torch
+
+    exact = {k: bool(torch.equal(got[k], ref[k]))
+             for k in ("Depth", "TriId", "ShadowMaps", "HiZCulledCount")}
+    sky = ((got["Sky"] - ref["Sky"]).abs() / (1 + ref["Sky"].abs())).max().item()
+    rel = ((got["Main"] - ref["Main"]).abs() / ref["Main"].abs().clamp(min=1e-3)).amax(-1)
+    main = (rel <= 1e-4).float().mean().item()
+    final = (got["Final"] - ref["Final"]).abs().max().item()
+    line = (" ".join(f"{k}_equal={v}" for k, v in exact.items())
+            + f" sky_rel_err={sky:.3g} main_within_1e-4={main:.5f} "
+            f"final_max_err={final:.3g} hiz_culled={int(got['HiZCulledCount'])}")
+    return all(exact.values()) and sky <= 5e-5 and main >= 0.995 and final <= 2 / 255, line
 
 
 # the queue frame (materials on the raster path): flagship_queue_scene's
@@ -2858,6 +2884,252 @@ def textured_sky_balls(device):
     return material_balls(device, sky=SkyParams.default(), textured=True)
 
 
+ENGINE_EDITOR_SIZE = (1920, 1088)  # the CLI's frame in the engine phase
+PATH_KERNELS = ("raster_worklist", "resolve_worklist", "shade_forward_plus")
+
+
+@contextlib.contextmanager
+def timed_methods(obj, names, measure=lambda: 0):
+    """Wraps the methods ``names`` of ``obj`` (on the instance): yields a
+    dict of name -> [host ms, growth of ``measure()``], each summed over
+    the method's calls since."""
+    acc = {n: [0.0, 0] for n in names}
+
+    def wrap(name, inner):
+        def call(*args, **kw):
+            t0, m0 = time.perf_counter(), measure()
+            try:
+                return inner(*args, **kw)
+            finally:
+                acc[name][0] += (time.perf_counter() - t0) * 1e3
+                acc[name][1] += measure() - m0
+        return call
+
+    for n in names:
+        setattr(obj, n, wrap(n, getattr(obj, n)))
+    try:
+        yield acc
+    finally:
+        for n in names:
+            delattr(obj, n)
+
+
+@contextlib.contextmanager
+def content_copy():
+    """A temporary working directory holding a copy of the repository's
+    content/ (the asset registry writes `.asset` sidecars into the content
+    it scans); the previous working directory is restored after."""
+    import shutil
+    import tempfile
+
+    here, cwd = os.path.dirname(os.path.abspath(__file__)), os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        shutil.copytree(os.path.join(here, "content"), os.path.join(tmp, "content"))
+        os.chdir(tmp)
+        try:
+            yield tmp
+        finally:
+            os.chdir(cwd)
+
+
+def run_engine_editor(card):
+    """engine-editor-world: ``python -m sailor_tpu_torch`` in process over a
+    temporary copy of content/Editor.world at 1920x1088, 8 frames, with
+    the console's stats.memory and profile, on the card: the CLI's lines
+    as it prints them, each frame's ms to a synchronise and synchronising
+    calls (``EngineLoop.process_cpu_frame`` wrapped for the run), the peak
+    memory, the PNG checked (1088x1920x3, nonzero spread), B1 and B2
+    launched, B3 not (the CLI's config shades plainly, as the
+    reference's); then one profiled frame of the CLI's loop. Returns the
+    launches."""
+    import numpy as np
+    import torch
+
+    from sailor_tpu_torch.__main__ import main as engine_main
+    from sailor_tpu_torch.engine.app import EngineLoop
+    from sailor_tpu_torch.kernels import cuda_lib
+    from sailor_tpu_torch.utils.png import decode_png
+
+    width, height = ENGINE_EDITOR_SIZE
+    frames, loops = [], []
+    inner = EngineLoop.process_cpu_frame
+
+    def frame(self, dt):
+        """One CLI frame, timed to a synchronise, its syncs counted."""
+        loops[:] = [self]
+        with sync_counter() as syncs:
+            t0 = time.perf_counter()
+            out = inner(self, dt)
+            n = syncs()
+        torch.cuda.synchronize()
+        frames.append({"frame_ms": round((time.perf_counter() - t0) * 1e3, 3), "syncs": n})
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    EngineLoop.process_cpu_frame = frame
+    try:
+        with content_copy() as tmp:
+            out = os.path.join(tmp, "editor.png")
+            cuda_lib.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            rc = engine_main(["--world", os.path.join(tmp, "content", "Editor.world"),
+                              "--width", str(width), "--height", str(height), "--frames", "8",
+                              "--out", out, "--command", "stats.memory", "--command", "profile"])
+            wall = time.perf_counter() - t0
+            launches = dict(cuda_lib.LAUNCHES)
+            with open(out, "rb") as f:
+                img = decode_png(f.read())
+    finally:
+        EngineLoop.process_cpu_frame = inner
+    peak = torch.cuda.max_memory_allocated()
+    spread = float(np.asarray(img, np.float32).std())
+    print(f"engine-editor-world: rc={rc} wall_s={wall:.3f} png={img.shape} spread={spread:.3f} "
+          f"peak_mem_bytes={peak} launches {json.dumps(launches)} on {card}")
+    for i, f in enumerate(frames):
+        print("engine-editor-world frame " + json.dumps(dict(frame=i + 1, **f)))
+    profile(lambda: inner(loops[0], 1 / 60), card, "profile_engine_editor")
+    loops[0].renderer.wait_idle()
+    check(rc == 0 and img.shape == (height, width, 3) and spread > 0,
+          "engine-editor-world: the CLI wrote no frame")
+    check(launches.get("raster_worklist", 0) > 0 and launches.get("resolve_worklist", 0) > 0,
+          f"engine-editor-world: B1/B2 launches {launches}")
+    check(launches.get("shade_forward_plus", 0) == 0,
+          "engine-editor-world: B3 ran though the CLI's config shades plainly")
+    return launches
+
+
+def _engine_loop(doc, width, height, config, device):
+    """An EngineLoop over the document with the CLI's sky."""
+    from sailor_tpu_torch.__main__ import SUN_DIRECTION
+    from sailor_tpu_torch.engine import World
+    from sailor_tpu_torch.engine.app import EngineLoop, Renderer
+    from sailor_tpu_torch.kernels.sky import SkyParams
+
+    world = World.deserialize(doc, device=device)
+    renderer = Renderer(RENDERER, width, height, dict(config), device=device)
+    return EngineLoop(world, renderer, sky=SkyParams.default(sun_direction=SUN_DIRECTION))
+
+
+def run_engine_flagship(card):
+    """engine-flagship-world: EngineLoop over
+    ``World.deserialize(flagship_world_doc(1000, 96))`` (1,099 game
+    objects, 1,001 lights, the camera orbiting) with
+    ``Renderer(RENDERER, 1920, 1088, FULL_CONFIG)`` on the card, 1 warm-up
+    + 5 frames: per frame the host ms of world.tick, world.scene_view and
+    push_frame, the frame ms to a synchronise, the synchronising calls and
+    B1/B2/B3 launches (each > 0); the peak memory; the per-node ms of one
+    more frame (``process_debug``: its cascades dirty, as every frame's);
+    one profiled frame, last. Returns the launches of frames 1-6."""
+    import torch
+
+    from sailor_tpu_torch.kernels import cuda_lib
+    from sailor_tpu_torch.scenes import flagship_world_doc
+
+    width, height, n_lights, n_objects = FLAGSHIP
+    t0 = time.perf_counter()
+    loop = _engine_loop(flagship_world_doc(n_lights, n_objects, aspect=width / height),
+                        width, height, FULL_CONFIG, "cuda")
+    load_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows, total = [], {}
+    for i in range(6):
+        cuda_lib.LAUNCHES.clear()
+        with sync_counter() as syncs, \
+                timed_methods(loop.world, ("tick", "scene_view"), syncs) as host, \
+                timed_methods(loop.renderer, ("push_frame",), syncs) as push:
+            t1 = time.perf_counter()
+            targets = loop.process_cpu_frame(1 / 60)
+            n_syncs = syncs()
+        torch.cuda.synchronize()
+        frame_ms = (time.perf_counter() - t1) * 1e3
+        launches = {k: cuda_lib.LAUNCHES.get(k, 0) for k in PATH_KERNELS}
+        for k, v in cuda_lib.LAUNCHES.items():
+            total[k] = total.get(k, 0) + v
+        host.update(push)
+        rows.append({"frame": i + 1, **{f"{k}_ms": round(v[0], 3) for k, v in host.items()},
+                     "frame_ms": round(frame_ms, 3), "syncs": n_syncs,
+                     "syncs_by_step": {k: v[1] for k, v in host.items()}, "launches": launches})
+        for k in PATH_KERNELS:
+            check(launches[k] > 0, f"engine-flagship-world frame {i + 1} launched no {k}")
+    peak = torch.cuda.max_memory_allocated()
+    final = targets["Final"]
+    cov = (targets["TriId"] >= 0).float().mean().item()
+    check(tuple(final.shape) == (height, width, 3) and bool(torch.isfinite(final).all())
+          and cov > 0.0, "engine-flagship-world: bad frame")
+    world = loop.world
+    print(f"engine-flagship-world {width}x{height}: load_ms={load_ms:.3f} "
+          f"objects={len(world.game_objects)} lights={world.lighting.snapshot.num} "
+          f"triangles={world.meshes.geometry.indices.shape[0]} peak_mem_bytes={peak} "
+          f"coverage={cov:.4f} on {card}")
+    for r in rows:
+        print("engine-flagship-world frame " + json.dumps(r))
+    world.tick(1 / 60)  # one more frame node by node: the camera moved, the cascades are dirty
+    scene = world.scene_view(sky=loop.sky, prev_frame=loop._prev_frame)
+    fg, state = loop.renderer.frame_graph, loop.renderer.state
+    fg.prepare(scene, state)
+    per_node = fg.process_debug(scene, state)[2]
+    print("engine-flagship-world per_node_ms " + json.dumps(
+        {k: round(v, 3) for k, v in per_node.items()}))
+    profile(lambda: loop.process_cpu_frame(1 / 60), card, "profile_engine_flagship")
+    loop.renderer.wait_idle()
+    return total
+
+
+def check_small_engine():
+    """flagship_world_doc(24, 6) through EngineLoop at 256x128 (FULL_CONFIG,
+    shadow_resolution 128), 2 frames, on the card against the CPU path,
+    held as check_small_full_frame holds its frame (full_frame_agreement)."""
+    from sailor_tpu_torch.scenes import flagship_world_doc
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        loop = _engine_loop(flagship_world_doc(24, 6, aspect=2.0), 256, 128,
+                            dict(FULL_CONFIG, shadow_resolution=128), dev)
+        out[dev] = []
+        for _ in range(2):
+            t = loop.process_cpu_frame(1 / 60)
+            out[dev].append({k: t[k].cpu() for k in FULL_FRAME_KEYS})
+    for i, (g, r) in enumerate(zip(out["cuda"], out["cpu"])):
+        ok, line = full_frame_agreement(g, r)
+        print(f"small engine frame {i + 1} card vs cpu: {line}")
+        check(ok, "the card's engine frame disagrees with the CPU path")
+
+
+def check_engine_lost_device(card):
+    """A frame graph that raises torch.AcceleratorError once: the Renderer
+    rebuilds its graph on the card and the frame retries there."""
+    import torch
+    import yaml
+
+    from sailor_tpu_torch.__main__ import CLI_CONFIG
+
+    with open(os.path.join(os.path.dirname(RENDERER), "Editor.world")) as f:
+        doc = yaml.safe_load(f)
+    loop = _engine_loop(doc, 256, 128, CLI_CONFIG, "cuda")
+    r = loop.renderer
+    calls = {"n": 0}
+
+    class LostGraph:
+        def prepare(self, scene, state):
+            pass
+
+        def process(self, scene, state):
+            calls["n"] += 1
+            raise torch.AcceleratorError("CUDA error: device lost (injected)")
+
+    r.frame_graph = LostGraph()
+    targets = loop.process_cpu_frame(1 / 60)
+    torch.cuda.synchronize()
+    final = targets["Final"]
+    print(f"engine lost device: raised={calls['n']} device_losses={r.stats.get('device_losses')} "
+          f"retried_on={final.device} graph_on={r.frame_graph.device} on {card}")
+    check(calls["n"] == 1 and r.stats.get("device_losses") == 1 and final.device.type == "cuda"
+          and r.frame_graph.device.type == "cuda" and bool(torch.isfinite(final).all()),
+          "the lost-device retry did not render on the card")
+
+
 def main() -> int:
     import torch
 
@@ -2932,6 +3204,12 @@ def main() -> int:
     check_small_full_frame()
     check_small_queue_frame()
     del scene
+    t_engine = time.perf_counter()
+    run_engine_editor(card)
+    run_engine_flagship(card)
+    check_small_engine()
+    check_engine_lost_device(card)
+    print(f"engine: {time.perf_counter() - t_engine:.1f} s")
     tracer_kernels = check_tracer_kernels(card)
     launches, tracer_peak = run_tracer(card)
     check_small_trace()

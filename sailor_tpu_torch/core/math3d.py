@@ -19,6 +19,10 @@ same places (csrc/common.cuh), so kernel and plain version agree bit for bit.
 
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
+import functools
+
 import numpy as np
 import torch
 
@@ -153,8 +157,12 @@ def perspective(fov_y_rad: float, aspect: float, z_near: float, z_far: float,
     """Vulkan-style reverse-Z perspective: z_near maps to depth 1, z_far to 0.
 
     Float32 like the JAX twin: the focal term is computed in float32 and the
-    depth terms in Python floats, then stored."""
-    f = 1.0 / torch.tan(torch.tensor(fov_y_rad, dtype=torch.float32) * 0.5)
+    depth terms in Python floats, then stored. The tangent is the C
+    library's ``tanf``, which is what the reference's ``jnp.tan`` gives on a
+    CPU (``torch.tan`` differs in the last bit of ~4% of angles, tan(pi/6)
+    among them)."""
+    half = torch.tensor(fov_y_rad, dtype=torch.float32) * 0.5
+    f = 1.0 / torch.tensor(libm().tanf(float(half)), dtype=torch.float32)
     m = torch.zeros(4, 4, dtype=torch.float32)
     m[0, 0] = f / aspect
     m[1, 1] = f
@@ -203,3 +211,136 @@ def inverse(m):
 def linear_to_srgb(c):
     c = torch.clamp(c, 0.0, 1.0)
     return torch.where(c <= 0.0031308, c * 12.92, 1.055 * c ** (1.0 / 2.4) - 0.055)
+
+
+@functools.cache
+def libm():
+    """The C library's float32 ``cosf``, ``sinf`` and ``tanf`` (ctypes), which
+    the reference's compiled code calls on a CPU: numpy's and PyTorch's own
+    float32 sin, cos and tan differ from them in the last bit."""
+    lib = ctypes.CDLL(ctypes.util.find_library("m"))
+    for f in (lib.cosf, lib.sinf, lib.tanf):
+        f.restype, f.argtypes = ctypes.c_float, [ctypes.c_float]
+    return lib
+
+
+# ---------------------------------------------------------------------------
+# Quaternions (x, y, z, w) and model matrices. The engine's host math: the
+# inputs are float32 tensors (or anything ``torch.as_tensor`` takes) and
+# the ops are plain float32, as the reference runs them op by op, except
+# ``quat_to_mat3``/``trs``, which round as its compiled transform system.
+# ---------------------------------------------------------------------------
+
+
+def _f32(x):
+    return torch.as_tensor(x, dtype=torch.float32)
+
+
+def quat_identity(shape=()):
+    q = torch.zeros(tuple(shape) + (4,), dtype=torch.float32)
+    q[..., 3] = 1.0
+    return q
+
+
+def quat_mul(a, b):
+    a, b = _f32(a), _f32(b)
+    ax, ay, az, aw = a.unbind(-1)
+    bx, by, bz, bw = b.unbind(-1)
+    return torch.stack([
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+        aw * bw - ax * bx - ay * by - az * bz,
+    ], dim=-1)
+
+
+def quat_conj(q):
+    return _f32(q) * torch.tensor([-1.0, -1.0, -1.0, 1.0])
+
+
+def quat_rotate(q, v):
+    """Rotate (..., 3) vectors by (..., 4) quaternions."""
+    q, v = _f32(q), _f32(v)
+    qv = q[..., :3]
+    t = 2.0 * cross32(qv, v)
+    return v + q[..., 3:4] * t + cross32(qv, t)
+
+
+def quat_from_axis_angle(axis, angle):
+    axis = normalize32(_f32(axis))
+    half = _f32(angle) * 0.5
+    return torch.cat([axis * torch.sin(half)[..., None], torch.cos(half)[..., None]], dim=-1)
+
+
+def quat_to_mat3(q):
+    """(..., 4) -> (..., 3, 3). Each off-diagonal pair and each diagonal
+    sum of squares rounds as one fused multiply-add of its first product
+    over its second, as the reference's compiled ``trs`` rounds them."""
+    x, y, z, w = _f32(q).unbind(-1)
+    m = torch.stack([
+        1 - 2 * fma(y, y, z * z), 2 * fma(x, y, -(w * z)), 2 * fma(x, z, w * y),
+        2 * fma(x, y, w * z), 1 - 2 * fma(x, x, z * z), 2 * fma(y, z, -(w * x)),
+        2 * fma(x, z, -(w * y)), 2 * fma(y, z, w * x), 1 - 2 * fma(x, x, y * y),
+    ], dim=-1)
+    return m.reshape(m.shape[:-1] + (3, 3))
+
+
+def quat_from_euler(yaw, pitch, roll):
+    """ZYX euler (yaw about Y, pitch about X, roll about Z), radians."""
+    qy = quat_from_axis_angle([0.0, 1.0, 0.0], yaw)
+    qx = quat_from_axis_angle([1.0, 0.0, 0.0], pitch)
+    qz = quat_from_axis_angle([0.0, 0.0, 1.0], roll)
+    return quat_mul(qy, quat_mul(qx, qz))
+
+
+def identity4(shape=()):
+    return torch.eye(4).expand(tuple(shape) + (4, 4)).clone()
+
+
+def translation(t):
+    """(..., 3) -> (..., 4, 4)."""
+    t = _f32(t)
+    m = identity4(t.shape[:-1])
+    m[..., :3, 3] = t
+    return m
+
+
+def scale(s):
+    s = _f32(s)
+    m = torch.zeros(s.shape[:-1] + (4, 4))
+    for i in range(3):
+        m[..., i, i] = s[..., i]
+    m[..., 3, 3] = 1.0
+    return m
+
+
+def trs(t, r, s):
+    """Compose translate / rotate (quaternion) / scale into (..., 4, 4)
+    model matrices (glm::translate * mat4_cast(rot) * glm::scale)."""
+    t = _f32(t)
+    m = torch.zeros(t.shape[:-1] + (4, 4))
+    m[..., :3, :3] = quat_to_mat3(r) * _f32(s)[..., None, :]
+    m[..., :3, 3] = t
+    m[..., 3, 3] = 1.0
+    return m
+
+
+def mat3_to_quat(m):
+    """Rotation matrix (..., 3, 3) -> quaternion (x, y, z, w), branchless."""
+    m = _f32(m)
+    t = m[..., 0, 0] + m[..., 1, 1] + m[..., 2, 2]
+    qw = torch.sqrt(torch.clamp(1.0 + t, min=1e-12)) * 0.5
+    inv4w = 1.0 / torch.clamp(4.0 * qw, min=1e-9)
+    q = torch.stack([(m[..., 2, 1] - m[..., 1, 2]) * inv4w,
+                     (m[..., 0, 2] - m[..., 2, 0]) * inv4w,
+                     (m[..., 1, 0] - m[..., 0, 1]) * inv4w, qw], dim=-1)
+    return normalize32(q)
+
+
+def quat_look_rotation(forward, up=(0.0, 1.0, 0.0)):
+    """Quaternion turning -Z onto ``forward`` with the ``up`` hint: a
+    transform with this rotation makes its inverse a look-at view."""
+    f = normalize32(_f32(forward))
+    s = normalize32(cross32(f, _f32(up)))
+    u = cross32(s, f)
+    return mat3_to_quat(torch.stack([s, u, -f], dim=-1))

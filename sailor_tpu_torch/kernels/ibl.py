@@ -10,9 +10,6 @@ the sums round as the reference's do. Plain PyTorch on the input's device.
 
 from __future__ import annotations
 
-import ctypes
-import ctypes.util
-import functools
 import math
 
 import numpy as np
@@ -43,19 +40,11 @@ def _hammersley(n: int) -> np.ndarray:
                     -1).astype(np.float32)
 
 
-@functools.cache
-def _libm():
-    libm = ctypes.CDLL(ctypes.util.find_library("m"))
-    for f in (libm.cosf, libm.sinf):
-        f.restype, f.argtypes = ctypes.c_float, [ctypes.c_float]
-    return libm
-
-
 def _sincos(x: np.ndarray):
     """float32 cos and sin of host scalars through the C library's cosf and
     sinf, which the reference's compiled bakes call (numpy's and PyTorch's
     own float32 sin and cos differ from them in the last bit)."""
-    libm = _libm()
+    libm = m3.libm()
     return (np.array([libm.cosf(float(v)) for v in x], np.float32),
             np.array([libm.sinf(float(v)) for v in x], np.float32))
 

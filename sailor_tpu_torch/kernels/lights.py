@@ -37,6 +37,11 @@ class Lights:
         return torch.arange(self.capacity, device=self.type.device) < self.num
 
     @classmethod
+    def empty(cls, capacity: int, device=None) -> "Lights":
+        """A table of ``capacity`` dead slots (the reference's defaults)."""
+        return cls.from_host([], None, None, None, capacity=capacity, device=device)
+
+    @classmethod
     def from_host(cls, types, positions, directions, intensities,
                   attenuations=None, cutoffs=None, radii=None,
                   shadow_types=None, capacity: int | None = None,

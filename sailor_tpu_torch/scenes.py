@@ -11,6 +11,11 @@ same seed.
 ground and a third of the objects Opaque, a third Masked (striped alpha)
 and a third Transparent, all textured with ``procedural_test_maps``.
 
+``flagship_world_doc`` is the flagship scene as a `.world` document for
+the engine (``engine.World.deserialize``): the same RNG calls give the
+same objects and lights as game objects with components, and the camera
+orbits.
+
 ``occlusion_scene`` is the HiZ test scene of the JAX package's
 ``tests/test_hiz_culling.py``: a wall that hides 24 cubes from the
 camera, so a frame after the first culls them.
@@ -283,3 +288,59 @@ def material_balls(device="cuda", *, sky=None, textured: bool = False, seed: int
         mats["texture_size"] = maps[0].shape[0]
     scene = path_tracer.scene_from_mesh(soup, mats, sky=sky, device=dev)
     return (scene, *tracer_camera(dev))
+
+
+def flagship_world_doc(num_lights: int, num_objects: int, seed: int = 11,
+                       aspect: float = 1920 / 1088) -> dict:
+    """The flagship scene as a plain `.world` document (lists and numbers),
+    which both packages' ``World.deserialize`` take: a 60 m ground plane;
+    bench.py's objects from the same RNG calls (cubes of ``size`` and
+    spheres of ``radius``, which give ``uv_sphere(r, 16, 32)`` as the bench
+    does); the bench's sun and point lights as LightComponents (the point
+    lights' attenuation (1, 0, 0.8), their radii from the RNG); a camera
+    at (35.36, 10, 0) turned to look at (0, 0.5, 0) (fov 60 degrees,
+    ``aspect``, near 0.1, far 150) with a ``TestComponent`` that orbits it
+    about the y axis at radius 35.36 and 0.2 rad/s, so every frame moves a
+    transform. At (1000, 96): 1,099 game objects and 1,001 lights."""
+    rng = np.random.default_rng(seed)
+    ident = [0.0, 0.0, 0.0, 1.0]
+
+    def obj(name, position, components, rotation=ident):
+        return {"name": name, "position": [float(v) for v in position],
+                "rotation": [float(v) for v in rotation], "scale": [1.0, 1.0, 1.0],
+                "parentIndex": -1, "components": components}
+
+    def mesh(asset, **params):
+        return [{"typename": "MeshRendererComponent", "mesh_asset": asset, "material_id": 0,
+                 "mesh_params": {k: float(v) for k, v in params.items()}}]
+
+    objs = [obj("Ground", (0, 0, 0), mesh("plane", size=60.0))]
+    for i in range(num_objects):
+        pos = [rng.uniform(-20, 20), rng.uniform(0.4, 2.0), rng.uniform(-20, 20)]
+        objs.append(obj(f"Object_{i}", pos, mesh("cube", size=rng.uniform(0.8, 2.0)) if i % 2
+                        else mesh("sphere", radius=rng.uniform(0.4, 1.0))))
+    n = num_lights
+    lp = np.stack([rng.uniform(-22, 22, n), rng.uniform(0.3, 3.0, n),
+                   rng.uniform(-22, 22, n)], -1)
+    intensity = rng.uniform(0.3, 1, (n, 3)) * 6
+    radii = rng.uniform(2.0, 5.0, n)
+
+    def light(kind, inten, radius, direction=(0.0, -1.0, 0.0)):
+        return [{"typename": "LightComponent", "light_type": kind,
+                 "intensity": [float(v) for v in inten], "attenuation": [1.0, 0.0, 0.8],
+                 "direction": list(direction), "cutoff": [0.9, 0.7],
+                 "radius": float(radius), "shadow_type": 0}]
+
+    objs.append(obj("Sun", (0, 0, 0), light(DIRECTIONAL, (3.0, 2.9, 2.6), 0.0,
+                                             (-0.35, -0.7, -0.3))))
+    objs += [obj(f"Light_{i}", lp[i], light(POINT, intensity[i], radii[i])) for i in range(n)]
+    cam = torch.tensor([35.36, 10.0, 0.0])
+    rot = m3.quat_look_rotation(torch.tensor([0.0, 0.5, 0.0]) - cam)
+    objs.append(obj("Camera", cam.tolist(), [
+        {"typename": "CameraComponent", "fov_degrees": 60.0, "aspect": float(aspect),
+         "z_near": 0.1, "z_far": 150.0},
+        {"typename": "TestComponent", "num_lights": 0, "orbit_radius": 35.36,
+         "orbit_speed": 0.2}], rotation=rot.tolist()))
+    for i, o in enumerate(objs):
+        o["instanceId"] = f"{i:016x}"
+    return {"name": "FlagshipWorld", "gameObjects": objs}

@@ -39,6 +39,12 @@ runs every ray's rows exactly once under any warp count, refill threshold
 and leaf wait, and with a warp for every 32 rays, no refill and no wait it
 is the one-thread-a-ray mapping whose lane, warp and warp-branch steps the
 twin's ``work`` counts.
+
+The engine phase's helpers: ``full_frame_agreement`` (the bars of the
+small full and engine frames, card against CPU) accepts and refuses at
+its bars; ``timed_methods`` sums host ms and a measure's growth over an
+instance's calls and restores the methods; ``content_copy`` runs in a
+scratch copy of content/ and leaves the working directory as it was.
 """
 
 import numpy as np
@@ -433,3 +439,51 @@ def test_bvh8_schedule_model_walks_every_row(name, any_hit):
         assert (m["rows"] == walks[1]).all()
         assert m["lane_steps"] == work["lane_steps"]
         assert m["warp_branch_steps"] >= m["warp_steps"] >= -(-m["lane_steps"] // 32)
+
+
+def test_full_frame_agreement_bars():
+    """The card-versus-CPU bars of the full and engine frames: exact
+    planes, Sky within 5e-5 * (1 + |ref|), Main within 1e-4 relative on
+    >= 99.5% of pixels, Final within 2/255."""
+    gen = torch.Generator().manual_seed(0)
+    ref = {k: torch.rand(32, 64, 3, generator=gen) for k in ("Sky", "Main", "Final")}
+    ref.update(Depth=torch.rand(32, 64, generator=gen), TriId=torch.arange(32 * 64).reshape(32, 64),
+               ShadowMaps=torch.rand(4, 8, 8, generator=gen), HiZCulledCount=torch.tensor(3))
+    ok, line = chip_smoke.full_frame_agreement(dict(ref), ref)
+    assert ok and "Depth_equal=True" in line and "hiz_culled=3" in line
+    for key, change, want in (
+            ("TriId", lambda t: t + (t == 5), False),
+            ("Sky", lambda t: t * (1 + 4e-5), True), ("Sky", lambda t: t + 2e-4, False),
+            ("Main", lambda t: t.index_put((torch.tensor([0]), torch.tensor([0])),
+                                           t[0, 0] * 1.01), True),
+            ("Main", lambda t: t * 1.01, False),
+            ("Final", lambda t: t + 1.9 / 255, True), ("Final", lambda t: t + 2.1 / 255, False)):
+        got = dict(ref, **{key: change(ref[key])})
+        assert chip_smoke.full_frame_agreement(got, ref)[0] == want, (key, want)
+
+
+def test_timed_methods_sums_host_ms_and_restores():
+    class Thing:
+        def work(self, x):
+            return x + 1
+
+    t, count = Thing(), [0]
+
+    def measure():
+        count[0] += 1
+        return count[0]
+
+    with chip_smoke.timed_methods(t, ("work",), measure) as acc:
+        assert t.work(1) == 2 and t.work(2) == 3
+        assert acc["work"][0] >= 0.0 and acc["work"][1] == 2 and "work" in vars(t)
+    assert "work" not in vars(t) and t.work(3) == 4
+
+
+def test_content_copy_is_a_scratch_working_directory():
+    import os
+
+    cwd = os.getcwd()
+    with chip_smoke.content_copy() as tmp:
+        assert os.getcwd() == tmp and os.path.exists(os.path.join("content", "Editor.world"))
+        open(os.path.join("content", "Editor.world.asset"), "w").close()
+    assert os.getcwd() == cwd and not os.path.exists(tmp)

@@ -5,7 +5,8 @@
   host library, not the JAX package's native/libsailor_native.so (checked
   in a fresh interpreter);
 - no source line of the port imports them;
-- entry points default to the CUDA device and raise when there is none;
+- entry points default to the CUDA device and raise when there is none
+  (the engine's World, Renderer and CLI without --cpu too);
 - kernel wrappers take CUDA tensors only, and the dispatch runs the plain
   version only for CPU tensors: nothing falls back;
 - configuration, nodes and inputs outside the ported slices raise
@@ -16,7 +17,9 @@
   anything else in its place raises TypeError; the path tracer's textures,
   env-map sky and ray sorting inside the intersector run, and so do
   ``tracer="bvh8"`` (no sweep built) and "auto" over MAX_SWEEP_TRIANGLES
-  (no sweep; every pass takes the BVH8 traversal).
+  (no sweep; every pass takes the BVH8 traversal); the asset registry's
+  importers of modules not ported yet, stars, the overlay canvas and
+  asynchronous loads raise NotImplementedError.
 """
 
 import os
@@ -28,6 +31,10 @@ import numpy as np
 import pytest
 import torch
 
+from sailor_tpu_torch.__main__ import main as engine_main
+from sailor_tpu_torch.assets.registry import AssetRegistry, load_async
+from sailor_tpu_torch.engine import World
+from sailor_tpu_torch.engine.app import EngineLoop, Renderer
 from sailor_tpu_torch.framegraph import FrameGraph, FrameGraphAsset
 from sailor_tpu_torch.kernels import cubemap, ibl, pbr_kernel
 from sailor_tpu_torch.kernels.sky import SkyParams
@@ -95,6 +102,39 @@ def test_default_device_is_the_card(monkeypatch):
         cubemap.render_cubemap(lambda d: d, 4)
     with pytest.raises(RuntimeError, match="CUDA"):
         ibl.brdf_lut(4, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        World()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Renderer(os.path.join(REPO, "content", "DefaultRenderer.renderer"), 64, 64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        engine_main(["--world", os.path.join(REPO, "content", "Editor.world"),
+                     "--width", "64", "--height", "64", "--frames", "1"])
+
+
+@pytest.mark.parametrize("ext", [".gltf", ".glb", ".png", ".jpg", ".jpeg", ".bmp", ".tga",
+                                 ".gif", ".hdr", ".exr", ".mat", ".bsc5"])
+def test_unported_importers_raise(tmp_path, ext):
+    """The registry knows the reference's extensions; the importers of
+    modules not ported yet raise and name their ROADMAP item."""
+    path = tmp_path / f"asset{ext}"
+    path.write_bytes(b"")
+    reg = AssetRegistry(str(tmp_path))
+    assert reg.scan_content_folder() == 1
+    with pytest.raises(NotImplementedError, match="ROADMAP A [45]"):
+        reg.load(str(path))
+
+
+def test_unported_engine_inputs_raise():
+    """Stars and the overlay canvas (A 4) and asynchronous loads (A 8)."""
+    world = World(device="cpu")
+    renderer = Renderer(os.path.join(REPO, "content", "DefaultRenderer.renderer"), 32, 32,
+                        device="cpu")
+    with pytest.raises(NotImplementedError, match="A 4"):
+        EngineLoop(world, renderer, stars=(np.zeros((1, 3)), np.ones((1, 3))))
+    with pytest.raises(NotImplementedError, match="A 4"):
+        EngineLoop(world, renderer, overlay=object())
+    with pytest.raises(NotImplementedError, match="A 8"):
+        load_async(AssetRegistry(), "content/Editor.world")
 
 
 def test_kernel_wrappers_take_cuda_tensors_only():
