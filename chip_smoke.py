@@ -95,6 +95,17 @@ Phases, each printed as it ends:
      per-node ms, a profiled frame. Then flagship_world_doc(24, 6) at 256x128, 2
      frames, on the card against the CPU path, and a frame graph that
      raises torch.AcceleratorError once: the frame retries on the card;
+  6g. night: engine-night-hud, the flagship world through EngineLoop at
+     night (the sun below the horizon, stars.procedural(4096), the stats
+     HUD built every frame, a debug box on each object, the uncharted2
+     tonemap), 1 warm-up + 5 frames: host ms of the HUD, tick, scene_view
+     and push_frame, frame ms, syncs by step, B1-B3 launches checked per
+     frame, peak memory, per-node ms of a moving and a sky-dirty frame,
+     the Sky node with and without the stars (the star term lighting
+     > 1000 pixels), the star term alone, three frames whose every B1-B3
+     launch is held to its twin, a profiled frame; then a 256x128 night
+     frame pair on the card against the CPU path (night_frame_agreement;
+     the debug pixels and the HUD composite exact);
   7. tracer kernels: the sweep intersector's kernels (B4 slab entry with
      the visit tables, B5 cluster sweep and B6 dense-grid sweep, closest
      and any hit) against their plain versions on the path tracer's own
@@ -3130,6 +3141,379 @@ def check_engine_lost_device(card):
           "the lost-device retry did not render on the card")
 
 
+# the engine at night with the HUD and debug draw (engine-night-hud)
+NIGHT_SUN = (-0.35, 0.7, -0.3)  # y > 0: the sun is below the horizon, night factor 1
+NIGHT_STARS = 4096  # the reference's catalogue cap (stars.load(max_stars=4096))
+HUD_SIZE = (384, 192)
+NIGHT_CONFIG = dict(FULL_CONFIG, tonemap="uncharted2")
+STAR_REL = 2e-3  # a frame's star term against another's: 1 ulp of cos near 1 is 5e-4
+HUD_STATS = {"last_frame_ms": 16.6, "gpu_frames": 7, "triangles": 2074,
+             "node_ms": {"Sky": 3.25, "RenderScene": 5.5, "Bloom": 1.0}}
+
+
+def _night_loop(doc, width, height, config, device):
+    """An EngineLoop at night over the document: the CLI's sky with the sun
+    at NIGHT_SUN, ``stars.procedural(NIGHT_STARS)``, the stats HUD on an
+    OverlayContext of HUD_SIZE and debug lines (a box on each solid mesh
+    object, an origin) in the renderer's config."""
+    from sailor_tpu_torch.assets import stars
+    from sailor_tpu_torch.engine import World
+    from sailor_tpu_torch.engine.app import EngineLoop, Renderer
+    from sailor_tpu_torch.engine.overlay import OverlayContext
+    from sailor_tpu_torch.kernels.sky import SkyParams
+    from sailor_tpu_torch.rhi.debug_context import DebugContext
+    from sailor_tpu_torch.scenes import mesh_boxes
+
+    dbg = DebugContext()
+    for lo, hi in mesh_boxes(doc):
+        dbg.draw_aabb(lo, hi)
+    dbg.draw_origin((0.0, 0.05, 0.0), 2.0)
+    world = World.deserialize(doc, device=device)
+    renderer = Renderer(RENDERER, width, height, dict(config, debug_context=dbg), device=device)
+    return EngineLoop(world, renderer, sky=SkyParams.default(sun_direction=NIGHT_SUN),
+                      stars=stars.procedural(NIGHT_STARS, seed=0),
+                      overlay=OverlayContext(*HUD_SIZE)), dbg
+
+
+@contextlib.contextmanager
+def twin_checked(record):
+    """While open, every launch of B1-B3 through their wrappers is also run
+    through its plain twin on the same inputs and held to it (B1 bit-equal,
+    B2 B2's bar, B3 within 1e-5 relative to max(|twin|, 1e-3)); record[name]
+    collects each launch's largest absolute difference. The twins count no
+    launch."""
+    import torch
+
+    from sailor_tpu_torch.kernels import pbr_kernel
+    from sailor_tpu_torch.raster import tile_raster as tr
+
+    def b1(k, p):
+        same = all(bool(torch.equal(a, b)) for a, b in zip(k, p))
+        return same, (k[0] - p[0]).abs().max().item()
+
+    def b2(k, p):
+        k, p = torch.stack(k), torch.stack(p)
+        diff = (k - p).abs()
+        ok = ((diff > 1e-5).float().mean().item() <= 1e-5
+              and bool((diff <= 1e-4 * (1 + p.abs())).all()))
+        return ok, diff.max().item()
+
+    def b3(k, p):
+        rel = ((k - p).abs() / p.abs().clamp(min=1e-3)).max().item()
+        return rel <= 1e-5, (k - p).abs().max().item()
+
+    wrapped = ((tr, "rasterize_worklist_cuda", tr.rasterize_worklist_plain, "raster_worklist", b1),
+               (tr, "resolve_worklist_cuda", tr.resolve_worklist_plain, "resolve_worklist", b2),
+               (pbr_kernel, "shade_tiles_cuda", pbr_kernel.shade_tiles_plain,
+                "shade_forward_plus", b3))
+    saved = []
+    for mod, attr, plain, name, agree in wrapped:
+        inner = getattr(mod, attr)
+
+        def call(*a, _inner=inner, _plain=plain, _name=name, _agree=agree, **kw):
+            out = _inner(*a, **kw)
+            ok, err = _agree(out, _plain(*a, **kw))
+            check(ok, f"{_name} disagrees with its plain version on a night frame")
+            record.setdefault(_name, []).append(err)
+            return out
+
+        saved.append((mod, attr, inner))
+        setattr(mod, attr, call)
+    try:
+        yield record
+    finally:
+        for mod, attr, inner in saved:
+            setattr(mod, attr, inner)
+
+
+@contextlib.contextmanager
+def captured_node(name, keys, out):
+    """Wraps the frame-graph node type ``name``: appends to ``out`` a dict of
+    the targets' and the state's ``keys`` (on the CPU) before and after
+    each call."""
+    from sailor_tpu_torch.framegraph.graph import node_types
+
+    cls = node_types()[name]
+    inner = cls.process
+
+    def grab(ctx, targets):
+        src = {**(ctx.state or {}), **targets}
+        return {k: src[k].cpu() for k in keys if k in src}
+
+    def process(self, ctx, targets):
+        before = grab(ctx, targets)
+        t = inner(self, ctx, targets)
+        out.append((before, grab(ctx, t)))
+        return t
+
+    cls.process = process
+    try:
+        yield out
+    finally:
+        cls.process = inner
+
+
+def sky_with_and_without_stars(fg, scene):
+    """The Sky node rendered afresh (no cache) on ``scene`` with its stars
+    and without: (ms with, ms without, lit Sky, unlit Sky), each ms the
+    least of 3 runs to a synchronise."""
+    import dataclasses
+
+    from sailor_tpu_torch.framegraph.nodes import SkyNode
+
+    node = SkyNode({})
+    dark = dataclasses.replace(scene, star_dirs=None, star_colors=None)
+    out = []
+    for s in (scene, dark):
+        runs = [_wall_ms(lambda: node.process(fg._ctx(s, {}), {})["Sky"]) for _ in range(3)]
+        out.append((min(r[0] for r in runs), runs[-1][1]))
+    return out[0][0], out[1][0], out[0][1], out[1][1]
+
+
+def star_term_cost(scene, width, height, config, card):
+    """Prints the star term alone at the Sky node's resolution on a
+    sky-dirty frame: ms (the least of 3 runs to a synchronise), the memory
+    it adds over what was allocated, and its bound (the rays, the catalogue
+    and the colours read once, the term written; two products and an exp a
+    (direction, star) pair)."""
+    import torch
+
+    from sailor_tpu_torch.core import math3d as m3
+    from sailor_tpu_torch.kernels import sky as sky_k
+    from sailor_tpu_torch.raster import interpolate
+
+    q = int(config.get("sky_downsample", 2))
+    inv_vp = m3.inverse(scene.frame.view_projection)
+    d = interpolate.pixel_rays_strided(inv_vp, scene.frame.camera_position, height, width, q,
+                                       fused=False)
+    p_ = scene.sky.on(d.device)
+    _, trans = sky_k.atmosphere(d, p_["sun_direction"], p_["sun_intensity"])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    runs = [_wall_ms(lambda: sky_k.stars(d, scene.star_dirs, scene.star_colors, trans))
+            for _ in range(3)]
+    extra = torch.cuda.max_memory_allocated() - base
+    n_dirs, n_stars = d.numel() // 3, scene.star_dirs.shape[0]
+    bound, by = _bound(d.numel() * 4 * 3 + n_stars * 24, n_dirs * n_stars * (6 + 6 + 4))
+    ms = min(r[0] for r in runs)
+    print(f"engine-night-hud star_term: directions={n_dirs} stars={n_stars} "
+          f"chunk={sky_k.STAR_CHUNK} ms={ms:.3f} bound_ms={bound:.4f} ({by}) "
+          f"added_peak_bytes={extra} lit={int((runs[-1][1].abs().amax(-1) > 1e-6).sum())} "
+          f"on {card}")
+
+
+def run_engine_night(card):
+    """engine-night-hud: EngineLoop over ``flagship_world_doc(1000, 96)`` at
+    1920x1088 at night (NIGHT_CONFIG: FULL_CONFIG with the uncharted2
+    tonemap; the sun at NIGHT_SUN; ``stars.procedural(4096)``; the stats
+    HUD built every frame; 1,152 debug lines on the 96 objects and an
+    origin), 1 warm-up + 5 frames: host ms of world.tick, scene_view,
+    push_frame and the HUD (the rest of the frame's host time: stats_hud,
+    the canvas and its copy to the card), frame ms to a synchronise,
+    synchronising calls by step, B1-B3 launches checked per frame; peak
+    memory; per-node ms of a moving frame and of a sky-dirty frame (the
+    camera turned 2e-3 rad, so the star term runs over all 522,240 sky
+    directions); the Sky node with and without the stars and the star term
+    alone (ms, added memory, bound); then two moving frames and a sky-dirty
+    frame with every B1-B3 launch held to its twin; a profiled frame, last.
+    Returns the launches of frames 1-6."""
+    import torch
+
+    from sailor_tpu_torch.kernels import cuda_lib
+    from sailor_tpu_torch.scenes import flagship_world_doc
+
+    width, height, n_lights, n_objects = FLAGSHIP
+    t0 = time.perf_counter()
+    loop, dbg = _night_loop(flagship_world_doc(n_lights, n_objects, aspect=width / height),
+                            width, height, NIGHT_CONFIG, "cuda")
+    load_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows, total = [], {}
+    for i in range(6):
+        cuda_lib.LAUNCHES.clear()
+        with sync_counter() as syncs, \
+                timed_methods(loop.world, ("tick", "scene_view"), syncs) as host, \
+                timed_methods(loop.renderer, ("push_frame",), syncs) as push:
+            t1 = time.perf_counter()
+            targets = loop.process_cpu_frame(1 / 60)
+            host_ms = (time.perf_counter() - t1) * 1e3
+            n_syncs = syncs()
+        torch.cuda.synchronize()
+        frame_ms = (time.perf_counter() - t1) * 1e3
+        launches = {k: cuda_lib.LAUNCHES.get(k, 0) for k in PATH_KERNELS}
+        for k, v in cuda_lib.LAUNCHES.items():
+            total[k] = total.get(k, 0) + v
+        host.update(push)
+        steps = {k: v[1] for k, v in host.items()}
+        steps["hud"] = n_syncs - sum(steps.values())
+        rows.append({"frame": i + 1, **{f"{k}_ms": round(v[0], 3) for k, v in host.items()},
+                     "hud_ms": round(host_ms - sum(v[0] for v in host.values()), 3),
+                     "frame_ms": round(frame_ms, 3), "syncs": n_syncs, "syncs_by_step": steps,
+                     "launches": launches})
+        for k in PATH_KERNELS:
+            check(launches[k] > 0, f"engine-night-hud frame {i + 1} launched no {k}")
+    peak = torch.cuda.max_memory_allocated()
+    final = targets["Final"]
+    cov = (targets["TriId"] >= 0).float().mean().item()
+    check(tuple(final.shape) == (height, width, 3) and bool(torch.isfinite(final).all())
+          and final.min().item() >= 0.0 and final.max().item() <= 1.0 and cov > 0.0,
+          "engine-night-hud: bad frame")
+    canvas = loop.renderer.state["overlay/canvas"]
+    check(canvas.device.type == loop.renderer.device.type
+          and tuple(canvas.shape) == (HUD_SIZE[1], HUD_SIZE[0], 4)
+          and float(canvas[..., 3].max()) > 0.4, "engine-night-hud: no HUD canvas on the card")
+    world = loop.world
+    print(f"engine-night-hud {width}x{height}: load_ms={load_ms:.3f} "
+          f"objects={len(world.game_objects)} lights={world.lighting.snapshot.num} "
+          f"triangles={world.meshes.geometry.indices.shape[0]} stars={NIGHT_STARS} "
+          f"debug_lines={len(dbg._lines)} hud={HUD_SIZE[0]}x{HUD_SIZE[1]} "
+          f"peak_mem_bytes={peak} coverage={cov:.4f} on {card}")
+    for r in rows:
+        print("engine-night-hud frame " + json.dumps(r))
+    mean = sum(r["frame_ms"] for r in rows[1:]) / 5
+    print(f"engine-night-hud frame_ms={[r['frame_ms'] for r in rows]} mean_2_6={mean:.3f} "
+          f"syncs={[r['syncs'] for r in rows]} on {card}")
+
+    # a moving frame node by node, then a sky-dirty one (the camera turned)
+    fg, state = loop.renderer.frame_graph, loop.renderer.state
+    world.tick(1 / 60)
+    scene = world.scene_view(sky=loop.sky, stars=loop.stars, prev_frame=loop._prev_frame)
+    fg.prepare(scene, state)
+    per_node = fg.process_debug(scene, state)[2]
+    turned = _turned(scene, 2e-3)
+    fg.prepare(turned, state)
+    per_node_dirty = fg.process_debug(turned, state)[2]
+    named = ("Sky", "DebugDraw", "RenderOverlay", "EyeAdaptation")
+    for label, pn in (("moving", per_node), ("sky_dirty", per_node_dirty)):
+        by_name = {k.split("_", 1)[1]: v for k, v in pn.items()}  # keys are "<index>_<node>"
+        check(all(n in by_name for n in named), f"engine-night-hud: per-node ms lack {named}")
+        print(f"engine-night-hud per_node_ms_{label} "
+              + json.dumps({k: round(v, 3) for k, v in pn.items()})
+              + " named " + json.dumps({n: round(by_name[n], 3) for n in named}) + f" on {card}")
+    ms_lit, ms_dark, lit, dark = sky_with_and_without_stars(fg, turned)
+    star_px = int(((lit - dark).abs().amax(-1) > 1e-6).sum())
+    print(f"engine-night-hud sky_node_sky_dirty: with_stars_ms={ms_lit:.3f} "
+          f"without_stars_ms={ms_dark:.3f} star_lit_pixels={star_px} of {lit[..., 0].numel()} "
+          f"on {card}")
+    check(star_px > 1000, f"engine-night-hud: the star term lit {star_px} pixels")
+    star_term_cost(turned, width, height, NIGHT_CONFIG, card)
+
+    # B1-B3 held to their twins on every launch of three more frames
+    record = {}
+    with twin_checked(record):
+        for _ in range(2):
+            loop.process_cpu_frame(1 / 60)
+        back = _turned(world.scene_view(sky=loop.sky, stars=loop.stars,
+                                        prev_frame=loop._prev_frame), -2e-3)
+        fg.prepare(back, state)
+        fg.process(back, state)
+        torch.cuda.synchronize()
+    print("engine-night-hud twin_checked_frames=3 launches_held "
+          + json.dumps({k: len(v) for k, v in record.items()})
+          + " max_abs_err " + json.dumps({k: max(v) for k, v in record.items()}) + f" on {card}")
+    for k in PATH_KERNELS:
+        check(len(record.get(k, ())) >= 3, f"engine-night-hud: {k} was held on too few frames")
+    profile(lambda: loop.process_cpu_frame(1 / 60), card, "profile_engine_night")
+    loop.renderer.wait_idle()
+    return total
+
+
+def night_frame_agreement(got, ref, term):
+    """A night frame on the card (``got``) against the CPU path's (``ref``),
+    dicts of NIGHT_KEYS on the CPU, ``term`` the CPU's star term on its
+    Sky: Depth, TriId, LightIndices, ShadowMaps and HiZCulledCount exact;
+    Sky within 5e-5 * (1 + |ref|) + STAR_REL * |term|; Main within 1e-4
+    relative (to max(|ref|, 1e-3)) or within 1e-4 * max(|ref|, 1e-3) +
+    STAR_REL * (the term's largest channel within 2 px) on >= 99.5% of
+    pixels; Final within 2/255 on every pixel. Returns (ok, a line)."""
+    import torch
+
+    exact = {k: bool(torch.equal(got[k], ref[k]))
+             for k in ("Depth", "TriId", "LightIndices", "ShadowMaps", "HiZCulledCount")}
+    near = torch.nn.functional.max_pool2d(term.abs().amax(-1)[None, None], 5, 1, 2)[0, 0]
+    sky_err = (got["Sky"] - ref["Sky"]).abs()
+    sky = (sky_err - 5e-5 * (1 + ref["Sky"].abs()) - STAR_REL * term.abs()).max().item()
+    err = (got["Main"] - ref["Main"]).abs()
+    scale = ref["Main"].abs().clamp(min=1e-3)
+    ok = ((err / scale <= 1e-4) | (err <= 1e-4 * scale + STAR_REL * near[..., None])).all(-1)
+    main = ok.float().mean().item()
+    final = (got["Final"] - ref["Final"]).abs().max().item()
+    line = (" ".join(f"{k}_equal={v}" for k, v in exact.items())
+            + f" sky_rel_err={(sky_err / (1 + ref['Sky'].abs())).max().item():.3g} "
+            f"sky_over_bar={sky:.3g} main_within_bar={main:.5f} final_max_err={final:.3g}")
+    return all(exact.values()) and sky <= 0 and main >= 0.995 and final <= 2 / 255, line
+
+
+NIGHT_KEYS = ("Depth", "TriId", "LightIndices", "ShadowMaps", "HiZCulledCount", "Sky",
+              "Main", "Final")
+
+
+def check_small_night():
+    """flagship_world_doc(24, 6) through the night loop at 256x128
+    (NIGHT_CONFIG, shadow_resolution 128), 2 frames, on the card against
+    the CPU path, the HUD drawn from one fixed stats dict on both:
+    night_frame_agreement's bars; the pixels DebugDraw writes and their
+    colours exact; the canvas equal, and RenderOverlay's output on the card
+    equal to the CPU's composite of the card's own Final and canvas."""
+    import dataclasses
+
+    import torch
+
+    from sailor_tpu_torch.engine import overlay as overlay_mod
+    from sailor_tpu_torch.framegraph.nodes import RenderOverlayNode, SkyNode
+    from sailor_tpu_torch.framegraph.graph import RenderContext
+    from sailor_tpu_torch.scenes import flagship_world_doc
+
+    hud = overlay_mod.stats_hud
+    overlay_mod.stats_hud = lambda ov, stats, console_lines=(): hud(ov, HUD_STATS)
+    out, draws, comps, terms = {}, {}, {}, {}
+    try:
+        for dev in ("cuda", "cpu"):
+            loop, _ = _night_loop(flagship_world_doc(24, 6, aspect=2.0), 256, 128,
+                                  dict(NIGHT_CONFIG, shadow_resolution=128), dev)
+            scenes = []
+            push = loop.renderer.push_frame
+            loop.renderer.push_frame = lambda s, _p=push: (scenes.append(s), _p(s))[1]
+            out[dev], draws[dev], comps[dev] = [], [], []
+            with captured_node("DebugDraw", ("Main",), draws[dev]), \
+                    captured_node("RenderOverlay", ("Final", "overlay/canvas"), comps[dev]):
+                for _ in range(2):
+                    t = loop.process_cpu_frame(1 / 60)
+                    out[dev].append({k: t[k].cpu() for k in NIGHT_KEYS})
+            if dev == "cpu":  # the star term of each Sky shown: the frame it was rendered on
+                fg = loop.renderer.frame_graph
+                node = SkyNode({})
+                for i, shown in enumerate(o["Sky"] for o in out[dev]):
+                    for s in scenes:
+                        lit = node.process(fg._ctx(s, {}), {})["Sky"]
+                        if torch.equal(lit, shown):
+                            dark = node.process(fg._ctx(dataclasses.replace(
+                                s, star_dirs=None, star_colors=None), {}), {})["Sky"]
+                            terms[i] = lit - dark
+    finally:
+        overlay_mod.stats_hud = hud
+    for i, (g, r) in enumerate(zip(out["cuda"], out["cpu"])):
+        check(i in terms, f"small night frame {i + 1}: no CPU frame rendered the Sky shown")
+        ok, line = night_frame_agreement(g, r, terms[i])
+        (db, da), (rb, ra) = draws["cuda"][i], draws["cpu"][i]
+        wrote = (da["Main"] != db["Main"]).any(-1)
+        lines_same = (bool(torch.equal(wrote, (ra["Main"] != rb["Main"]).any(-1)))
+                      and bool(torch.equal(da["Main"][wrote], ra["Main"][wrote])))
+        (cb, ca), (pb, _) = comps["cuda"][i], comps["cpu"][i]
+        mine = RenderOverlayNode({}).process(
+            RenderContext(width=256, height=128, state={"overlay/canvas": cb["overlay/canvas"]}),
+            {"Final": cb["Final"]})["Final"]
+        comp_same = (bool(torch.equal(cb["overlay/canvas"], pb["overlay/canvas"]))
+                     and bool(torch.equal(mine, ca["Final"])))
+        lit = int((terms[i].abs().amax(-1) > 1e-6).sum())
+        print(f"small night frame {i + 1} card vs cpu: {line} debug_pixels={int(wrote.sum())} "
+              f"debug_lines_equal={lines_same} composite_equal={comp_same} star_lit={lit}")
+        check(ok and lines_same and comp_same and int(wrote.sum()) > 0 and lit > 100,
+              "the card's night frame disagrees with the CPU path")
+
+
 def main() -> int:
     import torch
 
@@ -3210,6 +3594,14 @@ def main() -> int:
     check_small_engine()
     check_engine_lost_device(card)
     print(f"engine: {time.perf_counter() - t_engine:.1f} s")
+    t_night = time.perf_counter()
+    night_launches = run_engine_night(card)
+    for name in PATH_KERNELS:
+        check(night_launches.get(name, 0) > 0, f"{name} was not launched on the night frame")
+    print("engine-night-hud launches_frames_1_6 " + json.dumps(
+        {k: night_launches.get(k, 0) for k in PATH_KERNELS}))
+    check_small_night()
+    print(f"night: {time.perf_counter() - t_night:.1f} s")
     tracer_kernels = check_tracer_kernels(card)
     launches, tracer_peak = run_tracer(card)
     check_small_trace()

@@ -4,9 +4,9 @@ Runtime/AssetRegistry/AssetRegistry.{h,cpp}): folder scan, file ids in
 importer dispatch by extension, a cache with timestamp expiry, hot reload.
 
 It registers the reference's extensions, so a scan counts the same files.
-The `.renderer`, `.world` and `.prefab` importers work; the model, image,
-material and star-catalogue importers raise NotImplementedError until
-their modules are ported (ROADMAP A 5, A 4).
+The `.renderer`, `.world`, `.prefab` and `.bsc5` (star catalogue)
+importers work; the model, image and material importers raise
+NotImplementedError until their modules are ported (ROADMAP A 5).
 """
 
 from __future__ import annotations
@@ -71,6 +71,7 @@ class AssetRegistry:
         self.importers[extension.lower()] = loader
 
     def _register_default_importers(self) -> None:
+        from sailor_tpu_torch.assets import stars
         from sailor_tpu_torch.framegraph.graph import FrameGraphAsset
 
         for ext in (".gltf", ".glb"):
@@ -81,7 +82,7 @@ class AssetRegistry:
         self.register_importer(".prefab", lambda p, meta: _yaml_load(p))
         for ext in IMAGE_EXTENSIONS:
             self.register_importer(ext, _not_ported("texture", "A 5"))
-        self.register_importer(".bsc5", _not_ported("star catalogue", "A 4"))
+        self.register_importer(".bsc5", lambda p, meta: stars.load(p))
 
     def scan_content_folder(self) -> int:
         """Walk the content root, assign file ids, write missing sidecars."""

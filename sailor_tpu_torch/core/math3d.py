@@ -213,6 +213,34 @@ def linear_to_srgb(c):
     return torch.where(c <= 0.0031308, c * 12.92, 1.055 * c ** (1.0 / 2.4) - 0.055)
 
 
+_RGB_TO_XYZ = ((0.4124564, 0.3575761, 0.1804375),
+               (0.2126729, 0.7151522, 0.0721750),
+               (0.0193339, 0.1191920, 0.9503041))
+_XYZ_TO_RGB = ((3.2404542, -1.5371385, -0.4985314),
+               (-0.9692660, 1.8760108, 0.0415560),
+               (0.0556434, -0.2040259, 1.0572252))
+
+
+def mat3_rows(m, v):
+    """(..., 3) rows times the transpose of the 3x3 tuple ``m``: m @ v for
+    each row v."""
+    return v @ torch.tensor(m, dtype=torch.float32, device=v.device).T
+
+
+def rgb_to_yxy(rgb):
+    """Linear RGB -> CIE Yxy (D65; Formats.glsl convertRGB2Yxy)."""
+    xyz = mat3_rows(_RGB_TO_XYZ, rgb)
+    s = torch.clamp(xyz.sum(-1), min=1e-8)
+    return torch.stack([xyz[..., 1], xyz[..., 0] / s, xyz[..., 1] / s], dim=-1)
+
+
+def yxy_to_rgb(yxy):
+    Y, x, y = yxy[..., 0], yxy[..., 1], torch.clamp(yxy[..., 2], min=1e-8)
+    X = x * Y / y
+    Z = (1.0 - x - yxy[..., 2]) * Y / y
+    return mat3_rows(_XYZ_TO_RGB, torch.stack([X, Y, Z], dim=-1))
+
+
 @functools.cache
 def libm():
     """The C library's float32 ``cosf``, ``sinf`` and ``tanf`` (ctypes), which

@@ -145,15 +145,17 @@ class EngineLoop:
     CPU_FPS_CAP = 120.0  # the reference sleeps below ~1000/130 ms
 
     def __init__(self, world: World, renderer: Renderer, sky=None, stars=None, overlay=None):
+        """``stars``: a (directions, colours) pair of (S, 3) arrays for the
+        Sky node (assets/stars.py); ``overlay``: an
+        engine.overlay.OverlayContext, drawn with ``stats_hud`` each frame
+        and blended by the RenderOverlay node."""
         from sailor_tpu_torch.engine.input import InputState
 
-        if stars is not None:
-            raise NotImplementedError("stars are not ported yet (ROADMAP A 4)")
-        if overlay is not None:
-            raise NotImplementedError("the overlay canvas is not ported yet (ROADMAP A 4)")
         self.world = world
         self.renderer = renderer
         self.sky = sky
+        self.stars = stars
+        self.overlay = overlay
         self._prev_frame = None
         self.frame_index = 0
         # frontends inject events; components read world.input during tick
@@ -161,9 +163,17 @@ class EngineLoop:
         world.input = self.input
 
     def process_cpu_frame(self, dt: float):
-        """World tick -> scene snapshot -> renderer push (one frame)."""
+        """HUD build (ImGui NewFrame) -> world tick -> scene snapshot ->
+        renderer push (one frame, EngineLoop::ProcessCpuFrame)."""
+        if self.overlay is not None:
+            from sailor_tpu_torch.engine.overlay import stats_hud
+
+            stats_hud(self.overlay, self.renderer.stats)
+            self.renderer.state["overlay/canvas"] = torch.from_numpy(
+                self.overlay.canvas()).to(self.renderer.device)
         self.world.tick(dt)
-        scene = self.world.scene_view(sky=self.sky, prev_frame=self._prev_frame)
+        scene = self.world.scene_view(sky=self.sky, stars=self.stars,
+                                      prev_frame=self._prev_frame)
         self._prev_frame = scene.frame
         targets = self.renderer.push_frame(scene)
         self.input.end_frame()

@@ -13,6 +13,7 @@ from __future__ import annotations
 import uuid
 
 import numpy as np
+import torch
 
 from sailor_tpu_torch.config import resolve_device
 from sailor_tpu_torch.ecs.ecs import SystemRegistry
@@ -175,6 +176,8 @@ class World:
         self.materials = None
         self._attrs_key = None
         self._attrs_packed = None
+        self._stars_src = None  # the (dirs, colours) arrays last copied, and the copies
+        self._stars = None
 
     def system(self, name: str):
         return self._by_name.get(name)
@@ -236,17 +239,26 @@ class World:
             self.transforms.pool.release(go.transform)
 
     def scene_view(self, sky=None, stars=None, prev_frame=None):
-        """The frame graph's snapshot (Renderer::PushFrame copy stage)."""
+        """The frame graph's snapshot (Renderer::PushFrame copy stage).
+        ``stars``: a (directions, colours) pair of (S, 3) arrays
+        (assets/stars.py), copied to the world's device once for each pair
+        of arrays, not once a frame."""
         from sailor_tpu_torch.rhi.scene_view import SceneView
 
-        if stars is not None:
-            raise NotImplementedError("stars are not ported yet (ROADMAP A 4)")
         frame = self.cameras.main_frame()
         if frame is None:
             raise RuntimeError("world has no camera")
         geo = self.meshes.geometry
         if geo is None:
             raise RuntimeError("world has no static meshes")
+        star_dirs = star_colors = None
+        if stars is not None:
+            src = self._stars_src
+            if src is None or any(a is not b for a, b in zip(stars, src)):
+                self._stars = tuple(torch.as_tensor(np.asarray(a, np.float32),
+                                                    device=self.device) for a in stars)
+                self._stars_src = tuple(stars)
+            star_dirs, star_colors = self._stars
         mats = self.materials.table if self.materials is not None else None
         # the per-source-triangle table: repacked only when the soup object
         # (movement, topology) or the material table changes
@@ -258,7 +270,8 @@ class World:
             self._attrs_key = key
         return SceneView.create(geo, self.lighting.snapshot, frame, sky=sky,
                                 prev_frame=prev_frame, materials=mats,
-                                attrs_packed=self._attrs_packed)
+                                attrs_packed=self._attrs_packed,
+                                star_dirs=star_dirs, star_colors=star_colors)
 
     def serialize(self) -> dict:
         index = {go: i for i, go in enumerate(self.game_objects)}

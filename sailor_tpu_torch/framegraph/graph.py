@@ -130,15 +130,14 @@ class FrameGraphAsset:
             return cls.from_yaml(f.read())
 
 
-def _check_config(config: dict, names: list[str]) -> None:
-    """Raise on configuration this port does not implement yet, instead of
-    silently rendering something else."""
-    unsupported = []
-    if config.get("tonemap", "aces") != "aces":
-        unsupported.append(f"tonemap={config['tonemap']!r}")
-    if unsupported:
-        raise NotImplementedError(
-            "not ported yet: " + ", ".join(unsupported))
+def _check_config(config: dict) -> None:
+    """Raise on a tonemap mode that no operator implements (the reference
+    raises the same ValueError at the first frame's EyeAdaptation)."""
+    from sailor_tpu_torch.kernels.tonemap import MODES
+
+    mode = config.get("tonemap", "aces")
+    if mode not in MODES:
+        raise ValueError(f"unknown tonemap mode: {mode}")
 
 
 class FrameGraph:
@@ -159,7 +158,7 @@ class FrameGraph:
             if name not in _NODE_REGISTRY:
                 raise KeyError(f"unknown frame-graph node '{name}' "
                                f"(registered: {sorted(_NODE_REGISTRY)})")
-        _check_config(self.config, names)
+        _check_config(self.config)
         self.targets = RenderTargets(width, height, self.device)
         for spec in asset.targets:
             self.targets.declare(spec)

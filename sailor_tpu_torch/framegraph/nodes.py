@@ -387,10 +387,12 @@ class SkyNode(BaseNode):
     pin the projective ray grid) rounded to 1e-5, the sun, and the cloud
     time floored at ``sky_cache_hz``. One host read of the dirty flag a
     frame (a synchronise) decides whether the sky is rendered at all; a
-    translating camera reuses the buffer."""
+    translating camera reuses the buffer. The scene's stars are drawn when
+    it has any; as in the reference, they are not in the key."""
 
     def process(self, ctx, targets):
         scene = ctx.scene
+        use_stars = scene.star_dirs.shape[0] > 0
         w, h = ctx.width, ctx.height
         q = max(1, int(ctx.config.get("sky_downsample", 2)))
         hq, wq = -(-h // q), -(-w // q)
@@ -411,7 +413,8 @@ class SkyNode(BaseNode):
                 cl_q, ct_q = sky_k.clouds(d_c, scene.sky, time_)
                 cloud_override = (ctx.upsample(cl_q, (hq, wq)),
                                   ctx.upsample(ct_q[..., None], (hq, wq))[..., 0])
-            color = sky_k.sky_radiance(d, scene.sky, time_, with_clouds=with_clouds,
+            color = sky_k.sky_radiance(d, scene.sky, time_, scene.star_dirs, scene.star_colors,
+                                       with_clouds=with_clouds, with_stars=use_stars,
                                        cloud_override=cloud_override)
             return ctx.upsample(color, (h, w)) if q > 1 else color
 
@@ -864,24 +867,45 @@ class EyeAdaptationNode(BaseNode):
 
 @node("DebugDraw")
 class DebugDrawNode(BaseNode):
-    """Debug lines over Main (DebugDrawNode.cpp). Without a debug context,
-    or one with no lines, it passes through, as in the reference; drawing
-    lines is not ported and raises."""
+    """Debug lines over Main (DebugDrawNode.cpp): the lines of
+    ``config["debug_context"]`` (rhi.debug_context.DebugContext) splatted
+    with the frame's view-projection. Without a context, or one with no
+    lines, it passes through."""
 
     def process(self, ctx, targets):
         dbg = ctx.config.get("debug_context")
         if dbg is None or not dbg.has_lines:
             return targets
-        raise NotImplementedError("debug lines (rhi/debug_context) are not ported yet")
+        targets["Main"] = dbg.rasterize_over(targets["Main"], ctx.scene.frame.view_projection)
+        return targets
 
 
 @node("RenderOverlay")
 class RenderOverlayNode(BaseNode):
-    """The HUD canvas over Final (RenderImGuiNode.cpp). Without an
-    "overlay/canvas" in the state, or without Final, it passes through, as
-    in the reference; compositing a canvas is not ported and raises."""
+    """The HUD canvas over Final (RenderImGuiNode.cpp + ImGuiUI.shader):
+    the state's "overlay/canvas", an (h, w, 4) straight-alpha float32
+    image (engine.overlay.OverlayContext), blended over Final at the
+    params ``x``, ``y`` (pixels). The canvas is cut to Final's size; the
+    patch is Final sliced as Python slices it, and the write's start is
+    clamped so that the blend fits, as the reference's
+    ``dynamic_update_slice``; where the slice and the canvas do not
+    broadcast, the blend raises as the reference's does. Without a canvas,
+    or without Final, it passes through."""
 
     def process(self, ctx, targets):
-        if (ctx.state or {}).get("overlay/canvas") is None or "Final" not in targets:
+        canvas = (ctx.state or {}).get("overlay/canvas")
+        if canvas is None or "Final" not in targets:
             return targets
-        raise NotImplementedError("the overlay canvas (engine/overlay) is not ported yet")
+        final = targets["Final"]
+        h, w = final.shape[:2]
+        ch, cw = min(canvas.shape[0], h), min(canvas.shape[1], w)
+        x0, y0 = int(self.p("x", 0)), int(self.p("y", 0))
+        patch = final[y0:y0 + ch, x0:x0 + cw]
+        a = canvas[:ch, :cw, 3:4]
+        blended = patch * (1.0 - a) + canvas[:ch, :cw, :3] * a
+        bh, bw = blended.shape[:2]
+        y, x = min(max(y0, 0), h - bh), min(max(x0, 0), w - bw)
+        out = final.clone()
+        out[y:y + bh, x:x + bw] = blended
+        targets["Final"] = out
+        return targets

@@ -4,10 +4,10 @@ functions of the view direction over any (..., 3) batch.
 
 What the port has: ``SkyParams``, ``phase_rayleigh``, ``phase_hg``,
 ``_ray_sphere_exit``, ``atmosphere``, ``clouds``, ``sun_disc`` and
-``sky_radiance`` (with ``cloud_stride`` and ``cloud_override``); the path
-tracer bakes its environment map and the frame graph's Sky and
-Environment nodes render with them. Stars (``assets/stars.py``, which no
-ported scene supplies) raise ``NotImplementedError``.
+``stars`` and ``sky_radiance`` (with ``cloud_stride``, ``cloud_override``
+and the star field of ``assets/stars.py``); the path tracer bakes its
+environment map and the frame graph's Sky and Environment nodes render
+with them.
 """
 
 from __future__ import annotations
@@ -212,18 +212,49 @@ def sun_disc(d, params: SkyParams, transmittance):
     return (limb * p_["sun_intensity"] * 50.0)[..., None] * transmittance
 
 
+STAR_CHUNK = 32768  # directions a (chunk, stars) product holds: 0.54 GB at 4,096 stars
+
+
+def stars(d, star_dirs, star_colors, transmittance, *, sharpness: float = 8000.0,
+          chunk: int = STAR_CHUNK):
+    """Star field: a sum of narrow gaussian splats exp((cos - 1) * sharpness)
+    around the catalogue's directions ``star_dirs`` (S, 3), weighted by
+    ``star_colors`` (S, 3), as two products over the directions, ``chunk``
+    rows at a time so that the (rows, S) weights stay small.
+
+    A unit of cos's last place near 1 moves a weight by ~5e-4 relative, so
+    the products must be float32: on the card TF32 (which loses ~1e-3 of
+    cos) raises."""
+    if d.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("sky.stars needs float32 products: "
+                           "torch.backends.cuda.matmul.allow_tf32 is on")
+    d = m3.normalize(d)
+    flat = d.reshape(-1, 3)
+    dirs_t = star_dirs.T.contiguous()
+    col = torch.empty_like(flat)
+    # one buffer for every chunk's weights, so that only one chunk is held
+    w_buf = flat.new_empty((min(chunk, flat.shape[0]), dirs_t.shape[1]))
+    for i in range(0, flat.shape[0], chunk):
+        rows = flat[i:i + chunk]
+        w = torch.matmul(rows, dirs_t, out=w_buf[:rows.shape[0]])
+        w.sub_(1.0).mul_(sharpness).exp_()
+        torch.matmul(w, star_colors, out=col[i:i + chunk])
+    return col.reshape(d.shape) * transmittance
+
+
 def sky_radiance(d, params: SkyParams, time=0.0, star_dirs=None, star_colors=None, *,
                  with_clouds: bool = True, with_stars: bool = False, with_sun: bool = True,
                  cloud_stride: int = 1, cloud_override=None):
     """Full sky for directions d (..., 3): atmosphere, clouds, sun disc,
-    and the ground fade below the horizon.
+    stars at night, and the ground fade below the horizon.
 
     ``cloud_stride``: on a 2-D ray grid (H, W, 3), march the clouds on every
     stride-th ray and upsample them. ``cloud_override``: precomputed
     (cloud colour, cloud transmittance) at d's resolution, used in place of
-    the march."""
-    if with_stars:
-        raise NotImplementedError("stars are not ported (no ported scene supplies a catalog)")
+    the march. ``with_stars``: add ``stars`` of (``star_dirs``,
+    ``star_colors``), scaled by the night factor clip(2 * sun_direction.y,
+    0, 1), which is 0 while the sun is above the horizon; the term is
+    skipped then (the sky parameters are host values)."""
     p_ = params.on(d.device)
     atm, trans = atmosphere(d, p_["sun_direction"], p_["sun_intensity"])
     color = atm
@@ -241,6 +272,10 @@ def sky_radiance(d, params: SkyParams, time=0.0, star_dirs=None, star_colors=Non
         color = color * cloud_t[..., None] + cl
     if with_sun:
         color = color + sun_disc(d, params, trans) * cloud_t[..., None]
+    # the sun below the horizon (float32 on the host, as the reference's)
+    night = float(np.clip(np.float32(params.sun_direction[1]) * np.float32(2.0), 0.0, 1.0))
+    if with_stars and star_dirs is not None and night > 0.0:
+        color = color + stars(d, star_dirs, star_colors, trans) * night * cloud_t[..., None]
     # ground fade below the horizon
     below = torch.clamp(-d[..., 1] * 10.0, 0.0, 1.0)[..., None]
     return color * (1.0 - below) + below * p_["ambient"] * _vec([0.2, 0.18, 0.16], d)

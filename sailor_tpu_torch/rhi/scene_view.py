@@ -1,9 +1,10 @@
 """SceneView: the render-thread snapshot of the world (counterpart of
 sailor_tpu/rhi/scene_view.py, Runtime/RHI/SceneView.h).
 
-It holds geometry, lights, frame matrices, the material table (if any) and
+It holds geometry, lights, frame matrices, the material table (if any),
 the packed per-source-triangle attribute table, 49 columns wide with
-materials — the state a frame renders from, made once per scene.
+materials, and the star field — the state a frame renders from, made once
+per scene.
 """
 
 from __future__ import annotations
@@ -31,14 +32,24 @@ class SceneView:
     materials: Any = None    # assets.materials.MaterialTable, or None (vertex colours)
     attrs_packed: torch.Tensor | None = None  # (T, 37 | 49) pack_source_attributes
     prev_frame: FrameData | None = None  # last frame's camera (MotionBlur); frame if None
+    # the Sky node's stars (assets/stars.py): (S, 3) unit directions and
+    # linear RGB; (0, 3) on the scene's device when there are none
+    star_dirs: torch.Tensor | None = None
+    star_colors: torch.Tensor | None = None
 
     def __post_init__(self):
         if self.prev_frame is None:
             self.prev_frame = self.frame
+        dev = self.frame.view.device
+        for name in ("star_dirs", "star_colors"):
+            v = getattr(self, name)
+            setattr(self, name, torch.zeros((0, 3), device=dev) if v is None
+                    else torch.as_tensor(v, dtype=torch.float32, device=dev))
 
     @classmethod
     def create(cls, geometry, lights, frame, sky=None, materials=None,
-               pack_attrs: bool = True, attrs_packed=None, prev_frame=None):
+               pack_attrs: bool = True, attrs_packed=None, prev_frame=None,
+               star_dirs=None, star_colors=None):
         if pack_attrs and attrs_packed is None and geometry is not None:
             from sailor_tpu_torch.raster.interpolate import pack_source_attributes
 
@@ -46,7 +57,8 @@ class SceneView:
         return cls(geometry=geometry, lights=lights, frame=frame,
                    sky=sky if sky is not None else SkyParams.default(),
                    materials=materials, attrs_packed=attrs_packed,
-                   prev_frame=prev_frame if prev_frame is not None else frame)
+                   prev_frame=prev_frame if prev_frame is not None else frame,
+                   star_dirs=star_dirs, star_colors=star_colors)
 
 
 GEOMETRY_KEYS = ("position", "normal", "uv", "color", "indices", "material_id")
@@ -68,7 +80,8 @@ def scene_from_numpy(arrays: dict[str, np.ndarray], device) -> SceneView:
     (the sun direction already normalised) into the default sky, and
     ``materials.<f>`` for the fields of a ``MaterialTable`` (its tensors
     as arrays, its host bools and tuples as they are; see
-    ``MaterialTable.from_arrays``), without which the scene has none."""
+    ``MaterialTable.from_arrays``), without which the scene has none, and
+    ``star_dirs``/``star_colors`` (S, 3), without which it has no stars."""
     def t(key):
         return torch.from_numpy(np.array(arrays[key])).to(device)
 
@@ -88,5 +101,6 @@ def scene_from_numpy(arrays: dict[str, np.ndarray], device) -> SceneView:
         from sailor_tpu_torch.assets.materials import MaterialTable
 
         materials = MaterialTable.from_arrays(arrays, "materials.", device)
+    stars = {k: t(k) for k in ("star_dirs", "star_colors") if k in arrays}
     return SceneView.create(geo, lights, frame, sky=sky, materials=materials,
-                            attrs_packed=packed, prev_frame=prev)
+                            attrs_packed=packed, prev_frame=prev, **stars)

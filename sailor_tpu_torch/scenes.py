@@ -344,3 +344,27 @@ def flagship_world_doc(num_lights: int, num_objects: int, seed: int = 11,
     for i, o in enumerate(objs):
         o["instanceId"] = f"{i:016x}"
     return {"name": "FlagshipWorld", "gameObjects": objs}
+
+
+def mesh_boxes(doc: dict) -> list[tuple[np.ndarray, np.ndarray]]:
+    """World-space bounds (lo, hi) of each solid mesh object of a `.world`
+    document's top-level objects (a primitive's vertices rotated, scaled
+    and moved as the object is); flat meshes, such as a ground plane, have
+    none. Debug boxes for the engine's night cell: one ``draw_aabb`` each."""
+    from sailor_tpu_torch.engine.components import primitive_mesh
+
+    boxes = []
+    for o in doc["gameObjects"]:
+        for c in o["components"]:
+            if c["typename"] != "MeshRendererComponent":
+                continue
+            mesh = primitive_mesh(c.get("mesh_asset") or "cube", c.get("mesh_params") or {})
+            if mesh is None:
+                continue
+            rot = m3.quat_to_mat3(torch.tensor(o["rotation"], dtype=torch.float32)).numpy()
+            p = (mesh.positions * np.asarray(o["scale"], np.float32)) @ rot.T + np.asarray(
+                o["position"], np.float32)
+            lo, hi = p.min(0), p.max(0)
+            if np.all(hi > lo):
+                boxes.append((lo, hi))
+    return boxes

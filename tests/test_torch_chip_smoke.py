@@ -487,3 +487,58 @@ def test_content_copy_is_a_scratch_working_directory():
         assert os.getcwd() == tmp and os.path.exists(os.path.join("content", "Editor.world"))
         open(os.path.join("content", "Editor.world.asset"), "w").close()
     assert os.getcwd() == cwd and not os.path.exists(tmp)
+
+
+def test_night_frame_agreement_bars():
+    """The night frame's card-versus-CPU bars: exact planes (LightIndices
+    too), Sky within 5e-5 * (1 + |ref|) + 2e-3 * |star term|, Main within
+    1e-4 relative or within the star term's allowance over 2 px on >= 99.5%
+    of pixels, Final within 2/255."""
+    gen = torch.Generator().manual_seed(1)
+    ref = {k: torch.rand(32, 64, 3, generator=gen) for k in ("Sky", "Main", "Final")}
+    ref.update(Depth=torch.rand(32, 64, generator=gen), TriId=torch.arange(32 * 64).reshape(32, 64),
+               LightIndices=torch.arange(4 * 8 * 16).reshape(4, 8, 16),
+               ShadowMaps=torch.rand(4, 8, 8, generator=gen), HiZCulledCount=torch.tensor(3))
+    term = torch.zeros(32, 64, 3)
+    term[10, 20] = 0.5  # one star
+    ok, line = chip_smoke.night_frame_agreement(dict(ref), ref, term)
+    assert ok and "LightIndices_equal=True" in line
+    star = torch.zeros(32, 64, 1)
+    star[10, 20] = 1.0
+    near = torch.zeros(32, 64, 1)
+    near[8:13, 18:23] = 1.0
+    for key, change, want in (
+            ("LightIndices", lambda t: t + (t == 7), False),
+            ("Sky", lambda t: t + star * 9e-4, True), ("Sky", lambda t: t + star * 1.2e-3, False),
+            ("Sky", lambda t: t + 2e-4, False),
+            ("Main", lambda t: t + near * 9e-4, True), ("Main", lambda t: t * 1.01, False),
+            ("Main", lambda t: t + torch.roll(near, 10, 1)[:, :, :] * (torch.arange(32) == 10)[
+                :, None, None] * 9e-4, True),  # 5 px away from the star: 0.24% of the frame
+            ("Main", lambda t: t + torch.roll(near, 10, 1) * 9e-4, False),  # 25 px: 1.2%
+            ("Final", lambda t: t + 2.1 / 255, False)):
+        got = dict(ref, **{key: change(ref[key])})
+        assert chip_smoke.night_frame_agreement(got, ref, term)[0] == want, (key, want)
+
+
+def test_twin_checked_holds_each_launch_and_restores(monkeypatch):
+    """twin_checked runs each B1-B3 launch's twin and fails on a launch
+    that disagrees; the wrappers are restored after."""
+    from sailor_tpu_torch.kernels import pbr_kernel
+
+    inner = pbr_kernel.shade_tiles_cuda
+    args = [torch.zeros(2, 16), torch.zeros(1, 1, 4, dtype=torch.int32),
+            torch.zeros(1, 1, dtype=torch.int32)] + [torch.rand(16, 16, k) for k in (3, 1, 1, 3, 3)]
+    args = args[:3] + [args[3], args[4][..., 0], args[5][..., 0], args[6], args[7], None,
+                       torch.zeros(3)]
+    want = pbr_kernel.shade_tiles_plain(*args)
+    monkeypatch.setattr(pbr_kernel, "shade_tiles_cuda", lambda *a: pbr_kernel.shade_tiles_plain(*a))
+    record = {}
+    with chip_smoke.twin_checked(record):
+        assert torch.equal(pbr_kernel.shade_tiles_cuda(*args), want)
+    assert record == {"shade_forward_plus": [0.0]}
+    monkeypatch.setattr(pbr_kernel, "shade_tiles_cuda",
+                        lambda *a: pbr_kernel.shade_tiles_plain(*a) * 1.001 + 1e-3)
+    with pytest.raises(RuntimeError, match="shade_forward_plus disagrees"):
+        with chip_smoke.twin_checked({}):
+            pbr_kernel.shade_tiles_cuda(*args)
+    assert pbr_kernel.shade_tiles_cuda is not inner  # the monkeypatched one, restored

@@ -29,9 +29,11 @@ Also: the port's render of tests/test_golden.py's ``forward_frame`` scene
 and config against tests/golden/forward_frame.png at test_golden's own bar
 (mean |diff| < 2.5 and p99 < 12 in u8); the port's counterparts of
 test_framegraph.py's full-pipeline, debug-compose, incremental
-environment and sky-cache tests; the refusals (stars, and DebugDraw and
-RenderOverlay given what their full paths need) and RenderTransparent's
-blend over Main given a transparent queue.
+environment and sky-cache tests; stars, DebugDraw and RenderOverlay given
+what their full paths need (once refusals: test_torch_stars.py,
+test_torch_debug_draw.py and test_torch_overlay.py hold them to the
+reference) and RenderTransparent's blend over Main given a transparent
+queue.
 """
 
 import os
@@ -316,21 +318,31 @@ def test_sky_cache_key_matches_reference():
 
 
 def test_stars_raise():
-    d = torch.nn.functional.normalize(torch.randn(4, 8, 3), dim=-1)
-    with pytest.raises(NotImplementedError, match="stars"):
-        sky.sky_radiance(d, sky.SkyParams.default(), with_stars=True)
+    """Once the refusal of stars; now they draw: under a night sun the sky
+    toward each catalogue star above the horizon brightens, under the
+    default (day) sun it is the starless sky."""
+    from sailor_tpu_torch.assets import stars
 
-
-class _Lines:
-    has_lines = True
+    sd, sc = (torch.from_numpy(a) for a in stars.procedural(256, seed=0))
+    d = sd[sd[:, 1] > 0.1]
+    for sun, lit in (((-0.35, 0.7, -0.3), True), (None, False)):
+        p = sky.SkyParams.default() if sun is None else sky.SkyParams.default(sun_direction=sun)
+        with_stars = sky.sky_radiance(d, p, star_dirs=sd, star_colors=sc, with_stars=True)
+        without = sky.sky_radiance(d, p)
+        if lit:
+            assert len(d) > 50 and bool((with_stars > without).all(-1).all())
+        else:
+            assert torch.equal(with_stars, without)
 
 
 @pytest.mark.parametrize("node", ["RenderTransparent", "DebugDraw", "RenderOverlay"])
 def test_pass_through_node_refuses_full_path(node):
-    """With nothing to draw each node passes Main through. DebugDraw and
-    RenderOverlay refuse their full paths; RenderTransparent's is ported
-    (test_torch_frame_queues.py holds it to the reference): given a
-    transparent queue it blends over Main."""
+    """With nothing to draw each node passes Main through. Their full paths
+    were once refused; now each draws: RenderTransparent, given a
+    transparent queue, blends over Main (test_torch_frame_queues.py holds
+    it to the reference), DebugDraw splats a line across the view into
+    Main, and RenderOverlay blends an opaque 8x8 canvas into Final's
+    top-left corner and nothing else."""
     scene = _framegraph_scene()
     main = torch.rand(FH, FW, 3)
     targets = {"Main": main, "Final": main.clone()}
@@ -350,8 +362,23 @@ def test_pass_through_node_refuses_full_path(node):
         assert out["Main"] is not main and not torch.equal(out["Main"], main)
         return
     if node == "DebugDraw":
-        ctx.config = {"debug_context": _Lines()}
-    else:
-        ctx.state = {"overlay/canvas": torch.zeros(8, 8, 4)}
-    with pytest.raises(NotImplementedError):
-        cls({}).process(ctx, dict(targets))
+        from sailor_tpu_torch.rhi.debug_context import DebugContext
+
+        # a line across the view: two NDC points at mid depth, unprojected
+        inv = m3.inverse(scene.frame.view_projection)
+        ends = [m3.homogenize(inv @ torch.tensor([x, 0.0, 0.5, 1.0])) for x in (-0.8, 0.8)]
+        dbg = DebugContext()
+        dbg.draw_line(ends[0].numpy(), ends[1].numpy(), (1.0, 0.0, 1.0))
+        ctx.config = {"debug_context": dbg}
+        out = cls({}).process(ctx, dict(targets))
+        drawn = (out["Main"] == torch.tensor([1.0, 0.0, 1.0])).all(-1)
+        assert int(drawn.sum()) > FW // 4 and torch.equal(out["Main"][~drawn], main[~drawn])
+        return
+    canvas = torch.rand(8, 8, 4)
+    canvas[..., 3] = 1.0
+    ctx.state = {"overlay/canvas": canvas}
+    out = cls({}).process(ctx, dict(targets))
+    assert torch.equal(out["Final"][:8, :8], canvas[..., :3])
+    rest = torch.ones(FH, FW, dtype=torch.bool)
+    rest[:8, :8] = False
+    assert torch.equal(out["Final"][rest], targets["Final"][rest])

@@ -87,6 +87,9 @@ def scene_arrays(scene) -> dict:
     out["attrs_packed"] = np.asarray(scene.attrs_packed)
     out.update({f"sky.{f.name}": np.asarray(getattr(scene.sky, f.name))
                 for f in dataclasses.fields(SkyParams)})
+    if scene.star_dirs.shape[0]:
+        out["star_dirs"] = np.asarray(scene.star_dirs)
+        out["star_colors"] = np.asarray(scene.star_colors)
     return out
 
 

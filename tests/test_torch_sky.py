@@ -16,9 +16,11 @@
   sphere, poles, seam and texel centres included (atan2 and acos differ
   by an ulp between the packages, which moves the bilinear weights;
   measured 1.1e-6);
-- stars raise NotImplementedError; ``cloud_stride`` 2 on a 2-D ray grid
-  (clouds marched on every other ray and upsampled) matches the reference
-  at the sky's bound.
+- stars under the night sun on the same grid (the reference's
+  ``procedural(1024)`` field) within the sky's bound plus 2e-3 of the star
+  term (test_torch_stars.py's bar), lighting >= 4 grid directions;
+  ``cloud_stride`` 2 on a 2-D ray grid (clouds marched on every other ray
+  and upsampled) matches the reference at the sky's bound.
 """
 
 import jax.numpy as jnp
@@ -112,9 +114,21 @@ def test_env_bake_and_lookup_match_reference():
 
 
 def test_stars_and_cloud_stride_raise():
-    d = torch.from_numpy(_grid(4, 8))
-    with pytest.raises(NotImplementedError, match="stars"):
-        sky.sky_radiance(d, sky.SkyParams.default(), with_stars=True)
+    """Once the refusal of stars; now the stars' parity on the grid, and
+    ``cloud_stride``'s."""
+    from sailor_tpu.assets import stars as jax_stars
+    from test_torch_stars import NIGHT_SUN, star_bar
+
+    sd, sc = jax_stars.procedural(1024, seed=2)
+    d = _grid()
+    want = np.asarray(jax_sky.sky_radiance(jnp.asarray(d), jax_sky.SkyParams.default(
+        sun_direction=NIGHT_SUN), 1.0, jnp.asarray(sd), jnp.asarray(sc), with_stars=True))
+    p = sky.SkyParams.default(sun_direction=NIGHT_SUN)
+    got = sky.sky_radiance(torch.from_numpy(d), p, 1.0, torch.from_numpy(sd),
+                           torch.from_numpy(sc), with_stars=True).numpy()
+    term = got - sky.sky_radiance(torch.from_numpy(d), p, 1.0).numpy()
+    assert (np.abs(term).max(-1) > 1e-6).sum() >= 4
+    assert np.all(np.abs(got - want) <= star_bar(want, term))
     g = _grid()
     _close(sky.sky_radiance(torch.from_numpy(g), sky.SkyParams.default(), 3.0,
                             cloud_stride=2).numpy(),

@@ -140,9 +140,14 @@ def test_world_tick_builds_snapshots():
     w.tick(1 / 60)
     assert w.lighting.snapshot.num == 1
     assert w.meshes.geometry.indices.shape[0] == 12
-    assert w.scene_view().frame is not None
-    with pytest.raises(NotImplementedError, match="A 4"):
-        w.scene_view(stars=(np.zeros((1, 3)), np.zeros((1, 3))))
+    view = w.scene_view()
+    assert view.frame is not None and tuple(view.star_dirs.shape) == (0, 3)
+    # stars go to the world's device once for each pair of arrays
+    pair = (np.ones((2, 3), np.float32), np.zeros((2, 3), np.float32))
+    first = w.scene_view(stars=pair)
+    assert first.star_dirs.shape == (2, 3) and torch.equal(first.star_dirs, torch.ones(2, 3))
+    assert w.scene_view(stars=pair).star_dirs is first.star_dirs
+    assert w.scene_view(stars=(pair[0].copy(), pair[1])).star_dirs is not first.star_dirs
 
 
 def test_test_component_spawns_lights_and_destroy():
