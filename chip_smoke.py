@@ -106,6 +106,24 @@ Phases, each printed as it ends:
      launch is held to its twin, a profiled frame; then a 256x128 night
      frame pair on the card against the CPU path (night_frame_agreement;
      the debug pixels and the HUD composite exact);
+  6h. content: content-glb-full, the flagship scene's geometry written as a
+     GLB at run time (``flagship_glb``: one node a mesh, 8 materials,
+     procedural_test_maps(0, 256) as embedded PNG albedo and normal maps)
+     and read back through the asset registry (gltf.load_merged, the
+     port's PNG decoder) as tests/test_golden.py's render_content does,
+     through all of DefaultRenderer.renderer at 1920x1088: 1 warm-up + 5
+     frames beside the untextured flagship-full frame in turns, the
+     importer's host ms, syncs, launches (B1-B3 checked), peak memory,
+     per-node ms; then the node graph (Clear, Particles with a baked
+     4096-particle fountain, Blit into a 480x272 thumbnail,
+     CopyTextureToRam) for 1 + 5 frames (Particles ms, particles valid,
+     bins' overflow, the thumbnail's shape) and ``process_views`` with two
+     cameras over two steps (each view's ms). engine-material-world:
+     EngineLoop over the flagship world with a MaterialLibrary of 8 .mat
+     files written at run time (PNG maps, a Masked and a Transparent
+     material), 1 + 5 frames, then a .mat edit, the hot reload (rebuild
+     ms) and frame 7: the edited material's pixels change, the others
+     hold. Then 256x128 versions of each on the card against the CPU path;
   7. tracer kernels: the sweep intersector's kernels (B4 slab entry with
      the visit tables, B5 cluster sweep and B6 dense-grid sweep, closest
      and any hit) against their plain versions on the path tracer's own
@@ -125,6 +143,13 @@ Phases, each printed as it ends:
      profiled sample (with each port kernel's launches and mean device
      time); the image is checked (finite, >= 0) and a 64x64 render on the card is held
      against the same render on the CPU path with the same uniforms;
+  8b. content-glb-trace: the material-ball scene written as a GLB (9
+     materials, the procedural albedo embedded as PNG) and traced as
+     examples/trace.py --gltf does (render_cached, the default sky baked)
+     at 512x512, 4 bounces, 4 spp: 1 warm-up + 3 renders beside renders of
+     the material-ball scene built in code, in turns (Mrays/s, peak; B4
+     and B5 launches checked), and a 64x64 render on the card against the
+     CPU path;
   9. grid trace: the same scene with DMA_SWEEP off (B6 in place of B5) at
      4 spp: 1 warm-up + 2 renders, Mrays/s, peak memory, launches, a
      profiled sample; the image equals the B5 render's at the same seed;
@@ -3514,6 +3539,871 @@ def check_small_night():
               "the card's night frame disagrees with the CPU path")
 
 
+# --- content: GLB, .mat and .particles files written at run time -------------
+
+
+class GltfWriter:
+    """A glTF 2.0 document and its binary buffer, built in memory (test
+    tooling: the content phases write their models with it, and
+    tests/test_torch_assets.py holds both packages' loaders to what it
+    writes)."""
+
+    TYPES = {1: "SCALAR", 2: "VEC2", 3: "VEC3", 4: "VEC4", 16: "MAT4"}
+    COMPONENTS = {"float32": 5126, "uint32": 5125, "uint16": 5123, "int16": 5122,
+                  "uint8": 5121, "int8": 5120}
+
+    def __init__(self):
+        self.doc = {"asset": {"version": "2.0"}, "scene": 0, "scenes": [{"nodes": []}]}
+        self.bin = bytearray()
+
+    def _add(self, key: str, item: dict) -> int:
+        self.doc.setdefault(key, []).append(item)
+        return len(self.doc[key]) - 1
+
+    def view(self, data: bytes, stride: int | None = None) -> int:
+        """A buffer view of ``data`` (4-byte aligned), strided if asked."""
+        self.bin += b"\0" * (-len(self.bin) % 4)
+        bv = {"buffer": 0, "byteOffset": len(self.bin), "byteLength": len(data)}
+        if stride:
+            bv["byteStride"] = stride
+        self.bin += data
+        return self._add("bufferViews", bv)
+
+    def accessor(self, arr, *, normalized: bool = False, view: int | None = None,
+                 offset: int = 0, dtype=None, count: int | None = None,
+                 ncomp: int | None = None) -> int:
+        """An accessor of the (N,) or (N, C) array ``arr`` in a view of its
+        own, or of ``count`` x ``ncomp`` items of ``dtype`` at ``offset`` in
+        ``view``."""
+        import numpy as np
+
+        if view is None:
+            arr = np.ascontiguousarray(arr)
+            dtype, count = arr.dtype, arr.shape[0]
+            ncomp = arr.shape[1] if arr.ndim > 1 else 1
+            view = self.view(arr.tobytes())
+        acc = {"bufferView": view, "componentType": self.COMPONENTS[np.dtype(dtype).name],
+               "count": int(count), "type": self.TYPES[ncomp]}
+        if offset:
+            acc["byteOffset"] = offset
+        if normalized:
+            acc["normalized"] = True
+        return self._add("accessors", acc)
+
+    def interleaved(self, arrays) -> list:
+        """One strided view of float32 (N, C_i) arrays, vertex after vertex;
+        returns their accessors."""
+        import numpy as np
+
+        arrays = [np.asarray(a, np.float32) for a in arrays]
+        widths = [a.shape[1] for a in arrays]
+        stride = 4 * sum(widths)
+        view = self.view(np.concatenate(arrays, 1).tobytes(), stride=stride)
+        offs = np.concatenate([[0], np.cumsum(widths)[:-1]]) * 4
+        return [self.accessor(None, view=view, offset=int(o), dtype=np.float32,
+                              count=a.shape[0], ncomp=w)
+                for a, w, o in zip(arrays, widths, offs)]
+
+    def png_texture(self, png: bytes) -> int:
+        """An embedded PNG image and a texture of it; returns the texture."""
+        img = self._add("images", {"bufferView": self.view(png), "mimeType": "image/png"})
+        return self._add("textures", {"source": img})
+
+    def material(self, albedo, metallic: float, roughness: float, emissive=(0, 0, 0),
+                 albedo_texture: int | None = None, normal_texture: int | None = None,
+                 **extra) -> int:
+        pbr = {"baseColorFactor": [float(v) for v in albedo] + [1.0][:4 - len(albedo)],
+               "metallicFactor": float(metallic), "roughnessFactor": float(roughness)}
+        m = {"pbrMetallicRoughness": pbr, "emissiveFactor": [float(v) for v in emissive]}
+        if albedo_texture is not None:
+            pbr["baseColorTexture"] = {"index": albedo_texture}
+        if normal_texture is not None:
+            m["normalTexture"] = {"index": normal_texture}
+        m.update(extra)
+        return self._add("materials", m)
+
+    def mesh(self, mesh, material: int) -> int:
+        """A mesh of one primitive from a ``primitives.Mesh``."""
+        import numpy as np
+
+        attrs = {"POSITION": self.accessor(mesh.positions), "NORMAL": self.accessor(mesh.normals),
+                 "TEXCOORD_0": self.accessor(mesh.uvs)}
+        idx = np.asarray(mesh.indices, np.uint32).reshape(-1)
+        prim = {"attributes": attrs, "indices": self.accessor(idx), "material": material}
+        return self._add("meshes", {"primitives": [prim]})
+
+    def node(self, root: bool = True, **node) -> int:
+        i = self._add("nodes", node)
+        if root:
+            self.doc["scenes"][0]["nodes"].append(i)
+        return i
+
+    def glb(self) -> bytes:
+        import struct
+
+        self.bin += b"\0" * (-len(self.bin) % 4)
+        doc = dict(self.doc, buffers=[{"byteLength": len(self.bin)}])
+        js = json.dumps(doc).encode()
+        js += b" " * (-len(js) % 4)
+        total = 12 + 8 + len(js) + 8 + len(self.bin)
+        return (struct.pack("<4sII", b"glTF", 2, total)
+                + struct.pack("<II", len(js), 0x4E4F534A) + js
+                + struct.pack("<II", len(self.bin), 0x004E4942) + bytes(self.bin))
+
+
+def map_png(img) -> bytes:
+    """A float (H, W, 4) map in [0, 1] as an 8-bit RGB PNG (its alpha is 1)."""
+    import numpy as np
+
+    from sailor_tpu_torch.utils.png import encode_png
+
+    return encode_png(np.clip(np.round(np.asarray(img)[..., :3] * 255.0), 0, 255)
+                      .astype(np.uint8))
+
+
+def flagship_objects(num_objects: int, seed: int = 11):
+    """The flagship scene's meshes and translations from its own RNG calls
+    (``scenes._flagship``): [(primitives.Mesh, (x, y, z))], the 60 m
+    ground first."""
+    import numpy as np
+
+    from sailor_tpu_torch.assets import primitives
+
+    rng = np.random.default_rng(seed)
+    out = [(primitives.plane(60.0), (0.0, 0.0, 0.0))]
+    for i in range(num_objects):
+        t = tuple(float(v) for v in (rng.uniform(-20, 20), rng.uniform(0.4, 2.0),
+                                     rng.uniform(-20, 20)))
+        mesh = (primitives.cube(rng.uniform(0.8, 2.0)) if i % 2
+                else primitives.uv_sphere(rng.uniform(0.4, 1.0), 16, 32))
+        out.append((mesh, t))
+    return out
+
+
+CONTENT_MATERIALS = 8  # the content GLB's materials: the ground's, then 7 for the objects
+
+
+def flagship_glb(num_objects: int, maps) -> bytes:
+    """The flagship scene's geometry as a GLB: one node a mesh with its
+    translation, the ground material 0 and object i material 1 + i % 7;
+    ``maps`` (procedural_test_maps) embedded as PNG: the albedo map on
+    materials 0-3, the normal map on materials 0 and 1."""
+    w = GltfWriter()
+    albedo, normal = w.png_texture(map_png(maps[0])), w.png_texture(map_png(maps[1]))
+    for m in range(CONTENT_MATERIALS):
+        w.material((0.55 + 0.05 * m, 0.6, 0.65 - 0.04 * m), metallic=0.1 * (m % 3),
+                   roughness=0.35 + 0.08 * m, albedo_texture=albedo if m < 4 else None,
+                   normal_texture=normal if m < 2 else None)
+    for i, (mesh, t) in enumerate(flagship_objects(num_objects)):
+        w.node(mesh=w.mesh(mesh, 0 if i == 0 else 1 + (i - 1) % 7), translation=list(t))
+    return w.glb()
+
+
+def balls_glb(maps, rings: int = 24, sectors: int = 48) -> bytes:
+    """The material-ball scene (``scenes.material_balls_soup``: a 40 m
+    ground and eight spheres, 9 materials) as a GLB, one node a mesh with
+    its translation; ``maps[0]`` embedded as the ground's PNG albedo."""
+    from sailor_tpu_torch.assets import primitives
+    from sailor_tpu_torch.scenes import material_balls_soup
+
+    _, mats = material_balls_soup(rings, sectors)
+    w = GltfWriter()
+    tex = w.png_texture(map_png(maps[0]))
+    for m in range(len(mats["albedo"])):
+        w.material(mats["albedo"][m], mats["metallic"][m], mats["roughness"][m],
+                   mats["emissive"][m], albedo_texture=tex if m == 0 else None)
+    w.node(mesh=w.mesh(primitives.plane(40.0), 0), translation=[0.0, 0.0, 0.0])
+    k = 1
+    for i in range(2):
+        for j in range(4):
+            w.node(mesh=w.mesh(primitives.uv_sphere(0.9, rings, sectors), k),
+                   translation=[(j - 1.5) * 2.2, 0.9, (i - 0.5) * 2.4])
+            k += 1
+    return w.glb()
+
+
+def rgba_png(img_u8) -> bytes:
+    """An (H, W, 4) uint8 image as an 8-bit RGBA PNG (filter 0)."""
+    import struct
+    import zlib
+
+    h, w = img_u8.shape[:2]
+    raw = b"".join(b"\x00" + img_u8[y].tobytes() for y in range(h))
+
+    def chunk(tag, data):
+        c = tag + data
+        return struct.pack(">I", len(data)) + c + struct.pack(">I", zlib.crc32(c) & 0xFFFFFFFF)
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 6, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+CONTENT_ROWS = ("albedo", "metallic", "roughness", "emissive", "albedo_texture",
+                "normal_texture", "queue", "alpha_cutoff", "opacity")
+
+
+def content_scene(folder, width, height, num_lights, num_objects, device="cuda",
+                  map_size=256):
+    """tests/test_golden.py's render_content path on the flagship scene:
+    ``flagship_glb`` written to ``folder``, loaded back through
+    ``AssetRegistry.load`` (gltf.load_merged) and
+    ``GLTF.load_texture_images``, the material rows through
+    ``MaterialTable.from_host`` (256-px textures); the flagship lights,
+    camera and sun. The GLB holds the ground, so no floor is added.
+    Returns (SceneView, {step: host ms})."""
+    import numpy as np
+    import torch
+
+    from sailor_tpu_torch.assets.gltf import GLTF
+    from sailor_tpu_torch.assets.materials import MaterialTable
+    from sailor_tpu_torch.assets.registry import AssetRegistry
+    from sailor_tpu_torch.raster.setup import Geometry
+    from sailor_tpu_torch.rhi.scene_view import SceneView
+    from sailor_tpu_torch.scenes import flagship_scene, procedural_test_maps
+
+    ms = {}
+    t0 = time.perf_counter()
+    path = os.path.join(folder, "flagship.glb")
+    with open(path, "wb") as f:
+        f.write(flagship_glb(num_objects, procedural_test_maps(0, map_size)))
+    ms["write"] = (time.perf_counter() - t0) * 1e3
+    reg = AssetRegistry(folder)
+    t0 = time.perf_counter()
+    soup, mats = reg.load(path)
+    ms["parse"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    images = GLTF.load(path).load_texture_images()
+    ms["decode"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    table = MaterialTable.from_host({k: mats[k] for k in CONTENT_ROWS}, images,
+                                    texture_size=256, device=device)
+    ms["table"] = (time.perf_counter() - t0) * 1e3
+    ref = flagship_scene(width, height, num_lights, num_objects, device=device)
+    geo = Geometry(**{k: torch.from_numpy(np.ascontiguousarray(soup[k])).to(ref.frame.view.device)
+                      for k in ("position", "normal", "uv", "color", "indices", "material_id")})
+    t0 = time.perf_counter()
+    scene = SceneView.create(geo, ref.lights, ref.frame, sky=ref.sky, materials=table)
+    ms["pack"] = (time.perf_counter() - t0) * 1e3
+    return scene, ms
+
+
+def at_time(scene, t):
+    """The scene with its frame's current time set to ``t`` seconds."""
+    import dataclasses
+
+    import torch
+
+    f = scene.frame
+    return dataclasses.replace(scene, frame=dataclasses.replace(
+        f, current_time=torch.tensor(t, dtype=torch.float32, device=f.view.device)))
+
+
+def nodes_graph(width, height, particles_path, device="cuda", config=None):
+    """DefaultRenderer.renderer's entries with Clear (Main, 0) first,
+    Particles (the baked ``particles_path``) after RenderTransparent, and
+    Blit of Final into a declared 480x272 Thumbnail followed by
+    CopyTextureToRam(Thumbnail) last: the editor-thumbnail use."""
+    from sailor_tpu_torch.framegraph import FrameGraph, FrameGraphAsset
+    from sailor_tpu_torch.rhi.types import TargetSpec
+
+    base = FrameGraphAsset.load(RENDERER)
+    frame = [{"name": "Clear", "target": "Main", "clearValue": 0.0}]
+    for e in base.frame:
+        frame.append(dict(e))
+        if e["name"] == "RenderTransparent":
+            frame.append({"name": "Particles", "asset": particles_path})
+    frame += [{"name": "Blit", "src": "Final", "dst": "Thumbnail"},
+              {"name": "CopyTextureToRam", "target": "Thumbnail"}]
+    asset = FrameGraphAsset(targets=base.targets + [TargetSpec("Thumbnail", width=480,
+                                                               height=272)],
+                            frame=frame, values=dict(base.values))
+    return FrameGraph(asset, width, height, dict(config or FULL_CONFIG), device=device)
+
+
+@contextlib.contextmanager
+def splat_stats():
+    """Records the stats of every particle splat (valid particles, binned
+    candidates dropped, slot iterations) as tensors, in call order."""
+    from sailor_tpu_torch.kernels import particles
+
+    inner, rows = particles.splat_particles, []
+
+    def recording(*args, **kw):
+        stats = {}
+        out = inner(*args, stats=stats, **kw)
+        rows.append(stats)
+        return out
+
+    particles.splat_particles = recording
+    try:
+        yield rows
+    finally:
+        particles.splat_particles = inner
+
+
+def synced_ms():
+    import torch
+
+    torch.cuda.synchronize()
+    return time.perf_counter() * 1e3
+
+
+def run_content_glb(card):
+    """content-glb-full: the flagship scene's geometry written as a GLB
+    (``flagship_glb``: 97 meshes, 8 materials, procedural_test_maps(0,
+    256) as PNG albedo on 4 and normal maps on 2), loaded back and
+    rendered as render_content does through all of DefaultRenderer.renderer
+    (FULL_CONFIG) at 1920x1088: 1 warm-up + 5 frames, each beside a frame
+    of the untextured flagship scene (flagship-full) on its own graph, in
+    turns. Frame ms, synchronising calls, launches (B1-B3 checked each
+    frame), peak memory, per-node ms, the importer's host ms. Then the
+    node graph (``nodes_graph``: Clear, Particles with a baked 4096-particle
+    fountain at the scene's centre, Blit to a 480x272 thumbnail,
+    CopyTextureToRam) for 1 + 5 frames, the trail carried in the state and
+    the time advanced 1/30 s a frame: frame ms, the Particles node's ms,
+    particles valid and bins' overflow, the thumbnail's shape from fetch;
+    and ``process_views`` with the flagship camera and one turned 90
+    degrees about y, two steps: each view's ms; a profiled cached frame of
+    the content scene, last. Returns the launches of all of these frames
+    but the profiled one."""
+    import dataclasses
+    import math
+    import tempfile
+
+    import torch
+
+    from sailor_tpu_torch.assets.particles import bake_fountain
+    from sailor_tpu_torch.framegraph.nodes import CopyTextureToRamNode
+    from sailor_tpu_torch.kernels import cuda_lib
+    from sailor_tpu_torch.scenes import flagship_scene
+
+    width, height, n_lights, n_objects = FLAGSHIP
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory() as folder:
+        scene, host_ms = content_scene(folder, width, height, n_lights, n_objects)
+        plain = flagship_scene(width, height, n_lights, n_objects)
+        print(f"content-glb-full: {scene.geometry.indices.shape[0]} triangles, "
+              f"{scene.materials.albedo.shape[0]} materials, "
+              f"{scene.materials.textures.shape[0]} textures, importer host ms "
+              + json.dumps({k: round(v, 3) for k, v in host_ms.items()}) + f" on {card}")
+        check(scene.geometry.indices.shape[0] == plain.geometry.indices.shape[0],
+              "content-glb-full: the GLB's soup is not the flagship's")
+        fg, fg_plain = _full_graph(width, height), _full_graph(width, height)
+        state, state_plain = fg.initial_state(), fg_plain.initial_state()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rows, plain_ms = [], []
+        for i in range(6):
+            cuda_lib.LAUNCHES.clear()
+            with sync_counter() as syncs:
+                t0 = synced_ms()
+                fg.prepare(scene, state)
+                targets, state = fg.process(scene, state)
+                ms = synced_ms() - t0
+                n_syncs = syncs()
+            launches = {k: cuda_lib.LAUNCHES.get(k, 0) for k in PATH_KERNELS}
+            add(cuda_lib.LAUNCHES)
+            for k in PATH_KERNELS:
+                check(launches[k] > 0, f"content-glb-full frame {i + 1} launched no {k}")
+            t0 = synced_ms()
+            fg_plain.prepare(plain, state_plain)
+            _, state_plain = fg_plain.process(plain, state_plain)
+            plain_ms.append(synced_ms() - t0)
+            rows.append({"frame": i + 1, "frame_ms": round(ms, 3),
+                         "flagship_full_ms": round(plain_ms[-1], 3), "syncs": n_syncs,
+                         "launches": launches})
+        peak = torch.cuda.max_memory_allocated()
+        final = targets["Final"]
+        cov = (targets["TriId"] >= 0).float().mean().item()
+        check(bool(torch.isfinite(final).all()) and cov > 0.3,
+              "content-glb-full: the frame is not finite or covers nothing")
+        _, _, per_node = fg.process_debug(scene, state)
+        mean = sum(r["frame_ms"] for r in rows[1:]) / 5
+        plain_mean = sum(plain_ms[1:]) / 5
+        print(f"content-glb-full {width}x{height}: frame_ms_2_6={[r['frame_ms'] for r in rows[1:]]} "
+              f"mean={mean:.3f} flagship_full_ms_2_6={[round(m, 3) for m in plain_ms[1:]]} "
+              f"flagship_full_mean={plain_mean:.3f} peak_mem_bytes={peak} coverage={cov:.4f} "
+              f"on {card}")
+        for r in rows:
+            print("content-glb-full frame " + json.dumps(r))
+        print("content-glb-full per_node_ms " + json.dumps(
+            {k: round(v, 3) for k, v in per_node.items()}))
+        del fg_plain, state_plain, plain
+
+        fountain = bake_fountain(frames=90, n=4096, fps=30)
+        ppath = os.path.join(folder, "fountain.particles")
+        fountain.save(ppath)
+        ng = nodes_graph(width, height, ppath)
+        nstate = ng.initial_state()
+        node_rows = []
+        with splat_stats() as stats, around_node("Particles", synced_ms) as particles_ms:
+            for i in range(6):
+                cuda_lib.LAUNCHES.clear()
+                s = at_time(scene, i / 30)
+                before = particles_ms[0]
+                t0 = synced_ms()
+                ng.prepare(s, nstate)
+                nt, nstate = ng.process(s, nstate)
+                thumb = CopyTextureToRamNode.fetch(nt)
+                ms = synced_ms() - t0
+                add(cuda_lib.LAUNCHES)
+                for k in PATH_KERNELS:
+                    check(cuda_lib.LAUNCHES.get(k, 0) > 0,
+                          f"content-glb-full nodes frame {i + 1} launched no {k}")
+                st = stats[-1]
+                node_rows.append({"frame": i + 1, "frame_ms": round(ms, 3),
+                                  "particles_ms": round(particles_ms[0] - before, 3),
+                                  "particles_valid": int(st["valid"]),
+                                  "bin_overflow": int(st["overflow"]),
+                                  "slot_iterations": int(st["slots"]),
+                                  "thumbnail": list(thumb["Thumbnail"].shape)})
+        for r in node_rows:
+            print("content-glb-full nodes frame " + json.dumps(r))
+        check(all(r["thumbnail"] == [272, 480, 3] for r in node_rows),
+              "content-glb-full: the thumbnail's readback has another shape")
+        check(node_rows[-1]["particles_valid"] > 0, "content-glb-full: no particle on screen")
+        check(bool(torch.isfinite(nstate["particles/trail"]).all())
+              and nstate["particles/trail"].sum().item() > 0,
+              "content-glb-full: the particle trail is empty")
+
+        turned = _turned(scene, math.pi / 2).frame
+        views = [ng.initial_state(), ng.initial_state()]
+        ng.prepare(scene, views[0])
+        ng.prepare(dataclasses.replace(scene, frame=turned), views[1])
+        view_ms = []
+        inner = ng.process
+
+        def timed(sc, st):
+            t0 = synced_ms()
+            out = inner(sc, st)
+            view_ms[-1].append(round(synced_ms() - t0, 3))
+            return out
+
+        ng.process = timed
+        try:
+            for step in range(2):
+                cuda_lib.LAUNCHES.clear()
+                view_ms.append([])
+                outs, views = ng.process_views(scene, views, [scene.frame, turned])
+                add(cuda_lib.LAUNCHES)
+        finally:
+            del ng.process
+        diff = (outs[0]["Final"] - outs[1]["Final"]).abs().mean().item()
+        print(f"content-glb-full process_views: view_ms_by_step={view_ms} "
+              f"mean_abs_final_diff={diff:.4f} on {card}")
+        check(diff > 1e-3, "content-glb-full: the two views rendered the same image")
+        profile(lambda: fg.process(scene, state), card, "profile_content_glb")
+    return total
+
+
+def check_small_content():
+    """The content paths at 256x128 on the card against the CPU path: the
+    content GLB frame (6 objects, 64-px maps) two frames through
+    DefaultRenderer.renderer (full_frame_agreement); the node graph
+    (512-particle fountain) two frames with the trail: the frame held the
+    same way, the thumbnail within 2/255 and the trail within 1e-4
+    relative (to max(|cpu|, 1e-3)) on >= 99.5% of pixels; and
+    process_views' two views of a step, each held the same way."""
+    import dataclasses
+    import math
+    import tempfile
+
+    import torch
+
+    from sailor_tpu_torch.assets.particles import bake_fountain
+    from sailor_tpu_torch.framegraph.nodes import CopyTextureToRamNode
+
+    config = dict(FULL_CONFIG, shadow_resolution=128)
+    out = {}
+    with tempfile.TemporaryDirectory() as folder:
+        ppath = os.path.join(folder, "fountain.particles")
+        bake_fountain(frames=30, n=512, fps=30).save(ppath)
+        for dev in ("cuda", "cpu"):
+            scene, _ = content_scene(folder, 256, 128, 24, 6, device=dev, map_size=64)
+            fg = _full_graph(256, 128, dev, config)
+            state = fg.initial_state()
+            frames = []
+            for s in (scene, _turned(scene, 0.05)):
+                fg.prepare(s, state)
+                t, state = fg.process(s, state)
+                frames.append({k: t[k].cpu() for k in FULL_FRAME_KEYS})
+            ng = nodes_graph(256, 128, ppath, dev, config)
+            nstate = ng.initial_state()
+            node_frames = []
+            for i in range(2):
+                s = at_time(scene, i / 30)
+                ng.prepare(s, nstate)
+                t, nstate = ng.process(s, nstate)
+                f = {k: t[k].cpu() for k in FULL_FRAME_KEYS}
+                f["Thumbnail"] = torch.from_numpy(CopyTextureToRamNode.fetch(t)["Thumbnail"])
+                f["trail"] = nstate["particles/trail"].cpu()
+                node_frames.append(f)
+            turned = _turned(scene, math.pi / 2).frame
+            views = [ng.initial_state(), ng.initial_state()]
+            ng.prepare(scene, views[0])
+            ng.prepare(dataclasses.replace(scene, frame=turned), views[1])
+            outs, _ = ng.process_views(scene, views, [scene.frame, turned])
+            out[dev] = (frames, node_frames, [{k: o[k].cpu() for k in FULL_FRAME_KEYS}
+                                              for o in outs])
+    (gf, gn, gv), (rf, rn, rv) = out["cuda"], out["cpu"]
+    for i, (g, r) in enumerate(zip(gf, rf)):
+        ok, line = full_frame_agreement(g, r)
+        print(f"small content-glb frame {i + 1} card vs cpu: {line}")
+        check(ok, "the card's content frame disagrees with the CPU path")
+    for i, (g, r) in enumerate(zip(gn, rn)):
+        ok, line = full_frame_agreement(g, r)
+        thumb = (g["Thumbnail"] - r["Thumbnail"]).abs().max().item()
+        rel = ((g["trail"] - r["trail"]).abs() / r["trail"].abs().clamp(min=1e-3)).amax(-1)
+        trail = (rel <= 1e-4).float().mean().item()
+        print(f"small content-glb nodes frame {i + 1} card vs cpu: {line} "
+              f"thumbnail_max_err={thumb:.3g} trail_within_1e-4={trail:.5f} "
+              f"trail_sum={r['trail'].sum().item():.4f}")
+        check(ok and thumb <= 2 / 255 and trail >= 0.995,
+              "the card's node graph disagrees with the CPU path")
+    for i, (g, r) in enumerate(zip(gv, rv)):
+        ok, line = full_frame_agreement(g, r)
+        print(f"small content-glb process_views view {i + 1} card vs cpu: {line}")
+        check(ok, "the card's process_views disagrees with the CPU path")
+
+
+def glb_trace_scene(folder, device="cuda", rings=24, sectors=48, map_size=256):
+    """examples/trace.py --gltf's path with render_tracer_textured's images:
+    ``balls_glb`` written to ``folder``, loaded through the registry with
+    ``GLTF.load_texture_images`` as mats["images"], the default sky baked,
+    through ``path_tracer.scene_from_mesh``; the tracer demo's camera.
+    Returns ((TraceScene, cam, view, proj), {step: host ms})."""
+    from sailor_tpu_torch.assets.gltf import GLTF
+    from sailor_tpu_torch.assets.registry import AssetRegistry
+    from sailor_tpu_torch.kernels.sky import SkyParams
+    from sailor_tpu_torch.raytracing import path_tracer
+    from sailor_tpu_torch.scenes import procedural_test_maps, tracer_camera
+
+    ms = {}
+    path = os.path.join(folder, "balls.glb")
+    with open(path, "wb") as f:
+        f.write(balls_glb(procedural_test_maps(0, map_size), rings, sectors))
+    t0 = time.perf_counter()
+    soup, mats = AssetRegistry(folder).load(path)
+    mats = dict(mats)
+    ms["parse"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    mats["images"] = GLTF.load(path).load_texture_images()
+    mats["texture_size"] = map_size
+    ms["decode"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    scene = path_tracer.scene_from_mesh(soup, mats, sky=SkyParams.default(), device=device)
+    ms["scene_from_mesh"] = (time.perf_counter() - t0) * 1e3
+    return (scene, *tracer_camera(scene.tri_pack.device)), ms
+
+
+def run_content_trace(card):
+    """content-glb-trace: the material-ball scene as a GLB (9 materials,
+    procedural_test_maps(0)'s albedo embedded as PNG on the ground) loaded
+    through the registry and traced as examples/trace.py --gltf does
+    (``render_cached``, the default sky baked) at 512x512, 4 bounces, 4
+    spp, 1 warm-up + 3 renders, each beside a render of material-balls
+    (the same scene built in code, with all four maps) in turns: render
+    ms, Mrays/s, peak memory, B4 and B5 launches (2 * bounces * spp a
+    render, checked); a profiled 1-spp sample, last. Returns the launches
+    of the GLB renders."""
+    import tempfile
+
+    import torch
+
+    from sailor_tpu_torch.kernels import cuda_lib
+    from sailor_tpu_torch.kernels.sky import SkyParams
+    from sailor_tpu_torch.raytracing import path_tracer
+    from sailor_tpu_torch.scenes import material_balls
+
+    width, height, bounces, _ = TRACER
+    spp = TRACER_SPP_CUT
+    kw = dict(width=width, height=height, spp=spp, max_bounces=bounces)
+    with tempfile.TemporaryDirectory() as folder:
+        (scene, cam, view, proj), host_ms = glb_trace_scene(folder)
+    balls = material_balls(sky=SkyParams.default(), textured=True)
+    print(f"content-glb-trace: {scene.tri_pack.shape[0]} triangles, textures "
+          f"{tuple(scene.textures.shape)}, importer host ms "
+          + json.dumps({k: round(v, 3) for k, v in host_ms.items()}) + f" on {card}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    total, rows = {}, []
+    for i in range(4):
+        cuda_lib.LAUNCHES.clear()
+        ms, (img, rays) = _wall_ms(lambda: path_tracer.render_cached(
+            scene, cam, view, proj, seed=i, **kw))
+        launches = dict(cuda_lib.LAUNCHES)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        bms, (bimg, brays) = _wall_ms(lambda: path_tracer.render_cached(*balls, seed=i, **kw))
+        rows.append({"render": i, "ms": round(ms, 3), "mrays_per_s": round(
+            float(rays) / ms / 1e3, 4), "balls_ms": round(bms, 3),
+            "balls_mrays_per_s": round(float(brays) / bms / 1e3, 4)})
+        for k in ("slab_entry", "sweep"):
+            check(launches.get(k, 0) == 2 * bounces * spp,
+                  f"content-glb-trace render {i} launched {k} {launches.get(k, 0)} times")
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(torch.isfinite(img).all()) and img.min().item() >= 0.0,
+          "content-glb-trace: the image is not finite and >= 0")
+    timed = rows[1:]
+    print(f"content-glb-trace {width}x{height} b{bounces} spp{spp}: "
+          f"render_ms={[r['ms'] for r in timed]} mrays_per_s={[r['mrays_per_s'] for r in timed]} "
+          f"material_balls_mrays_per_s={[r['balls_mrays_per_s'] for r in timed]} "
+          f"peak_mem_bytes={peak} on {card}")
+    for r in rows:
+        print("content-glb-trace render " + json.dumps(r))
+    profile(lambda: path_tracer.render_cached(scene, cam, view, proj, seed=9, **dict(kw, spp=1)),
+            card, "profile_content_glb_trace_sample")
+    return total
+
+
+def small_glb_trace(device):
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as folder:
+        return glb_trace_scene(folder, device, 12, 24, 64)[0]
+
+
+# the engine world with a material library: 8 .mat files over the flagship
+# world's objects, written at run time (MATERIAL_FILES: name -> (YAML, texture))
+MATERIAL_FILES = {
+    "ground.mat": ("renderQueue: Opaque\nuniformsVec4:\n  material.albedo: [0.9, 0.9, 0.9, 1]\n"
+                   "uniformsFloat:\n  material.roughness: 0.7\n"
+                   "samplers:\n  baseSampler: albedo.png\n  normalSampler: normal.png\n"),
+    "brick.mat": ("uniformsVec4:\n  material.albedo: [0.8, 0.45, 0.35, 1]\n"
+                  "samplers:\n  baseSampler: albedo.png\n"),
+    "paint.mat": "uniformsVec4:\n  material.albedo: [0.2, 0.3, 0.85, 1]\n"
+                 "uniformsFloat:\n  material.roughness: 0.3\n",
+    "metal.mat": "uniformsVec4:\n  material.albedo: [0.95, 0.8, 0.5, 1]\n"
+                 "uniformsFloat:\n  material.metallic: 1.0\n  material.roughness: 0.25\n",
+    "leaves.mat": ("renderQueue: Masked\nuniformsVec4:\n  material.albedo: [0.5, 0.8, 0.35, 1]\n"
+                   "uniformsFloat:\n  material.alphaCutoff: 0.5\n"
+                   "samplers:\n  baseSampler: stripes.png\n"),
+    "glass.mat": "renderQueue: Transparent\nuniformsVec4:\n  material.albedo: [0.6, 0.8, 1, 0.4]\n",
+    "rubber.mat": "uniformsVec4:\n  material.albedo: [0.1, 0.1, 0.1, 1]\n"
+                  "uniformsFloat:\n  material.roughness: 0.95\n",
+    "emissive.mat": "uniformsVec4:\n  material.albedo: [0.7, 0.7, 0.6, 1]\n"
+                    "  material.emission: [2.0, 1.2, 0.4, 0]\n",
+}
+EDITED = list(MATERIAL_FILES).index("paint.mat")  # the hot-reloaded material's id
+EDITED_ALBEDO = ("[0.2, 0.3, 0.85, 1]", "[0.1, 0.9, 0.15, 1]")  # its albedo turns green
+
+
+def material_folder(folder, map_size):
+    """Writes MATERIAL_FILES and their PNGs (procedural_test_maps(0)'s albedo
+    and normal maps, and the albedo with 0/1 alpha stripes) into
+    ``folder``; returns the .mat paths (list index = material_id)."""
+    import numpy as np
+
+    from sailor_tpu_torch.scenes import procedural_test_maps
+
+    maps = procedural_test_maps(0, map_size)
+    with open(os.path.join(folder, "albedo.png"), "wb") as f:
+        f.write(map_png(maps[0]))
+    with open(os.path.join(folder, "normal.png"), "wb") as f:
+        f.write(map_png(maps[1]))
+    stripes = np.round(maps[0] * 255).astype(np.uint8)
+    stripes[..., 3] = np.where((np.arange(map_size) // 8) % 2 == 0, 255, 0)[:, None]
+    with open(os.path.join(folder, "stripes.png"), "wb") as f:
+        f.write(rgba_png(stripes))
+    paths = []
+    for name, text in MATERIAL_FILES.items():
+        paths.append(os.path.join(folder, name))
+        with open(paths[-1], "w") as f:
+            f.write(text)
+    return paths
+
+
+def material_world_doc(num_lights, num_objects, aspect, orbit=True):
+    """flagship_world_doc with object i's material_id = i % 8 (the ground
+    0); ``orbit`` False stops the camera."""
+    from sailor_tpu_torch.scenes import flagship_world_doc
+
+    doc = flagship_world_doc(num_lights, num_objects, aspect=aspect)
+    k = 0
+    for o in doc["gameObjects"]:
+        for c in o["components"]:
+            if c["typename"] == "MeshRendererComponent":
+                c["material_id"] = k % len(MATERIAL_FILES)
+                k += 1
+            if c["typename"] == "TestComponent" and not orbit:
+                c["orbit_speed"] = 0.0
+    return doc
+
+
+def edit_material(path):
+    """Rewrites the edited .mat's albedo and moves its time stamp on, so the
+    registry's next hot-reload poll re-imports it."""
+    with open(path) as f:
+        text = f.read()
+    with open(path, "w") as f:
+        f.write(text.replace(*EDITED_ALBEDO))
+    t = time.time() + 5
+    os.utime(path, (t, t))
+
+
+def material_loop(folder, width, height, num_lights, num_objects, config, device,
+                  map_size=256, orbit=True):
+    """An EngineLoop over material_world_doc with a MaterialLibrary of
+    MATERIAL_FILES (texture_size map_size, mips) as World.materials.
+    Returns (loop, library, registry, .mat paths, library build ms)."""
+    from sailor_tpu_torch.assets.materials import MaterialLibrary
+    from sailor_tpu_torch.assets.registry import AssetRegistry
+
+    paths = material_folder(folder, map_size)
+    reg = AssetRegistry(folder)
+    reg.scan_content_folder()
+    t0 = time.perf_counter()
+    lib = MaterialLibrary(reg, paths, texture_size=map_size, mips=True, device=device)
+    build_ms = (time.perf_counter() - t0) * 1e3
+    loop = _engine_loop(material_world_doc(num_lights, num_objects, width / height, orbit),
+                        width, height, config, device)
+    loop.world.materials = lib
+    return loop, lib, reg, paths, build_ms
+
+
+def edited_pixels(world, tid, mid):
+    """The pixels whose raster triangle's source uses material ``mid``."""
+    src_mat = world.meshes.geometry.material_id
+    src = tid.clamp(min=0).long() // 2  # the near clipper's two slots a source triangle
+    return (tid >= 0) & (src_mat[src] == mid)
+
+
+def run_engine_materials(card):
+    """engine-material-world: EngineLoop over material_world_doc(1000, 96)
+    (the camera held still) with a MaterialLibrary of 8 .mat files (three
+    with a 256x256 PNG albedo or normal map, one Masked with striped alpha,
+    one Transparent) as World.materials, FULL_CONFIG at 1920x1088: 1
+    warm-up + 5 frames (frame ms, synchronising calls, B1-B3 launches
+    checked), then paint.mat's albedo rewritten, ``check_hot_reload``
+    (the library's rebuild timed) and frame 7: the library's version went
+    up, its table row changed, and in Main as RenderTransparent leaves it
+    (before sun shafts and bloom spread the edit to its neighbours) the
+    edited material's pixels changed and the pixels more than 8 px from
+    them (the quarter-resolution ambient blends nearer ones) hold frame
+    6's within 1e-4 relative on >= 99.5% (Main after the post passes
+    printed too); then the per-node ms of one more frame and a profiled
+    frame. Returns the launches of frames 1-7."""
+    import tempfile
+
+    import torch
+
+    from sailor_tpu_torch.kernels import cuda_lib
+
+    width, height, n_lights, n_objects = FLAGSHIP
+    total, rows = {}, []
+    with tempfile.TemporaryDirectory() as folder:
+        t0 = time.perf_counter()
+        loop, lib, reg, paths, build_ms = material_loop(folder, width, height, n_lights,
+                                                        n_objects, FULL_CONFIG, "cuda",
+                                                        orbit=False)
+        load_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rebuild_ms = version = None
+        frames = []
+        for i in range(7):
+            if i == 6:
+                old_row = lib.table.albedo[EDITED].cpu()
+                version = lib.version
+                edit_material(paths[EDITED])
+                t0 = synced_ms()
+                reloaded = reg.check_hot_reload()
+                rebuild_ms = synced_ms() - t0
+                check(len(reloaded) == 1 and lib.version == version + 1,
+                      "engine-material-world: the edit did not rebuild the library")
+            cuda_lib.LAUNCHES.clear()
+            shaded = []  # frames 6 and 7: Main as RenderTransparent leaves it
+            with sync_counter() as syncs, (captured_node("RenderTransparent", ("Main",), shaded)
+                                           if i >= 5 else contextlib.nullcontext()):
+                t0 = synced_ms()
+                targets = loop.process_cpu_frame(1 / 60)
+                ms = synced_ms() - t0
+                n_syncs = syncs()
+            launches = {k: cuda_lib.LAUNCHES.get(k, 0) for k in PATH_KERNELS}
+            for k, v in cuda_lib.LAUNCHES.items():
+                total[k] = total.get(k, 0) + v
+            for k in PATH_KERNELS:
+                check(launches[k] > 0, f"engine-material-world frame {i + 1} launched no {k}")
+            rows.append({"frame": i + 1, "frame_ms": round(ms, 3), "syncs": n_syncs,
+                         "launches": launches})
+            if i >= 5:
+                frames.append({"Main": targets["Main"].cpu(), "TriId": targets["TriId"].cpu(),
+                               "shaded": shaded[0][1]["Main"]})
+        peak = torch.cuda.max_memory_allocated()
+        new_row = lib.table.albedo[EDITED].cpu()
+        check(not torch.equal(old_row, new_row), "engine-material-world: the table row kept")
+        before, after = frames
+        edited = edited_pixels(loop.world, targets["TriId"], EDITED).cpu()
+        # RenderScene's ambient and shadow factor run at a quarter of the
+        # resolution and are upsampled: a pixel within 8 px of the edited
+        # material blends its albedo, so the others lie outside that band
+        near = torch.nn.functional.max_pool2d(edited[None, None].float(), 17, 1, 8)[0, 0] > 0
+        others = (~near) & (after["TriId"] == before["TriId"])
+        figures = {}
+        for key in ("shaded", "Main"):
+            d = (after[key] - before[key]).abs()
+            rel = (d / before[key].abs().clamp(min=1e-3)).amax(-1)
+            figures[key] = ((d.amax(-1) > 1e-3)[edited].float().mean().item(),
+                            (rel[others] <= 1e-4).float().mean().item())
+        print(f"engine-material-world {width}x{height}: load_ms={load_ms:.3f} "
+              f"library_build_ms={build_ms:.3f} rebuild_ms={rebuild_ms:.3f} "
+              f"version={version}->{lib.version} albedo_row {old_row.tolist()}->{new_row.tolist()} "
+              f"edited_pixels={int(edited.sum())} shaded_edited_changed={figures['shaded'][0]:.4f} "
+              f"shaded_others_held_within_1e-4={figures['shaded'][1]:.5f} "
+              f"main_edited_changed={figures['Main'][0]:.4f} "
+              f"main_others_held_within_1e-4={figures['Main'][1]:.5f} (after sun shafts and "
+              f"bloom) peak_mem_bytes={peak} on {card}")
+        for r in rows:
+            print("engine-material-world frame " + json.dumps(r))
+        check(edited.float().mean().item() > 1e-4 and figures["shaded"][0] > 0.9,
+              "engine-material-world: the edited material's pixels did not change")
+        check(figures["shaded"][1] >= 0.995,
+              "engine-material-world: pixels of other materials changed")
+        world = loop.world
+        world.tick(1 / 60)
+        scene = world.scene_view(sky=loop.sky, prev_frame=loop._prev_frame)
+        fg, state = loop.renderer.frame_graph, loop.renderer.state
+        fg.prepare(scene, state)
+        print("engine-material-world per_node_ms " + json.dumps(
+            {k: round(v, 3) for k, v in fg.process_debug(scene, state)[2].items()}))
+        profile(lambda: loop.process_cpu_frame(1 / 60), card, "profile_engine_materials")
+        loop.renderer.wait_idle()
+    return total
+
+
+def check_small_engine_materials():
+    """material_world_doc(24, 6) with the library (64-px maps) through
+    EngineLoop at 256x128 on the card against the CPU path: two frames,
+    the edit and the hot reload, a third frame; each held as
+    check_small_full_frame holds its frame (full_frame_agreement)."""
+    import tempfile
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        with tempfile.TemporaryDirectory() as folder:
+            loop, lib, reg, paths, _ = material_loop(
+                folder, 256, 128, 24, 6, dict(FULL_CONFIG, shadow_resolution=128), dev,
+                map_size=64)
+            out[dev] = []
+            for i in range(3):
+                if i == 2:
+                    edit_material(paths[EDITED])
+                    check(len(reg.check_hot_reload()) == 1 and lib.version == 2,
+                          "small engine-material-world: no hot reload")
+                t = loop.process_cpu_frame(1 / 60)
+                out[dev].append({k: t[k].cpu() for k in FULL_FRAME_KEYS})
+    for i, (g, r) in enumerate(zip(out["cuda"], out["cpu"])):
+        ok, line = full_frame_agreement(g, r)
+        print(f"small engine-material-world frame {i + 1} card vs cpu: {line}")
+        check(ok, "the card's material world disagrees with the CPU path")
+
+
+
 def main() -> int:
     import torch
 
@@ -3572,7 +4462,7 @@ def main() -> int:
                   "resolve_stream[49]": grid_launches.get("resolve_stream", 0)}
     for k in queue_kernels:
         k["launches"] = queue_path[k["name"]]
-    for k in kernels:
+    for k in kernels:  # the launches of the frame, content and material paths
         k["launches"] = launches.get(k["name"], 0)
     for k in variants:
         config = {"raster_stream": "stream", "raster_stream_mxu": "stream_mxu",
@@ -3580,6 +4470,7 @@ def main() -> int:
                   "resolve_stream": "stream"}[k["name"]]
         k["launches"] = config_launches[config].get(k["name"], 0)
     kernels += variants + queue_kernels
+    main_frame = kernels[:3]
     check_small_frame()
     for change in RASTER_CONFIGS.values():
         check_small_frame(change)
@@ -3602,9 +4493,24 @@ def main() -> int:
         {k: night_launches.get(k, 0) for k in PATH_KERNELS}))
     check_small_night()
     print(f"night: {time.perf_counter() - t_night:.1f} s")
+    t_content = time.perf_counter()
+    content_launches = run_content_glb(card)
+    material_launches = run_engine_materials(card)
+    for name in PATH_KERNELS:
+        check(content_launches.get(name, 0) > 0 and material_launches.get(name, 0) > 0,
+              f"{name} was not launched on the content and material paths")
+    check_small_content()
+    check_small_engine_materials()
+    print(f"content: {time.perf_counter() - t_content:.1f} s")
+    for k in main_frame:  # B1-B3 rows: the frame's launches and the new paths'
+        k["launches"] += content_launches.get(k["name"], 0) + material_launches.get(k["name"], 0)
     tracer_kernels = check_tracer_kernels(card)
     launches, tracer_peak = run_tracer(card)
     check_small_trace()
+    glb_launches = run_content_trace(card)
+    for name in ("slab_entry", "sweep"):
+        launches[name] = launches.get(name, 0) + glb_launches.get(name, 0)
+    check_small_trace(small_glb_trace, "content_glb_trace")
     launches["sweep_grid"] = run_tracer_grid(card).get("sweep_grid", 0)  # B6's main path
     run_material_balls(card)
     check_small_trace(textured_sky_balls, "balls_textured_sky")

@@ -1,8 +1,9 @@
-"""The material system's device side (counterpart of
-sailor_tpu/assets/materials.py): the ``MaterialTable`` of per-material
-parameters, render queues and texture tables, its constructor from host rows
-``MaterialTable.from_host``, and the texture samplers that both the raster
-path and the path tracer call.
+"""The material system (counterpart of sailor_tpu/assets/materials.py): the
+``MaterialTable`` of per-material parameters, render queues and texture
+tables, its constructor from host rows ``MaterialTable.from_host``, the
+texture samplers that both the raster path and the path tracer call, and
+the `.mat` side: ``MaterialAsset`` (the importer's YAML) and
+``MaterialLibrary`` (.mat files -> one table, rebuilt on hot reload).
 
 Host tables (numpy): ``stack_textures`` resizes every image to one size
 and stacks them (N, S, S, 4); ``build_mip_stack`` packs a box-filtered mip
@@ -617,3 +618,109 @@ class MaterialTable:
                 a = np.ascontiguousarray(a.view(np.uint8)[:, :nbytes])
             out[f] = torch.from_numpy(a).to(dev)
         return cls(**out, **host)
+
+
+class MaterialLibrary:
+    """Ordered set of .mat assets -> one MaterialTable, rebuilt on hot
+    reload (counterpart of sailor_tpu/assets/materials.py's; the consumer
+    side of Material::OnHotReload, MaterialImporter.cpp:53): a hot-reloaded
+    material asset rebuilds the table, so the next frame reflects the edit;
+    ``version`` counts the builds, so renderers can see the swap.
+
+    ``paths``: .mat file paths; list index == the material_id mesh
+    renderers reference (MeshRendererComponent.material_id). Sampler keys
+    ``baseSampler``/``albedoSampler`` -> albedo texture,
+    ``normalSampler`` -> normal map, loaded through the same registry.
+    The table lives on ``device`` (the card unless the caller asks for
+    another).
+    """
+
+    def __init__(self, registry, paths, texture_size: int = 64, mips: bool = False,
+                 device="cuda"):
+        self.registry = registry
+        self.paths = [str(p) for p in paths]
+        self.texture_size = texture_size
+        self.mips = mips
+        self.device = resolve_device(device)
+        self.version = 0
+        self.table: MaterialTable | None = None
+        registry.add_hot_reload_listener(self._on_hot_reload)
+        self.rebuild()
+
+    def _on_hot_reload(self, info) -> None:
+        if info.path in self.paths:
+            self.rebuild()
+
+    def rebuild(self) -> None:
+        assets = [self.registry.load(p) for p in self.paths]
+        rows = [a.to_table_row() for a in assets]
+        table = {k: [r[k] for r in rows] for k in rows[0]}
+        images, tex_index = [], {}
+        a_tex = np.full(len(assets), -1, np.int32)
+        n_tex = np.full(len(assets), -1, np.int32)
+        for i, a in enumerate(assets):
+            for key, target in (("baseSampler", a_tex), ("albedoSampler", a_tex),
+                                ("normalSampler", n_tex)):
+                rel = a.samplers.get(key)
+                if not rel:
+                    continue
+                if rel not in tex_index:
+                    tex_index[rel] = len(images)
+                    images.append(np.asarray(self.registry.load(rel)))
+                target[i] = tex_index[rel]
+        table["albedo_texture"] = a_tex
+        table["normal_texture"] = n_tex
+        self.table = MaterialTable.from_host(table, images, texture_size=self.texture_size,
+                                             mips=self.mips, device=self.device)
+        self.version += 1
+
+
+@dataclasses.dataclass
+class MaterialAsset:
+    """Parsed .mat file: render state + shader + uniforms
+    (Content/Models/*/materials/*.mat schema)."""
+
+    name: str = "material"
+    render_queue: str = "Opaque"     # Opaque / Masked / Transparent
+    blend_mode: str = "None"
+    cull_mode: str = "Back"
+    depth_bias: float = 0.0
+    enable_depth_test: bool = True
+    shader: str = "Standard"
+    defines: tuple = ()
+    uniforms: dict = dataclasses.field(default_factory=dict)
+    samplers: dict = dataclasses.field(default_factory=dict)
+
+    @classmethod
+    def from_yaml(cls, text: str, name: str = "material") -> "MaterialAsset":
+        import yaml  # PyYAML: needed only to read .mat files
+
+        doc = yaml.safe_load(text) or {}
+        return cls(
+            name=doc.get("name", name),
+            render_queue=doc.get("renderQueue", "Opaque"),
+            blend_mode=doc.get("blendMode", "None"),
+            cull_mode=doc.get("cullMode", "Back"),
+            depth_bias=float(doc.get("depthBias", 0.0)),
+            enable_depth_test=bool(doc.get("enableDepthTest", True)),
+            shader=doc.get("shader", "Standard"),
+            defines=tuple(doc.get("defines", []) or []),
+            uniforms=dict(doc.get("uniformsVec4", {}) or {})
+            | {k: [v] for k, v in (doc.get("uniformsFloat", {}) or {}).items()},
+            samplers=dict(doc.get("samplers", {}) or {}),
+        )
+
+    def to_table_row(self) -> dict:
+        """Flatten uniforms into MaterialTable row values."""
+        albedo = self.uniforms.get("material.albedo", [0.8, 0.8, 0.8, 1.0])
+        queue = _QUEUE_NAMES.get(self.render_queue, 0)
+        return {
+            "albedo": albedo[:3],
+            "metallic": float(self.uniforms.get("material.metallic", [0.0])[0]),
+            "roughness": float(self.uniforms.get("material.roughness", [0.6])[0]),
+            "emissive": self.uniforms.get("material.emission", [0, 0, 0, 0])[:3],
+            "queue": queue,
+            "alpha_cutoff": float(self.uniforms.get("material.alphaCutoff", [0.5])[0]),
+            "opacity": (float(albedo[3]) if len(albedo) > 3 and queue == QUEUE_TRANSPARENT
+                        else 1.0),
+        }

@@ -3,10 +3,12 @@ Runtime/AssetRegistry/AssetRegistry.{h,cpp}): folder scan, file ids in
 `.asset` YAML sidecars (written beside each file that lacks one),
 importer dispatch by extension, a cache with timestamp expiry, hot reload.
 
-It registers the reference's extensions, so a scan counts the same files.
-The `.renderer`, `.world`, `.prefab` and `.bsc5` (star catalogue)
-importers work; the model, image and material importers raise
-NotImplementedError until their modules are ported (ROADMAP A 5).
+It registers the reference's importers for the same extensions, so a scan
+counts the same files: `.gltf`/`.glb` (``gltf.load_merged``), `.renderer`,
+`.mat` (``MaterialAsset``), `.world`, `.prefab`, the image extensions
+(``textures.load`` with the sidecar's import settings) and `.bsc5` (star
+catalogue). Of the images only PNG decodes; the other formats raise
+NotImplementedError naming the format (``textures.UNDECODED``).
 """
 
 from __future__ import annotations
@@ -28,11 +30,11 @@ def _yaml_load(path: str):
         return yaml.safe_load(f)
 
 
-def _not_ported(what: str, item: str) -> Callable:
-    def importer(path, meta):
-        raise NotImplementedError(f"{what} import is not ported yet (ROADMAP {item}): {path}")
+def _load_mat(path: str, meta):
+    from sailor_tpu_torch.assets.materials import MaterialAsset
 
-    return importer
+    with open(path) as f:
+        return MaterialAsset.from_yaml(f.read(), os.path.basename(path))
 
 
 class AssetInfo:
@@ -71,17 +73,17 @@ class AssetRegistry:
         self.importers[extension.lower()] = loader
 
     def _register_default_importers(self) -> None:
-        from sailor_tpu_torch.assets import stars
+        from sailor_tpu_torch.assets import gltf, stars, textures
         from sailor_tpu_torch.framegraph.graph import FrameGraphAsset
 
         for ext in (".gltf", ".glb"):
-            self.register_importer(ext, _not_ported("GLTF model", "A 5"))
+            self.register_importer(ext, lambda p, meta: gltf.load_merged(p))
         self.register_importer(".renderer", lambda p, meta: FrameGraphAsset.load(p))
-        self.register_importer(".mat", _not_ported("material (.mat)", "A 5"))
+        self.register_importer(".mat", _load_mat)
         self.register_importer(".world", lambda p, meta: _yaml_load(p))
         self.register_importer(".prefab", lambda p, meta: _yaml_load(p))
         for ext in IMAGE_EXTENSIONS:
-            self.register_importer(ext, _not_ported("texture", "A 5"))
+            self.register_importer(ext, lambda p, meta: textures.load(p, **(meta or {})))
         self.register_importer(".bsc5", lambda p, meta: stars.load(p))
 
     def scan_content_folder(self) -> int:

@@ -1,0 +1,83 @@
+"""Texture import (counterpart of sailor_tpu/assets/textures.py,
+Runtime/AssetRegistry/Texture/TextureImporter.cpp): decode, sRGB to
+linear, mip generation, sampler meta from the `.asset` sidecar.
+
+The reference decodes every format through imageio; the port decodes PNG
+with its own decoder (``utils.png.decode_png``, which returns imageio's
+arrays) and refuses the other formats with NotImplementedError, since the
+card's machine has no image library (ROADMAP A 8 lists the decoders still
+to write).
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from sailor_tpu_torch.utils.png import SIGNATURE, decode_png
+
+#: formats the reference reads through imageio that the port cannot decode
+UNDECODED = {".jpg": "JPEG", ".jpeg": "JPEG", ".bmp": "BMP", ".tga": "TGA", ".gif": "GIF",
+             ".hdr": "Radiance HDR", ".exr": "OpenEXR"}
+
+
+def format_error(fmt: str, name: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{fmt} image {name}: the port decodes PNG only; no {fmt} decoder is ported "
+        "(ROADMAP A 8)")
+
+
+def decode_bytes(data: bytes, name: str = "image") -> np.ndarray:
+    """Encoded image bytes -> the array imageio would give; PNG only."""
+    if data[:8] == SIGNATURE:
+        return decode_png(data)
+    fmt = ("JPEG" if data[:3] == b"\xff\xd8\xff" else "GIF" if data[:4] == b"GIF8"
+           else "BMP" if data[:2] == b"BM" else "unknown-format")
+    raise format_error(fmt, name)
+
+
+def imread(path: str) -> np.ndarray:
+    """A file as imageio.v2.imread reads it, for the formats the port decodes."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext in UNDECODED:
+        raise format_error(UNDECODED[ext], path)
+    with open(path, "rb") as f:
+        return decode_bytes(f.read(), path)
+
+
+def load(path: str, *, srgb: bool | None = None, flip_y: bool = False,
+         generate_mips: bool = False, **_ignored):
+    """Decode to float32 linear RGBA (H, W, 4). HDR formats stay linear."""
+    arr = np.asarray(imread(path))
+    is_hdr = arr.dtype in (np.float32, np.float64, np.float16)
+    if srgb is None:
+        srgb = not is_hdr
+    if arr.dtype == np.uint8:
+        arr = arr.astype(np.float32) / 255.0
+    elif arr.dtype == np.uint16:
+        arr = arr.astype(np.float32) / 65535.0
+    else:
+        arr = arr.astype(np.float32)
+    if srgb:
+        arr = arr**2.2
+    if arr.ndim == 2:
+        arr = arr[..., None].repeat(3, -1)
+    if arr.shape[-1] == 3:
+        arr = np.concatenate([arr, np.ones_like(arr[..., :1])], -1)
+    if flip_y:
+        arr = arr[::-1]
+    if generate_mips:
+        return mip_chain(arr)
+    return arr
+
+
+def mip_chain(img: np.ndarray) -> list[np.ndarray]:
+    """Box-filtered mip pyramid down to 1x1."""
+    mips = [img]
+    cur = img
+    while min(cur.shape[0], cur.shape[1]) > 1:
+        h2, w2 = max(1, cur.shape[0] // 2), max(1, cur.shape[1] // 2)
+        cur = cur[: h2 * 2, : w2 * 2].reshape(h2, 2, w2, 2, -1).mean(axis=(1, 3))
+        mips.append(cur.astype(np.float32))
+    return mips

@@ -171,8 +171,9 @@ class World:
         self.game_objects: list[GameObject] = []
         self._pending_destroy: list[GameObject] = []
         self.time = 0.0
-        # an object whose ``table`` is an assets.materials.MaterialTable:
-        # mesh renderers' material_id indexes it
+        # an object whose ``table`` is an assets.materials.MaterialTable
+        # (assets.materials.MaterialLibrary): mesh renderers' material_id
+        # indexes it, and a hot reload's new table is repacked next frame
         self.materials = None
         self._attrs_key = None
         self._attrs_packed = None
@@ -261,9 +262,11 @@ class World:
             star_dirs, star_colors = self._stars
         mats = self.materials.table if self.materials is not None else None
         # the per-source-triangle table: repacked only when the soup object
-        # (movement, topology) or the material table changes
-        key = (id(geo), id(mats))
-        if self._attrs_key != key:
+        # (movement, topology) or the material table (a MaterialLibrary's
+        # hot reload builds a new one) changes; the key holds the objects,
+        # so a freed table's id cannot be taken for its successor's
+        key = (geo, mats)
+        if self._attrs_key is None or any(a is not b for a, b in zip(self._attrs_key, key)):
             from sailor_tpu_torch.raster.interpolate import pack_source_attributes
 
             self._attrs_packed = pack_source_attributes(geo, mats)

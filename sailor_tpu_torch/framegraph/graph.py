@@ -24,9 +24,6 @@ from sailor_tpu_torch.rhi.types import RenderTargets, TargetSpec
 
 _NODE_REGISTRY: dict[str, type] = {}
 
-# nodes of the JAX package's registry that this port does not have yet
-UNPORTED_NODES = ("Clear", "Blit", "CopyTextureToRam", "Particles")
-
 
 def node(name: str):
     """Register a frame-graph node class under its YAML name."""
@@ -153,8 +150,6 @@ class FrameGraph:
         self.config = dict(config or {})
         names = [e["name"] for e in asset.frame]
         for name in names:
-            if name in UNPORTED_NODES:
-                raise NotImplementedError(f"frame-graph node '{name}' is not ported yet")
             if name not in _NODE_REGISTRY:
                 raise KeyError(f"unknown frame-graph node '{name}' "
                                f"(registered: {sorted(_NODE_REGISTRY)})")
@@ -232,8 +227,31 @@ class FrameGraph:
         """Run the whole graph. Returns (targets, new_state)."""
         return self._run(scene, state, None)
 
+    def process_views(self, scene, states: list, frames: list):
+        """Render N cameras of one world, one frame each (RHISceneView's
+        per-camera snapshots, SceneView.h:85-115; RHIFrameGraph runs once a
+        snapshot, RHIFrameGraph.cpp:95).
+
+        ``frames``: one FrameData a camera; ``states``: one temporal state a
+        camera (the CSM cache, HiZ pyramid, exposure and sky cache must not
+        bleed between views). The host-side bakes of ``prepare``
+        (environment, particles) are kept by the nodes and shared. The main
+        camera (``scene.frame``) keeps its previous frame for MotionBlur;
+        other views reproject against themselves.
+
+        Returns (list of target dicts, list of new states)."""
+        outs, new_states = [], []
+        for frame, st in zip(frames, states):
+            view_scene = dataclasses.replace(
+                scene, frame=frame,
+                prev_frame=scene.prev_frame if frame is scene.frame else frame)
+            t, s = self.process(view_scene, st)
+            outs.append(t)
+            new_states.append(s)
+        return outs, new_states
+
     def process_sharded(self, *args, **kwargs):
-        raise NotImplementedError("multi-device rendering is not ported yet")
+        raise NotImplementedError("multi-device rendering is not ported yet (ROADMAP A 9)")
 
     def process_debug(self, scene, state: dict):
         """Run the graph node by node, synchronising the device after each,

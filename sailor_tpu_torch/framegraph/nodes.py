@@ -1,19 +1,21 @@
-"""Frame-graph nodes of the visibility Forward+ frame (counterpart of
-sailor_tpu/framegraph/nodes.py): DepthPrepass (with the HiZ cull),
+"""Frame-graph nodes (counterpart of sailor_tpu/framegraph/nodes.py): those
+of the visibility Forward+ frame, every entry of
+content/DefaultRenderer.renderer (DepthPrepass with the HiZ cull,
 LinearizeDepth, LightCulling, ShadowPrepass, Sky, Environment, DepthHighZ,
 PostProcess (HBAO, HBAO_Blur, SunShafts, MotionBlur, ChromaticAberration,
-Debug), RenderScene (with the IBL ambient), RenderTransparent, DebugDraw,
-Bloom, EyeAdaptation and RenderOverlay: every entry of
-content/DefaultRenderer.renderer.
+Debug), RenderScene with the IBL ambient, RenderTransparent, DebugDraw,
+Bloom, EyeAdaptation and RenderOverlay), and Clear, Blit,
+CopyTextureToRam and Particles, which no shipped `.renderer` uses.
 
 Data flows through the ``targets`` dict: "Depth", "TriId", "TriSetup",
 "BinOverflow", "HiZCulledCount", "StreamBins" (the raster's bin windows,
 consumed by RenderScene's fused resolve), "LinearDepth",
 "LightIndices"/"LightCounts", "ShadowMaps", "LightMatrices", "EvsmMaps",
-"EvsmMap", "Sky", "AO", "HiZ/mip1".."HiZ/mip4", "Main", "Final", and
-temporal state via "state_out" (avg luminance, the CSM cache "csm/*", the
-sky cache "sky/*", the HiZ pyramid "hiz/mip*"); the Environment node's bake
-is published into the state in ``prepare`` ("env/*").
+"EvsmMap", "Sky", "AO", "HiZ/mip1".."HiZ/mip4", "Main", "Final",
+"readback" (CopyTextureToRam's list), and temporal state via "state_out"
+(avg luminance, the CSM cache "csm/*", the sky cache "sky/*", the HiZ
+pyramid "hiz/mip*", the particles' "particles/*"); the Environment node's
+bake is published into the state in ``prepare`` ("env/*").
 """
 
 from __future__ import annotations
@@ -908,4 +910,130 @@ class RenderOverlayNode(BaseNode):
         out = final.clone()
         out[y:y + bh, x:x + bw] = blended
         targets["Final"] = out
+        return targets
+
+
+@node("Clear")
+class ClearNode(BaseNode):
+    """Clear a render target to ``clearValue`` (ClearNode.cpp); a target
+    not in the dict is left alone."""
+
+    def process(self, ctx, targets):
+        name = self.p("target", "Main")
+        if name in targets:
+            targets[name] = torch.full_like(targets[name], self.p("clearValue", 0.0))
+        return targets
+
+
+@node("Blit")
+class BlitNode(BaseNode):
+    """Resize-copy ``src`` into ``dst`` (BlitNode.cpp): to dst's size when
+    the target exists (a declared target does), else to the viewport."""
+
+    def process(self, ctx, targets):
+        src = targets[self.p("src", "Sky")]
+        dst_name = self.p("dst", "Main")
+        if dst_name in targets:
+            dst_hw = tuple(targets[dst_name].shape[:2])
+        else:
+            dst_hw = (ctx.height, ctx.width)
+        targets[dst_name] = sampling.blit(src, dst_hw)
+        return targets
+
+
+@node("CopyTextureToRam")
+class CopyTextureToRamNode(BaseNode):
+    """Device -> host readback marker (CopyTextureToRamNode.cpp, used for
+    editor thumbnails): ``process`` lists the target under "readback";
+    after the frame, ``fetch(targets)`` copies the listed targets to numpy
+    (one synchronising copy each)."""
+
+    def process(self, ctx, targets):
+        targets.setdefault("readback", []).append(self.p("target", "Final"))
+        return targets
+
+    @staticmethod
+    def fetch(targets):
+        return {name: targets[name].detach().cpu().numpy()
+                for name in targets.get("readback", []) if name in targets}
+
+
+@node("Particles")
+class ParticlesNode(BaseNode):
+    """Particle playback (the reference's experimental ParticlesNode.cpp).
+
+    Two sources, as the reference's:
+    - a baked animation: the param ``asset: path.particles`` loads the
+      ParticleInfo YAML and ParticleData binary once, in ``prepare``, and
+      copies the records to the scene's device; playback interpolates the
+      frame records there (``assets.particles.sample_baked``);
+    - a live simulation: ``particles/pos|vel|life`` in the state integrate
+      Euler steps with the param ``gravity`` (default -2) each frame; live
+      particles take the param ``color`` (+ alpha 1) and ``size``.
+
+    The splat is ``kernels.particles.splat_particles`` (``capacity`` slots
+    a tile) with the reverse-Z soft depth test, added to Main; with a
+    trace decay (the asset's, or the param ``traceDecay``) the motion
+    trail is an exponentially decayed splat carried in the state as
+    "particles/trail". The reference's sharded branch, which cuts the
+    trail to the local rows, waits for multi-device rendering (ROADMAP
+    A 9): the port's RenderContext has no sharded case.
+    """
+
+    def prepare(self, ctx):
+        path = self.p("asset")
+        if path and getattr(self, "_asset_path", None) != path:
+            from sailor_tpu_torch.assets.particles import ParticlesAsset
+
+            self._asset = ParticlesAsset.load(path)
+            self._asset_path = path
+            self._baked = torch.from_numpy(self._asset.data).to(ctx.scene.frame.view.device)
+
+    def process(self, ctx, targets):
+        from sailor_tpu_torch.assets.particles import sample_baked
+        from sailor_tpu_torch.kernels import particles as part_k
+
+        state = ctx.state or {}
+        out = targets.setdefault("state_out", {})
+        asset = getattr(self, "_asset", None)
+        frame = ctx.scene.frame
+        if asset is not None:
+            pos, radii, colors = sample_baked(self._baked, frame.current_time, asset.fps,
+                                              asset.frames)
+            trace_decay = asset.trace_decay
+        elif "particles/pos" in state:
+            dt = frame.delta_time
+            gravity = torch.tensor([0.0, float(self.p("gravity", -2.0)), 0.0],
+                                   device=dt.device)
+            vel = state["particles/vel"] + gravity * dt
+            # fused as the reference compiles it (within an ulp: ROADMAP C 2)
+            pos = m3.fma(vel, dt, state["particles/pos"])
+            life = state["particles/life"] - dt
+            out["particles/pos"] = pos
+            out["particles/vel"] = vel
+            out["particles/life"] = life
+            base = torch.tensor(list(self.p("color", [4.0, 2.5, 1.0])) + [1.0],
+                                device=dt.device)
+            colors = torch.where((life > 0.0)[:, None], base[None, :], torch.zeros_like(base))
+            radii = torch.full(pos.shape[:1], float(self.p("size", 0.08)), device=dt.device)
+            trace_decay = float(self.p("traceDecay", 0.0))
+        else:
+            return targets
+        main = targets.get("Main")
+        if main is None:
+            return targets
+        splat = part_k.splat_particles(
+            pos, radii, colors, frame.view_projection, frame.projection, targets["Depth"],
+            width=ctx.width, height=ctx.height, full_height=ctx.full_height, row0=ctx.row0,
+            capacity=int(self.p("capacity", 64)))
+        if trace_decay > 0.0:
+            # the motion trail (PushConstants m_traceDecay/m_traceFrames): an
+            # exponentially decayed splat history in the state
+            trail = state.get("particles/trail")
+            if trail is None or trail.shape != splat.shape:
+                trail = torch.zeros_like(splat)
+            trail = m3.fma(trail, torch.tensor(trace_decay, device=trail.device), splat)
+            out["particles/trail"] = trail
+            splat = trail
+        targets["Main"] = main + splat
         return targets

@@ -12,6 +12,7 @@ rendering, which is not ported.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from sailor_tpu_torch.core.math3d import fma
@@ -51,8 +52,13 @@ def sample_nearest(img, uv, wrap: str = "clamp"):
 def sample_bilinear(img, uv, wrap: str = "clamp"):
     """Bilinear sample with the texel-centre convention (uv * size - 0.5)."""
     h, w = img.shape[0], img.shape[1]
-    fx = uv[..., 0] * w - 0.5
-    fy = uv[..., 1] * h - 0.5
+    return _bilinear_at(img, uv[..., 0] * w - 0.5, uv[..., 1] * h - 0.5, wrap)
+
+
+def _bilinear_at(img, fx, fy, wrap: str = "clamp"):
+    """Bilinear sample at texel coordinates (fx, fy) (texel centres at
+    integers)."""
+    h, w = img.shape[0], img.shape[1]
     x0f, y0f = torch.floor(fx), torch.floor(fy)
     tx, ty = fx - x0f, fy - y0f
     if img.ndim == 3:
@@ -71,18 +77,28 @@ def sample_bilinear(img, uv, wrap: str = "clamp"):
 
 def blit(src, dst_hw: tuple[int, int], *, filter: str = "bilinear"):
     """Resize-copy ``src`` to ``dst_hw`` (BlitNode): the same size returns
-    ``src`` itself, a resize samples at the destination's texel centres."""
+    ``src`` itself, a resize samples at the destination's texel centres.
+    The bilinear resize takes its texel coordinates as the reference's
+    compiled blit folds them: ((i + 0.5) / h) * H - 0.5 becomes
+    fma(i + 0.5, float32(H) / float32(h), -0.5), equal for power-of-two
+    ratios and the compiled rounding for the others."""
     h, w = dst_hw
     if (src.shape[0], src.shape[1]) == (h, w):
         return src
     dev = src.device
-    ys = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5) / h
-    xs = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) / w
-    yy, xx = torch.meshgrid(ys, xs, indexing="ij")
-    uv = torch.stack([xx, yy], dim=-1)
     if filter == "nearest":
-        return sample_nearest(src, uv)
-    return sample_bilinear(src, uv)
+        ys = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5) / h
+        xs = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) / w
+        yy, xx = torch.meshgrid(ys, xs, indexing="ij")
+        return sample_nearest(src, torch.stack([xx, yy], dim=-1))
+
+    def coords(n, size):
+        scale = float(np.float32(size) / np.float32(n))
+        i = torch.arange(n, dtype=torch.float32, device=dev) + 0.5
+        return fma(i, torch.tensor(scale, device=dev), torch.tensor(-0.5, device=dev))
+
+    fy, fx = torch.meshgrid(coords(h, src.shape[0]), coords(w, src.shape[1]), indexing="ij")
+    return _bilinear_at(src, fx, fy)
 
 
 def _upsample_axis(x, f: int, axis: int):

@@ -45,6 +45,11 @@ small full and engine frames, card against CPU) accepts and refuses at
 its bars; ``timed_methods`` sums host ms and a measure's growth over an
 instance's calls and restores the methods; ``content_copy`` runs in a
 scratch copy of content/ and leaves the working directory as it was.
+
+The content phases' inputs: ``flagship_glb`` read back through the
+registry is the flagship scene's geometry with its material ids and maps;
+``material_world_doc``, ``material_folder``, ``edit_material`` and
+``edited_pixels`` make and read the hot-reload cell.
 """
 
 import numpy as np
@@ -542,3 +547,64 @@ def test_twin_checked_holds_each_launch_and_restores(monkeypatch):
         with chip_smoke.twin_checked({}):
             pbr_kernel.shade_tiles_cuda(*args)
     assert pbr_kernel.shade_tiles_cuda is not inner  # the monkeypatched one, restored
+
+
+def test_content_glb_is_the_flagship_geometry(tmp_path):
+    """``flagship_glb`` holds the flagship scene's meshes: read back through
+    the port's registry, its soup is the flagship scene's, object by object
+    (within 1e-6: the node translation is applied by another product), and
+    its material ids are the ground's 0 and 1 + i % 7."""
+    from sailor_tpu_torch.assets.registry import AssetRegistry
+    from sailor_tpu_torch.scenes import procedural_test_maps
+
+    path = tmp_path / "f.glb"
+    path.write_bytes(chip_smoke.flagship_glb(6, procedural_test_maps(0, 16)))
+    soup, mats = AssetRegistry(str(tmp_path)).load(str(path))
+    # the loader walks the scene's nodes with a stack: the last object first
+    objects = chip_smoke.flagship_objects(6)
+    ref = flagship_scene(64, 32, 4, 6, device="cpu").geometry
+    nv = np.cumsum([0] + [len(m.positions) for m, _ in objects])
+    nt = np.cumsum([0] + [len(m.indices) for m, _ in objects])
+    order = range(len(objects) - 1, -1, -1)
+    want_pos = np.concatenate([ref.position.numpy()[nv[i]:nv[i + 1]] for i in order])
+    want_idx = np.concatenate([ref.indices.numpy()[nt[i]:nt[i + 1]] - nv[i] for i in order])
+    want_mid = np.concatenate([np.full(nt[i + 1] - nt[i], 0 if i == 0 else 1 + (i - 1) % 7)
+                               for i in order])
+    np.testing.assert_allclose(soup["position"], want_pos, rtol=0, atol=1e-6)
+    starts = np.repeat(np.cumsum([0] + [nv[i + 1] - nv[i] for i in order])[:-1],
+                       [nt[i + 1] - nt[i] for i in order])
+    np.testing.assert_array_equal(soup["indices"] - starts[:, None], want_idx)
+    np.testing.assert_array_equal(soup["material_id"], want_mid)
+    assert len(mats["albedo"]) == 8
+    assert list(mats["albedo_texture"]) == [0, 0, 0, 0, -1, -1, -1, -1]
+    assert list(mats["normal_texture"]) == [1, 1, -1, -1, -1, -1, -1, -1]
+
+
+def test_material_world_doc_and_edit(tmp_path):
+    """The material world spreads its objects over the 8 .mat files, stops
+    the camera when asked, and ``edit_material`` rewrites the edited
+    file's albedo with a later time stamp; ``edited_pixels`` maps raster
+    ids (two slots a source triangle) to the source's material."""
+    import os
+
+    doc = chip_smoke.material_world_doc(4, 10, 2.0, orbit=False)
+    ids = [c["material_id"] for o in doc["gameObjects"] for c in o["components"]
+           if c["typename"] == "MeshRendererComponent"]
+    assert ids == [i % 8 for i in range(11)]
+    assert [c["orbit_speed"] for o in doc["gameObjects"] for c in o["components"]
+            if c["typename"] == "TestComponent"] == [0.0]
+    paths = chip_smoke.material_folder(str(tmp_path), 16)
+    assert [os.path.basename(p) for p in paths] == list(chip_smoke.MATERIAL_FILES)
+    t0 = os.path.getmtime(paths[chip_smoke.EDITED])
+    chip_smoke.edit_material(paths[chip_smoke.EDITED])
+    assert chip_smoke.EDITED_ALBEDO[1] in open(paths[chip_smoke.EDITED]).read()
+    assert os.path.getmtime(paths[chip_smoke.EDITED]) > t0
+
+    class _World:
+        class meshes:
+            class geometry:
+                material_id = torch.tensor([0, 2, 5])
+
+    tid = torch.tensor([[-1, 0, 1], [2, 3, 5]])
+    assert chip_smoke.edited_pixels(_World, tid, 2).tolist() == [[False, False, False],
+                                                                 [True, True, False]]

@@ -71,6 +71,13 @@ active, more rays than the grid's lanes, two launches in a row, the deep
 soup, the one-row table), and a table off a 16-byte boundary is refused; a
 64x64 render of the dense scene (BVH8 route) on the card is held to the
 CPU path.
+The content paths (chip_smoke's small versions): the flagship scene as a
+GLB through DefaultRenderer.renderer, the node graph with Clear, Particles,
+Blit and CopyTextureToRam, process_views' two views, the engine world with
+a MaterialLibrary before and after a hot reload (each frame held by
+``full_frame_agreement``), the GLB tracer scene's 64x64 render, the
+particle splat at 640x384 (within 1e-4 relative + 1e-6 on >= 99.9%, zero
+where the CPU's is) and a MaterialLibrary's table (equal).
 """
 
 import numpy as np
@@ -796,3 +803,69 @@ def test_bvh8_kernel_refuses_misaligned_table(card):
 
 def test_dense_bvh8_trace_on_card_matches_cpu(card):
     check_small_trace(dense_tracer_scene, "tracer_dense_bvh8")
+
+
+# --- the importers, the last nodes and process_views (content paths) ------------
+
+
+def test_content_paths_on_card_match_cpu(card):
+    """content-glb-full's small version: the GLB frame, the node graph
+    (Clear, Particles, Blit, CopyTextureToRam) and process_views."""
+    from chip_smoke import check_small_content
+
+    check_small_content()
+
+
+def test_engine_material_world_on_card_matches_cpu(card):
+    from chip_smoke import check_small_engine_materials
+
+    check_small_engine_materials()
+
+
+def test_glb_trace_on_card_matches_cpu(card):
+    from chip_smoke import small_glb_trace
+
+    check_small_trace(small_glb_trace, "content_glb_trace")
+
+
+def test_splat_on_card_matches_cpu(card):
+    """The particle splat (plain PyTorch) of a fountain at 640x384 over a
+    depth buffer: within 1e-4 relative + 1e-6 on >= 99.9% of the pixels,
+    zero where the CPU's is zero; the same valid count and overflow."""
+    from sailor_tpu_torch.assets.particles import bake_fountain, sample_baked
+    from sailor_tpu_torch.kernels.particles import splat_particles
+
+    scene = flagship_scene(W, H, 4, 4, device="cpu")
+    baked = torch.from_numpy(bake_fountain(frames=30, n=2048, fps=30).data)
+    depth = torch.rand(H, W, generator=torch.Generator().manual_seed(3)) * 0.01
+    out = {}
+    for dev in ("cuda", "cpu"):
+        f = scene.frame
+        pos, radii, colors = sample_baked(baked.to(dev), 0.37, 30, 30)
+        stats = {}
+        img = splat_particles(pos, radii, colors, f.view_projection.to(dev),
+                              f.projection.to(dev), depth.to(dev), width=W, height=H,
+                              stats=stats)
+        out[dev] = (img.cpu(), {k: int(v) for k, v in stats.items()})
+    (g, gs), (r, rs) = out["cuda"], out["cpu"]
+    assert gs == rs and rs["valid"] > 1000
+    close = ((g - r).abs() <= 1e-4 * r.abs() + 1e-6).all(-1)
+    assert close.float().mean().item() >= 0.999
+    assert bool((g[r == 0] == 0).all())
+
+
+def test_material_library_on_card_equals_cpu(card, tmp_path):
+    """A MaterialLibrary's table built on the card equals the CPU's."""
+    from chip_smoke import material_folder
+    from sailor_tpu_torch.assets.materials import TENSOR_FIELDS, MaterialLibrary
+    from sailor_tpu_torch.assets.registry import AssetRegistry
+
+    paths = material_folder(str(tmp_path), 64)
+    reg = AssetRegistry(str(tmp_path))
+    libs = [MaterialLibrary(reg, paths, texture_size=64, mips=True, device=d)
+            for d in ("cuda", "cpu")]
+    for f in TENSOR_FIELDS:
+        a, b = (getattr(lib.table, f) for lib in libs)
+        assert (a is None) == (b is None), f
+        if a is not None:
+            assert a.device.type == "cuda" and torch.equal(a.cpu(), b), f
