@@ -182,7 +182,31 @@ Phases, each printed as it ends:
      sweep, 4 spp: the host table build timed, a profiled 1-spp sample);
      render ms, Mrays/s, peak bytes against tracer-512's;
  14. a 64x64 render of the dense scene (BVH8 route) on the card against
-     the CPU path.
+     the CPU path;
+ 15. example-frame (after the content phase): ``python -m
+     sailor_tpu_torch.examples.render_frame`` in process at 1920x1088 with
+     1000 lights and 5 timed frames (B3 shades on the card): each frame's
+     ms, overflow, B1-B3 launches and syncs (``profile_scope(sync=True)``
+     around each, ``end_frame()`` printed), peak memory, the PNG checked,
+     a frame under ``profiler.device_trace`` whose trace names B1-B3, a
+     profiled frame; then the example's scene at 256x128 with 16 lights on the card against the
+     CPU path;
+ 16. editor-material-edit: EditorWebApp over an EditorServer (the material
+     world, 8 .mat files, the camera still) at 1920x1088 with editor_web's
+     config, served on 127.0.0.1:0 with its render loop: every GET
+     endpoint, an object moved, a .mat's albedo edited over
+     /api/asset/update and /api/frame.png polled until a frame after the
+     edit, whose edited material's pixels changed; ticks, ms a tick, ms
+     from the edit to the frame, no failed tick, a profiled tick;
+ 17. example-trace (after the BVH8 cells): ``python -m
+     sailor_tpu_torch.examples.trace`` in process at 512x512, 16 spp, 4
+     bounces, then ``--gltf`` on a GLB written at run time and ``--sky`` at
+     4 spp: render ms, Mrays/s, launches by route; a 64x64 render of the
+     example's scene on the card against the CPU path;
+ 18. host-runtime: the five ``<suite>.benchmark`` console commands on the
+     card (bvh launches the BVH8 kernel), ``stats.memory`` with the native
+     multipool line, and a GLB, its PNG maps and 8 .mat files through
+     ``load_async`` beside the synchronous loads (equal, host ms).
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure ends the run with
 a non-zero exit code and no result line.
@@ -3238,7 +3262,7 @@ def twin_checked(record):
         def call(*a, _inner=inner, _plain=plain, _name=name, _agree=agree, **kw):
             out = _inner(*a, **kw)
             ok, err = _agree(out, _plain(*a, **kw))
-            check(ok, f"{_name} disagrees with its plain version on a night frame")
+            check(ok, f"{_name} disagrees with its plain version")
             record.setdefault(_name, []).append(err)
             return out
 
@@ -4404,6 +4428,494 @@ def check_small_engine_materials():
 
 
 
+# --- the examples, the editor and the host runtime ----------------------------------
+
+EXAMPLE_FRAME = (1920, 1088, 1000, 5)  # width, height, point lights, timed frames
+EXAMPLE_TRACE = (512, 16, 4)  # size, spp, bounces
+EXAMPLE_TRACE_SPP_CUT = 4  # spp of the --gltf and --sky runs
+FRAME_KERNEL_NAMES = {"raster_worklist": "raster_runs_kernel",
+                      "resolve_worklist": "resolve_worklist_kernel",
+                      "shade_forward_plus": "shade_kernel"}
+
+
+@contextlib.contextmanager
+def captured_stdout():
+    """Yields a list that holds, after the block, what the block printed;
+    the text is printed again as it was."""
+    import io
+
+    buf, out = io.StringIO(), []
+    try:
+        with contextlib.redirect_stdout(buf):
+            yield out
+    finally:
+        out.append(buf.getvalue())
+        print(out[0], end="")
+
+
+def _launch_delta(before):
+    from sailor_tpu_torch.kernels import cuda_lib
+
+    return {k: v - before.get(k, 0) for k, v in cuda_lib.LAUNCHES.items()
+            if v - before.get(k, 0)}
+
+
+def run_example_frame(card):
+    """example-frame: ``python -m sailor_tpu_torch.examples.render_frame
+    --width 1920 --height 1088 --lights 1000 --frames 5`` in process (the
+    example's scene at the flagship frame's width and light count, B3
+    shading on the card): the example's own lines, then each frame's ms to
+    a synchronise, BinOverflow, B1-B3 launches (each checked > 0) and
+    synchronising calls (``FrameGraph.process`` wrapped for the run, each
+    call in ``profile_scope(sync=True)``; ``end_frame()`` printed), the
+    peak memory and the PNG checked. The example runs one frame beyond the
+    timed ones, its last, with every B1-B3 launch held to its twin
+    (``twin_checked``; that frame's ms include the twins). Then one more
+    frame under
+    ``profiler.device_trace``, whose Chrome trace must name the B1-B3
+    kernels, and a profiled frame (idle share). Returns the launches of
+    the example's frames."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sailor_tpu_torch.examples import render_frame
+    from sailor_tpu_torch.framegraph import FrameGraph
+    from sailor_tpu_torch.kernels import cuda_lib
+    from sailor_tpu_torch.utils import profiler
+    from sailor_tpu_torch.utils.png import decode_png
+
+    width, height, n_lights, n_frames = EXAMPLE_FRAME
+    inner, rows, last, record = FrameGraph.process, [], [], {}
+
+    def process(self, scene, state):
+        before = dict(cuda_lib.LAUNCHES)
+        held = len(rows) == 1 + n_frames  # the last frame: every launch held to its twin
+        with contextlib.ExitStack() as stack:
+            if held:
+                stack.enter_context(twin_checked(record))
+            syncs = stack.enter_context(sync_counter())
+            stack.enter_context(profiler.profile_scope("render_frame.process", sync=True))
+            t0 = time.perf_counter()
+            out = inner(self, scene, state)
+            n = syncs()
+        torch.cuda.synchronize()
+        launches = _launch_delta(before)
+        rows.append({"frame": len(rows) + 1,
+                     "frame_ms": round((time.perf_counter() - t0) * 1e3, 3),
+                     "overflow": int(out[0].get("BinOverflow", 0)), "syncs": n,
+                     "launches": {k: launches.get(k, 0) for k in PATH_KERNELS},
+                     "held_to_twins": held})
+        last[:] = [self, scene, out[1]]
+        return out
+
+    profiler.end_frame()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FrameGraph.process = process
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "frame.png")
+            before = dict(cuda_lib.LAUNCHES)
+            t0 = time.perf_counter()
+            rc = render_frame.main(["--width", str(width), "--height", str(height),
+                                    "--lights", str(n_lights), "--frames", str(n_frames + 1),
+                                    "--out", out])
+            wall = time.perf_counter() - t0
+            launches = _launch_delta(before)
+            with open(out, "rb") as f:
+                img = decode_png(f.read())
+    finally:
+        FrameGraph.process = inner
+    peak = torch.cuda.max_memory_allocated()
+    zones = profiler.end_frame()
+    spread = float(np.asarray(img, np.float32).std())
+    print(f"example-frame {width}x{height} lights={n_lights}: rc={rc} wall_s={wall:.3f} "
+          f"png={img.shape} spread={spread:.3f} peak_mem_bytes={peak} "
+          f"launches {json.dumps(launches)} on {card}")
+    for r in rows:
+        print("example-frame frame " + json.dumps(r))
+    print("example-frame end_frame " + json.dumps(
+        {k: [c, round(t, 3), round(m, 3)] for k, (c, t, m) in zones.items()}))
+    check(rc == 0 and img.shape == (height, width, 3) and spread > 0,
+          "example-frame: the example wrote no frame")
+    check(len(rows) == 2 + n_frames and zones["render_frame.process"][0] == 2 + n_frames,
+          "example-frame: the frames were not all seen")
+    for r in rows:
+        for k in PATH_KERNELS:
+            check(r["launches"][k] > 0, f"example-frame frame {r['frame']} launched no {k}")
+    print(f"example-frame twin_checked_frames=1 (frame {rows[-1]['frame']}) launches_held "
+          + json.dumps({k: len(v) for k, v in record.items()})
+          + " max_abs_err " + json.dumps({k: max(v) for k, v in record.items()}) + f" on {card}")
+    for k in PATH_KERNELS:
+        check(len(record.get(k, ())) == rows[-1]["launches"][k],
+              f"example-frame: {k} was not held to its twin on every launch of the last frame")
+    fg, scene, state = last
+    with tempfile.TemporaryDirectory() as log_dir:
+        with profiler.device_trace(log_dir):
+            fg.process(scene, state)
+        with open(os.path.join(log_dir, "trace.json")) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    found = {k: sum(v in n for n in names) > 0 for k, v in FRAME_KERNEL_NAMES.items()}
+    print(f"example-frame device_trace: {len(names)} event names, kernels found "
+          f"{json.dumps(found)}")
+    check(all(found.values()), "example-frame: the device trace lacks a B1-B3 kernel")
+    profile(lambda: fg.process(scene, state), card, "profile_example_frame")
+    return launches
+
+
+def check_small_example_frame():
+    """The example's scene at 256x128 with 16 lights through its graph and
+    config (``pallas_shading`` on both: the CPU dispatch runs B3's plain
+    twin), the first frame and a timed one, on the card against the CPU
+    path: full_frame_agreement on each."""
+    import dataclasses
+
+    from sailor_tpu_torch.examples import render_frame
+    from sailor_tpu_torch.framegraph import FrameGraph, FrameGraphAsset
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        scene = render_frame.build_scene(256, 128, 16, dev)
+        fg = FrameGraph(FrameGraphAsset.load(RENDERER), 256, 128,
+                        dict(render_frame.CONFIG, pallas_shading=True), device=dev)
+        state = fg.initial_state()
+        fg.prepare(scene, state)
+        out[dev] = []
+        for i in range(2):
+            s = scene if i == 0 else dataclasses.replace(scene, frame=dataclasses.replace(
+                scene.frame, delta_time=scene.frame.delta_time + 1e-6))
+            t, state = fg.process(s, state)
+            out[dev].append({k: t[k].cpu() for k in FULL_FRAME_KEYS})
+    for i, (g, r) in enumerate(zip(out["cuda"], out["cpu"])):
+        ok, line = full_frame_agreement(g, r)
+        print(f"small example-frame {i + 1} card vs cpu: {line}")
+        check(ok, "the card's example frame disagrees with the CPU path")
+
+
+def run_example_trace(card):
+    """example-trace: ``python -m sailor_tpu_torch.examples.trace --size 512
+    --spp 16 --bounces 4`` in process (the example's scene, sweep route),
+    then ``--gltf`` on ``balls_glb`` written at run time and ``--sky``, at
+    4 spp: each run's lines, launches by route (B4/B5 or BVH8 by the
+    reference's routing, checked), render ms and Mrays/s, peak memory, the
+    PNG checked. Returns the launches of the three runs."""
+    import re
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sailor_tpu_torch.examples import trace
+    from sailor_tpu_torch.kernels import cuda_lib
+    from sailor_tpu_torch.scenes import procedural_test_maps
+    from sailor_tpu_torch.utils.png import decode_png
+
+    size, spp, bounces = EXAMPLE_TRACE
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        glb = os.path.join(tmp, "balls.glb")
+        with open(glb, "wb") as f:
+            f.write(balls_glb(procedural_test_maps(0, 256)))
+        runs = {"balls": ["--spp", str(spp)],
+                "gltf": ["--spp", str(EXAMPLE_TRACE_SPP_CUT), "--gltf", glb],
+                "sky": ["--spp", str(EXAMPLE_TRACE_SPP_CUT), "--sky"]}
+        for label, extra in runs.items():
+            out = os.path.join(tmp, f"{label}.png")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = dict(cuda_lib.LAUNCHES)
+            with captured_stdout() as text:
+                rc = trace.main(["--size", str(size), "--bounces", str(bounces),
+                                 "--out", out, *extra])
+            launches = _launch_delta(before)
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            peak = torch.cuda.max_memory_allocated()
+            with open(out, "rb") as f:
+                img = decode_png(f.read())
+            m = re.search(r"render: ([0-9.]+)s .* -> ([0-9.]+) Mrays/s", text[0])
+            print(f"example-trace[{label}] {size}x{size} {extra[1]} spp {bounces} bounces: "
+                  f"rc={rc} render_s={m and m.group(1)} mrays_per_s={m and m.group(2)} "
+                  f"peak_mem_bytes={peak} png={img.shape} "
+                  f"spread={float(np.asarray(img, np.float32).std()):.3f} "
+                  f"launches {json.dumps(launches)} on {card}")
+            check(rc == 0 and m is not None and img.shape == (size, size, 3),
+                  f"example-trace[{label}] wrote no image")
+            routed = launches.get("sweep", 0) + launches.get("bvh8_intersect", 0)
+            check(routed > 0 and launches.get("sweep", 0) == launches.get("slab_entry", 0),
+                  f"example-trace[{label}]: launches {launches}")
+    return total
+
+
+def example_trace_scene(device):
+    """The trace example's scene and camera (its default arguments)."""
+    from sailor_tpu_torch.examples import trace
+
+    args = trace.parse_args([])
+    return (trace.build_scene(args, device), *trace.camera(args, device))
+
+
+def _editor_request(port, method, path, body=None):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request(method, path, body=body)
+        r = conn.getresponse()
+        return r.status, r.getheader("Content-Type"), r.read()
+    finally:
+        conn.close()
+
+
+def _wait_frames(app, n, limit_s):
+    """Waits until the editor's loop has encoded ``n`` frames; returns the
+    PNG bytes and the ms waited."""
+    t0 = time.perf_counter()
+    while app.frame_png()[0] < n:
+        check(time.perf_counter() - t0 < limit_s, f"the editor rendered no frame {n}")
+        time.sleep(0.01)
+    return app.frame_png()[1], (time.perf_counter() - t0) * 1e3
+
+
+EDITOR_SIZE = (1920, 1088)
+
+
+def editor_setup(folder, width, height, num_lights, num_objects, map_size, device):
+    """An EditorServer over material_world_doc (camera still) with the
+    MaterialLibrary of MATERIAL_FILES and balls_glb in ``folder`` as its
+    registry's content, started on a Renderer with editor_web's config.
+    Returns (editor, library, .mat paths)."""
+    from sailor_tpu_torch.__main__ import SUN_DIRECTION
+    from sailor_tpu_torch.assets.materials import MaterialLibrary
+    from sailor_tpu_torch.assets.registry import AssetRegistry
+    from sailor_tpu_torch.engine import World
+    from sailor_tpu_torch.engine.app import Renderer
+    from sailor_tpu_torch.engine.editor_server import EditorServer
+    from sailor_tpu_torch.engine.editor_web import EDITOR_CONFIG
+    from sailor_tpu_torch.kernels.sky import SkyParams
+    from sailor_tpu_torch.scenes import procedural_test_maps
+
+    paths = material_folder(folder, map_size)
+    with open(os.path.join(folder, "balls.glb"), "wb") as f:
+        f.write(balls_glb(procedural_test_maps(0, map_size), 12, 24))
+    reg = AssetRegistry(folder)
+    reg.scan_content_folder()
+    lib = MaterialLibrary(reg, paths, texture_size=map_size, mips=True, device=device)
+    editor = EditorServer()
+    editor.world = World.deserialize(
+        material_world_doc(num_lights, num_objects, width / height, orbit=False), device=device)
+    editor.world.materials = lib
+    editor.registry = reg
+    editor.start(Renderer(RENDERER, width, height, config=dict(EDITOR_CONFIG), device=device),
+                 sky=SkyParams.default(sun_direction=SUN_DIRECTION))
+    return editor, lib, paths
+
+
+def run_editor_material_edit(card, width=EDITOR_SIZE[0], height=EDITOR_SIZE[1],
+                             device="cuda"):
+    """editor-material-edit: an EditorServer over the material world
+    (material_world_doc(1000, 96), the camera still, 8 .mat files in a
+    MaterialLibrary) on a Renderer at 1920x1088 with editor_web's config,
+    served by EditorWebApp on 127.0.0.1:0 with its render loop: GET /,
+    /api/world, /api/content and /api/asset (a PNG map, the GLB, a .mat),
+    POST /api/update (an object moved), then POST /api/asset/update
+    (paint.mat's albedo turned green) and /api/frame.png polled until a
+    frame rendered after the edit: the edited material's pixels (by the
+    frame's TriId, as ``edited_pixels``) changed, decoded with the port's
+    decoder. Ticks, ms a tick, ms from the edit to the frame; the loop
+    and server stopped; no failed tick; then one more tick with every B1
+    and B2 launch (the alpha peels' too) held to its twin
+    (``twin_checked``); a profiled tick on the card. Returns the launches,
+    the held tick's included."""
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from sailor_tpu_torch.engine.editor_web import EditorWebApp
+    from sailor_tpu_torch.kernels import cuda_lib
+    from sailor_tpu_torch.utils.png import decode_png
+
+    n_lights, n_objects = FLAGSHIP[2], FLAGSHIP[3]
+    with tempfile.TemporaryDirectory() as folder:
+        editor, lib, paths = editor_setup(folder, width, height, n_lights, n_objects, 256,
+                                          device)
+        editor.get_messages(1 << 20)
+        ticks, last_tid = [], []
+        inner = editor.tick
+
+        def tick(dt):
+            t0 = time.perf_counter()
+            out = inner(dt)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            ticks.append((time.perf_counter() - t0) * 1e3)
+            last_tid[:] = [out["TriId"]]
+            return out
+
+        editor.tick = tick
+        app = EditorWebApp(editor)
+        server = app.make_server("127.0.0.1", 0)
+        port = server.server_address[1]
+        serving = threading.Thread(target=server.serve_forever, daemon=True)
+        before = dict(cuda_lib.LAUNCHES)
+        serving.start()
+        app.start_loop()
+        try:
+            _wait_frames(app, 1, 600)
+            replies = {}
+            for label, path in (("page", "/"), ("world", "/api/world"),
+                                ("content", "/api/content"),
+                                ("texture", f"/api/asset?path={folder}/albedo.png"),
+                                ("model", f"/api/asset?path={folder}/balls.glb"),
+                                ("material", f"/api/asset?path={paths[EDITED]}")):
+                status, ctype, body = _editor_request(port, "GET", path)
+                replies[label] = [status, ctype, len(body)]
+                check(status == 200, f"editor: GET {path} answered {status}")
+            world = json.loads(_editor_request(port, "GET", "/api/world")[2])
+            moved = next(o for o in world["objects"] if o["name"].startswith("Object"))
+            status, _, body = _editor_request(port, "POST",
+                                              f"/api/update?id={moved['instance_id']}",
+                                              b"position: [0.0, 3.0, 0.0]\n")
+            check(status == 200 and json.loads(body)["ok"], "editor: /api/update failed")
+            png_before, _ = _wait_frames(app, app.frame_png()[0] + 2, 600)
+            n_before = app.frame_png()[0]
+            t_edit = time.perf_counter()
+            status, _, body = _editor_request(
+                port, "POST", f"/api/asset/update?path={paths[EDITED]}",
+                f"uniformsVec4:\n  material.albedo: {EDITED_ALBEDO[1]}\n".encode())
+            edit_ms = (time.perf_counter() - t_edit) * 1e3
+            check(status == 200 and json.loads(body)["ok"] and lib.version == 2,
+                  "editor: /api/asset/update did not rebuild the library")
+            n_after = app.frame_png()[0] + 2  # a frame in its encode may predate the edit
+            while True:
+                status, _, png_after = _editor_request(port, "GET", "/api/frame.png")
+                if app.frame_png()[0] >= n_after:
+                    status, _, png_after = _editor_request(port, "GET", "/api/frame.png")
+                    break
+                check((time.perf_counter() - t_edit) < 600, "editor: no frame after the edit")
+                time.sleep(0.01)
+            to_frame_ms = (time.perf_counter() - t_edit) * 1e3
+        finally:
+            app.stop_loop()
+            server.shutdown()
+            server.server_close()
+            serving.join(60)
+        record, b0 = {}, dict(cuda_lib.LAUNCHES)
+        with twin_checked(record):
+            inner(0.1)
+            if device == "cuda":
+                torch.cuda.synchronize()
+        held = _launch_delta(b0)
+        launches = _launch_delta(before)
+        failed = [m for m in editor.get_messages(1 << 20) if "EditorWeb: tick failed" in m]
+        check(not serving.is_alive(), "editor: the server thread did not stop")
+        check(not failed, f"editor: {failed[:3]}")
+        a, b = (decode_png(p).astype(np.int32) for p in (png_before, png_after))
+        edited = edited_pixels(editor.world, last_tid[0], EDITED).cpu().numpy()
+        changed = np.abs(b - a).max(-1) > 0
+        share = float(changed[edited].mean()) if edited.any() else 0.0
+        steady = ticks[1:] or ticks
+        print(f"editor-material-edit {width}x{height}: ticks={len(ticks)} "
+              f"ms_a_tick_first={ticks[0]:.3f} ms_a_tick_median={float(np.median(steady)):.3f} "
+              f"edit_request_ms={edit_ms:.3f} edit_to_frame_ms={to_frame_ms:.3f} "
+              f"frames_before_edit={n_before} edited_pixels={int(edited.sum())} "
+              f"edited_changed={share:.4f} png={b.shape} launches {json.dumps(launches)} "
+              f"on {card}")
+        print("editor-material-edit replies " + json.dumps(replies))
+        print("editor-material-edit twin_checked_ticks=1 launches " + json.dumps(held)
+              + " launches_held " + json.dumps({k: len(v) for k, v in record.items()})
+              + " max_abs_err " + json.dumps({k: max(v) for k, v in record.items()})
+              + f" on {card}")
+        for k in ("raster_worklist", "resolve_worklist"):
+            check(held.get(k, 0) > 0 and len(record.get(k, ())) == held[k],
+                  f"editor-material-edit: {k} was not held to its twin on every launch")
+        check(held.get("resolve_worklist_alpha", 0) > 0,
+              "editor-material-edit: the held tick ran no alpha peel")
+        check(b.shape == (height, width, 3), "editor: the frame PNG has another size")
+        check(edited.mean() > 1e-4 and share > 0.9,
+              "editor-material-edit: the edit did not reach the next frame")
+        for k in ("raster_worklist", "resolve_worklist"):  # the config shades plainly
+            check(launches.get(k, 0) >= len(ticks),
+                  f"editor-material-edit: {k} launched {launches.get(k, 0)} times")
+        if device == "cuda":
+            profile(lambda: inner(0.1), card, "profile_editor_tick")
+        editor.shutdown()
+    return launches
+
+
+def assets_equal(a, b) -> bool:
+    """Two loaded assets equal: arrays element for element, dicts, lists
+    and objects (by their attributes) recursively, the rest by ==."""
+    import numpy as np
+
+    if isinstance(a, np.ndarray):
+        return np.array_equal(a, b)
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(assets_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(assets_equal(x, y) for x, y in zip(a, b))
+    if hasattr(a, "__dict__"):
+        return assets_equal(vars(a), vars(b))
+    return a == b
+
+
+def run_host_runtime(card):
+    """host-runtime: the five ``<suite>.benchmark`` console commands on the
+    card (all PASSED; bvh launches the BVH8 kernel), ``stats.memory`` with
+    the native multipool line, then the GLB, its PNG maps and the 8 .mat
+    files loaded with ``load_async`` (all submitted, then waited) beside
+    the synchronous loads on a second registry: equal outputs, host ms
+    both ways. Returns the launches."""
+    import tempfile
+
+    from sailor_tpu_torch.assets.registry import AssetRegistry, load_async
+    from sailor_tpu_torch.engine import World
+    from sailor_tpu_torch.engine.console import Console
+    from sailor_tpu_torch.kernels import cuda_lib
+    from sailor_tpu_torch.scenes import procedural_test_maps
+    from sailor_tpu_torch.utils import benchmarks
+
+    console = Console(world=World(device="cuda"))
+    before = dict(cuda_lib.LAUNCHES)
+    for name in benchmarks.ALL:
+        b0 = dict(cuda_lib.LAUNCHES)
+        line = console.execute(f"{name}.benchmark")
+        print(f"host-runtime {line} launches {json.dumps(_launch_delta(b0))}")
+        check(f"{name}.benchmark PASSED" in line, f"host-runtime: {line}")
+    launches = _launch_delta(before)
+    check(launches.get("bvh8_intersect", 0) > 0, "bvh.benchmark launched no BVH8 kernel")
+    mem = console.execute("stats.memory")
+    print("host-runtime stats.memory: " + " | ".join(mem.splitlines()))
+    check(mem.startswith(str(console.world.device)) and "native multipool:" in mem,
+          "stats.memory lacks a line")
+
+    with tempfile.TemporaryDirectory() as folder:
+        paths = material_folder(folder, 256)
+        with open(os.path.join(folder, "balls.glb"), "wb") as f:
+            f.write(balls_glb(procedural_test_maps(0, 256)))
+        files = [os.path.join(folder, n) for n in ("balls.glb", "albedo.png", "normal.png",
+                                                   "stripes.png")] + paths
+        regs = [AssetRegistry(folder), AssetRegistry(folder)]
+        for r in regs:
+            r.scan_content_folder()
+        t0 = time.perf_counter()
+        sync = [regs[0].load(p) for p in files]
+        sync_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        handles = [load_async(regs[1], p) for p in files]
+        asyn = [h.wait(300) for h in handles]
+        async_ms = (time.perf_counter() - t0) * 1e3
+        equal = [assets_equal(a, b) for a, b in zip(sync, asyn)]
+        print(f"host-runtime load_async: {len(files)} files sync_ms={sync_ms:.3f} "
+              f"async_ms={async_ms:.3f} equal={sum(equal)}/{len(files)} on {card}")
+        check(all(equal), "load_async gave another asset than load")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4502,8 +5014,14 @@ def main() -> int:
     check_small_content()
     check_small_engine_materials()
     print(f"content: {time.perf_counter() - t_content:.1f} s")
-    for k in main_frame:  # B1-B3 rows: the frame's launches and the new paths'
-        k["launches"] += content_launches.get(k["name"], 0) + material_launches.get(k["name"], 0)
+    t_examples = time.perf_counter()
+    example_launches = run_example_frame(card)
+    check_small_example_frame()
+    editor_launches = run_editor_material_edit(card)
+    print(f"example-frame and editor: {time.perf_counter() - t_examples:.1f} s")
+    for k in main_frame:  # B1-B3 rows: the frame's launches and the later paths'
+        k["launches"] += sum(p.get(k["name"], 0) for p in (
+            content_launches, material_launches, example_launches, editor_launches))
     tracer_kernels = check_tracer_kernels(card)
     launches, tracer_peak = run_tracer(card)
     check_small_trace()
@@ -4519,6 +5037,14 @@ def main() -> int:
     bvh8_kernels = [bvh8_row]
     launches["bvh8_intersect"] = bvh8_launches.get("bvh8_intersect", 0)
     check_small_trace(dense_tracer_scene, "tracer_dense_bvh8")
+    t_host = time.perf_counter()
+    example_trace_launches = run_example_trace(card)
+    check_small_trace(example_trace_scene, "example_trace")
+    host_launches = run_host_runtime(card)
+    print(f"example-trace and host-runtime: {time.perf_counter() - t_host:.1f} s")
+    for name in ("slab_entry", "sweep", "bvh8_intersect"):
+        launches[name] = (launches.get(name, 0) + example_trace_launches.get(name, 0)
+                          + host_launches.get(name, 0))
     for k in tracer_kernels + bvh8_kernels:
         k["launches"] = launches.get(k["name"], 0)
         check(k["launches"] > 0, f"{k['name']} was not launched on its main path")

@@ -13,7 +13,9 @@ NotImplementedError naming the format (``textures.UNDECODED``).
 
 from __future__ import annotations
 
+import atexit
 import os
+import threading
 import time
 import uuid
 from typing import Any, Callable
@@ -67,6 +69,7 @@ class AssetRegistry:
         self.cache: dict[str, Any] = {}             # file id -> loaded asset
         self.importers: dict[str, Callable] = {}    # extension -> loader
         self.listeners: list[Callable] = []         # hot-reload callbacks
+        self._register_lock = threading.Lock()      # loads run on worker threads too
         self._register_default_importers()
 
     def register_importer(self, extension: str, loader: Callable) -> None:
@@ -101,6 +104,10 @@ class AssetRegistry:
         return count
 
     def _register_file(self, path: str) -> AssetInfo:
+        with self._register_lock:
+            return self._register_file_locked(path)
+
+    def _register_file_locked(self, path: str) -> AssetInfo:
         if path in self.infos:
             return self.infos[path]
         sidecar = path + ".asset"
@@ -164,8 +171,44 @@ class AssetRegistry:
         return reloaded
 
 
-def load_async(registry: AssetRegistry, path: str):
-    """The reference submits loads to its native worker pool
-    (``native_bridge``), which is not ported yet (ROADMAP A 8)."""
-    raise NotImplementedError("asynchronous asset loads need the native scheduler "
-                              "(native_bridge), not ported yet (ROADMAP A 8)")
+_scheduler = None
+_scheduler_lock = threading.Lock()
+
+
+def _get_scheduler():
+    """The process's load scheduler (native_bridge.Scheduler), made at the
+    first asynchronous load and shut down at interpreter exit."""
+    global _scheduler
+    with _scheduler_lock:
+        if _scheduler is None:
+            from sailor_tpu_torch import native_bridge
+
+            _scheduler = native_bridge.Scheduler()
+            atexit.register(_scheduler.shutdown)
+        return _scheduler
+
+
+class AsyncLoad:
+    """A load submitted to the native scheduler: ``wait(timeout=None)``
+    returns the asset (or raises the loader's exception), ``is_done()``
+    polls."""
+
+    def __init__(self, scheduler, task: int):
+        self._scheduler = scheduler
+        self._task = task
+
+    def wait(self, timeout: float | None = None):
+        return self._scheduler.wait(self._task, timeout)
+
+    def is_done(self) -> bool:
+        return self._scheduler.is_done(self._task)
+
+
+def load_async(registry: AssetRegistry, path: str) -> AsyncLoad:
+    """Submit ``registry.load(path)`` to the native worker pool (the
+    reference's asynchronous import tasks). The load runs on the host; a
+    loader that touches the card does so on the worker thread's current
+    device, device 0. There is no synchronous fallback: a failed build of
+    the runtime library raises here."""
+    sched = _get_scheduler()
+    return AsyncLoad(sched, sched.submit(lambda: registry.load(path)))

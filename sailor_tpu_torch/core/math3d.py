@@ -346,7 +346,7 @@ def trs(t, r, s):
     """Compose translate / rotate (quaternion) / scale into (..., 4, 4)
     model matrices (glm::translate * mat4_cast(rot) * glm::scale)."""
     t = _f32(t)
-    m = torch.zeros(t.shape[:-1] + (4, 4))
+    m = torch.zeros(t.shape[:-1] + (4, 4), device=t.device)
     m[..., :3, :3] = quat_to_mat3(r) * _f32(s)[..., None, :]
     m[..., :3, 3] = t
     m[..., 3, 3] = 1.0

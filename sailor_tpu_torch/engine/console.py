@@ -1,6 +1,7 @@
 """Console command dispatch (counterpart of sailor_tpu/engine/console.py,
 the reference's stdin console, Runtime/Sailor.cpp:219-252): `scan`,
-`stats.memory`, `world.save`, `refresh`, `capture` and `profile`."""
+`stats.memory`, `world.save`, `refresh`, `capture`, `profile` and the
+`<suite>.benchmark` commands (utils/benchmarks.py)."""
 
 from __future__ import annotations
 
@@ -21,6 +22,12 @@ class Console:
                          ("world.save", self._cmd_world_save), ("refresh", self._cmd_refresh),
                          ("capture", self._cmd_capture), ("profile", self._cmd_profile)):
             self.register(name, fn)
+        from sailor_tpu_torch.utils import benchmarks
+
+        for name in benchmarks.ALL:
+            self.register(f"{name}.benchmark",
+                          lambda args, n=name: benchmarks.run(n, self._device()))
+        self._mpool = None
 
     def register(self, name: str, fn: Callable[[list[str]], str]) -> None:
         self.commands[name] = fn
@@ -62,11 +69,19 @@ class Console:
         lines.append(f"TOTAL (sum of nodes): {sum(t.values()):.2f} ms")
         return "\n".join(lines)
 
+    def _device(self):
+        """The renderer's device, else the world's; None (the card) without
+        either."""
+        return getattr(self.renderer, "device", None) or getattr(self.world, "device", None)
+
     def _cmd_stats_memory(self, args) -> str:
         """Device memory in use, reserved, peak and total (the reference's
-        stats.memory), and the transform pool's occupancy."""
+        stats.memory), the transform pool's occupancy and the native
+        multipool's (TMultiPoolAllocator stats)."""
+        from sailor_tpu_torch import native_bridge as nb
+
         lines = []
-        dev = getattr(self.renderer, "device", None) or getattr(self.world, "device", None)
+        dev = self._device()
         if dev is not None and dev.type == "cuda":
             s = torch.cuda.memory_stats(dev)
             total = torch.cuda.get_device_properties(dev).total_memory
@@ -80,7 +95,12 @@ class Console:
         if self.world is not None:
             pool = self.world.transforms.pool
             lines.append(f"transform pool: {pool.num_alive}/{pool.capacity}")
-        return "\n".join(lines) or "no devices"
+        if self._mpool is None:
+            self._mpool = nb.MultiPool()
+        s = self._mpool.stats()
+        lines.append(f"native multipool: {s['used']}/{s['capacity']} blocks, "
+                     f"{s['pages']} pages, {s['reserved_bytes'] / 1e6:.1f}MB reserved")
+        return "\n".join(lines)
 
     def _cmd_world_save(self, args) -> str:
         if self.world is None:

@@ -105,6 +105,10 @@ class TraceScene:
     def device(self) -> torch.device:
         return self.tri_pack.device
 
+    @property
+    def num_triangles(self) -> int:
+        return self.tri_pack.shape[0]
+
 
 TRACE_KEYS = ("tri_pack", "sun_direction", "sun_intensity", "sky_zenith", "sky_horizon")
 OPTIONAL_KEYS = ("env_map", "textures", "tex_lod", "tex_quad")

@@ -28,6 +28,7 @@ import struct
 import zlib
 
 import numpy as np
+import torch
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> samples a pixel
@@ -47,6 +48,16 @@ def encode_png(img_u8: np.ndarray) -> bytes:
     hdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
     return (SIGNATURE + chunk(b"IHDR", hdr)
             + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def srgb_to_u8(final_srgb) -> np.ndarray:
+    """An sRGB image in [0, 1] (a tensor on any device, or an array) ->
+    uint8 on the host: clip(x * 255 + 0.5) truncated, the reference's
+    conversion. A tensor is converted where it lies and read back once,
+    as uint8."""
+    if not torch.is_tensor(final_srgb):
+        final_srgb = torch.from_numpy(np.asarray(final_srgb))
+    return torch.clamp(final_srgb * 255.0 + 0.5, 0, 255).to(torch.uint8).cpu().numpy()
 
 
 def _chunks(data: bytes):

@@ -608,3 +608,98 @@ def test_material_world_doc_and_edit(tmp_path):
     tid = torch.tensor([[-1, 0, 1], [2, 3, 5]])
     assert chip_smoke.edited_pixels(_World, tid, 2).tolist() == [[False, False, False],
                                                                  [True, True, False]]
+
+
+# --- rehearsals of the examples, editor and host-runtime phases on the CPU ----------
+
+_TWINS = (  # (module, wrapper, plain twin, LAUNCHES key)
+    (tr, "rasterize_worklist_cuda", tr.rasterize_worklist_plain, "raster_worklist"),
+    (tr, "resolve_worklist_cuda", tr.resolve_worklist_plain, "resolve_worklist"),
+    (sweep, "visit_tables_cuda", sweep.visit_tables_plain, "slab_entry"),
+    (sweep, "sweep_cuda", sweep.sweep_plain, "sweep"),
+    (bvh8, "intersect_cuda", bvh8.intersect_plain, "bvh8_intersect"),
+)
+
+
+@pytest.fixture
+def rehearsal(monkeypatch):
+    """The card's phases on the CPU: every entry point's device resolved to
+    the CPU, the dispatch returning the kernel's wrapper and each of B1-B5
+    and the BVH8 wrapper a plain twin that counts its launches as the
+    wrapper does; torch.cuda's synchronise, memory stats and sync-debug
+    mode stubbed; the examples' frame graph shades through B3 as on the
+    card."""
+    import importlib
+
+    from sailor_tpu_torch.examples import render_frame
+    from sailor_tpu_torch.kernels import cuda_lib, pbr_kernel
+
+    cpu = torch.device("cpu")
+    for name in ("config", "examples.render_frame", "examples.trace", "engine.world",
+                 "engine.app", "framegraph.graph", "scenes", "assets.materials",
+                 "raytracing.path_tracer", "raster.pipeline", "kernels.cubemap",
+                 "kernels.ibl", "utils.benchmarks"):
+        mod = importlib.import_module(f"sailor_tpu_torch.{name}")
+        monkeypatch.setattr(mod, "resolve_device", lambda device=None: cpu)
+    monkeypatch.setattr(cuda_lib, "dispatch", lambda t, plain, kernel: kernel)
+
+    def counting(plain, key):
+        def twin(*args, **kw):
+            cuda_lib.LAUNCHES[key] += 1
+            if kw.get("mode") == "alpha":
+                cuda_lib.LAUNCHES["resolve_worklist_alpha"] += 1
+            return plain(*args, **kw)
+        return twin
+
+    for mod, wrapper, plain, key in _TWINS:
+        monkeypatch.setattr(mod, wrapper, counting(plain, key))
+    monkeypatch.setattr(pbr_kernel, "shade_tiles_cuda",
+                        counting(pbr_kernel.shade_tiles_plain, "shade_forward_plus"))
+    for name in ("synchronize", "reset_peak_memory_stats", "set_sync_debug_mode"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
+    frame_graph = render_frame.frame_graph
+
+    def shaded_graph(width, height, device):
+        fg = frame_graph(width, height, device)
+        fg.config["pallas_shading"] = True
+        return fg
+
+    monkeypatch.setattr(render_frame, "frame_graph", shaded_graph)
+    cuda_lib.LAUNCHES.clear()
+    return "rehearsal"
+
+
+def test_example_frame_phase_rehearsal(rehearsal, monkeypatch):
+    """run_example_frame at 128x64 with 8 lights and 1 timed frame (the
+    CPU trace holds aten ops, not the card's kernels: the names it must
+    hold are patched) and check_small_example_frame."""
+    monkeypatch.setattr(chip_smoke, "EXAMPLE_FRAME", (128, 64, 8, 1))
+    monkeypatch.setattr(chip_smoke, "FRAME_KERNEL_NAMES",
+                        dict.fromkeys(chip_smoke.FRAME_KERNEL_NAMES, "aten::"))
+    launches = chip_smoke.run_example_frame(rehearsal)
+    assert all(launches[k] >= 2 for k in chip_smoke.PATH_KERNELS)
+    chip_smoke.check_small_example_frame()
+
+
+def test_example_trace_phase_rehearsal(rehearsal, monkeypatch):
+    """run_example_trace at 32x32 (1 spp, 2 bounces) and the card-vs-CPU
+    render of the example's scene."""
+    monkeypatch.setattr(chip_smoke, "EXAMPLE_TRACE", (32, 1, 2))
+    monkeypatch.setattr(chip_smoke, "EXAMPLE_TRACE_SPP_CUT", 1)
+    launches = chip_smoke.run_example_trace(rehearsal)
+    assert launches["sweep"] == launches["slab_entry"] > 0
+    chip_smoke.check_small_trace(chip_smoke.example_trace_scene, "example_trace")
+
+
+def test_editor_material_edit_phase_rehearsal(rehearsal, monkeypatch):
+    """run_editor_material_edit at 128x64 over material_world_doc(24, 16):
+    the HTTP calls, the edit reaching a later frame, the loop stopped."""
+    monkeypatch.setattr(chip_smoke, "FLAGSHIP", (128, 64, 24, 16))
+    launches = chip_smoke.run_editor_material_edit(rehearsal, 128, 64, "cpu")
+    assert launches["raster_worklist"] > 0 and launches["resolve_worklist"] > 0
+
+
+def test_host_runtime_phase_rehearsal(rehearsal):
+    launches = chip_smoke.run_host_runtime(rehearsal)
+    assert launches["bvh8_intersect"] == 2  # bvh.benchmark: two tables traversed

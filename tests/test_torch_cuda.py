@@ -78,6 +78,11 @@ a MaterialLibrary before and after a hot reload (each frame held by
 ``full_frame_agreement``), the GLB tracer scene's 64x64 render, the
 particle splat at 640x384 (within 1e-4 relative + 1e-6 on >= 99.9%, zero
 where the CPU's is) and a MaterialLibrary's table (equal).
+The examples, the editor and the host runtime: render_frame's scene at
+256x128 (B3 shading on both devices) and the trace example's scene at
+64x64 against the CPU path, the editor's live material edit at 256x128 on
+the card, and the five benchmark suites on the card (bvh through the
+BVH8 kernel) inside synchronised profiler zones.
 """
 
 import numpy as np
@@ -869,3 +874,45 @@ def test_material_library_on_card_equals_cpu(card, tmp_path):
         assert (a is None) == (b is None), f
         if a is not None:
             assert a.device.type == "cuda" and torch.equal(a.cpu(), b), f
+
+
+# --- the examples, the editor and the host runtime ----------------------------------
+
+
+def test_example_frame_on_card_matches_cpu(card):
+    """render_frame's scene at 256x128 with 16 lights, two frames, B3
+    shading on both devices (full_frame_agreement)."""
+    from chip_smoke import check_small_example_frame
+
+    check_small_example_frame()
+
+
+def test_example_trace_on_card_matches_cpu(card):
+    from chip_smoke import example_trace_scene
+
+    check_small_trace(example_trace_scene, "example_trace")
+
+
+def test_editor_material_edit_on_card(card, monkeypatch):
+    """editor-material-edit at 256x128 over material_world_doc(24, 16):
+    every endpoint answers, the .mat edit reaches a later frame, no tick
+    fails, the loop and server stop."""
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "FLAGSHIP", (256, 128, 24, 16))
+    launches = chip_smoke.run_editor_material_edit(chip_smoke._card(), 256, 128, "cuda")
+    assert launches["raster_worklist"] > 0 and launches["resolve_worklist"] > 0
+
+
+def test_benchmarks_and_profiler_on_card(card):
+    """The five suites on the card (the default device): PASSED, and bvh
+    launches the BVH8 kernel; a synchronised profile_scope around it."""
+    from sailor_tpu_torch.utils import benchmarks, profiler
+
+    profiler.end_frame()
+    before = cuda_lib.LAUNCHES["bvh8_intersect"]
+    for name in benchmarks.ALL:
+        with profiler.profile_scope(name, sync=True):
+            assert f"{name}.benchmark PASSED" in benchmarks.run(name)
+    assert cuda_lib.LAUNCHES["bvh8_intersect"] == before + 2
+    assert set(profiler.end_frame()) == set(benchmarks.ALL)

@@ -192,7 +192,9 @@ def test_console_capture_profile_and_commands(tmp_path):
     assert con.execute("refresh") == "frame graph refreshed" and r.frame_graph is not graph
     assert con.execute("scan") == "no asset registry"
     assert con.execute("nope").startswith("unknown command 'nope'")
-    assert not any(k.startswith("cache.") or k.endswith(".benchmark") for k in con.commands)
+    assert not any(k.startswith("cache.") for k in con.commands)  # A 10: not ported
+    assert {k for k in con.commands if k.endswith(".benchmark")} == {
+        f"{n}.benchmark" for n in ("memory", "pool", "scheduler", "bvh", "math")}
 
 
 def test_registry_scans_and_loads(tmp_path):

@@ -1,10 +1,11 @@
 """The port stands alone and refuses what it does not implement.
 
-- Importing every module of sailor_tpu_torch (the importers, the particles
-  and the new nodes among them), and chip_smoke, loads no jax and no
-  sailor_tpu module, and building a BVH8 table loads the port's own
-  host library, not the JAX package's native/libsailor_native.so (checked
-  in a fresh interpreter);
+- Importing every module of sailor_tpu_torch (the importers, the particles,
+  the new nodes, the examples, the editor, the native bridge, bounds,
+  octree, profiler and benchmarks among them), and chip_smoke, loads no
+  jax and no sailor_tpu module, and building a BVH8 table and starting a
+  scheduler load the port's own host libraries, not the JAX package's
+  native/libsailor_native.so (checked in a fresh interpreter);
 - no source line of the port imports them;
 - entry points default to the CUDA device and raise when there is none
   (the engine's World, Renderer and CLI without --cpu too);
@@ -19,8 +20,8 @@
   env-map sky and ray sorting inside the intersector run, and so do
   ``tracer="bvh8"`` (no sweep built) and "auto" over MAX_SWEEP_TRIANGLES
   (no sweep; every pass takes the BVH8 traversal); the asset registry's
-  image importers of formats other than PNG and asynchronous loads raise
-  NotImplementedError, and an unknown tonemap mode raises ValueError as
+  image importers of formats other than PNG raise NotImplementedError,
+  asynchronous loads run, and an unknown tonemap mode raises ValueError as
   the frame graph is built;
 - no source line of the port imports Pillow or imageio (the card's machine
   has neither).
@@ -62,13 +63,19 @@ for name in names:
 assert {{"sailor_tpu_torch.assets." + m for m in ("gltf", "objmtl", "fbx", "textures",
                                                 "particles")}} <= set(names)
 assert {{"sailor_tpu_torch.kernels.particles", "sailor_tpu_torch.utils.png"}} <= set(names)
+assert {{"sailor_tpu_torch." + m for m in (
+    "examples.render_frame", "examples.trace", "engine.editor_server", "engine.editor_web",
+    "native_bridge", "core.bounds", "core.octree", "utils.profiler", "utils.benchmarks")}} <= set(names)
 import chip_smoke
 import numpy as np
 from sailor_tpu_torch.raytracing import bvh8
 v = np.random.default_rng(0).random((3, 20, 3)).astype(np.float32)
 assert len(bvh8.build_table(*v)) > 1
+from sailor_tpu_torch import native_bridge
+native_bridge.Scheduler(1).shutdown()
 maps = open("/proc/self/maps").read()
 assert "libsailor_torch_host" in maps and "libsailor_native" not in maps
+assert "libsailor_torch_runtime" in maps
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "flax", "sailor_tpu"))
 print("BAD", bad)
@@ -135,9 +142,10 @@ def test_unported_importers_raise(tmp_path, ext):
 
 
 def test_unported_engine_inputs_raise():
-    """Asynchronous loads (A 8)."""
-    with pytest.raises(NotImplementedError, match="A 8"):
-        load_async(AssetRegistry(), "content/Editor.world")
+    """Asynchronous loads no longer refuse: they run on the port's native
+    scheduler (tests/test_torch_native.py holds them to ``load``)."""
+    doc = load_async(AssetRegistry(), os.path.join(REPO, "content", "Editor.world")).wait(60)
+    assert doc["gameObjects"]
 
 
 def test_kernel_wrappers_take_cuda_tensors_only():
