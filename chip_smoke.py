@@ -207,6 +207,22 @@ Phases, each printed as it ends:
      card (bvh launches the BVH8 kernel), ``stats.memory`` with the native
      multipool line, and a GLB, its PNG maps and 8 .mat files through
      ``load_async`` beside the synchronous loads (equal, host ms).
+ 19. sharded (``sailor_tpu_torch.parallel``; the shards share the one
+     card, each in its own thread and stream): the mesh's placement;
+     ``FrameGraph.process_sharded`` of the flagship scene through
+     DefaultRenderer.renderer at 1920x1088 over 2 shards, 1 warm-up + 3
+     frames (ms, launches a frame), one frame with every B1, B2 and B3
+     launch of both shards held to its twin, Main and Final against the
+     unsharded frame (differences printed), peak memory;
+     ``sharded_forward_frame`` at 1920x1088 over 2 shards (B9 a pass a
+     shard, bit-equal to its twin, BinOverflow a shard, against 1 shard);
+     ``sharded_path_trace`` at 512x512 over 4 shards, 4 spp (B4 and B5),
+     bit-equal to ``trace_rays`` with the same uniforms; a 128x256 frame
+     over 8 shards on the card against the CPU path; the shards of one
+     card take host turns (``parallel.mesh._Turn``);
+ 20. tools and decoders: ``python -m sailor_tpu_torch.tools.time_sweep``
+     (256x256) and ``profile_trace --small`` on the card; BMP, TGA and
+     Radiance HDR files written by the script read back exactly.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure ends the run with
 a non-zero exit code and no result line.
@@ -4916,6 +4932,338 @@ def run_host_runtime(card):
     return launches
 
 
+# --- phase 19: multi-device rendering (sailor_tpu_torch.parallel) -----------------
+
+SHARDED = (1920, 1088, 2)  # width, height, shards of process_sharded and the forward frame
+SHARDED_FRAMES = 3  # timed sharded frames after the warm-up
+SHARDED_TRACE = (512, 512, 4, 4, 2)  # width, height, shards, spp, bounces
+
+
+@contextlib.contextmanager
+def shard_threads(names, seen):
+    """While open, every call of the wrappers ``names`` ((module, attr)
+    pairs) adds the calling thread's name to ``seen[attr]``."""
+    import threading
+
+    saved = []
+    for mod, attr in names:
+        inner = getattr(mod, attr)
+
+        def call(*a, _inner=inner, _attr=attr, **kw):
+            seen.setdefault(_attr, set()).add(threading.current_thread().name)
+            return _inner(*a, **kw)
+
+        saved.append((mod, attr, inner))
+        setattr(mod, attr, call)
+    try:
+        yield seen
+    finally:
+        for mod, attr, inner in saved:
+            setattr(mod, attr, inner)
+
+
+def run_sharded_frames(scene, card):
+    """sharded[full]: the flagship scene through all of
+    DefaultRenderer.renderer (``FULL_CONFIG``) split over 2 row shards of
+    one card (``make_mesh(2)``: both on cuda:0, each shard in its thread on
+    its own stream), 1 warm-up + 3 frames with the state threaded through:
+    frame ms, launches per frame (B1 3 a shard on the dirty warm-up, its
+    depth and its 2 cascades, 1 cached; B2 and B3 once a shard). One more
+    dirty frame with every B1, B2 and B3 launch of both shards held to its
+    plain twin (``twin_checked``; shard 1's B1 on its row-shifted setup),
+    its Main and Final against the unsharded frame of the same state on
+    the card (Final within 2/255, Main within 1e-3 * (1 + |unsharded|);
+    the differences printed); peak memory. Returns the launches of the
+    warm-up and the 3 frames."""
+    import torch
+
+    from sailor_tpu_torch.kernels import cuda_lib, pbr_kernel
+    from sailor_tpu_torch.parallel import make_mesh
+    from sailor_tpu_torch.raster import tile_raster as tr
+
+    width, height, n = SHARDED
+    mesh = make_mesh(n)
+    print(f"sharded mesh: {n} shards on {mesh.placement()} (device_count="
+          f"{torch.cuda.device_count()})")
+    fg = _full_graph(width, height)
+    state = fg.initial_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, per_frame, total = [], [], {}
+    for i in range(1 + SHARDED_FRAMES):
+        cuda_lib.LAUNCHES.clear()
+
+        def frame():
+            fg.prepare(scene, state)
+            return fg.process_sharded(scene, state, mesh)
+
+        ms, (targets, state) = _wall_ms(frame)
+        launches = dict(cuda_lib.LAUNCHES)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        times.append(ms)
+        per_frame.append(launches)
+    peak = torch.cuda.max_memory_allocated()
+    for i, launches in enumerate(per_frame):
+        for name in PATH_KERNELS:
+            want = n * (3 if (i == 0 and name == "raster_worklist") else 1)
+            check(launches.get(name, 0) == want,
+                  f"sharded[full] frame {i} launched {name} {launches.get(name, 0)} times, "
+                  f"not {want}")
+    final = targets["Final"]
+    check(tuple(final.shape) == (height, width, 3), f"sharded[full]: Final has shape {final.shape}")
+    check(bool(torch.isfinite(final).all()) and final.min().item() >= 0.0
+          and final.max().item() <= 1.0, "sharded[full]: Final is not finite in [0, 1]")
+
+    # one dirty frame (a fresh state) with every kernel launch held to its twin
+    fresh = fg.initial_state()
+    fg.prepare(scene, fresh)
+    record, seen = {}, {}
+    wrappers = ((tr, "rasterize_worklist_cuda"), (tr, "resolve_worklist_cuda"),
+                (pbr_kernel, "shade_tiles_cuda"))
+    with twin_checked(record), shard_threads(wrappers, seen):
+        checked, _ = fg.process_sharded(scene, dict(fresh), mesh)
+    for name in PATH_KERNELS:
+        check(len(record.get(name, [])) >= n, f"sharded[full]: {name} was not twin-checked "
+              "on every shard")
+    for _, attr in wrappers:
+        check(seen.get(attr) == {f"shard-{i}" for i in range(n)},
+              f"sharded[full]: {attr} ran on {sorted(seen.get(attr, ()))}")
+    fg1 = _full_graph(width, height)
+    st1 = fg1.initial_state()
+    fg1.prepare(scene, st1)
+    single, _ = fg1.process(scene, st1)
+    d_main = (checked["Main"] - single["Main"]).abs()
+    d_final = (checked["Final"] - single["Final"]).abs()
+    main_ok = bool((d_main <= 1e-3 * (1 + single["Main"].abs())).all())
+    print(f"sharded[full] {width}x{height} x{n}: warmup_dirty_ms={times[0]:.3f} "
+          f"cached_frame_ms={[round(m, 3) for m in times[1:]]} "
+          f"cached_mean_ms={sum(times[1:]) / SHARDED_FRAMES:.3f} peak_mem_bytes={peak} on {card}")
+    print("sharded[full] launches_per_frame " + json.dumps(per_frame))
+    print("sharded[full] twin_max_abs_err " + json.dumps(
+        {k: max(v) for k, v in record.items()}) + " launches_checked "
+        + json.dumps({k: len(v) for k, v in record.items()}))
+    print(f"sharded[full] vs unsharded on the card: main_max_abs={d_main.max().item():.3g} "
+          f"main_pixels_differ={int((d_main.amax(-1) > 0).sum())} "
+          f"final_max_abs={d_final.max().item():.3g} "
+          f"final_pixels_differ={int((d_final.amax(-1) > 0).sum())}")
+    check(main_ok and d_final.max().item() <= 2 / 255,
+          "sharded[full]: the sharded frame disagrees with the unsharded one")
+    return total
+
+
+def run_sharded_forward(scene, card):
+    """sharded-forward: ``sharded_forward_frame`` at 1920x1088 over 2
+    shards of the card (bin capacity 256, one round), B9 a pass a shard:
+    frame ms of 3 frames after a warm-up, BinOverflow a shard, every B9
+    launch of one frame held bit-equal to its twin, and the frame against
+    the same function over 1 shard (printed with its BinOverflow; the
+    slices' tile rows start at other rows, so the two drop other
+    candidates where they overflow; Final within 2/255 where neither
+    overflowed). Returns the launches of the 4 frames."""
+    import torch
+
+    from sailor_tpu_torch.kernels import cuda_lib
+    from sailor_tpu_torch.parallel import make_mesh, sharded_forward_frame
+    from sailor_tpu_torch.raster import tile_raster as tr
+
+    width, height, n = SHARDED
+    mesh = make_mesh(n)
+    times, total, stats = [], {}, {}
+    for _ in range(4):
+        cuda_lib.LAUNCHES.clear()
+        ms, ldr = _wall_ms(lambda: sharded_forward_frame(scene, width=width, height=height,
+                                                         mesh=mesh, stats=stats))
+        times.append(ms)
+        for k, v in cuda_lib.LAUNCHES.items():
+            total[k] = total.get(k, 0) + v
+    check(total.get("raster_dense", 0) >= 4 * n, "sharded-forward: B9 was not launched a shard")
+    errs, seen = [], {}
+    inner = tr.rasterize_tiles_cuda
+
+    def held(*a, **kw):
+        out = inner(*a, **kw)
+        plain = tr.rasterize_tiles_plain(*a, **kw)
+        same = all(bool(torch.equal(x, y)) for x, y in zip(out, plain))
+        check(same, "sharded-forward: B9 disagrees with its plain version")
+        errs.append((out[0] - plain[0]).abs().max().item())
+        return out
+
+    tr.rasterize_tiles_cuda = held
+    try:
+        with shard_threads(((tr, "rasterize_tiles_cuda"),), seen):
+            sharded_forward_frame(scene, width=width, height=height, mesh=mesh)
+    finally:
+        tr.rasterize_tiles_cuda = inner
+    check(seen.get("rasterize_tiles_cuda") == {f"shard-{i}" for i in range(n)},
+          "sharded-forward: B9 did not run on every shard")
+    one_stats = {}
+    one = sharded_forward_frame(scene, width=width, height=height, mesh=make_mesh(1),
+                                stats=one_stats)
+    diff = (ldr - one).abs()
+    check(tuple(ldr.shape) == (height, width, 3) and bool(torch.isfinite(ldr).all()),
+          "sharded-forward: the frame is not finite")
+    print(f"sharded-forward {width}x{height} x{n}: frame_ms={[round(m, 3) for m in times]} "
+          f"bin_overflow={stats['bin_overflow']} bin_overflow_1_shard="
+          f"{one_stats['bin_overflow']} b9_launches_checked={len(errs)} "
+          f"b9_twin_max_abs_err={max(errs)} vs_1_shard_max_abs={diff.max().item():.3g} "
+          f"pixels_differ={int((diff.amax(-1) > 0).sum())} on {card}")
+    if sum(stats["bin_overflow"]) == 0:
+        check(diff.max().item() <= 2 / 255, "sharded-forward: 2 shards disagree with 1")
+    return total
+
+
+def run_sharded_trace(card):
+    """sharded-trace: ``sharded_path_trace`` of the bench tracer scene
+    (the sweep: B4 and B5) at 512x512 over 4 shards of the card, 4 spp, 2
+    bounces, caller uniforms: ms of 2 runs after a warm-up, and the image
+    bit-equal to ``trace_rays`` on all the rays with the same uniforms
+    (timed too). Returns the launches of the 3 sharded runs."""
+    import torch
+
+    from sailor_tpu_torch.kernels import cuda_lib
+    from sailor_tpu_torch.parallel import make_mesh, mesh as mesh_mod
+    from sailor_tpu_torch.raytracing import path_tracer
+    from sailor_tpu_torch.scenes import tracer_scene
+
+    w, h, n, spp, bounces = SHARDED_TRACE
+    scene, cam, view, proj = tracer_scene(tracer="sweep")
+    u = torch.rand((spp, 5 * bounces, w * h), generator=torch.Generator().manual_seed(11)).cuda()
+    mesh = make_mesh(n)
+    times, total = [], {}
+    for _ in range(3):
+        cuda_lib.LAUNCHES.clear()
+        ms, img = _wall_ms(lambda: mesh_mod.sharded_path_trace(
+            scene, cam, view, proj, width=w, height=h, mesh=mesh, spp=spp,
+            max_bounces=bounces, uniforms=u))
+        times.append(ms)
+        for k, v in cuda_lib.LAUNCHES.items():
+            total[k] = total.get(k, 0) + v
+    for name in ("slab_entry", "sweep"):
+        check(total.get(name, 0) >= 3 * n, f"sharded-trace: {name} was not launched a shard")
+    o, d = mesh_mod.global_rows_rays(cam, view, proj, width=w, rows=range(h), height=h)
+    ms1, (ref, _) = _wall_ms(lambda: path_tracer.trace_rays(scene, o, d, spp=spp,
+                                                            max_bounces=bounces, uniforms=u))
+    ref = ref.reshape(h, w, 3)
+    diff = (img - ref).abs()
+    print(f"sharded-trace {w}x{h} x{n} spp={spp} bounces={bounces}: "
+          f"sharded_ms={[round(m, 3) for m in times]} unsharded_ms={ms1:.3f} "
+          f"bit_equal={bool(torch.equal(img, ref))} max_abs={diff.max().item():.3g} "
+          f"pixels_differ={int((diff.amax(-1) > 0).sum())} launches={json.dumps(total)} on {card}")
+    check(bool(torch.isfinite(img).all()) and img.mean().item() > 0.0,
+          "sharded-trace: the image is empty or not finite")
+    check(bool(torch.equal(img, ref)), "sharded-trace: the sharded image differs from trace_rays")
+    return total
+
+
+def check_small_sharded_frame():
+    """A 128x256 DefaultRenderer frame (``FULL_CONFIG``, shadow_resolution
+    128) over 8 shards of the card against the same 8-shard frame on the
+    CPU path (which the CPU tests hold to the JAX package's process_sharded),
+    one dirty frame (the card's phase above threads the state): Depth and
+    TriId exact, the CSM maps exact, Main within 1e-4 relative (to
+    max(|cpu|, 1e-3)) on >= 99.5% of pixels, Final within 2/255 on every
+    pixel."""
+    import torch
+
+    from sailor_tpu_torch.parallel import make_mesh
+    from sailor_tpu_torch.scenes import flagship_scene
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        scene = flagship_scene(128, 256, 24, 10, device=dev)
+        fg = _full_graph(128, 256, dev, dict(FULL_CONFIG, shadow_resolution=128))
+        mesh = make_mesh(8, device=dev)
+        state = fg.initial_state()
+        fg.prepare(scene, state)
+        t, state = fg.process_sharded(scene, state, mesh, extra_outputs=("Depth", "TriId"))
+        out[dev] = {**{k: t[k].cpu() for k in ("Main", "Final", "Depth", "TriId")},
+                    "csm": state["csm/maps"].cpu()}
+    g, r = out["cuda"], out["cpu"]
+    exact = {k: bool(torch.equal(g[k], r[k])) for k in ("Depth", "TriId", "csm")}
+    rel = ((g["Main"] - r["Main"]).abs() / r["Main"].abs().clamp(min=1e-3)).amax(-1)
+    main = (rel <= 1e-4).float().mean().item()
+    final = (g["Final"] - r["Final"]).abs().max().item()
+    print("small sharded[full] x8 card vs cpu: "
+          + " ".join(f"{k}_equal={v}" for k, v in exact.items())
+          + f" main_within_1e-4={main:.5f} final_max_err={final:.3g}")
+    check(all(exact.values()) and main >= 0.995 and final <= 2 / 255,
+          "card sharded frame disagrees with the CPU path")
+
+
+def run_tools(card):
+    """tools: ``sailor_tpu_torch.tools.time_sweep --size 256 --k 5`` and
+    ``profile_trace --small`` on the card (B4 and B5), in process (their
+    ``main``; the CPU tests run them as ``python -m``), their lines
+    printed; each must return 0."""
+    import io
+
+    from sailor_tpu_torch.tools import profile_trace, time_sweep
+
+    for mod, args in ((time_sweep, ["--size", "256", "--k", "5"]),
+                      (profile_trace, ["--small"])):
+        t0 = time.perf_counter()
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = mod.main(args)
+        check(rc == 0, f"{mod.__name__} returned {rc}: {err.getvalue()[-2000:]}")
+        print(f"{mod.__name__} {' '.join(args)} ({time.perf_counter() - t0:.1f} s, {card}):")
+        for line in err.getvalue().strip().splitlines()[-1:] + out.getvalue().strip().splitlines():
+            print("  " + line)
+
+
+def check_image_decoders():
+    """decoders: a BMP (BI_RLE8 and 32-bit bit fields with alpha), a TGA
+    (RLE true colour, 16-bit A1R5G5B5 with a top-left origin) and a
+    Radiance HDR (new RLE scanlines) written by this script
+    (tests/torch_image_files.py), read back through ``textures.imread``
+    and held to the arrays they were written from, exactly."""
+    import tempfile
+
+    import numpy as np
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import torch_image_files as files
+
+    from sailor_tpu_torch.assets import textures
+
+    rng = np.random.default_rng(19)
+    h, w = 24, 40
+    idx = rng.integers(0, 60, (h, w)).astype(np.uint8)
+    idx[5, 3:30] = 7
+    pal = rng.integers(0, 256, (60, 3), dtype=np.uint8)
+    rgba = rng.integers(0, 256, (h, w, 4), dtype=np.uint8)
+    px16 = rng.integers(0, 1 << 16, (h, w), dtype=np.uint16)
+    le16 = np.stack([px16 & 255, px16 >> 8], -1).astype(np.uint8)
+    c5 = lambda v: ((v & 31) * 255 // 31).astype(np.uint8)  # noqa: E731
+    want16 = np.stack([c5(px16 >> 10), c5(px16 >> 5), c5(px16),
+                       np.where(px16 & 0x8000, 0, 255).astype(np.uint8)], -1)
+    rgb = (rng.uniform(0, 1, (h, w, 3)) ** 3 * np.array([30.0, 2.0, 0.1])).astype(np.float32)
+    rgbe = files.rgbe(rgb)
+    e = rgbe[..., 3].astype(np.int32)
+    want_hdr = (rgbe[..., :3].astype(np.float32)
+                * np.where(e > 0, np.ldexp(np.float32(1), e - 136), 0).astype(np.float32)[..., None])
+    cases = {
+        "rle8.bmp": (files.bmp(files.rle8(idx), w, h, 8, palette=pal, compression=1), pal[idx]),
+        "bgra32.bmp": (files.bmp(files.bmp_rows(rgba[..., [2, 1, 0, 3]], 32), w, h, 32,
+                                 compression=3, masks=(0xFF0000, 0xFF00, 0xFF, 0xFF000000),
+                                 header=56), rgba),
+        "rle32.tga": (files.tga(files.tga_rle(rgba[::-1, :, [2, 1, 0, 3]].reshape(-1, 4), w),
+                                w, h, 32, 10), rgba),
+        "top16.tga": (files.tga(le16.tobytes(), w, h, 16, 2, descriptor=0x20), want16),
+        "sky.hdr": (files.hdr(rgbe, rle=True), want_hdr),
+    }
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (data, want) in cases.items():
+            path = os.path.join(tmp, name)
+            with open(path, "wb") as f:
+                f.write(data)
+            got = textures.imread(path)
+            check(got.dtype == want.dtype and got.shape == want.shape
+                  and np.array_equal(got, want), f"decoders: {name} decodes wrongly")
+            print(f"decoders: {name} {got.dtype} {got.shape} equal")
+
+
 def main() -> int:
     import torch
 
@@ -4947,10 +5295,13 @@ def main() -> int:
     scene = flagship_scene(width, height, n_lights, n_objects)
     print(f"scene: {scene.geometry.indices.shape[0]} triangles, "
           f"{scene.lights.num} lights, {width}x{height}")
+    t_kernels = time.perf_counter()
     kernels = check_kernels(scene, width, height, card)
     variants = check_variant_kernels(scene, width, height, card)
     config_launches = run_raster_configs(scene, width, height, card)
     run_rasterize(scene, width, height, card)
+    print(f"kernels and raster configs: {time.perf_counter() - t_kernels:.1f} s")
+    t_frames = time.perf_counter()
     launches = run_frames(scene, width, height, card)  # profiles last: later frames run slower
     check_shadow_kernels(scene, width, height, card)
     shadow_launches = run_shadow_hiz_frames(scene, width, height, card)
@@ -4990,6 +5341,7 @@ def main() -> int:
     check_culled_frame()
     check_small_full_frame()
     check_small_queue_frame()
+    print(f"frames and queues: {time.perf_counter() - t_frames:.1f} s")
     del scene
     t_engine = time.perf_counter()
     run_engine_editor(card)
@@ -5022,6 +5374,7 @@ def main() -> int:
     for k in main_frame:  # B1-B3 rows: the frame's launches and the later paths'
         k["launches"] += sum(p.get(k["name"], 0) for p in (
             content_launches, material_launches, example_launches, editor_launches))
+    t_tracer = time.perf_counter()
     tracer_kernels = check_tracer_kernels(card)
     launches, tracer_peak = run_tracer(card)
     check_small_trace()
@@ -5037,14 +5390,31 @@ def main() -> int:
     bvh8_kernels = [bvh8_row]
     launches["bvh8_intersect"] = bvh8_launches.get("bvh8_intersect", 0)
     check_small_trace(dense_tracer_scene, "tracer_dense_bvh8")
+    print(f"tracer: {time.perf_counter() - t_tracer:.1f} s")
     t_host = time.perf_counter()
     example_trace_launches = run_example_trace(card)
     check_small_trace(example_trace_scene, "example_trace")
     host_launches = run_host_runtime(card)
     print(f"example-trace and host-runtime: {time.perf_counter() - t_host:.1f} s")
+    t_sharded = time.perf_counter()
+    scene = flagship_scene(width, height, n_lights, n_objects)
+    sharded_launches = run_sharded_frames(scene, card)
+    forward_launches = run_sharded_forward(scene, card)
+    del scene
+    sharded_trace_launches = run_sharded_trace(card)
+    check_small_sharded_frame()
+    for k in main_frame:
+        k["launches"] += sharded_launches.get(k["name"], 0)
+    for k in variants:
+        k["launches"] += forward_launches.get(k["name"], 0)
+    print(f"sharded: {time.perf_counter() - t_sharded:.1f} s")
+    t_tools = time.perf_counter()
+    run_tools(card)
+    check_image_decoders()
+    print(f"tools and decoders: {time.perf_counter() - t_tools:.1f} s")
     for name in ("slab_entry", "sweep", "bvh8_intersect"):
         launches[name] = (launches.get(name, 0) + example_trace_launches.get(name, 0)
-                          + host_launches.get(name, 0))
+                          + host_launches.get(name, 0) + sharded_trace_launches.get(name, 0))
     for k in tracer_kernels + bvh8_kernels:
         k["launches"] = launches.get(k["name"], 0)
         check(k["launches"] > 0, f"{k['name']} was not launched on its main path")

@@ -5,8 +5,9 @@ Parses .gltf (JSON + external/base64 buffers) and .glb (binary container),
 flattens the default scene's node hierarchy into a merged triangle soup
 with world transforms applied, and extracts pbrMetallicRoughness materials
 (+ optionally their textures). The reference decodes the images with
-imageio; the port with ``textures.decode_bytes`` (PNG; other formats raise
-NotImplementedError naming theirs).
+imageio; the port with ``textures.decode_bytes`` (PNG, BMP, TGA and
+Radiance HDR, sniffed or by the image's ``mimeType``; JPEG, GIF and
+OpenEXR raise NotImplementedError naming theirs).
 """
 
 from __future__ import annotations
@@ -234,7 +235,7 @@ class GLTF:
                 bv = self.doc["bufferViews"][img["bufferView"]]
                 buf = self.buffers[bv.get("buffer", 0)]
                 raw = buf[bv.get("byteOffset", 0) : bv.get("byteOffset", 0) + bv["byteLength"]]
-                arr = decode_bytes(bytes(raw), f"images[{len(out)}]")
+                arr = decode_bytes(bytes(raw), f"images[{len(out)}]", img.get("mimeType"))
             else:
                 arr = imread(os.path.join(self.base_dir, img["uri"]))
             arr = np.asarray(arr)

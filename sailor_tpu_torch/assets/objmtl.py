@@ -52,8 +52,9 @@ def _resolve_tex(base_dir: str, rel: str) -> str | None:
 
 
 def _decode(path: str) -> np.ndarray:
-    """Decode to float32 linear RGBA (sRGB decode matches gltf.py); PNG
-    through the port's decoder, other formats raise (``textures.imread``)."""
+    """Decode to float32 linear RGBA (sRGB decode matches gltf.py) through
+    the port's decoders (``textures.imread``: PNG, BMP, TGA, HDR; the
+    other formats raise)."""
     from sailor_tpu_torch.assets.textures import imread
 
     arr = np.asarray(imread(path)).astype(np.float32)

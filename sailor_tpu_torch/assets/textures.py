@@ -2,11 +2,12 @@
 Runtime/AssetRegistry/Texture/TextureImporter.cpp): decode, sRGB to
 linear, mip generation, sampler meta from the `.asset` sidecar.
 
-The reference decodes every format through imageio; the port decodes PNG
-with its own decoder (``utils.png.decode_png``, which returns imageio's
-arrays) and refuses the other formats with NotImplementedError, since the
-card's machine has no image library (ROADMAP A 8 lists the decoders still
-to write).
+The reference decodes every format through imageio; the port has its own
+decoders, since the card's machine has no image library: PNG
+(``utils.png``), BMP (``utils.bmp``) and TGA (``utils.tga``), each
+returning imageio's arrays, and Radiance HDR (``utils.hdr``), decoded to
+float32 linear RGB as OpenCV reads it. JPEG, GIF and OpenEXR raise
+NotImplementedError (ROADMAP A 8).
 """
 
 from __future__ import annotations
@@ -15,35 +16,54 @@ import os
 
 import numpy as np
 
+from sailor_tpu_torch.utils.bmp import decode_bmp
+from sailor_tpu_torch.utils.hdr import SIGNATURES as HDR_SIGNATURES
+from sailor_tpu_torch.utils.hdr import decode_hdr
 from sailor_tpu_torch.utils.png import SIGNATURE, decode_png
+from sailor_tpu_torch.utils.tga import decode_tga
 
 #: formats the reference reads through imageio that the port cannot decode
-UNDECODED = {".jpg": "JPEG", ".jpeg": "JPEG", ".bmp": "BMP", ".tga": "TGA", ".gif": "GIF",
-             ".hdr": "Radiance HDR", ".exr": "OpenEXR"}
+UNDECODED = {".jpg": "JPEG", ".jpeg": "JPEG", ".gif": "GIF", ".exr": "OpenEXR"}
+#: decoders by extension (TGA has no signature to sniff)
+DECODERS = {".png": decode_png, ".bmp": decode_bmp, ".tga": decode_tga, ".hdr": decode_hdr}
+#: glTF ``mimeType``s of TGA, the one format without a signature to sniff
+TGA_MIME_TYPES = ("image/x-tga", "image/tga", "image/x-targa")
 
 
 def format_error(fmt: str, name: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{fmt} image {name}: the port decodes PNG only; no {fmt} decoder is ported "
-        "(ROADMAP A 8)")
+        f"{fmt} image {name}: the port decodes PNG, BMP, TGA and Radiance HDR; no {fmt} "
+        "decoder is ported (ROADMAP A 8: JPEG, GIF and OpenEXR stay refused)")
 
 
-def decode_bytes(data: bytes, name: str = "image") -> np.ndarray:
-    """Encoded image bytes -> the array imageio would give; PNG only."""
+def decode_bytes(data: bytes, name: str = "image", mime: str | None = None) -> np.ndarray:
+    """Encoded image bytes -> the array imageio would give (HDR: float32
+    linear RGB). The format is sniffed (PNG, ``BM``, ``#?``); TGA, which has
+    no signature, is taken from ``mime`` (a glTF image's ``mimeType``)."""
     if data[:8] == SIGNATURE:
         return decode_png(data)
+    if data[:2] == b"BM":
+        return decode_bmp(data)
+    if data.startswith(HDR_SIGNATURES):
+        return decode_hdr(data)
+    if mime in TGA_MIME_TYPES:
+        return decode_tga(data)
     fmt = ("JPEG" if data[:3] == b"\xff\xd8\xff" else "GIF" if data[:4] == b"GIF8"
-           else "BMP" if data[:2] == b"BM" else "unknown-format")
+           else "OpenEXR" if data[:4] == b"\x76\x2f\x31\x01" else "unknown-format")
     raise format_error(fmt, name)
 
 
 def imread(path: str) -> np.ndarray:
-    """A file as imageio.v2.imread reads it, for the formats the port decodes."""
+    """A file as imageio.v2.imread reads it (HDR: as OpenCV's float read),
+    dispatched by extension."""
     ext = os.path.splitext(path)[1].lower()
     if ext in UNDECODED:
         raise format_error(UNDECODED[ext], path)
     with open(path, "rb") as f:
-        return decode_bytes(f.read(), path)
+        data = f.read()
+    if ext in DECODERS:
+        return DECODERS[ext](data)
+    return decode_bytes(data, path)
 
 
 def load(path: str, *, srgb: bool | None = None, flip_y: bool = False,

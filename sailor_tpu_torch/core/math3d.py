@@ -34,6 +34,14 @@ def fma(a, b, c):
     return _fma64(a.double(), b.double(), c)
 
 
+def fma_scalar(a, w: float, c):
+    """fma(a, w, c) for a Python number ``w``, rounded to float32 first:
+    one float64 copy of ``a`` and one add that writes float32, with no
+    constant tensor the size of ``a``."""
+    out = torch.empty_like(c)
+    return torch.add(c, a.double(), alpha=float(np.float32(w)), out=out)
+
+
 def _fma64(a64, b64, c):
     """fma for operands already in float64: c + a64 * b64 in float64 (the
     product is exact, so fused or not it rounds once), then to float32."""

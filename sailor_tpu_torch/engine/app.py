@@ -124,7 +124,7 @@ class Renderer:
             targets["Final"] = window_sum(targets["Final"], ss) * (1.0 / (ss * ss))
         if self.device.type == "cuda":
             event = torch.cuda.Event()
-            event.record()
+            event.record(torch.cuda.current_stream(self.device))  # the frame's device
             self._in_flight.append(event)
         self.stats["gpu_frames"] += 1
         self.stats["last_frame_ms"] = (time.perf_counter() - t0) * 1e3

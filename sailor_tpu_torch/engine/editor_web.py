@@ -261,6 +261,8 @@ class EditorWebApp:
                 from sailor_tpu_torch.assets import textures
 
                 img = np.asarray(textures.imread(path))
+                if img.dtype.kind == "f":  # Radiance HDR: linear radiance, clipped to 8 bits
+                    img = np.clip(img * 255.0 + 0.5, 0.0, 255.0)
                 if img.ndim == 2:
                     img = np.stack([img] * 3, -1)
                 img = img[..., :3]

@@ -61,8 +61,15 @@ class BaseNode:
 
 @dataclasses.dataclass
 class RenderContext:
-    """Static + per-frame context handed to nodes (single device: row0 = 0,
-    full height = local height)."""
+    """Static + per-frame context handed to nodes.
+
+    On one device row0 = 0, the full height is the local height and
+    ``comm`` is None. In a row shard (``FrameGraph.process_sharded``)
+    ``width``/``height`` are the slice's, ``full_height`` the viewport's,
+    ``row0`` the global row of the slice's row 0, and ``comm`` the shard's
+    communicator (``parallel.mesh.Comm``) over the ``mesh_axis`` of
+    ``mesh_size`` shards: nodes that need global pixel coordinates or data
+    of other slices read these."""
 
     width: int
     height: int
@@ -72,6 +79,9 @@ class RenderContext:
     config: dict | None = None
     full_height: int | None = None
     row0: int = 0
+    mesh_axis: str | None = None
+    mesh_size: int = 1
+    comm: Any = None
     _inv_vp: Any = dataclasses.field(default=None, repr=False)  # the frame's, once computed
 
     def value(self, key: str, default: float = 0.0) -> float:
@@ -81,8 +91,15 @@ class RenderContext:
     def fh(self) -> int:
         return self.full_height if self.full_height is not None else self.height
 
+    @property
+    def sharded(self) -> bool:
+        return self.mesh_axis is not None
+
     def upsample(self, src, dst_hw):
-        """Integer-factor bilinear upsample (``sampling.upsample_bilinear_pow2``)."""
+        """Integer-factor bilinear upsample (``sampling.upsample_bilinear_pow2``),
+        boundary-exact in a row shard."""
+        if self.sharded:
+            return sampling.upsample_bilinear_pow2_sharded(src, dst_hw, self.comm)
         return sampling.upsample_bilinear_pow2(src, dst_hw)
 
 
@@ -162,10 +179,14 @@ class FrameGraph:
             for e in asset.frame
         ]
 
-    def _ctx(self, scene, state) -> RenderContext:
+    @staticmethod
+    def _check_scene(scene) -> None:
         if scene.materials is not None and not isinstance(scene.materials, MaterialTable):
             raise TypeError("scene.materials must be an assets.materials.MaterialTable, "
                             f"not {type(scene.materials).__name__}")
+
+    def _ctx(self, scene, state) -> RenderContext:
+        self._check_scene(scene)
         return RenderContext(width=self.width, height=self.height, scene=scene,
                              state=state, values=self.asset.values,
                              config=self.config)
@@ -250,8 +271,58 @@ class FrameGraph:
             new_states.append(s)
         return outs, new_states
 
-    def process_sharded(self, *args, **kwargs):
-        raise NotImplementedError("multi-device rendering is not ported yet (ROADMAP A 9)")
+    #: state entries that hold the shard's rows; gathered to full height
+    ROW_LOCAL_STATE = ("hiz/", "particles/trail", "sky/buf")
+
+    def process_sharded(self, scene, state: dict, mesh, axis: str = "screen",
+                        extra_outputs: tuple = ()):
+        """Run the whole graph split by pixel rows over ``mesh``
+        (``parallel.mesh.make_mesh``): each shard runs every node on its
+        slice of ``height // n`` rows, with the slice's targets on its
+        device, and the nodes exchange what crosses slices through the
+        shard's communicator. Returns ({"Final", "Main", *extra_outputs}
+        gathered to full height, new_state) on the first shard's device:
+        the row-local state (``ROW_LOCAL_STATE``: the HiZ pyramid, the
+        particle trail, the sky buffer) is gathered to full height, the
+        rest (the CSM cache, the exposure, ...) is the same on every shard
+        and is passed on. Raises ValueError unless the height splits into
+        32-row tile rows across the shards; the first error of any shard
+        is raised (``Mesh.run``)."""
+        n = mesh.size
+        if axis != mesh.axis:
+            raise ValueError(f"mesh axis is {mesh.axis!r}, not {axis!r}")
+        if self.height % (n * 32) != 0:
+            raise ValueError(f"height {self.height} must split into 32-px tile rows "
+                             f"across {n} shards")
+        h_local = self.height // n
+        self._check_scene(scene)
+
+        def shard(comm):
+            from sailor_tpu_torch.parallel.mesh import replicate
+
+            dev = comm.device
+            local = RenderTargets(self.width, h_local, dev)
+            for spec in self.asset.targets:
+                local.declare(spec)
+            sc, st = replicate(scene, dev), replicate(state, dev)
+            ctx = RenderContext(width=self.width, height=h_local, scene=sc, state=st,
+                                values=self.asset.values, config=self.config,
+                                full_height=self.height, row0=comm.index * h_local,
+                                mesh_axis=axis, mesh_size=n, comm=comm)
+            targets = local.allocate()
+            for nd in self.nodes:
+                targets = nd.process(ctx, targets)
+            out = {name: comm.gather(targets[name])
+                   for name in ("Final", "Main") + tuple(extra_outputs)}
+            new_state = dict(state)
+            for k, v in targets.get("state_out", {}).items():
+                if k.startswith(self.ROW_LOCAL_STATE):
+                    new_state[k] = comm.gather(v)
+                else:
+                    new_state[k] = v
+            return out, new_state
+
+        return mesh.run(shard)[0]
 
     def process_debug(self, scene, state: dict):
         """Run the graph node by node, synchronising the device after each,

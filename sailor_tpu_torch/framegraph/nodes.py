@@ -16,9 +16,19 @@ consumed by RenderScene's fused resolve), "LinearDepth",
 (avg luminance, the CSM cache "csm/*", the sky cache "sky/*", the HiZ
 pyramid "hiz/mip*", the particles' "particles/*"); the Environment node's
 bake is published into the state in ``prepare`` ("env/*").
+
+In a row shard (``RenderContext.sharded``, ``FrameGraph.process_sharded``)
+the nodes work in the slice's rows and read across slices through
+``ctx.comm``: DepthPrepass and RenderTransparent shift their setups into
+the slice (``setup.shift_viewport_rows``), ShadowPrepass splits the
+cascades over the shards and sums the tables, HBAO, its vertical blur,
+MotionBlur, SunShafts, Bloom and EyeAdaptation exchange rows, tables or
+histograms, and the upsamples are boundary-exact (``ctx.upsample``).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -176,6 +186,20 @@ def _packed_attrs(scene, tri, config):
     return interpolate.pack_triangle_attributes(scene.geometry, tri.src_id, scene.materials)
 
 
+def _into_slice(ctx, tri, aabb):
+    """A setup against the whole viewport shifted into the shard's rows,
+    with the triangles that miss the slice dropped, and its AABB in local
+    rows (the identity on one device)."""
+    if not ctx.sharded:
+        return tri, aabb
+    xmin, xmax, ymin, ymax = aabb
+    h = ctx.height
+    in_slice = (ymax >= ctx.row0) & (ymin < ctx.row0 + h)
+    tri = dataclasses.replace(rsetup.shift_viewport_rows(tri, ctx.row0),
+                              valid=tri.valid & in_slice)
+    return tri, (xmin, xmax, ymin - ctx.row0, ymax - ctx.row0)
+
+
 def _tiles(ctx):
     tw, th = tile_raster.TILE_W, tile_raster.TILE_H
     return round_up(ctx.height, th) // th, round_up(ctx.width, tw) // tw
@@ -200,7 +224,11 @@ class DepthPrepassNode(BaseNode):
     on. Where the reference skips a layer with ``lax.cond``, the port reads
     whether any pixel is undecided on the host, once a layer from the
     second on; a skipped layer would change nothing. "MaskedPeelLayers":
-    the layers that ran; the masked queue's bins join "StreamBins"."""
+    the layers that ran; the masked queue's bins join "StreamBins".
+
+    In a row shard the setup is made against the whole viewport, culled
+    against the (full-height) pyramid in global rows, then shifted into
+    the slice with the triangles that miss it dropped."""
 
     def process(self, ctx, targets):
         scene = ctx.scene
@@ -213,6 +241,8 @@ class DepthPrepassNode(BaseNode):
         tri, aabb = rsetup.triangle_setup(
             geo, scene.frame.view_projection, width=w, height=ctx.fh, cull="back",
             zplane_rounding="standalone" if dense else "frame")
+        aabb_full = aabb
+        tri, aabb = _into_slice(ctx, tri, aabb)
         queue_of = _queue_of_raster_tris(scene, tri)
         valid = tri.valid if queue_of is None else tri.valid & (queue_of == 0)
         state = ctx.state or {}
@@ -221,7 +251,7 @@ class DepthPrepassNode(BaseNode):
             mips = [state[k] for k in sorted(state) if k.startswith("hiz/mip")]
             flat, offsets, shapes = hiz_cull.build_flat_pyramid(mips)
             culled = hiz_cull.occlusion_cull(
-                valid, aabb, tri.zmax, flat, offsets=offsets, shapes=shapes,
+                valid, aabb_full, tri.zmax, flat, offsets=offsets, shapes=shapes,
                 base_w=w, base_h=ctx.fh)
             targets["HiZCulledCount"] = (valid & ~culled).sum(dtype=torch.int32)
             valid = culled
@@ -324,7 +354,14 @@ class ShadowPrepassNode(BaseNode):
     With ``csm_cache`` (the default) the maps are reused while the cascade
     matrices and the geometry signature are unchanged since the last frame
     (LightingECS CSMLightState::Equals): one host read of the dirty flag a
-    frame, a synchronise, decides whether the four rasters run at all."""
+    frame, a synchronise, decides whether the four rasters run at all.
+
+    In a row shard the cascades are split over the shards: shard i
+    renders cascades (i * k + j) % C, j < k = ceil(C / n), each weighted by
+    1 / (the number of shards that render it), and one ``psum`` a table
+    reassembles the maps and the moments. Every shard reads the same
+    dirty flag on the host, so all take the same branch; the cached
+    branch reuses the (replicated) state and needs no sum."""
 
     def process(self, ctx, targets):
         scene = ctx.scene
@@ -336,18 +373,41 @@ class ShadowPrepassNode(BaseNode):
         radius = int(ctx.value("Shadow.EvsmBlurRadius", 4))
         dense = ctx.config.get("raster_mode", "stream") not in ("stream", "dma")
 
-        def render_all():
-            maps = []
-            for c in range(cfg.NUM_CSM_CASCADES):
-                tri, aabb = rsetup.triangle_setup(
-                    scene.geometry, mats[c], width=s, height=s, cull="none", clip=False,
-                    zplane_rounding="standalone" if dense else "frame")
-                raster, _, _ = _make_raster(tri, tri.valid, aabb, tiles_y, tiles_x,
-                                            ctx.config, capacity=capacity)
-                maps.append(raster()[0][:s, :s])
-            maps = torch.stack(maps)
+        def one_cascade(c):
+            tri, aabb = rsetup.triangle_setup(
+                scene.geometry, mats[c], width=s, height=s, cull="none", clip=False,
+                zplane_rounding="standalone" if dense else "frame")
+            raster, _, _ = _make_raster(tri, tri.valid, aabb, tiles_y, tiles_x,
+                                        ctx.config, capacity=capacity)
+            return raster()[0][:s, :s]
+
+        def evsm_of(maps):
             moments = shadow_k.evsm_warp(maps)  # (C, S, S, 4)
-            return maps, blur_k.blur_1d(blur_k.blur_1d(moments, radius, 1), radius, 2)
+            return blur_k.blur_1d(blur_k.blur_1d(moments, radius, 1), radius, 2)
+
+        def render_all():
+            maps = torch.stack([one_cascade(c) for c in range(cfg.NUM_CSM_CASCADES)])
+            return maps, evsm_of(maps)
+
+        def render_shards():
+            n, c_all = ctx.mesh_size, cfg.NUM_CSM_CASCADES
+            k = -(-c_all // n)
+            counts = [0] * c_all
+            for i in range(n):
+                for j in range(k):
+                    counts[(i * k + j) % c_all] += 1
+            dev = mats.device
+            maps = torch.zeros(c_all, s, s, device=dev)
+            moments = torch.zeros(c_all, s, s, 4, device=dev)
+            for j in range(k):
+                c = (ctx.comm.index * k + j) % c_all
+                m = one_cascade(c)
+                w_c = 1.0 / counts[c]
+                maps[c] = m * w_c
+                moments[c] = evsm_of(m[None])[0] * w_c
+            return ctx.comm.psum(maps), ctx.comm.psum(moments)
+
+        render = render_shards if ctx.sharded and ctx.mesh_size > 1 else render_all
 
         state = ctx.state or {}
         if ctx.config.get("csm_cache", True) and "csm/maps" in state:
@@ -363,13 +423,13 @@ class ShadowPrepassNode(BaseNode):
                 torch.tensor(float(scene.geometry.indices.shape[0]), device=pos.device)])
             key = torch.cat([mats.reshape(-1), geo_sig])
             if bool(((key - state["csm/key"]).abs() > 0.0).any()):  # the host read
-                maps, moments = render_all()
+                maps, moments = render()
             else:
                 maps, moments = state["csm/maps"], state["csm/evsm"]
             out = targets.setdefault("state_out", {})
             out["csm/maps"], out["csm/evsm"], out["csm/key"] = maps, moments, key
         else:
-            maps, moments = render_all()
+            maps, moments = render()
         targets["ShadowMaps"] = maps
         targets["LightMatrices"] = mats
         targets["EvsmMaps"] = moments
@@ -551,20 +611,39 @@ class PostProcessNode(BaseNode):
             ld = targets["LinearDepth"]
             if q > 1:
                 ld = pp.window_sum(ld, q) * (1.0 / (q * q))
-            ao_q = pp.hbao(ld, scene.frame.inv_projection, height=ctx.height // q,
-                           width=ctx.width // q, radius=float(ctx.value("AO.Radius", 0.5)),
-                           power=float(ctx.value("AO.Power", 1.5)))
+            hq, wq = ctx.height // q, ctx.width // q
+            kw = dict(radius=float(ctx.value("AO.Radius", 0.5)),
+                      power=float(ctx.value("AO.Power", 1.5)))
+            if ctx.sharded and q > 1:
+                # the reduced depth is small: gather it, run the whole
+                # frame's pass and take the slice's rows (a 17-row halo
+                # could exceed a thin slice)
+                ao_full = pp.hbao(ctx.comm.all_gather(ld), scene.frame.inv_projection,
+                                  height=ctx.fh // q, width=wq, **kw)
+                ao_q = ao_full[ctx.row0 // q:ctx.row0 // q + hq]
+            elif ctx.sharded:
+                ao_q = pp.hbao_sharded(ld, scene.frame.inv_projection, height=hq, width=wq,
+                                       comm=ctx.comm, row0=ctx.row0, full_height=ctx.fh, **kw)
+            else:
+                ao_q = pp.hbao(ld, scene.frame.inv_projection, height=hq, width=wq, **kw)
             targets["AO"] = (ctx.upsample(ao_q[..., None], (ctx.height, ctx.width))[..., 0]
                              if q > 1 else ao_q)
         elif shader == "HBAO_Blur":
             axis = 0 if self.p("direction", "V") == "V" else 1
-            targets["AO"] = blur_k.blur_1d(targets["AO"], 4, axis)
+            if ctx.sharded and axis == 0:
+                targets["AO"] = blur_k.blur_rows_sharded(targets["AO"], 4, ctx.comm)
+            else:
+                targets["AO"] = blur_k.blur_1d(targets["AO"], 4, axis)
         elif shader == "MotionBlur":
+            quarter_full = None
+            if ctx.sharded:
+                quarter_full = ctx.comm.all_gather(pp.downsample_quarter(targets["Main"]))
             targets["Main"] = pp.motion_blur(
                 targets["Main"], targets["Depth"], scene.prev_frame.view_projection,
                 _inv_vp(ctx),
                 intensity=float(ctx.value("MotionBlur.Intensity", 1.0)), num_samples=4,
-                row0=ctx.row0, full_height=ctx.full_height)
+                row0=ctx.row0, full_height=ctx.full_height, quarter_full=quarter_full,
+                comm=ctx.comm)
         elif shader == "SunShafts":
             p_ = scene.sky.on(targets["Main"].device)
             tint = torch.tensor([1.0, 0.9, 0.75], device=targets["Main"].device)
@@ -573,7 +652,7 @@ class PostProcessNode(BaseNode):
                 p_["sun_direction"], p_["sun_intensity"] * tint,
                 intensity=float(ctx.value("SunShafts.Intensity", 0.45)),
                 num_samples=int(ctx.value("SunShafts.Distance", 24)),
-                row0=ctx.row0, full_height=ctx.full_height)
+                row0=ctx.row0, full_height=ctx.full_height, comm=ctx.comm)
         elif shader == "ChromaticAberration":
             targets["Main"] = pp.chromatic_aberration(
                 targets["Main"], float(ctx.value("CA.Strength", 0.003)))
@@ -735,13 +814,14 @@ def transparent_raster(ctx):
     you see a glass sphere's inside through its front), the Transparent
     queue's triangles alone, and their own packed rows. Returns (tri, aabb,
     raster, stream_bins or None). The setup rounds its depth plane as
-    DepthPrepass's does (ROADMAP C 2)."""
+    DepthPrepass's does (ROADMAP C 2); in a row shard it is shifted into the
+    slice."""
     scene = ctx.scene
     tiles_y, tiles_x = _tiles(ctx)
     dense = ctx.config.get("raster_mode", "stream") not in ("stream", "dma")
-    tri, aabb = rsetup.triangle_setup(
+    tri, aabb = _into_slice(ctx, *rsetup.triangle_setup(
         scene.geometry, scene.frame.view_projection, width=ctx.width, height=ctx.fh,
-        cull="none", zplane_rounding="standalone" if dense else "frame")
+        cull="none", zplane_rounding="standalone" if dense else "frame"))
     tvalid = tri.valid & (_queue_of_raster_tris(scene, tri) == 2)
     raster, _, sb = _make_raster(tri, tvalid, aabb, tiles_y, tiles_x, ctx.config,
                                  capacity=int(ctx.config.get("bin_capacity", 512)),
@@ -809,7 +889,8 @@ class RenderTransparentNode(BaseNode):
 class BloomNode(BaseNode):
     """Bloom added to Main (BloomNode.cpp), with the procedural lens dirt
     when ``Bloom.DirtIntensity`` > 0 (made once per resolution and device
-    and kept by the node)."""
+    and kept by the node). The mip chain spans the whole frame, so a row
+    shard gathers Main, blooms it whole and keeps its rows."""
 
     _dirt = None
 
@@ -825,14 +906,20 @@ class BloomNode(BaseNode):
                 self._dirt = (key, torch.from_numpy(bloom_k.lens_dirt(ctx.fh, ctx.width))
                               .to(main.device))
             kw["dirt"], kw["dirt_intensity"] = self._dirt[1], dirt_i
-        targets["Main"] = main + bloom_k.bloom(main, **kw)
+        if ctx.sharded:
+            full = ctx.comm.all_gather(main)
+            bloomed = full + bloom_k.bloom(full, **kw)
+            targets["Main"] = bloomed[ctx.row0:ctx.row0 + ctx.height]
+        else:
+            targets["Main"] = main + bloom_k.bloom(main, **kw)
         return targets
 
 
 @node("EyeAdaptation")
 class EyeAdaptationNode(BaseNode):
     """Histogram exposure + temporal adaptation + tonemap
-    (EyeAdaptationNode.cpp + Tonemapping.shader)."""
+    (EyeAdaptationNode.cpp + Tonemapping.shader); a row shard adds every
+    slice's histogram (``psum``) first."""
 
     def process(self, ctx, targets):
         hdr = targets["Main"]
@@ -843,6 +930,8 @@ class EyeAdaptationNode(BaseNode):
         hdr_q = hdr[:he, :we].reshape(he // q, q, we // q, q, 3).sum(dim=(1, 3)) * (
             1.0 / (q * q))
         hist = hist_k.luminance_histogram(hdr_q)
+        if ctx.sharded:
+            hist = ctx.comm.psum(hist)
         prev = (ctx.state or {}).get("avg_luminance")
         if prev is None:
             prev = torch.tensor(0.18, dtype=torch.float32, device=hdr.device)
@@ -975,9 +1064,9 @@ class ParticlesNode(BaseNode):
     a tile) with the reverse-Z soft depth test, added to Main; with a
     trace decay (the asset's, or the param ``traceDecay``) the motion
     trail is an exponentially decayed splat carried in the state as
-    "particles/trail". The reference's sharded branch, which cuts the
-    trail to the local rows, waits for multi-device rendering (ROADMAP
-    A 9): the port's RenderContext has no sharded case.
+    "particles/trail"; in a row shard the state's trail is full height
+    (``FrameGraph.process_sharded`` gathers it) and the shard takes its
+    rows.
     """
 
     def prepare(self, ctx):
@@ -998,8 +1087,8 @@ class ParticlesNode(BaseNode):
         asset = getattr(self, "_asset", None)
         frame = ctx.scene.frame
         if asset is not None:
-            pos, radii, colors = sample_baked(self._baked, frame.current_time, asset.fps,
-                                              asset.frames)
+            pos, radii, colors = sample_baked(self._baked.to(frame.view.device),
+                                              frame.current_time, asset.fps, asset.frames)
             trace_decay = asset.trace_decay
         elif "particles/pos" in state:
             dt = frame.delta_time
@@ -1030,6 +1119,8 @@ class ParticlesNode(BaseNode):
             # the motion trail (PushConstants m_traceDecay/m_traceFrames): an
             # exponentially decayed splat history in the state
             trail = state.get("particles/trail")
+            if trail is not None and ctx.sharded and trail.shape[0] != splat.shape[0]:
+                trail = trail[ctx.row0:ctx.row0 + splat.shape[0]]
             if trail is None or trail.shape != splat.shape:
                 trail = torch.zeros_like(splat)
             trail = m3.fma(trail, torch.tensor(trace_decay, device=trail.device), splat)

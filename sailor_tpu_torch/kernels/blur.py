@@ -3,7 +3,8 @@ Blur.shader, HBAO_Blur.shader and the EVSM shadow blur of Lighting.glsl).
 
 The weights are a normalised half-Gaussian (sigma ~ radius / 2) and a pass
 is a sum of edge-clamped shifts of the whole image, added in the
-reference's order: w[0] first, then each (+i, -i) pair in turn.
+reference's order: w[0] first, then each (+i, -i) pair in turn, each by a
+fused multiply-add.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ import functools
 
 import numpy as np
 import torch
+
+from sailor_tpu_torch.core.math3d import fma_scalar
 
 MAX_RADIUS = 12  # the reference's stepCount
 
@@ -37,12 +40,26 @@ def _shift(img, d: int, axis: int):
 
 
 def blur_1d(img, radius: int, axis: int):
-    """One separable Gaussian pass along ``axis``."""
+    """One separable Gaussian pass along ``axis``; each pair's term is
+    added by one fused multiply-add, as the reference's compiled pass
+    rounds it."""
     w = half_gaussian_weights(radius)
     out = img * w[0]
     for i in range(1, len(w)):
-        out = out + (_shift(img, i, axis) + _shift(img, -i, axis)) * w[i]
+        out = fma_scalar(_shift(img, i, axis) + _shift(img, -i, axis), w[i], out)
     return out
+
+
+def blur_rows_sharded(img, radius: int, comm):
+    """Vertical ``blur_1d`` of one shard's row slice, equal to the whole
+    frame's pass sliced: ``radius`` halo rows from each neighbour
+    (``postprocess.exchange_row_halo``), the blur of the extended window
+    (its edge-clamped reads land in the halo only), the centre cropped."""
+    from sailor_tpu_torch.kernels.postprocess import exchange_row_halo
+
+    r = max(1, min(int(radius), MAX_RADIUS))
+    ext = exchange_row_halo(img, r, comm)
+    return blur_1d(ext, radius, 0)[r:-r]
 
 
 def gaussian_blur(img, radius: int):

@@ -11,7 +11,8 @@ once and an edited source builds anew.
 Every pointer and the stream go through ``ctypes.c_void_p``; every C entry
 point returns ``cudaGetLastError()`` and :func:`check` raises if it is not 0.
 ``LAUNCHES`` counts successful launches per kernel; each wrapper adds one
-where it launches its kernel and nowhere else.
+(``count``) where it launches its kernel and nowhere else. Each launch runs
+with its tensors' device current (``launch``).
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: collections.Counter = collections.Counter()
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib = None
 build_seconds = None
 build_log = ""
@@ -162,9 +164,27 @@ def check(err: int, name: str) -> None:
 
 
 def stream_of(t) -> int:
+    """The current CUDA stream of ``t``'s device, as the C entries take it."""
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch(t, entry, *args):
+    """``entry(*args)`` with ``t``'s device made current for the call, so a
+    kernel launches on the device that holds its tensors whichever device
+    the calling thread has current (a shard's thread on a second card)."""
+    import torch
+
+    with torch.cuda.device(t.device):
+        return entry(*args)
+
+
+def count(name: str) -> None:
+    """Add one launch of ``name`` to ``LAUNCHES``; the shards of a mesh
+    launch from several threads at once."""
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def ptr(t) -> int | None:

@@ -167,13 +167,13 @@ def shade_tiles_cuda(table, indices, counts, albedo, metallic, roughness, normal
     cuda_lib.require(camera_position, "camera_position", torch.float32, (3,), dev)
     out = torch.empty(H, W, 3, dtype=torch.float32, device=dev)
     lib = cuda_lib.load()
-    err = lib.sailor_shade_forward_plus(
+    err = cuda_lib.launch(table, lib.sailor_shade_forward_plus,
         table.data_ptr(), table.shape[0] - 1, indices.data_ptr(), counts.data_ptr(),
         albedo.data_ptr(), metallic.data_ptr(), roughness.data_ptr(), normal.data_ptr(),
         wpos.data_ptr(), cuda_lib.ptr(shadow), camera_position.data_ptr(), out.data_ptr(),
         K, H, W, cuda_lib.stream_of(table))
     cuda_lib.check(err, "sailor_shade_forward_plus")
-    cuda_lib.LAUNCHES["shade_forward_plus"] += 1
+    cuda_lib.count("shade_forward_plus")
     return out
 
 

@@ -1,8 +1,9 @@
 """Screen-space post passes (counterpart of sailor_tpu/kernels/postprocess.py;
 LinearizeDepth.shader, HBAO.shader, MotionBlur.shader, SunShafts.shader,
 ChromaticAberation.shader): dense per-pixel math over whole images on
-their device. The sharded helpers (``hbao_sharded``, ``exchange_row_halo``)
-belong to multi-device rendering, which is not ported.
+their device, and the row-sharded forms (``exchange_row_halo``,
+``hbao_sharded``; ``motion_blur`` and ``sun_shafts`` given a shard's
+communicator) that equal the whole frame's pass sliced.
 """
 
 from __future__ import annotations
@@ -56,13 +57,16 @@ def _arange(n: int, device, step: int = 1):
 
 
 def reconstruct_view_pos(linear_depth, inv_projection, height: int, width: int, row0=0,
-                         full_height: int | None = None):
+                         full_height: int | None = None, clamp_rows: bool = False):
     """View-space position of every pixel from its linear depth, rounded
     as the reference's compiled pass: the pixel NDC as
     ``interpolate._pixel_ndc`` makes it, and (p / p_w) / (-p_z / p_w)
-    with p_w cancelled, i.e. p / -p_z."""
+    with p_w cancelled, i.e. p / -p_z. ``clamp_rows``: global rows
+    clamped into [0, full height), so halo rows past the viewport take the
+    edge row's coordinates, as the whole frame's clamped shifts do."""
     fh = full_height if full_height is not None else height
-    ndc_x, ndc_y = _pixel_ndc(height, width, row0, fh, inv_projection.device)
+    ndc_x, ndc_y = _pixel_ndc(height, width, row0, fh, inv_projection.device,
+                              clamp_rows=clamp_rows)
     m = inv_projection.to(torch.float32)
 
     def mv(r):
@@ -85,7 +89,7 @@ def _shift(img, axis: int, d: int):
 
 def hbao(linear_depth, inv_projection, *, height: int, width: int, radius: float = 0.5,
          power: float = 1.5, bias: float = 0.1, num_samples: int = 4, row0=0,
-         full_height: int | None = None):
+         full_height: int | None = None, clamp_rows: bool = False):
     """Horizon-based ambient occlusion over the linear-depth buffer: 8
     screen directions, each marched at power-of-two pixel steps (2, 4, 8,
     16) tracking the largest horizon sine, attenuated by world distance.
@@ -98,7 +102,8 @@ def hbao(linear_depth, inv_projection, *, height: int, width: int, radius: float
     horizon sine divides by at most 1e-6: it occludes some pixels within
     16 of the border that this pass leaves open (tests/test_torch_post.py
     measures how many)."""
-    p = reconstruct_view_pos(linear_depth, inv_projection, height, width, row0, full_height)
+    p = reconstruct_view_pos(linear_depth, inv_projection, height, width, row0, full_height,
+                             clamp_rows)
     dzdx = _shift(p, 1, 1) - p
     dzdy = _shift(p, 0, 1) - p
     n = m3.normalize32(m3.cross32(dzdy, dzdx))
@@ -120,6 +125,34 @@ def hbao(linear_depth, inv_projection, *, height: int, width: int, radius: float
     return torch.clamp(ao, 0.0, 1.0) ** power
 
 
+_HBAO_HALO = 17  # the march's longest vertical reach (16 rows) + the normal's row
+
+
+def exchange_row_halo(img, r: int, comm):
+    """One shard's rows with ``r`` rows of each neighbour above and below,
+    (h + 2r, ...); the first and the last shard repeat their own edge row,
+    as the whole frame's edge clamp does."""
+    prev, nxt = comm.neighbour_rows(img[:r], img[-r:])
+    if prev is None:
+        prev = img[:1].expand((r,) + tuple(img.shape[1:]))
+    if nxt is None:
+        nxt = img[-1:].expand((r,) + tuple(img.shape[1:]))
+    return torch.cat([prev, img, nxt], dim=0)
+
+
+def hbao_sharded(linear_depth, inv_projection, *, height: int, width: int, radius: float,
+                 power: float, comm, row0: int, full_height: int):
+    """``hbao`` of one shard's row slice, equal to the whole frame's pass
+    sliced: a 17-row halo from each neighbour, the pass over the extended
+    window with its global rows clamped into the viewport, the centre
+    cropped."""
+    r = _HBAO_HALO
+    ext = exchange_row_halo(linear_depth, r, comm)
+    ao = hbao(ext, inv_projection, height=height + 2 * r, width=width, radius=radius,
+              power=power, row0=row0 - r, full_height=full_height, clamp_rows=True)
+    return ao[r:-r]
+
+
 def _sample_shift(img, du, dv, height: int, width: int):
     """Bilinear fetch at per-pixel offsets (du, dv) in pixels."""
     ys = _arange(height, img.device)[:, None] + dv + 0.5
@@ -135,12 +168,15 @@ def downsample_quarter(color):
 
 
 def motion_blur(color, depth_rev, prev_view_proj, inv_view_proj, *, intensity: float = 1.0,
-                num_samples: int = 8, row0=0, full_height: int | None = None):
+                num_samples: int = 8, row0=0, full_height: int | None = None,
+                quarter_full=None, comm=None):
     """Camera motion blur (MotionBlur.shader): each quarter-resolution
     pixel is unprojected from its reverse-Z depth, reprojected by the
     previous frame's view-projection, and the frame's quarter table is
     sampled (nearest) along the screen velocity; the sum is upsampled and
-    averaged with the pixel's own colour."""
+    averaged with the pixel's own colour. A row shard passes the whole
+    frame's quarter table (``quarter_full``, gathered) and its
+    communicator (``comm``) for the boundary-exact upsample."""
     h, w = color.shape[:2]
     fh = full_height if full_height is not None else h
     q = 4
@@ -156,11 +192,11 @@ def motion_blur(color, depth_rev, prev_view_proj, inv_view_proj, *, intensity: f
     prev_uv = torch.stack([prev_ndc[..., 0] * 0.5 + 0.5, 0.5 - prev_ndc[..., 1] * 0.5], -1)
     uv_h = torch.stack([u, v], -1)
     vel_h = (uv_h - prev_uv) * intensity
-    quarter = downsample_quarter(color)
+    quarter = quarter_full if quarter_full is not None else downsample_quarter(color)
     acc_h = torch.zeros(he // q, we // q, color.shape[-1], dtype=color.dtype, device=dev)
     for s in range(1, num_samples):
         acc_h = acc_h + sampling.sample_nearest(quarter, uv_h - vel_h * (s / num_samples))
-    acc = sampling.upsample_bilinear_pow2(acc_h, (h, w))
+    acc = sampling.upsample_bilinear_pow2_sharded(acc_h, (h, w), comm)
     return (color + acc) / num_samples
 
 
@@ -197,11 +233,13 @@ def _associative_scan_iir(a, b):
 
 def sun_shafts(color, depth_rev, view_projection, sun_direction, sun_intensity, *,
                intensity: float = 0.45, num_samples: int = 24, row0=0,
-               full_height: int | None = None):
+               full_height: int | None = None, comm=None):
     """Screen-space god rays (SunShafts.shader): the quarter-resolution
     sky-visibility mask is resampled onto a polar grid about the sun's
     screen position, decayed along the radius by a first-order IIR, read
-    back per pixel, softened by a 3x3 box and added as glow."""
+    back per pixel, softened by a 3x3 box and added as glow. A row shard
+    (``comm``) gathers the whole frame's mask and upsamples
+    boundary-exactly."""
     h, w = color.shape[:2]
     fh = full_height if full_height is not None else h
     dev = color.device
@@ -221,6 +259,8 @@ def sun_shafts(color, depth_rev, view_projection, sun_direction, sun_intensity, 
     he, we = (h // q) * q, (w // q) * q
     sky = (depth_rev[:he, :we] <= 0.0).to(torch.float32)
     mask = window_sum(sky, q) * (1.0 / (q * q))
+    if comm is not None:
+        mask = comm.all_gather(mask)
     uv0 = torch.stack(_pixel_uv(_arange(he // q, dev, q), _arange(we // q, dev, q), w, fh,
                                 row0), -1)
 
@@ -252,7 +292,7 @@ def sun_shafts(color, depth_rev, view_projection, sun_direction, sun_intensity, 
             tap = pad[dy:dy + shaft_q.shape[0], dx:dx + shaft_q.shape[1]]
             acc = tap if acc is None else acc + tap
     shaft_q = acc / 9.0
-    shaft = sampling.upsample_bilinear_pow2(shaft_q[..., None], (h, w))[..., 0]
+    shaft = sampling.upsample_bilinear_pow2_sharded(shaft_q[..., None], (h, w), comm)[..., 0]
     return color + (shaft * fade * intensity)[..., None] * sun_intensity
 
 

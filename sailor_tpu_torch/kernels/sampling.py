@@ -5,9 +5,9 @@ What the port has: ``sample_nearest`` and ``sample_bilinear`` with the
 clamp, repeat and mirror wraps (shadow lookups, cubemaps, the BRDF LUT,
 chromatic aberration), ``blit``, ``downsample2x_min`` and
 ``build_min_pyramid`` (DepthHighZ and the HiZ cull), and
-``upsample_bilinear_pow2`` (the reduced-resolution terms). Plain PyTorch
-on the input's device; the sharded upsample belongs to multi-device
-rendering, which is not ported.
+``upsample_bilinear_pow2`` (the reduced-resolution terms) with its
+row-sharded form ``upsample_bilinear_pow2_sharded``. Plain PyTorch on the
+input's device.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sailor_tpu_torch.core.math3d import fma
+from sailor_tpu_torch.core.math3d import fma, fma_scalar
 
 
 def _wrap_index(i, n: int, mode: str):
@@ -101,36 +101,57 @@ def blit(src, dst_hw: tuple[int, int], *, filter: str = "bilinear"):
     return _bilinear_at(src, fx, fy)
 
 
-def _upsample_axis(x, f: int, axis: int):
+def _upsample_axis(x, f: int, axis: int, prev_edge=None, next_edge=None):
     """Bilinear upsample of one axis by the integer factor ``f``: output
     sample f*j + p reads source coordinate j + (p + 0.5)/f - 0.5, a fixed
     blend of pixel j with one edge-clamped neighbour (texel-centre
-    convention, as a bilinear blit)."""
+    convention, as a bilinear blit), rounded as fma(neighbour, weight,
+    x * weight) like the reference's compiled pass. ``prev_edge``/``next_edge`` replace
+    the clamped neighbours of the first and the last sample."""
     n = x.shape[axis]
-    first = x.narrow(axis, 0, 1)
-    last = x.narrow(axis, n - 1, 1)
+    first = x.narrow(axis, 0, 1) if prev_edge is None else prev_edge
+    last = x.narrow(axis, n - 1, 1) if next_edge is None else next_edge
     prev = torch.cat([first, x.narrow(axis, 0, n - 1)], axis)
     nxt = torch.cat([x.narrow(axis, 1, n - 1), last], axis)
     phases = []
     for p in range(f):
         o = (p + 0.5) / f - 0.5
+        # fma(neighbour, its weight, x * x's weight), as the reference's
+        # compiled upsample rounds the blend
         if o < 0.0:
-            phases.append(x * (1.0 + o) + prev * (-o))
+            phases.append(fma_scalar(prev, -o, x * (1.0 + o)))
         elif o > 0.0:
-            phases.append(x * (1.0 - o) + nxt * o)
+            phases.append(fma_scalar(nxt, o, x * (1.0 - o)))
         else:
             phases.append(x)
     st = torch.stack(phases, dim=axis + 1)  # (..., n, f, ...)
     return st.reshape(tuple(x.shape[:axis]) + (n * f,) + tuple(x.shape[axis + 1:]))
 
 
-def upsample_bilinear_pow2(src, dst_hw: tuple[int, int]):
+def upsample_bilinear_pow2(src, dst_hw: tuple[int, int], prev_row=None, next_row=None):
     """Bilinear resize-up of (h, w[, C]) by integer factors to (H, W[, C]):
-    f = ceil(H / h) rows a source row (likewise columns), cropped to H x W."""
+    f = ceil(H / h) rows a source row (likewise columns), cropped to H x W.
+    ``prev_row``/``next_row``: (1, w[, C]) rows above and below ``src``
+    (a row slice's neighbours) in place of its clamped edge rows."""
     H, W = dst_hw
     h, w = src.shape[0], src.shape[1]
-    out = _upsample_axis(_upsample_axis(src, -(-H // h), 0), -(-W // w), 1)
+    out = _upsample_axis(_upsample_axis(src, -(-H // h), 0, prev_row, next_row),
+                         -(-W // w), 1)
     return out[:H, :W]
+
+
+def upsample_bilinear_pow2_sharded(src, dst_hw: tuple[int, int], comm):
+    """``upsample_bilinear_pow2`` of one shard's row slice, equal to the
+    whole frame's upsample sliced: each shard reads one source row from
+    each neighbour (``comm.neighbour_rows``); the first shard keeps the
+    clamped top edge, the last the clamped bottom edge."""
+    if comm is None or comm.size <= 1:
+        return upsample_bilinear_pow2(src, dst_hw)
+    top, bot = src[:1], src[-1:]
+    prev_row, next_row = comm.neighbour_rows(top, bot)
+    return upsample_bilinear_pow2(src, dst_hw,
+                                  prev_row=top if prev_row is None else prev_row,
+                                  next_row=bot if next_row is None else next_row)
 
 
 def downsample2x_min(img):

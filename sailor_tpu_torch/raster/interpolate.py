@@ -42,19 +42,25 @@ def _unproject_rays(inv_vp, camera_position, ndc_x, ndc_y, fused: bool = True):
     return torch.stack([mv(i) * inv_w for i in range(3)], dim=-1) - camera_position
 
 
-def _pixel_ndc(height: int, width: int, row0, full_height: int, device, stride: int = 1):
+def _pixel_ndc(height: int, width: int, row0, full_height: int, device, stride: int = 1,
+               clamp_rows: bool = False):
     """NDC (ndc_x, ndc_y) of every ``stride``-th pixel centre,
     (ceil(H / stride), ceil(W / stride)) each; local row y maps through
-    (y * stride + row0 + 0.5) / full_height. The reference's CPU build
-    divides by the static sizes as products with their float32 reciprocals,
-    folds the doubling into them and fuses the offset:
+    (y * stride + row0 + 0.5) / full_height, with y * stride + row0
+    clamped into [0, full_height) when ``clamp_rows``. The reference's CPU
+    build divides by the static sizes as products with their float32
+    reciprocals, folds the doubling into them and fuses the offset:
     ndc_x = fma(x + 0.5, 2 * (1 / width), -1), and likewise y."""
-    def ndc(n, size, offset, sign):
+    def ndc(n, size, offset, sign, clamp=False):
         k = 2.0 * float(torch.tensor(1.0 / size, dtype=torch.float32))
-        c = torch.arange(n, dtype=torch.float32, device=device) * stride + 0.5 + offset
+        c = torch.arange(n, dtype=torch.float32, device=device) * stride
+        if clamp:
+            c = torch.clamp(c + offset, 0.0, size - 1.0) + 0.5
+        else:
+            c = c + 0.5 + offset
         return fma(c, torch.full_like(c, sign * k), torch.full_like(c, -sign))
 
-    ndc_y, ndc_x = torch.meshgrid(ndc(-(-height // stride), full_height, row0, -1.0),
+    ndc_y, ndc_x = torch.meshgrid(ndc(-(-height // stride), full_height, row0, -1.0, clamp_rows),
                                   ndc(-(-width // stride), width, 0, 1.0), indexing="ij")
     return ndc_x, ndc_y
 

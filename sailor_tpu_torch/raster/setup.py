@@ -13,7 +13,7 @@ import dataclasses
 
 import torch
 
-from sailor_tpu_torch.core.math3d import fma, transform_point_h
+from sailor_tpu_torch.core.math3d import fma, fma_scalar, transform_point_h
 
 
 @dataclasses.dataclass
@@ -202,6 +202,20 @@ def triangle_setup(geometry: Geometry, view_projection, *, width: int,
         edge=edge, zplane=zplane, valid=valid, src_id=src_id,
         zmax=torch.clamp(tz.amax(dim=-1), 0.0, 1.0),
     ), (xmin, xmax, ymin, ymax)
+
+
+def shift_viewport_rows(tri: TriangleSetup, row0) -> TriangleSetup:
+    """The setup re-expressed in the local rows of a viewport slice that
+    starts at global row ``row0``: with y_global = y_local + row0,
+    E_local(x, y') = E_global(x, y' + row0), so only the constant terms
+    change (C += B * row0), for the edges and the depth plane; each as one
+    fused multiply-add, as the reference's compiled shift rounds it."""
+    def shifted(x):
+        out = x.clone()
+        out[..., 2] = fma_scalar(x[..., 1], float(row0), x[..., 2])
+        return out
+
+    return dataclasses.replace(tri, edge=shifted(tri.edge), zplane=shifted(tri.zplane))
 
 
 def _tile_index(v, tile: int, n: int):

@@ -213,13 +213,13 @@ def rasterize_worklist_cuda(rows, big_rows, starts, counts, n_big, *,
     slots = worklist_slots(ntiles)
     ws = torch.empty(_worklist_workspace(ntiles, slots), dtype=torch.int32, device=dev)
     lib = cuda_lib.load()
-    err = lib.sailor_raster_worklist(
+    err = cuda_lib.launch(rows, lib.sailor_raster_worklist,
         rows.data_ptr(), ncols, big_rows.data_ptr(), big_rows.shape[0],
         n_big.data_ptr(), starts.data_ptr(), counts.data_ptr(),
         cuda_lib.ptr(zlo), cuda_lib.ptr(zhi), depth.data_ptr(), tid.data_ptr(),
         tiles_y, tiles_x, RUN_GROUPS, slots, ws.data_ptr(), cuda_lib.stream_of(rows))
     cuda_lib.check(err, "sailor_raster_worklist")
-    cuda_lib.LAUNCHES["raster_worklist"] += 1
+    cuda_lib.count("raster_worklist")
     return depth, tid
 
 
@@ -415,14 +415,14 @@ def rasterize_stream_cuda(rows, big_rows, c0, spt, n_big, *, tiles_y: int,
     slots = worklist_slots(ntiles)
     ws = torch.empty(_worklist_workspace(ntiles, slots), dtype=torch.int32, device=dev)
     lib = cuda_lib.load()
-    err = lib.sailor_raster_stream(
+    err = cuda_lib.launch(rows, lib.sailor_raster_stream,
         rows.data_ptr(), rows.shape[1], big_rows.data_ptr(), big_rows.shape[0],
         n_big.data_ptr(), c0.data_ptr(), spt.data_ptr(), cuda_lib.ptr(zlo),
         cuda_lib.ptr(zhi), depth.data_ptr(), tid.data_ptr(), tiles_y, tiles_x,
         chunk, 1 if mxu else 0, STREAM_RUN_ROWS // (CHUNK_MXU if mxu else CHUNK), slots,
         ws.data_ptr(), cuda_lib.stream_of(rows))
     cuda_lib.check(err, "sailor_raster_stream")
-    cuda_lib.LAUNCHES["raster_stream_mxu" if mxu else "raster_stream"] += 1
+    cuda_lib.count("raster_stream_mxu" if mxu else "raster_stream")
     return depth, tid
 
 
@@ -506,13 +506,13 @@ def rasterize_dma_cuda(rows, big_rows, w0, nw, n_big, *, tiles_y: int,
     slots = worklist_slots(ntiles)
     ws = torch.empty(_worklist_workspace(ntiles, slots), dtype=torch.int32, device=dev)
     lib = cuda_lib.load()
-    err = lib.sailor_raster_worklist(
+    err = cuda_lib.launch(rows, lib.sailor_raster_worklist,
         rows.data_ptr(), rows.shape[1], big_rows.data_ptr(), big_rows.shape[0],
         n_big.data_ptr(), starts.data_ptr(), counts.data_ptr(), cuda_lib.ptr(zlo),
         cuda_lib.ptr(zhi), depth.data_ptr(), tid.data_ptr(), tiles_y, tiles_x,
         DMA_RUN_ROWS // CHUNK, slots, ws.data_ptr(), cuda_lib.stream_of(rows))
     cuda_lib.check(err, "sailor_raster_worklist")
-    cuda_lib.LAUNCHES["raster_dma"] += 1
+    cuda_lib.count("raster_dma")
     return depth, tid
 
 
@@ -598,12 +598,12 @@ def rasterize_tiles_cuda(table, ids, counts, *, tiles_y: int, tiles_x: int,
     slots = worklist_slots(ntiles)
     ws = torch.empty(_worklist_workspace(ntiles, slots), dtype=torch.int32, device=dev)
     lib = cuda_lib.load()
-    err = lib.sailor_raster_dense(
+    err = cuda_lib.launch(table, lib.sailor_raster_dense,
         table.data_ptr(), width, ids.data_ptr(), starts.data_ptr(), counts.data_ptr(),
         cuda_lib.ptr(zlo), cuda_lib.ptr(zhi), depth.data_ptr(), tid.data_ptr(), tiles_y,
         tiles_x, DENSE_RUN_ROWS // CHUNK, slots, ws.data_ptr(), cuda_lib.stream_of(table))
     cuda_lib.check(err, "sailor_raster_dense")
-    cuda_lib.LAUNCHES["raster_dense"] += 1
+    cuda_lib.count("raster_dense")
     return depth, tid
 
 
@@ -786,15 +786,15 @@ def resolve_worklist_cuda(rows, big_rows, tid, starts, counts, par, *,
     cuda_lib.require(par, "par", torch.float32, (32,), dev)
     out = torch.empty(n_out, H, W, dtype=torch.float32, device=dev)
     lib = cuda_lib.load()
-    err = lib.sailor_resolve_worklist(
+    err = cuda_lib.launch(rows, lib.sailor_resolve_worklist,
         rows.data_ptr(), ncols, big_rows.data_ptr(), big_rows.shape[0],
         tid.data_ptr(), starts.data_ptr(), counts.data_ptr(), par.data_ptr(),
         out.data_ptr(), n_out, 1 if mode == "alpha" else 0, tiles_y, tiles_x,
         cuda_lib.stream_of(rows))
     cuda_lib.check(err, "sailor_resolve_worklist")
-    cuda_lib.LAUNCHES["resolve_worklist"] += 1
+    cuda_lib.count("resolve_worklist")
     if mode == "alpha":  # the masked peel's 5-plane form, counted apart as well
-        cuda_lib.LAUNCHES["resolve_worklist_alpha"] += 1
+        cuda_lib.count("resolve_worklist_alpha")
     return list(out.unbind(0))
 
 
@@ -849,13 +849,13 @@ def resolve_stream_cuda(rows, big_rows, tid, starts, counts, c0, spt, par, *,
     cuda_lib.require(par, "par", torch.float32, (32,), dev)
     out = torch.empty(n_out, H, W, dtype=torch.float32, device=dev)
     lib = cuda_lib.load()
-    err = lib.sailor_resolve_stream(
+    err = cuda_lib.launch(rows, lib.sailor_resolve_stream,
         rows.data_ptr(), ncols, big_rows.data_ptr(), big_rows.shape[0],
         tid.data_ptr(), starts.data_ptr(), counts.data_ptr(), c0.data_ptr(),
         spt.data_ptr(), par.data_ptr(), out.data_ptr(), n_out, tiles_y,
         tiles_x, chunk, cuda_lib.stream_of(rows))
     cuda_lib.check(err, "sailor_resolve_stream")
-    cuda_lib.LAUNCHES["resolve_stream"] += 1
+    cuda_lib.count("resolve_stream")
     return list(out.unbind(0))
 
 

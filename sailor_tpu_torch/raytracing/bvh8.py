@@ -379,12 +379,12 @@ def intersect_cuda(table, origin, direction, t0, active, *, any_hit: bool):
     u = torch.empty(r, dtype=torch.float32, device=dev)
     v = torch.empty(r, dtype=torch.float32, device=dev)
     counter = torch.empty(1, dtype=torch.int32, device=dev)  # cleared by the C entry
-    err = cuda_lib.load().sailor_bvh8_intersect(
+    err = cuda_lib.launch(origin, cuda_lib.load().sailor_bvh8_intersect,
         table.data_ptr(), origin.data_ptr(), direction.data_ptr(), t0.data_ptr(),
         active.data_ptr(), t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), r,
         int(any_hit), counter.data_ptr(), cuda_lib.stream_of(origin))
     cuda_lib.check(err, "sailor_bvh8_intersect")
-    cuda_lib.LAUNCHES["bvh8_intersect"] += 1
+    cuda_lib.count("bvh8_intersect")
     return t, tri, u, v
 
 

@@ -43,7 +43,7 @@ volume events), from a ``torch.Generator`` seeded by ``seed``, or takes
 them from the caller (``uniforms``), which is how the tests feed both
 packages the same numbers.
 
-Not ported: the reference's sharded ``trace_rays``.
+Row-sharded tracing over several devices: ``parallel.mesh.sharded_path_trace``.
 """
 
 from __future__ import annotations

@@ -235,11 +235,11 @@ def visit_tables_cuda(o, d, tmax, cl_min, cl_max):
            "order": torch.empty(nb, nc, dtype=torch.int32, device=dev),
            "blk_bits": torch.empty(nb, nc, dtype=torch.int32, device=dev),
            "nlive": torch.empty(nb, dtype=torch.int32, device=dev)}
-    err = cuda_lib.load().sailor_slab_tables(
+    err = cuda_lib.launch(o, cuda_lib.load().sailor_slab_tables,
         o.data_ptr(), d.data_ptr(), tmax.data_ptr(), cl_min.data_ptr(), cl_max.data_ptr(),
         *(t.data_ptr() for t in out.values()), nb, nc, cuda_lib.stream_of(o))
     cuda_lib.check(err, "sailor_slab_tables")
-    cuda_lib.LAUNCHES["slab_entry"] += 1
+    cuda_lib.count("slab_entry")
     return out
 
 
@@ -364,13 +364,13 @@ def sweep_cuda(e_bits, order, blk_bits, nlive, feats, tmax, g_cluster, *,
     cuda_lib.require(g_cluster, "g_cluster", torch.float32, (nc, ROWS, CLUSTER), dev)
     best_t = torch.empty(rp, dtype=torch.float32, device=dev)
     best_i = torch.empty(rp, dtype=torch.int32, device=dev)
-    err = cuda_lib.load().sailor_sweep(
+    err = cuda_lib.launch(feats, cuda_lib.load().sailor_sweep,
         e_bits.data_ptr(), order.data_ptr(), blk_bits.data_ptr(), nlive.data_ptr(),
         feats.data_ptr(), tmax.data_ptr(), g_cluster.data_ptr(), best_t.data_ptr(),
         best_i.data_ptr(), nsb, RAY_BLOCK // SUB, nc, int(any_hit),
         cuda_lib.stream_of(feats))
     cuda_lib.check(err, "sailor_sweep")
-    cuda_lib.LAUNCHES["sweep"] += 1
+    cuda_lib.count("sweep")
     return best_t, best_i
 
 
@@ -407,12 +407,12 @@ def sweep_grid_cuda(e_bits, order, feats, tmax, g_cluster, *, any_hit: bool):
     cuda_lib.require(g_cluster, "g_cluster", torch.float32, (nc, ROWS, CLUSTER), dev)
     best_t = torch.empty(rp, dtype=torch.float32, device=dev)
     best_i = torch.empty(rp, dtype=torch.int32, device=dev)
-    err = cuda_lib.load().sailor_sweep_grid(
+    err = cuda_lib.launch(feats, cuda_lib.load().sailor_sweep_grid,
         e_bits.data_ptr(), order.data_ptr(), feats.data_ptr(), tmax.data_ptr(),
         g_cluster.data_ptr(), best_t.data_ptr(), best_i.data_ptr(), nsb,
         RAY_BLOCK // SUB, nc, int(any_hit), cuda_lib.stream_of(feats))
     cuda_lib.check(err, "sailor_sweep_grid")
-    cuda_lib.LAUNCHES["sweep_grid"] += 1
+    cuda_lib.count("sweep_grid")
     return best_t, best_i
 
 

@@ -618,6 +618,7 @@ _TWINS = (  # (module, wrapper, plain twin, LAUNCHES key)
     (sweep, "visit_tables_cuda", sweep.visit_tables_plain, "slab_entry"),
     (sweep, "sweep_cuda", sweep.sweep_plain, "sweep"),
     (bvh8, "intersect_cuda", bvh8.intersect_plain, "bvh8_intersect"),
+    (tr, "rasterize_tiles_cuda", tr.rasterize_tiles_plain, "raster_dense"),
 )
 
 
@@ -638,7 +639,7 @@ def rehearsal(monkeypatch):
     for name in ("config", "examples.render_frame", "examples.trace", "engine.world",
                  "engine.app", "framegraph.graph", "scenes", "assets.materials",
                  "raytracing.path_tracer", "raster.pipeline", "kernels.cubemap",
-                 "kernels.ibl", "utils.benchmarks"):
+                 "kernels.ibl", "utils.benchmarks", "parallel.mesh"):
         mod = importlib.import_module(f"sailor_tpu_torch.{name}")
         monkeypatch.setattr(mod, "resolve_device", lambda device=None: cpu)
     monkeypatch.setattr(cuda_lib, "dispatch", lambda t, plain, kernel: kernel)
@@ -703,3 +704,29 @@ def test_editor_material_edit_phase_rehearsal(rehearsal, monkeypatch):
 def test_host_runtime_phase_rehearsal(rehearsal):
     launches = chip_smoke.run_host_runtime(rehearsal)
     assert launches["bvh8_intersect"] == 2  # bvh.benchmark: two tables traversed
+
+
+def test_sharded_phases_rehearsal(rehearsal, monkeypatch):
+    """run_sharded_frames and run_sharded_forward at 256x128 over 2 shards
+    (shadow_resolution 256), run_sharded_trace at 32x32 over 4 shards (1
+    spp), check_small_sharded_frame (CPU shards against CPU shards here)
+    and check_image_decoders: the shards run in their threads, every
+    B1-B3 and B9 launch of each shard is twin-checked, the trace equals
+    trace_rays."""
+    monkeypatch.setattr(chip_smoke, "SHARDED", (256, 128, 2))
+    monkeypatch.setattr(chip_smoke, "SHARDED_FRAMES", 1)
+    monkeypatch.setattr(chip_smoke, "SHARDED_TRACE", (32, 32, 4, 1, 2))
+    monkeypatch.setattr(chip_smoke, "FULL_CONFIG",
+                        dict(chip_smoke.FULL_CONFIG, shadow_resolution=256))
+    monkeypatch.setattr(torch.Tensor, "cuda", lambda self, *a, **k: self)
+    from sailor_tpu_torch.scenes import flagship_scene
+
+    scene = flagship_scene(256, 128, 24, 6, device="cpu")
+    frames = chip_smoke.run_sharded_frames(scene, rehearsal)
+    assert frames["raster_worklist"] == 2 * 3 + 2 and frames["shade_forward_plus"] == 2 * 2
+    forward = chip_smoke.run_sharded_forward(scene, rehearsal)
+    assert forward["raster_dense"] >= 8
+    trace = chip_smoke.run_sharded_trace(rehearsal)
+    assert trace["slab_entry"] == trace["sweep"] >= 12
+    chip_smoke.check_small_sharded_frame()
+    chip_smoke.check_image_decoders()

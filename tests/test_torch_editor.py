@@ -170,13 +170,26 @@ def test_content_browser_and_previews(content_copy):
 
 
 def test_undecoded_texture_preview_is_a_500(content_copy):
+    """A valid BMP's preview is a PNG (the port decodes BMP); a malformed
+    one stays a 500 that names the decode error."""
+    import io
+
+    from PIL import Image
+
+    rgb = np.arange(12 * 20 * 3, dtype=np.uint8).reshape(12, 20, 3)
+    buf = io.BytesIO()
+    Image.fromarray(rgb).save(buf, format="BMP")
+    (content_copy / "content" / "Textures" / "ok.bmp").write_bytes(buf.getvalue())
     (content_copy / "content" / "Textures" / "t.bmp").write_bytes(b"BM" + bytes(64))
     app, ed, _, _ = _apps()
     reg = AssetRegistry("content")
     reg.scan_content_folder()
     ed.registry = reg
+    status, ctype, body = app.handle("GET", "/api/asset?path=content/Textures/ok.bmp", b"")
+    assert status == 200 and ctype == "image/png"
+    np.testing.assert_array_equal(decode_png(body), rgb)
     status, ctype, body = app.handle("GET", "/api/asset?path=content/Textures/t.bmp", b"")
-    assert status == 500 and b"no BMP decoder" in body
+    assert status == 500 and b"BMP: " in body
 
 
 # --- tests/test_engine_aux.py::test_editor_server_roundtrip ------------------------

@@ -127,18 +127,23 @@ def test_default_device_is_the_card(monkeypatch):
 
 @pytest.mark.parametrize("ext", [".jpg", ".jpeg", ".bmp", ".tga", ".gif", ".hdr", ".exr"])
 def test_unported_importers_raise(tmp_path, ext):
-    """The registry knows the reference's image extensions; the port
-    decodes PNG only, and the other formats raise an error that names the
-    format and the missing decoder (tests/test_torch_assets.py loads
-    .gltf, .glb, .png and .mat)."""
+    """The registry knows the reference's image extensions. JPEG, GIF and
+    OpenEXR have no decoder in the port and raise an error that names the
+    format and the missing decoder; BMP, TGA and Radiance HDR decode
+    (tests/test_torch_image_formats.py), and a truncated (empty) file
+    raises an error that names the format."""
     fmt = {".jpg": "JPEG", ".jpeg": "JPEG", ".bmp": "BMP", ".tga": "TGA", ".gif": "GIF",
            ".hdr": "Radiance HDR", ".exr": "OpenEXR"}[ext]
     path = tmp_path / f"asset{ext}"
     path.write_bytes(b"")
     reg = AssetRegistry(str(tmp_path))
     assert reg.scan_content_folder() == 1
-    with pytest.raises(NotImplementedError, match=f"no {fmt} decoder"):
-        reg.load(str(path))
+    if ext in (".bmp", ".tga", ".hdr"):
+        with pytest.raises(ValueError, match=f"^{fmt}: "):
+            reg.load(str(path))
+    else:
+        with pytest.raises(NotImplementedError, match=f"no {fmt} decoder"):
+            reg.load(str(path))
 
 
 def test_unported_engine_inputs_raise():
@@ -247,10 +252,15 @@ def test_default_renderer_is_ported():
 
 
 def test_sharding_raises():
+    """process_sharded is ported (tests/test_torch_parallel.py); a height
+    that does not split into 32-row tile rows a shard raises the
+    reference's ValueError."""
+    from sailor_tpu_torch.parallel import make_mesh
+
     fg = FrameGraph(FrameGraphAsset.from_nodes(MINIMAL_GRAPH), 64, 64, SLICE_CONFIG,
                     device="cpu")
-    with pytest.raises(NotImplementedError):
-        fg.process_sharded(None, {}, None)
+    with pytest.raises(ValueError, match="32-px tile rows"):
+        fg.process_sharded(None, {}, make_mesh(4, device="cpu"))
 
 
 def test_materials_raise():
