@@ -124,6 +124,21 @@ Phases, each printed as it ends:
      material), 1 + 5 frames, then a .mat edit, the hot reload (rebuild
      ms) and frame 7: the edited material's pixels change, the others
      hold. Then 256x128 versions of each on the card against the CPU path;
+  6i. content-jpeg-full: the content GLB with its albedo and normal maps as
+     2048 x 2048 baseline JPEGs (``map_jpeg``, this script's own writer:
+     4:2:0, the Annex K tables at quality 90, a restart interval), loaded
+     through the registry (the port's JPEG decoder) and rendered through
+     all of DefaultRenderer.renderer at 1920x1088, 1 warm-up + 5 frames in
+     turns with content-glb-full's PNG frame: each texture's decode ms and
+     MP/s, the importer's ms, frame ms, syncs, B1-B3 launches, peak
+     memory, per-node ms, one frame whose every B1-B3 launch is held to
+     its twin; a 256x128 frame on the card against the CPU path. Then
+     hiz-heavy: tools/time_hiz.py's scene (a wall before 2,000 cubes, 1,000
+     lights) at 1920x1088 with the tool's config, hiz_culling on and off, 1
+     warm-up + 5 frames each in turns: frame ms, the culled count of each
+     frame (> 0 after frame 1), syncs, B1-B3 launches, per-node ms of
+     DepthPrepass, DepthHighZ and RenderScene; frame 2 held to frame 1
+     (``compare_culled_frame``);
   7. tracer kernels: the sweep intersector's kernels (B4 slab entry with
      the visit tables, B5 cluster sweep and B6 dense-grid sweep, closest
      and any hit) against their plain versions on the path tracer's own
@@ -150,6 +165,9 @@ Phases, each printed as it ends:
      the material-ball scene built in code, in turns (Mrays/s, peak; B4
      and B5 launches checked), and a 64x64 render on the card against the
      CPU path;
+  8c. content-jpeg-trace: the same GLB with the ground's albedo as a
+     256-px JPEG, 1 warm-up + 3 renders in turns with content-glb-trace's
+     PNG GLB (Mrays/s, peak; B4 and B5 launches checked);
   9. grid trace: the same scene with DMA_SWEEP off (B6 in place of B5) at
      4 spp: 1 warm-up + 2 renders, Mrays/s, peak memory, launches, a
      profiled sample; the image equals the B5 render's at the same seed;
@@ -221,8 +239,11 @@ Phases, each printed as it ends:
      over 8 shards on the card against the CPU path; the shards of one
      card take host turns (``parallel.mesh._Turn``);
  20. tools and decoders: ``python -m sailor_tpu_torch.tools.time_sweep``
-     (256x256) and ``profile_trace --small`` on the card; BMP, TGA and
-     Radiance HDR files written by the script read back exactly.
+     (256x256), ``profile_trace --small``, ``time_hiz`` (200 cubes, 100
+     lights, 1 frame) and ``profile_frame --small --frames 2`` on the
+     card; BMP, TGA, Radiance HDR, GIF and Adam7 PNG files written by the
+     script read back exactly, and a JPEG's C++ decode equal to the plain
+     Python decoder's.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure ends the run with
 a non-zero exit code and no result line.
@@ -1417,7 +1438,7 @@ def hiz_culled_ids(targets, prev_state, width, height):
     return tri.valid & ~kept
 
 
-def compare_culled_frame(first, second, culled, card):
+def compare_culled_frame(first, second, culled, card, label="frame[shadow_hiz]"):
     """Frame 2 (culled against frame 1's pyramid, maps from the CSM cache)
     against frame 1 with the static camera: ShadowMaps and EvsmMaps equal
     bit for bit (the cache), and Depth and TriId equal except at pixels
@@ -1443,7 +1464,7 @@ def compare_culled_frame(first, second, culled, card):
     tiles = torch.nn.functional.max_pool2d(tiles[None].float(), 3, 1, 1)[0] > 0
     near = tiles.repeat_interleave(t, 0).repeat_interleave(t, 1)[:moved.shape[0], :moved.shape[1]]
     main_moved = (second["Main"] != first["Main"]).any(-1)
-    print(f"frame[shadow_hiz] frame 2 vs frame 1: maps_bit_equal=True depth_or_tid_moved_px="
+    print(f"{label} frame 2 vs frame 1: maps_bit_equal=True depth_or_tid_moved_px="
           f"{int(moved.sum())} all_at_culled_winners={explained} "
           f"culled_visible_triangles={int(torch.unique(winners).numel())} "
           f"main_moved_px={int(main_moved.sum())} main_moved_outside_their_tile_blocks="
@@ -3644,9 +3665,10 @@ class GltfWriter:
                               count=a.shape[0], ncomp=w)
                 for a, w, o in zip(arrays, widths, offs)]
 
-    def png_texture(self, png: bytes) -> int:
-        """An embedded PNG image and a texture of it; returns the texture."""
-        img = self._add("images", {"bufferView": self.view(png), "mimeType": "image/png"})
+    def image_texture(self, data: bytes, mime: str) -> int:
+        """An embedded image of type ``mime`` and a texture of it; returns
+        the texture."""
+        img = self._add("images", {"bufferView": self.view(data), "mimeType": mime})
         return self._add("textures", {"source": img})
 
     def material(self, albedo, metallic: float, roughness: float, emissive=(0, 0, 0),
@@ -3691,6 +3713,210 @@ class GltfWriter:
                 + struct.pack("<II", len(self.bin), 0x004E4942) + bytes(self.bin))
 
 
+# Annex K of ITU-T T.81: the example quantisation tables (natural order) and
+# the standard Huffman tables (BITS counts, HUFFVAL symbols) that libjpeg
+# writes unless it optimises them
+JPEG_QUANT = (
+    (16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55, 14, 13, 16, 24, 40, 57,
+     69, 56, 14, 17, 22, 29, 51, 87, 80, 62, 18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64,
+     81, 104, 113, 92, 49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99),
+    (17, 18, 24, 47) + (99,) * 4 + (18, 21, 26, 66) + (99,) * 4 + (24, 26, 56) + (99,) * 5
+    + (47, 66) + (99,) * 38)
+JPEG_HUFFMAN = {  # (class, slot): (counts, symbols as hex)
+    (0, 0): ((0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0), "000102030405060708090a0b"),
+    (0, 1): ((0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0), "000102030405060708090a0b"),
+    (1, 0): ((0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 125),
+             "01020300041105122131410613516107227114328191a1082342b1c11552d1f02433627282090a"
+             "161718191a25262728292a3435363738393a434445464748494a535455565758595a6364656667"
+             "68696a737475767778797a838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3"
+             "b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4"
+             "f5f6f7f8f9fa"),
+    (1, 1): ((0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 119),
+             "000102031104052131061241510761711322328108144291a1b1c109233352f0156272d10a1624"
+             "34e125f11718191a262728292a35363738393a434445464748494a535455565758595a63646566"
+             "6768696a737475767778797a82838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aa"
+             "b2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4"
+             "f5f6f7f8f9fa"),
+}
+JPEG_ZIGZAG = (0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48,
+               41, 34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15,
+               23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63)
+
+
+def _huffman_codes(counts, symbols):
+    """symbol -> (code, length) of a canonical Huffman table."""
+    codes, code, k = {}, 0, 0
+    for length, n in enumerate(counts, 1):
+        for _ in range(n):
+            codes[symbols[k]] = (code, length)
+            code += 1
+            k += 1
+        code <<= 1
+    return codes
+
+
+def jpeg_bytes(img_u8, restart_rows: int = 1) -> bytes:
+    """A baseline JFIF JPEG of an (H, W, 3) uint8 image (test tooling: the
+    card's machine has no image library): YCbCr 4:2:0 by 2x2 means, a float
+    DCT, the Annex K tables scaled to quality 90 as libjpeg scales them,
+    the standard Huffman tables, and a restart interval of
+    ``restart_rows`` MCU rows. The entropy coding is vectorised with
+    numpy, so a 2048 x 2048 map encodes in seconds."""
+    import struct
+
+    import numpy as np
+
+    img = np.asarray(img_u8, np.float64)
+    h, w = img.shape[:2]
+    mh, mw = -(-h // 16), -(-w // 16)
+    pad = np.pad(img, ((0, mh * 16 - h), (0, mw * 16 - w), (0, 0)), mode="edge")
+    r, g, b = pad[..., 0], pad[..., 1], pad[..., 2]
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    cb = -0.168735892 * r - 0.331264108 * g + 0.5 * b + 128
+    cr = 0.5 * r - 0.418687589 * g - 0.081312411 * b + 128
+    chroma = [c.reshape(mh * 8, 2, mw * 8, 2).mean((1, 3)) for c in (cb, cr)]
+    scale = 200 - 2 * 90  # libjpeg's quality scaling, for qualities of 50 and up
+    quant = [np.clip((np.asarray(t) * scale + 50) // 100, 1, 255) for t in JPEG_QUANT]
+    x = np.arange(8)
+    dct = np.where(x[:, None] == 0, np.sqrt(1 / 8), np.sqrt(2 / 8)) * np.cos(
+        (2 * x[None, :] + 1) * x[:, None] * np.pi / 16)
+    zz = np.asarray(JPEG_ZIGZAG)
+
+    def blocks(plane, q, per_mcu):
+        """(MCU rows, MCUs, blocks an MCU, 64) quantised zigzag coefficients."""
+        ph, pw = plane.shape
+        b8 = (plane - 128.0).reshape(ph // 8, 8, pw // 8, 8).transpose(0, 2, 1, 3)
+        coef = np.round(dct @ b8 @ dct.T / q.reshape(8, 8)).astype(np.int64)
+        coef = coef.reshape(ph // 8, pw // 8, 64)[..., zz]
+        if per_mcu == 4:  # 2x2 luma blocks an MCU, in raster order
+            coef = coef.reshape(mh, 2, mw, 2, 64).transpose(0, 2, 1, 3, 4).reshape(mh, mw, 4, 64)
+        else:
+            coef = coef.reshape(mh, mw, 1, 64)
+        return coef
+
+    comps = [blocks(y, quant[0], 4), blocks(chroma[0], quant[1], 1),
+             blocks(chroma[1], quant[1], 1)]
+    # every block of the scan in MCU order, with its component's tables
+    seq = np.concatenate(comps, 2).reshape(-1, 64)  # (mh * mw * 6, 64)
+    comp_of = np.tile(np.array([0, 0, 0, 0, 1, 2]), mh * mw)
+    mcu_of = np.repeat(np.arange(mh * mw), 6)
+    interval = restart_rows * mw if restart_rows else mh * mw
+    tables = {k: _huffman_codes(c, bytes.fromhex(v)) for k, (c, v) in JPEG_HUFFMAN.items()}
+    # DC differences, the predictor reset at each restart interval
+    dc = seq[:, 0]
+    prev = np.zeros_like(dc)
+    for c in range(3):
+        idx = np.nonzero(comp_of == c)[0]
+        d = dc[idx]
+        p = np.concatenate([[0], d[:-1]])
+        first = np.concatenate([[True], (mcu_of[idx][1:] // interval)
+                                != (mcu_of[idx][:-1] // interval)])
+        prev[idx] = np.where(first, 0, p)
+    diff = dc - prev
+
+    def magnitude(v):
+        a = np.abs(v)
+        s = np.zeros_like(a)
+        nz = a > 0
+        s[nz] = np.floor(np.log2(a[nz])).astype(np.int64) + 1
+        bits = np.where(v >= 0, v, v + (1 << s) - 1)
+        return s, bits
+
+    # every symbol as (block, key within the block, code with its extra bits,
+    # length): the DC first (key -1), before AC coefficient k its ZRLs
+    # (100 k + n) and itself (100 k + 50), the EOB last (6400)
+    code_of = {key: (np.array([t.get(i, (0, 0))[0] for i in range(256)], np.int64),
+                     np.array([t.get(i, (0, 0))[1] for i in range(256)], np.int64))
+               for key, t in tables.items()}
+    chroma_tab = (comp_of > 0).astype(np.int64)
+    sym_blk, sym_key, sym_code, sym_len = [], [], [], []
+
+    def put(blk, key, cls, sym, extra, extra_len):
+        (c0, l0), (c1, l1) = code_of[(cls, 0)], code_of[(cls, 1)]
+        chroma = chroma_tab[blk] == 1
+        length = np.where(chroma, l1[sym], l0[sym])
+        sym_blk.append(blk)
+        sym_key.append(key)
+        sym_code.append((np.where(chroma, c1[sym], c0[sym]) << extra_len) | extra)
+        sym_len.append(length + extra_len)
+
+    nb = seq.shape[0]
+    s_dc, b_dc = magnitude(diff)
+    put(np.arange(nb), np.full(nb, -1), 0, s_dc, b_dc, s_dc)
+    bi, ki = np.nonzero(seq[:, 1:])  # by block, then by position
+    k = ki + 1
+    first = np.concatenate([[True], bi[1:] != bi[:-1]])
+    run = k - np.where(first, 0, np.concatenate([[0], k[:-1]])) - 1
+    zrl = run // 16
+    rep = np.repeat(np.arange(bi.size), zrl)
+    if rep.size:
+        nth = np.arange(rep.size) - np.repeat(np.cumsum(zrl) - zrl, zrl)
+        zero = np.zeros(rep.size, np.int64)
+        put(bi[rep], 100 * k[rep] + nth, 1, np.full(rep.size, 0xF0), zero, zero)
+    s_ac, b_ac = magnitude(seq[bi, k])
+    put(bi, 100 * k + 50, 1, ((run % 16) << 4) | s_ac, b_ac, s_ac)
+    last = np.zeros(nb, np.int64)
+    np.maximum.at(last, bi, k)
+    eob = np.nonzero(last < 63)[0]
+    zero = np.zeros(eob.size, np.int64)
+    put(eob, np.full(eob.size, 6400), 1, zero, zero, zero)
+    blk = np.concatenate(sym_blk)
+    order = np.lexsort((np.concatenate(sym_key), blk))
+    code = np.concatenate(sym_code)[order]
+    length = np.concatenate(sym_len)[order]
+    ivl = mcu_of[blk[order]] // interval
+    # each restart interval ends on a byte, padded with 1 bits
+    ends = np.nonzero(np.concatenate([ivl[1:] != ivl[:-1], [True]]))[0]
+    ivl_bits = np.add.reduceat(length, np.concatenate([[0], ends[:-1] + 1]))
+    padn = -ivl_bits % 8
+    code = np.insert(code, ends + 1, (1 << padn) - 1)
+    length = np.insert(length, ends + 1, padn)
+    # pack: each code (at most 27 bits) left-aligned in the 64-bit window
+    # of the two 32-bit words it starts in; the fields never overlap, so
+    # summing them (exactly, in float64) is their OR
+    start = np.cumsum(length) - length
+    word, off = start // 32, start % 32
+    window = code.astype(np.uint64) << (64 - off - length).astype(np.uint64)
+    nwords = int(-(-int(length.sum()) // 32)) + 1
+    words = (np.bincount(word, (window >> np.uint64(32)).astype(np.float64), nwords)
+             + np.bincount(word + 1, (window & np.uint64(0xFFFFFFFF)).astype(np.float64),
+                           nwords + 1)[:nwords])
+    data = words.astype(">u4").view(np.uint8)
+    ivl_bytes = np.cumsum((ivl_bits + padn) // 8)
+    out = bytearray()
+    start = 0
+    for i, end in enumerate(ivl_bytes):
+        part = data[start:end]
+        out += np.insert(part, np.nonzero(part == 0xFF)[0] + 1, 0).tobytes()  # byte stuffing
+        if i + 1 < len(ivl_bytes):
+            out += bytes([0xFF, 0xD0 + i % 8])
+        start = end
+
+    def seg(marker, body):
+        return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
+
+    head = b"\xff\xd8" + seg(0xE0, b"JFIF\0\x01\x01\0\0\x01\0\x01\0\0")
+    for t in range(2):
+        head += seg(0xDB, bytes([t]) + bytes(int(v) for v in quant[t][zz]))
+    head += seg(0xC0, struct.pack(">BHHB", 8, h, w, 3) + bytes([1, 0x22, 0, 2, 0x11, 1,
+                                                               3, 0x11, 1]))
+    for (cls, slot), (counts, symbols) in JPEG_HUFFMAN.items():
+        head += seg(0xC4, bytes([cls << 4 | slot, *counts]) + bytes.fromhex(symbols))
+    if restart_rows:
+        head += seg(0xDD, struct.pack(">H", interval))
+    head += seg(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0]))
+    return head + bytes(out) + b"\xff\xd9"
+
+
+def map_jpeg(img) -> bytes:
+    """A float (H, W, 4) map in [0, 1] as a baseline 4:2:0 JPEG (quality 90,
+    a restart interval of one MCU row)."""
+    import numpy as np
+
+    return jpeg_bytes(np.clip(np.round(np.asarray(img)[..., :3] * 255.0), 0, 255)
+                      .astype(np.uint8))
+
+
 def map_png(img) -> bytes:
     """A float (H, W, 4) map in [0, 1] as an 8-bit RGB PNG (its alpha is 1)."""
     import numpy as np
@@ -3723,13 +3949,21 @@ def flagship_objects(num_objects: int, seed: int = 11):
 CONTENT_MATERIALS = 8  # the content GLB's materials: the ground's, then 7 for the objects
 
 
-def flagship_glb(num_objects: int, maps) -> bytes:
+def map_texture(w, img, jpeg: bool) -> int:
+    """``img`` embedded in ``w`` as a PNG, or as a JPEG (``map_jpeg``)."""
+    if jpeg:
+        return w.image_texture(map_jpeg(img), "image/jpeg")
+    return w.image_texture(map_png(img), "image/png")
+
+
+def flagship_glb(num_objects: int, maps, jpeg: bool = False) -> bytes:
     """The flagship scene's geometry as a GLB: one node a mesh with its
     translation, the ground material 0 and object i material 1 + i % 7;
-    ``maps`` (procedural_test_maps) embedded as PNG: the albedo map on
-    materials 0-3, the normal map on materials 0 and 1."""
+    ``maps`` (procedural_test_maps) embedded as PNG (as JPEG with
+    ``jpeg``): the albedo map on materials 0-3, the normal map on
+    materials 0 and 1."""
     w = GltfWriter()
-    albedo, normal = w.png_texture(map_png(maps[0])), w.png_texture(map_png(maps[1]))
+    albedo, normal = map_texture(w, maps[0], jpeg), map_texture(w, maps[1], jpeg)
     for m in range(CONTENT_MATERIALS):
         w.material((0.55 + 0.05 * m, 0.6, 0.65 - 0.04 * m), metallic=0.1 * (m % 3),
                    roughness=0.35 + 0.08 * m, albedo_texture=albedo if m < 4 else None,
@@ -3739,16 +3973,17 @@ def flagship_glb(num_objects: int, maps) -> bytes:
     return w.glb()
 
 
-def balls_glb(maps, rings: int = 24, sectors: int = 48) -> bytes:
+def balls_glb(maps, rings: int = 24, sectors: int = 48, jpeg: bool = False) -> bytes:
     """The material-ball scene (``scenes.material_balls_soup``: a 40 m
     ground and eight spheres, 9 materials) as a GLB, one node a mesh with
-    its translation; ``maps[0]`` embedded as the ground's PNG albedo."""
+    its translation; ``maps[0]`` embedded as the ground's albedo, a PNG (a
+    JPEG with ``jpeg``)."""
     from sailor_tpu_torch.assets import primitives
     from sailor_tpu_torch.scenes import material_balls_soup
 
     _, mats = material_balls_soup(rings, sectors)
     w = GltfWriter()
-    tex = w.png_texture(map_png(maps[0]))
+    tex = map_texture(w, maps[0], jpeg)
     for m in range(len(mats["albedo"])):
         w.material(mats["albedo"][m], mats["metallic"][m], mats["roughness"][m],
                    mats["emissive"][m], albedo_texture=tex if m == 0 else None)
@@ -3783,14 +4018,15 @@ CONTENT_ROWS = ("albedo", "metallic", "roughness", "emissive", "albedo_texture",
 
 
 def content_scene(folder, width, height, num_lights, num_objects, device="cuda",
-                  map_size=256):
+                  map_size=256, jpeg=False):
     """tests/test_golden.py's render_content path on the flagship scene:
     ``flagship_glb`` written to ``folder``, loaded back through
     ``AssetRegistry.load`` (gltf.load_merged) and
     ``GLTF.load_texture_images``, the material rows through
     ``MaterialTable.from_host`` (256-px textures); the flagship lights,
-    camera and sun. The GLB holds the ground, so no floor is added.
-    Returns (SceneView, {step: host ms})."""
+    camera and sun. The GLB holds the ground, so no floor is added. With
+    ``jpeg`` the maps are embedded as JPEG. Returns (SceneView, {step:
+    host ms}); "write" includes the maps' encoding."""
     import numpy as np
     import torch
 
@@ -3805,7 +4041,7 @@ def content_scene(folder, width, height, num_lights, num_objects, device="cuda",
     t0 = time.perf_counter()
     path = os.path.join(folder, "flagship.glb")
     with open(path, "wb") as f:
-        f.write(flagship_glb(num_objects, procedural_test_maps(0, map_size)))
+        f.write(flagship_glb(num_objects, procedural_test_maps(0, map_size), jpeg))
     ms["write"] = (time.perf_counter() - t0) * 1e3
     reg = AssetRegistry(folder)
     t0 = time.perf_counter()
@@ -4111,7 +4347,138 @@ def check_small_content():
         check(ok, "the card's process_views disagrees with the CPU path")
 
 
-def glb_trace_scene(folder, device="cuda", rings=24, sectors=48, map_size=256):
+JPEG_MAP_SIZE = 2048  # content-jpeg-full's maps: the size of DamagedHelmet's JPEG maps
+JPEG_FRAMES = 5  # content-jpeg-full's timed frames, after one warm-up
+
+
+def timed_decodes(path):
+    """Each image of the GLB at ``path`` decoded alone through
+    ``textures.decode_bytes``: [{"image", "shape", "ms", "mp_per_s"}]."""
+    from sailor_tpu_torch.assets import textures
+    from sailor_tpu_torch.assets.gltf import GLTF
+
+    g = GLTF.load(path)
+    rows = []
+    for i, img in enumerate(g.doc["images"]):
+        bv = g.doc["bufferViews"][img["bufferView"]]
+        off = bv.get("byteOffset", 0)
+        raw = bytes(g.buffers[bv.get("buffer", 0)][off:off + bv["byteLength"]])
+        t0 = time.perf_counter()
+        arr = textures.decode_bytes(raw, f"images[{i}]", img.get("mimeType"))
+        ms = (time.perf_counter() - t0) * 1e3
+        rows.append({"image": i, "mime": img.get("mimeType"), "bytes": len(raw),
+                     "shape": list(arr.shape), "ms": round(ms, 3),
+                     "mp_per_s": round(arr.shape[0] * arr.shape[1] / 1e6 / (ms / 1e3), 3)})
+    return rows
+
+
+def run_content_jpeg(card):
+    """content-jpeg-full: the flagship scene as ``flagship_glb`` writes it
+    with its albedo and normal maps embedded as 2048 x 2048 baseline JPEGs
+    (``map_jpeg``: 4:2:0, quality 90, a restart interval), loaded through
+    the registry (gltf.load_merged; the port's JPEG decoder) and rendered
+    through all of DefaultRenderer.renderer (FULL_CONFIG) at 1920x1088: 1
+    warm-up + JPEG_FRAMES frames, each beside a frame of content-glb-full's PNG
+    scene (256-px maps) on its own graph, in turns. Each texture's decode
+    host ms and MP/s, the importer's ms, frame ms, syncs, launches (B1-B3
+    checked each frame), peak memory and per-node ms; then one more frame
+    whose every B1-B3 launch is held to its plain twin. Returns the
+    launches of the timed frames."""
+    import tempfile
+
+    import torch
+
+    from sailor_tpu_torch.kernels import cuda_lib
+
+    width, height, n_lights, n_objects = FLAGSHIP
+    total = {}
+    with tempfile.TemporaryDirectory() as jfolder, tempfile.TemporaryDirectory() as pfolder:
+        scene, host_ms = content_scene(jfolder, width, height, n_lights, n_objects,
+                                       map_size=JPEG_MAP_SIZE, jpeg=True)
+        decodes = timed_decodes(os.path.join(jfolder, "flagship.glb"))
+        png, _ = content_scene(pfolder, width, height, n_lights, n_objects)
+    importer = sum(v for k, v in host_ms.items() if k != "write")
+    print(f"content-jpeg-full: {scene.geometry.indices.shape[0]} triangles, "
+          f"{scene.materials.textures.shape[0]} textures from {JPEG_MAP_SIZE}-px JPEGs, "
+          f"importer_total_ms={importer:.3f} host ms " + json.dumps(
+              {k: round(v, 3) for k, v in host_ms.items()}) + f" on {card}")
+    for r in decodes:
+        print("content-jpeg-full decode " + json.dumps(r))
+        check(r["mime"] == "image/jpeg" and r["shape"] == [JPEG_MAP_SIZE, JPEG_MAP_SIZE, 3],
+              "content-jpeg-full: a map did not decode as a 2048 x 2048 RGB JPEG")
+    fg, fg_png = _full_graph(width, height), _full_graph(width, height)
+    state, state_png = fg.initial_state(), fg_png.initial_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for i in range(1 + JPEG_FRAMES):
+        cuda_lib.LAUNCHES.clear()
+        with sync_counter() as syncs:
+            t0 = synced_ms()
+            fg.prepare(scene, state)
+            targets, state = fg.process(scene, state)
+            ms = synced_ms() - t0
+            n_syncs = syncs()
+        launches = {k: cuda_lib.LAUNCHES.get(k, 0) for k in PATH_KERNELS}
+        for k, v in cuda_lib.LAUNCHES.items():
+            total[k] = total.get(k, 0) + v
+        for k in PATH_KERNELS:
+            check(launches[k] > 0, f"content-jpeg-full frame {i + 1} launched no {k}")
+        t0 = synced_ms()
+        fg_png.prepare(png, state_png)
+        _, state_png = fg_png.process(png, state_png)
+        rows.append({"frame": i + 1, "frame_ms": round(ms, 3),
+                     "png_frame_ms": round(synced_ms() - t0, 3), "syncs": n_syncs,
+                     "launches": launches})
+    peak = torch.cuda.max_memory_allocated()
+    cov = (targets["TriId"] >= 0).float().mean().item()
+    check(bool(torch.isfinite(targets["Final"]).all()) and cov > 0.3,
+          "content-jpeg-full: the frame is not finite or covers nothing")
+    _, _, per_node = fg.process_debug(scene, state)
+    timed = rows[1:]
+    print(f"content-jpeg-full {width}x{height}: frame_ms_2_6={[r['frame_ms'] for r in timed]} "
+          f"mean={sum(r['frame_ms'] for r in timed) / len(timed):.3f} "
+          f"png_frame_ms_2_6={[r['png_frame_ms'] for r in timed]} "
+          f"png_mean={sum(r['png_frame_ms'] for r in timed) / len(timed):.3f} "
+          f"peak_mem_bytes={peak} "
+          f"coverage={cov:.4f} on {card}")
+    for r in rows:
+        print("content-jpeg-full frame " + json.dumps(r))
+    print("content-jpeg-full per_node_ms " + json.dumps(
+        {k: round(v, 3) for k, v in per_node.items()}))
+    record = {}
+    with twin_checked(record):
+        fg.prepare(scene, state)
+        fg.process(scene, state)
+    for k in PATH_KERNELS:
+        check(len(record.get(k, [])) > 0, f"content-jpeg-full: the held frame launched no {k}")
+    print("content-jpeg-full twin_checked_frames=1 launches_held " + json.dumps(
+        {k: {"launches": len(v), "max_abs_err": max(v)} for k, v in record.items()}))
+    return total
+
+
+def check_small_content_jpeg():
+    """content-jpeg-full at 256x128 (6 objects, 64-px JPEG maps) on the card
+    against the CPU path: one frame through DefaultRenderer.renderer
+    (full_frame_agreement)."""
+    import tempfile
+
+    config = dict(FULL_CONFIG, shadow_resolution=128)
+    out = {}
+    with tempfile.TemporaryDirectory() as folder:
+        for dev in ("cuda", "cpu"):
+            scene, _ = content_scene(folder, 256, 128, 24, 6, device=dev, map_size=64, jpeg=True)
+            fg = _full_graph(256, 128, dev, config)
+            state = fg.initial_state()
+            fg.prepare(scene, state)
+            t, _ = fg.process(scene, state)
+            out[dev] = {k: t[k].cpu() for k in FULL_FRAME_KEYS}
+    ok, line = full_frame_agreement(out["cuda"], out["cpu"])
+    print(f"small content-jpeg frame card vs cpu: {line}")
+    check(ok, "the card's JPEG content frame disagrees with the CPU path")
+
+
+def glb_trace_scene(folder, device="cuda", rings=24, sectors=48, map_size=256, jpeg=False):
     """examples/trace.py --gltf's path with render_tracer_textured's images:
     ``balls_glb`` written to ``folder``, loaded through the registry with
     ``GLTF.load_texture_images`` as mats["images"], the default sky baked,
@@ -4126,7 +4493,7 @@ def glb_trace_scene(folder, device="cuda", rings=24, sectors=48, map_size=256):
     ms = {}
     path = os.path.join(folder, "balls.glb")
     with open(path, "wb") as f:
-        f.write(balls_glb(procedural_test_maps(0, map_size), rings, sectors))
+        f.write(balls_glb(procedural_test_maps(0, map_size), rings, sectors, jpeg))
     t0 = time.perf_counter()
     soup, mats = AssetRegistry(folder).load(path)
     mats = dict(mats)
@@ -4198,6 +4565,172 @@ def run_content_trace(card):
         print("content-glb-trace render " + json.dumps(r))
     profile(lambda: path_tracer.render_cached(scene, cam, view, proj, seed=9, **dict(kw, spp=1)),
             card, "profile_content_glb_trace_sample")
+    return total
+
+
+def run_content_jpeg_trace(card):
+    """content-jpeg-trace: ``balls_glb`` with the ground's albedo embedded as
+    a 256-px JPEG, loaded through the registry and traced as
+    content-glb-trace traces its PNG twin (``render_cached``, the default
+    sky baked, 512x512, 4 bounces, 4 spp): 1 warm-up + 3 renders, each
+    beside a render of content-glb-trace's PNG GLB, in turns: render ms,
+    Mrays/s, peak memory, B4 and B5 launches (2 * bounces * spp a render,
+    checked). Returns the launches of the JPEG renders."""
+    import tempfile
+
+    import torch
+
+    from sailor_tpu_torch.kernels import cuda_lib
+    from sailor_tpu_torch.raytracing import path_tracer
+
+    width, height, bounces, _ = TRACER
+    spp = TRACER_SPP_CUT
+    kw = dict(width=width, height=height, spp=spp, max_bounces=bounces)
+    with tempfile.TemporaryDirectory() as jf, tempfile.TemporaryDirectory() as pf:
+        (scene, cam, view, proj), host_ms = glb_trace_scene(jf, jpeg=True)
+        png_scene = glb_trace_scene(pf)[0][0]
+    print(f"content-jpeg-trace: {scene.tri_pack.shape[0]} triangles, textures "
+          f"{tuple(scene.textures.shape)}, importer host ms "
+          + json.dumps({k: round(v, 3) for k, v in host_ms.items()}) + f" on {card}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    total, rows = {}, []
+    for i in range(4):
+        cuda_lib.LAUNCHES.clear()
+        ms, (img, rays) = _wall_ms(lambda: path_tracer.render_cached(
+            scene, cam, view, proj, seed=i, **kw))
+        launches = dict(cuda_lib.LAUNCHES)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        pms, (_, prays) = _wall_ms(lambda: path_tracer.render_cached(
+            png_scene, cam, view, proj, seed=i, **kw))
+        rows.append({"render": i, "ms": round(ms, 3),
+                     "mrays_per_s": round(float(rays) / ms / 1e3, 4), "png_ms": round(pms, 3),
+                     "png_mrays_per_s": round(float(prays) / pms / 1e3, 4)})
+        for k in ("slab_entry", "sweep"):
+            check(launches.get(k, 0) == 2 * bounces * spp,
+                  f"content-jpeg-trace render {i} launched {k} {launches.get(k, 0)} times")
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(torch.isfinite(img).all()) and img.min().item() >= 0.0,
+          "content-jpeg-trace: the image is not finite and >= 0")
+    timed = rows[1:]
+    print(f"content-jpeg-trace {width}x{height} b{bounces} spp{spp}: "
+          f"render_ms={[r['ms'] for r in timed]} mrays_per_s={[r['mrays_per_s'] for r in timed]} "
+          f"png_mrays_per_s={[r['png_mrays_per_s'] for r in timed]} peak_mem_bytes={peak} "
+          f"on {card}")
+    for r in rows:
+        print("content-jpeg-trace render " + json.dumps(r))
+    return total
+
+
+HIZ_HEAVY = (1920, 1088, 2000, 1000)  # tools/time_hiz.py's defaults: size, cubes, lights
+HIZ_FRAMES = 5  # hiz-heavy's timed frames each way, after one warm-up
+HIZ_NODES = ("DepthPrepass", "DepthHighZ", "RenderScene")
+
+
+def _hiz_heavy_graph(width, height, hiz, device="cuda"):
+    from sailor_tpu_torch.framegraph import FrameGraph, FrameGraphAsset
+    from sailor_tpu_torch.tools import time_hiz
+
+    return FrameGraph(FrameGraphAsset.load(RENDERER), width, height,
+                      dict(time_hiz.CONFIG, hiz_culling=hiz), device=device)
+
+
+def _node_ms(per_node, names=HIZ_NODES):
+    """The per-node ms of the nodes named (process_debug keys carry an
+    order prefix)."""
+    return {n: round(sum(v for k, v in per_node.items() if k.split("_", 1)[-1] == n), 3)
+            for n in names}
+
+
+def run_hiz_heavy(card):
+    """hiz-heavy: tools/time_hiz.py's occlusion-heavy scene
+    (``time_hiz.occlusion_heavy_scene``: a near wall before 2,000 cubes,
+    1,000 point lights) at 1920x1088 through all of DefaultRenderer.renderer
+    with the tool's config, ``hiz_culling`` on and off on two graphs,
+    prepared once: 1 warm-up + HIZ_FRAMES frames each, in turns. Frame ms both ways,
+    the culled count of each frame, syncs, B1-B3 launches (checked each
+    frame), peak memory, and the per-node ms of DepthPrepass, DepthHighZ
+    and RenderScene both ways. Frame 1 culls nothing and later frames cull
+    triangles; frame 2 is held to frame 1 (``compare_culled_frame``: Depth
+    and TriId move only at pixels whose winner was culled). Then one more
+    frame each way whose every B1-B3 launch is held to its plain twin.
+    Returns the launches of the timed frames."""
+    import torch
+
+    from sailor_tpu_torch.kernels import cuda_lib
+    from sailor_tpu_torch.tools import time_hiz
+
+    width, height, n_cubes, n_lights = HIZ_HEAVY
+    t0 = time.perf_counter()
+    scene = time_hiz.occlusion_heavy_scene(width, height, n_cubes, n_lights)
+    build_ms = (time.perf_counter() - t0) * 1e3
+    graphs = {hiz: _hiz_heavy_graph(width, height, hiz) for hiz in (True, False)}
+    states = {hiz: fg.initial_state() for hiz, fg in graphs.items()}
+    for hiz, fg in graphs.items():
+        fg.prepare(scene, states[hiz])
+    ntri = int(scene.geometry.indices.shape[0])
+    print(f"hiz-heavy: {ntri} triangles, {n_cubes} cubes behind a wall, {n_lights} lights, "
+          f"{width}x{height}, scene host ms {build_ms:.3f} on {card}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    total, rows, keep = {}, [], []
+    for i in range(1 + HIZ_FRAMES):
+        row = {"frame": i + 1}
+        for hiz in (True, False):
+            fg, prev = graphs[hiz], states[hiz]
+            cuda_lib.LAUNCHES.clear()
+            with sync_counter() as syncs:
+                t0 = synced_ms()
+                targets, states[hiz] = fg.process(scene, prev)
+                ms = synced_ms() - t0
+                n_syncs = syncs()
+            for k, v in cuda_lib.LAUNCHES.items():
+                total[k] = total.get(k, 0) + v
+            for k in PATH_KERNELS:
+                check(cuda_lib.LAUNCHES.get(k, 0) > 0,
+                      f"hiz-heavy frame {i + 1} (hiz={hiz}) launched no {k}")
+            tag = "on" if hiz else "off"
+            row[f"{tag}_ms"] = round(ms, 3)
+            row[f"{tag}_syncs"] = n_syncs
+            row[f"{tag}_culled"] = int(targets.get("HiZCulledCount", 0))
+            if hiz and i < 2:
+                keep.append({k: targets[k].clone() for k in
+                             ("Depth", "TriId", "Main", "ShadowMaps", "EvsmMaps")})
+                if i == 1:
+                    culled_ids = hiz_culled_ids(targets, prev, width, height)
+                    check(int(culled_ids.sum()) == row["on_culled"],
+                          "hiz-heavy: the recomputed cull differs from the node's")
+        rows.append(row)
+    peak = torch.cuda.max_memory_allocated()
+    check(rows[0]["on_culled"] == 0 and all(r["off_culled"] == 0 for r in rows),
+          "hiz-heavy: a frame culled without a pyramid")
+    check(all(r["on_culled"] > 0 for r in rows[1:]), "hiz-heavy: a frame after the first culled "
+          "no triangle")
+    compare_culled_frame(keep[0], keep[1], culled_ids, card, "hiz-heavy")
+    per_node = {("on" if hiz else "off"): _node_ms(fg.process_debug(scene, states[hiz])[2])
+                for hiz, fg in graphs.items()}
+    held = {}
+    for hiz, fg in graphs.items():
+        record = {}
+        with twin_checked(record):
+            _, states[hiz] = fg.process(scene, states[hiz])
+        for k in PATH_KERNELS:
+            check(len(record.get(k, [])) > 0, f"hiz-heavy: the held frame (hiz={hiz}) "
+                  f"launched no {k}")
+        held["on" if hiz else "off"] = {k: {"launches": len(v), "max_abs_err": max(v)}
+                                        for k, v in record.items()}
+    timed = rows[1:]
+    on = [r["on_ms"] for r in timed]
+    off = [r["off_ms"] for r in timed]
+    print(f"hiz-heavy {width}x{height}: on_ms_2_6={on} on_mean={sum(on) / len(on):.3f} "
+          f"off_ms_2_6={off} off_mean={sum(off) / len(off):.3f} "
+          f"culled_by_frame={[r['on_culled'] for r in rows]} of {ntri} "
+          f"peak_mem_bytes={peak} on {card}")
+    for r in rows:
+        print("hiz-heavy frame " + json.dumps(r))
+    print("hiz-heavy per_node_ms " + json.dumps(per_node))
+    print("hiz-heavy twin_checked_frames=2 launches_held " + json.dumps(held))
     return total
 
 
@@ -5193,19 +5726,33 @@ def check_small_sharded_frame():
 
 def run_tools(card):
     """tools: ``sailor_tpu_torch.tools.time_sweep --size 256 --k 5`` and
-    ``profile_trace --small`` on the card (B4 and B5), in process (their
+    ``profile_trace --small`` on the card (B4 and B5), ``time_hiz`` at
+    1920x1088 with TH_CUBES=200, TH_LIGHTS=100, TH_FRAMES=1 and
+    ``profile_frame --small --frames 2`` (B1-B3), in process (their
     ``main``; the CPU tests run them as ``python -m``), their lines
     printed; each must return 0."""
     import io
 
-    from sailor_tpu_torch.tools import profile_trace, time_sweep
+    from sailor_tpu_torch.tools import profile_frame, profile_trace, time_hiz, time_sweep
 
-    for mod, args in ((time_sweep, ["--size", "256", "--k", "5"]),
-                      (profile_trace, ["--small"])):
+    small_hiz = {"TH_CUBES": "200", "TH_LIGHTS": "100", "TH_FRAMES": "1"}
+    for mod, args, env in ((time_sweep, ["--size", "256", "--k", "5"], {}),
+                           (profile_trace, ["--small"], {}),
+                           (time_hiz, [], small_hiz),
+                           (profile_frame, ["--small", "--frames", "2"], {})):
         t0 = time.perf_counter()
         out, err = io.StringIO(), io.StringIO()
-        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-            rc = mod.main(args)
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                rc = mod.main(args)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
         check(rc == 0, f"{mod.__name__} returned {rc}: {err.getvalue()[-2000:]}")
         print(f"{mod.__name__} {' '.join(args)} ({time.perf_counter() - t0:.1f} s, {card}):")
         for line in err.getvalue().strip().splitlines()[-1:] + out.getvalue().strip().splitlines():
@@ -5214,18 +5761,23 @@ def run_tools(card):
 
 def check_image_decoders():
     """decoders: a BMP (BI_RLE8 and 32-bit bit fields with alpha), a TGA
-    (RLE true colour, 16-bit A1R5G5B5 with a top-left origin) and a
-    Radiance HDR (new RLE scanlines) written by this script
-    (tests/torch_image_files.py), read back through ``textures.imread``
-    and held to the arrays they were written from, exactly."""
+    (RLE true colour, 16-bit A1R5G5B5 with a top-left origin), a Radiance
+    HDR (new RLE scanlines), a GIF (local palette, interlaced, a
+    transparency index, the deferred clear) and an Adam7 RGBA PNG written
+    by this script (tests/torch_image_files.py, torch_asset_files.py),
+    read back through ``textures.imread`` and held to the arrays they were
+    written from, exactly; and a JPEG of ``jpeg_bytes`` (37x53) whose C++
+    decode is held to the plain Python decoder's, bit for bit."""
     import tempfile
 
     import numpy as np
 
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import torch_asset_files
     import torch_image_files as files
 
     from sailor_tpu_torch.assets import textures
+    from sailor_tpu_torch.utils import jpeg
 
     rng = np.random.default_rng(19)
     h, w = 24, 40
@@ -5252,6 +5804,11 @@ def check_image_decoders():
                                 w, h, 32, 10), rgba),
         "top16.tga": (files.tga(le16.tobytes(), w, h, 16, 2, descriptor=0x20), want16),
         "sky.hdr": (files.hdr(rgbe, rle=True), want_hdr),
+        "local.gif": (files.gif([{"indices": idx, "palette": pal[:64], "interlace": True}], w, h,
+                                global_palette=pal[::-1][:64], transparency=7,
+                                clear_when_full=False), pal[:64][idx]),
+        "adam7.png": (torch_asset_files.png_bytes(rgba, 6, 8, filters=(0, 1, 2, 3, 4),
+                                                  interlace=1), rgba),
     }
     with tempfile.TemporaryDirectory() as tmp:
         for name, (data, want) in cases.items():
@@ -5262,6 +5819,16 @@ def check_image_decoders():
             check(got.dtype == want.dtype and got.shape == want.shape
                   and np.array_equal(got, want), f"decoders: {name} decodes wrongly")
             print(f"decoders: {name} {got.dtype} {got.shape} equal")
+    data = jpeg_bytes(rng.integers(0, 256, (37, 53, 3), dtype=np.uint8))
+    t0 = time.perf_counter()
+    native = jpeg.decode_jpeg(data)
+    t1 = time.perf_counter()
+    plain = jpeg.decode_jpeg(data, plain=True)
+    t2 = time.perf_counter()
+    check(native.shape == (37, 53, 3) and np.array_equal(native, plain),
+          "decoders: the C++ JPEG decode differs from the plain one")
+    print(f"decoders: jpeg 37x53 C++ ({(t1 - t0) * 1e3:.3f} ms) equal to plain "
+          f"({(t2 - t1) * 1e3:.3f} ms)")
 
 
 def main() -> int:
@@ -5366,6 +5933,14 @@ def main() -> int:
     check_small_content()
     check_small_engine_materials()
     print(f"content: {time.perf_counter() - t_content:.1f} s")
+    t_jpeg = time.perf_counter()
+    jpeg_launches = run_content_jpeg(card)
+    check_small_content_jpeg()
+    hiz_launches = run_hiz_heavy(card)
+    for name in PATH_KERNELS:
+        check(jpeg_launches.get(name, 0) > 0 and hiz_launches.get(name, 0) > 0,
+              f"{name} was not launched on the JPEG content and hiz-heavy paths")
+    print(f"content-jpeg-full and hiz-heavy: {time.perf_counter() - t_jpeg:.1f} s")
     t_examples = time.perf_counter()
     example_launches = run_example_frame(card)
     check_small_example_frame()
@@ -5373,7 +5948,8 @@ def main() -> int:
     print(f"example-frame and editor: {time.perf_counter() - t_examples:.1f} s")
     for k in main_frame:  # B1-B3 rows: the frame's launches and the later paths'
         k["launches"] += sum(p.get(k["name"], 0) for p in (
-            content_launches, material_launches, example_launches, editor_launches))
+            content_launches, material_launches, jpeg_launches, hiz_launches, example_launches,
+            editor_launches))
     t_tracer = time.perf_counter()
     tracer_kernels = check_tracer_kernels(card)
     launches, tracer_peak = run_tracer(card)
@@ -5382,6 +5958,9 @@ def main() -> int:
     for name in ("slab_entry", "sweep"):
         launches[name] = launches.get(name, 0) + glb_launches.get(name, 0)
     check_small_trace(small_glb_trace, "content_glb_trace")
+    jpeg_trace_launches = run_content_jpeg_trace(card)
+    for name in ("slab_entry", "sweep"):
+        launches[name] = launches.get(name, 0) + jpeg_trace_launches.get(name, 0)
     launches["sweep_grid"] = run_tracer_grid(card).get("sweep_grid", 0)  # B6's main path
     run_material_balls(card)
     check_small_trace(textured_sky_balls, "balls_textured_sky")

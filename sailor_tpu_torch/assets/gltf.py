@@ -5,9 +5,9 @@ Parses .gltf (JSON + external/base64 buffers) and .glb (binary container),
 flattens the default scene's node hierarchy into a merged triangle soup
 with world transforms applied, and extracts pbrMetallicRoughness materials
 (+ optionally their textures). The reference decodes the images with
-imageio; the port with ``textures.decode_bytes`` (PNG, BMP, TGA and
-Radiance HDR, sniffed or by the image's ``mimeType``; JPEG, GIF and
-OpenEXR raise NotImplementedError naming theirs).
+imageio; the port with ``textures.decode_bytes`` (PNG, JPEG, GIF, BMP,
+TGA and Radiance HDR, sniffed or by the image's ``mimeType``; OpenEXR
+raises NotImplementedError naming it).
 """
 
 from __future__ import annotations

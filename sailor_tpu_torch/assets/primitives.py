@@ -88,6 +88,35 @@ def uv_sphere(radius: float = 0.5, rings: int = 16, sectors: int = 32) -> Mesh:
     return _mesh(pos, nrm, uv, idx)
 
 
+def cylinder(radius: float = 0.5, height: float = 1.0,
+             sectors: int = 24, uv_scale: float = 1.0) -> Mesh:
+    """Open-ended vertical cylinder centred at the origin (columns,
+    flagpoles)."""
+    pos, nrm, uv, idx = [], [], [], []
+    for s in range(sectors + 1):
+        phi = 2 * np.pi * s / sectors
+        n = [np.cos(phi), 0.0, np.sin(phi)]
+        for k, y in enumerate((-height / 2, height / 2)):
+            pos.append([radius * n[0], y, radius * n[2]])
+            nrm.append(n)
+            uv.append([uv_scale * s / sectors, uv_scale * k])
+    for s in range(sectors):
+        a = 2 * s
+        idx.append([a, a + 2, a + 1])
+        idx.append([a + 1, a + 2, a + 3])
+    return _mesh(pos, nrm, uv, idx)
+
+
+def quad(w: float = 1.0, h: float = 1.0, uv_scale: float = 1.0) -> Mesh:
+    """Vertical quad in the XY plane facing +Z (banners, foliage cards)."""
+    pos = [[-w / 2, -h / 2, 0], [w / 2, -h / 2, 0],
+           [w / 2, h / 2, 0], [-w / 2, h / 2, 0]]
+    nrm = [[0, 0, 1]] * 4
+    uv = [[0, uv_scale], [uv_scale, uv_scale], [uv_scale, 0], [0, 0]]
+    idx = [[0, 1, 2], [0, 2, 3]]
+    return _mesh(pos, nrm, uv, idx)
+
+
 def merge(meshes_and_transforms, material_ids=None):
     """Merge (mesh, model_matrix) pairs into one vertex/index soup."""
     pos, nrm, uv, col, idx, mids = [], [], [], [], [], []

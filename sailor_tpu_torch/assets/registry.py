@@ -7,8 +7,8 @@ It registers the reference's importers for the same extensions, so a scan
 counts the same files: `.gltf`/`.glb` (``gltf.load_merged``), `.renderer`,
 `.mat` (``MaterialAsset``), `.world`, `.prefab`, the image extensions
 (``textures.load`` with the sidecar's import settings) and `.bsc5` (star
-catalogue). Of the images PNG, BMP, TGA and Radiance HDR decode; JPEG,
-GIF and OpenEXR raise NotImplementedError naming the format
+catalogue). Of the images PNG, JPEG, GIF, BMP, TGA and Radiance HDR
+decode; OpenEXR raises NotImplementedError naming the format
 (``textures.UNDECODED``).
 """
 

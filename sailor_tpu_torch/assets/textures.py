@@ -4,10 +4,12 @@ linear, mip generation, sampler meta from the `.asset` sidecar.
 
 The reference decodes every format through imageio; the port has its own
 decoders, since the card's machine has no image library: PNG
-(``utils.png``), BMP (``utils.bmp``) and TGA (``utils.tga``), each
-returning imageio's arrays, and Radiance HDR (``utils.hdr``), decoded to
-float32 linear RGB as OpenCV reads it. JPEG, GIF and OpenEXR raise
-NotImplementedError (ROADMAP A 8).
+(``utils.png``, Adam7 too), JPEG (``utils.jpeg``, baseline and
+progressive), GIF (``utils.gif``, the first image), BMP (``utils.bmp``)
+and TGA (``utils.tga``), each returning imageio's arrays bit for bit, and
+Radiance HDR (``utils.hdr``), decoded to float32 linear RGB as OpenCV
+reads it. OpenEXR raises NotImplementedError; imageio reads it only
+through an optional plugin (ROADMAP A 10).
 """
 
 from __future__ import annotations
@@ -17,39 +19,49 @@ import os
 import numpy as np
 
 from sailor_tpu_torch.utils.bmp import decode_bmp
+from sailor_tpu_torch.utils.gif import SIGNATURES as GIF_SIGNATURES
+from sailor_tpu_torch.utils.gif import decode_gif
 from sailor_tpu_torch.utils.hdr import SIGNATURES as HDR_SIGNATURES
 from sailor_tpu_torch.utils.hdr import decode_hdr
+from sailor_tpu_torch.utils.jpeg import SIGNATURE as JPEG_SIGNATURE
+from sailor_tpu_torch.utils.jpeg import decode_jpeg
 from sailor_tpu_torch.utils.png import SIGNATURE, decode_png
 from sailor_tpu_torch.utils.tga import decode_tga
 
-#: formats the reference reads through imageio that the port cannot decode
-UNDECODED = {".jpg": "JPEG", ".jpeg": "JPEG", ".gif": "GIF", ".exr": "OpenEXR"}
+#: image extensions the registry knows that the port does not decode (the
+#: reference's imageio reads them only through an optional plugin)
+UNDECODED = {".exr": "OpenEXR"}
 #: decoders by extension (TGA has no signature to sniff)
-DECODERS = {".png": decode_png, ".bmp": decode_bmp, ".tga": decode_tga, ".hdr": decode_hdr}
+DECODERS = {".png": decode_png, ".jpg": decode_jpeg, ".jpeg": decode_jpeg, ".gif": decode_gif,
+            ".bmp": decode_bmp, ".tga": decode_tga, ".hdr": decode_hdr}
 #: glTF ``mimeType``s of TGA, the one format without a signature to sniff
 TGA_MIME_TYPES = ("image/x-tga", "image/tga", "image/x-targa")
 
 
 def format_error(fmt: str, name: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{fmt} image {name}: the port decodes PNG, BMP, TGA and Radiance HDR; no {fmt} "
-        "decoder is ported (ROADMAP A 8: JPEG, GIF and OpenEXR stay refused)")
+        f"{fmt} image {name}: the port decodes PNG, JPEG, GIF, BMP, TGA and Radiance HDR; "
+        f"no {fmt} decoder is ported (ROADMAP A 10: OpenEXR stays refused)")
 
 
 def decode_bytes(data: bytes, name: str = "image", mime: str | None = None) -> np.ndarray:
     """Encoded image bytes -> the array imageio would give (HDR: float32
-    linear RGB). The format is sniffed (PNG, ``BM``, ``#?``); TGA, which has
-    no signature, is taken from ``mime`` (a glTF image's ``mimeType``)."""
+    linear RGB). The format is sniffed (PNG, ``FF D8 FF``, ``GIF8``, ``BM``,
+    ``#?``); TGA, which has no signature, is taken from ``mime`` (a glTF
+    image's ``mimeType``)."""
     if data[:8] == SIGNATURE:
         return decode_png(data)
+    if data[:3] == JPEG_SIGNATURE:
+        return decode_jpeg(data)
+    if data[:6] in GIF_SIGNATURES:
+        return decode_gif(data)
     if data[:2] == b"BM":
         return decode_bmp(data)
     if data.startswith(HDR_SIGNATURES):
         return decode_hdr(data)
     if mime in TGA_MIME_TYPES:
         return decode_tga(data)
-    fmt = ("JPEG" if data[:3] == b"\xff\xd8\xff" else "GIF" if data[:4] == b"GIF8"
-           else "OpenEXR" if data[:4] == b"\x76\x2f\x31\x01" else "unknown-format")
+    fmt = "OpenEXR" if data[:4] == b"\x76\x2f\x31\x01" else "unknown-format"
     raise format_error(fmt, name)
 
 

@@ -128,14 +128,31 @@ def reflect(i, n):
     return i - 2.0 * dot32(n, i, keepdims=True) * n
 
 
+def refract(i, n, eta):
+    """GLSL refract for incident ``i``, normal ``n`` and the ratio of
+    indices of refraction ``eta``; zero under total internal reflection."""
+    cosi = -dot(n, i, keepdims=True)
+    k = 1.0 - eta * eta * (1.0 - cosi * cosi)
+    t = eta * i + (eta * cosi - torch.sqrt(torch.clamp(k, min=0.0))) * n
+    return torch.where(k < 0.0, torch.zeros_like(i), t)
+
+
+def lerp(a, b, t):
+    return a + (b - a) * t
+
+
+def saturate(x):
+    return torch.clamp(x, 0.0, 1.0)
+
+
 def homogenize(v4):
     """(..., 4) clip-space -> (..., 3) by the perspective divide."""
     return v4[..., :3] / v4[..., 3:4]
 
 
 def transform_point(m, p):
-    """Apply a (4, 4) matrix to (..., 3) points (w=1). Returns (..., 3)."""
-    return dot(m[:3, :3], p[..., None, :]) + m[:3, 3]
+    """Apply a (..., 4, 4) matrix to (..., 3) points (w=1). Returns (..., 3)."""
+    return dot(m[..., :3, :3], p[..., None, :]) + m[..., :3, 3]
 
 
 def transform_point_h(m, p):
@@ -145,6 +162,11 @@ def transform_point_h(m, p):
     x, y, z = p.unbind(-1)
     return torch.stack([(m[r, 0] * x + m[r, 1] * y) + (m[r, 2] * z + m[r, 3])
                         for r in range(4)], dim=-1)
+
+
+def transform_vector(m, v):
+    """Apply a (..., 4, 4) matrix to (..., 3) directions (w=0)."""
+    return dot(m[..., :3, :3], v[..., None, :])
 
 
 def look_at(eye, center, up):
@@ -216,9 +238,20 @@ def inverse(m):
     return torch.from_numpy(inv.astype(np.float32, copy=False)).to(m.device)
 
 
+def srgb_to_linear(c):
+    c = torch.clamp(c, 0.0, 1.0)
+    return torch.where(c <= 0.04045, c / 12.92, ((c + 0.055) / 1.055) ** 2.4)
+
+
 def linear_to_srgb(c):
     c = torch.clamp(c, 0.0, 1.0)
     return torch.where(c <= 0.0031308, c * 12.92, 1.055 * c ** (1.0 / 2.4) - 0.055)
+
+
+def luminance(rgb):
+    from sailor_tpu_torch.config import RGB_TO_LUM
+
+    return dot(rgb, torch.tensor(RGB_TO_LUM, dtype=rgb.dtype, device=rgb.device))
 
 
 _RGB_TO_XYZ = ((0.4124564, 0.3575761, 0.1804375),

@@ -1,13 +1,16 @@
 """Build and load the port's host C++ libraries (``csrc/*.cpp``).
 
-Two libraries, each from one source (``LIBRARIES``):
+Three libraries, each from one source (``LIBRARIES``):
 
 - ``"bvh8"``: ``csrc/bvh8_build.cpp``, the binary BVH and BVH8 table
   builders, built with the JAX package's native flags, ``-O3 -march=native
   -std=c++17 -fPIC``, so both build the same tables bit for bit;
 - ``"runtime"``: ``csrc/host_runtime.cpp``, the arena, pool and multi-pool
   allocators and the task scheduler (``native_bridge.py``), the same flags
-  and ``-pthread``.
+  and ``-pthread``;
+- ``"image"``: ``csrc/image_decode.cpp``, the serial parts of the texture
+  decoders (``utils/jpeg.py``: a JPEG scan's Huffman decoding and the
+  IDCT, upsampling and colour pass; ``utils/gif.py``: LZW), the same flags.
 
 They are host code: each builds with the system C++ compiler (``$CXX``,
 else ``g++``, else ``c++``), needs no CUDA toolkit, and so builds on a
@@ -76,6 +79,17 @@ LIBRARIES = {
         "sailor_torch_scheduler_wait_idle_for": (ctypes.c_int, [_vp, _i64]),
         "sailor_torch_scheduler_is_done": (ctypes.c_int, [_vp, _u64]),
         "sailor_torch_scheduler_num_pending": (ctypes.c_int, [_vp]),
+    }),
+    "image": ("image_decode.cpp", CXX_FLAGS, "libsailor_torch_image.so", {
+        # data, size, pos, params, tables, coefs -> index of the marker after the scan
+        "sailor_torch_jpeg_scan": (_i64, [ctypes.c_char_p, _i64, _i64, _ip, _ip,
+                                          ctypes.POINTER(ctypes.c_int16)]),
+        # coefs, quant, params, out -> 0
+        "sailor_torch_jpeg_pixels": (ctypes.c_int, [ctypes.POINTER(ctypes.c_int16), _ip, _ip,
+                                                    ctypes.POINTER(ctypes.c_uint8)]),
+        # data, size, min code size, out, pixels -> pixels written
+        "sailor_torch_gif_lzw": (_i64, [ctypes.c_char_p, _i64, ctypes.c_int,
+                                        ctypes.POINTER(ctypes.c_uint8), _i64]),
     }),
 }
 

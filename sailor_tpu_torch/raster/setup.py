@@ -13,7 +13,8 @@ import dataclasses
 
 import torch
 
-from sailor_tpu_torch.core.math3d import fma, fma_scalar, transform_point_h
+from sailor_tpu_torch.core.math3d import (fma, fma_scalar, transform_point, transform_point_h,
+                                           transform_vector)
 
 
 @dataclasses.dataclass
@@ -38,6 +39,16 @@ class TriangleSetup:
     valid: torch.Tensor   # (R,) bool live (on-screen, front-facing)
     src_id: torch.Tensor  # (R,) int32 source triangle index
     zmax: torch.Tensor    # (R,) max vertex reverse-Z
+
+
+def transform_vertices(positions, normals, model, view_projection):
+    """World and clip transform of one instance batch: ``positions`` and
+    ``normals`` (V, 3), ``model`` (4, 4) or (I, 4, 4) for instancing.
+    Returns (world_pos, world_normal, clip), with a leading instance axis
+    when ``model`` is batched."""
+    m = model[..., None, :, :] if model.dim() == 3 else model
+    wp = transform_point(m, positions)
+    return wp, transform_vector(m, normals), transform_point_h(view_projection, wp)
 
 
 def _edge_coeffs(xa, ya, xb, yb):
@@ -265,6 +276,35 @@ def _small_keys(valid, screen_aabb, *, tiles_x: int, tiles_y: int,
     starts = bounds[:-1]
     counts = bounds[1:] - starts
     return order, starts, counts, big, (tx0, tx1, ty0, ty1)
+
+
+def bin_triangles(valid, screen_aabb, *, tiles_x: int, tiles_y: int, tile_w: int,
+                  tile_h: int, capacity: int, slot_offset: int = 0):
+    """Per-tile candidate lists by a dense overlap test: slot s of a tile
+    holds the (slot_offset + s)-th valid triangle, in id order, whose
+    tile range covers it. Returns (bins (Ty, Tx, C) int32 ids or -1,
+    counts (Ty, Tx) int32 of the slots used, overflow: a 0-d int32 of the
+    candidates past slot_offset + capacity over all tiles)."""
+    xmin, xmax, ymin, ymax = screen_aabb
+    dev = valid.device
+
+    def tile(v, size, n):
+        return torch.clamp(torch.floor(v / size).to(torch.int32), 0, n - 1)
+
+    tx0, tx1 = tile(xmin, tile_w, tiles_x), tile(xmax, tile_w, tiles_x)
+    ty0, ty1 = tile(ymin, tile_h, tiles_y), tile(ymax, tile_h, tiles_y)
+    cy = torch.arange(tiles_y, dtype=torch.int32, device=dev)[:, None, None]
+    cx = torch.arange(tiles_x, dtype=torch.int32, device=dev)[None, :, None]
+    overlap = ((cy >= ty0) & (cy <= ty1) & (cx >= tx0) & (cx <= tx1) & valid.bool())
+    csum = torch.cumsum(overlap.reshape(tiles_y * tiles_x, -1).to(torch.int32), -1)
+    counts = csum[:, -1]
+    slots = torch.arange(capacity, dtype=torch.int32, device=dev) + slot_offset
+    target = (slots + 1)[None, :].expand(csum.shape[0], -1).contiguous()
+    found = torch.searchsorted(csum, target).to(torch.int32)
+    bins = torch.where(slots[None, :] < counts[:, None], found, torch.full_like(found, -1))
+    overflow = torch.clamp(counts - (slot_offset + capacity), min=0).sum().to(torch.int32)
+    used = torch.clamp(counts - slot_offset, 0, capacity).to(torch.int32)
+    return bins.reshape(tiles_y, tiles_x, capacity), used.reshape(tiles_y, tiles_x), overflow
 
 
 def bin_sorted(valid, screen_aabb, *, tiles_x: int, tiles_y: int,

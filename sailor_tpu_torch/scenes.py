@@ -16,6 +16,10 @@ the engine (``engine.World.deserialize``): the same RNG calls give the
 same objects and lights as game objects with components, and the camera
 orbits.
 
+``content_instances_scene`` is bench.py's ``--content`` scene
+(``_build_content_scene``): a grid of rotated instances of one glTF model
+with its textures over a ground plane, for any GLB the caller names.
+
 ``occlusion_scene`` is the HiZ test scene of the JAX package's
 ``tests/test_hiz_culling.py``: a wall that hides 24 cubes from the
 camera, so a frame after the first culls them.
@@ -141,6 +145,80 @@ def flagship_queue_scene(width: int, height: int, num_lights: int, num_objects: 
     ids = [0] + [1 + i % 3 for i in range(num_objects)]
     scene = _flagship(width, height, num_lights, num_objects, seed, dev, ids, mats)
     return scene, table, images
+
+
+def content_instances_scene(width: int, height: int, num_lights: int, instances: int,
+                            path: str, rng_seed: int = 13, device="cuda") -> SceneView:
+    """bench.py's content scene over the model at ``path``: ``instances``
+    copies on a jittered 3.2 m grid, each turned about y, loaded through
+    ``gltf.load_merged`` with its textures (256 px); a 60 m ground with an
+    untextured material row of its own; the flagship's lights and sun from
+    the same RNG calls; the camera at (20, 9, 22)."""
+    from sailor_tpu_torch.assets import gltf
+    from sailor_tpu_torch.assets.materials import MaterialTable
+
+    dev = resolve_device(device)
+    soup, mats = gltf.load_merged(path)
+    images = gltf.GLTF.load(path).load_texture_images()
+    rng = np.random.default_rng(rng_seed)
+    floor = primitives.merge([(primitives.plane(60.0), np.eye(4))])
+    n_floor_mat = len(mats["albedo"])
+    pos_l = [np.asarray(floor["position"], np.float32)]
+    nrm_l = [np.asarray(floor["normal"], np.float32)]
+    uv_l = [np.asarray(floor["uv"], np.float32)]
+    col_l = [np.asarray(floor["color"], np.float32) * [0.55, 0.55, 0.58, 1.0]]
+    idx_l = [np.asarray(floor["indices"], np.int32)]
+    mat_l = [np.full(len(floor["indices"]), n_floor_mat, np.int32)]
+    voff = len(floor["position"])
+    side = int(np.ceil(np.sqrt(instances)))
+    for i in range(instances):
+        gx, gz = i % side, i // side
+        ang = rng.uniform(0, 2 * np.pi)
+        c, s = np.cos(ang), np.sin(ang)
+        rot = np.asarray([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+        off = np.asarray([(gx - side / 2) * 3.2 + rng.uniform(-0.5, 0.5), 0.0,
+                          (gz - side / 2) * 3.2 + rng.uniform(-0.5, 0.5)], np.float32)
+        pos_l.append(np.asarray(soup["position"]) @ rot.T + off)
+        nrm_l.append(np.asarray(soup["normal"]) @ rot.T)
+        uv_l.append(np.asarray(soup["uv"]))
+        col_l.append(np.asarray(soup["color"]))
+        idx_l.append(np.asarray(soup["indices"]) + voff)
+        mat_l.append(np.asarray(soup["material_id"]))
+        voff += len(soup["position"])
+    floor_row = {"albedo": [[0.6, 0.6, 0.62]], "metallic": [0.0], "roughness": [0.7],
+                 "emissive": [[0, 0, 0]], "albedo_texture": [-1], "normal_texture": [-1],
+                 "queue": [0], "alpha_cutoff": [0.5], "opacity": [1.0], "transmission": [0.0],
+                 "ior": [1.5], "atten_color": [[1, 1, 1]], "atten_dist": [0.0]}
+    table = {k: np.concatenate([np.asarray(v), np.asarray(floor_row[k], np.asarray(v).dtype)])
+             for k, v in mats.items() if k in floor_row}
+    materials = MaterialTable.from_host(table, images, texture_size=256, device=dev)
+
+    def t32(parts, dtype):
+        return torch.from_numpy(np.ascontiguousarray(np.concatenate(parts), dtype)).to(dev)
+
+    geo = Geometry(position=t32(pos_l, np.float32), normal=t32(nrm_l, np.float32),
+                   uv=t32(uv_l, np.float32), color=t32(col_l, np.float32),
+                   indices=t32(idx_l, np.int32), material_id=t32(mat_l, np.int32))
+    n = num_lights
+    lp = np.stack([rng.uniform(-22, 22, n), rng.uniform(0.3, 3.0, n),
+                   rng.uniform(-22, 22, n)], -1)
+    lights = Lights.from_host(
+        types=[DIRECTIONAL] + [POINT] * n,
+        positions=np.concatenate([[[0, 0, 0]], lp]),
+        directions=np.concatenate([[[-0.35, -0.7, -0.3]], np.tile([[0, -1, 0]], (n, 1))]),
+        intensities=np.concatenate([[[3.0, 2.9, 2.6]], rng.uniform(0.3, 1, (n, 3)) * 6]),
+        attenuations=[[1, 0, 0.8]] * (n + 1),
+        radii=[0.0] + list(rng.uniform(2.0, 5.0, n)),
+        device=dev,
+    )
+    f32 = dict(dtype=torch.float32, device=dev)
+    cam = torch.tensor([20.0, 9.0, 22.0], **f32)
+    view = m3.look_at(cam, torch.tensor([0.0, 0.8, 0.0], **f32),
+                      torch.tensor([0.0, 1.0, 0.0], **f32))
+    proj = m3.perspective(math.pi / 3, width / height, 0.1, 150.0, device=dev)
+    frame = FrameData.create(view, proj, cam, 0.1, 150.0, dt=1 / 60)
+    sky = SkyParams.default(sun_direction=(-0.35, -0.7, -0.3))
+    return SceneView.create(geo, lights, frame, sky=sky, materials=materials)
 
 
 def occlusion_scene(width: int = 128, height: int = 96, device="cuda") -> SceneView:

@@ -4,11 +4,13 @@
 glTF, OBJ and FBX importers read with ``decode_png``, so the port needs no
 image library.
 
-``decode_png`` reads every non-interlaced PNG: chunked IDAT, the five row
-filters, colour types 0 (grey), 2 (RGB), 3 (palette, with PLTE and tRNS),
-4 (grey + alpha) and 6 (RGBA), bit depths 1, 2, 4, 8 and 16 where the
-format allows them. It returns what ``imageio.v2.imread`` returns for the
-same file (imageio reads PNG through Pillow):
+``decode_png`` reads every PNG: chunked IDAT, the five row filters, plain
+and Adam7-interlaced scanlines (each of the seven passes filtered on its
+own row width, the empty passes of small images skipped), colour types 0
+(grey), 2 (RGB), 3 (palette, with PLTE and tRNS), 4 (grey + alpha) and 6
+(RGBA), bit depths 1, 2, 4, 8 and 16 where the format allows them. It
+returns what ``imageio.v2.imread`` returns for the same file (imageio
+reads PNG through Pillow):
 
 - grey: (H, W); 1 bit as bool, 2 and 4 bits scaled to uint8 (x85, x17),
   8 bits uint8, 16 bits uint16;
@@ -18,8 +20,6 @@ same file (imageio reads PNG through Pillow):
 - palette: (H, W, 3) uint8 RGB;
 - a tRNS chunk is ignored, a palette's too (Pillow keeps it aside as
   ``info["transparency"]`` and imageio converts to the palette's RGB).
-
-An Adam7-interlaced file raises ValueError.
 """
 
 from __future__ import annotations
@@ -140,30 +140,55 @@ def _unpack_bits(rows: np.ndarray, w: int, depth: int) -> np.ndarray:
     return (bits * weights).sum(-1).astype(np.uint8)
 
 
+# Adam7: (x0, y0, dx, dy) of each of the seven passes
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
+
+
+def _samples(raw: np.ndarray, w: int, h: int, nch: int, depth: int) -> np.ndarray:
+    """(h * (1 + stride)) filtered bytes of one w x h image -> (h, w, nch)
+    samples: uint8 for depths up to 8 (unpacked below 8), uint16 for 16."""
+    bits_px = nch * depth
+    stride = -(-w * bits_px // 8)
+    rows = _unfilter(raw, h, stride, max(1, bits_px // 8))
+    if depth < 8:
+        return _unpack_bits(rows, w, depth)[..., None]
+    if depth == 8:
+        return rows.reshape(h, w, nch)
+    be = rows.reshape(h, w, nch, 2).astype(np.uint16)
+    return (be[..., 0] << 8) | be[..., 1]
+
+
 def decode_png(data: bytes) -> np.ndarray:
     """PNG bytes -> the array ``imageio.v2.imread`` gives (module docstring);
-    raises ValueError on an interlaced or malformed file."""
+    raises ValueError on a malformed file."""
     (w, h, depth, ctype, comp, filt, interlace), idat, plte = _chunks(data)
     if ctype not in _CHANNELS or depth not in _DEPTHS[ctype]:
         raise ValueError(f"invalid PNG colour type {ctype} with bit depth {depth}")
     if comp != 0 or filt != 0:
         raise ValueError(f"unknown PNG compression {comp} or filter method {filt}")
-    if interlace != 0:
-        raise ValueError("interlaced (Adam7) PNG files are not supported")
+    if interlace not in (0, 1):
+        raise ValueError(f"unknown PNG interlace method {interlace}")
     nch = _CHANNELS[ctype]
-    bits_px = nch * depth
-    stride = -(-w * bits_px // 8)
-    bpp = max(1, bits_px // 8)
-    rows = _unfilter(np.frombuffer(zlib.decompress(idat), np.uint8), h, stride, bpp)
-    if depth < 8:
-        samples = _unpack_bits(rows, w, depth)
-    elif depth == 8:
-        samples = rows.reshape(h, w, nch)
-    else:
-        be = rows.reshape(h, w, nch, 2)
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8)
+    if interlace == 0:
+        samples = _samples(raw, w, h, nch, depth)
+    else:  # Adam7: each non-empty pass is filtered on its own row width
+        samples = np.zeros((h, w, nch), np.uint16 if depth == 16 else np.uint8)
+        pos = 0
+        for x0, y0, dx, dy in ADAM7:
+            pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+            if pw <= 0 or ph <= 0:
+                continue
+            n = ph * (1 + -(-pw * nch * depth // 8))
+            samples[y0::dy, x0::dx] = _samples(raw[pos:pos + n], pw, ph, nch, depth)
+            pos += n
+        if pos != raw.size:
+            raise ValueError(f"PNG data holds {raw.size} bytes, expected {pos}")
+    if depth == 16:
         if ctype == 0:
-            return (be[..., 0, 0].astype(np.uint16) << 8) | be[..., 0, 1]
-        samples = be[..., 0]  # the high byte, as Pillow reads 16-bit colour
+            return samples[..., 0]
+        samples = (samples >> 8).astype(np.uint8)  # the high byte, as Pillow reads 16-bit colour
         if ctype == 4:
             samples = samples[..., [0, 0, 0, 1]]
     if ctype == 3:
@@ -172,9 +197,9 @@ def decode_png(data: bytes) -> np.ndarray:
         pal = np.frombuffer(plte, np.uint8).reshape(-1, 3)
         full = np.zeros((256, 3), np.uint8)
         full[:len(pal)] = pal
-        return full[samples.reshape(h, w)]
+        return full[samples[..., 0]]
     if ctype == 0:
-        g = samples.reshape(h, w)
+        g = samples[..., 0]
         if depth == 1:
             return g.astype(bool)
         return g * np.uint8(255 // ((1 << depth) - 1))

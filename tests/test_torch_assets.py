@@ -82,7 +82,7 @@ PNG_CASES = [(c, d, t) for c, ds in _DEPTHS.items() for d in ds
              for t in ((False, True) if c in (0, 2, 3) else (False,))]
 
 
-def _png_case(ctype, depth, trns, filters, seed=0, h=9, w=13):
+def _png_case(ctype, depth, trns, filters, seed=0, h=9, w=13, interlace=0):
     rng = np.random.default_rng(seed)
     nch = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ctype]
     top = (1 << depth) - 1
@@ -96,7 +96,8 @@ def _png_case(ctype, depth, trns, filters, seed=0, h=9, w=13):
     elif trns:
         tr = bytes(2 * (3 if ctype == 2 else 1))
     s = rng.integers(0, top + 1, (h, w, nch))
-    return png_bytes(s, ctype, depth, filters=filters, palette=palette, trns=tr, idat_chunks=3)
+    return png_bytes(s, ctype, depth, filters=filters, palette=palette, trns=tr, idat_chunks=3,
+                     interlace=interlace)
 
 
 @pytest.mark.parametrize("ctype,depth,trns", PNG_CASES,
@@ -111,17 +112,29 @@ def test_png_decoder_matches_imageio(ctype, depth, trns):
 
 
 def test_png_interlaced_raises():
+    """Adam7 files of every colour type and bit depth decode as imageio reads
+    them, at sizes whose small passes are empty (1x1, 2x3, 5x1) and at 9x13
+    and 17x10, with every row filter; an unknown interlace method raises."""
     import struct
     import zlib
 
+    for ctype, depth, trns in PNG_CASES:
+        for h, w in ((1, 1), (2, 3), (5, 1), (9, 13), (17, 10)):
+            filters = (0, 1, 2, 3, 4) if (h + w) % 2 else (4, 3, 2, 1, 0)
+            data = _png_case(ctype, depth, trns, filters, seed=h * w + depth, h=h, w=w,
+                             interlace=1)
+            want = np.asarray(imageio.imread(io.BytesIO(data)))
+            got = decode_png(data)
+            assert got.dtype == want.dtype and got.shape == want.shape, (ctype, depth, h, w)
+            np.testing.assert_array_equal(got, want, err_msg=f"c{ctype} d{depth} {h}x{w}")
     data = _png_case(2, 8, False, (0,))
-    # the IHDR chunk (bytes 8-33) with the interlace flag set, and its CRC
-    body = data[16:29][:-1] + b"\x01"
+    # the IHDR chunk (bytes 8-33) with an unknown interlace method, and its CRC
+    body = data[16:29][:-1] + b"\x02"
     ihdr = b"IHDR" + body
-    adam7 = data[:8] + struct.pack(">I", 13) + ihdr + struct.pack(
+    bad = data[:8] + struct.pack(">I", 13) + ihdr + struct.pack(
         ">I", zlib.crc32(ihdr) & 0xFFFFFFFF) + data[33:]
     with pytest.raises(ValueError, match="interlace"):
-        decode_png(adam7)
+        decode_png(bad)
     assert decode_png(data).shape == (9, 13, 3)
 
 
@@ -192,9 +205,11 @@ def hierarchy_glb(rng_seed=2) -> bytes:
     the transmission, ior and volume extensions)."""
     rng = np.random.default_rng(rng_seed)
     w = chip_smoke.GltfWriter()
-    albedo = w.png_texture(rgba_png(rng.integers(0, 256, (16, 16, 4)).astype(np.uint8)))
-    normal = w.png_texture(png_bytes(rng.integers(0, 65536, (8, 8, 3)), 2, 16, filters=(4,)))
-    grey = w.png_texture(png_bytes(rng.integers(0, 4, (8, 8)), 0, 2))
+    albedo = w.image_texture(rgba_png(rng.integers(0, 256, (16, 16, 4)).astype(np.uint8)),
+                             "image/png")
+    normal = w.image_texture(png_bytes(rng.integers(0, 65536, (8, 8, 3)), 2, 16, filters=(4,)),
+                             "image/png")
+    grey = w.image_texture(png_bytes(rng.integers(0, 4, (8, 8)), 0, 2), "image/png")
     w.material((0.9, 0.8, 0.7), 0.2, 0.5, albedo_texture=albedo, normal_texture=normal)
     w.material((0.4, 0.9, 0.3), 0.0, 0.8, emissive=(0.2, 0.1, 0.0), alphaMode="MASK",
                alphaCutoff=0.4, emissiveTexture={"index": grey})
@@ -302,13 +317,27 @@ def test_gltf_matches_reference(tmp_path, name):
 
 
 def test_gltf_non_png_image_raises(tmp_path):
+    """A GLB whose image is a JPEG (chip_smoke's writer, as the card's
+    content-jpeg phases embed it) loads through the registry and its
+    texture equals the reference's ``load_texture_images``; an image the
+    port does not decode (OpenEXR) still raises, naming it."""
+    from sailor_tpu_torch.scenes import procedural_test_maps
+
     w = chip_smoke.GltfWriter()
-    w.doc["images"] = [{"bufferView": w.view(b"\xff\xd8\xff\xe0" + bytes(16))}]
+    tex = w.image_texture(chip_smoke.map_jpeg(procedural_test_maps(2, 40)[0]), "image/jpeg")
     w.node(mesh=w.mesh(primitives.plane(1.0), 0))
-    w.material((1, 1, 1), 0.0, 0.5)
+    w.material((1, 1, 1), 0.0, 0.5, albedo_texture=tex)
     path = tmp_path / "jpeg.glb"
     path.write_bytes(w.glb())
-    with pytest.raises(NotImplementedError, match="no JPEG decoder"):
+    soup, mats = AssetRegistry(str(tmp_path)).load(str(path))
+    assert list(mats["albedo_texture"]) == [0] and len(soup["indices"]) == 2
+    got = gltf.GLTF.load(str(path)).load_texture_images()
+    want = jgltf.GLTF.load(str(path)).load_texture_images()
+    assert len(got) == 1 and got[0].shape == (40, 40, 4)
+    np.testing.assert_allclose(got[0], np.asarray(want[0]), rtol=1e-6, atol=1e-7)
+    w.doc["images"] = [{"bufferView": w.view(b"\x76\x2f\x31\x01" + bytes(16))}]
+    path.write_bytes(w.glb())
+    with pytest.raises(NotImplementedError, match="no OpenEXR decoder"):
         gltf.GLTF.load(str(path)).load_texture_images()
 
 

@@ -52,6 +52,8 @@ registry is the flagship scene's geometry with its material ids and maps;
 ``edited_pixels`` make and read the hot-reload cell.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -730,3 +732,48 @@ def test_sharded_phases_rehearsal(rehearsal, monkeypatch):
     assert trace["slab_entry"] == trace["sweep"] >= 12
     chip_smoke.check_small_sharded_frame()
     chip_smoke.check_image_decoders()
+
+
+def test_content_jpeg_and_hiz_heavy_phases_rehearsal(rehearsal, monkeypatch):
+    """run_content_jpeg at 128x64 (6 objects, 64-px JPEG maps, 1 timed
+    frame) with its twin-checked frame, check_small_content_jpeg,
+    run_hiz_heavy at 128x64 (40 cubes, 8 lights, 1 timed frame each way,
+    256-px shadow maps) with its cull, frame comparison and twin-checked
+    frames, and run_content_jpeg_trace at 32x32 (2 bounces, 1 spp)."""
+    from sailor_tpu_torch.tools import time_hiz
+
+    monkeypatch.setattr(chip_smoke, "FLAGSHIP", (128, 64, 24, 6))
+    monkeypatch.setattr(chip_smoke, "JPEG_MAP_SIZE", 64)
+    monkeypatch.setattr(chip_smoke, "JPEG_FRAMES", 1)
+    monkeypatch.setattr(chip_smoke, "FULL_CONFIG",
+                        dict(chip_smoke.FULL_CONFIG, shadow_resolution=256))
+    monkeypatch.setattr(chip_smoke, "HIZ_HEAVY", (128, 64, 40, 8))
+    monkeypatch.setattr(chip_smoke, "HIZ_FRAMES", 1)
+    monkeypatch.setattr(time_hiz, "CONFIG", dict(time_hiz.CONFIG, shadow_resolution=256))
+    monkeypatch.setattr(chip_smoke, "TRACER", (32, 32, 2, 1))
+    monkeypatch.setattr(chip_smoke, "TRACER_SPP_CUT", 1)
+    launches = chip_smoke.run_content_jpeg(rehearsal)
+    assert all(launches[k] >= 2 for k in chip_smoke.PATH_KERNELS)
+    chip_smoke.check_small_content_jpeg()
+    launches = chip_smoke.run_hiz_heavy(rehearsal)
+    assert all(launches[k] >= 4 for k in chip_smoke.PATH_KERNELS)
+    launches = chip_smoke.run_content_jpeg_trace(rehearsal)
+    assert launches["slab_entry"] == launches["sweep"] == 4 * 2 * 2 * 1
+
+
+def test_tools_phase_rehearsal(rehearsal, monkeypatch, capsys):
+    """run_tools with time_hiz at 128x64 (TH_W, TH_H; the phase sets the
+    cubes, lights and frames) and profile_frame --small run for real;
+    time_sweep and profile_trace, which tests/test_torch_tools.py runs on
+    the CPU, stubbed here to keep the rehearsal short."""
+    from sailor_tpu_torch.tools import profile_trace, time_sweep
+
+    monkeypatch.setenv("TH_W", "128")
+    monkeypatch.setenv("TH_H", "64")
+    for mod in (time_sweep, profile_trace):
+        monkeypatch.setattr(mod, "main", lambda argv, _n=mod.__name__: print(_n, argv) or 0)
+    chip_smoke.run_tools(rehearsal)
+    out = capsys.readouterr().out
+    assert re.search(r"hiz=1  frame [\d.]+ ms .* culled [1-9]\d*/", out), out
+    assert re.search(r"hiz=0  frame [\d.]+ ms .* culled 0/", out), out
+    assert re.search(r"== frames: best [\d.]+ ms", out) and "TOTAL" in out, out

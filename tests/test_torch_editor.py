@@ -77,6 +77,7 @@ def content_copy(tmp_path, monkeypatch):
 
     shutil.copytree(os.path.join(REPO, "content"), tmp_path / "content")
     tex = np.random.default_rng(0).integers(0, 255, (32, 48, 3), dtype=np.uint8)
+    (tmp_path / "content" / "Textures").mkdir(parents=True, exist_ok=True)
     (tmp_path / "content" / "Textures" / "_test_tex.png").write_bytes(encode_png(tex))
     (tmp_path / "content" / "balls.glb").write_bytes(
         chip_smoke.balls_glb(procedural_test_maps(0, 16), 6, 12))
@@ -190,6 +191,27 @@ def test_undecoded_texture_preview_is_a_500(content_copy):
     np.testing.assert_array_equal(decode_png(body), rgb)
     status, ctype, body = app.handle("GET", "/api/asset?path=content/Textures/t.bmp", b"")
     assert status == 500 and b"BMP: " in body
+
+
+def test_jpeg_texture_preview_is_a_png(content_copy):
+    """A JPEG's preview is a 200 PNG of the pixels imageio reads (the port
+    decodes JPEG since its own decoder)."""
+    import io
+
+    import imageio.v2 as imageio
+    from PIL import Image
+
+    rgb = np.random.default_rng(1).integers(0, 256, (24, 40, 3), dtype=np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(rgb).save(buf, format="JPEG", progressive=True)
+    (content_copy / "content" / "Textures" / "ok.jpg").write_bytes(buf.getvalue())
+    app, ed, _, _ = _apps()
+    reg = AssetRegistry("content")
+    reg.scan_content_folder()
+    ed.registry = reg
+    status, ctype, body = app.handle("GET", "/api/asset?path=content/Textures/ok.jpg", b"")
+    assert status == 200 and ctype == "image/png"
+    np.testing.assert_array_equal(decode_png(body), imageio.imread(buf.getvalue()))
 
 
 # --- tests/test_engine_aux.py::test_editor_server_roundtrip ------------------------

@@ -265,8 +265,10 @@ def test_decode_bytes_sniffs_and_undecoded_shrinks():
     np.testing.assert_array_equal(textures.decode_bytes(BMP["pal4"]), decode_bmp(BMP["pal4"]))
     hdr = files.hdr(_hdr_image(), rle=True)
     np.testing.assert_array_equal(textures.decode_bytes(hdr), decode_hdr(hdr))
-    assert set(textures.UNDECODED.values()) == {"JPEG", "GIF", "OpenEXR"}
-    with pytest.raises(NotImplementedError, match="no GIF decoder"):
+    assert textures.UNDECODED == {".exr": "OpenEXR"}
+    with pytest.raises(NotImplementedError, match="no OpenEXR decoder"):
+        textures.decode_bytes(b"\x76\x2f\x31\x01" + bytes(20))
+    with pytest.raises(ValueError, match="^GIF: "):  # sniffed, then malformed
         textures.decode_bytes(b"GIF89a" + bytes(20))
 
 

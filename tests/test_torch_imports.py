@@ -5,7 +5,8 @@
   octree, profiler and benchmarks among them), and chip_smoke, loads no
   jax and no sailor_tpu module, and building a BVH8 table and starting a
   scheduler load the port's own host libraries, not the JAX package's
-  native/libsailor_native.so (checked in a fresh interpreter);
+  native/libsailor_native.so, and decoding a JPEG loads the port's image
+  library and no Pillow or imageio (checked in a fresh interpreter);
 - no source line of the port imports them;
 - entry points default to the CUDA device and raise when there is none
   (the engine's World, Renderer and CLI without --cpu too);
@@ -20,8 +21,8 @@
   env-map sky and ray sorting inside the intersector run, and so do
   ``tracer="bvh8"`` (no sweep built) and "auto" over MAX_SWEEP_TRIANGLES
   (no sweep; every pass takes the BVH8 traversal); the asset registry's
-  image importers of formats other than PNG raise NotImplementedError,
-  asynchronous loads run, and an unknown tonemap mode raises ValueError as
+  OpenEXR importer raises NotImplementedError and an empty JPEG, GIF, BMP,
+  TGA or HDR file ValueError naming its format, asynchronous loads run, and an unknown tonemap mode raises ValueError as
   the frame graph is built;
 - no source line of the port imports Pillow or imageio (the card's machine
   has neither).
@@ -76,8 +77,12 @@ native_bridge.Scheduler(1).shutdown()
 maps = open("/proc/self/maps").read()
 assert "libsailor_torch_host" in maps and "libsailor_native" not in maps
 assert "libsailor_torch_runtime" in maps
+from sailor_tpu_torch.utils import gif, jpeg
+rgb = jpeg.decode_jpeg(chip_smoke.jpeg_bytes(np.zeros((9, 17, 3), np.uint8)))
+assert rgb.shape == (9, 17, 3)
+assert "libsailor_torch_image" in open("/proc/self/maps").read()
 bad = sorted(n for n in sys.modules
-             if n.split(".")[0] in ("jax", "jaxlib", "flax", "sailor_tpu"))
+             if n.split(".")[0] in ("jax", "jaxlib", "flax", "sailor_tpu", "PIL", "imageio"))
 print("BAD", bad)
 """
 
@@ -127,18 +132,19 @@ def test_default_device_is_the_card(monkeypatch):
 
 @pytest.mark.parametrize("ext", [".jpg", ".jpeg", ".bmp", ".tga", ".gif", ".hdr", ".exr"])
 def test_unported_importers_raise(tmp_path, ext):
-    """The registry knows the reference's image extensions. JPEG, GIF and
-    OpenEXR have no decoder in the port and raise an error that names the
-    format and the missing decoder; BMP, TGA and Radiance HDR decode
-    (tests/test_torch_image_formats.py), and a truncated (empty) file
-    raises an error that names the format."""
+    """The registry knows the reference's image extensions. OpenEXR has no
+    decoder in the port (imageio needs an optional plugin) and raises an error that
+    names the format and the missing decoder; JPEG, GIF, BMP, TGA and
+    Radiance HDR decode (tests/test_torch_jpeg.py, test_torch_gif.py,
+    test_torch_image_formats.py), and a truncated (empty) file raises an
+    error that names the format."""
     fmt = {".jpg": "JPEG", ".jpeg": "JPEG", ".bmp": "BMP", ".tga": "TGA", ".gif": "GIF",
            ".hdr": "Radiance HDR", ".exr": "OpenEXR"}[ext]
     path = tmp_path / f"asset{ext}"
     path.write_bytes(b"")
     reg = AssetRegistry(str(tmp_path))
     assert reg.scan_content_folder() == 1
-    if ext in (".bmp", ".tga", ".hdr"):
+    if ext != ".exr":
         with pytest.raises(ValueError, match=f"^{fmt}: "):
             reg.load(str(path))
     else:

@@ -1,7 +1,8 @@
-"""The port's tracer tools on the CPU's plain twins at their ``--cpu`` size
-(32 x 32, the bench tracer scene cut to 2 spheres of 6 x 12): each runs
-as ``python -m``, exits 0 and prints its lines; time_sweep also with its
-any-hit and incoherent options."""
+"""The port's tools on the CPU's plain twins: the tracer tools at their
+``--cpu`` size (32 x 32, the bench tracer scene cut to 2 spheres of 6 x
+12), time_hiz at a small TH_* size and profile_frame ``--small`` on a
+content GLB with a trace; each runs as ``python -m``, exits 0 and prints
+its lines; time_sweep also with its any-hit and incoherent options."""
 
 import os
 import re
@@ -55,3 +56,41 @@ def test_tools_need_the_card_without_cpu():
         pytest.skip("a card is present")
     out = _run("sailor_tpu_torch.tools.profile_trace", "--small")
     assert out.returncode != 0 and "CUDA" in out.stderr
+
+
+def test_time_hiz_cpu():
+    """tools/time_hiz.py's scene at a small TH_* size on the plain twins:
+    the cull removes triangles with hiz on and none with it off."""
+    env = {"TH_W": "128", "TH_H": "96", "TH_CUBES": "40", "TH_LIGHTS": "8", "TH_FRAMES": "1"}
+    out = subprocess.run([sys.executable, "-m", "sailor_tpu_torch.tools.time_hiz", "--cpu"],
+                         cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2",
+                                            **env),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    on = re.search(r"hiz=1  frame [\d.]+ ms  \([\d.]+ FPS\)  culled (\d+)/484", out.stdout)
+    off = re.search(r"hiz=0  frame [\d.]+ ms  \([\d.]+ FPS\)  culled 0/484", out.stdout)
+    assert on and off and int(on.group(1)) > 0, out.stdout
+    assert "40 cubes behind a wall" in out.stderr and "device=cpu" in out.stderr
+
+
+def test_profile_frame_cpu_content_and_trace(tmp_path):
+    """``profile_frame --small --content GLB --trace DIR`` on the plain
+    twins: the frame times, a Chrome trace, and every node of
+    DefaultRenderer.renderer in the per-node table."""
+    import json
+
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from sailor_tpu_torch.scenes import procedural_test_maps
+
+    glb = tmp_path / "balls.glb"
+    glb.write_bytes(chip_smoke.balls_glb(procedural_test_maps(0, 16), 2, 3, jpeg=True))
+    out = _run("sailor_tpu_torch.tools.profile_frame", "--cpu", "--small", "--frames", "1",
+               "--content", str(glb), "--trace", str(tmp_path / "tr"))
+    assert out.returncode == 0, out.stderr
+    assert re.search(r"== frames: best [\d.]+ ms", out.stdout)
+    assert "60 instances of balls.glb" in out.stderr
+    for node in ("DepthPrepass", "RenderScene", "Bloom", "EyeAdaptation", "TOTAL"):
+        assert re.search(node + r"\s+[\d.]+ ms", out.stdout), (node, out.stdout)
+    with open(tmp_path / "tr" / "frame.json") as f:
+        assert json.load(f)["traceEvents"]

@@ -33,18 +33,14 @@ def _filter_row(cur: np.ndarray, prior: np.ndarray, bpp: int, ftype: int) -> np.
     return ((cur - pred) & 0xFF).astype(np.uint8)
 
 
-def png_bytes(samples: np.ndarray, ctype: int, depth: int, *, filters=(0,),
-              palette=None, trns: bytes | None = None, interlace: int = 0,
-              idat_chunks: int = 1) -> bytes:
-    """Encode ``samples`` ((H, W) or (H, W, C) sample values as integers)
-    as a PNG of colour type ``ctype`` and bit ``depth``. Row y takes filter
-    ``filters[y % len(filters)]``; ``palette`` (P, 3) uint8 writes PLTE,
-    ``trns`` a raw tRNS chunk; the zlib stream is cut into
-    ``idat_chunks`` IDAT chunks. ``interlace`` only sets the header flag."""
-    s = np.asarray(samples)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
+
+
+def _scanlines(s: np.ndarray, nch: int, depth: int, filters) -> bytes:
+    """Filtered scanlines of the (h, w, nch) samples ``s``; row y takes
+    ``filters[y % len(filters)]``."""
     h, w = s.shape[:2]
-    nch = _CHANNELS[ctype]
-    s = s.reshape(h, w, nch).astype(np.uint32)
     if depth < 8:
         bits = ((s[..., 0, None] >> np.arange(depth - 1, -1, -1)) & 1).astype(np.uint8)
         rows = np.packbits(bits.reshape(h, w * depth), axis=1)
@@ -59,7 +55,28 @@ def png_bytes(samples: np.ndarray, ctype: int, depth: int, *, filters=(0,),
         f = filters[y % len(filters)]
         out.append(bytes([f]) + _filter_row(rows[y], prior, bpp, f).tobytes())
         prior = rows[y]
-    z = zlib.compress(b"".join(out), 9)
+    return b"".join(out)
+
+
+def png_bytes(samples: np.ndarray, ctype: int, depth: int, *, filters=(0,),
+              palette=None, trns: bytes | None = None, interlace: int = 0,
+              idat_chunks: int = 1) -> bytes:
+    """Encode ``samples`` ((H, W) or (H, W, C) sample values as integers)
+    as a PNG of colour type ``ctype`` and bit ``depth``. Row y takes filter
+    ``filters[y % len(filters)]`` (of each Adam7 pass with ``interlace=1``,
+    whose seven passes are written as the standard lays them out);
+    ``palette`` (P, 3) uint8 writes PLTE, ``trns`` a raw tRNS chunk; the
+    zlib stream is cut into ``idat_chunks`` IDAT chunks."""
+    s = np.asarray(samples)
+    h, w = s.shape[:2]
+    nch = _CHANNELS[ctype]
+    s = s.reshape(h, w, nch).astype(np.uint32)
+    if interlace:
+        raw = b"".join(_scanlines(s[y0::dy, x0::dx], nch, depth, filters)
+                       for x0, y0, dx, dy in ADAM7 if x0 < w and y0 < h)
+    else:
+        raw = _scanlines(s, nch, depth, filters)
+    z = zlib.compress(raw, 9)
     cut = max(1, -(-len(z) // idat_chunks))
     parts = [z[i:i + cut] for i in range(0, len(z), cut)]
     body = struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, interlace)

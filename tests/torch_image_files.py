@@ -1,6 +1,6 @@
-"""Writers of BMP, TGA and Radiance HDR files for the decoder tests (numpy
-only, so that chip_smoke.py can import nothing of it and still write the
-same layouts; the tests also write files with Pillow)."""
+"""Writers of BMP, TGA, Radiance HDR, GIF and OpenEXR files for the decoder
+tests (numpy only, so that chip_smoke.py can import nothing of it and
+still write the same layouts; the tests also write files with Pillow)."""
 
 import struct
 
@@ -172,3 +172,127 @@ def hdr(pix: np.ndarray, *, rle: bool, magic: bytes = b"#?RADIANCE") -> bytes:
                 out += bytes([k]) + ch[x:x + k].tobytes()
                 x += k
     return bytes(out)
+
+
+def lzw(indices: np.ndarray, min_code: int, *, clear_when_full: bool = True,
+        clear_every: int = 0) -> bytes:
+    """GIF LZW codes of ``indices``, least significant bit first. A full
+    table (4096 entries) is cleared when ``clear_when_full``, else kept
+    (the deferred clear: 12-bit codes, no new entries); ``clear_every`` > 0
+    also emits a clear code every that many codes."""
+    clear, eoi = 1 << min_code, (1 << min_code) + 1
+    out = bytearray()
+    acc = nacc = 0
+
+    def emit(code, width):
+        nonlocal acc, nacc
+        acc |= code << nacc
+        nacc += width
+        while nacc >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            nacc -= 8
+
+    def reset():
+        return {bytes([i]): i for i in range(clear)}, clear + 2, min_code + 1
+
+    table, nxt, width = reset()
+    emit(clear, width)
+    w = b""
+    codes = 0
+    for b in indices.reshape(-1).tobytes():
+        wc = w + bytes([b])
+        if wc in table:
+            w = wc
+            continue
+        emit(table[w], width)
+        codes += 1
+        if nxt < 4096:
+            table[wc] = nxt
+            nxt += 1
+            if nxt > (1 << width) and width < 12:
+                width += 1
+        elif clear_when_full:
+            emit(clear, width)
+            table, nxt, width = reset()
+        if clear_every and codes % clear_every == 0:
+            emit(clear, width)
+            table, nxt, width = reset()
+        w = bytes([b])
+    if w:
+        emit(table[w], width)
+    emit(eoi, width)
+    if nacc:
+        out.append(acc & 255)
+    return bytes(out)
+
+
+def _blocks(data: bytes) -> bytes:
+    return b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                    for i in range(0, len(data), 255)) + b"\0"
+
+
+def _table_bits(pal) -> int:
+    n = len(pal)
+    bits = max(1, int(np.ceil(np.log2(max(n, 2)))))
+    return bits
+
+
+def gif(frames, width: int, height: int, *, global_palette=None, transparency=None,
+        **lzw_kw) -> bytes:
+    """A GIF89a of ``frames``: each a dict with ``indices`` (h, w) uint8 and
+    optional ``x``, ``y``, ``palette`` (a local table), ``interlace``,
+    ``min_code``. Tables are padded to a power of two with zeros; a
+    transparency index writes a graphic control extension before each
+    frame."""
+    out = bytearray(b"GIF89a" + struct.pack("<HH", width, height))
+    if global_palette is not None:
+        bits = _table_bits(global_palette)
+        out += bytes([0x80 | (bits - 1), 0, 0])
+        table = np.zeros((1 << bits, 3), np.uint8)
+        table[:len(global_palette)] = global_palette
+        out += table.tobytes()
+    else:
+        out += bytes([0, 0, 0])
+    for f in frames:
+        idx = np.asarray(f["indices"], np.uint8)
+        h, w = idx.shape
+        if transparency is not None:
+            out += bytes([0x21, 0xF9, 4, 1, 0, 0, transparency, 0])
+        flags = 0x40 if f.get("interlace") else 0
+        local = b""
+        if f.get("palette") is not None:
+            bits = _table_bits(f["palette"])
+            flags |= 0x80 | (bits - 1)
+            table = np.zeros((1 << bits, 3), np.uint8)
+            table[:len(f["palette"])] = f["palette"]
+            local = table.tobytes()
+        out += b"," + struct.pack("<HHHHB", f.get("x", 0), f.get("y", 0), w, h, flags) + local
+        if f.get("interlace"):
+            idx = np.concatenate([idx[0::8], idx[4::8], idx[2::4], idx[1::2]])
+        min_code = f.get("min_code", 8)
+        out += bytes([min_code]) + _blocks(lzw(idx, min_code, **lzw_kw))
+    return bytes(out + b";")
+
+
+def exr_minimal(w: int = 2, h: int = 2) -> bytes:
+    """A scanline OpenEXR file with one uncompressed HALF channel "Y"."""
+    def attr(name, kind, data):
+        return name.encode() + b"\0" + kind.encode() + b"\0" + struct.pack("<i", len(data)) + data
+
+    header = (attr("channels", "chlist", b"Y\0" + struct.pack("<iB3xii", 1, 0, 1, 1) + b"\0")
+              + attr("compression", "compression", b"\0")
+              + attr("dataWindow", "box2i", struct.pack("<iiii", 0, 0, w - 1, h - 1))
+              + attr("displayWindow", "box2i", struct.pack("<iiii", 0, 0, w - 1, h - 1))
+              + attr("lineOrder", "lineOrder", b"\0")
+              + attr("pixelAspectRatio", "float", struct.pack("<f", 1.0))
+              + attr("screenWindowCenter", "v2f", struct.pack("<ff", 0, 0))
+              + attr("screenWindowWidth", "float", struct.pack("<f", 1.0)) + b"\0")
+    start = 8 + len(header) + 8 * h
+    rows, offsets = b"", []
+    for y in range(h):
+        offsets.append(start + len(rows))
+        px = np.full(w, 0x3C00, "<u2").tobytes()  # 1.0 in half floats
+        rows += struct.pack("<ii", y, len(px)) + px
+    return (b"\x76\x2f\x31\x01" + struct.pack("<i", 2) + header
+            + b"".join(struct.pack("<Q", o) for o in offsets) + rows)
