@@ -138,7 +138,21 @@ Phases, each printed as it ends:
      warm-up + 5 frames each in turns: frame ms, the culled count of each
      frame (> 0 after frame 1), syncs, B1-B3 launches, per-node ms of
      DepthPrepass, DepthHighZ and RenderScene; frame 2 held to frame 1
-     (``compare_culled_frame``);
+     (``compare_culled_frame``); content-jpeg-full's two maps are written
+     once a run (``content_jpegs``) and reused here;
+  6j. content-jpeg-codings: content-jpeg-full's 2048 x 2048 albedo
+     coefficients arithmetic-coded (SOF9) and its normal map as a
+     progressive arithmetic-coded file cut after the DC scan and the first
+     luma AC scan (SOF10; the decoder smooths its blocks as libjpeg-turbo
+     does), each decode's ms and MP/s, the arithmetic map held bit for bit
+     to its Huffman source; at 256 px every new coding (SOF9, SOF10 whole
+     and cut, CMYK and YCCK Adobe files, lossless SOF3 with three
+     predictors, a DNL segment) decoded by the C++ and held bit for bit to
+     the plain decode; then the content GLB with the arithmetic albedo
+     and the cut normal map through all of DefaultRenderer.renderer at
+     1920x1088, its frame (Depth, TriId, maps, Sky, Main, Final) equal bit
+     for bit to the frame whose albedo is the Huffman map, B1-B3 launched,
+     and one frame whose every B1-B3 launch is held to its twin;
   7. tracer kernels: the sweep intersector's kernels (B4 slab entry with
      the visit tables, B5 cluster sweep and B6 dense-grid sweep, closest
      and any hit) against their plain versions on the path tracer's own
@@ -3755,57 +3769,113 @@ def _huffman_codes(counts, symbols):
     return codes
 
 
-def jpeg_bytes(img_u8, restart_rows: int = 1) -> bytes:
-    """A baseline JFIF JPEG of an (H, W, 3) uint8 image (test tooling: the
-    card's machine has no image library): YCbCr 4:2:0 by 2x2 means, a float
-    DCT, the Annex K tables scaled to quality 90 as libjpeg scales them,
-    the standard Huffman tables, and a restart interval of
-    ``restart_rows`` MCU rows. The entropy coding is vectorised with
-    numpy, so a 2048 x 2048 map encodes in seconds."""
-    import struct
+def _image_files():
+    """tests/torch_image_files.py (numpy only): the arithmetic-coded and
+    lossless JPEG writers, and the other formats' writers."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import torch_image_files
 
+    return torch_image_files
+
+
+def jpeg_frame(img_u8, colour: str = "ycc420"):
+    """An (H, W, 3) uint8 image's JPEG frame as this script codes it:
+    colour "ycc420" (YCbCr 4:2:0 by 2x2 means), or for (H, W, 4) CMYK
+    samples "cmyk" (stored inverted, as Adobe files hold them) or "ycck"
+    (the first three coded as YCbCr, K inverted), each 4:4:4, so that
+    imageio reads the samples back. A float DCT and the
+    Annex K tables scaled to quality 90 as libjpeg scales them. Returns
+    (comps, quant): comps as tests/torch_image_files.arith_jpeg takes them
+    (``coefs`` the MCU-padded (rows, columns, 64) zigzag blocks; luma or C
+    on tables 0, the rest on 1), quant {slot: 64 values in zigzag order}."""
     import numpy as np
 
     img = np.asarray(img_u8, np.float64)
     h, w = img.shape[:2]
-    mh, mw = -(-h // 16), -(-w // 16)
-    pad = np.pad(img, ((0, mh * 16 - h), (0, mw * 16 - w), (0, 0)), mode="edge")
-    r, g, b = pad[..., 0], pad[..., 1], pad[..., 2]
-    y = 0.299 * r + 0.587 * g + 0.114 * b
-    cb = -0.168735892 * r - 0.331264108 * g + 0.5 * b + 128
-    cr = 0.5 * r - 0.418687589 * g - 0.081312411 * b + 128
-    chroma = [c.reshape(mh * 8, 2, mw * 8, 2).mean((1, 3)) for c in (cb, cr)]
+    hs = 2 if colour == "ycc420" else 1
+    mh, mw = -(-h // (8 * hs)), -(-w // (8 * hs))
+    pad = np.pad(img, ((0, mh * 8 * hs - h), (0, mw * 8 * hs - w), (0, 0)), mode="edge")
+
+    def ycc(r, g, b):
+        return (0.299 * r + 0.587 * g + 0.114 * b,
+                -0.168735892 * r - 0.331264108 * g + 0.5 * b + 128,
+                0.5 * r - 0.418687589 * g - 0.081312411 * b + 128)
+
+    if colour == "ycc420":
+        y, cb, cr = ycc(pad[..., 0], pad[..., 1], pad[..., 2])
+        planes = [y] + [c.reshape(mh * 8, 2, mw * 8, 2).mean((1, 3)) for c in (cb, cr)]
+    elif colour == "cmyk":
+        planes = [255.0 - pad[..., k] for k in range(4)]
+    else:  # YCCK: decoded C, M, Y = 255 - R, G, B, so the inversion gives the first three
+        planes = list(ycc(pad[..., 0], pad[..., 1], pad[..., 2])) + [255.0 - pad[..., 3]]
     scale = 200 - 2 * 90  # libjpeg's quality scaling, for qualities of 50 and up
     quant = [np.clip((np.asarray(t) * scale + 50) // 100, 1, 255) for t in JPEG_QUANT]
     x = np.arange(8)
     dct = np.where(x[:, None] == 0, np.sqrt(1 / 8), np.sqrt(2 / 8)) * np.cos(
         (2 * x[None, :] + 1) * x[:, None] * np.pi / 16)
     zz = np.asarray(JPEG_ZIGZAG)
-
-    def blocks(plane, q, per_mcu):
-        """(MCU rows, MCUs, blocks an MCU, 64) quantised zigzag coefficients."""
+    comps = []
+    for k, plane in enumerate(planes):
+        tq = 0 if k == 0 or (colour == "cmyk" and k == 3) else 1
         ph, pw = plane.shape
         b8 = (plane - 128.0).reshape(ph // 8, 8, pw // 8, 8).transpose(0, 2, 1, 3)
-        coef = np.round(dct @ b8 @ dct.T / q.reshape(8, 8)).astype(np.int64)
-        coef = coef.reshape(ph // 8, pw // 8, 64)[..., zz]
-        if per_mcu == 4:  # 2x2 luma blocks an MCU, in raster order
-            coef = coef.reshape(mh, 2, mw, 2, 64).transpose(0, 2, 1, 3, 4).reshape(mh, mw, 4, 64)
-        else:
-            coef = coef.reshape(mh, mw, 1, 64)
-        return coef
+        coef = np.round(dct @ b8 @ dct.T / quant[tq].reshape(8, 8)).astype(np.int64)
+        sampling = hs if k == 0 else 1
+        comps.append({"id": k + 1, "h": sampling, "v": sampling, "tq": tq, "dc": tq,
+                      "ac": tq, "coefs": coef.reshape(ph // 8, pw // 8, 64)[..., zz]})
+    return comps, {t: quant[t][zz] for t in range(2)}
 
-    comps = [blocks(y, quant[0], 4), blocks(chroma[0], quant[1], 1),
-             blocks(chroma[1], quant[1], 1)]
+
+def jpeg_bytes(img_u8, restart_rows: int = 1, coding: str = "huffman",
+               colour: str = "ycc420") -> bytes:
+    """A JFIF JPEG of an (H, W, 3) uint8 image (test tooling: the card's
+    machine has no image library), ``jpeg_frame``'s coefficients coded
+    with a restart interval of ``restart_rows`` MCU rows. ``coding``:
+    "huffman", a baseline file with the standard tables, its entropy
+    coding vectorised with numpy so that a 2048 x 2048 map encodes in
+    seconds; "arith", the same coefficients arithmetic-coded (SOF9); or
+    "progressive_cut", a progressive arithmetic-coded file (SOF10) of the
+    DC scan and the first luma AC scan of libjpeg's simple progression,
+    the rest cut (imageio block-smooths such a file). CMYK and YCCK
+    (``colour``) files carry an Adobe marker instead of the JFIF one."""
+    import numpy as np
+
+    comps, quant = jpeg_frame(img_u8, colour)
+    h, w = np.asarray(img_u8).shape[:2]
+    hs = comps[0]["h"]
+    mh, mw = -(-h // (8 * hs)), -(-w // (8 * hs))
+    interval = restart_rows * mw if restart_rows else 0
+    adobe = {"ycc420": None, "cmyk": 0, "ycck": 2}[colour]
+    if coding != "huffman":
+        files = _image_files()
+        script = files.simple_progression(3)[:2] if coding == "progressive_cut" else None
+        return files.arith_jpeg(w, h, comps, quant, script=script, restart=interval,
+                                jfif=adobe is None, adobe=adobe)
+    return _huffman_jpeg(w, h, comps, quant, mh, mw, interval, adobe)
+
+
+def _huffman_jpeg(w, h, comps, quant, mh, mw, restart, adobe) -> bytes:
+    """``jpeg_bytes``'s baseline coding: every block of the interleaved scan
+    in MCU order, each symbol with its code, packed at once; a restart
+    marker every ``restart`` MCUs (none for 0)."""
+    import struct
+
+    import numpy as np
+
+    interval = restart or mh * mw
+
+    per = [c["h"] * c["v"] for c in comps]
+    grids = [c["coefs"].reshape(mh, c["v"], mw, c["h"], 64).transpose(0, 2, 1, 3, 4)
+             .reshape(mh, mw, c["h"] * c["v"], 64) for c in comps]
     # every block of the scan in MCU order, with its component's tables
-    seq = np.concatenate(comps, 2).reshape(-1, 64)  # (mh * mw * 6, 64)
-    comp_of = np.tile(np.array([0, 0, 0, 0, 1, 2]), mh * mw)
-    mcu_of = np.repeat(np.arange(mh * mw), 6)
-    interval = restart_rows * mw if restart_rows else mh * mw
+    seq = np.concatenate(grids, 2).reshape(-1, 64)
+    comp_of = np.tile(np.repeat(np.arange(len(comps)), per), mh * mw)
+    mcu_of = np.repeat(np.arange(mh * mw), sum(per))
     tables = {k: _huffman_codes(c, bytes.fromhex(v)) for k, (c, v) in JPEG_HUFFMAN.items()}
     # DC differences, the predictor reset at each restart interval
     dc = seq[:, 0]
     prev = np.zeros_like(dc)
-    for c in range(3):
+    for c in range(len(comps)):
         idx = np.nonzero(comp_of == c)[0]
         d = dc[idx]
         p = np.concatenate([[0], d[:-1]])
@@ -3828,7 +3898,7 @@ def jpeg_bytes(img_u8, restart_rows: int = 1) -> bytes:
     code_of = {key: (np.array([t.get(i, (0, 0))[0] for i in range(256)], np.int64),
                      np.array([t.get(i, (0, 0))[1] for i in range(256)], np.int64))
                for key, t in tables.items()}
-    chroma_tab = (comp_of > 0).astype(np.int64)
+    chroma_tab = np.asarray([c["dc"] for c in comps])[comp_of]
     sym_blk, sym_key, sym_code, sym_len = [], [], [], []
 
     def put(blk, key, cls, sym, extra, extra_len):
@@ -3895,26 +3965,31 @@ def jpeg_bytes(img_u8, restart_rows: int = 1) -> bytes:
     def seg(marker, body):
         return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
 
-    head = b"\xff\xd8" + seg(0xE0, b"JFIF\0\x01\x01\0\0\x01\0\x01\0\0")
+    head = b"\xff\xd8"
+    if adobe is None:
+        head += seg(0xE0, b"JFIF\0\x01\x01\0\0\x01\0\x01\0\0")
+    else:
+        head += seg(0xEE, b"Adobe\0\x64\0\0\0\0" + bytes([adobe]))
     for t in range(2):
-        head += seg(0xDB, bytes([t]) + bytes(int(v) for v in quant[t][zz]))
-    head += seg(0xC0, struct.pack(">BHHB", 8, h, w, 3) + bytes([1, 0x22, 0, 2, 0x11, 1,
-                                                               3, 0x11, 1]))
+        head += seg(0xDB, bytes([t]) + bytes(int(v) for v in quant[t]))
+    head += seg(0xC0, struct.pack(">BHHB", 8, h, w, len(comps)) + b"".join(
+        bytes([c["id"], c["h"] << 4 | c["v"], c["tq"]]) for c in comps))
     for (cls, slot), (counts, symbols) in JPEG_HUFFMAN.items():
         head += seg(0xC4, bytes([cls << 4 | slot, *counts]) + bytes.fromhex(symbols))
-    if restart_rows:
-        head += seg(0xDD, struct.pack(">H", interval))
-    head += seg(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0]))
+    if restart:
+        head += seg(0xDD, struct.pack(">H", restart))
+    head += seg(0xDA, bytes([len(comps)]) + b"".join(
+        bytes([c["id"], c["dc"] << 4 | c["ac"]]) for c in comps) + bytes([0, 63, 0]))
     return head + bytes(out) + b"\xff\xd9"
 
 
-def map_jpeg(img) -> bytes:
-    """A float (H, W, 4) map in [0, 1] as a baseline 4:2:0 JPEG (quality 90,
-    a restart interval of one MCU row)."""
+def map_jpeg(img, coding: str = "huffman") -> bytes:
+    """A float (H, W, 4) map in [0, 1] as a 4:2:0 JPEG (quality 90, a
+    restart interval of one MCU row), coded as ``jpeg_bytes`` codes it."""
     import numpy as np
 
     return jpeg_bytes(np.clip(np.round(np.asarray(img)[..., :3] * 255.0), 0, 255)
-                      .astype(np.uint8))
+                      .astype(np.uint8), coding=coding)
 
 
 def map_png(img) -> bytes:
@@ -3956,14 +4031,18 @@ def map_texture(w, img, jpeg: bool) -> int:
     return w.image_texture(map_png(img), "image/png")
 
 
-def flagship_glb(num_objects: int, maps, jpeg: bool = False) -> bytes:
+def flagship_glb(num_objects: int, maps, jpeg: bool = False, encoded=None) -> bytes:
     """The flagship scene's geometry as a GLB: one node a mesh with its
     translation, the ground material 0 and object i material 1 + i % 7;
     ``maps`` (procedural_test_maps) embedded as PNG (as JPEG with
-    ``jpeg``): the albedo map on materials 0-3, the normal map on
-    materials 0 and 1."""
+    ``jpeg``; ``encoded`` gives the albedo and normal JPEG bytes ready
+    made): the albedo map on materials 0-3, the normal map on materials 0
+    and 1."""
     w = GltfWriter()
-    albedo, normal = map_texture(w, maps[0], jpeg), map_texture(w, maps[1], jpeg)
+    if encoded is not None:
+        albedo, normal = (w.image_texture(data, "image/jpeg") for data in encoded)
+    else:
+        albedo, normal = map_texture(w, maps[0], jpeg), map_texture(w, maps[1], jpeg)
     for m in range(CONTENT_MATERIALS):
         w.material((0.55 + 0.05 * m, 0.6, 0.65 - 0.04 * m), metallic=0.1 * (m % 3),
                    roughness=0.35 + 0.08 * m, albedo_texture=albedo if m < 4 else None,
@@ -4018,15 +4097,16 @@ CONTENT_ROWS = ("albedo", "metallic", "roughness", "emissive", "albedo_texture",
 
 
 def content_scene(folder, width, height, num_lights, num_objects, device="cuda",
-                  map_size=256, jpeg=False):
+                  map_size=256, jpeg=False, encoded=None):
     """tests/test_golden.py's render_content path on the flagship scene:
     ``flagship_glb`` written to ``folder``, loaded back through
     ``AssetRegistry.load`` (gltf.load_merged) and
     ``GLTF.load_texture_images``, the material rows through
     ``MaterialTable.from_host`` (256-px textures); the flagship lights,
     camera and sun. The GLB holds the ground, so no floor is added. With
-    ``jpeg`` the maps are embedded as JPEG. Returns (SceneView, {step:
-    host ms}); "write" includes the maps' encoding."""
+    ``jpeg`` the maps are embedded as JPEG, with ``encoded`` as the given
+    albedo and normal JPEG bytes. Returns (SceneView, {step: host ms});
+    "write" includes the maps' encoding."""
     import numpy as np
     import torch
 
@@ -4041,7 +4121,8 @@ def content_scene(folder, width, height, num_lights, num_objects, device="cuda",
     t0 = time.perf_counter()
     path = os.path.join(folder, "flagship.glb")
     with open(path, "wb") as f:
-        f.write(flagship_glb(num_objects, procedural_test_maps(0, map_size), jpeg))
+        maps = None if encoded is not None else procedural_test_maps(0, map_size)
+        f.write(flagship_glb(num_objects, maps, jpeg, encoded))
     ms["write"] = (time.perf_counter() - t0) * 1e3
     reg = AssetRegistry(folder)
     t0 = time.perf_counter()
@@ -4349,6 +4430,29 @@ def check_small_content():
 
 JPEG_MAP_SIZE = 2048  # content-jpeg-full's maps: the size of DamagedHelmet's JPEG maps
 JPEG_FRAMES = 5  # content-jpeg-full's timed frames, after one warm-up
+JPEG_CODINGS_SIZE = 256  # content-jpeg-codings' files held to the plain decode
+_CONTENT_MAPS = {}
+
+
+def content_maps(size: int):
+    """procedural_test_maps(0, size), made once a run."""
+    if size not in _CONTENT_MAPS:
+        from sailor_tpu_torch.scenes import procedural_test_maps
+
+        _CONTENT_MAPS[size] = procedural_test_maps(0, size)
+    return _CONTENT_MAPS[size]
+
+
+def content_jpegs(size: int):
+    """content-jpeg-full's albedo and normal maps (``content_maps``) as
+    ``map_jpeg`` codes them, written once a run and reused: (albedo
+    bytes, normal bytes). Prints the write's ms the first time."""
+    if ("jpeg", size) not in _CONTENT_MAPS:
+        t0 = time.perf_counter()
+        _CONTENT_MAPS["jpeg", size] = tuple(map_jpeg(m) for m in content_maps(size)[:2])
+        print(f"content maps {size} px made and written as JPEGs once: "
+              f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
+    return _CONTENT_MAPS["jpeg", size]
 
 
 def timed_decodes(path):
@@ -4394,7 +4498,8 @@ def run_content_jpeg(card):
     total = {}
     with tempfile.TemporaryDirectory() as jfolder, tempfile.TemporaryDirectory() as pfolder:
         scene, host_ms = content_scene(jfolder, width, height, n_lights, n_objects,
-                                       map_size=JPEG_MAP_SIZE, jpeg=True)
+                                       map_size=JPEG_MAP_SIZE,
+                                       encoded=content_jpegs(JPEG_MAP_SIZE))
         decodes = timed_decodes(os.path.join(jfolder, "flagship.glb"))
         png, _ = content_scene(pfolder, width, height, n_lights, n_objects)
     importer = sum(v for k, v in host_ms.items() if k != "write")
@@ -4454,6 +4559,145 @@ def run_content_jpeg(card):
         check(len(record.get(k, [])) > 0, f"content-jpeg-full: the held frame launched no {k}")
     print("content-jpeg-full twin_checked_frames=1 launches_held " + json.dumps(
         {k: {"launches": len(v), "max_abs_err": max(v)} for k, v in record.items()}))
+    return total
+
+
+def jpeg_coding_files(size: int):
+    """content-jpeg-codings' small files, one of each coding the decoder
+    gained: {name: bytes}. The maps are procedural_test_maps(0, size), the
+    lossless files a size / 4 crop of them; the CMYK samples take the
+    albedo as C, M, Y and the normal map's red as K."""
+    import numpy as np
+
+    from sailor_tpu_torch.scenes import procedural_test_maps
+
+    files = _image_files()
+    maps = [np.clip(np.round(np.asarray(m)[..., :3] * 255.0), 0, 255).astype(np.uint8)
+            for m in procedural_test_maps(0, size)[:2]]
+    cmyk = np.concatenate([maps[0], maps[1][..., :1]], -1)
+    out = {"arith": jpeg_bytes(maps[0], coding="arith"),
+           "arith_progressive_cut": jpeg_bytes(maps[1], coding="progressive_cut"),
+           "cmyk": jpeg_bytes(cmyk, colour="cmyk"),
+           "ycck": jpeg_bytes(cmyk, coding="arith", colour="ycck")}
+    comps, quant = jpeg_frame(maps[0])
+    out["arith_progressive"] = files.arith_jpeg(size, size, comps, quant, restart=size // 16,
+                                                script=files.simple_progression(3))
+    crop = max(size // 4, 8)  # the plain lossless decode walks samples in Python
+    for pred in (1, 4, 7):
+        out[f"lossless_p{pred}"] = files.lossless_jpeg(
+            [maps[pred % 2][:crop, :crop, k] for k in range(3)], pred, restart_rows=crop // 4)
+    base = jpeg_bytes(maps[0])
+    i = base.find(b"\xff\xd9")
+    out["dnl"] = base[:i] + b"\xff\xdc\x00\x04" + size.to_bytes(2, "big") + base[i:]
+    return out
+
+
+def run_content_jpeg_codings(card):
+    """content-jpeg-codings (phase 6j of the module docstring). Returns the
+    launches of the arithmetic-albedo frames."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sailor_tpu_torch.kernels import cuda_lib, host_lib
+    from sailor_tpu_torch.utils import jpeg
+
+    width, height, n_lights, n_objects = FLAGSHIP
+    size = JPEG_MAP_SIZE
+    host_lib.load("image")  # built before the decodes are timed
+    huffman_albedo = content_jpegs(size)[0]
+    t0 = time.perf_counter()
+    maps = content_maps(size)
+    arith_albedo = map_jpeg(maps[0], "arith")
+    t1 = time.perf_counter()
+    cut_normal = map_jpeg(maps[1], "progressive_cut")
+    t2 = time.perf_counter()
+    print(f"content-jpeg-codings {size} px: the albedo's coefficients arithmetic-coded in "
+          f"{(t1 - t0) * 1e3:.3f} ms ({len(arith_albedo)} bytes; Huffman "
+          f"{len(huffman_albedo)}), the cut progressive normal map in "
+          f"{(t2 - t1) * 1e3:.3f} ms ({len(cut_normal)} bytes) on the host")
+    decoded = {}
+    for name, data in (("huffman_albedo", huffman_albedo), ("arith_albedo", arith_albedo),
+                       ("progressive_cut_normal", cut_normal)):
+        t0 = time.perf_counter()
+        decoded[name] = jpeg.decode_jpeg(data)
+        ms = (time.perf_counter() - t0) * 1e3
+        print("content-jpeg-codings decode " + json.dumps(
+            {"image": name, "bytes": len(data), "shape": list(decoded[name].shape),
+             "ms": round(ms, 3), "mp_per_s": round(size * size / 1e6 / (ms / 1e3), 3),
+             "card": card}))
+        check(decoded[name].shape == (size, size, 3),
+              f"content-jpeg-codings: {name} did not decode as a {size}-px RGB JPEG")
+    check(np.array_equal(decoded["arith_albedo"], decoded["huffman_albedo"]),
+          "content-jpeg-codings: the arithmetic-coded albedo differs from its Huffman source")
+    err = np.abs(decoded["progressive_cut_normal"].astype(np.int64)
+                 - np.round(np.asarray(maps[1])[..., :3] * 255).astype(np.int64)).mean()
+    t0 = time.perf_counter()
+    cut_plain = jpeg.decode_jpeg(cut_normal, plain=True)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    print(f"content-jpeg-codings: arith albedo == Huffman albedo bit for bit; the cut normal "
+          f"map's mean error against its source {err:.3f} / 255; its plain decode "
+          f"{plain_ms:.3f} ms, equal to the C++ one: "
+          f"{np.array_equal(cut_plain, decoded['progressive_cut_normal'])}")
+    check(np.array_equal(cut_plain, decoded["progressive_cut_normal"]),
+          "content-jpeg-codings: the C++ decode of the cut normal map differs from the plain one")
+    check(err < 24, "content-jpeg-codings: the cut progressive normal map is far from its source")
+    for name, data in jpeg_coding_files(JPEG_CODINGS_SIZE).items():
+        t0 = time.perf_counter()
+        native = jpeg.decode_jpeg(data)
+        t1 = time.perf_counter()
+        plain = jpeg.decode_jpeg(data, plain=True)
+        t2 = time.perf_counter()
+        same = native.shape == plain.shape and np.array_equal(native, plain)
+        print(f"content-jpeg-codings {JPEG_CODINGS_SIZE} px {name}: {native.dtype} "
+              f"{native.shape} C++ {(t1 - t0) * 1e3:.3f} ms equal to plain "
+              f"{(t2 - t1) * 1e3:.3f} ms: {same}")
+        check(same, f"content-jpeg-codings: the C++ decode of {name} differs from the plain one")
+    with tempfile.TemporaryDirectory() as af, tempfile.TemporaryDirectory() as hf:
+        scene, host_ms = content_scene(af, width, height, n_lights, n_objects,
+                                       encoded=(arith_albedo, cut_normal))
+        ref, _ = content_scene(hf, width, height, n_lights, n_objects,
+                               encoded=(huffman_albedo, cut_normal))
+    print("content-jpeg-codings importer host ms " + json.dumps(
+        {k: round(v, 3) for k, v in host_ms.items()}))
+    check(torch.equal(scene.materials.textures, ref.materials.textures),
+          "content-jpeg-codings: the arithmetic albedo's textures differ from the Huffman ones")
+    total = {}
+    frames = {}
+    for name, sc in (("arith", scene), ("huffman", ref)):
+        fg = _full_graph(width, height)
+        state = fg.initial_state()
+        cuda_lib.LAUNCHES.clear()
+        t0 = synced_ms()
+        fg.prepare(sc, state)
+        targets, state = fg.process(sc, state)
+        ms = synced_ms() - t0
+        launches = {k: cuda_lib.LAUNCHES.get(k, 0) for k in PATH_KERNELS}
+        print(f"content-jpeg-codings {name}-albedo frame {width}x{height}: {ms:.3f} ms "
+              f"launches {json.dumps(launches)} on {card}")
+        if name == "arith":
+            for k, v in cuda_lib.LAUNCHES.items():
+                total[k] = total.get(k, 0) + v
+            for k in PATH_KERNELS:
+                check(launches[k] > 0, f"content-jpeg-codings: the frame launched no {k}")
+            record = {}
+            with twin_checked(record):
+                fg.prepare(sc, state)
+                fg.process(sc, state)
+            for k in PATH_KERNELS:
+                check(len(record.get(k, [])) > 0,
+                      f"content-jpeg-codings: the held frame launched no {k}")
+            print("content-jpeg-codings twin_checked_frames=1 launches_held " + json.dumps(
+                {k: {"launches": len(v), "max_abs_err": max(v)} for k, v in record.items()}))
+        frames[name] = {k: targets[k] for k in FULL_FRAME_KEYS}
+    equal = {k: bool(torch.equal(frames["arith"][k], frames["huffman"][k]))
+             for k in FULL_FRAME_KEYS}
+    cov = (frames["arith"]["TriId"] >= 0).float().mean().item()
+    print(f"content-jpeg-codings arith-albedo frame vs huffman-albedo frame bit-equal "
+          f"{json.dumps(equal)} coverage={cov:.4f} on {card}")
+    check(all(equal.values()) and cov > 0.3 and bool(torch.isfinite(frames["arith"]["Final"]).all()),
+          "content-jpeg-codings: the arithmetic-albedo frame differs from the Huffman-albedo one")
     return total
 
 
@@ -5941,6 +6185,12 @@ def main() -> int:
         check(jpeg_launches.get(name, 0) > 0 and hiz_launches.get(name, 0) > 0,
               f"{name} was not launched on the JPEG content and hiz-heavy paths")
     print(f"content-jpeg-full and hiz-heavy: {time.perf_counter() - t_jpeg:.1f} s")
+    t_codings = time.perf_counter()
+    coding_launches = run_content_jpeg_codings(card)
+    for name in PATH_KERNELS:
+        check(coding_launches.get(name, 0) > 0,
+              f"{name} was not launched on the content-jpeg-codings path")
+    print(f"content-jpeg-codings: {time.perf_counter() - t_codings:.1f} s")
     t_examples = time.perf_counter()
     example_launches = run_example_frame(card)
     check_small_example_frame()
@@ -5948,8 +6198,8 @@ def main() -> int:
     print(f"example-frame and editor: {time.perf_counter() - t_examples:.1f} s")
     for k in main_frame:  # B1-B3 rows: the frame's launches and the later paths'
         k["launches"] += sum(p.get(k["name"], 0) for p in (
-            content_launches, material_launches, jpeg_launches, hiz_launches, example_launches,
-            editor_launches))
+            content_launches, material_launches, jpeg_launches, hiz_launches, coding_launches,
+            example_launches, editor_launches))
     t_tracer = time.perf_counter()
     tracer_kernels = check_tracer_kernels(card)
     launches, tracer_peak = run_tracer(card)

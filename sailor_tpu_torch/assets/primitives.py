@@ -21,6 +21,14 @@ class Mesh:
     colors: np.ndarray     # (V, 4) f32
     indices: np.ndarray    # (T, 3) i32
 
+    @property
+    def num_vertices(self) -> int:
+        return len(self.positions)
+
+    @property
+    def num_triangles(self) -> int:
+        return len(self.indices)
+
 
 def _mesh(pos, nrm, uv, idx, color=(1, 1, 1, 1)):
     pos = np.asarray(pos, np.float32)

@@ -4,8 +4,9 @@ linear, mip generation, sampler meta from the `.asset` sidecar.
 
 The reference decodes every format through imageio; the port has its own
 decoders, since the card's machine has no image library: PNG
-(``utils.png``, Adam7 too), JPEG (``utils.jpeg``, baseline and
-progressive), GIF (``utils.gif``, the first image), BMP (``utils.bmp``)
+(``utils.png``, Adam7 too), JPEG (``utils.jpeg``, every coding imageio
+reads: Huffman or arithmetic, sequential, progressive or lossless, CMYK
+too), GIF (``utils.gif``, the first image), BMP (``utils.bmp``)
 and TGA (``utils.tga``), each returning imageio's arrays bit for bit, and
 Radiance HDR (``utils.hdr``), decoded to float32 linear RGB as OpenCV
 reads it. OpenEXR raises NotImplementedError; imageio reads it only

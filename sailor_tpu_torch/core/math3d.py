@@ -183,8 +183,10 @@ def look_at(eye, center, up):
 
 
 def perspective(fov_y_rad: float, aspect: float, z_near: float, z_far: float,
-                device=None):
-    """Vulkan-style reverse-Z perspective: z_near maps to depth 1, z_far to 0.
+                reverse_z: bool = True, device=None):
+    """Vulkan-style perspective, clip depth in [0, 1]; with reverse-Z (the
+    engine default) z_near maps to depth 1 and z_far to 0, without it the
+    other way round.
 
     Float32 like the JAX twin: the focal term is computed in float32 and the
     depth terms in Python floats, then stored. The tangent is the C
@@ -196,8 +198,12 @@ def perspective(fov_y_rad: float, aspect: float, z_near: float, z_far: float,
     m = torch.zeros(4, 4, dtype=torch.float32)
     m[0, 0] = f / aspect
     m[1, 1] = f
-    m[2, 2] = z_near / (z_far - z_near)
-    m[2, 3] = z_far * z_near / (z_far - z_near)
+    if reverse_z:
+        m[2, 2] = z_near / (z_far - z_near)
+        m[2, 3] = z_far * z_near / (z_far - z_near)
+    else:
+        m[2, 2] = z_far / (z_near - z_far)
+        m[2, 3] = z_far * z_near / (z_near - z_far)
     m[3, 2] = -1.0
     return m.to(device) if device is not None else m
 

@@ -9,8 +9,9 @@ Three libraries, each from one source (``LIBRARIES``):
   allocators and the task scheduler (``native_bridge.py``), the same flags
   and ``-pthread``;
 - ``"image"``: ``csrc/image_decode.cpp``, the serial parts of the texture
-  decoders (``utils/jpeg.py``: a JPEG scan's Huffman decoding and the
-  IDCT, upsampling and colour pass; ``utils/gif.py``: LZW), the same flags.
+  decoders (``utils/jpeg.py``: a JPEG scan's Huffman, arithmetic or
+  lossless decoding, the progressive block smoothing and the IDCT,
+  upsampling and colour pass; ``utils/gif.py``: LZW), the same flags.
 
 They are host code: each builds with the system C++ compiler (``$CXX``,
 else ``g++``, else ``c++``), needs no CUDA toolkit, and so builds on a
@@ -41,6 +42,7 @@ CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC")
 _fp = ctypes.POINTER(ctypes.c_float)
 _ip = ctypes.POINTER(ctypes.c_int32)
 _szp = ctypes.POINTER(ctypes.c_size_t)
+_i16p, _u8p = ctypes.POINTER(ctypes.c_int16), ctypes.POINTER(ctypes.c_uint8)
 _vp, _u64, _i64, _sz = ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int64, ctypes.c_size_t
 # name -> (source, flags, library file, {entry: (restype, argtypes)})
 LIBRARIES = {
@@ -82,14 +84,18 @@ LIBRARIES = {
     }),
     "image": ("image_decode.cpp", CXX_FLAGS, "libsailor_torch_image.so", {
         # data, size, pos, params, tables, coefs -> index of the marker after the scan
-        "sailor_torch_jpeg_scan": (_i64, [ctypes.c_char_p, _i64, _i64, _ip, _ip,
-                                          ctypes.POINTER(ctypes.c_int16)]),
-        # coefs, quant, params, out -> 0
-        "sailor_torch_jpeg_pixels": (ctypes.c_int, [ctypes.POINTER(ctypes.c_int16), _ip, _ip,
-                                                    ctypes.POINTER(ctypes.c_uint8)]),
+        "sailor_torch_jpeg_scan": (_i64, [ctypes.c_char_p, _i64, _i64, _ip, _ip, _i16p]),
+        # data, size, pos, params, conditioning, coefs -> the same
+        "sailor_torch_jpeg_scan_arith": (_i64, [ctypes.c_char_p, _i64, _i64, _ip, _ip, _i16p]),
+        # data, size, pos, params, tables, samples, nsamples -> the same
+        "sailor_torch_jpeg_scan_lossless": (_i64, [ctypes.c_char_p, _i64, _i64, _ip, _ip, _u8p,
+                                                   _i64]),
+        # coefs, quant, params, kernels, out -> 0
+        "sailor_torch_jpeg_smooth": (ctypes.c_int, [_i16p, _ip, _ip, _ip, _i16p]),
+        # coefs or samples, quant, params, out -> 0
+        "sailor_torch_jpeg_pixels": (ctypes.c_int, [_vp, _ip, _ip, _u8p]),
         # data, size, min code size, out, pixels -> pixels written
-        "sailor_torch_gif_lzw": (_i64, [ctypes.c_char_p, _i64, ctypes.c_int,
-                                        ctypes.POINTER(ctypes.c_uint8), _i64]),
+        "sailor_torch_gif_lzw": (_i64, [ctypes.c_char_p, _i64, ctypes.c_int, _u8p, _i64]),
     }),
 }
 

@@ -13,6 +13,11 @@ DIRECTIONAL = 0
 POINT = 1
 SPOT = 2
 
+# Shadow types (LightData.shadowType)
+SHADOW_NONE = 0
+SHADOW_PCF = 1
+SHADOW_EVSM = 2
+
 
 @dataclasses.dataclass
 class Lights:

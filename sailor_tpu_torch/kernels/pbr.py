@@ -55,6 +55,14 @@ def ndf_ggx(cos_lh, roughness):
     return alpha_sq / (math.pi * denom * denom)
 
 
+def geometry_smith(cos_li, cos_lo, roughness):
+    """Schlick-GGX Smith geometry with the analytic-light k remap
+    ((r + 1)^2 / 8)."""
+    r = roughness + 1.0
+    k = (r * r) / 8.0
+    return (cos_li / (cos_li * (1.0 - k) + k)) * (cos_lo / (cos_lo * (1.0 - k) + k))
+
+
 def geometry_smith_ibl(cos_li, cos_lo, roughness):
     """Schlick-GGX Smith geometry with the IBL k remap (r^2 / 2)."""
     k = (roughness * roughness) / 2.0
@@ -81,10 +89,13 @@ def ambient_constant(albedo, metallic, roughness, ao, normal, cos_lo, ambient_co
     return ao[..., None] * (kd * albedo[..., :3] + f * 0.2) * amb
 
 
-def _direct_lighting(l_type, l_pos, l_dir, l_intensity, l_atten, l_cutoff,
-                     l_radius, albedo, metallic, roughness, f0, normal,
-                     world_pos, to_camera, cos_lo, shadow):
-    """Radiance from one light slot per tile over its pixels (broadcast)."""
+def direct_lighting(l_type, l_pos, l_dir, l_intensity, l_atten, l_cutoff, l_radius,
+                    albedo, metallic, roughness, f0, normal, world_pos, to_camera, cos_lo,
+                    shadow):
+    """Radiance from one light (broadcast shapes), CalculateLighting
+    parity: ``to_camera`` is the normalised camera - point, ``shadow`` in
+    [0, 1]; a directional light's incident direction is -l_dir, a point or
+    spot light's the direction to it."""
     to_light = l_pos - world_pos
     dist = torch.sqrt(torch.clamp((to_light * to_light).sum(-1, keepdim=True), min=1e-12))
     point_dir = to_light / dist
@@ -165,7 +176,7 @@ def shade_forward_plus(gbuffer: GBuffer, lights, tile_light_indices,
         if t_shadow is not None:
             shadow = torch.where((l_type == DIRECTIONAL)[..., None], t_shadow[..., None],
                                  torch.ones_like(t_shadow[..., None]))
-        contrib = _direct_lighting(
+        contrib = direct_lighting(
             l_type, g(lights.position), g(lights.direction), g(lights.intensity),
             g(lights.attenuation), g(lights.cutoff), lights.radius[sl][:, :, :, None, None],
             shadow=shadow, **pa)

@@ -7,8 +7,9 @@ sailor_tpu/native_bridge.py; ``csrc/host_runtime.cpp``).
   (TPoolAllocator / TMultiPoolAllocator) with occupancy stats; the arena
   (a page-chained bump allocator) is used through the library's
   ``sailor_torch_arena_*`` entries;
-- ``bvh_build``: the binned-SAH binary BVH of ``csrc/bvh8_build.cpp``, the
-  build under the BVH8 table (``raytracing/bvh8.py``).
+- ``bvh_build`` and ``bvh8_build``: the binned-SAH binary BVH of
+  ``csrc/bvh8_build.cpp`` and the packed 8-wide table collapsed from it,
+  the table ``raytracing/bvh8.py`` traverses.
 
 ``kernels/host_lib.py`` builds both libraries at first use. Unlike the
 reference, nothing falls back to Python: a failed build raises.
@@ -61,6 +62,22 @@ def bvh_build(v0, v1, v2, leaf_size: int = 4):
                                    _i32p(ncount), _i32p(order))
     return {"node_min": nmin[:n], "node_max": nmax[:n], "node_left": nleft[:n],
             "node_start": nstart[:n], "node_count": ncount[:n], "order": order[:t]}
+
+
+def bvh8_build(v0, v1, v2) -> np.ndarray:
+    """Native packed 8-wide table build: (rows, bvh8.ROW) float32 in
+    raytracing/bvh8.py's layout."""
+    lib = host_lib.load("bvh8")
+    v0, v1, v2 = (np.ascontiguousarray(x, np.float32) for x in (v0, v1, v2))
+    t = len(v0)
+    max_rows = 2 * max(t, 2)
+    while True:
+        table = np.zeros((max_rows, 72), np.float32)
+        n = lib.sailor_torch_bvh8_build(_f32p(v0), _f32p(v1), _f32p(v2), t, _f32p(table),
+                                        max_rows)
+        if n >= 0:
+            return table[:n]
+        max_rows = -n  # the rows it needs
 
 
 # ---------------------------------------------------------------------------

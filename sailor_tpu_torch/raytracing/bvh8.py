@@ -47,8 +47,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from sailor_tpu_torch import native_bridge
 from sailor_tpu_torch.core.math3d import fma
-from sailor_tpu_torch.kernels import cuda_lib, host_lib
+from sailor_tpu_torch.kernels import cuda_lib
 from sailor_tpu_torch.raytracing import bvh as bvh2
 
 ROW = 72          # row width in float32 columns
@@ -146,28 +147,10 @@ def _collapse(b: bvh2.BVH) -> np.ndarray:
     return np.stack(rows)
 
 
-def _native_table(v0, v1, v2) -> np.ndarray:
-    import ctypes
-
-    lib = host_lib.load()
-    v0, v1, v2 = (np.ascontiguousarray(x, np.float32) for x in (v0, v1, v2))
-    fp = ctypes.POINTER(ctypes.c_float)
-    t = len(v0)
-    max_rows = 2 * max(t, 2)
-    while True:
-        table = np.zeros((max_rows, ROW), np.float32)
-        n = lib.sailor_torch_bvh8_build(v0.ctypes.data_as(fp), v1.ctypes.data_as(fp),
-                                        v2.ctypes.data_as(fp), t, table.ctypes.data_as(fp),
-                                        max_rows)
-        if n >= 0:
-            return table[:n]
-        max_rows = -n
-
-
 def build_table(v0, v1, v2, use_native: bool = True) -> np.ndarray:
     """The packed (N, ROW) float32 table of a triangle soup (host)."""
     if use_native:
-        table = _native_table(v0, v1, v2)
+        table = native_bridge.bvh8_build(v0, v1, v2)
     else:
         v0, v1, v2 = (np.asarray(x) for x in (v0, v1, v2))
         table = _collapse(bvh2.build(v0, v1, v2))

@@ -340,9 +340,16 @@ def _swizzle_maps(height: int, width: int, ray_block: int, sub: int):
     return perm, inv, H2 * W2
 
 
-def camera_rays_flat(camera_pos, inv_vp, width, height, px, py, u_jitter, v_jitter):
+def camera_rays_flat(camera_pos, view, proj, width, height, px, py, u_jitter, v_jitter):
     """Primary rays through explicit (possibly swizzled) pixel coordinates
-    ``px``/``py`` with per-ray jitters; ``inv_vp`` is inv(proj @ view)."""
+    ``px``/``py`` with per-ray jitters."""
+    inv_vp = m3.inverse(proj.float() @ view.float()).to(camera_pos.device)
+    return _camera_rays_flat(camera_pos, inv_vp, width, height, px, py, u_jitter, v_jitter)
+
+
+def _camera_rays_flat(camera_pos, inv_vp, width, height, px, py, u_jitter, v_jitter):
+    """``camera_rays_flat`` with ``inv_vp`` = inv(proj @ view) given, so that
+    a render inverts it once, not once a sample."""
     xs = (px.to(torch.float32) + u_jitter) / width
     ys = (py.to(torch.float32) + v_jitter) / height
     ndc = torch.stack([xs * 2.0 - 1.0, 1.0 - 2.0 * ys, torch.full_like(xs, 0.5),
@@ -723,7 +730,7 @@ def render(scene: TraceScene, camera_pos, view, proj, *, width: int, height: int
         rays_o, rays_d = [], []
         for j in range(sb):
             ju, jv = bluenoise.rotate(bn, float(p * sb + j))
-            o, d = camera_rays_flat(camera_pos, inv_vp, width, height, px, py, ju, jv)
+            o, d = _camera_rays_flat(camera_pos, inv_vp, width, height, px, py, ju, jv)
             rays_o.append(o)
             rays_d.append(d)
         origin = rays_o[0] if sb == 1 else torch.cat(rays_o)

@@ -761,6 +761,27 @@ def test_content_jpeg_and_hiz_heavy_phases_rehearsal(rehearsal, monkeypatch):
     assert launches["slab_entry"] == launches["sweep"] == 4 * 2 * 2 * 1
 
 
+def test_content_jpeg_codings_phase_rehearsal(rehearsal, monkeypatch, capsys):
+    """run_content_jpeg_codings at 128x64 (6 objects) with 64-px maps and
+    32-px files held to the plain decode: the arithmetic map equal to its
+    Huffman source, every file's C++ decode equal to the plain one, the
+    arithmetic-albedo frame equal to the Huffman-albedo frame and its
+    twin-checked frame."""
+    monkeypatch.setattr(chip_smoke, "FLAGSHIP", (128, 64, 24, 6))
+    monkeypatch.setattr(chip_smoke, "JPEG_MAP_SIZE", 64)
+    monkeypatch.setattr(chip_smoke, "JPEG_CODINGS_SIZE", 32)
+    monkeypatch.setattr(chip_smoke, "FULL_CONFIG",
+                        dict(chip_smoke.FULL_CONFIG, shadow_resolution=256))
+    launches = chip_smoke.run_content_jpeg_codings(rehearsal)
+    assert all(launches[k] >= 1 for k in chip_smoke.PATH_KERNELS)
+    out = capsys.readouterr().out
+    assert out.count("equal to plain") == 9 and ": False" not in out, out
+    assert re.search(r"frame vs huffman-albedo frame bit-equal \{[^}]*\}", out), out
+    files = chip_smoke.jpeg_coding_files(32)
+    assert set(files) == {"arith", "arith_progressive_cut", "arith_progressive", "cmyk", "ycck",
+                          "lossless_p1", "lossless_p4", "lossless_p7", "dnl"}
+
+
 def test_tools_phase_rehearsal(rehearsal, monkeypatch, capsys):
     """run_tools with time_hiz at 128x64 (TH_W, TH_H; the phase sets the
     cubes, lights and frames) and profile_frame --small run for real;
