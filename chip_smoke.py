@@ -2180,17 +2180,19 @@ def tracer_passes(scene, cam, view, proj, width, height, seed=0):
             for p in record_passes(scene, cam, view, proj, width, height, seed)]
 
 
-def _sweep_bound(p, work):
+def _sweep_bound(p, work, cluster):
     """The least time of a cluster sweep on the pass ``p`` from its twin's
-    ``work``: per (sub-block, step) pair walked, the 25 rows of the cluster
-    block the kernel reads (18 side, 4 num, 3 den: 25 KB); ~45 float
-    operations (three 6-term sides, num, den, divide, compares) per test of
-    a ray live at its step (any hit stops at a ray's first hit); rays'
-    features, tmax and the tables read once, t and index written once."""
+    ``work`` over a scene of ``cluster`` triangles a cluster: per
+    (sub-block, step) pair walked, the 25 rows of the cluster block the
+    kernel reads (18 side, 4 num, 3 den: 100 B a column, 25 KB at 256); ~45
+    float operations (three 6-term sides, num, den, divide, compares) per
+    test of a ray live at its step (any hit stops at a ray's first hit);
+    rays' features, tmax and the tables read once, t and index written
+    once."""
     from sailor_tpu_torch.raytracing import sweep
 
     rp = p["feats"].shape[0]
-    nbytes = (work["pairs"] * sweep.USED_ROWS * sweep.CLUSTER * 4 + rp * 76
+    nbytes = (work["pairs"] * sweep.USED_ROWS * cluster * 4 + rp * 76
               + 4 * (p["e_bits"].numel() + 2 * p["order"].numel() + p["nlive"].numel()))
     return _bound(nbytes, work["tests"] * 45)
 
@@ -2200,30 +2202,38 @@ def packed_walk(p, g_cluster, *, any_hit):
     plain PyTorch: for the count of live rays a walked pair, and for the CPU
     test of the kernels' merge order against the twins. Every
     (sub-block, step) pair the grid walks (B5's pairs) packs the rays live at
-    the step's start (best t > 1e-4) and tests them against the cluster in
-    8 slices of 32 triangles, one a warp. Closest hit: each slice is reduced
-    to its least t, equal t going to the larger column, and the slices are
-    merged in order (least t, equal t to the later slice); the test already
-    asked t < best. Any hit: a hit in any slice retires the ray (t = -1,
-    index 0). Returns (t, idx, live rays summed over the walked pairs)."""
+    the step's start (best t > 1e-4) and tests them against the cluster a
+    chunk of 256 columns at a time (``g_cluster``'s last axis is the cluster
+    size), each chunk in 8 slices of 32 columns, one a warp; columns past
+    the cluster's end hold no triangle and never hit. Every chunk tests
+    against the t at the step's start. Closest hit: each slice is reduced to
+    its least t, equal t going to the larger column, and the slices are
+    merged in order, chunk by chunk (least t, equal t to the later slice);
+    the test already asked t < best. Any hit: a hit in any slice retires the
+    ray (t = -1, index 0). Returns (t, idx, live rays summed over the
+    walked pairs)."""
     import torch
 
     from sailor_tpu_torch.raytracing import sweep
 
     e_bits, order, feats = p["e_bits"], p["order"], p["feats"]
     nb, nc = order.shape
-    nsb, slices = feats.shape[0] // sweep.SUB, sweep.CLUSTER // 32
+    cluster = g_cluster.shape[2]
+    width = -(-cluster // 256) * 256  # whole chunks
+    nsb, slices = feats.shape[0] // sweep.SUB, width // 32
     t = p["tmax"].clone().view(nsb, sweep.SUB)
     idx = torch.full_like(t, -1, dtype=torch.int32)
     f = feats.view(nsb, sweep.SUB, sweep.FEATS)
     blk = torch.arange(nsb, device=feats.device) // (nsb // nb)
-    col = torch.arange(sweep.CLUSTER, device=feats.device, dtype=torch.int32).view(slices, 32)
+    col = torch.arange(width, device=feats.device, dtype=torch.int32).view(slices, 32)
+    g_cluster = torch.nn.functional.pad(g_cluster, (0, width - cluster))
+    valid = torch.arange(width, device=feats.device) < cluster
     live_rays = 0
     for j in range(nc):
         bound = t.view(torch.int32).amax(1)
         for s in (e_bits[:, j] < bound).nonzero()[:, 0].split(64):
             cid = order[blk[s], j]
-            g = g_cluster[cid.long()][:, None]               # (n, 1, 40, CLUSTER)
+            g = g_cluster[cid.long()][:, None]               # (n, 1, 40, width)
             r = f[s][..., None]                              # (n, SUB, 16, 1)
             best = t[s]
             live = best > 1e-4
@@ -2241,7 +2251,7 @@ def packed_walk(p, g_cluster, *, any_hit):
             agree = (((s0 >= 0) & (s1 >= 0) & (s2 >= 0))
                      | ((s0 <= 0) & (s1 <= 0) & (s2 <= 0)))
             tval = num / torch.where(den == 0.0, 1.0, den)
-            ok = (live[..., None] & agree & (den != 0.0) & (tval > 1e-4)
+            ok = (live[..., None] & valid & agree & (den != 0.0) & (tval > 1e-4)
                   & (tval < best[..., None])).view(-1, sweep.SUB, slices, 32)
             tm = torch.where(ok, tval.view(ok.shape), torch.inf)
             smin = tm.amin(3)                                # (n, SUB, slices)
@@ -2257,7 +2267,7 @@ def packed_walk(p, g_cluster, *, any_hit):
                 cur = torch.where(take, smin[..., w], cur)
                 ci = torch.where(take, sk[..., w], ci)
             t[s] = torch.where(ci >= 0, cur, best)
-            idx[s] = torch.where(ci >= 0, cid[:, None] * sweep.CLUSTER + ci, idx[s])
+            idx[s] = torch.where(ci >= 0, cid[:, None] * cluster + ci, idx[s])
     return t.view(-1), idx.view(-1), live_rays
 
 
@@ -2278,11 +2288,24 @@ def sparse_pass(sweep_scene, p, live):
 
 
 def tied_clusters(g_cluster):
-    """Clusters with exact ties: columns 32-63 repeat 0-31 (ties across the
-    kernels' warp slices) and column 129 repeats 128 (a tie within one)."""
+    """Clusters with exact ties, for any cluster size c (``g_cluster``'s
+    last axis): columns 32-63 repeat 0-31 (ties across the kernels' warp
+    slices; as far as the cluster reaches), column 129 repeats 128 (a tie
+    within one slice; at c <= 129 the last column repeats the one before),
+    and at c > 256 columns 256-287 repeat 0-31 (ties across the kernels'
+    256-column chunks)."""
     g = g_cluster.clone()
-    g[:, :, 32:64] = g[:, :, 0:32]
-    g[:, :, 129] = g[:, :, 128]
+    c = g.shape[2]
+    n = min(64, c) - 32
+    if n > 0:
+        g[:, :, 32:32 + n] = g[:, :, 0:n]
+    if c > 129:
+        g[:, :, 129] = g[:, :, 128]
+    elif c >= 2:
+        g[:, :, c - 1] = g[:, :, c - 2]
+    n = min(288, c) - 256
+    if n > 0:
+        g[:, :, 256:256 + n] = g[:, :, 0:n]
     return g
 
 
@@ -2402,10 +2425,10 @@ def check_tracer_kernels(card):
         ms = _time_ms(lambda: sweep.sweep_cuda(*args5, any_hit=any_hit), 10)
         same = _bits_equal(t_k, i_k, t_p, i_p)
         pairs, tests = work["pairs"], work["tests"]
-        bound, by = _sweep_bound(p, work)
+        bound, by = _sweep_bound(p, work, sw.cluster)
         # how sparse the pass is: the share of the (ray, triangle) lanes of
         # the walked pairs that the bound charges, and the rays live a pair
-        lane_use = tests / max(1, pairs * sweep.SUB * sweep.CLUSTER)
+        lane_use = tests / max(1, pairs * sweep.SUB * sw.cluster)
         t_m, i_m, live = packed_walk(p, sw.g_cluster, any_hit=any_hit)
         live_per_pair = live / max(1, pairs)
         kind = "any" if any_hit else "closest"
@@ -2425,7 +2448,7 @@ def check_tracer_kernels(card):
             *args6, any_hit=any_hit, work=work6))
         ms = _time_ms(lambda: sweep.sweep_grid_cuda(*args6, any_hit=any_hit), 10)
         to_twin, to_b5 = _bits_equal(t_g, i_g, t_gp, i_gp), _bits_equal(t_g, i_g, t_k, i_k)
-        bound, by = _sweep_bound(p, work6)
+        bound, by = _sweep_bound(p, work6, sw.cluster)
         print(f"kernel sweep_grid_{kind}[{name}]: equal_to_twin={to_twin} equal_to_b5={to_b5} "
               f"ms={ms:.4f} plain_ms={plain_ms:.2f} bound_ms={bound:.5f} ({by}) "
               f"pairs={work6['pairs']} steps={p['e_bits'].numel()} tests={work6['tests']} "
@@ -2953,10 +2976,10 @@ def run_material_balls(card):
             os.environ["SAILOR_SWEEP_SORT"] = sort
 
 
-def check_small_trace(scene_fn=None, label="tracer", grid=False):
-    """A 64x64 render (4 bounces, 2 spp) of ``scene_fn(device)`` (the
-    tracer scene by default; ``grid``: through B6) on the card against the
-    same render on the CPU path (which the CPU tests hold to the JAX
+def check_small_trace(scene_fn=None, label="tracer", grid=False, spp=2):
+    """A 64x64 render (4 bounces, ``spp`` samples) of ``scene_fn(device)``
+    (the tracer scene by default; ``grid``: through B6) on the card against
+    the same render on the CPU path (which the CPU tests hold to the JAX
     package), same uniforms: >= 99% of pixels within 1e-3 * (1 + |cpu|)."""
     import torch
 
@@ -2964,7 +2987,7 @@ def check_small_trace(scene_fn=None, label="tracer", grid=False):
     from sailor_tpu_torch.scenes import tracer_scene
 
     w = h = 64
-    spp, bounces = 2, 4
+    bounces = 4
     gen = torch.Generator().manual_seed(7)
     uniforms = torch.rand((spp, 5 * bounces, path_tracer.rays_per_sample(w, h)), generator=gen)
     out = {}
@@ -2985,6 +3008,206 @@ def check_small_trace(scene_fn=None, label="tracer", grid=False):
     print(f"small trace {label} card vs cpu: within_1e-3={share:.5f} rays card={out['cuda'][1]} "
           f"cpu={out['cpu'][1]}")
     check(share >= 0.99, f"card render disagrees with the CPU path ({label})")
+
+
+SWEEP_CLUSTERS = (64, 128, 256, 512, 1024)  # sweep-clusters' sizes (256: the tracer scene's)
+SMALL_CLUSTER = 37  # sweep-clusters' 64x64 card-vs-CPU render: a size no power of two
+
+
+def cluster_scene(cluster, **soup_kw):
+    """A ``scene_fn`` for ``check_small_trace``: ``tracer_scene(device,
+    **soup_kw)`` with its sweep built by ``sweep.build_arrays(cluster=)``,
+    the host arrays built once for both devices (the dense scene's numpy
+    BVH takes half a minute)."""
+    import dataclasses
+
+    from sailor_tpu_torch.raytracing import sweep
+    from sailor_tpu_torch.scenes import tracer_scene, tracer_soup
+
+    arrays = {}
+
+    def scene_fn(device):
+        scene, cam, view, proj = tracer_scene(device, tracer="bvh8", **soup_kw)
+        if not arrays:
+            soup = tracer_soup(**soup_kw)
+            p, i = soup["position"], soup["indices"]
+            arrays.update(sweep.build_arrays(p[i[:, 0]], p[i[:, 1]], p[i[:, 2]],
+                                             cluster=cluster))
+        sw = sweep.sweep_scene_from_numpy(arrays, scene.tri_pack.device)
+        return dataclasses.replace(scene, sweep=sw), cam, view, proj
+
+    return scene_fn
+
+
+def profiled_us(fns, reps=5):
+    """Mean device us a launch of each of ``fns`` (a name: a call that
+    launches one kernel), over ``reps`` calls in a torch.profiler session of
+    its own: {name: (us, "profiler")}. Where the profiler records no device
+    event (it sometimes records none in a process that profiled before),
+    CUDA events around each call time it instead: (us, "events")."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    out = {}
+    for name, fn in fns.items():
+        fn()  # warm
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA and "(anonymous namespace)::" in e.name]
+        if us:
+            out[name] = (sum(us) / len(us), "profiler")
+            continue
+        total = 0.0
+        for _ in range(reps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            total += start.elapsed_time(end) * 1e3
+        out[name] = (total / reps, "events")
+    return out
+
+
+def run_sweep_clusters(card):
+    """sweep-clusters: the tracer-512 scene's sweep built at each of
+    SWEEP_CLUSTERS with ``sweep.build(cluster=)``. At each size one
+    ``render_cached`` sample at TRACER's size and 2 bounces records the
+    passes (the main path at that size: its B4 and B5 launches where the
+    routing rule sends the passes to the sweep, else the BVH8's), and on the
+    bounce-1 and bounce-1 shadow passes B4's tables, B5 and B6 (closest or
+    any hit, as the pass asks) are held to their twins bit for bit, also on
+    tied clusters (``tied_clusters``), and timed by the profiler's mean a
+    launch (``profiled_us``) beside ``_sweep_bound``. B4 also on one ray block over the
+    18,434 clusters of cluster size 1 (its global-scratch tables; the
+    routing rule admits it: 36 B x 18,434 <= 1 MiB), then
+    ``SAILOR_SWEEP_CLUSTER=512 python -m sailor_tpu_torch.tools.time_sweep``
+    in a subprocess, a 64x64 render at cluster 37 and the dense scene's
+    ``tracer="sweep"`` render (1,153 clusters through B4, 1 spp) against
+    the CPU path. Returns ({kernel: {cluster: row}}, the renders' launch
+    counts)."""
+    import collections
+    import dataclasses
+    import math
+
+    from sailor_tpu_torch.kernels import cuda_lib
+    from sailor_tpu_torch.raytracing import sweep
+    from sailor_tpu_torch.scenes import tracer_scene, tracer_soup
+
+    scene, cam, view, proj = tracer_scene()
+    dev = scene.tri_pack.device
+    soup = tracer_soup()
+    tris = tuple(soup["position"][soup["indices"][:, k]] for k in range(3))
+    width, height = TRACER[:2]
+    rows = {"slab_entry": {}, "sweep": {}, "sweep_grid": {}}
+    launches = collections.Counter()
+    bounce1 = None
+    for cluster in SWEEP_CLUSTERS:
+        sw = (scene.sweep if cluster == scene.sweep.cluster
+              else sweep.build(*tris, cluster=cluster, device=dev))
+        check(sw.cluster == cluster, f"the sweep was built at {sw.cluster}, not {cluster}")
+        cuda_lib.LAUNCHES.clear()
+        log = record_passes(dataclasses.replace(scene, sweep=sw), cam, view, proj, width, height)
+        run = {k: cuda_lib.LAUNCHES.get(k, 0) for k in ("slab_entry", "sweep", "bvh8_intersect")}
+        # the reference's routing rule: a pass of this many rays takes the
+        # sweep only while its entry table fits SMEM_BUDGET (at 512x512 not
+        # at cluster 64: 289 clusters x 128 ray blocks x 36 B > 1 MiB)
+        routed = sweep.scalar_bytes(sw, log[0]["origin"].shape[0]) <= sweep.SMEM_BUDGET
+        check(run["slab_entry"] > 0 and run["sweep"] > 0 if routed
+              else run["bvh8_intersect"] > 0 and run["sweep"] == 0,
+              f"the render at cluster {cluster} took another route than the rule's: {run}")
+        launches.update({k: run[k] for k in ("slab_entry", "sweep")})
+        bounce1 = bounce1 or log[2]
+        for name, rec in (("bounce1", log[2]), ("bounce1_shadow", log[3])):
+            p = sweep.prepare(sw, rec["origin"], rec["direction"], active=rec["active"])
+            any_hit = rec["any_hit"]
+            args4 = (p["feats"][:, 8:11].contiguous(), p["feats"][:, 0:3].contiguous(), p["tmax"],
+                     sw.cl_min, sw.cl_max)
+            b4_ok = tables_equal(sweep.visit_tables_cuda(*args4), sweep.visit_tables_plain(*args4))
+            a5 = (p["e_bits"], p["order"], p["blk_bits"], p["nlive"], p["feats"], p["tmax"])
+            a6 = (p["e_bits"], p["order"], p["feats"], p["tmax"])
+            w5, w6 = {}, {}
+            tp, ip = sweep.sweep_plain(*a5, sw.g_cluster, any_hit=any_hit, work=w5)
+            tg, ig = sweep.sweep_grid_plain(*a6, sw.g_cluster, any_hit=any_hit, work=w6)
+            t5, i5 = sweep.sweep_cuda(*a5, sw.g_cluster, any_hit=any_hit)
+            t6, i6 = sweep.sweep_grid_cuda(*a6, sw.g_cluster, any_hit=any_hit)
+            tied = tied_clusters(sw.g_cluster)
+            tq, iq = sweep.sweep_plain(*a5, tied, any_hit=any_hit)
+            ok = {"b4": b4_ok,
+                  "b5": _bits_equal(t5, i5, tp, ip), "b6": _bits_equal(t6, i6, tg, ig),
+                  "tied": (_bits_equal(*sweep.sweep_cuda(*a5, tied, any_hit=any_hit), tq, iq)
+                           and _bits_equal(*sweep.sweep_grid_cuda(*a6, tied, any_hit=any_hit),
+                                           tq, iq))}
+            us = profiled_us({
+                "slab_entry": lambda: sweep.visit_tables_cuda(*args4),
+                "sweep": lambda: sweep.sweep_cuda(*a5, sw.g_cluster, any_hit=any_hit),
+                "sweep_grid": lambda: sweep.sweep_grid_cuda(*a6, sw.g_cluster, any_hit=any_hit)})
+            ms = {k: v / 1e3 for k, (v, _) in us.items()}
+            timed_by = sorted({by for _, by in us.values()})
+            b5, by5 = _sweep_bound(p, w5, cluster)
+            b6, by6 = _sweep_bound(p, w6, cluster)
+            lane_use = w5["tests"] / max(1, w5["pairs"] * sweep.SUB * cluster)
+            column_lanes = cluster / (math.ceil(cluster / 256) * 256)
+            print(f"sweep-clusters[{cluster}/{name}]: {sw.n_clusters} clusters "
+                  f"b4_equal={ok['b4']} b5_equal={ok['b5']} b6_equal={ok['b6']} "
+                  f"tied_equal={ok['tied']} b4_ms={ms['slab_entry']:.4f} "
+                  f"b5_ms={ms['sweep']:.4f} bound_ms={b5:.5f} ({by5}) "
+                  f"b6_ms={ms['sweep_grid']:.4f} bound_ms={b6:.5f} ({by6}) "
+                  f"pairs={w5['pairs']} tests={w5['tests']} lane_use={lane_use:.5f} "
+                  f"column_lanes={column_lanes:.4f} hits={int((ip >= 0).sum())} "
+                  f"render_route={'sweep' if routed else 'bvh8'} render_launches={run} "
+                  f"timed_by={'+'.join(timed_by)} on {card}")
+            check(all(ok.values()), f"a sweep kernel disagrees with its twin at cluster "
+                                    f"{cluster} ({name}): {ok}")
+            check(w5 == w6, f"B6's twin walked other work than B5's at cluster {cluster}")
+            for k, bound, by in (("slab_entry", None, None), ("sweep", b5, by5),
+                                 ("sweep_grid", b6, by6)):
+                row = {"ms": ms[k], "n_clusters": sw.n_clusters}
+                if bound is not None:
+                    row.update(bound_ms=bound, bound_by=by)
+                if k != "sweep_grid":
+                    row["launches"] = run[k]
+                rows[k].setdefault(str(cluster), {})[name] = row
+    # B4 over the most clusters the tracer soup gives: cluster size 1, one
+    # ray block (global-scratch tables)
+    sw1 = sweep.build(*tris, cluster=1, device=dev)
+    r = sweep.RAY_BLOCK
+    check(sweep.scalar_bytes(sw1, r) <= sweep.SMEM_BUDGET and sw1.n_clusters > 3 * 1024,
+          "cluster size 1 no longer gives a pass the sweep takes past B4's shared tables")
+    o, d, tmax = sweep._pad_rays(bounce1["origin"][:r], bounce1["direction"][:r], None,
+                                 bounce1["active"][:r])
+    args4 = (o, d, tmax, sw1.cl_min, sw1.cl_max)
+    b4_ok = tables_equal(sweep.visit_tables_cuda(*args4), sweep.visit_tables_plain(*args4))
+    ms = _time_ms(lambda: sweep.visit_tables_cuda(*args4), 10)
+    print(f"sweep-clusters[1/bounce1, one ray block]: {sw1.n_clusters} clusters "
+          f"scalar_bytes={sweep.scalar_bytes(sw1, r)} b4_equal={b4_ok} b4_ms={ms:.4f} "
+          f"(CUDA events over 10 launches) on {card}")
+    check(b4_ok, "slab entry kernel disagrees with its twin past its shared tables")
+    rows["slab_entry"]["1"] = {"bounce1_one_block": {"ms": ms, "n_clusters": sw1.n_clusters}}
+    # the tool, as its docstring gives it
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "sailor_tpu_torch.tools.time_sweep"],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=300, env={**os.environ, "SAILOR_SWEEP_CLUSTER": "512"})
+    print(f"SAILOR_SWEEP_CLUSTER=512 python -m sailor_tpu_torch.tools.time_sweep "
+          f"({time.perf_counter() - t0:.1f} s, {card}):")
+    for line in (proc.stderr.strip().splitlines()[-1:] + proc.stdout.strip().splitlines()):
+        print("  " + line)
+    check(proc.returncode == 0 and "cluster=512" in proc.stdout,
+          f"time_sweep at SAILOR_SWEEP_CLUSTER=512 failed: {proc.stderr[-2000:]}")
+    cuda_lib.LAUNCHES.clear()
+    check_small_trace(cluster_scene(SMALL_CLUSTER), f"tracer_cluster_{SMALL_CLUSTER}")
+    check_small_trace(cluster_scene(sweep.CLUSTER, rings=96, sectors=192), "tracer_dense_sweep",
+                      spp=1)
+    small = {k: cuda_lib.LAUNCHES.get(k, 0) for k in ("slab_entry", "sweep")}
+    check(all(small.values()), f"the small renders skipped a kernel: {small}")
+    launches.update(small)
+    return rows, dict(launches)
 
 
 def textured_sky_balls(device):
@@ -6220,6 +6443,13 @@ def main() -> int:
     launches["bvh8_intersect"] = bvh8_launches.get("bvh8_intersect", 0)
     check_small_trace(dense_tracer_scene, "tracer_dense_bvh8")
     print(f"tracer: {time.perf_counter() - t_tracer:.1f} s")
+    t_clusters = time.perf_counter()
+    cluster_rows, cluster_launches = run_sweep_clusters(card)
+    for name in ("slab_entry", "sweep"):
+        launches[name] = launches.get(name, 0) + cluster_launches.get(name, 0)
+    for k in tracer_kernels:  # B4-B6 at each cluster size
+        k["clusters"] = cluster_rows[k["name"]]
+    print(f"sweep-clusters: {time.perf_counter() - t_clusters:.1f} s")
     t_host = time.perf_counter()
     example_trace_launches = run_example_trace(card)
     check_small_trace(example_trace_scene, "example_trace")
@@ -6252,7 +6482,8 @@ def main() -> int:
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(f"card: {card}")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in kernels]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in keys + ("clusters",) if k in r}
+                                  for r in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -50,6 +50,17 @@
 // at 700 W, on the bench tracer scene's bounce-1 rays: 0.0501 ms as built,
 // 0.0531 with 2 rays a thread, 0.0583 and 0.0576 (2 rays) a block a
 // sub-block.
+//
+// Any cluster count: the tables take 68 B a cluster (boxes 32, entries
+// 9 x 4), so up to SMEM_CLUSTERS clusters (204 KB of the 227 KB a block may
+// have) they live in dynamic shared memory, and above it each block keeps
+// its entries in its own rows of a global scratch the wrapper allocates
+// ((n_blocks, NSUB + 1, nc) ints; GLOBAL) and reads each box from cl_min
+// and cl_max (a broadcast through L1). The arithmetic, the merge and the
+// rank are the same, so the tables are bit-equal either way. The path
+// tracer's routing rule (36 B a (ray block, cluster) within 1 MiB) admits
+// up to 29,127 block-clusters: one ray block over 29,127 clusters ranks
+// them in about 850M comparisons on one SM, some milliseconds.
 #include <cstdint>
 
 #include "common.cuh"
@@ -59,7 +70,7 @@ namespace {
 constexpr int SUB = 256;
 constexpr int NSUB = 8;  // sub-blocks of a 2048-ray block
 constexpr int FEATS = 16;
-constexpr int MAX_CLUSTERS = 1024;  // 262,144 triangles in clusters of 256
+constexpr int SMEM_CLUSTERS = 3072;  // tables in shared memory up to here (sweep.py's too)
 constexpr int RPT = 4;              // rays a thread
 constexpr int THREADS = NSUB * SUB / RPT;
 constexpr int SUB_THREADS = SUB / RPT;
@@ -71,22 +82,29 @@ __host__ __device__ constexpr size_t smem_bytes(int nc) {
   return static_cast<size_t>(nc) * (2 * sizeof(float4) + (NSUB + 1) * sizeof(int));
 }
 
+// GLOBAL: the entries in this block's rows of `tables` and the boxes read
+// from cl_min/cl_max; else all of it in dynamic shared memory.
+template <bool GLOBAL>
 __global__ void __launch_bounds__(THREADS)
 slab_tables_kernel(const float* __restrict__ orig, const float* __restrict__ dir,
                    const float* __restrict__ tmax, const float* __restrict__ cl_min,
                    const float* __restrict__ cl_max, float* __restrict__ feats,
                    int* __restrict__ e_bits, int* __restrict__ order,
-                   int* __restrict__ blk_bits, int* __restrict__ nlive, int nc) {
+                   int* __restrict__ blk_bits, int* __restrict__ nlive,
+                   int* __restrict__ tables, int nc) {
   extern __shared__ __align__(16) unsigned char smem[];
   float4* box = reinterpret_cast<float4*>(smem);
-  int* e = reinterpret_cast<int*>(box + 2 * nc);  // [NSUB][nc]
+  int* e = GLOBAL ? tables + static_cast<int64_t>(blockIdx.x) * (NSUB + 1) * nc
+                  : reinterpret_cast<int*>(box + 2 * nc);  // [NSUB][nc]
   int* eb = e + NSUB * nc;
   __shared__ int s_live;
   const int tid = threadIdx.x;
-  for (int i = tid; i < nc; i += THREADS) {
-    box[2 * i] = make_float4(cl_min[3 * i], cl_min[3 * i + 1], cl_min[3 * i + 2], cl_max[3 * i]);
-    box[2 * i + 1] = make_float4(cl_max[3 * i + 1], cl_max[3 * i + 2], 0.0f, 0.0f);
-  }
+  if (!GLOBAL)
+    for (int i = tid; i < nc; i += THREADS) {
+      box[2 * i] =
+          make_float4(cl_min[3 * i], cl_min[3 * i + 1], cl_min[3 * i + 2], cl_max[3 * i]);
+      box[2 * i + 1] = make_float4(cl_max[3 * i + 1], cl_max[3 * i + 2], 0.0f, 0.0f);
+    }
   for (int i = tid; i < NSUB * nc; i += THREADS) e[i] = INF_BITS;
   if (tid == 0) s_live = 0;
 
@@ -125,8 +143,17 @@ slab_tables_kernel(const float* __restrict__ orig, const float* __restrict__ dir
 
   int* mine = e + sub * nc;
   for (int c = 0; c < nc; ++c) {
-    const float4 b0 = box[2 * c], b1 = box[2 * c + 1];
-    const float lo[3] = {b0.x, b0.y, b0.z}, hi[3] = {b0.w, b1.x, b1.y};
+    float lo[3], hi[3];
+    if (GLOBAL) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        lo[k] = __ldg(cl_min + 3 * c + k);
+        hi[k] = __ldg(cl_max + 3 * c + k);
+      }
+    } else {
+      const float4 b0 = box[2 * c], b1 = box[2 * c + 1];
+      lo[0] = b0.x, lo[1] = b0.y, lo[2] = b0.z, hi[0] = b0.w, hi[1] = b1.x, hi[2] = b1.y;
+    }
     int m = INF_BITS;
 #pragma unroll
     for (int j = 0; j < RPT; ++j) {
@@ -183,16 +210,22 @@ slab_tables_kernel(const float* __restrict__ orig, const float* __restrict__ dir
 extern "C" int sailor_slab_tables(const float* orig, const float* dir, const float* tmax,
                                   const float* cl_min, const float* cl_max, float* feats,
                                   int* e_bits, int* order, int* blk_bits, int* nlive,
-                                  int n_blocks, int nc, cudaStream_t stream) {
-  if (nc > MAX_CLUSTERS) return static_cast<int>(cudaErrorInvalidValue);
+                                  int* tables, int n_blocks, int nc, cudaStream_t stream) {
+  if (nc < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (nc > SMEM_CLUSTERS) {  // tables: (n_blocks, NSUB + 1, nc) ints
+    if (tables == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    slab_tables_kernel<true><<<n_blocks, THREADS, 0, stream>>>(
+        orig, dir, tmax, cl_min, cl_max, feats, e_bits, order, blk_bits, nlive, tables, nc);
+    return static_cast<int>(cudaGetLastError());
+  }
   const size_t smem = smem_bytes(nc);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        slab_tables_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        slab_tables_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  slab_tables_kernel<<<n_blocks, THREADS, smem, stream>>>(
-      orig, dir, tmax, cl_min, cl_max, feats, e_bits, order, blk_bits, nlive, nc);
+  slab_tables_kernel<false><<<n_blocks, THREADS, smem, stream>>>(
+      orig, dir, tmax, cl_min, cl_max, feats, e_bits, order, blk_bits, nlive, nullptr, nc);
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,11 +13,13 @@
 // whose sorted block entry reaches the bound (the sorted block entry is a
 // lower bound of every later sub-block entry, so the stop is exact). A live
 // step tests every (ray, triangle) pair of the cluster for the rays still
-// live (best t > 1e-4), with the test and merge of sweep_common.cuh.
+// live (best t > 1e-4), with the test and merge of sweep_common.cuh. The
+// cluster size is an argument (any size of at least 1: a step tests its
+// cluster 256 columns at a time).
 //
 // Bound on the H100: about 45 float operations per (ray, triangle) test of
-// a ray live at its step, and the 25 used rows (25 KB) of the cluster block
-// read per (sub-block, step) pair the walk takes; chip_smoke.py counts both
+// a ray live at its step, and the 25 used rows of the cluster block (100 B
+// a column: 25 KB at 256) read per (sub-block, step) pair the walk takes; chip_smoke.py counts both
 // from the run's data and reports the larger. With -fmad=false every
 // multiply and add issues alone, so the issue-rate floor is about twice that
 // bound.
@@ -38,13 +40,13 @@ namespace {
 
 using namespace sweep_dev;
 
-template <bool ANY_HIT>
+template <bool ANY_HIT, bool ANY_SIZE>
 __global__ void __launch_bounds__(SUB, BLOCKS_PER_SM)
 sweep_kernel(const int* __restrict__ e_bits, const int* __restrict__ order,
              const int* __restrict__ blk_bits, const int* __restrict__ nlive,
              const float* __restrict__ feats, const float* __restrict__ tmax,
              const float* __restrict__ g_cluster, float* __restrict__ best_t,
-             int* __restrict__ best_i, int nsub, int nc) {
+             int* __restrict__ best_i, int nsub, int nc, int cluster) {
   __shared__ __align__(16) Smem sm;
   const int b = blockIdx.x / nsub;
   const int* e_row = e_bits + static_cast<int64_t>(blockIdx.x) * nc;
@@ -67,8 +69,11 @@ sweep_kernel(const int* __restrict__ e_bits, const int* __restrict__ order,
     }
     return -1;
   };
-  walk<ANY_HIT>(order + static_cast<int64_t>(b) * nc, feats, tmax, g_cluster, best_t, best_i,
-                sm, next);
+  const int* order_row = order + static_cast<int64_t>(b) * nc;
+  if constexpr (ANY_SIZE)
+    walk_chunks<ANY_HIT>(order_row, feats, tmax, g_cluster, cluster, best_t, best_i, sm, next);
+  else
+    walk<ANY_HIT>(order_row, feats, tmax, g_cluster, best_t, best_i, sm, next);
 }
 
 }  // namespace
@@ -77,13 +82,14 @@ extern "C" int sailor_sweep(const int* e_bits, const int* order,
                             const int* blk_bits, const int* nlive,
                             const float* feats, const float* tmax,
                             const float* g_cluster, float* best_t, int* best_i,
-                            int n_sub_blocks, int nsub, int nc, int any_hit,
+                            int n_sub_blocks, int nsub, int nc, int cluster, int any_hit,
                             cudaStream_t stream) {
-  if (any_hit)
-    sweep_kernel<true><<<n_sub_blocks, SUB, 0, stream>>>(
-        e_bits, order, blk_bits, nlive, feats, tmax, g_cluster, best_t, best_i, nsub, nc);
-  else
-    sweep_kernel<false><<<n_sub_blocks, SUB, 0, stream>>>(
-        e_bits, order, blk_bits, nlive, feats, tmax, g_cluster, best_t, best_i, nsub, nc);
+  if (cluster < 1) return static_cast<int>(cudaErrorInvalidValue);
+  using Kernel = decltype(&sweep_kernel<true, true>);
+  const Kernel kernels[2][2] = {{sweep_kernel<false, false>, sweep_kernel<false, true>},
+                                {sweep_kernel<true, false>, sweep_kernel<true, true>}};
+  const Kernel kernel = kernels[any_hit ? 1 : 0][cluster == CHUNK ? 0 : 1];
+  kernel<<<n_sub_blocks, SUB, 0, stream>>>(e_bits, order, blk_bits, nlive, feats, tmax, g_cluster,
+                                           best_t, best_i, nsub, nc, cluster);
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,8 +8,8 @@
 // s_e = [d, m] . edge_e, num = [o, 1] . [-n, k], den = d . n; a hit iff the
 // sides agree in sign, den != 0 and 1e-4 < num/den < best (exact division,
 // den == 0 -> 1). Closest hit keeps the least t, equal t within a cluster
-// going to the larger cid * 256 + col; any hit retires the ray with t = -1
-// and index 0. Sums run left to right with -fmad=false, as in the twins, so
+// going to the larger cid * cluster + col; any hit retires the ray with
+// t = -1 and index 0. Sums run left to right with -fmad=false, as in the twins, so
 // the kernels and the twins agree bit for bit.
 //
 // The mapping: one block of 256 threads per 256-ray sub-block; the skip and
@@ -54,6 +54,26 @@
 //     sub-blocks. On the H100 this beat 64 registers and 4 blocks an SM;
 //     the kernel is bound by instruction issue (45 unfused float operations
 //     and about 10 others a test, per lane), not by memory.
+//  5. The cluster size is a kernel argument. A cluster of CHUNK = 256 (the
+//     default) takes `walk`, the mapping above with every size a constant.
+//     Any other size takes `walk_chunks`: a step tests its cluster a chunk
+//     of 256 columns at a time, thread k holding column c * 256 + k of
+//     chunk c (row r of cluster cid at (cid * 40 + r) * cluster + column);
+//     a lane past the cluster's end holds zeros, whose den is 0 (or NaN with
+//     NaN sides), so it never hits, and a warp with no column skips the test
+//     loop. Every chunk tests against the t at the step's start; the owner
+//     folds each chunk's 8 warps in column order into the step's running
+//     best (an equal t to the larger column, so to the later chunk) and
+//     takes it after the last chunk, so a later step, another cluster, takes
+//     the ray only with a strictly smaller t, as the twins do. part_k holds
+//     a column within its chunk (8 bits); the fold adds the chunk's first
+//     column. The next chunk of the same step is the next copy. Below 256
+//     columns lanes sit idle (cluster / 256 of them hold a column), and 257
+//     to 511 pay for two whole chunks. walk_chunks at cluster 256 took
+//     3.7265-3.7914 ms on tracer-512's bounce-1 pass against 3.3045-3.35 for
+//     walk (H100 80GB HBM3, 700 W, tests/torch_sweep_variants.py): nvcc
+//     schedules the test loop worse around the chunk loop, so the default
+//     size keeps its own walk.
 #pragma once
 
 #include <cstdint>
@@ -63,7 +83,7 @@
 namespace sweep_dev {
 
 constexpr int SUB = 256;
-constexpr int CLUSTER = 256;
+constexpr int CHUNK = 256;  // columns a step stages at a time: one a thread
 constexpr int ROWS = 40;
 constexpr int FEATS = 16;
 constexpr int USED = 25;  // used rows a triangle: 18 side, 4 num, 3 den
@@ -85,7 +105,7 @@ struct Smem {
   float2 ray_ob[SUB];      // o2, best t at the step's start (-1: any hit found)
   float part_t[WARPS][SUB];          // per (warp, packed ray): least t, +inf if none
   unsigned char part_k[WARPS][SUB];  // its column
-  float buf[USED][CLUSTER];          // column k: thread k's cluster rows
+  float buf[USED][CHUNK];            // column k: thread k's rows of the chunk
   int wmax[WARPS];
   unsigned wmask[WARPS];
 };
@@ -131,15 +151,35 @@ __device__ __forceinline__ Pack pack(float t, const float* __restrict__ feats, i
 }
 
 // Thread k: copy triangle k's used rows of cluster cid into column k of the
-// buffer, asynchronously (one group).
+// buffer, asynchronously (one group). Clusters of CHUNK columns.
 __device__ __forceinline__ void prefetch(const float* __restrict__ g_cluster, int cid, Smem& sm) {
-  const float* g = g_cluster + static_cast<int64_t>(cid) * ROWS * CLUSTER + threadIdx.x;
+  const float* g = g_cluster + static_cast<int64_t>(cid) * ROWS * CHUNK + threadIdx.x;
 #pragma unroll
   for (int r = 0; r < USED; ++r) {
     const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(&sm.buf[r][threadIdx.x]));
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
-                 "l"(g + used_row(r) * CLUSTER)
+                 "l"(g + used_row(r) * CHUNK)
                  : "memory");
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Thread k: copy column chunk * CHUNK + k's used rows of cluster cid (if
+// the cluster has that column) into column k of the buffer, asynchronously
+// (one group). Clusters of any size.
+__device__ __forceinline__ void prefetch_chunk(const float* __restrict__ g_cluster, int cid,
+                                               int chunk, int cluster, Smem& sm) {
+  const int col = chunk * CHUNK + static_cast<int>(threadIdx.x);
+  if (col < cluster) {
+    const float* g = g_cluster + static_cast<int64_t>(cid) * ROWS * cluster + col;
+#pragma unroll
+    for (int r = 0; r < USED; ++r) {
+      const unsigned dst =
+          static_cast<unsigned>(__cvta_generic_to_shared(&sm.buf[r][threadIdx.x]));
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+                   "l"(g + static_cast<int64_t>(used_row(r)) * cluster)
+                   : "memory");
+    }
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -153,6 +193,15 @@ __device__ __forceinline__ void take(const Smem& sm, float q[USED]) {
   wait_prefetch();
 #pragma unroll
   for (int r = 0; r < USED; ++r) q[r] = sm.buf[r][threadIdx.x];
+}
+
+// take for a chunk of `width` columns: zeros for a lane past the cluster's
+// end (never a hit: its den is 0, or NaN with NaN sides).
+__device__ __forceinline__ void take_chunk(const Smem& sm, float q[USED], int width) {
+  wait_prefetch();
+  const bool valid = static_cast<int>(threadIdx.x) < width;
+#pragma unroll
+  for (int r = 0; r < USED; ++r) q[r] = valid ? sm.buf[r][threadIdx.x] : 0.0f;
 }
 
 // left-to-right six-term dot of [d, m] with an edge's six rows
@@ -222,7 +271,6 @@ __device__ __forceinline__ void test_rays(const float q[USED], Smem& sm, int i0)
     }
   }
 }
-
 // Test the `count` packed rays against this thread's triangle q (column
 // threadIdx.x): per (ray, warp), one (t, k) into part_t/part_k (closest
 // hit) or the retire flag (any hit). Barriers before (the packed list) and
@@ -236,6 +284,20 @@ __device__ __forceinline__ void test_step(const float q[USED], Smem& sm, int cou
   constexpr int R = ANY_HIT ? 3 : 4;
   for (; i + R <= count; i += R) test_rays<ANY_HIT, R>(q, sm, i);
   for (; i < count; ++i) test_rays<ANY_HIT, 1>(q, sm, i);
+  __syncthreads();
+}
+
+// test_step for a chunk of `width` columns: a warp with no column skips
+// the loop (it still meets the barriers).
+template <bool ANY_HIT>
+__device__ __forceinline__ void test_chunk(const float q[USED], Smem& sm, int count, int width) {
+  __syncthreads();
+  if ((threadIdx.x & ~31u) < static_cast<unsigned>(width)) {
+    int i = 0;
+    constexpr int R = ANY_HIT ? 3 : 4;
+    for (; i + R <= count; i += R) test_rays<ANY_HIT, R>(q, sm, i);
+    for (; i < count; ++i) test_rays<ANY_HIT, 1>(q, sm, i);
+  }
   __syncthreads();
 }
 
@@ -264,13 +326,33 @@ __device__ __forceinline__ void merge(Smem& sm, int pos, int cid, float& t, int&
   }
   if (ci >= 0) {
     t = cur;
-    idx = cid * CLUSTER + ci;
+    idx = cid * CHUNK + ci;
+  }
+}
+
+// Closest hit, clusters of any size: the owner of a packed ray folds one
+// chunk's results, whose first column is col0, into the step's running
+// best (cur, ci): ascending column, so an equal t goes to the larger
+// column, the later chunk's too.
+template <bool ANY_HIT>
+__device__ __forceinline__ void fold(Smem& sm, int pos, int col0, float& cur, int& ci) {
+  if (ANY_HIT || pos < 0) return;
+  const float inf = __int_as_float(0x7f800000);
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) {
+    const float pt = sm.part_t[w][pos];
+    if (pt < inf && pt <= cur) {
+      cur = pt;
+      ci = col0 + sm.part_k[w][pos];
+    }
+    sm.part_t[w][pos] = inf;
   }
 }
 
 // One sub-block's walk, given the kernel's step search: next(from, bound)
 // is the first live step at or after `from` under `bound`, or -1. Every
 // thread computes the same steps (the same loads and the same bound).
+// Clusters of CHUNK columns: one chunk a step, every size a constant.
 template <bool ANY_HIT, typename Next>
 __device__ __forceinline__ void walk(const int* __restrict__ order_row,
                                      const float* __restrict__ feats,
@@ -299,6 +381,71 @@ __device__ __forceinline__ void walk(const int* __restrict__ order_row,
     if (staged >= 0) prefetch(g_cluster, order_row[staged], sm);
     test_step<ANY_HIT>(q, sm, pk.count);
     merge<ANY_HIT>(sm, pk.pos, cid, t, idx);
+    pk = pack(t, feats, ray, sm);
+    j = next(j + 1, pk.bound);
+  }
+  wait_prefetch();
+  best_t[ray] = t;
+  best_i[ray] = idx;
+}
+
+// walk for clusters of any size: a step tests its cluster's `cluster`
+// columns a chunk at a time, every chunk against the t at the step's start,
+// and the owner takes the step's best after the last chunk (so the next
+// step, another cluster, takes the ray only with a strictly smaller t).
+template <bool ANY_HIT, typename Next>
+__device__ __forceinline__ void walk_chunks(const int* __restrict__ order_row,
+                                            const float* __restrict__ feats,
+                                            const float* __restrict__ tmax,
+                                            const float* __restrict__ g_cluster, int cluster,
+                                            float* __restrict__ best_t,
+                                            int* __restrict__ best_i, Smem& sm, Next next) {
+  const int64_t ray = static_cast<int64_t>(blockIdx.x) * SUB + threadIdx.x;
+  float t = tmax[ray];
+  int idx = -1;
+  if (!ANY_HIT)
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) sm.part_t[w][threadIdx.x] = __int_as_float(0x7f800000);
+  const int chunks = (cluster + CHUNK - 1) / CHUNK;
+  Pack pk = pack(t, feats, ray, sm);
+  int j = next(0, pk.bound);
+  // the (step, chunk) whose rows are in (or on their way to) the buffer
+  int staged = -1, staged_chunk = 0;
+  while (j >= 0) {
+    const int cid = order_row[j];
+    float cur = __int_as_float(0x7f800000);  // the step's best so far (closest hit)
+    int ci = -1;
+    for (int c = 0; c < chunks; ++c) {
+      const int width = min(CHUNK, cluster - c * CHUNK);
+      if (staged != j || staged_chunk != c) {
+        wait_prefetch();
+        prefetch_chunk(g_cluster, cid, c, cluster, sm);
+      }
+      float q[USED];
+      take_chunk(sm, q, width);
+      if (c + 1 < chunks) {
+        staged = j;
+        staged_chunk = c + 1;
+        prefetch_chunk(g_cluster, cid, c + 1, cluster, sm);
+      } else {
+        staged = next(j + 1, pk.bound);
+        staged_chunk = 0;
+        if (staged >= 0) prefetch_chunk(g_cluster, order_row[staged], 0, cluster, sm);
+      }
+      test_chunk<ANY_HIT>(q, sm, pk.count, width);
+      fold<ANY_HIT>(sm, pk.pos, c * CHUNK, cur, ci);
+    }
+    if (pk.pos >= 0) {
+      if (ANY_HIT) {
+        if (sm.ray_ob[pk.pos].y < 0.0f) {
+          t = -1.0f;
+          idx = 0;
+        }
+      } else if (ci >= 0) {
+        t = cur;
+        idx = cid * cluster + ci;
+      }
+    }
     pk = pack(t, feats, ray, sm);
     j = next(j + 1, pk.bound);
   }

@@ -13,7 +13,7 @@
 // live-step count and no block-wide stop. A live step tests the rays still
 // live against the step's cluster order[b, j] with B5's test and merge
 // (sweep_common.cuh), so the output equals B5's bit for bit: equal t within
-// a cluster goes to the larger cid * 256 + col, across clusters strict <
+// a cluster goes to the larger cid * cluster + col, across clusters strict <
 // keeps the earlier step, any hit retires the ray with t = -1 and index 0.
 //
 // The TPU kernel's hold-previous fetch table and its feature-major side and
@@ -22,8 +22,8 @@
 // B5 does.
 //
 // Bound on the H100: B5's (the same pairs and tests): about 45 float
-// operations per (ray, triangle) test of a ray live at its step, and 25 KB
-// of cluster rows per live (sub-block, step) pair; chip_smoke.py counts both
+// operations per (ray, triangle) test of a ray live at its step, and 100 B
+// of cluster rows a column (25 KB at 256) per live (sub-block, step) pair; chip_smoke.py counts both
 // from the run's data and reports the larger.
 //
 // Design: B5's (sweep_common.cuh: live rays packed per step, triangles
@@ -40,12 +40,12 @@ namespace {
 
 using namespace sweep_dev;
 
-template <bool ANY_HIT>
+template <bool ANY_HIT, bool ANY_SIZE>
 __global__ void __launch_bounds__(SUB, BLOCKS_PER_SM)
 sweep_grid_kernel(const int* __restrict__ e_bits, const int* __restrict__ order,
                   const float* __restrict__ feats, const float* __restrict__ tmax,
                   const float* __restrict__ g_cluster, float* __restrict__ best_t,
-                  int* __restrict__ best_i, int nsub, int nc) {
+                  int* __restrict__ best_i, int nsub, int nc, int cluster) {
   __shared__ __align__(16) Smem sm;
   const int b = blockIdx.x / nsub;
   const int* e_row = e_bits + static_cast<int64_t>(blockIdx.x) * nc;
@@ -59,8 +59,11 @@ sweep_grid_kernel(const int* __restrict__ e_bits, const int* __restrict__ order,
     }
     return -1;
   };
-  walk<ANY_HIT>(order + static_cast<int64_t>(b) * nc, feats, tmax, g_cluster, best_t, best_i,
-                sm, next);
+  const int* order_row = order + static_cast<int64_t>(b) * nc;
+  if constexpr (ANY_SIZE)
+    walk_chunks<ANY_HIT>(order_row, feats, tmax, g_cluster, cluster, best_t, best_i, sm, next);
+  else
+    walk<ANY_HIT>(order_row, feats, tmax, g_cluster, best_t, best_i, sm, next);
 }
 
 }  // namespace
@@ -68,12 +71,13 @@ sweep_grid_kernel(const int* __restrict__ e_bits, const int* __restrict__ order,
 extern "C" int sailor_sweep_grid(const int* e_bits, const int* order, const float* feats,
                                  const float* tmax, const float* g_cluster, float* best_t,
                                  int* best_i, int n_sub_blocks, int nsub, int nc,
-                                 int any_hit, cudaStream_t stream) {
-  if (any_hit)
-    sweep_grid_kernel<true><<<n_sub_blocks, SUB, 0, stream>>>(
-        e_bits, order, feats, tmax, g_cluster, best_t, best_i, nsub, nc);
-  else
-    sweep_grid_kernel<false><<<n_sub_blocks, SUB, 0, stream>>>(
-        e_bits, order, feats, tmax, g_cluster, best_t, best_i, nsub, nc);
+                                 int cluster, int any_hit, cudaStream_t stream) {
+  if (cluster < 1) return static_cast<int>(cudaErrorInvalidValue);
+  using Kernel = decltype(&sweep_grid_kernel<true, true>);
+  const Kernel kernels[2][2] = {{sweep_grid_kernel<false, false>, sweep_grid_kernel<false, true>},
+                                {sweep_grid_kernel<true, false>, sweep_grid_kernel<true, true>}};
+  const Kernel kernel = kernels[any_hit ? 1 : 0][cluster == CHUNK ? 0 : 1];
+  kernel<<<n_sub_blocks, SUB, 0, stream>>>(e_bits, order, feats, tmax, g_cluster, best_t, best_i,
+                                           nsub, nc, cluster);
   return static_cast<int>(cudaGetLastError());
 }

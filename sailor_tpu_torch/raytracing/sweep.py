@@ -1,7 +1,9 @@
 """Cluster sweep intersector (counterpart of sailor_tpu/raytracing/sweep.py).
 
-Triangles are sorted into spatial clusters of ``CLUSTER`` (the BVH leaf
-order of ``raytracing/bvh.py``) and re-expressed so that every per-(ray,
+Triangles are sorted into spatial clusters of ``cluster`` triangles each
+(``build(cluster=)``, by default ``CLUSTER``: ``SAILOR_SWEEP_CLUSTER`` read
+at import, 256 without it, as the reference reads it; the BVH leaf order of
+``raytracing/bvh.py``) and re-expressed so that every per-(ray,
 triangle) quantity is a short dot product with the ray's features:
 
 - Plücker side tests: a ray (o, d) has line coordinates (d, m = o x d), the
@@ -26,7 +28,7 @@ triangle) quantity is a short dot product with the ray's features:
   bits: dead rays hold -1.0, whose bits are negative), stops once the
   sorted block entry of the step reaches the bound, and tests every
   (ray, triangle) pair of a live step. Closest hit keeps the least t, equal
-  t within a cluster going to the larger ``cid * CLUSTER + col`` and across
+  t within a cluster going to the larger ``cid * cluster + col`` and across
   clusters to the earlier-visited one; any hit retires the ray with
   t = -1 and index 0;
 - with it off B6, the same function over the dense (block, step) grid
@@ -39,7 +41,9 @@ operations in the same order; the wrappers take the twin only for tensors
 on the CPU. The winners' t/u/v are refined by one Moller-Trumbore test on
 the winner rows (``_refine``, plain PyTorch). ``intersect(sort_rays=True)``
 first sorts the rays by the first cluster they enter and a direction code
-(plain PyTorch). ``CLUSTER``, ``RAY_BLOCK`` and ``SUB`` are constants.
+(plain PyTorch). A scene's cluster size is ``SweepScene.cluster``, the last
+axis of its ``g_cluster``; the kernels take it at run time. ``RAY_BLOCK``
+and ``SUB`` are constants.
 """
 
 from __future__ import annotations
@@ -54,13 +58,19 @@ from sailor_tpu_torch.core import math3d as m3
 from sailor_tpu_torch.kernels import cuda_lib
 from sailor_tpu_torch.raytracing import bvh
 
-CLUSTER = 256
+# triangles a cluster: build()'s default, read once at import as the
+# reference reads it (tools/time_sweep.py documents the knob)
+CLUSTER = int(os.environ.get("SAILOR_SWEEP_CLUSTER", "256"))
 RAY_BLOCK = 2048
 SUB = 256
 FEATS = 16   # ray feature columns: [d, m, 0, 0 | o, 1, d, 0]
 ROWS = 40    # cluster feature rows, see SweepScene
 USED_ROWS = 25  # rows B5 reads: 18 side, 4 num, 3 den
-_PLAIN_CHUNK = 128  # sub-blocks the sweep twins test at a time
+_PLAIN_CHUNK = 128  # sub-blocks the sweep twins test at a time, at 256 a cluster
+# B4 keeps its per-block tables in shared memory up to this many clusters
+# (68 B a cluster: 204 KB of the H100's 227 KB a block) and in a global
+# scratch the wrapper allocates above it (csrc/slab_entry.cu, SMEM_CLUSTERS)
+SLAB_SMEM_CLUSTERS = 3072
 # B5's per-block walk (on) or B6's dense grid (off), as the reference reads it
 DMA_SWEEP = os.environ.get("SAILOR_SWEEP_DMA", "1") == "1"
 # The reference's routing rule, not a limit of the card: its sweep keeps the
@@ -82,7 +92,7 @@ def scalar_bytes(scene: "SweepScene", num_rays: int) -> int:
 
 @dataclasses.dataclass
 class SweepScene:
-    # (C, 40, CLUSTER) float32 per-cluster features of the triangles in BVH
+    # (C, 40, cluster) float32 per-cluster features of the triangles in BVH
     # leaf order: rows 8e..8e+5 = [A x B, B - A] of edge e (A->B, B->C,
     # C->A), rows 24:27 = -n, row 27 = k, rows 36:39 = n; other rows zero.
     # Padding triangles are all zero, so their n . d = 0 rejects them.
@@ -93,15 +103,30 @@ class SweepScene:
     cl_max: torch.Tensor   # (C, 3)
     num_tris: int
     n_clusters: int
+    cluster: int = CLUSTER  # triangles a cluster: g_cluster.shape[2]
 
 
-def build_arrays(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray) -> dict:
-    """Cluster and featurise a triangle soup (host, numpy), with the
-    reference's calls in the reference's order."""
+def check_cluster(cluster: int) -> int:
+    """``cluster`` as an int, or ValueError for a size the kernels cannot
+    take: below 1 (no triangle a cluster)."""
+    if int(cluster) != cluster or cluster < 1:
+        raise ValueError(f"sweep cluster size {cluster!r}: must be an integer of at least 1")
+    return int(cluster)
+
+
+def build_arrays(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray, *,
+                 cluster: int = CLUSTER) -> dict:
+    """Cluster and featurise a triangle soup (host, numpy) into clusters
+    of ``cluster`` triangles, with the reference's calls in the
+    reference's order."""
+    cluster = check_cluster(cluster)
     order = bvh.build(np.asarray(v0), np.asarray(v1), np.asarray(v2)).tri_index
     a, bb, c = np.asarray(v0)[order], np.asarray(v1)[order], np.asarray(v2)[order]
     t = a.shape[0]
-    tp = max(CLUSTER, -(-t // CLUSTER) * CLUSTER)
+    tp = max(cluster, -(-t // cluster) * cluster)
+    if tp >= 2 ** 31:
+        raise ValueError(f"sweep cluster size {cluster}: {tp} padded triangles exceed the "
+                         f"int32 triangle index (limit {2 ** 31 - 1})")
 
     def pad(x):
         return np.concatenate([x, np.full((tp - t,) + x.shape[1:], 0.0, x.dtype)])
@@ -119,12 +144,12 @@ def build_arrays(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray) -> dict:
     gp[0:3] = -n.T
     gp[3] = k
     gp[12:15] = n.T
-    nc = tp // CLUSTER
-    tri_min = np.minimum(np.minimum(a, bb), c).reshape(nc, CLUSTER, 3)
-    tri_max = np.maximum(np.maximum(a, bb), c).reshape(nc, CLUSTER, 3)
+    nc = tp // cluster
+    tri_min = np.minimum(np.minimum(a, bb), c).reshape(nc, cluster, 3)
+    tri_max = np.maximum(np.maximum(a, bb), c).reshape(nc, cluster, 3)
     gc = np.concatenate([g, gp], axis=0)
     return {
-        "g_cluster": np.transpose(gc.reshape(ROWS, nc, CLUSTER), (1, 0, 2)).copy(),
+        "g_cluster": np.transpose(gc.reshape(ROWS, nc, cluster), (1, 0, 2)).copy(),
         "v0e1e2": np.concatenate([a, e1, e2], axis=1).astype(np.float32),
         "tri_id": tri_id,
         "cl_min": tri_min.min(axis=1),
@@ -135,7 +160,9 @@ def build_arrays(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray) -> dict:
 
 def sweep_scene_from_numpy(arrays: dict, device="cuda") -> SweepScene:
     """A SweepScene from numpy arrays: ``build_arrays``' output, or the
-    fields of the JAX package's SweepScene of the same names."""
+    fields of the JAX package's SweepScene of the same names; the cluster
+    size is the last axis of ``g_cluster``, so a scene carried from the
+    reference keeps its own."""
     def t(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
@@ -144,13 +171,16 @@ def sweep_scene_from_numpy(arrays: dict, device="cuda") -> SweepScene:
                       tri_id=t(arrays["tri_id"]).to(torch.int32),
                       cl_min=t(arrays["cl_min"]).to(torch.float32),
                       cl_max=t(arrays["cl_max"]).to(torch.float32),
-                      num_tris=int(arrays["num_tris"]), n_clusters=int(gc.shape[0]))
+                      num_tris=int(arrays["num_tris"]), n_clusters=int(gc.shape[0]),
+                      cluster=check_cluster(int(gc.shape[2])))
 
 
-def build(v0, v1, v2, device="cuda") -> SweepScene:
-    """Cluster and featurise a triangle soup on the host, then move it to
-    ``device``."""
-    return sweep_scene_from_numpy(build_arrays(v0, v1, v2), device)
+def build(v0, v1, v2, *, cluster: int = CLUSTER, device="cuda") -> SweepScene:
+    """Cluster and featurise a triangle soup on the host into clusters of
+    ``cluster`` triangles (ValueError for a size the kernels cannot take:
+    below 1, or padding the soup past the int32 triangle index), then
+    move it to ``device``."""
+    return sweep_scene_from_numpy(build_arrays(v0, v1, v2, cluster=cluster), device)
 
 
 # ------------------------------------------- B4 slab entry and visit tables
@@ -219,7 +249,8 @@ def visit_tables_plain(o, d, tmax, cl_min, cl_max):
 def visit_tables_cuda(o, d, tmax, cl_min, cl_max):
     """B4 on the card: csrc/slab_entry.cu, the feature rows, the entries
     and the visit tables in one launch (one block per ray block), no host
-    synchronisation."""
+    synchronisation; any cluster count (above ``SLAB_SMEM_CLUSTERS`` the
+    blocks keep their tables in a global scratch allocated here)."""
     dev = o.device
     rp, nc = o.shape[0], cl_min.shape[0]
     if rp % RAY_BLOCK:
@@ -235,9 +266,12 @@ def visit_tables_cuda(o, d, tmax, cl_min, cl_max):
            "order": torch.empty(nb, nc, dtype=torch.int32, device=dev),
            "blk_bits": torch.empty(nb, nc, dtype=torch.int32, device=dev),
            "nlive": torch.empty(nb, dtype=torch.int32, device=dev)}
+    scratch = (torch.empty(nb, RAY_BLOCK // SUB + 1, nc, dtype=torch.int32, device=dev)
+               if nc > SLAB_SMEM_CLUSTERS else None)
     err = cuda_lib.launch(o, cuda_lib.load().sailor_slab_tables,
         o.data_ptr(), d.data_ptr(), tmax.data_ptr(), cl_min.data_ptr(), cl_max.data_ptr(),
-        *(t.data_ptr() for t in out.values()), nb, nc, cuda_lib.stream_of(o))
+        *(t.data_ptr() for t in out.values()), 0 if scratch is None else scratch.data_ptr(),
+        nb, nc, cuda_lib.stream_of(o))
     cuda_lib.check(err, "sailor_slab_tables")
     cuda_lib.count("slab_entry")
     return out
@@ -263,8 +297,11 @@ def _walk_plain(e_bits, order, blk_bits, feats, tmax, g_cluster, *, any_hit: boo
     sub-blocks at a time. With ``blk_bits`` (B5) the walk stops at the first
     step where no sub-block is live and every block's sorted entry has
     reached its sub-blocks' bounds; without (B6) it visits every step. The
-    six-term dots are summed left to right as the kernels sum them."""
+    six-term dots are summed left to right as the kernels sum them. The
+    cluster size is ``g_cluster``'s last axis."""
     nb, nc = order.shape
+    cluster = g_cluster.shape[2]
+    chunk = max(1, _PLAIN_CHUNK * 256 // cluster)
     nsb = feats.shape[0] // SUB
     nsub = nsb // nb
     t = tmax.clone()
@@ -273,7 +310,7 @@ def _walk_plain(e_bits, order, blk_bits, feats, tmax, g_cluster, *, any_hit: boo
     bound = _bits_max(t)
     blk_of = torch.arange(nsb, device=feats.device) // nsub
     f = feats.view(nsb, SUB, FEATS)
-    col = torch.arange(CLUSTER, device=feats.device, dtype=torch.int32)
+    col = torch.arange(cluster, device=feats.device, dtype=torch.int32)
     pairs = tests = 0
     for j in range(nc):
         live = (e_bits[:, j] < bound).nonzero()[:, 0]
@@ -282,10 +319,10 @@ def _walk_plain(e_bits, order, blk_bits, feats, tmax, g_cluster, *, any_hit: boo
                 break  # entries are visit-sorted: no later step is live
             continue
         pairs += live.numel()
-        for c0 in range(0, live.numel(), _PLAIN_CHUNK):
-            s = live[c0:c0 + _PLAIN_CHUNK]
+        for c0 in range(0, live.numel(), chunk):
+            s = live[c0:c0 + chunk]
             cid = order[blk_of[s], j]
-            g = g_cluster[cid.long()]                      # (n, 40, CLUSTER)
+            g = g_cluster[cid.long()]                      # (n, 40, cluster)
             r = f[s]                                       # (n, SUB, 16)
 
             def ray(k):
@@ -309,7 +346,7 @@ def _walk_plain(e_bits, order, blk_bits, feats, tmax, g_cluster, *, any_hit: boo
             best = tv[s][:, :, None]
             ok = agree & (den != 0.0) & (tval > 1e-4) & (tval < best)
             if work is not None:
-                n_test = torch.full(best.shape[:2], CLUSTER, device=feats.device)
+                n_test = torch.full(best.shape[:2], cluster, device=feats.device)
                 if any_hit:
                     first = ok.to(torch.uint8).argmax(2) + 1
                     n_test = torch.where(ok.any(2), first, n_test)
@@ -321,7 +358,7 @@ def _walk_plain(e_bits, order, blk_bits, feats, tmax, g_cluster, *, any_hit: boo
             else:
                 tm = torch.where(ok, tval, torch.inf)
                 row_best = tm.amin(2)
-                gidx = cid[:, None, None] * CLUSTER + col
+                gidx = cid[:, None, None] * cluster + col
                 row_idx = torch.where((tm == row_best[:, :, None]) & ok, gidx, -1).amax(2)
                 found = row_idx >= 0
                 tv[s] = torch.where(found, row_best, tv[s])
@@ -346,9 +383,17 @@ def sweep_plain(e_bits, order, blk_bits, nlive, feats, tmax, g_cluster, *,
                        any_hit=any_hit, work=work)
 
 
+def _g_cluster_size(g_cluster) -> int:
+    """The cluster size of a (C, 40, cluster) ``g_cluster``, checked."""
+    if g_cluster.dim() != 3:
+        raise ValueError(f"g_cluster must be (C, {ROWS}, cluster), not {tuple(g_cluster.shape)}")
+    return check_cluster(g_cluster.shape[2])
+
+
 def sweep_cuda(e_bits, order, blk_bits, nlive, feats, tmax, g_cluster, *,
                any_hit: bool):
-    """B5 on the card: csrc/sweep.cu, one launch (one block per sub-block)."""
+    """B5 on the card: csrc/sweep.cu, one launch (one block per sub-block),
+    the cluster size from ``g_cluster``."""
     dev = feats.device
     nb, nc = order.shape
     rp = feats.shape[0]
@@ -361,13 +406,14 @@ def sweep_cuda(e_bits, order, blk_bits, nlive, feats, tmax, g_cluster, *,
     cuda_lib.require(blk_bits, "blk_bits", torch.int32, (nb, nc), dev)
     cuda_lib.require(nlive, "nlive", torch.int32, (nb,), dev)
     cuda_lib.require(tmax, "tmax", torch.float32, (rp,), dev)
-    cuda_lib.require(g_cluster, "g_cluster", torch.float32, (nc, ROWS, CLUSTER), dev)
+    cluster = _g_cluster_size(g_cluster)
+    cuda_lib.require(g_cluster, "g_cluster", torch.float32, (nc, ROWS, cluster), dev)
     best_t = torch.empty(rp, dtype=torch.float32, device=dev)
     best_i = torch.empty(rp, dtype=torch.int32, device=dev)
     err = cuda_lib.launch(feats, cuda_lib.load().sailor_sweep,
         e_bits.data_ptr(), order.data_ptr(), blk_bits.data_ptr(), nlive.data_ptr(),
         feats.data_ptr(), tmax.data_ptr(), g_cluster.data_ptr(), best_t.data_ptr(),
-        best_i.data_ptr(), nsb, RAY_BLOCK // SUB, nc, int(any_hit),
+        best_i.data_ptr(), nsb, RAY_BLOCK // SUB, nc, cluster, int(any_hit),
         cuda_lib.stream_of(feats))
     cuda_lib.check(err, "sailor_sweep")
     cuda_lib.count("sweep")
@@ -393,7 +439,7 @@ def sweep_grid_plain(e_bits, order, feats, tmax, g_cluster, *, any_hit: bool,
 
 def sweep_grid_cuda(e_bits, order, feats, tmax, g_cluster, *, any_hit: bool):
     """B6 on the card: csrc/sweep_grid.cu, one launch (one block per
-    sub-block)."""
+    sub-block), the cluster size from ``g_cluster``."""
     dev = feats.device
     nb, nc = order.shape
     rp = feats.shape[0]
@@ -404,13 +450,14 @@ def sweep_grid_cuda(e_bits, order, feats, tmax, g_cluster, *, any_hit: bool):
     cuda_lib.require(e_bits, "e_bits", torch.int32, (nsb, nc), dev)
     cuda_lib.require(order, "order", torch.int32, (nb, nc), dev)
     cuda_lib.require(tmax, "tmax", torch.float32, (rp,), dev)
-    cuda_lib.require(g_cluster, "g_cluster", torch.float32, (nc, ROWS, CLUSTER), dev)
+    cluster = _g_cluster_size(g_cluster)
+    cuda_lib.require(g_cluster, "g_cluster", torch.float32, (nc, ROWS, cluster), dev)
     best_t = torch.empty(rp, dtype=torch.float32, device=dev)
     best_i = torch.empty(rp, dtype=torch.int32, device=dev)
     err = cuda_lib.launch(feats, cuda_lib.load().sailor_sweep_grid,
         e_bits.data_ptr(), order.data_ptr(), feats.data_ptr(), tmax.data_ptr(),
         g_cluster.data_ptr(), best_t.data_ptr(), best_i.data_ptr(), nsb,
-        RAY_BLOCK // SUB, nc, int(any_hit), cuda_lib.stream_of(feats))
+        RAY_BLOCK // SUB, nc, cluster, int(any_hit), cuda_lib.stream_of(feats))
     cuda_lib.check(err, "sailor_sweep_grid")
     cuda_lib.count("sweep_grid")
     return best_t, best_i

@@ -6,11 +6,14 @@ Chains K dependent ``sweep.intersect`` calls, each re-aiming the rays
 from the previous hits so that nothing can be skipped, times the chain of
 1 and of K with CUDA events after a synchronise, and prints
 (T(K) - T(1)) / (K - 1), the cost of one dispatch free of the chain's
-fixed costs. The sweep's own knobs (``SAILOR_SWEEP_*``) apply as
-``raytracing/sweep.py`` reads them.
+fixed costs. The sweep's own knobs (``SAILOR_SWEEP_*``: the cluster size
+``SAILOR_SWEEP_CLUSTER``, ``SAILOR_SWEEP_DMA``, ``SAILOR_SWEEP_SMEM``)
+apply as ``raytracing/sweep.py`` reads them; the scene's sweep is built at
+the default cluster size, which the tool prints with its result.
 
 Usage:
   python -m sailor_tpu_torch.tools.time_sweep              # the card, 512 x 512
+  SAILOR_SWEEP_CLUSTER=512 python -m sailor_tpu_torch.tools.time_sweep
   python -m sailor_tpu_torch.tools.time_sweep --cpu        # the twins, 32 x 32
   python -m sailor_tpu_torch.tools.time_sweep --size 256 --k 5 --any-hit --incoherent
 """
@@ -49,7 +52,7 @@ def main(argv=None) -> int:
         d = torch.randn((r, 3), generator=g, device=device)
         d = d / d.norm(dim=1, keepdim=True)
         o = o + 5.0
-    print(f"# {scene.num_triangles} tris, {sw.n_clusters} clusters, CLUSTER={sweep_mod.CLUSTER} "
+    print(f"# {scene.num_triangles} tris, {sw.n_clusters} clusters of {sw.cluster}, "
           f"RAY_BLOCK={sweep_mod.RAY_BLOCK} SUB={sweep_mod.SUB} DMA={sweep_mod.DMA_SWEEP} "
           f"size={size} any_hit={args.any_hit} incoherent={args.incoherent} device={device}",
           file=sys.stderr)
@@ -69,7 +72,7 @@ def main(argv=None) -> int:
     per = (tk - t1) / (args.k - 1)
     rate = r / (per * 1e-3) / 1e6 if per > 0 else float("inf")
     print(f"T(1)={t1:.3f} ms  T({args.k})={tk:.3f} ms  per-dispatch={per:.3f} ms  "
-          f"({rate:.1f} Mrays/s)")
+          f"({rate:.1f} Mrays/s)  cluster={sw.cluster}")
     return 0
 
 

@@ -114,7 +114,7 @@ def test_raster_work_counts_aabb_pairs(frame_rows, source):
 def _walk(p, g_cluster, any_hit, grid=False):
     """B5's walk (B6's with ``grid``: every step, no stop) for one sub-block
     at a time, in numpy float32."""
-    sub, cl = sweep.SUB, sweep.CLUSTER
+    sub, cl = sweep.SUB, g_cluster.shape[2]
     e_bits, order, blk_bits, nlive, feats, tmax = (
         p[k].numpy() for k in ("e_bits", "order", "blk_bits", "nlive", "feats", "tmax"))
     g_all = g_cluster.numpy()
@@ -798,3 +798,56 @@ def test_tools_phase_rehearsal(rehearsal, monkeypatch, capsys):
     assert re.search(r"hiz=1  frame [\d.]+ ms .* culled [1-9]\d*/", out), out
     assert re.search(r"hiz=0  frame [\d.]+ ms .* culled 0/", out), out
     assert re.search(r"== frames: best [\d.]+ ms", out) and "TOTAL" in out, out
+
+
+def test_sweep_clusters_phase_rehearsal(rehearsal, monkeypatch, capsys):
+    """run_sweep_clusters at 32x32 and clusters of 64 and 512 on the tracer
+    scene with 2 spheres (4,610 triangles, so cluster size 1 still passes
+    B4's shared tables): at every size the render's launches, the twins
+    held to themselves, the bounds; the tool's subprocess and the two small renders, which other
+    rehearsals and tests/test_torch_tools.py run, stubbed (the cluster-37
+    scene is built)."""
+    import subprocess
+    import types
+
+    from sailor_tpu_torch import scenes
+    from sailor_tpu_torch.kernels import cuda_lib
+
+    soup = scenes.tracer_soup
+    monkeypatch.setattr(scenes, "tracer_soup", lambda rings=24, sectors=48, spheres=2:
+                        soup(rings, sectors, spheres))
+    monkeypatch.setattr(chip_smoke, "TRACER", (32, 32, 2, 1))
+    monkeypatch.setattr(chip_smoke, "SWEEP_CLUSTERS", (64, 512))  # one chunk, and two
+
+    def grid_twin(*args, **kw):
+        cuda_lib.LAUNCHES["sweep_grid"] += 1
+        return sweep.sweep_grid_plain(*args, **kw)
+
+    monkeypatch.setattr(sweep, "sweep_grid_cuda", grid_twin)
+    monkeypatch.setattr(chip_smoke, "profiled_us", lambda fns, reps=5: {
+        k: (fn() and 1.0, "profiler") for k, fn in fns.items()})
+    monkeypatch.setattr(chip_smoke, "_time_ms", lambda fn, reps: fn() and 1.0)
+    tool = subprocess.CompletedProcess(
+        [], 0, stdout="T(1)=1 ms  T(9)=2 ms  per-dispatch=0.125 ms  (1 Mrays/s)  cluster=512\n",
+        stderr="# clusters of 512\n")
+    monkeypatch.setattr(chip_smoke, "subprocess", types.SimpleNamespace(run=lambda *a, **k: tool))
+    small = []
+
+    def small_trace(scene_fn, label, grid=False, spp=2):
+        small.append((label, spp))
+        cuda_lib.LAUNCHES.update(["slab_entry", "sweep"])  # as a render would
+        if "37" in label:
+            assert scene_fn("cpu")[0].sweep.cluster == 37
+
+    monkeypatch.setattr(chip_smoke, "check_small_trace", small_trace)
+    rows, launches = chip_smoke.run_sweep_clusters(rehearsal)
+    assert small == [("tracer_cluster_37", 2), ("tracer_dense_sweep", 1)]
+    sizes = [str(c) for c in chip_smoke.SWEEP_CLUSTERS]
+    assert list(rows["sweep"]) == list(rows["sweep_grid"]) == sizes
+    assert list(rows["slab_entry"]) == sizes + ["1"]
+    assert rows["sweep"]["64"]["bounce1"]["n_clusters"] == 73
+    assert all(r["bounce1"]["bound_ms"] > 0 for r in rows["sweep"].values())
+    assert launches["slab_entry"] == launches["sweep"] == 4 * len(sizes) + 2
+    out = capsys.readouterr().out
+    assert out.count("b4_equal=True b5_equal=True b6_equal=True tied_equal=True") == 2 * len(sizes)
+    assert "4610 clusters" in out and "cluster=512" in out, out

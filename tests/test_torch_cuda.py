@@ -60,7 +60,13 @@ The tracer's kernels run on its own rays: every intersector pass of one
 128x128 sample of the bench tracer scene (camera, bounce-1 and shadow rays),
 and 64x64 renders on the card are held to the CPU path: the tracer scene
 through B5 and through B6, the material balls with the procedural sky and
-maps. The BVH8 traversal (``csrc/bvh8.cu``) is held to its twin bit for bit
+maps. The sweep at other cluster sizes (``sweep.build(cluster=)``): B4's
+tables, B5 and B6 bit-equal to their twins at clusters 37 and 1024 on the
+bounce-1 passes (also on tied clusters), B4 at 1,153 clusters (the dense
+scene: shared tables past the old 1,024 limit) and at 4,609 and 18,434
+(clusters of 4 and 1: the global-scratch tables), and 64x64 renders on the
+card against the CPU path at cluster 37 and of the dense scene's
+``tracer="sweep"`` (1 spp). The BVH8 traversal (``csrc/bvh8.cu``) is held to its twin bit for bit
 (t, u, v bits and ids: the same float32 operations, -fmad=false), closest
 and any hit, with and without a finite t_max and an active mask, on the
 soups of ``tests/torch_bvh8_soups.py`` (the deep one drops pushes at
@@ -90,7 +96,7 @@ import pytest
 import torch
 
 from chip_smoke import (bits_equal, cascade_inputs, check_culled_frame, check_small_frame,
-                        record_passes,
+                        cluster_scene, record_passes,
                         check_small_full_frame, check_small_queue_frame,
                         check_small_shadow_frame, check_small_trace, dense_runs, dma_runs,
                         evsm_shadow_factor, frame_inputs, heavy_tile_cases, heavy_tile_rows,
@@ -103,7 +109,7 @@ from sailor_tpu_torch.raster import setup as rsetup
 from sailor_tpu_torch.raster import tile_raster as tr
 from sailor_tpu_torch.raytracing import bvh8, sweep
 from sailor_tpu_torch.scenes import (dense_tracer_scene, flagship_queue_scene, flagship_scene,
-                                     tracer_scene)
+                                     tracer_scene, tracer_soup)
 from torch_bvh8_soups import SOUPS, rays, soup
 
 pytestmark = pytest.mark.cuda
@@ -706,6 +712,87 @@ def test_sweep_kernels_match_plain_on_sparse_passes(tracer_rays, npass, live, ti
     for t, i in ((t_5, i_5), (t_6, i_6)):
         assert torch.equal(i, i_p)
         assert torch.equal(t.view(torch.int32), t_p.view(torch.int32))
+
+
+@pytest.fixture(scope="module")
+def cluster_sweeps(tracer_rays):
+    """The tracer scene's sweep built at other cluster sizes, on the card,
+    each built once: a function of the cluster size."""
+    soup = tracer_soup()
+    tris = tuple(soup["position"][soup["indices"][:, k]] for k in range(3))
+    built = {}
+
+    def get(cluster):
+        if cluster not in built:
+            built[cluster] = sweep.build(*tris, cluster=cluster)
+        return built[cluster]
+
+    return get
+
+
+def _tables_at(sw, p, rays=None):
+    """B4's tables (the kernel) for the pass p's rays (the first ``rays``)
+    over the sweep ``sw``, and the twin's on the same inputs."""
+    rays = rays or p["tmax"].shape[0]
+    args = (p["feats"][:rays, 8:11].contiguous(), p["feats"][:rays, 0:3].contiguous(),
+            p["tmax"][:rays].contiguous(), sw.cl_min, sw.cl_max)
+    return sweep.visit_tables_cuda(*args), sweep.visit_tables_plain(*args)
+
+
+@pytest.mark.parametrize("cluster", [37, 1024])
+@pytest.mark.parametrize("npass", [2, 3], ids=["bounce1", "bounce1_shadow"])
+def test_sweep_kernels_match_plain_at_cluster(tracer_rays, cluster_sweeps, npass, cluster):
+    _, passes = tracer_rays
+    sw = cluster_sweeps(cluster)
+    assert sw.cluster == cluster and sw.g_cluster.shape[2] == cluster
+    got, ref = _tables_at(sw, passes[npass])
+    assert int(ref["nlive"].sum()) > 0 and tables_equal(got, ref)
+    p = dict(ref, tmax=passes[npass]["tmax"])
+    any_hit = passes[npass]["any_hit"]
+    for g in (sw.g_cluster, tied_clusters(sw.g_cluster)):
+        args = (p["e_bits"], p["order"], p["blk_bits"], p["nlive"], p["feats"], p["tmax"], g)
+        t_p, i_p = sweep.sweep_plain(*args, any_hit=any_hit)
+        t_5, i_5 = sweep.sweep_cuda(*args, any_hit=any_hit)
+        t_6, i_6 = sweep.sweep_grid_cuda(p["e_bits"], p["order"], p["feats"], p["tmax"], g,
+                                         any_hit=any_hit)
+        assert int((i_p >= 0).sum()) > 10
+        for t, i in ((t_5, i_5), (t_6, i_6)):
+            assert torch.equal(i, i_p)
+            assert torch.equal(t.view(torch.int32), t_p.view(torch.int32))
+
+
+@pytest.mark.parametrize("cluster,rays", [(4, 2 * sweep.RAY_BLOCK), (1, sweep.RAY_BLOCK)],
+                         ids=["4609_clusters", "18434_clusters"])
+def test_slab_entry_kernel_matches_plain_past_shared_tables(tracer_rays, cluster_sweeps,
+                                                            cluster, rays):
+    _, passes = tracer_rays
+    sw = cluster_sweeps(cluster)
+    assert sw.n_clusters > sweep.SLAB_SMEM_CLUSTERS
+    got, ref = _tables_at(sw, passes[2], rays)
+    assert int(ref["nlive"].sum()) > 0 and tables_equal(got, ref)
+
+
+@pytest.fixture(scope="module")
+def dense_sweep_scene(tracer_rays):
+    """``scene_fn`` of the dense scene with its sweep (1,153 clusters of
+    256), the host arrays built once."""
+    return cluster_scene(sweep.CLUSTER, rings=96, sectors=192)
+
+
+def test_slab_entry_kernel_matches_plain_on_dense_scene(tracer_rays, dense_sweep_scene):
+    _, passes = tracer_rays
+    sw = dense_sweep_scene("cuda")[0].sweep
+    assert sw.n_clusters == 1153
+    got, ref = _tables_at(sw, passes[2])
+    assert int(ref["nlive"].sum()) > 0 and tables_equal(got, ref)
+
+
+def test_dense_sweep_trace_on_card_matches_cpu(dense_sweep_scene):
+    check_small_trace(dense_sweep_scene, "tracer_dense_sweep", spp=1)
+
+
+def test_cluster_37_trace_on_card_matches_cpu(tracer_rays):
+    check_small_trace(cluster_scene(37), "tracer_cluster_37")
 
 
 @pytest.fixture(scope="module")

@@ -7,8 +7,7 @@ of ``sailor_tpu_torch``, and every argument of a reference function is an
 argument of the port's. ``EXCEPTIONS`` lists what the port leaves out, each
 with its reason: ROADMAP A 10's TPU-only items, the arguments the port
 replaces by its own idiom (a JAX key by a torch generator or uniforms, a
-mesh axis by the port's shard arguments), and one argument ROADMAP A
-still lists as to port.
+mesh axis by the port's shard arguments).
 
 The names the port gained last are then held to the reference: the
 ``config`` constants and ``RenderConfig``, the shadow types,
@@ -62,8 +61,6 @@ EXCEPTIONS = {
     "raytracing.path_tracer.trace_rays(key)": "a JAX PRNG key; the port takes uniforms",
     "raytracing.path_tracer.render(key)": "a JAX PRNG key; the port takes a seed or uniforms",
     "raytracing.path_tracer.render_cached(key)": "a JAX PRNG key; the port takes a seed",
-    "raytracing.sweep.build(cluster)": "ROADMAP A, still to port: the sweep kernels take "
-                                       "the cluster size as a compile-time constant",
 }
 
 

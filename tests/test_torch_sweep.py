@@ -2,7 +2,9 @@
 
 Same numpy inputs through both packages:
 - ``bvh.build`` and ``sweep.build``: every array exactly equal (the leaf
-  order fixes the clusters and the tie-break between equal t);
+  order fixes the clusters and the tie-break between equal t), also at
+  cluster sizes 37, 64, 128, 512 and 1024 (``build(cluster=)``), where the
+  port's ``SweepScene.cluster`` is the size;
 - B4: the port's ``slab_entry_plain`` against the reference's fused kernel
   ``_slab_entry_sub`` (Pallas interpret mode): finiteness equal, finite
   entries within 1e-6 relative (XLA may contract a product into the
@@ -18,6 +20,14 @@ Same numpy inputs through both packages:
 - B6, the port's grid sweep (``DMA_SWEEP`` off), against the reference's
   grid kernel in all four cases at the same bounds, and its twin equal to
   B5's twin bit for bit (t bits and ids) on the same tables;
+- B5 and B6 at cluster sizes 37, 128 and 512, closest and any hit, at the
+  same bounds, on the random soup and on a soup of duplicated triangles
+  (every hit an exact tie: within a cluster the larger column wins, across
+  clusters the earlier-visited one);
+- ``SAILOR_SWEEP_CLUSTER=128`` in a subprocess (``torch_sweep_cluster_env.py``):
+  both packages' ``CLUSTER`` and ``build``'s default are 128, and a 32x32
+  render of the port's own scene with the reference's uniforms equals the
+  reference's render under the same environment at the render test's bar;
 - ``intersect(sort_rays=True)`` against the reference's, on both scenes,
   at the same bounds;
 - the card kernels' mapping (``chip_smoke.packed_walk``: live rays packed
@@ -25,8 +35,15 @@ Same numpy inputs through both packages:
   equal t to the larger column, merged in slice order; any hit as a flag)
   equal to ``sweep_plain`` bit for bit, at 0, 5, 50 and 100% of the rays
   active, with a sub-block of exactly 1 and one of 33 live rays, and on
-  clusters with exact ties.
+  clusters with exact ties;
+- B4's tables past 1,024 clusters: a 40,000-triangle soup at cluster 32
+  (1,250 clusters) on two ray blocks, against the reference's entries and
+  tables.
 """
+
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -56,18 +73,36 @@ def _tracer_tris():
     return p[i[:, 0]], p[i[:, 1]], p[i[:, 2]]
 
 
-SCENES = {"soup": _soup, "tracer": _tracer_tris}
+def _tied_soup():
+    """750 random triangles, each twice: every hit is an exact tie between
+    two rows, next to each other in the leaf order (within one cluster, or
+    across two where a cluster boundary falls between them)."""
+    return tuple(np.concatenate([v, v]) for v in _soup(4, t=750))
 
 
-@pytest.mark.parametrize("name", list(SCENES))
-def test_builds_match_reference(name):
+SCENES = {"soup": _soup, "tracer": _tracer_tris, "tied": _tied_soup}
+CLUSTERS = (37, 64, 128, 512, 1024)  # build(cluster=) sizes beside the default
+
+
+def _cluster_kw(cluster):
+    return {} if cluster is None else {"cluster": cluster}
+
+
+@pytest.mark.parametrize("name,cluster", [("soup", None), ("tracer", None)]
+                         + [("soup", c) for c in CLUSTERS],
+                         ids=["soup", "tracer"] + [f"soup-c{c}" for c in CLUSTERS])
+def test_builds_match_reference(name, cluster):
     v0, v1, v2 = SCENES[name]()
     ref, got = jax_bvh.build(v0, v1, v2), bvh.build(v0, v1, v2)
     for f in ("node_min", "node_max", "node_left", "node_start", "node_count",
               "v0", "v1", "v2", "tri_index"):
         np.testing.assert_array_equal(getattr(got, f), np.asarray(getattr(ref, f)), f)
-    ref_s, got_s = jax_sweep.build(v0, v1, v2), sweep.build_arrays(v0, v1, v2)
+    kw = _cluster_kw(cluster)
+    ref_s, got_s = jax_sweep.build(v0, v1, v2, **kw), sweep.build_arrays(v0, v1, v2, **kw)
     assert got_s["num_tris"] == ref_s.num_tris
+    scene = sweep.sweep_scene_from_numpy(got_s, "cpu")
+    assert scene.cluster == ref_s.cluster == (cluster or sweep.CLUSTER)
+    assert scene.n_clusters == ref_s.n_clusters
     for f in ("g_cluster", "v0e1e2", "tri_id", "cl_min", "cl_max"):
         np.testing.assert_array_equal(got_s[f], np.asarray(getattr(ref_s, f)), f)
     # the grid kernel's tables are the same rows, cluster-major
@@ -104,7 +139,7 @@ def test_slab_entry_plain_matches_reference():
 def _rays(name, rng, r=3000):
     """Random rays for the soup; for the tracer scene, camera rays and
     incoherent rays leaving points above the plane, as bounces send."""
-    if name == "soup":
+    if name in ("soup", "tied"):
         o = rng.uniform(-8, 8, (r, 3))
         d = rng.normal(size=(r, 3))
     else:
@@ -133,10 +168,10 @@ def _sorted_index(scene, tri):
     return where[tri]
 
 
-def _check_intersect(name, case, sort_rays=False):
+def _check_intersect(name, case, sort_rays=False, cluster=None):
     v0, v1, v2 = SCENES[name]()
-    ref_scene = jax_sweep.build(v0, v1, v2)
-    scene = sweep.build(v0, v1, v2, device="cpu")
+    ref_scene = jax_sweep.build(v0, v1, v2, **_cluster_kw(cluster))
+    scene = sweep.build(v0, v1, v2, device="cpu", **_cluster_kw(cluster))
     rng = np.random.default_rng(11)
     o, d = _rays(name, rng)
     any_hit, use_active, use_tmax = CASES[case]
@@ -171,9 +206,19 @@ def _check_intersect(name, case, sort_rays=False):
         assert (got["t"][got["hit"]] <= t_max[got["hit"]] * (1 + 1e-5)).all()
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_intersect_matches_reference_soup(case):
-    _check_intersect("soup", case)
+# intersect at other cluster sizes: (case, cluster), each on the soup and on
+# the tied soup (the same triangle count, so the reference compiles once)
+CLUSTER_CASES = [(case, c) for c in (37, 128, 512) for case in ("closest", "any_active")]
+SOUP_CASES = dict(argnames="case,cluster",
+                  argvalues=[(case, None) for case in CASES] + CLUSTER_CASES,
+                  ids=list(CASES) + [f"{case}-c{c}" for case, c in CLUSTER_CASES])
+
+
+@pytest.mark.parametrize(**SOUP_CASES)
+def test_intersect_matches_reference_soup(case, cluster):
+    _check_intersect("soup", case, cluster=cluster)
+    if cluster is not None:
+        _check_intersect("tied", case, cluster=cluster)
 
 
 @pytest.mark.parametrize("case", ["closest_active", "any_active"])
@@ -204,9 +249,24 @@ def port_grid_kernel(reference_grid_kernel, monkeypatch):
     yield
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_grid_intersect_matches_reference_grid_kernel(port_grid_kernel, case):
-    _check_intersect("soup", case)
+@pytest.mark.parametrize(**SOUP_CASES)
+def test_grid_intersect_matches_reference_grid_kernel(port_grid_kernel, case, cluster):
+    _check_intersect("soup", case, cluster=cluster)
+    if cluster is not None:
+        _check_intersect("tied", case, cluster=cluster)
+
+
+def test_sweep_cluster_environment_sets_the_default():
+    """``SAILOR_SWEEP_CLUSTER=128``, read at import by both packages, in a
+    fresh process (``tests/torch_sweep_cluster_env.py`` says what it
+    checks)."""
+    env = {**os.environ, "SAILOR_SWEEP_CLUSTER": "128", "JAX_PLATFORMS": "cpu"}
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run([sys.executable, os.path.join(here, "torch_sweep_cluster_env.py")],
+                         cwd=os.path.dirname(here), env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "cluster=128 " in out.stdout and "render close=" in out.stdout, out.stdout
 
 
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
@@ -264,15 +324,24 @@ def test_ray_order_sorts_by_first_cluster_and_direction():
     assert (fc[3000:] == scene.n_clusters).all() and 0 < (fc < scene.n_clusters).mean() < 1
 
 
-@pytest.mark.parametrize("share", [0.0, 0.05, 0.5, 1.0])
-@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
-def test_kernel_mapping_matches_sweep_plain(any_hit, share):
+MAPPING_CASES = ([(any_hit, share, None) for share in (0.0, 0.05, 0.5, 1.0)
+                  for any_hit in (False, True)]
+                 + [(any_hit, share, c) for c, share in ((37, 1.0), (512, 0.5))
+                    for any_hit in (False, True)])
+
+
+@pytest.mark.parametrize("any_hit,share,cluster", MAPPING_CASES,
+                         ids=[f"{'any' if a else 'closest'}-{s}" + (f"-c{c}" if c else "")
+                              for a, s, c in MAPPING_CASES])
+def test_kernel_mapping_matches_sweep_plain(any_hit, share, cluster):
     """The kernels' mapping equals ``sweep_plain`` (t bits, ids) on the
     tracer scene's rays with ``share`` of them active; sub-block 0 then has
     exactly 1 live ray and sub-block 1 has 33. Every live ray of a walked
-    pair is packed: for closest hit, 256 tests each."""
+    pair is packed: for closest hit, ``cluster`` tests each. At cluster 37
+    a step is one chunk of 37 columns, at 512 two whole chunks (the tied
+    clusters then tie columns across the chunks too)."""
     v0, v1, v2 = _tracer_tris()
-    scene = sweep.build(v0, v1, v2, device="cpu")
+    scene = sweep.build(v0, v1, v2, device="cpu", **_cluster_kw(cluster))
     rng = np.random.default_rng(13)
     o, d = _rays("tracer", rng, r=2 * sweep.RAY_BLOCK)
     active = rng.random(len(o)) < share
@@ -291,12 +360,17 @@ def test_kernel_mapping_matches_sweep_plain(any_hit, share):
         assert torch.equal(t_m.view(torch.int32), t.view(torch.int32))
         assert int((i >= 0).sum()) >= 0.2 * active.sum()
         if not any_hit:
-            assert live * sweep.CLUSTER == work["tests"]
+            assert live * scene.cluster == work["tests"]
     if share == 0:
         assert live == 0 and not bool((i >= 0).any())
     if not any_hit and share >= 0.5:
-        col = i[i >= 0] % sweep.CLUSTER  # the tied run: the larger column wins every tie
-        assert not bool(((col < 32) | (col == 128)).any()) and bool(((col >= 32) & (col < 64)).any())
+        col = i[i >= 0] % scene.cluster  # the tied runs: the larger column wins every tie
+        if scene.cluster == 256:
+            assert not bool(((col < 32) | (col == 128)).any())
+            assert bool(((col >= 32) & (col < 64)).any())
+        elif scene.cluster == 512:  # columns 0, 32 and 256 tie: the later chunk's wins
+            assert not bool(((col < 64) | (col == 128)).any())
+            assert bool(((col >= 256) & (col < 288)).any())
 
 
 def _reference_tables(e_sub, nb):
@@ -315,7 +389,7 @@ def _reference_tables(e_sub, nb):
     }
 
 
-@pytest.mark.parametrize("name", list(SCENES))
+@pytest.mark.parametrize("name", ["soup", "tracer", "soup_c32"])
 def test_visit_tables_match_reference(name):
     """B4's tables (``tables_from_entries``) built from the reference's own
     entries (``_slab_entry_sub``, interpret mode) equal the reference's
@@ -325,12 +399,22 @@ def test_visit_tables_match_reference(name):
     equal the reference's bit for bit (the soup: checked here); on the
     tracer rays the reference's compiled slab contracts some products into
     the following subtraction, which ``test_slab_entry_plain_matches_reference``
-    bounds."""
-    v0, v1, v2 = SCENES[name]() if name == "tracer" else _soup(7, t=1500)
-    ref_scene = jax_sweep.build(v0, v1, v2)
+    bounds. ``soup_c32``: 40,000 triangles in clusters of 32, 1,250
+    clusters (more than B4 once took); there the reference's compiled slab
+    contracts products too, so the plain path's entries are held to one
+    float32 ulp of the subtraction's operands (|ref| plus the sub-block's
+    largest |o * inv|), finiteness exactly, and its tables equal those of
+    its own entries (``tables_from_entries``, exact above)."""
+    if name == "soup_c32":
+        v0, v1, v2 = _soup(7, t=40000)
+        ref_scene = jax_sweep.build(v0, v1, v2, cluster=32)
+        assert ref_scene.n_clusters == 1250
+    else:
+        v0, v1, v2 = SCENES[name]() if name == "tracer" else _soup(7, t=1500)
+        ref_scene = jax_sweep.build(v0, v1, v2)
     rng = np.random.default_rng(21)
     rpad = 2 * sweep.RAY_BLOCK
-    o, d = _rays(name, rng, r=rpad)
+    o, d = _rays(name if name == "tracer" else "soup", rng, r=rpad)
     tmax = np.full(rpad, np.inf, np.float32)
     tmax[::5] = -1.0
     tmax[sweep.RAY_BLOCK:] = -1.0  # a block of dead rays outside every box
@@ -344,6 +428,23 @@ def test_visit_tables_match_reference(name):
     got = sweep.tables_from_entries(torch.from_numpy(np.asarray(e_ref)))
     for k, v in want.items():
         np.testing.assert_array_equal(got[k].numpy(), v, k)
+    if name == "soup_c32":
+        plain = sweep.visit_tables_plain(
+            torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(tmax),
+            torch.from_numpy(np.asarray(ref_scene.cl_min)),
+            torch.from_numpy(np.asarray(ref_scene.cl_max)))
+        np.testing.assert_array_equal(plain["feats"].numpy(), feats)
+        got_e, want_e = sub_entries(plain).view(torch.float32).numpy(), np.asarray(e_ref)
+        fin = np.isfinite(want_e)
+        assert 0.2 < fin.mean() < 0.8
+        np.testing.assert_array_equal(np.isfinite(got_e), fin)
+        scale = np.abs(o * np.float32(1) / d).max(1)  # no axis-parallel ray here
+        scale = np.where(tmax > 0, scale, 0).reshape(-1, sweep.SUB).max(1)
+        err = np.abs(np.where(fin, got_e, 0) - np.where(fin, want_e, 0))
+        assert (err <= 2.0 ** -23 * (np.abs(np.where(fin, want_e, 0)) + scale[:, None])).all()
+        mine = sweep.tables_from_entries(sub_entries(plain).view(torch.float32))
+        for k in ("e_bits", "order", "blk_bits", "nlive"):
+            assert torch.equal(plain[k], mine[k]), k
     if name == "soup":
         plain = sweep.visit_tables_plain(
             torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(tmax),

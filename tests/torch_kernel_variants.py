@@ -63,8 +63,8 @@ RPT = ("constexpr int RPT = 4;", "constexpr int RPT = 2;")
 # function takes scratch and the counters before the stream.
 PER_SUB = [
     ("constexpr int THREADS = NSUB * SUB / RPT;", "constexpr int THREADS = SUB / RPT;"),
-    ("int* __restrict__ nlive, int nc) {",
-     "int* __restrict__ nlive, int nc,\n"
+    ("int* __restrict__ tables, int nc) {",
+     "int* __restrict__ tables, int nc,\n"
      "                   int* __restrict__ scratch, int* __restrict__ arrivals) {"),
     ("  const int b = blockIdx.x;\n"
      "  const int64_t ray0 = (static_cast<int64_t>(b) * NSUB + sub) * SUB + tid % SUB_THREADS;",
@@ -92,9 +92,10 @@ PER_SUB = [
     ("int n_blocks, int nc, cudaStream_t stream) {",
      "int n_blocks, int nc, int* scratch, int* arrivals,\n"
      "                                  cudaStream_t stream) {"),
-    ("slab_tables_kernel<<<n_blocks, THREADS, smem, stream>>>(", 
-     "slab_tables_kernel<<<n_blocks * NSUB, THREADS, smem, stream>>>("),
-    ("blk_bits, nlive, nc);", "blk_bits, nlive, nc, scratch, arrivals);"),
+    ("slab_tables_kernel<false><<<n_blocks, THREADS, smem, stream>>>(",
+     "slab_tables_kernel<false><<<n_blocks * NSUB, THREADS, smem, stream>>>("),
+    ("nlive, nullptr, nc);", "nlive, nullptr, nc, scratch, arrivals);"),
+    ("nlive, tables, nc);", "nlive, tables, nc, scratch, arrivals);"),
 ]
 SLAB = {
     "as built": [],
@@ -349,8 +350,8 @@ def slab_variants(libs, card, stream):
 
         def run():
             cuda_lib.check(lib.sailor_slab_tables(
-                *(t.data_ptr() for t in args), *(t.data_ptr() for t in out.values()), nb, nc,
-                *extra, stream), name)
+                *(t.data_ptr() for t in args), *(t.data_ptr() for t in out.values()), None, nb,
+                nc, *extra, stream), name)
 
         ms = chip_smoke._time_ms(run, 50)
         print(f"slab_entry [{name}]: ms={ms:.4f} bit_equal={chip_smoke.tables_equal(out, ref)} "
