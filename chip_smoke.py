@@ -215,6 +215,13 @@ Phases, each printed as it ends:
      render ms, Mrays/s, peak bytes against tracer-512's;
  14. a 64x64 render of the dense scene (BVH8 route) on the card against
      the CPU path;
+ 14b. sweep-clusters: the tracer scene's sweep at clusters 64-1024, B4-B6
+     held to their twins on each size's own passes (``run_sweep_clusters``);
+ 14c. sweep-rayblocks: the sweep at ten (RAY_BLOCK, SUB) pairs, each with
+     its own tracer-512 sample and route, B4-B6 held to their twins and
+     timed on its passes, time_sweep at (4096, 512) in a subprocess and a
+     64x64 render at (1536, 192) against the CPU path
+     (``run_sweep_rayblocks``);
  15. example-frame (after the content phase): ``python -m
      sailor_tpu_torch.examples.render_frame`` in process at 1920x1088 with
      1000 lights and 5 timed frames (B3 shades on the card): each frame's
@@ -2202,7 +2209,9 @@ def packed_walk(p, g_cluster, *, any_hit):
     plain PyTorch: for the count of live rays a walked pair, and for the CPU
     test of the kernels' merge order against the twins. Every
     (sub-block, step) pair the grid walks (B5's pairs) packs the rays live at
-    the step's start (best t > 1e-4) and tests them against the cluster a
+    the step's start (best t > 1e-4), at any sub-block size (the kernels
+    test a list of at most 256 of them at a time; a ray's result does not
+    depend on its list), and tests them against the cluster a
     chunk of 256 columns at a time (``g_cluster``'s last axis is the cluster
     size), each chunk in 8 slices of 32 columns, one a warp; columns past
     the cluster's end hold no triangle and never hit. Every chunk tests
@@ -2219,11 +2228,12 @@ def packed_walk(p, g_cluster, *, any_hit):
     e_bits, order, feats = p["e_bits"], p["order"], p["feats"]
     nb, nc = order.shape
     cluster = g_cluster.shape[2]
+    sub = sweep.check_ray_block()[1]
     width = -(-cluster // 256) * 256  # whole chunks
-    nsb, slices = feats.shape[0] // sweep.SUB, width // 32
-    t = p["tmax"].clone().view(nsb, sweep.SUB)
+    nsb, slices = feats.shape[0] // sub, width // 32
+    t = p["tmax"].clone().view(nsb, sub)
     idx = torch.full_like(t, -1, dtype=torch.int32)
-    f = feats.view(nsb, sweep.SUB, sweep.FEATS)
+    f = feats.view(nsb, sub, sweep.FEATS)
     blk = torch.arange(nsb, device=feats.device) // (nsb // nb)
     col = torch.arange(width, device=feats.device, dtype=torch.int32).view(slices, 32)
     g_cluster = torch.nn.functional.pad(g_cluster, (0, width - cluster))
@@ -2231,10 +2241,10 @@ def packed_walk(p, g_cluster, *, any_hit):
     live_rays = 0
     for j in range(nc):
         bound = t.view(torch.int32).amax(1)
-        for s in (e_bits[:, j] < bound).nonzero()[:, 0].split(64):
+        for s in (e_bits[:, j] < bound).nonzero()[:, 0].split(max(1, 64 * 256 // sub)):
             cid = order[blk[s], j]
             g = g_cluster[cid.long()][:, None]               # (n, 1, 40, width)
-            r = f[s][..., None]                              # (n, SUB, 16, 1)
+            r = f[s][..., None]                              # (n, sub, 16, 1)
             best = t[s]
             live = best > 1e-4
             live_rays += int(live.sum())
@@ -2252,9 +2262,9 @@ def packed_walk(p, g_cluster, *, any_hit):
                      | ((s0 <= 0) & (s1 <= 0) & (s2 <= 0)))
             tval = num / torch.where(den == 0.0, 1.0, den)
             ok = (live[..., None] & valid & agree & (den != 0.0) & (tval > 1e-4)
-                  & (tval < best[..., None])).view(-1, sweep.SUB, slices, 32)
+                  & (tval < best[..., None])).view(-1, sub, slices, 32)
             tm = torch.where(ok, tval.view(ok.shape), torch.inf)
-            smin = tm.amin(3)                                # (n, SUB, slices)
+            smin = tm.amin(3)                                # (n, sub, slices)
             sk = torch.where(ok & (tm == smin[..., None]), col, -1).amax(3)
             if any_hit:
                 found = (sk >= 0).any(2)
@@ -3074,6 +3084,61 @@ def profiled_us(fns, reps=5):
     return out
 
 
+def hold_sweep_pass(sw, rec, rays=None):
+    """B4's tables, B5 and B6 (closest or any hit, as the recorded pass
+    ``rec`` asks; ``rays``: only so many of its rays, from the ray block at
+    its middle on) at the sweep
+    module's present ray block and sub-block, held to their twins bit for
+    bit, also on tied clusters (``tied_clusters``), and timed by the
+    profiler's mean a launch (``profiled_us``) beside ``_sweep_bound``.
+    Returns a dict: ok (each check), ms and timed_by, w5 and w6 (the twins'
+    work), b5 and b6 ((bound ms, bound by)), hits (B5's twin)."""
+    from sailor_tpu_torch.raytracing import sweep
+
+    n = rec["origin"].shape[0]
+    first = 0 if rays is None else n // 2 // sweep.RAY_BLOCK * sweep.RAY_BLOCK
+    cut = slice(first, None if rays is None else first + rays)
+    p = sweep.prepare(sw, rec["origin"][cut], rec["direction"][cut], active=rec["active"][cut])
+    any_hit = rec["any_hit"]
+    args4 = (p["feats"][:, 8:11].contiguous(), p["feats"][:, 0:3].contiguous(), p["tmax"],
+             sw.cl_min, sw.cl_max)
+    b4_ok = tables_equal(sweep.visit_tables_cuda(*args4), sweep.visit_tables_plain(*args4))
+    a5 = (p["e_bits"], p["order"], p["blk_bits"], p["nlive"], p["feats"], p["tmax"])
+    a6 = (p["e_bits"], p["order"], p["feats"], p["tmax"])
+    w5, w6 = {}, {}
+    tp, ip = sweep.sweep_plain(*a5, sw.g_cluster, any_hit=any_hit, work=w5)
+    tg, ig = sweep.sweep_grid_plain(*a6, sw.g_cluster, any_hit=any_hit, work=w6)
+    t5, i5 = sweep.sweep_cuda(*a5, sw.g_cluster, any_hit=any_hit)
+    t6, i6 = sweep.sweep_grid_cuda(*a6, sw.g_cluster, any_hit=any_hit)
+    tied = tied_clusters(sw.g_cluster)
+    tq, iq = sweep.sweep_plain(*a5, tied, any_hit=any_hit)
+    ok = {"b4": b4_ok,
+          "b5": _bits_equal(t5, i5, tp, ip), "b6": _bits_equal(t6, i6, tg, ig),
+          "tied": (_bits_equal(*sweep.sweep_cuda(*a5, tied, any_hit=any_hit), tq, iq)
+                   and _bits_equal(*sweep.sweep_grid_cuda(*a6, tied, any_hit=any_hit), tq, iq))}
+    us = profiled_us({
+        "slab_entry": lambda: sweep.visit_tables_cuda(*args4),
+        "sweep": lambda: sweep.sweep_cuda(*a5, sw.g_cluster, any_hit=any_hit),
+        "sweep_grid": lambda: sweep.sweep_grid_cuda(*a6, sw.g_cluster, any_hit=any_hit)})
+    return {"ok": ok, "ms": {k: v / 1e3 for k, (v, _) in us.items()},
+            "timed_by": "+".join(sorted({by for _, by in us.values()})), "w5": w5, "w6": w6,
+            "b5": _sweep_bound(p, w5, sw.cluster), "b6": _sweep_bound(p, w6, sw.cluster),
+            "hits": int((ip >= 0).sum())}
+
+
+def rows_of_pass(rows, key, name, h, n_clusters, run):
+    """The kernel line's rows of one ``hold_sweep_pass`` result ``h``:
+    rows[kernel][key][name], with the render's launches ``run``."""
+    for k, (bound, by) in (("slab_entry", (None, None)), ("sweep", h["b5"]),
+                           ("sweep_grid", h["b6"])):
+        row = {"ms": h["ms"][k], "n_clusters": n_clusters}
+        if bound is not None:
+            row.update(bound_ms=bound, bound_by=by)
+        if k != "sweep_grid":
+            row["launches"] = run[k]
+        rows[k].setdefault(key, {})[name] = row
+
+
 def run_sweep_clusters(card):
     """sweep-clusters: the tracer-512 scene's sweep built at each of
     SWEEP_CLUSTERS with ``sweep.build(cluster=)``. At each size one
@@ -3124,33 +3189,9 @@ def run_sweep_clusters(card):
         launches.update({k: run[k] for k in ("slab_entry", "sweep")})
         bounce1 = bounce1 or log[2]
         for name, rec in (("bounce1", log[2]), ("bounce1_shadow", log[3])):
-            p = sweep.prepare(sw, rec["origin"], rec["direction"], active=rec["active"])
-            any_hit = rec["any_hit"]
-            args4 = (p["feats"][:, 8:11].contiguous(), p["feats"][:, 0:3].contiguous(), p["tmax"],
-                     sw.cl_min, sw.cl_max)
-            b4_ok = tables_equal(sweep.visit_tables_cuda(*args4), sweep.visit_tables_plain(*args4))
-            a5 = (p["e_bits"], p["order"], p["blk_bits"], p["nlive"], p["feats"], p["tmax"])
-            a6 = (p["e_bits"], p["order"], p["feats"], p["tmax"])
-            w5, w6 = {}, {}
-            tp, ip = sweep.sweep_plain(*a5, sw.g_cluster, any_hit=any_hit, work=w5)
-            tg, ig = sweep.sweep_grid_plain(*a6, sw.g_cluster, any_hit=any_hit, work=w6)
-            t5, i5 = sweep.sweep_cuda(*a5, sw.g_cluster, any_hit=any_hit)
-            t6, i6 = sweep.sweep_grid_cuda(*a6, sw.g_cluster, any_hit=any_hit)
-            tied = tied_clusters(sw.g_cluster)
-            tq, iq = sweep.sweep_plain(*a5, tied, any_hit=any_hit)
-            ok = {"b4": b4_ok,
-                  "b5": _bits_equal(t5, i5, tp, ip), "b6": _bits_equal(t6, i6, tg, ig),
-                  "tied": (_bits_equal(*sweep.sweep_cuda(*a5, tied, any_hit=any_hit), tq, iq)
-                           and _bits_equal(*sweep.sweep_grid_cuda(*a6, tied, any_hit=any_hit),
-                                           tq, iq))}
-            us = profiled_us({
-                "slab_entry": lambda: sweep.visit_tables_cuda(*args4),
-                "sweep": lambda: sweep.sweep_cuda(*a5, sw.g_cluster, any_hit=any_hit),
-                "sweep_grid": lambda: sweep.sweep_grid_cuda(*a6, sw.g_cluster, any_hit=any_hit)})
-            ms = {k: v / 1e3 for k, (v, _) in us.items()}
-            timed_by = sorted({by for _, by in us.values()})
-            b5, by5 = _sweep_bound(p, w5, cluster)
-            b6, by6 = _sweep_bound(p, w6, cluster)
+            h = hold_sweep_pass(sw, rec)
+            ok, ms, w5 = h["ok"], h["ms"], h["w5"]
+            (b5, by5), (b6, by6) = h["b5"], h["b6"]
             lane_use = w5["tests"] / max(1, w5["pairs"] * sweep.SUB * cluster)
             column_lanes = cluster / (math.ceil(cluster / 256) * 256)
             print(f"sweep-clusters[{cluster}/{name}]: {sw.n_clusters} clusters "
@@ -3159,20 +3200,13 @@ def run_sweep_clusters(card):
                   f"b5_ms={ms['sweep']:.4f} bound_ms={b5:.5f} ({by5}) "
                   f"b6_ms={ms['sweep_grid']:.4f} bound_ms={b6:.5f} ({by6}) "
                   f"pairs={w5['pairs']} tests={w5['tests']} lane_use={lane_use:.5f} "
-                  f"column_lanes={column_lanes:.4f} hits={int((ip >= 0).sum())} "
+                  f"column_lanes={column_lanes:.4f} hits={h['hits']} "
                   f"render_route={'sweep' if routed else 'bvh8'} render_launches={run} "
-                  f"timed_by={'+'.join(timed_by)} on {card}")
+                  f"timed_by={h['timed_by']} on {card}")
             check(all(ok.values()), f"a sweep kernel disagrees with its twin at cluster "
                                     f"{cluster} ({name}): {ok}")
-            check(w5 == w6, f"B6's twin walked other work than B5's at cluster {cluster}")
-            for k, bound, by in (("slab_entry", None, None), ("sweep", b5, by5),
-                                 ("sweep_grid", b6, by6)):
-                row = {"ms": ms[k], "n_clusters": sw.n_clusters}
-                if bound is not None:
-                    row.update(bound_ms=bound, bound_by=by)
-                if k != "sweep_grid":
-                    row["launches"] = run[k]
-                rows[k].setdefault(str(cluster), {})[name] = row
+            check(w5 == h["w6"], f"B6's twin walked other work than B5's at cluster {cluster}")
+            rows_of_pass(rows, str(cluster), name, h, sw.n_clusters, run)
     # B4 over the most clusters the tracer soup gives: cluster size 1, one
     # ray block (global-scratch tables)
     sw1 = sweep.build(*tris, cluster=1, device=dev)
@@ -3206,6 +3240,119 @@ def run_sweep_clusters(card):
                       spp=1)
     small = {k: cuda_lib.LAUNCHES.get(k, 0) for k in ("slab_entry", "sweep")}
     check(all(small.values()), f"the small renders skipped a kernel: {small}")
+    launches.update(small)
+    return rows, dict(launches)
+
+
+# sweep-rayblocks' (RAY_BLOCK, SUB) pairs, each through a tracer-512 sample;
+# SMALL_RAY_BLOCKS on two ray blocks at the middle of each pass only
+SWEEP_RAY_BLOCKS = ((1024, 128), (1536, 192), (2048, 512), (2048, 2048), (4096, 256),
+                    (8192, 1024), (8192, 8192), (2048, 64))
+SMALL_RAY_BLOCKS = ((512, 16), (96, 1))
+SMALL_RAY_BLOCK_TRACE = (1536, 192)  # sweep-rayblocks' 64x64 card-vs-CPU render
+
+
+@contextlib.contextmanager
+def ray_block(rb, sub):
+    """The sweep's ray block and sub-block sizes (``sweep.RAY_BLOCK``,
+    ``sweep.SUB``) set to (rb, sub) for the length of the block."""
+    from sailor_tpu_torch.raytracing import sweep
+
+    old = sweep.RAY_BLOCK, sweep.SUB
+    sweep.RAY_BLOCK, sweep.SUB = rb, sub
+    try:
+        yield
+    finally:
+        sweep.RAY_BLOCK, sweep.SUB = old
+
+
+def run_sweep_rayblocks(card):
+    """sweep-rayblocks: the tracer-512 scene (73 clusters of 256) at each
+    (RAY_BLOCK, SUB) pair of SWEEP_RAY_BLOCKS and SMALL_RAY_BLOCKS, set on
+    the sweep module. At each pair one ``render_cached`` sample at TRACER's
+    size and 2 bounces records the passes (the main path at that pair: B4
+    and B5 where the routing rule sends the passes to the sweep, else the
+    BVH8), and on the bounce-1 and bounce-1 shadow passes (two ray blocks
+    at the middle of each at SMALL_RAY_BLOCKS: the first ones hold sky
+    rays, which hit nothing) B4's tables, B5 and B6 are held
+    to their twins bit for bit, also on tied clusters, and timed by the
+    profiler beside their bounds (``hold_sweep_pass``). At (8192, 1024) a
+    4-sample pool (tracer-512-batch4's passes, which the default pair sends
+    to the BVH8) records its passes too, and must take the sweep. Then
+    ``SAILOR_SWEEP_RAY_BLOCK=4096 SAILOR_SWEEP_SUB=512 python -m
+    sailor_tpu_torch.tools.time_sweep`` in a subprocess and a 64x64 render
+    (1 spp) at SMALL_RAY_BLOCK_TRACE against the CPU path. Returns ({kernel:
+    {"RAY_BLOCK/SUB": row}}, the renders' launch counts)."""
+    import collections
+
+    from sailor_tpu_torch.kernels import cuda_lib
+    from sailor_tpu_torch.raytracing import sweep
+    from sailor_tpu_torch.scenes import tracer_scene
+
+    scene, cam, view, proj = tracer_scene()
+    sw = scene.sweep
+    width, height = TRACER[:2]
+    rows = {"slab_entry": {}, "sweep": {}, "sweep_grid": {}}
+    launches = collections.Counter()
+    for rb, sub in SWEEP_RAY_BLOCKS + SMALL_RAY_BLOCKS:
+        key, small = f"{rb}/{sub}", (rb, sub) in SMALL_RAY_BLOCKS
+        t_pair = time.perf_counter()
+        with ray_block(rb, sub):
+            batches = (1, 4) if (rb, sub) == (8192, 1024) else (1,)
+            for batch in batches:
+                cuda_lib.LAUNCHES.clear()
+                log = record_passes(scene, cam, view, proj, width, height, sample_batch=batch)
+                run = {k: cuda_lib.LAUNCHES.get(k, 0)
+                       for k in ("slab_entry", "sweep", "bvh8_intersect")}
+                routed = (sweep.scalar_bytes(sw, log[0]["origin"].shape[0])
+                          <= sweep.SMEM_BUDGET)
+                check(run["slab_entry"] > 0 and run["sweep"] > 0 and not run["bvh8_intersect"]
+                      if routed else run["bvh8_intersect"] > 0 and run["sweep"] == 0,
+                      f"the render at {key} (sample_batch {batch}) took another route than "
+                      f"the rule's: {run}")
+                check(batch == 1 or routed, f"tracer-512-batch4's passes left the sweep at {key}")
+                launches.update({k: run[k] for k in ("slab_entry", "sweep")})
+                print(f"sweep-rayblocks[{key}] sample_batch={batch}: rays a pass="
+                      f"{log[0]['origin'].shape[0]} scalar_bytes="
+                      f"{sweep.scalar_bytes(sw, log[0]['origin'].shape[0])} "
+                      f"route={'sweep' if routed else 'bvh8'} launches={run}")
+            rays = 2 * rb if small else None
+            for name, rec in (("bounce1", log[2]), ("bounce1_shadow", log[3])):
+                h = hold_sweep_pass(sw, rec, rays)
+                ok, ms, w5 = h["ok"], h["ms"], h["w5"]
+                (b5, by5), (b6, by6) = h["b5"], h["b6"]
+                print(f"sweep-rayblocks[{key}/{name}]: {sw.n_clusters} clusters "
+                      f"rays={rays or rec['origin'].shape[0]} "
+                      f"b4_equal={ok['b4']} b5_equal={ok['b5']} b6_equal={ok['b6']} "
+                      f"tied_equal={ok['tied']} b4_ms={ms['slab_entry']:.4f} "
+                      f"b5_ms={ms['sweep']:.4f} bound_ms={b5:.5f} ({by5}) "
+                      f"b6_ms={ms['sweep_grid']:.4f} bound_ms={b6:.5f} ({by6}) "
+                      f"pairs={w5['pairs']} tests={w5['tests']} "
+                      f"lane_use={w5['tests'] / max(1, w5['pairs'] * sub * sw.cluster):.5f} "
+                      f"hits={h['hits']} timed_by={h['timed_by']} on {card}")
+                check(all(ok.values()), f"a sweep kernel disagrees with its twin at {key} "
+                                        f"({name}): {ok}")
+                check(w5 == h["w6"], f"B6's twin walked other work than B5's at {key}")
+                rows_of_pass(rows, key, name, h, sw.n_clusters, run)
+        print(f"sweep-rayblocks[{key}]: {time.perf_counter() - t_pair:.1f} s")
+    t0 = time.perf_counter()
+    env = {**os.environ, "SAILOR_SWEEP_RAY_BLOCK": "4096", "SAILOR_SWEEP_SUB": "512"}
+    proc = subprocess.run([sys.executable, "-m", "sailor_tpu_torch.tools.time_sweep"],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=300, env=env)
+    print(f"SAILOR_SWEEP_RAY_BLOCK=4096 SAILOR_SWEEP_SUB=512 python -m "
+          f"sailor_tpu_torch.tools.time_sweep ({time.perf_counter() - t0:.1f} s, {card}):")
+    for line in (proc.stderr.strip().splitlines()[-1:] + proc.stdout.strip().splitlines()):
+        print("  " + line)
+    check(proc.returncode == 0 and "ray_block=4096 sub=512" in proc.stdout,
+          f"time_sweep at SAILOR_SWEEP_RAY_BLOCK=4096 SAILOR_SWEEP_SUB=512 failed: "
+          f"{proc.stderr[-2000:]}")
+    cuda_lib.LAUNCHES.clear()
+    with ray_block(*SMALL_RAY_BLOCK_TRACE):  # 1 spp: the CPU render is most of its time
+        check_small_trace(label="tracer_ray_block_{}_{}".format(*SMALL_RAY_BLOCK_TRACE),
+                          spp=1)
+    small = {k: cuda_lib.LAUNCHES.get(k, 0) for k in ("slab_entry", "sweep")}
+    check(all(small.values()), f"the small render skipped a kernel: {small}")
     launches.update(small)
     return rows, dict(launches)
 
@@ -6450,6 +6597,13 @@ def main() -> int:
     for k in tracer_kernels:  # B4-B6 at each cluster size
         k["clusters"] = cluster_rows[k["name"]]
     print(f"sweep-clusters: {time.perf_counter() - t_clusters:.1f} s")
+    t_rayblocks = time.perf_counter()
+    rayblock_rows, rayblock_launches = run_sweep_rayblocks(card)
+    for name in ("slab_entry", "sweep"):
+        launches[name] = launches.get(name, 0) + rayblock_launches.get(name, 0)
+    for k in tracer_kernels:  # B4-B6 at each (RAY_BLOCK, SUB) pair
+        k["rayblocks"] = rayblock_rows[k["name"]]
+    print(f"sweep-rayblocks: {time.perf_counter() - t_rayblocks:.1f} s")
     t_host = time.perf_counter()
     example_trace_launches = run_example_trace(card)
     check_small_trace(example_trace_scene, "example_trace")
@@ -6482,7 +6636,7 @@ def main() -> int:
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(f"card: {card}")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys + ("clusters",) if k in r}
+    print(json.dumps({"kernels": [{k: r[k] for k in keys + ("clusters", "rayblocks") if k in r}
                                   for r in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -5,8 +5,9 @@
 // function over the dense (block, step) grid). Its plain twin is
 // `sweep_plain` in raytracing/sweep.py.
 //
-// What it computes: each 256-ray sub-block walks the clusters of its
-// 2048-ray block in visit order (near to far by the block's slab entry).
+// What it computes: each sub-block (256 rays by default; `sub`, any size)
+// walks the clusters of its ray block (nsub sub-blocks) in visit order (near
+// to far by the block's slab entry).
 // Its bound is the largest float32 bit pattern of its rays' best t (dead
 // rays hold -1.0, whose bits are negative). A step whose sub-block entry
 // bits are not below the bound is skipped; the walk stops at the first step
@@ -15,7 +16,8 @@
 // step tests every (ray, triangle) pair of the cluster for the rays still
 // live (best t > 1e-4), with the test and merge of sweep_common.cuh. The
 // cluster size is an argument (any size of at least 1: a step tests its
-// cluster 256 columns at a time).
+// cluster 256 columns at a time), and so is the sub-block size (any size of
+// at least 1: a step tests its live rays 256 at a time).
 //
 // Bound on the H100: about 45 float operations per (ray, triangle) test of
 // a ray live at its step, and the 25 used rows of the cluster block (100 B
@@ -33,6 +35,7 @@
 // ballot over 32 steps of the sub-block's entry bits and the block's sorted
 // entries at a time.
 #include <cstdint>
+#include <type_traits>
 
 #include "sweep_common.cuh"
 
@@ -40,14 +43,16 @@ namespace {
 
 using namespace sweep_dev;
 
-template <bool ANY_HIT, bool ANY_SIZE>
-__global__ void __launch_bounds__(SUB, BLOCKS_PER_SM)
+// MODE: WALK (sub-block and cluster of 256), CHUNKS (sub-block of 256, any
+// cluster) or GENERAL (any sub-block and cluster; sweep_common.cuh point 6)
+template <bool ANY_HIT, int MODE>
+__global__ void __launch_bounds__(CHUNK, BLOCKS_PER_SM)
 sweep_kernel(const int* __restrict__ e_bits, const int* __restrict__ order,
              const int* __restrict__ blk_bits, const int* __restrict__ nlive,
              const float* __restrict__ feats, const float* __restrict__ tmax,
              const float* __restrict__ g_cluster, float* __restrict__ best_t,
-             int* __restrict__ best_i, int nsub, int nc, int cluster) {
-  __shared__ __align__(16) Smem sm;
+             int* __restrict__ best_i, int nsub, int sub, int nc, int cluster) {
+  __shared__ __align__(16) std::conditional_t<MODE == GENERAL, SmemG, Smem> sm;
   const int b = blockIdx.x / nsub;
   const int* e_row = e_bits + static_cast<int64_t>(blockIdx.x) * nc;
   const int* blk_row = blk_bits + static_cast<int64_t>(b) * nc;
@@ -70,7 +75,10 @@ sweep_kernel(const int* __restrict__ e_bits, const int* __restrict__ order,
     return -1;
   };
   const int* order_row = order + static_cast<int64_t>(b) * nc;
-  if constexpr (ANY_SIZE)
+  if constexpr (MODE == GENERAL)
+    walk_general<ANY_HIT>(order_row, feats, tmax, g_cluster, cluster, sub, best_t, best_i, sm,
+                          next);
+  else if constexpr (MODE == CHUNKS)
     walk_chunks<ANY_HIT>(order_row, feats, tmax, g_cluster, cluster, best_t, best_i, sm, next);
   else
     walk<ANY_HIT>(order_row, feats, tmax, g_cluster, best_t, best_i, sm, next);
@@ -82,14 +90,16 @@ extern "C" int sailor_sweep(const int* e_bits, const int* order,
                             const int* blk_bits, const int* nlive,
                             const float* feats, const float* tmax,
                             const float* g_cluster, float* best_t, int* best_i,
-                            int n_sub_blocks, int nsub, int nc, int cluster, int any_hit,
+                            int n_sub_blocks, int nsub, int sub, int nc, int cluster, int any_hit,
                             cudaStream_t stream) {
-  if (cluster < 1) return static_cast<int>(cudaErrorInvalidValue);
-  using Kernel = decltype(&sweep_kernel<true, true>);
-  const Kernel kernels[2][2] = {{sweep_kernel<false, false>, sweep_kernel<false, true>},
-                                {sweep_kernel<true, false>, sweep_kernel<true, true>}};
-  const Kernel kernel = kernels[any_hit ? 1 : 0][cluster == CHUNK ? 0 : 1];
-  kernel<<<n_sub_blocks, SUB, 0, stream>>>(e_bits, order, blk_bits, nlive, feats, tmax, g_cluster,
-                                           best_t, best_i, nsub, nc, cluster);
+  if (cluster < 1 || sub < 1 || nsub < 1) return static_cast<int>(cudaErrorInvalidValue);
+  using Kernel = decltype(&sweep_kernel<true, GENERAL>);
+  const Kernel kernels[2][3] = {
+      {sweep_kernel<false, WALK>, sweep_kernel<false, CHUNKS>, sweep_kernel<false, GENERAL>},
+      {sweep_kernel<true, WALK>, sweep_kernel<true, CHUNKS>, sweep_kernel<true, GENERAL>}};
+  const int mode = sub != SUB ? GENERAL : (cluster == CHUNK ? WALK : CHUNKS);
+  const Kernel kernel = kernels[any_hit ? 1 : 0][mode];
+  kernel<<<n_sub_blocks, CHUNK, 0, stream>>>(e_bits, order, blk_bits, nlive, feats, tmax,
+                                             g_cluster, best_t, best_i, nsub, sub, nc, cluster);
   return static_cast<int>(cudaGetLastError());
 }

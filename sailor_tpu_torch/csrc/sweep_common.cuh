@@ -12,7 +12,8 @@
 // t = -1 and index 0. Sums run left to right with -fmad=false, as in the twins, so
 // the kernels and the twins agree bit for bit.
 //
-// The mapping: one block of 256 threads per 256-ray sub-block; the skip and
+// The mapping: one block of 256 threads per sub-block (256 rays by default;
+// any other size: point 6); the skip and
 // stop decisions stay per sub-block, from its bound (the largest float32 bit
 // pattern of its rays' best t), so no ray moves between sub-blocks.
 //  1. Live rays packed per step. Thread r owns ray r (its t and index live
@@ -74,6 +75,30 @@
 //     walk (H100 80GB HBM3, 700 W, tests/torch_sweep_variants.py): nvcc
 //     schedules the test loop worse around the chunk loop, so the default
 //     size keeps its own walk.
+//  6. The sub-block size is a kernel argument too. At SUB = 256 (the
+//     default) the walks above own one ray a thread. Any other size takes
+//     `walk_general`, with the same 256 lanes of triangles and the chunks
+//     of point 5: thread k owns the sub-block's rays k, k + 256, ... (none
+//     past the sub-block's end, so below 256 some threads own none), and
+//     their best t and index live in best_t/best_i in global memory, so a
+//     thread's registers do not grow with the size. A step packs the live
+//     rays round by round (256 rays a round, a prefix over the 8 warps as
+//     above) into a list of at most LIST = 256 entries, each with the
+//     ray it holds; a full list is tested (every chunk of the step's
+//     cluster, against the t at the step's start) and thread s folds slot
+//     s's results into its ray in global memory, and the round's rays
+//     past the list's end open the next list. The last, partial list is
+//     tested after the last round. The bound is then read anew over every
+//     ray. The skip and stop decisions, the test and the fold order are
+//     those of the walks above, so the result is the same function at
+//     every size. walk_general could also serve sub-block 256 at any
+//     cluster size, in walk_chunks' place; in turns on tracer-512's
+//     bounce-1 pass (H100 80GB HBM3, 700 W, tests/torch_sweep_variants.py)
+//     it took 3.5974-3.6207 ms at cluster 128 against walk_chunks'
+//     3.4308-3.4848 (shadow pass 1.1636-1.1976 against 1.122-1.1695), and
+//     at 512 4.5084-4.5355 against 4.5139-4.5526 (shadow 1.4214-1.4784
+//     against 1.3624-1.4384); a second call gave 3.6152-3.6576 against
+//     3.4901-3.5189 at 128. So sub-block 256 keeps walk_chunks.
 #pragma once
 
 #include <cstdint>
@@ -82,7 +107,8 @@
 
 namespace sweep_dev {
 
-constexpr int SUB = 256;
+constexpr int SUB = 256;    // the default sub-block: one ray a thread
+constexpr int LIST = 256;   // packed rays a step tests at a time
 constexpr int CHUNK = 256;  // columns a step stages at a time: one a thread
 constexpr int ROWS = 40;
 constexpr int FEATS = 16;
@@ -90,6 +116,7 @@ constexpr int USED = 25;  // used rows a triangle: 18 side, 4 num, 3 den
 constexpr int WARPS = SUB / 32;
 constexpr int BLOCKS_PER_SM = 3;  // __launch_bounds__: at most 80 registers
 constexpr unsigned FULL = 0xffffffffu;
+enum { WALK, CHUNKS, GENERAL };  // the kernels' walks: walk, walk_chunks, walk_general
 
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
@@ -108,6 +135,15 @@ struct Smem {
   float buf[USED][CHUNK];            // column k: thread k's rows of the chunk
   int wmax[WARPS];
   unsigned wmask[WARPS];
+};
+
+// walk_general's: the shared state of the walks, the ray each packed slot
+// holds (its index in the sub-block) and the round's warp masks (two
+// rounds' apart, so a round needs one barrier).
+struct SmemG {
+  Smem s;
+  int slot_ray[LIST];
+  unsigned rmask[2][WARPS];
 };
 
 struct Pack {
@@ -452,6 +488,135 @@ __device__ __forceinline__ void walk_chunks(const int* __restrict__ order_row,
   wait_prefetch();
   best_t[ray] = t;
   best_i[ray] = idx;
+}
+
+// Any sub-block size: the sub-block's largest best-t bits over all its rays
+// (in global memory), for every thread. The caller's barrier before it
+// publishes the last merges.
+__device__ __forceinline__ int bound_of(const float* t_g, int sub, Smem& sm) {
+  int mx = INT32_MIN;
+  for (int r = threadIdx.x; r < sub; r += LIST) mx = max(mx, __float_as_int(__ldcg(t_g + r)));
+  mx = __reduce_max_sync(FULL, mx);
+  if ((threadIdx.x & 31) == 0) sm.wmax[threadIdx.x >> 5] = mx;
+  __syncthreads();
+  int b = sm.wmax[0];
+#pragma unroll
+  for (int v = 1; v < WARPS; ++v) b = max(b, sm.wmax[v]);
+  return b;
+}
+
+// Any sub-block size: put ray r of the sub-block, best t `t`, into `slot`.
+__device__ __forceinline__ void put(const float* __restrict__ feats, int64_t ray, int r,
+                                    float t, int slot, SmemG& sm) {
+  const float4* f = reinterpret_cast<const float4*>(feats + ray * FEATS);
+  const float4 dm = __ldg(f), mz = __ldg(f + 1), o1 = __ldg(f + 2);
+  sm.s.ray_dm[slot] = dm;
+  sm.s.ray_mo[slot] = make_float4(mz.x, mz.y, o1.x, o1.y);
+  sm.s.ray_ob[slot] = make_float2(o1.z, t);
+  sm.slot_ray[slot] = r;
+}
+
+// walk for any sub-block size (and any cluster size; point 6 above): rays
+// in global memory, packed round by round into lists of at most LIST.
+template <bool ANY_HIT, typename Next>
+__device__ __forceinline__ void walk_general(const int* __restrict__ order_row,
+                                             const float* __restrict__ feats,
+                                             const float* __restrict__ tmax,
+                                             const float* __restrict__ g_cluster, int cluster,
+                                             int sub, float* __restrict__ best_t,
+                                             int* __restrict__ best_i, SmemG& sm, Next next) {
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * sub;
+  float* t_g = best_t + base;
+  int* i_g = best_i + base;
+  for (int r = tid; r < sub; r += LIST) {
+    t_g[r] = tmax[base + r];
+    i_g[r] = -1;
+  }
+  if (!ANY_HIT)
+#pragma unroll
+    for (int v = 0; v < WARPS; ++v) sm.s.part_t[v][tid] = __int_as_float(0x7f800000);
+  const int chunks = (cluster + CHUNK - 1) / CHUNK;
+  const int rounds = (sub + LIST - 1) / LIST;
+  __syncthreads();
+  int bound = bound_of(t_g, sub, sm.s);
+  int j = next(0, bound);
+  // the (step, chunk) whose rows are in (or on their way to) the buffer
+  int staged = -1, staged_chunk = 0;
+  while (j >= 0) {
+    const int cid = order_row[j];
+    // test the list's `count` rays against every chunk of the step, then
+    // fold each slot's result into its ray; `last`: no list follows in
+    // this step, so the next step's first chunk may be fetched meanwhile
+    auto test_list = [&](int count, bool last) {
+      float cur = __int_as_float(0x7f800000);  // slot tid's best in the step (closest hit)
+      int ci = -1;
+      for (int c = 0; c < chunks; ++c) {
+        const int width = min(CHUNK, cluster - c * CHUNK);
+        if (staged != j || staged_chunk != c) {
+          wait_prefetch();
+          prefetch_chunk(g_cluster, cid, c, cluster, sm.s);
+          staged = j;
+          staged_chunk = c;
+        }
+        float q[USED];
+        take_chunk(sm.s, q, width);
+        if (c + 1 < chunks) {
+          staged_chunk = c + 1;
+          prefetch_chunk(g_cluster, cid, c + 1, cluster, sm.s);
+        } else if (last) {
+          staged = next(j + 1, bound);
+          staged_chunk = 0;
+          if (staged >= 0) prefetch_chunk(g_cluster, order_row[staged], 0, cluster, sm.s);
+        }
+        test_chunk<ANY_HIT>(q, sm.s, count, width);
+        fold<ANY_HIT>(sm.s, tid < count ? tid : -1, c * CHUNK, cur, ci);
+      }
+      if (tid < count) {
+        const int r = sm.slot_ray[tid];
+        if (ANY_HIT) {
+          if (sm.s.ray_ob[tid].y < 0.0f) {
+            t_g[r] = -1.0f;
+            i_g[r] = 0;
+          }
+        } else if (ci >= 0) {
+          t_g[r] = cur;
+          i_g[r] = cid * cluster + ci;
+        }
+      }
+      __syncthreads();  // the slots are free again
+    };
+    int n = 0;  // entries in the open list
+    for (int k = 0; k < rounds; ++k) {
+      const int r = k * LIST + tid;
+      const float t = r < sub ? __ldcg(t_g + r) : -1.0f;
+      const bool live = t > 1e-4f;
+      const unsigned mask = __ballot_sync(FULL, live);
+      if (lane == 0) sm.rmask[k & 1][w] = mask;
+      __syncthreads();
+      int before = 0, count = 0;
+#pragma unroll
+      for (int v = 0; v < WARPS; ++v) {
+        const int c = __popc(sm.rmask[k & 1][v]);
+        before += v < w ? c : 0;
+        count += c;
+      }
+      const int slot = n + before + __popc(mask & ((1u << lane) - 1u));
+      if (live && slot < LIST) put(feats, base + r, r, t, slot, sm);
+      if (n + count < LIST) {
+        n += count;
+        continue;
+      }
+      test_list(LIST, k + 1 == rounds && n + count == LIST);
+      if (live && slot >= LIST) put(feats, base + r, r, t, slot - LIST, sm);
+      n += count - LIST;
+    }
+    if (n > 0) test_list(n, true);
+    __syncthreads();  // the merges, before the bound reads them
+    bound = bound_of(t_g, sub, sm.s);
+    j = next(j + 1, bound);
+  }
+  wait_prefetch();
 }
 
 }  // namespace sweep_dev

@@ -75,15 +75,18 @@ _SIGNATURES = {
     "sailor_shade_forward_plus": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _P, _P, _I, _I, _I, _P),
     # origin, direction, tmax, cl_min, cl_max, feats, e_bits, order,
-    # blk_bits, nlive, scratch (0 up to SMEM_CLUSTERS clusters), n_blocks,
-    # n_clusters, stream
-    "sailor_slab_tables": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # blk_bits, nlive, scratch (0 while sweep.slab_smem_clusters() holds the
+    # clusters), n_blocks, n_clusters, sub-block size, sub-blocks per block,
+    # stream
+    "sailor_slab_tables": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # e_bits, order, blk_bits, nlive, feats, tmax, g_cluster, best_t, best_i,
-    # n_sub_blocks, sub-blocks per block, n_clusters, cluster, any_hit, stream
-    "sailor_sweep": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # n_sub_blocks, sub-blocks per block, sub-block size, n_clusters,
+    # cluster, any_hit, stream
+    "sailor_sweep": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # e_bits, order, feats, tmax, g_cluster, best_t, best_i, n_sub_blocks,
-    # sub-blocks per block, n_clusters, cluster, any_hit, stream
-    "sailor_sweep_grid": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # sub-blocks per block, sub-block size, n_clusters, cluster, any_hit,
+    # stream
+    "sailor_sweep_grid": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -9,7 +9,9 @@ refraction, Beer-Lambert and Henyey-Greenstein volume path. Between bounces
 the whole wavefront is sorted by a Morton key of its origins and a
 direction octant (``sort_bounces``), so rays that need the same clusters
 share sub-blocks; ``render`` generates its rays in a tile-swizzled order
-so every 2048-ray block is a compact pixel supertile, and can pool
+so every sweep ray block (``sweep.RAY_BLOCK`` rays, sub-blocks of
+``sweep.SUB``, as the module holds them at the call) is a compact pixel
+supertile, and can pool
 ``sample_batch`` samples into one wavefront. ``render`` takes the
 reference's defaults (one sample a pass, no bounce sort, swizzle on when
 the scene has a sweep unless ``SAILOR_TRACE_SWIZZLE=0``);

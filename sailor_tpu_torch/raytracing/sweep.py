@@ -15,14 +15,14 @@ triangle) quantity is a short dot product with the ray's features:
 ``intersect`` runs two kernels:
 
 - B4, the slab entry with the visit tables (``visit_tables``;
-  ``csrc/slab_entry.cu``): per 256-ray sub-block, the least slab entry
+  ``csrc/slab_entry.cu``): per ``SUB``-ray sub-block, the least slab entry
   distance of its rays into each cluster's AABB (+inf where none pierces
-  it), and the rays' feature rows and, per 2048-ray block, the visit order
-  and the tables the sweeps read, in one launch;
+  it), and the rays' feature rows and, per ``RAY_BLOCK``-ray block, the
+  visit order and the tables the sweeps read, in one launch;
 - with ``DMA_SWEEP`` on (the default; ``SAILOR_SWEEP_DMA=0`` turns it off,
   read at import as the reference reads it) B5, the cluster sweep
   (``sweep``; ``csrc/sweep.cu``): each sub-block walks
-  the clusters of its 2048-ray block near to far (the stable argsort of the
+  the clusters of its ray block near to far (the stable argsort of the
   block's entries), skips a step whose sub-block entry is not below the
   sub-block's bound (the largest best t of its rays, compared as float32
   bits: dead rays hold -1.0, whose bits are negative), stops once the
@@ -42,8 +42,12 @@ on the CPU. The winners' t/u/v are refined by one Moller-Trumbore test on
 the winner rows (``_refine``, plain PyTorch). ``intersect(sort_rays=True)``
 first sorts the rays by the first cluster they enter and a direction code
 (plain PyTorch). A scene's cluster size is ``SweepScene.cluster``, the last
-axis of its ``g_cluster``; the kernels take it at run time. ``RAY_BLOCK``
-and ``SUB`` are constants.
+axis of its ``g_cluster``; the kernels take it at run time. So do they take
+the ray block and sub-block sizes, ``RAY_BLOCK`` and ``SUB``
+(``SAILOR_SWEEP_RAY_BLOCK`` and ``SAILOR_SWEEP_SUB``, read at import as the
+reference reads them, 2048 and 256 without them): every function reads the
+module's two at call time, so a caller may set them, and ``check_ray_block``
+refuses a pair where ``SUB`` does not divide ``RAY_BLOCK``.
 """
 
 from __future__ import annotations
@@ -61,16 +65,22 @@ from sailor_tpu_torch.raytracing import bvh
 # triangles a cluster: build()'s default, read once at import as the
 # reference reads it (tools/time_sweep.py documents the knob)
 CLUSTER = int(os.environ.get("SAILOR_SWEEP_CLUSTER", "256"))
-RAY_BLOCK = 2048
-SUB = 256
+# rays a ray block (the unit of the visit order) and a sub-block (the unit
+# of the skip and stop decisions), read once at import as the reference
+# reads them; check_ray_block says which pairs the sweep takes
+RAY_BLOCK = int(os.environ.get("SAILOR_SWEEP_RAY_BLOCK", "2048"))
+SUB = int(os.environ.get("SAILOR_SWEEP_SUB", "256"))
 FEATS = 16   # ray feature columns: [d, m, 0, 0 | o, 1, d, 0]
 ROWS = 40    # cluster feature rows, see SweepScene
 USED_ROWS = 25  # rows B5 reads: 18 side, 4 num, 3 den
-_PLAIN_CHUNK = 128  # sub-blocks the sweep twins test at a time, at 256 a cluster
-# B4 keeps its per-block tables in shared memory up to this many clusters
-# (68 B a cluster: 204 KB of the H100's 227 KB a block) and in a global
-# scratch the wrapper allocates above it (csrc/slab_entry.cu, SMEM_CLUSTERS)
-SLAB_SMEM_CLUSTERS = 3072
+# (ray, triangle) pairs the sweep twins test at a time: 128 sub-blocks of
+# 256 rays at 256 a cluster
+_PLAIN_PAIRS = 128 * 256 * 256
+# B4 keeps its per-block tables in shared memory while they fit in this
+# many bytes (204 KB of the H100's 227 KB a block) and in a global scratch
+# the wrapper allocates beyond (slab_smem_clusters: the one place that
+# decides; csrc/slab_entry.cu follows the scratch pointer it is given)
+SLAB_SMEM_BYTES = 208896
 # B5's per-block walk (on) or B6's dense grid (off), as the reference reads it
 DMA_SWEEP = os.environ.get("SAILOR_SWEEP_DMA", "1") == "1"
 # The reference's routing rule, not a limit of the card: its sweep keeps the
@@ -82,12 +92,34 @@ DMA_SWEEP = os.environ.get("SAILOR_SWEEP_DMA", "1") == "1"
 SMEM_BUDGET = int(os.environ.get("SAILOR_SWEEP_SMEM", str(1 << 20)))
 
 
+def check_ray_block() -> tuple[int, int]:
+    """(RAY_BLOCK, SUB) as the module holds them now, or ValueError for a
+    pair the sweep cannot take: either below 1, or SUB not dividing
+    RAY_BLOCK (the reference raises TypeError at such a pair, from a
+    reshape)."""
+    rb, sub = RAY_BLOCK, SUB
+    if int(rb) != rb or int(sub) != sub or rb < 1 or sub < 1 or rb % sub:
+        raise ValueError(f"SAILOR_SWEEP_RAY_BLOCK={rb!r} and SAILOR_SWEEP_SUB={sub!r}: both "
+                         "must be integers of at least 1, and SAILOR_SWEEP_SUB must divide "
+                         "SAILOR_SWEEP_RAY_BLOCK")
+    return int(rb), int(sub)
+
+
+def slab_smem_clusters() -> int:
+    """The most clusters whose B4 tables fit SLAB_SMEM_BYTES of shared
+    memory at this ray block: 32 B of box and 4 * (RAY_BLOCK/SUB + 1) B of
+    entries a cluster (3,072 at the default 2048/256)."""
+    rb, sub = check_ray_block()
+    return SLAB_SMEM_BYTES // (32 + 4 * (rb // sub + 1))
+
+
 def scalar_bytes(scene: "SweepScene", num_rays: int) -> int:
     """Bytes of the reference's scalar entry table for ``num_rays`` rays:
     4 * (sub-blocks + blocks) * clusters over the rays padded to whole
-    2048-ray blocks."""
-    nb = -(-max(num_rays, RAY_BLOCK) // RAY_BLOCK)
-    return 4 * (nb * (RAY_BLOCK // SUB) + nb) * scene.n_clusters
+    ray blocks."""
+    rb, sub = check_ray_block()
+    nb = -(-max(num_rays, rb) // rb)
+    return 4 * (nb * (rb // sub) + nb) * scene.n_clusters
 
 
 @dataclasses.dataclass
@@ -209,18 +241,19 @@ def slab_entry_plain(feats, tmax, cl_min, cl_max):
     tm = tmax[:, None]
     hit = (tn <= torch.where(tm < tf, tm, tf)) & (tf > 0.0)
     entry = torch.where(hit, torch.where(tn > 0.0, tn, 0.0), torch.inf)
-    return entry.view(-1, SUB, entry.shape[1]).amin(1)
+    return entry.view(-1, check_ray_block()[1], entry.shape[1]).amin(1)
 
 
 def tables_from_entries(e_sub):
     """The sweeps' visit tables from sub-block entries e_sub (Rp // SUB, C),
     as the reference builds them after its slab kernel. With e_blk the
-    least entry of each 2048-ray block: order (B, C), its stable ascending
+    least entry of each ray block: order (B, C), its stable ascending
     argsort; e_bits (Rp // SUB, C), each sub-block's entries in visit
     order; blk_bits (B, C), e_blk in visit order; nlive (B,), the finite
     block entries. Entries are int32 float bits."""
     nsb, nc = e_sub.shape
-    nsub = RAY_BLOCK // SUB
+    rb, sub = check_ray_block()
+    nsub = rb // sub
     nb = nsb // nsub
     e = e_sub.view(nb, nsub, nc)
     e_blk = e.amin(1)
@@ -249,29 +282,31 @@ def visit_tables_plain(o, d, tmax, cl_min, cl_max):
 def visit_tables_cuda(o, d, tmax, cl_min, cl_max):
     """B4 on the card: csrc/slab_entry.cu, the feature rows, the entries
     and the visit tables in one launch (one block per ray block), no host
-    synchronisation; any cluster count (above ``SLAB_SMEM_CLUSTERS`` the
-    blocks keep their tables in a global scratch allocated here)."""
+    synchronisation; any ray block and sub-block pair ``check_ray_block``
+    takes and any cluster count (above ``slab_smem_clusters()`` the blocks
+    keep their tables in a global scratch allocated here)."""
     dev = o.device
     rp, nc = o.shape[0], cl_min.shape[0]
-    if rp % RAY_BLOCK:
-        raise ValueError(f"rays must fill whole blocks of {RAY_BLOCK}")
+    rb, sub = check_ray_block()
+    if rp % rb:
+        raise ValueError(f"rays must fill whole blocks of {rb}")
     cuda_lib.require(o, "origin", torch.float32, (rp, 3))
     cuda_lib.require(d, "direction", torch.float32, (rp, 3), dev)
     cuda_lib.require(tmax, "tmax", torch.float32, (rp,), dev)
     cuda_lib.require(cl_min, "cl_min", torch.float32, (nc, 3), dev)
     cuda_lib.require(cl_max, "cl_max", torch.float32, (nc, 3), dev)
-    nb = rp // RAY_BLOCK
+    nb, nsub = rp // rb, rb // sub
     out = {"feats": torch.empty(rp, FEATS, dtype=torch.float32, device=dev),
-           "e_bits": torch.empty(rp // SUB, nc, dtype=torch.int32, device=dev),
+           "e_bits": torch.empty(rp // sub, nc, dtype=torch.int32, device=dev),
            "order": torch.empty(nb, nc, dtype=torch.int32, device=dev),
            "blk_bits": torch.empty(nb, nc, dtype=torch.int32, device=dev),
            "nlive": torch.empty(nb, dtype=torch.int32, device=dev)}
-    scratch = (torch.empty(nb, RAY_BLOCK // SUB + 1, nc, dtype=torch.int32, device=dev)
-               if nc > SLAB_SMEM_CLUSTERS else None)
+    scratch = (torch.empty(nb, nsub + 1, nc, dtype=torch.int32, device=dev)
+               if nc > slab_smem_clusters() else None)
     err = cuda_lib.launch(o, cuda_lib.load().sailor_slab_tables,
         o.data_ptr(), d.data_ptr(), tmax.data_ptr(), cl_min.data_ptr(), cl_max.data_ptr(),
         *(t.data_ptr() for t in out.values()), 0 if scratch is None else scratch.data_ptr(),
-        nb, nc, cuda_lib.stream_of(o))
+        nb, nc, sub, nsub, cuda_lib.stream_of(o))
     cuda_lib.check(err, "sailor_slab_tables")
     cuda_lib.count("slab_entry")
     return out
@@ -286,30 +321,31 @@ def visit_tables(o, d, tmax, cl_min, cl_max):
 
 def _bits_max(t):
     """Per sub-block, the largest float32 bit pattern of t as an int32."""
-    return t.view(torch.int32).view(-1, SUB).amax(1)
+    return t.view(torch.int32).view(-1, check_ray_block()[1]).amax(1)
 
 
 def _walk_plain(e_bits, order, blk_bits, feats, tmax, g_cluster, *, any_hit: bool,
                 work: dict | None):
     """The sweeps' shared plain walk, vectorised over sub-blocks: visit step
     by visit step, every sub-block whose entry bits are below its bound
-    tests all (ray, triangle) pairs of the step's cluster, ``_PLAIN_CHUNK``
-    sub-blocks at a time. With ``blk_bits`` (B5) the walk stops at the first
+    tests all (ray, triangle) pairs of the step's cluster, about
+    ``_PLAIN_PAIRS`` pairs at a time. With ``blk_bits`` (B5) the walk stops at the first
     step where no sub-block is live and every block's sorted entry has
     reached its sub-blocks' bounds; without (B6) it visits every step. The
     six-term dots are summed left to right as the kernels sum them. The
     cluster size is ``g_cluster``'s last axis."""
     nb, nc = order.shape
     cluster = g_cluster.shape[2]
-    chunk = max(1, _PLAIN_CHUNK * 256 // cluster)
-    nsb = feats.shape[0] // SUB
+    sub = check_ray_block()[1]
+    chunk = max(1, _PLAIN_PAIRS // (sub * cluster))
+    nsb = feats.shape[0] // sub
     nsub = nsb // nb
     t = tmax.clone()
     idx = torch.full_like(t, -1, dtype=torch.int32)
-    tv, iv = t.view(nsb, SUB), idx.view(nsb, SUB)
+    tv, iv = t.view(nsb, sub), idx.view(nsb, sub)
     bound = _bits_max(t)
     blk_of = torch.arange(nsb, device=feats.device) // nsub
-    f = feats.view(nsb, SUB, FEATS)
+    f = feats.view(nsb, sub, FEATS)
     col = torch.arange(cluster, device=feats.device, dtype=torch.int32)
     pairs = tests = 0
     for j in range(nc):
@@ -323,7 +359,7 @@ def _walk_plain(e_bits, order, blk_bits, feats, tmax, g_cluster, *, any_hit: boo
             s = live[c0:c0 + chunk]
             cid = order[blk_of[s], j]
             g = g_cluster[cid.long()]                      # (n, 40, cluster)
-            r = f[s]                                       # (n, SUB, 16)
+            r = f[s]                                       # (n, sub, 16)
 
             def ray(k):
                 return r[:, :, k:k + 1]
@@ -393,13 +429,15 @@ def _g_cluster_size(g_cluster) -> int:
 def sweep_cuda(e_bits, order, blk_bits, nlive, feats, tmax, g_cluster, *,
                any_hit: bool):
     """B5 on the card: csrc/sweep.cu, one launch (one block per sub-block),
-    the cluster size from ``g_cluster``."""
+    the cluster size from ``g_cluster``, the ray block and sub-block sizes
+    from the module."""
     dev = feats.device
     nb, nc = order.shape
     rp = feats.shape[0]
-    if rp != nb * RAY_BLOCK or feats.shape[1] != FEATS:
-        raise ValueError(f"feats must be ({nb * RAY_BLOCK}, {FEATS})")
-    nsb = rp // SUB
+    rb, sub = check_ray_block()
+    if rp != nb * rb or feats.shape[1] != FEATS:
+        raise ValueError(f"feats must be ({nb * rb}, {FEATS})")
+    nsb = rp // sub
     cuda_lib.require(feats, "feats", torch.float32)
     cuda_lib.require(e_bits, "e_bits", torch.int32, (nsb, nc), dev)
     cuda_lib.require(order, "order", torch.int32, (nb, nc), dev)
@@ -413,7 +451,7 @@ def sweep_cuda(e_bits, order, blk_bits, nlive, feats, tmax, g_cluster, *,
     err = cuda_lib.launch(feats, cuda_lib.load().sailor_sweep,
         e_bits.data_ptr(), order.data_ptr(), blk_bits.data_ptr(), nlive.data_ptr(),
         feats.data_ptr(), tmax.data_ptr(), g_cluster.data_ptr(), best_t.data_ptr(),
-        best_i.data_ptr(), nsb, RAY_BLOCK // SUB, nc, cluster, int(any_hit),
+        best_i.data_ptr(), nsb, rb // sub, sub, nc, cluster, int(any_hit),
         cuda_lib.stream_of(feats))
     cuda_lib.check(err, "sailor_sweep")
     cuda_lib.count("sweep")
@@ -439,13 +477,15 @@ def sweep_grid_plain(e_bits, order, feats, tmax, g_cluster, *, any_hit: bool,
 
 def sweep_grid_cuda(e_bits, order, feats, tmax, g_cluster, *, any_hit: bool):
     """B6 on the card: csrc/sweep_grid.cu, one launch (one block per
-    sub-block), the cluster size from ``g_cluster``."""
+    sub-block), the cluster size from ``g_cluster``, the ray block and
+    sub-block sizes from the module."""
     dev = feats.device
     nb, nc = order.shape
     rp = feats.shape[0]
-    if rp != nb * RAY_BLOCK or feats.shape[1] != FEATS:
-        raise ValueError(f"feats must be ({nb * RAY_BLOCK}, {FEATS})")
-    nsb = rp // SUB
+    rb, sub = check_ray_block()
+    if rp != nb * rb or feats.shape[1] != FEATS:
+        raise ValueError(f"feats must be ({nb * rb}, {FEATS})")
+    nsb = rp // sub
     cuda_lib.require(feats, "feats", torch.float32)
     cuda_lib.require(e_bits, "e_bits", torch.int32, (nsb, nc), dev)
     cuda_lib.require(order, "order", torch.int32, (nb, nc), dev)
@@ -457,7 +497,7 @@ def sweep_grid_cuda(e_bits, order, feats, tmax, g_cluster, *, any_hit: bool):
     err = cuda_lib.launch(feats, cuda_lib.load().sailor_sweep_grid,
         e_bits.data_ptr(), order.data_ptr(), feats.data_ptr(), tmax.data_ptr(),
         g_cluster.data_ptr(), best_t.data_ptr(), best_i.data_ptr(), nsb,
-        RAY_BLOCK // SUB, nc, cluster, int(any_hit), cuda_lib.stream_of(feats))
+        rb // sub, sub, nc, cluster, int(any_hit), cuda_lib.stream_of(feats))
     cuda_lib.check(err, "sailor_sweep_grid")
     cuda_lib.count("sweep_grid")
     return best_t, best_i
@@ -475,7 +515,8 @@ def _pad_rays(origin, direction, t_max, active):
     (o, d, tmax), each Rp long."""
     r = origin.shape[0]
     dev = origin.device
-    rpad = -(-max(r, RAY_BLOCK) // RAY_BLOCK) * RAY_BLOCK
+    rb = check_ray_block()[0]
+    rpad = -(-max(r, rb) // rb) * rb
     o = torch.zeros(rpad, 3, dtype=torch.float32, device=dev)
     d = torch.full((rpad, 3), 1e-8, dtype=torch.float32, device=dev)
     o[:r], d[:r] = origin, direction

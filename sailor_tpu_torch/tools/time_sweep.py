@@ -7,13 +7,17 @@ from the previous hits so that nothing can be skipped, times the chain of
 1 and of K with CUDA events after a synchronise, and prints
 (T(K) - T(1)) / (K - 1), the cost of one dispatch free of the chain's
 fixed costs. The sweep's own knobs (``SAILOR_SWEEP_*``: the cluster size
-``SAILOR_SWEEP_CLUSTER``, ``SAILOR_SWEEP_DMA``, ``SAILOR_SWEEP_SMEM``)
-apply as ``raytracing/sweep.py`` reads them; the scene's sweep is built at
-the default cluster size, which the tool prints with its result.
+``SAILOR_SWEEP_CLUSTER``; the rays of a ray block ``SAILOR_SWEEP_RAY_BLOCK``
+(2048) and of a sub-block ``SAILOR_SWEEP_SUB`` (256), which must divide it;
+``SAILOR_SWEEP_DMA``, ``SAILOR_SWEEP_SMEM``) apply as
+``raytracing/sweep.py`` reads them; the scene's sweep is built at the
+default cluster size, which the tool prints with the ray block and
+sub-block beside its result.
 
 Usage:
   python -m sailor_tpu_torch.tools.time_sweep              # the card, 512 x 512
   SAILOR_SWEEP_CLUSTER=512 python -m sailor_tpu_torch.tools.time_sweep
+  SAILOR_SWEEP_RAY_BLOCK=4096 SAILOR_SWEEP_SUB=512 python -m sailor_tpu_torch.tools.time_sweep
   python -m sailor_tpu_torch.tools.time_sweep --cpu        # the twins, 32 x 32
   python -m sailor_tpu_torch.tools.time_sweep --size 256 --k 5 --any-hit --incoherent
 """
@@ -72,7 +76,8 @@ def main(argv=None) -> int:
     per = (tk - t1) / (args.k - 1)
     rate = r / (per * 1e-3) / 1e6 if per > 0 else float("inf")
     print(f"T(1)={t1:.3f} ms  T({args.k})={tk:.3f} ms  per-dispatch={per:.3f} ms  "
-          f"({rate:.1f} Mrays/s)  cluster={sw.cluster}")
+          f"({rate:.1f} Mrays/s)  cluster={sw.cluster} ray_block={sweep_mod.RAY_BLOCK} "
+          f"sub={sweep_mod.SUB}")
     return 0
 
 

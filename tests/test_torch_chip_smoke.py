@@ -160,13 +160,30 @@ def _walk(p, g_cluster, any_hit, grid=False):
     return best_t, best_i, pairs, tests
 
 
+# the sweep's (RAY_BLOCK, SUB) pairs the work counts are held at, after
+# the default (under the old ids): a sub-block no power of two, and one
+# smaller than a warp
+ANY_HIT_PAIRS = pytest.mark.parametrize(
+    "any_hit,pair", [(a, p) for p in (None, (1536, 192), (512, 16)) for a in (False, True)],
+    ids=[f"{'any' if a else 'closest'}" + (f"-{p[0]}-{p[1]}" if p else "")
+         for p in (None, (1536, 192), (512, 16)) for a in (False, True)])
+
+
+@pytest.fixture
+def at_pair(pair, monkeypatch):
+    if pair is not None:
+        monkeypatch.setattr(sweep, "RAY_BLOCK", pair[0])
+        monkeypatch.setattr(sweep, "SUB", pair[1])
+    return pair
+
+
 def _sweep_inputs():
     rng = np.random.default_rng(3)
     v0 = rng.uniform(-5, 5, (1500, 3)).astype(np.float32)
     v1 = v0 + rng.uniform(-1, 1, (1500, 3)).astype(np.float32)
     v2 = v0 + rng.uniform(-1, 1, (1500, 3)).astype(np.float32)
     scene = sweep.build(v0, v1, v2, device="cpu")
-    r = 2 * sweep.RAY_BLOCK
+    r = 2 * max(sweep.RAY_BLOCK, 2048)
     o = torch.from_numpy(rng.uniform(-8, 8, (r, 3)).astype(np.float32))
     d = torch.nn.functional.normalize(torch.from_numpy(rng.normal(size=(r, 3)).astype(np.float32)),
                                       dim=1)
@@ -185,8 +202,8 @@ def _check_work(t, i, work, want):
     assert 0 < tests < pairs * sweep.SUB * sweep.CLUSTER
 
 
-@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
-def test_sweep_work_counts_walked_pairs_and_live_tests(any_hit):
+@ANY_HIT_PAIRS
+def test_sweep_work_counts_walked_pairs_and_live_tests(at_pair, any_hit):
     scene, p = _sweep_inputs()
     work = {}
     t, i = sweep.sweep_plain(p["e_bits"], p["order"], p["blk_bits"], p["nlive"], p["feats"],
@@ -194,8 +211,8 @@ def test_sweep_work_counts_walked_pairs_and_live_tests(any_hit):
     _check_work(t, i, work, _walk(p, scene.g_cluster, any_hit))
 
 
-@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
-def test_sweep_grid_work_counts_walked_pairs_and_live_tests(any_hit):
+@ANY_HIT_PAIRS
+def test_sweep_grid_work_counts_walked_pairs_and_live_tests(at_pair, any_hit):
     """B6's grid visits every step; it walks (stages and tests) the same
     live pairs as B5, which the bound charges."""
     scene, p = _sweep_inputs()
@@ -851,3 +868,62 @@ def test_sweep_clusters_phase_rehearsal(rehearsal, monkeypatch, capsys):
     out = capsys.readouterr().out
     assert out.count("b4_equal=True b5_equal=True b6_equal=True tied_equal=True") == 2 * len(sizes)
     assert "4610 clusters" in out and "cluster=512" in out, out
+
+
+def test_sweep_rayblocks_phase_rehearsal(rehearsal, monkeypatch, capsys):
+    """run_sweep_rayblocks at 32x32 on the tracer scene with 2 spheres, at
+    three of its pairs and one small pair: at every pair the render's
+    route and launches, the twins held to themselves on the bounce-1
+    passes (the small pair's two middle ray blocks), the bounds; at
+    (8192, 1024) the 4-sample pool on the sweep; the tool's subprocess and
+    the small render stubbed (the render is asked at the pair)."""
+    import subprocess
+    import types
+
+    from sailor_tpu_torch import scenes
+    from sailor_tpu_torch.kernels import cuda_lib
+
+    soup = scenes.tracer_soup
+    monkeypatch.setattr(scenes, "tracer_soup", lambda rings=24, sectors=48, spheres=2:
+                        soup(rings, sectors, spheres))
+    monkeypatch.setattr(chip_smoke, "TRACER", (32, 32, 2, 1))
+    monkeypatch.setattr(chip_smoke, "SWEEP_RAY_BLOCKS", ((1024, 128), (2048, 2048), (8192, 1024)))
+    monkeypatch.setattr(chip_smoke, "SMALL_RAY_BLOCKS", ((96, 1),))
+
+    def grid_twin(*args, **kw):
+        cuda_lib.LAUNCHES["sweep_grid"] += 1
+        return sweep.sweep_grid_plain(*args, **kw)
+
+    monkeypatch.setattr(sweep, "sweep_grid_cuda", grid_twin)
+    monkeypatch.setattr(chip_smoke, "profiled_us", lambda fns, reps=5: {
+        k: (fn() and 1.0, "profiler") for k, fn in fns.items()})
+    tool = subprocess.CompletedProcess(
+        [], 0, stdout="T(1)=1 ms  T(9)=2 ms  per-dispatch=0.125 ms  (1 Mrays/s)  cluster=256 "
+                      "ray_block=4096 sub=512\n", stderr="# RAY_BLOCK=4096 SUB=512\n")
+    runs = []
+
+    def run(cmd, **kw):
+        runs.append({k: kw["env"][k] for k in ("SAILOR_SWEEP_RAY_BLOCK", "SAILOR_SWEEP_SUB")})
+        return tool
+
+    monkeypatch.setattr(chip_smoke, "subprocess", types.SimpleNamespace(run=run))
+    small = []
+
+    def small_trace(scene_fn=None, label="tracer", grid=False, spp=2):
+        small.append((label, sweep.RAY_BLOCK, sweep.SUB, spp))
+        cuda_lib.LAUNCHES.update(["slab_entry", "sweep"])  # as a render would
+
+    monkeypatch.setattr(chip_smoke, "check_small_trace", small_trace)
+    rows, launches = chip_smoke.run_sweep_rayblocks(rehearsal)
+    assert (sweep.RAY_BLOCK, sweep.SUB) == (2048, 256)  # restored
+    assert small == [("tracer_ray_block_1536_192", 1536, 192, 1)]
+    assert runs == [{"SAILOR_SWEEP_RAY_BLOCK": "4096", "SAILOR_SWEEP_SUB": "512"}]
+    keys = ["1024/128", "2048/2048", "8192/1024", "96/1"]
+    assert list(rows["sweep"]) == list(rows["sweep_grid"]) == list(rows["slab_entry"]) == keys
+    assert all(r["bounce1"]["bound_ms"] > 0 for r in rows["sweep"].values())
+    # 4 passes a 1-sample render, 4 more for the 4-sample pool, 1 small render
+    assert launches["slab_entry"] == launches["sweep"] == 4 * len(keys) + 4 + 1
+    out = capsys.readouterr().out
+    assert out.count("b4_equal=True b5_equal=True b6_equal=True tied_equal=True") == 2 * len(keys)
+    assert "sweep-rayblocks[8192/1024] sample_batch=4" in out and "route=bvh8" not in out, out
+    assert "rays=192 " in out, out

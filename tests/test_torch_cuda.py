@@ -66,7 +66,11 @@ bounce-1 passes (also on tied clusters), B4 at 1,153 clusters (the dense
 scene: shared tables past the old 1,024 limit) and at 4,609 and 18,434
 (clusters of 4 and 1: the global-scratch tables), and 64x64 renders on the
 card against the CPU path at cluster 37 and of the dense scene's
-``tracer="sweep"`` (1 spp). The BVH8 traversal (``csrc/bvh8.cu``) is held to its twin bit for bit
+``tracer="sweep"`` (1 spp). The sweep at other ray block and sub-block
+sizes (``sweep.RAY_BLOCK``/``SUB`` set to (1024, 128) and (8192, 2048),
+the passes recorded anew at each pair): the same tests of B4-B6, the
+sparse passes, the cluster sizes and the global-scratch tables again at
+each pair. The BVH8 traversal (``csrc/bvh8.cu``) is held to its twin bit for bit
 (t, u, v bits and ids: the same float32 operations, -fmad=false), closest
 and any hit, with and without a finite t_max and an active mask, on the
 soups of ``tests/torch_bvh8_soups.py`` (the deep one drops pushes at
@@ -96,7 +100,7 @@ import pytest
 import torch
 
 from chip_smoke import (bits_equal, cascade_inputs, check_culled_frame, check_small_frame,
-                        cluster_scene, record_passes,
+                        cluster_scene, ray_block, record_passes,
                         check_small_full_frame, check_small_queue_frame,
                         check_small_shadow_frame, check_small_trace, dense_runs, dma_runs,
                         evsm_shadow_factor, frame_inputs, heavy_tile_cases, heavy_tile_rows,
@@ -610,12 +614,56 @@ def tracer_rays():
     return scene, tracer_passes(scene, cam, view, proj, 128, 128)
 
 
-@pytest.mark.parametrize("npass", [0, 1, 2, 3],
-                         ids=["bounce0", "bounce0_shadow", "bounce1", "bounce1_shadow"])
-def test_slab_entry_kernel_matches_plain(tracer_rays, npass):
+# the sweep's (RAY_BLOCK, SUB) pairs the B4-B6 tests run at: the default
+# and two more (a smaller sub-block; one larger than a CUDA block)
+PAIRS = [None, (1024, 128), (8192, 2048)]
+
+
+def over_pairs(argnames, argvalues, ids):
+    """``parametrize`` of ``argnames`` and the sweep's ``pair``: every value
+    at the default pair under its own id, then at each other pair (its id
+    followed by the pair's)."""
+    values, all_ids = [], []
+    for pair in PAIRS:
+        for v, i in zip(argvalues, ids):
+            values.append((*(v if isinstance(v, tuple) else (v,)), pair))
+            all_ids.append(i if pair is None else f"{i}-{pair[0]}-{pair[1]}")
+    return pytest.mark.parametrize(f"{argnames},pair", values, ids=all_ids)
+
+
+@pytest.fixture(scope="module")
+def pair_rays(tracer_rays):
+    """``tracer_rays`` at a (RAY_BLOCK, SUB) pair (None: the default):
+    the passes recorded with the sweep at that pair, each pair once."""
+    recorded = {None: tracer_rays}
+
+    def get(pair):
+        if pair not in recorded:
+            scene, cam, view, proj = tracer_scene()
+            with ray_block(*pair):
+                recorded[pair] = scene, tracer_passes(scene, cam, view, proj, 128, 128)
+        return recorded[pair]
+
+    return get
+
+
+@pytest.fixture
+def at_pair(pair, pair_rays):
+    """The sweep at the test's pair for the length of the test; its
+    (scene, passes)."""
+    if pair is None:
+        yield pair_rays(None)
+        return
+    rays = pair_rays(pair)
+    with ray_block(*pair):
+        yield rays
+
+
+@over_pairs("npass", [0, 1, 2, 3], ids=["bounce0", "bounce0_shadow", "bounce1", "bounce1_shadow"])
+def test_slab_entry_kernel_matches_plain(at_pair, npass):
     """B4's feature rows and four tables, one launch, under the sync debug
     mode "error"."""
-    scene, passes = tracer_rays
+    scene, passes = at_pair
     p = passes[npass]
     args = (p["feats"][:, 8:11].contiguous(), p["feats"][:, 0:3].contiguous(), p["tmax"],
             scene.sweep.cl_min, scene.sweep.cl_max)
@@ -632,10 +680,10 @@ def test_slab_entry_kernel_matches_plain(tracer_rays, npass):
     assert tables_equal(got, ref) and bits_equal(got["feats"], p["feats"])
 
 
-@pytest.mark.parametrize("live", [0, 1, 33, 256], ids=["none", "one", "33", "all"])
+@over_pairs("live", [0, 1, 33, 256], ids=["none", "one", "33", "all"])
 @pytest.mark.parametrize("npass", [2, 3], ids=["bounce1", "bounce1_shadow"])
-def test_slab_entry_kernel_matches_plain_on_sparse_passes(tracer_rays, npass, live):
-    scene, passes = tracer_rays
+def test_slab_entry_kernel_matches_plain_on_sparse_passes(at_pair, npass, live):
+    scene, passes = at_pair
     p = sparse_pass(scene.sweep, passes[npass], live)  # tables from the kernel
     ref = sweep.visit_tables_plain(p["feats"][:, 8:11].contiguous(),
                                    p["feats"][:, 0:3].contiguous(), p["tmax"],
@@ -643,10 +691,9 @@ def test_slab_entry_kernel_matches_plain_on_sparse_passes(tracer_rays, npass, li
     assert tables_equal(p, ref)
 
 
-@pytest.mark.parametrize("npass", [0, 1, 2, 3],
-                         ids=["bounce0", "bounce0_shadow", "bounce1", "bounce1_shadow"])
-def test_sweep_kernel_matches_plain(tracer_rays, npass):
-    scene, passes = tracer_rays
+@over_pairs("npass", [0, 1, 2, 3], ids=["bounce0", "bounce0_shadow", "bounce1", "bounce1_shadow"])
+def test_sweep_kernel_matches_plain(at_pair, npass):
+    scene, passes = at_pair
     p = passes[npass]
     args = (p["e_bits"], p["order"], p["blk_bits"], p["nlive"], p["feats"], p["tmax"],
             scene.sweep.g_cluster)
@@ -663,10 +710,9 @@ def test_trace_on_card_matches_cpu(tracer_rays):
     check_small_trace()
 
 
-@pytest.mark.parametrize("npass", [0, 1, 2, 3],
-                         ids=["bounce0", "bounce0_shadow", "bounce1", "bounce1_shadow"])
-def test_sweep_grid_kernel_matches_plain_and_b5(tracer_rays, npass):
-    scene, passes = tracer_rays
+@over_pairs("npass", [0, 1, 2, 3], ids=["bounce0", "bounce0_shadow", "bounce1", "bounce1_shadow"])
+def test_sweep_grid_kernel_matches_plain_and_b5(at_pair, npass):
+    scene, passes = at_pair
     p = passes[npass]
     g = scene.sweep.g_cluster
     args = (p["e_bits"], p["order"], p["feats"], p["tmax"], g)
@@ -694,12 +740,11 @@ def test_textured_sky_trace_on_card_matches_cpu(tracer_rays):
     check_small_trace(textured_sky_balls, "balls_textured_sky")
 
 
-@pytest.mark.parametrize("live,tied", [(0, False), (1, False), (33, False), (256, False),
-                                       (256, True)],
-                         ids=["none", "one", "33", "all", "all_tied"])
+@over_pairs("live,tied", [(0, False), (1, False), (33, False), (256, False), (256, True)],
+            ids=["none", "one", "33", "all", "all_tied"])
 @pytest.mark.parametrize("npass", [2, 3], ids=["bounce1", "bounce1_shadow"])
-def test_sweep_kernels_match_plain_on_sparse_passes(tracer_rays, npass, live, tied):
-    scene, passes = tracer_rays
+def test_sweep_kernels_match_plain_on_sparse_passes(at_pair, npass, live, tied):
+    scene, passes = at_pair
     p = sparse_pass(scene.sweep, passes[npass], live)
     g = tied_clusters(scene.sweep.g_cluster) if tied else scene.sweep.g_cluster
     args = (p["e_bits"], p["order"], p["blk_bits"], p["nlive"], p["feats"], p["tmax"], g)
@@ -739,10 +784,10 @@ def _tables_at(sw, p, rays=None):
     return sweep.visit_tables_cuda(*args), sweep.visit_tables_plain(*args)
 
 
-@pytest.mark.parametrize("cluster", [37, 1024])
+@over_pairs("cluster", [37, 1024], ids=["37", "1024"])
 @pytest.mark.parametrize("npass", [2, 3], ids=["bounce1", "bounce1_shadow"])
-def test_sweep_kernels_match_plain_at_cluster(tracer_rays, cluster_sweeps, npass, cluster):
-    _, passes = tracer_rays
+def test_sweep_kernels_match_plain_at_cluster(at_pair, cluster_sweeps, npass, cluster):
+    _, passes = at_pair
     sw = cluster_sweeps(cluster)
     assert sw.cluster == cluster and sw.g_cluster.shape[2] == cluster
     got, ref = _tables_at(sw, passes[npass])
@@ -761,14 +806,13 @@ def test_sweep_kernels_match_plain_at_cluster(tracer_rays, cluster_sweeps, npass
             assert torch.equal(t.view(torch.int32), t_p.view(torch.int32))
 
 
-@pytest.mark.parametrize("cluster,rays", [(4, 2 * sweep.RAY_BLOCK), (1, sweep.RAY_BLOCK)],
-                         ids=["4609_clusters", "18434_clusters"])
-def test_slab_entry_kernel_matches_plain_past_shared_tables(tracer_rays, cluster_sweeps,
-                                                            cluster, rays):
-    _, passes = tracer_rays
+@over_pairs("cluster,blocks", [(4, 2), (1, 1)], ids=["4609_clusters", "18434_clusters"])
+def test_slab_entry_kernel_matches_plain_past_shared_tables(at_pair, cluster_sweeps,
+                                                            cluster, blocks):
+    _, passes = at_pair
     sw = cluster_sweeps(cluster)
-    assert sw.n_clusters > sweep.SLAB_SMEM_CLUSTERS
-    got, ref = _tables_at(sw, passes[2], rays)
+    assert sw.n_clusters > sweep.slab_smem_clusters()
+    got, ref = _tables_at(sw, passes[2], blocks * sweep.RAY_BLOCK)
     assert int(ref["nlive"].sum()) > 0 and tables_equal(got, ref)
 
 

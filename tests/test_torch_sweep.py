@@ -168,7 +168,10 @@ def _sorted_index(scene, tri):
     return where[tri]
 
 
-def _check_intersect(name, case, sort_rays=False, cluster=None):
+def _check_intersect(name, case, sort_rays=False, cluster=None, port_dma=None):
+    """The port's ``intersect`` against the reference's on the same rays.
+    ``port_dma``: a tuple of ``DMA_SWEEP`` settings, the port run once with
+    each (B5, B6) against the one reference result; None: as set."""
     v0, v1, v2 = SCENES[name]()
     ref_scene = jax_sweep.build(v0, v1, v2, **_cluster_kw(cluster))
     scene = sweep.build(v0, v1, v2, device="cpu", **_cluster_kw(cluster))
@@ -183,9 +186,20 @@ def _check_intersect(name, case, sort_rays=False, cluster=None):
                t_max=torch.from_numpy(t_max) if use_tmax else None, sort_rays=sort_rays)
     want = {k: np.asarray(v) for k, v in
             jax_sweep.intersect(ref_scene, jnp.asarray(o), jnp.asarray(d), **jkw).items()}
-    got = {k: v.numpy() for k, v in
-           sweep.intersect(scene, torch.from_numpy(o), torch.from_numpy(d), **tkw).items()}
     assert 0.1 < want["hit"].mean() < 0.95
+    dma_was = sweep.DMA_SWEEP
+    try:
+        for dma in port_dma or (dma_was,):
+            sweep.DMA_SWEEP = dma
+            got = {k: v.numpy() for k, v in sweep.intersect(
+                scene, torch.from_numpy(o), torch.from_numpy(d), **tkw).items()}
+            _compare_intersect(scene, got, want, active if use_active else None,
+                               t_max if use_tmax else None)
+    finally:
+        sweep.DMA_SWEEP = dma_was
+
+
+def _compare_intersect(scene, got, want, active, t_max):
     assert (got["hit"] == want["hit"]).mean() >= 0.999
     both = got["hit"] & want["hit"]
     assert (got["tri"][both] == want["tri"][both]).mean() >= 0.999
@@ -200,9 +214,9 @@ def _check_intersect(name, case, sort_rays=False, cluster=None):
     for k in ("u", "v"):
         err = np.abs(got[k][same] - want[k][same]) * size
         assert (err <= 1e-5 * np.maximum(1.0, want["t"][same])).all(), (k, err.max())
-    if use_active:
+    if active is not None:
         assert not got["hit"][~active].any()
-    if use_tmax:
+    if t_max is not None:
         assert (got["t"][got["hit"]] <= t_max[got["hit"]] * (1 + 1e-5)).all()
 
 

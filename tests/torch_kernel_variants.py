@@ -24,9 +24,10 @@ tiles' runs do not fit; the R the plan takes is printed). B3 variants:
 torch.clamp's max as three instructions (sailor::clamp_lo) in place of
 one; rsqrtf with its subnormal rescaling; five blocks an SM; __frcp_rn's
 range check on each of a pair's three reciprocals in place of one check
-for all three. B4 variants: 2 rays a thread (1024 threads) in place of 4;
-one block a sub-block, the last of a ray block's 8 to arrive building the
-tables, with 4 and with 2 rays a thread.
+for all three. B4 variant: 2 rays a thread (1024 threads) in place of 4
+(the other block layout once timed, one block a sub-block, was a patch of
+the fixed-size kernel and is no longer built; csrc/slab_entry.cu keeps its
+times).
 """
 
 import ctypes
@@ -56,52 +57,12 @@ RASTER = {
     "never balanced": [(BALANCE, "  if (true) {")],
     "3 blocks an SM": [RASTER_LB],
 }
-RPT = ("constexpr int RPT = 4;", "constexpr int RPT = 2;")
-# The other block layout: one block a sub-block; each writes its entries
-# to scratch, and the last of a ray block's NSUB to arrive (a counter a ray
-# block, left zeroed) reads them back and builds the tables. The exported
-# function takes scratch and the counters before the stream.
-PER_SUB = [
-    ("constexpr int THREADS = NSUB * SUB / RPT;", "constexpr int THREADS = SUB / RPT;"),
-    ("int* __restrict__ tables, int nc) {",
-     "int* __restrict__ tables, int nc,\n"
-     "                   int* __restrict__ scratch, int* __restrict__ arrivals) {"),
-    ("  const int b = blockIdx.x;\n"
-     "  const int64_t ray0 = (static_cast<int64_t>(b) * NSUB + sub) * SUB + tid % SUB_THREADS;",
-     "  const int b = blockIdx.x / NSUB;\n"
-     "  const int64_t ray0 = static_cast<int64_t>(blockIdx.x) * SUB + tid % SUB_THREADS;"),
-    ("  // the block entries, then the visit order by rank\n", """\
-  {
-    __shared__ int s_last;
-    for (int i = tid; i < nc; i += THREADS)
-      scratch[static_cast<int64_t>(blockIdx.x) * nc + i] = e[i];
-    __threadfence();
-    __syncthreads();
-    if (tid == 0) {
-      s_last = atomicAdd(&arrivals[b], 1) == NSUB - 1;
-      if (s_last) arrivals[b] = 0;
-    }
-    __syncthreads();
-    if (!s_last) return;
-    __threadfence();
-    for (int i = tid; i < NSUB * nc; i += THREADS)
-      e[i] = __ldcg(scratch + static_cast<int64_t>(b) * NSUB * nc + i);
-    __syncthreads();
-  }
-"""),
-    ("int n_blocks, int nc, cudaStream_t stream) {",
-     "int n_blocks, int nc, int* scratch, int* arrivals,\n"
-     "                                  cudaStream_t stream) {"),
-    ("slab_tables_kernel<false><<<n_blocks, THREADS, smem, stream>>>(",
-     "slab_tables_kernel<false><<<n_blocks * NSUB, THREADS, smem, stream>>>("),
-    ("nlive, nullptr, nc);", "nlive, nullptr, nc, scratch, arrivals);"),
-    ("nlive, tables, nc);", "nlive, tables, nc, scratch, arrivals);"),
-]
+# 2 rays a thread, 1024 threads a block (the group of 2,048 rays kept)
+RPT = [("constexpr int RPT = 4;", "constexpr int RPT = 2;"),
+       ("constexpr int THREADS = 512;", "constexpr int THREADS = 1024;")]
 SLAB = {
     "as built": [],
-    "2 rays a thread": [RPT],
-    "a block a sub-block": PER_SUB,
-    "a block a sub-block, 2 rays a thread": [*PER_SUB, RPT],
+    "2 rays a thread": RPT,
 }
 SHADE = {
     "as built": [],
@@ -337,26 +298,17 @@ def slab_variants(libs, card, stream):
     ref = sweep.visit_tables_cuda(*args)
     rp, nc = p["tmax"].shape[0], sw.n_clusters
     nb = rp // sweep.RAY_BLOCK
-    scratch = torch.empty(rp // sweep.SUB * nc, dtype=torch.int32, device="cuda")
-    arrivals = torch.zeros(nb, dtype=torch.int32, device="cuda")
     for name, (lib, regs) in libs.items():
         out = {k: torch.empty_like(v) for k, v in ref.items()}
-        extra = ()
-        if "sub-block" in name:  # PER_SUB's two more arguments
-            sig = cuda_lib._SIGNATURES["sailor_slab_tables"]
-            lib.sailor_slab_tables.argtypes = [*sig[:-1], ctypes.c_void_p, ctypes.c_void_p,
-                                               sig[-1]]
-            extra = (scratch.data_ptr(), arrivals.data_ptr())
 
         def run():
             cuda_lib.check(lib.sailor_slab_tables(
                 *(t.data_ptr() for t in args), *(t.data_ptr() for t in out.values()), None, nb,
-                nc, *extra, stream), name)
+                nc, sweep.SUB, sweep.RAY_BLOCK // sweep.SUB, stream), name)
 
         ms = chip_smoke._time_ms(run, 50)
         print(f"slab_entry [{name}]: ms={ms:.4f} bit_equal={chip_smoke.tables_equal(out, ref)} "
-              f"arrivals_left_zero={not bool(arrivals.any())} ptxas: {regs} on {card}",
-              flush=True)
+              f"ptxas: {regs} on {card}", flush=True)
 
 
 if __name__ == "__main__":
