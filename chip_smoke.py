@@ -452,10 +452,11 @@ def worklist_runs(rows, big_rows, starts, counts, n_big, *, tiles_y, tiles_x,
                                   run_groups)
     big = tr._rows_or_dead(big_rows, nb * group)
     lo = (starts.long().cpu() // group * group).tolist()
-    iy = torch.arange(tr.TILE_H, device=dev)[:, None].expand(tr.TILE_H, tr.TILE_W)
-    ix = torch.arange(tr.TILE_W, device=dev)[None, :].expand(tr.TILE_H, tr.TILE_W)
+    th = tr.check_tile_h()
+    iy = torch.arange(th, device=dev)[:, None].expand(th, tr.TILE_W)
+    ix = torch.arange(tr.TILE_W, device=dev)[None, :].expand(th, tr.TILE_W)
     rect = ((iy // 8) * 8 + ix // 16).reshape(-1)  # the warp rectangle of each pixel
-    corner = torch.arange(64, device=dev)
+    corner = torch.arange(tr.strips() * 8, device=dev)  # 8 rectangles a strip
     rx = (corner % 8 * 16).float() + 0.5  # each rectangle's outermost centres, tile-local
     ry = (corner // 8 * 8).float() + 0.5
     tests, strip_tests, runs, longest = 0, 0, 0, 0
@@ -463,7 +464,7 @@ def worklist_runs(rows, big_rows, starts, counts, n_big, *, tiles_y, tiles_x,
     def tile_rows(t, px, py, zl, zh):
         nonlocal tests, strip_tests, runs, longest
         ti, tj = divmod(t, tiles_x)
-        ox, oy = float(tj * tr.TILE_W), float(ti * tr.TILE_H)
+        ox, oy = float(tj * tr.TILE_W), float(ti * th)
         x_lo, x_hi, y_lo, y_hi = rx + ox, rx + ox + 15.0, ry + oy, ry + oy + 7.0
         sx_lo, sx_hi = ox + 0.5, ox + tr.TILE_W - 0.5
         test = tr._test_chunk_mxu(ox, oy) if mxu else tr._test_chunk
@@ -705,7 +706,7 @@ def check_kernels(scene, width, height, card):
           f"mean={counts.float().mean().item():.2f} walked_rows_per_tile max={int(walked.max())} "
           f"mean={walked.mean().item():.2f} big_rows={int(n_big)} tiles={counts.numel()} "
           f"run_groups={stats['run_groups']} runs={stats['runs']} "
-          f"blocks={stats['runs'] * tr.STRIPS} pixel_tests={stats['pixel_tests']} "
+          f"blocks={stats['runs'] * tr.strips()} pixel_tests={stats['pixel_tests']} "
           f"bound_pairs={pairs} strip_mapping_tests={stats['strip_tests']} "
           f"longest_rectangle_walk={stats['longest_rectangle_walk']} of "
           f"{stats['run_groups'] * tr.CHUNK} rows a run")
@@ -939,7 +940,7 @@ def _mapping_check(name, model, args, kw, kernel_out, walked, pairs):
           f"the {name} kernel's mapping disagrees with the kernel")
     print(f"{name} mapping: walked_rows={walked} tiles={kw['tiles_y'] * kw['tiles_x']} "
           f"run_groups={stats['run_groups']} runs={stats['runs']} "
-          f"blocks={stats['runs'] * tr.STRIPS} pixel_tests={stats['pixel_tests']} "
+          f"blocks={stats['runs'] * tr.strips()} pixel_tests={stats['pixel_tests']} "
           f"bound_pairs={pairs} strip_mapping_tests={stats['strip_tests']} "
           f"longest_rectangle_walk={stats['longest_rectangle_walk']}")
 
@@ -1219,6 +1220,235 @@ def run_rasterize(scene, width, height, card):
     check(tuple(depth.shape) == (height, width) and cov > 0.0, "rasterize rendered nothing")
     check(bool(torch.isfinite(gb.world_position).all()), "rasterize's G-buffer is not finite")
     return launches
+
+
+TILE_HEIGHTS = (16, 32, 128)  # raster-tile-heights' heights (the other phases run at 64)
+TILE_HEIGHT_FRAMES = 3  # its timed work-list frames at each height, after one warm-up
+SMALL_TILE_HEIGHT = 16  # its 256x128 card-vs-CPU frame
+# the kernels the phase holds and times at each height: {name: the raster
+# configuration whose frame launches it}
+TILE_HEIGHT_KERNELS = {
+    "raster_worklist": "worklist", "resolve_worklist": "worklist", "raster_stream": "stream",
+    "raster_stream_mxu": "stream_mxu", "raster_dma": "dma", "raster_dense": "dense",
+    "resolve_stream": "stream",
+}
+
+
+def tile_height_kernels(scene, width, height, card):
+    """B1, B2, B7 (both plane forms), B8, B9 and B10 at the current tile
+    height on the flagship frame's own inputs (B1/B2: the work-list frame's
+    bins; B7/B10: windows of 256, kmax 16; B8: windows of 128; B9: the dense
+    frame's first pass, clamped): each held to its twin once (rasters bit
+    for bit; resolves at B2's bar, with the count of values that differ at
+    all) and timed by the profiler (device ms a call, a raster's plan and
+    raster kernels summed, 10 calls) beside its bound, the work
+    (``raster_work``) counted at this height. Returns {name: row}."""
+    import torch
+
+    from sailor_tpu_torch.raster import setup as rsetup
+    from sailor_tpu_torch.raster import tile_raster as tr
+
+    th = tr.check_tile_h()
+    sb, targets, inv_vp, _gb, tiles_y, tiles_x = frame_inputs(scene, width, height)
+    kw = dict(tiles_y=tiles_y, tiles_x=tiles_x)
+    npix = tiles_y * th * tiles_x * tr.TILE_W
+    par = tr._resolve_params(inv_vp, scene.frame.camera_position, width, height, 0,
+                             sb["rows"].device)
+    calls = {}  # name: (kernel, twin, args, keywords, bound (ms, by))
+
+    def raster(name, kernel, plain, args, kwargs, walk, row_bytes, extra):
+        cand, pairs = raster_work(*walk, tiles_y, tiles_x)
+        calls[name] = (kernel, plain, args, kwargs,
+                       _bound(cand * row_bytes + npix * 8 + extra, pairs * 16))
+
+    rows, big, starts, counts, n_big = (sb["rows"], sb["big_rows"], sb["starts"],
+                                        sb["counts"], sb["n_big"])
+    raster("raster_worklist", tr.rasterize_worklist_cuda, tr.rasterize_worklist_plain,
+           (rows, big, starts, counts, n_big), dict(kw, chunk=128),
+           (rows, big, starts, counts, n_big), 17 * 4, counts.numel() * 8)
+    tri, aabb = targets["TriSetup"], targets["TriAABB"]
+    order, starts, counts, big_ids, n_big, _ = rsetup.bin_sorted(
+        tri.valid, aabb, tile_w=tr.TILE_W, tile_h=th, **kw)
+    n_big = n_big.to(torch.int32).reshape(())
+    rows7, big7, na = tr.build_stream_rows(tri, aabb, order, big_ids,
+                                           attrs=scene.attrs_packed[tri.src_id.long()],
+                                           chunk=256)
+    c0, spt, _ = tr.stream_windows(starts, counts, 256, 16)
+    for mxu in (False, True):
+        raster("raster_stream_mxu" if mxu else "raster_stream", tr.rasterize_stream_cuda,
+               tr.rasterize_stream_plain, (rows7, big7, c0, spt, n_big),
+               dict(kw, chunk=256, mxu=mxu),
+               (rows7, big7, *stream_span(c0, spt, 256), n_big), 17 * 4, ntiles_bytes(c0))
+    rows8, big8, _ = tr.build_stream_rows(tri, aabb, order, big_ids, attrs=None, chunk=128)
+    w0, nw = tr.dma_windows(starts, counts, 128)
+    raster("raster_dma", tr.rasterize_dma_cuda, tr.rasterize_dma_plain,
+           (rows8, big8, w0, nw, n_big), dict(kw, dchunk=128),
+           (rows8, big8, w0 * 128, nw * 128, n_big), 17 * 4, ntiles_bytes(w0))
+    dtri, daabb = rsetup.triangle_setup(scene.geometry, scene.frame.view_projection,
+                                        width=width, height=height,
+                                        zplane_rounding="standalone")
+    passes, dense_ovf = rsetup.bin_all(dtri.valid, daabb, tile_w=tr.TILE_W, tile_h=th,
+                                       capacity=SLICE_CONFIG["bin_capacity"],
+                                       rounds=SLICE_CONFIG["bin_rounds"], **kw)
+    bins, pcounts = passes[0]
+    table = tr.dense_table(dtri, daabb)
+    ids = bins.reshape(-1).to(torch.int32).contiguous()
+    pcounts = pcounts.reshape(-1).to(torch.int32).contiguous()
+    starts9 = dense_starts(ids, pcounts.numel())
+    staged = dense_slot_rows(table, ids)
+    raster("raster_dense", tr.rasterize_tiles_cuda, tr.rasterize_tiles_plain,
+           (table, ids, pcounts), dict(kw),
+           (staged, staged[:0], starts9, (pcounts + tr.CHUNK - 1) // tr.CHUNK * tr.CHUNK, 0),
+           (table.shape[1] + 1) * 4, ntiles_bytes(pcounts))
+    out, tids = {}, {}
+    for name, (kernel, plain, args, kwargs, (bound, by)) in calls.items():
+        d_k, t_k = kernel(*args, **kwargs)
+        plain_ms, (d_p, t_p) = _wall_ms(lambda: plain(*args, **kwargs))
+        same = bool(torch.equal(d_k, d_p)) and bool(torch.equal(t_k, t_p))
+        check(same, f"{name} kernel disagrees with its plain version at tile height {th}")
+        tids[name] = t_k.contiguous()
+        out[name] = dict(max_abs_err=(d_k - d_p).abs().max().item(), plain_ms=plain_ms,
+                         bound_ms=bound, bound_by=by, bit_equal=same,
+                         covered=int((t_k >= 0).sum()))
+    for name, args, kwargs in (
+            ("resolve_worklist", (rows, big, tids["raster_worklist"], sb["starts"],
+                                  sb["counts"], par),
+             dict(kw, na=int(sb["na"]), chunk=int(sb["chunk"]))),
+            ("resolve_stream", (rows7, big7, tids["raster_stream"], starts, counts, c0, spt,
+                                par), dict(kw, na=na, chunk=256))):
+        kernel, plain = ((tr.resolve_worklist_cuda, tr.resolve_worklist_plain)
+                         if name == "resolve_worklist" else
+                         (tr.resolve_stream_cuda, tr.resolve_stream_plain))
+        p_k = torch.stack(kernel(*args, **kwargs))
+        plain_ms, p_p = _wall_ms(lambda: torch.stack(plain(*args, **kwargs)))
+        diff = (p_k - p_p).abs()
+        check((diff > 1e-5).float().mean().item() <= 1e-5
+              and bool((diff <= 1e-4 * (1 + p_p.abs())).all()),
+              f"{name} kernel disagrees with its plain version at tile height {th}")
+        tid = args[2]
+        winners = int(torch.unique(tid[tid >= 0]).numel())
+        bound, by = _bound(npix * 4 + winners * (1 + kwargs["na"]) * 4
+                           + npix * p_k.shape[0] * 4, int((tid >= 0).sum()) * 115)
+        calls[name] = (kernel, plain, args, kwargs, (bound, by))
+        out[name] = dict(max_abs_err=diff.max().item(), plain_ms=plain_ms, bound_ms=bound,
+                         bound_by=by, bit_equal=bool(torch.equal(p_k, p_p)),
+                         values_differing=int((diff > 0).sum()))
+    timed = profiled_us({name: (lambda c=c: c[0](*c[2], **c[3])) for name, c in calls.items()},
+                        reps=10, per_call=True)
+    for name, row in out.items():
+        row["ms"], row["timed_by"] = timed[name][0] / 1e3, timed[name][1]
+    return out, int(dense_ovf)
+
+
+def run_raster_tile_heights(scene, width, height, card):
+    """raster-tile-heights: the flagship frame at each tile height of
+    TILE_HEIGHTS, set on tile_raster (``tile_height``). At each height:
+    the work-list frame through FrameGraph (1 warm-up + TILE_HEIGHT_FRAMES
+    timed frames, the launches of that run counted), its Depth bit-equal to
+    the default height's frame wherever the big list drops nothing (no
+    candidate is left out, and the max depth does not depend on the
+    grouping); one frame in each other raster configuration (stream,
+    stream_mxu, dma, dense), counted; the big-list and dense-bin overflow;
+    B1, B2, B7 (both forms), B8, B9 and B10 held to their twins and timed
+    (``tile_height_kernels``), as they are first at the default height.
+    Then a 256x128 frame at SMALL_TILE_HEIGHT against the CPU path
+    (``check_small_frame``). Returns ({kernel: {height: row}}, the
+    frames' launches)."""
+    import collections
+
+    import torch
+
+    from sailor_tpu_torch.framegraph import FrameGraph, FrameGraphAsset
+    from sailor_tpu_torch.kernels import cuda_lib
+    from sailor_tpu_torch.raster import setup as rsetup
+    from sailor_tpu_torch.raster import tile_raster as tr
+
+    def graph(change=None):
+        fg = FrameGraph(FrameGraphAsset.from_nodes(MINIMAL_GRAPH), width, height,
+                        dict(SLICE_CONFIG, **(change or {})))
+        state = fg.initial_state()
+        fg.prepare(scene, state)
+        return fg, state
+
+    # the default height's frame, and its kernels held and timed alike so
+    # that every height's times come from this run
+    fg, state = graph()
+    torch.cuda.synchronize()
+    cuda_lib.LAUNCHES.clear()
+    base = fg.process(scene, state)[0]["Depth"]
+    launches = collections.Counter({k: v for k, v in cuda_lib.LAUNCHES.items()
+                                    if k in TILE_HEIGHT_KERNELS})
+    def report(th, held):
+        for name, row in held.items():
+            print(f"kernel {name}[tile_h={th}]: " + " ".join(
+                f"{k}={v:.5g}" if isinstance(v, float) else f"{k}={v}" for k, v in row.items())
+                + f" on {card}")
+
+    held, _ = tile_height_kernels(scene, width, height, card)
+    report(tr.TILE_H, held)
+    rows = {name: {str(tr.TILE_H): dict(launches=launches[name], **held[name])}
+            for name in TILE_HEIGHT_KERNELS}
+    for th in TILE_HEIGHTS:
+        t_height = time.perf_counter()
+        with tile_height(th):
+            fg, state = graph()
+            torch.cuda.synchronize()
+            cuda_lib.LAUNCHES.clear()
+            warm_ms, (targets, state) = _wall_ms(lambda: fg.process(scene, state))
+            frame_ms = []
+            for _ in range(TILE_HEIGHT_FRAMES):
+                ms, (targets, state) = _wall_ms(lambda: fg.process(scene, state))
+                frame_ms.append(ms)
+            counts = {"worklist": dict(cuda_lib.LAUNCHES)}
+            for k in CONFIG_KERNELS["worklist"]:
+                check(counts["worklist"].get(k, 0) > 0,
+                      f"{k} was not launched in the frame at tile height {th}")
+            final, depth = targets["Final"], targets["Depth"]
+            dropped = int(targets["BinOverflow"])
+            cov = (targets["TriId"] >= 0).float().mean().item()
+            check(tuple(final.shape) == (height, width, 3) and bool(torch.isfinite(final).all())
+                  and cov > 0.0, f"the frame at tile height {th} is empty or not finite")
+            same_depth = bool(torch.equal(depth, base))
+            check(dropped > 0 or same_depth,
+                  f"the frame's Depth at tile height {th} differs from the default height's "
+                  "with no triangle dropped")
+            for config in ("stream", "stream_mxu", "dma", "dense"):
+                cfg_fg, cfg_state = graph(RASTER_CONFIGS[config])
+                torch.cuda.synchronize()
+                cuda_lib.LAUNCHES.clear()
+                t = cfg_fg.process(scene, cfg_state)[0]
+                counts[config] = dict(cuda_lib.LAUNCHES)
+                for k in CONFIG_KERNELS[config]:
+                    check(counts[config].get(k, 0) > 0,
+                          f"{k} was not launched in the {config} frame at tile height {th}")
+                check(bool(torch.isfinite(t["Final"]).all()),
+                      f"the {config} frame at tile height {th} is not finite")
+            tri, aabb = targets["TriSetup"], targets["TriAABB"]
+            ty, tx = -(-height // th), -(-width // tr.TILE_W)
+            ovf_512 = int(rsetup.bin_all(tri.valid, aabb, tiles_x=tx, tiles_y=ty,
+                                         tile_w=tr.TILE_W, tile_h=th, capacity=512,
+                                         rounds=2)[1])
+            held, dense_ovf = tile_height_kernels(scene, width, height, card)
+        for name, config in TILE_HEIGHT_KERNELS.items():
+            n = counts[config].get(name, 0)
+            rows[name][str(th)] = dict(launches=n, **held[name])
+            launches[name] += n
+        print(f"raster-tile-heights[{th}] {width}x{height}: tiles={ty}x{tx} "
+              f"warmup_ms={warm_ms:.2f} frame_ms={[round(m, 3) for m in frame_ms]} "
+              f"mean_ms={sum(frame_ms) / len(frame_ms):.3f} big_list_dropped={dropped} "
+              f"dense_overflow(1024x4)={dense_ovf} dense_overflow(512x2)={ovf_512} "
+              f"coverage={cov:.4f} depth_equal_to_default={same_depth} "
+              f"launches={json.dumps(counts)} on {card}")
+        report(th, held)
+        print(f"raster-tile-heights[{th}]: {time.perf_counter() - t_height:.1f} s")
+    cuda_lib.LAUNCHES.clear()
+    with tile_height(SMALL_TILE_HEIGHT):
+        check_small_frame()
+    small = {k: cuda_lib.LAUNCHES.get(k, 0) for k in CONFIG_KERNELS["worklist"]}
+    check(all(small.values()), f"the small frame at tile height {SMALL_TILE_HEIGHT} "
+                               f"skipped a kernel: {small}")
+    launches.update({k: v for k, v in small.items() if k in rows})
+    return rows, dict(launches)
 
 
 def run_frames(scene, width, height, card):
@@ -3049,12 +3279,14 @@ def cluster_scene(cluster, **soup_kw):
     return scene_fn
 
 
-def profiled_us(fns, reps=5):
+def profiled_us(fns, reps=5, per_call=False):
     """Mean device us a launch of each of ``fns`` (a name: a call that
     launches one kernel), over ``reps`` calls in a torch.profiler session of
-    its own: {name: (us, "profiler")}. Where the profiler records no device
-    event (it sometimes records none in a process that profiled before),
-    CUDA events around each call time it instead: (us, "events")."""
+    its own: {name: (us, "profiler")}; ``per_call``: the device us of all
+    the port's kernels a call launches, summed (a raster's plan and raster
+    kernels). Where the profiler records no device event (it sometimes
+    records none in a process that profiled before), CUDA events around
+    each call time it instead: (us, "events")."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
@@ -3070,7 +3302,7 @@ def profiled_us(fns, reps=5):
         us = [e.time_range.elapsed_us() for e in prof.events()
               if e.device_type == DeviceType.CUDA and "(anonymous namespace)::" in e.name]
         if us:
-            out[name] = (sum(us) / len(us), "profiler")
+            out[name] = (sum(us) / (reps if per_call else len(us)), "profiler")
             continue
         total = 0.0
         for _ in range(reps):
@@ -3264,6 +3496,20 @@ def ray_block(rb, sub):
         yield
     finally:
         sweep.RAY_BLOCK, sweep.SUB = old
+
+
+@contextlib.contextmanager
+def tile_height(th):
+    """The raster tile height (``tile_raster.TILE_H``) set to th for the
+    length of the block (None: as it is)."""
+    from sailor_tpu_torch.raster import tile_raster
+
+    old = tile_raster.TILE_H
+    tile_raster.TILE_H = old if th is None else th
+    try:
+        yield
+    finally:
+        tile_raster.TILE_H = old
 
 
 def run_sweep_rayblocks(card):
@@ -6482,6 +6728,9 @@ def main() -> int:
     config_launches = run_raster_configs(scene, width, height, card)
     run_rasterize(scene, width, height, card)
     print(f"kernels and raster configs: {time.perf_counter() - t_kernels:.1f} s")
+    t_heights = time.perf_counter()
+    height_rows, height_launches = run_raster_tile_heights(scene, width, height, card)
+    print(f"raster-tile-heights: {time.perf_counter() - t_heights:.1f} s")
     t_frames = time.perf_counter()
     launches = run_frames(scene, width, height, card)  # profiles last: later frames run slower
     check_shadow_kernels(scene, width, height, card)
@@ -6514,6 +6763,10 @@ def main() -> int:
                   "resolve_stream": "stream"}[k["name"]]
         k["launches"] = config_launches[config].get(k["name"], 0)
     kernels += variants + queue_kernels
+    for k in kernels:  # B1, B2, B7-B10 at the other tile heights
+        if k["name"] in height_rows:
+            k["tileheights"] = height_rows[k["name"]]
+            k["launches"] += height_launches.get(k["name"], 0)
     main_frame = kernels[:3]
     check_small_frame()
     for change in RASTER_CONFIGS.values():
@@ -6636,7 +6889,8 @@ def main() -> int:
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(f"card: {card}")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys + ("clusters", "rayblocks") if k in r}
+    print(json.dumps({"kernels": [{k: r[k] for k in keys + ("clusters", "rayblocks", "tileheights")
+                                   if k in r}
                                   for r in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

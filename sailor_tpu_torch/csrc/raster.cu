@@ -13,7 +13,7 @@
 // `rasterize_stream_plain`, `rasterize_dma_plain` and
 // `rasterize_tiles_plain` in raster/tile_raster.py.
 //
-// What it computes: per 64x128 screen tile, a walk of G-row groups: the
+// What it computes: per tile_h x 128 screen tile, a walk of G-row groups: the
 // big-triangle list first, then a contiguous range of a row table. B1 (G =
 // 32) walks floor(start/32)*32 .. ceil(end/32)*32 of the sorted rows
 // (`worklist_span`: the tile's work-list windows, with the rows of
@@ -63,7 +63,8 @@
 //     block starts); one block per (run, strip) walks only its run. R
 //     starts at the caller's `run_groups` and doubles until the runs of the
 //     tiles with more than one fit the caller's scratch (`slots`), so the
-//     grid, (tiles + slots) x 8 blocks, is a bound the host knows; blocks
+//     grid, (tiles + slots) x strips blocks (strips = tile_h / 8), is a
+//     bound the host knows; blocks
 //     past the list exit. The runs of tiles with at least HEAVY runs are
 //     listed first, then the other split tiles, so the longest walks start
 //     in the first wave. The raster kernel is launched as a programmatic
@@ -111,6 +112,11 @@
 //     (DENSE_RUN_ROWS), a dense frame's five clamped passes 0.1140 /
 //     0.1107 / 0.1213 ms at 32 / 64 / 128 (without the clamp 0.3624 /
 //     0.3819 / 0.4220).
+//  6. The tile height is an argument (a multiple of 8): a block still owns
+//     one 8-row strip, so its warps and shared memory do not depend on it;
+//     the strips a tile (tile_h / 8) size the grid, the arrival counts and
+//     the partials' scratch. The default 64-row tile has an instantiation
+//     of its own with the count fixed (see raster_runs_kernel).
 // Rounding: common.cuh; plane() is raster_common.cuh's (B9's plane is the
 // same fma(a, px, b*py) + c).
 #include "raster_common.cuh"
@@ -125,14 +131,16 @@ constexpr int PIX = STRIP_H * TILE_W;  // pixels of a strip
 constexpr int PLAN_THREADS = 256;
 constexpr int HEAVY = 8;        // tiles of this many runs are listed first
 constexpr int MERGE_RUNS = 8;   // partials loaded at once by the merging block
+constexpr int DEFAULT_STRIPS = 64 / STRIP_H;  // the strips of the default tile height
 constexpr unsigned FULL = 0xffffffffu;
 
 // Workspace (int32; raster/tile_raster.py `_worklist_workspace` sizes it):
 //   runs  [tiles + slots][8]: per listed run (tile, first walk group, groups,
 //         the tile's runs; scratch slot or -1, first row group, big-list
 //         groups, run index), tile -1 past the list
-//   count [tiles * STRIPS]: arrivals per (tile, strip)
-// then the scratch: partial z (float) and id, [slots][STRIPS][PIX] each.
+//   count [tiles * strips]: arrivals per (tile, strip)
+// then the scratch: partial z (float) and id, [slots][strips][PIX] each
+// (strips = tile_h / STRIP_H).
 struct Work {
   int4* runs;
   int* count;
@@ -140,13 +148,13 @@ struct Work {
   int* part_id;
 };
 
-__device__ __forceinline__ Work carve(int* ws, int ntiles, int slots) {
+__device__ __forceinline__ Work carve(int* ws, int ntiles, int slots, int strips) {
   Work w;
   w.runs = reinterpret_cast<int4*>(ws);
   w.count = ws + 8 * (ntiles + slots);
-  int* scratch = w.count + ntiles * STRIPS;
+  int* scratch = w.count + ntiles * strips;
   w.part_z = reinterpret_cast<float*>(scratch);
-  w.part_id = scratch + static_cast<int64_t>(slots) * STRIPS * PIX;
+  w.part_id = scratch + static_cast<int64_t>(slots) * strips * PIX;
   return w;
 }
 
@@ -193,10 +201,10 @@ __device__ __forceinline__ int block_exclusive(int v, int* red) {
 __global__ void __launch_bounds__(PLAN_THREADS)
 plan_kernel(const int* __restrict__ starts, const int* __restrict__ counts,
             const int* __restrict__ n_big_ptr, int nbig_rows, int ntiles, int group,
-            int win, int run_groups, int slots, int* __restrict__ ws) {
+            int win, int run_groups, int slots, int strips, int* __restrict__ ws) {
   asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
   __shared__ int red[PLAN_THREADS / 32];
-  const Work w = carve(ws, ntiles, slots);
+  const Work w = carve(ws, ntiles, slots, strips);
   const int nb = n_big_ptr ? cdiv(min(max(*n_big_ptr, 0), nbig_rows), group) : 0;
   // each thread plans a contiguous span of tiles, so runs list in tile order
   const int per = cdiv(ntiles, PLAN_THREADS);
@@ -249,7 +257,7 @@ plan_kernel(const int* __restrict__ starts, const int* __restrict__ counts,
   }
   for (int i = total + threadIdx.x; i < ntiles + slots; i += PLAN_THREADS)
     w.runs[2 * i] = make_int4(-1, 0, 0, 0);
-  for (int i = threadIdx.x; i < ntiles * STRIPS; i += PLAN_THREADS) w.count[i] = 0;
+  for (int i = threadIdx.x; i < ntiles * strips; i += PLAN_THREADS) w.count[i] = 0;
 }
 
 __device__ __forceinline__ float4 ld4(const float* p) {
@@ -498,23 +506,33 @@ __device__ __forceinline__ void test_group(const float* __restrict__ s, int nval
 
 // One block per (listed run, strip): G-row groups, MXU: B7's MXU plane form,
 // BY_ID: B9's rows, row ids[s] of the (rows, ncols) triangle table for slot
-// s of the walk (no big list).
-template <int G, bool MXU, bool BY_ID>
+// s of the walk (no big list). STRIPS: the strips of a tile fixed at
+// compile time (DEFAULT_STRIPS, the default 64-row tile), or 0 for
+// tile_h / STRIP_H at run time, which ptxas compiles with more spills: on
+// an H100 80GB HBM3 at 700 W, at 64 rows, the run-time count alone ran B1,
+// B7-MXU, B8 and B9 1.4-3.2% slower than a kernel with the height fixed
+// (tests/torch_compare_checkouts.py --raster, three calls), so the default
+// height keeps its own instantiation; both are held to the same twins.
+// tile_h is the last parameter: in the middle of the list ptxas spilled
+// more still (B1 224 bytes of stores against 164 with it last) and B1, B8
+// and B9 ran 3-4% slower.
+template <int G, bool MXU, bool BY_ID, int STRIPS>
 __global__ void __launch_bounds__(THREADS, 4)
 raster_runs_kernel(const float* __restrict__ rows, int ncols,
                    const float* __restrict__ big_rows, int nbig_rows,
                    const int* __restrict__ ids,
                    const float* __restrict__ zlo, const float* __restrict__ zhi,
                    float* __restrict__ depth, int* __restrict__ tid, int tiles_x,
-                   int ntiles, int slots, int* __restrict__ ws) {
+                   int ntiles, int slots, int* __restrict__ ws, int tile_h) {
   constexpr int NW = G / CHUNK;
   constexpr int NBUF = G == CHUNK ? 4 : 2;  // group slots of the cp.async ring
   __shared__ __align__(16) float s[NBUF][G * RS];
   __shared__ GroupTest<NW> g;
   __shared__ int s_last;
   asm volatile("griddepcontrol.wait;" ::: "memory");  // the plan has ended
-  const Work w = carve(ws, ntiles, slots);
-  const int run = blockIdx.x / STRIPS, strip = blockIdx.x - run * STRIPS;
+  const int strips = STRIPS ? STRIPS : tile_h / STRIP_H;
+  const Work w = carve(ws, ntiles, slots, strips);
+  const int run = blockIdx.x / strips, strip = blockIdx.x - run * strips;
   const int4 rec0 = w.runs[2 * run], rec1 = w.runs[2 * run + 1];
   const int tile = rec0.x;
   if (tile < 0) return;  // past the listed runs
@@ -526,7 +544,7 @@ raster_runs_kernel(const float* __restrict__ rows, int ncols,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int ti = tile / tiles_x, tj = tile - ti * tiles_x;
   const int W = tiles_x * TILE_W;
-  const int y0 = ti * TILE_H + strip * STRIP_H;
+  const int y0 = (ti * strips + strip) * STRIP_H;
   Pix p;
   p.x0 = tj * TILE_W;
   p.rx_lo = static_cast<float>(tj * TILE_W + warp * RECT_W) + 0.5f;
@@ -536,7 +554,7 @@ raster_runs_kernel(const float* __restrict__ rows, int ncols,
   p.ry_lo = static_cast<float>(y0) + 0.5f;
   p.ry_hi = static_cast<float>(y0 + STRIP_H - 1) + 0.5f;
   p.ox = static_cast<float>(tj * TILE_W);
-  p.oy = static_cast<float>(ti * TILE_H);
+  p.oy = static_cast<float>(ti * strips * STRIP_H);
   p.base = static_cast<int64_t>(y0 + (lane >> 4)) * W + tj * TILE_W + warp * RECT_W + (lane & 15);
   const bool bounded = zlo != nullptr;
 #pragma unroll
@@ -608,7 +626,7 @@ raster_runs_kernel(const float* __restrict__ rows, int ncols,
   }
   // several runs: the partial to scratch, the last to arrive merges in order
   const int64_t strip_off = static_cast<int64_t>(strip) * PIX + threadIdx.x;
-  const int64_t mine = static_cast<int64_t>(slot) * STRIPS * PIX + strip_off;
+  const int64_t mine = static_cast<int64_t>(slot) * strips * PIX + strip_off;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     w.part_z[mine + k * THREADS] = p.bz[k];
@@ -617,7 +635,7 @@ raster_runs_kernel(const float* __restrict__ rows, int ncols,
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0)
-    s_last = atomicAdd(&w.count[tile * STRIPS + strip], 1) == nruns - 1;
+    s_last = atomicAdd(&w.count[tile * strips + strip], 1) == nruns - 1;
   __syncthreads();
   if (!s_last) return;
   __threadfence();
@@ -628,7 +646,7 @@ raster_runs_kernel(const float* __restrict__ rows, int ncols,
     int id[MERGE_RUNS][4];
 #pragma unroll
     for (int j = 0; j < MERGE_RUNS; ++j) {
-      const int64_t at = static_cast<int64_t>(slot - r + q0 + j) * STRIPS * PIX + strip_off;
+      const int64_t at = static_cast<int64_t>(slot - r + q0 + j) * strips * PIX + strip_off;
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         z[j][k] = q0 + j < nruns ? __ldcg(w.part_z + at + k * THREADS) : 0.0f;
@@ -657,15 +675,17 @@ template <int G, bool MXU, bool BY_ID = false>
 int launch_runs(const float* rows, int ncols, const float* big_rows, int nbig_rows,
                 const int* n_big, const int* starts, const int* counts, int win,
                 const float* zlo, const float* zhi, float* depth, int* tid, int tiles_y,
-                int tiles_x, int run_groups, int slots, int* ws, cudaStream_t stream,
-                const int* ids = nullptr) {
+                int tiles_x, int tile_h, int run_groups, int slots, int* ws,
+                cudaStream_t stream, const int* ids = nullptr) {
+  if (tile_h < STRIP_H || tile_h % STRIP_H) return static_cast<int>(cudaErrorInvalidValue);
   const int ntiles = tiles_y * tiles_x;
+  const int strips = tile_h / STRIP_H;
   plan_kernel<<<1, PLAN_THREADS, 0, stream>>>(starts, counts, n_big, nbig_rows, ntiles, G, win,
-                                              run_groups, slots, ws);
+                                              run_groups, slots, strips, ws);
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((ntiles + slots) * STRIPS);
+  cfg.gridDim = dim3((ntiles + slots) * strips);
   cfg.blockDim = dim3(THREADS);
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -673,9 +693,11 @@ int launch_runs(const float* rows, int ncols, const float* big_rows, int nbig_ro
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return static_cast<int>(cudaLaunchKernelEx(&cfg, raster_runs_kernel<G, MXU, BY_ID>, rows,
-                                             ncols, big_rows, nbig_rows, ids, zlo, zhi,
-                                             depth, tid, tiles_x, ntiles, slots, ws));
+  auto kernel = strips == DEFAULT_STRIPS ? raster_runs_kernel<G, MXU, BY_ID, DEFAULT_STRIPS>
+                                         : raster_runs_kernel<G, MXU, BY_ID, 0>;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, rows, ncols, big_rows, nbig_rows,
+                                             ids, zlo, zhi, depth, tid, tiles_x, ntiles,
+                                             slots, ws, tile_h));
 }
 
 }  // namespace
@@ -688,11 +710,11 @@ extern "C" int sailor_raster_worklist(const float* rows, int ncols,
                                       const int* n_big, const int* starts,
                                       const int* counts, const float* zlo,
                                       const float* zhi, float* depth, int* tid,
-                                      int tiles_y, int tiles_x, int run_groups,
+                                      int tiles_y, int tiles_x, int tile_h, int run_groups,
                                       int slots, int* ws, cudaStream_t stream) {
   return launch_runs<CHUNK, false>(rows, ncols, big_rows, nbig_rows, n_big, starts, counts, 0,
-                                   zlo, zhi, depth, tid, tiles_y, tiles_x, run_groups, slots,
-                                   ws, stream);
+                                   zlo, zhi, depth, tid, tiles_y, tiles_x, tile_h, run_groups,
+                                   slots, ws, stream);
 }
 
 // B7: tile t walks the windows c0[t] .. c0[t] + max(spt[t], 1) - 1 of
@@ -701,17 +723,17 @@ extern "C" int sailor_raster_stream(const float* rows, int ncols,
                                     const float* big_rows, int nbig_rows,
                                     const int* n_big, const int* c0, const int* spt,
                                     const float* zlo, const float* zhi, float* depth,
-                                    int* tid, int tiles_y, int tiles_x, int chunk, int mxu,
-                                    int run_groups, int slots, int* ws,
+                                    int* tid, int tiles_y, int tiles_x, int tile_h, int chunk,
+                                    int mxu, int run_groups, int slots, int* ws,
                                     cudaStream_t stream) {
   if (chunk % (mxu ? CHUNK_MXU : CHUNK)) return static_cast<int>(cudaErrorInvalidValue);
   if (mxu)
     return launch_runs<CHUNK_MXU, true>(rows, ncols, big_rows, nbig_rows, n_big, c0, spt,
-                                        chunk, zlo, zhi, depth, tid, tiles_y, tiles_x,
+                                        chunk, zlo, zhi, depth, tid, tiles_y, tiles_x, tile_h,
                                         run_groups, slots, ws, stream);
   return launch_runs<CHUNK, false>(rows, ncols, big_rows, nbig_rows, n_big, c0, spt, chunk,
-                                   zlo, zhi, depth, tid, tiles_y, tiles_x, run_groups, slots,
-                                   ws, stream);
+                                   zlo, zhi, depth, tid, tiles_y, tiles_x, tile_h, run_groups,
+                                   slots, ws, stream);
 }
 
 // B9: tile t walks the slots starts[t] .. starts[t] + counts[t] (its bin:
@@ -722,11 +744,11 @@ extern "C" int sailor_raster_stream(const float* rows, int ncols,
 extern "C" int sailor_raster_dense(const float* table, int width, const int* ids,
                                    const int* starts, const int* counts, const float* zlo,
                                    const float* zhi, float* depth, int* tid, int tiles_y,
-                                   int tiles_x, int run_groups, int slots, int* ws,
+                                   int tiles_x, int tile_h, int run_groups, int slots, int* ws,
                                    cudaStream_t stream) {
   if ((width != 12 && width != 16) || reinterpret_cast<uintptr_t>(table) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_runs<CHUNK, false, true>(table, width, nullptr, 0, nullptr, starts, counts, 0,
-                                         zlo, zhi, depth, tid, tiles_y, tiles_x, run_groups,
-                                         slots, ws, stream, ids);
+                                         zlo, zhi, depth, tid, tiles_y, tiles_x, tile_h,
+                                         run_groups, slots, ws, stream, ids);
 }

@@ -37,7 +37,7 @@ resolve_worklist_kernel(const float* __restrict__ rows, int ncols,
                         const int* __restrict__ starts,
                         const int* __restrict__ counts,
                         const float* __restrict__ par, float* __restrict__ out,
-                        int n_out, int mode, int tiles_x, int H, int W) {
+                        int n_out, int mode, int tiles_x, int tile_h, int H, int W) {
   const int64_t p = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
   const int64_t HW = static_cast<int64_t>(H) * W;
   if (p >= HW) return;
@@ -45,7 +45,7 @@ resolve_worklist_kernel(const float* __restrict__ rows, int ncols,
   const int t = tid[p];
   const float* row = nullptr;
   if (t >= 0) {
-    const int tile = (y / TILE_H) * tiles_x + x / TILE_W;
+    const int tile = (y / tile_h) * tiles_x + x / TILE_W;
     const int s = starts[tile];
     row = find_row(rows, ncols, s, s + counts[tile], big_rows, nbig_rows,
                    static_cast<float>(t));
@@ -64,13 +64,14 @@ extern "C" int sailor_resolve_worklist(const float* rows, int ncols,
                                        const int* tid, const int* starts,
                                        const int* counts, const float* par,
                                        float* out, int n_out, int mode,
-                                       int tiles_y, int tiles_x,
+                                       int tiles_y, int tiles_x, int tile_h,
                                        cudaStream_t stream) {
-  const int H = tiles_y * TILE_H, W = tiles_x * TILE_W;
+  if (tile_h < 8 || tile_h % 8) return static_cast<int>(cudaErrorInvalidValue);
+  const int H = tiles_y * tile_h, W = tiles_x * TILE_W;
   const int64_t n = static_cast<int64_t>(H) * W;
   const int blocks = static_cast<int>((n + THREADS - 1) / THREADS);
   resolve_worklist_kernel<<<blocks, THREADS, 0, stream>>>(
       rows, ncols, big_rows, nbig_rows, tid, starts, counts, par, out, n_out,
-      mode, tiles_x, H, W);
+      mode, tiles_x, tile_h, H, W);
   return static_cast<int>(cudaGetLastError());
 }

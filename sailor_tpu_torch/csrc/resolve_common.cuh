@@ -10,8 +10,7 @@
 
 namespace sailor_resolve {
 
-constexpr int TILE_H = 64;
-constexpr int TILE_W = 128;
+constexpr int TILE_W = 128;  // a tile's height, a multiple of 8, is each entry's tile_h
 constexpr int THREADS = 256;
 
 __device__ __forceinline__ float fma_(float a, float b, float c) { return __fmaf_rn(a, b, c); }

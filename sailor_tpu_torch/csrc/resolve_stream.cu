@@ -26,8 +26,8 @@ resolve_stream_kernel(const float* __restrict__ rows, int ncols,
                       const int* __restrict__ tid, const int* __restrict__ starts,
                       const int* __restrict__ counts, const int* __restrict__ c0,
                       const int* __restrict__ spt, const float* __restrict__ par,
-                      float* __restrict__ out, int n_out, int tiles_x, int chunk,
-                      int H, int W) {
+                      float* __restrict__ out, int n_out, int tiles_x, int tile_h,
+                      int chunk, int H, int W) {
   const int64_t p = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
   const int64_t HW = static_cast<int64_t>(H) * W;
   if (p >= HW) return;
@@ -35,7 +35,7 @@ resolve_stream_kernel(const float* __restrict__ rows, int ncols,
   const int t = tid[p];
   const float* row = nullptr;
   if (t >= 0) {
-    const int tile = (y / TILE_H) * tiles_x + x / TILE_W;
+    const int tile = (y / tile_h) * tiles_x + x / TILE_W;
     const int s = starts[tile];
     const int64_t cap = (static_cast<int64_t>(c0[tile]) + max(spt[tile], 1)) * chunk;
     const int e = static_cast<int>(min(static_cast<int64_t>(s) + counts[tile], cap));
@@ -55,13 +55,14 @@ extern "C" int sailor_resolve_stream(const float* rows, int ncols,
                                      const int* tid, const int* starts,
                                      const int* counts, const int* c0,
                                      const int* spt, const float* par, float* out,
-                                     int n_out, int tiles_y, int tiles_x, int chunk,
-                                     cudaStream_t stream) {
-  const int H = tiles_y * TILE_H, W = tiles_x * TILE_W;
+                                     int n_out, int tiles_y, int tiles_x, int tile_h,
+                                     int chunk, cudaStream_t stream) {
+  if (tile_h < 8 || tile_h % 8) return static_cast<int>(cudaErrorInvalidValue);
+  const int H = tiles_y * tile_h, W = tiles_x * TILE_W;
   const int64_t n = static_cast<int64_t>(H) * W;
   const int blocks = static_cast<int>((n + THREADS - 1) / THREADS);
   resolve_stream_kernel<<<blocks, THREADS, 0, stream>>>(
       rows, ncols, big_rows, nbig_rows, tid, starts, counts, c0, spt, par, out,
-      n_out, tiles_x, chunk, H, W);
+      n_out, tiles_x, tile_h, chunk, H, W);
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,6 +20,7 @@ from sailor_tpu_torch import config as cfg
 from sailor_tpu_torch.assets.materials import MaterialTable
 from sailor_tpu_torch.config import resolve_device
 from sailor_tpu_torch.kernels import sampling
+from sailor_tpu_torch.raster import tile_raster
 from sailor_tpu_torch.rhi.types import RenderTargets, TargetSpec
 
 _NODE_REGISTRY: dict[str, type] = {}
@@ -181,6 +182,10 @@ class FrameGraph:
 
     @staticmethod
     def _check_scene(scene) -> None:
+        """Refuse a frame before any node runs: a materials table of another
+        type, or a raster tile height that is not a positive multiple of 8
+        (``tile_raster.check_tile_h``)."""
+        tile_raster.check_tile_h()
         if scene.materials is not None and not isinstance(scene.materials, MaterialTable):
             raise TypeError("scene.materials must be an assets.materials.MaterialTable, "
                             f"not {type(scene.materials).__name__}")

@@ -97,7 +97,7 @@ def _make_raster(tri, valid, aabb, tiles_y, tiles_x, config, *, capacity,
     builds ONE row table shared by the raster and the fused resolve and
     returns its bins for resolve_gbuffer_stream as ``stream_bins`` (None
     otherwise)."""
-    tw, th = tile_raster.TILE_W, tile_raster.TILE_H
+    tw, th = tile_raster.TILE_W, tile_raster.check_tile_h()
     mode = config.get("raster_mode", "stream")
     if mode == "dma":
         rb = rsetup.bin_sorted(valid, aabb, tiles_x=tiles_x, tiles_y=tiles_y,
@@ -201,7 +201,7 @@ def _into_slice(ctx, tri, aabb):
 
 
 def _tiles(ctx):
-    tw, th = tile_raster.TILE_W, tile_raster.TILE_H
+    tw, th = tile_raster.TILE_W, tile_raster.check_tile_h()
     return round_up(ctx.height, th) // th, round_up(ctx.width, tw) // tw
 
 
@@ -368,7 +368,8 @@ class ShadowPrepassNode(BaseNode):
         mats = light_matrices(scene, ctx.config)
         s = int(ctx.config.get("shadow_resolution", 1024))
         tiles_x = round_up(s, tile_raster.TILE_W) // tile_raster.TILE_W
-        tiles_y = round_up(s, tile_raster.TILE_H) // tile_raster.TILE_H
+        th = tile_raster.check_tile_h()
+        tiles_y = round_up(s, th) // th
         capacity = int(ctx.config.get("shadow_bin_capacity", 512))
         radius = int(ctx.value("Shadow.EvsmBlurRadius", 4))
         dense = ctx.config.get("raster_mode", "stream") not in ("stream", "dma")

@@ -51,25 +51,27 @@ _SIGNATURES = {
     # threads a block, refill threshold)
     "sailor_bvh8_info": (_P,),
     # rows, ncols, big_rows, nbig_rows, n_big*, starts, counts, zlo, zhi,
-    # depth, tid, tiles_y, tiles_x, run_groups, slots, workspace, stream
+    # depth, tid, tiles_y, tiles_x, tile_h, run_groups, slots, workspace,
+    # stream
     "sailor_raster_worklist": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _P, _P),
+                               _I, _I, _I, _I, _I, _P, _P),
     # rows, ncols, big_rows, nbig_rows, n_big*, c0, spt, zlo, zhi, depth,
-    # tid, tiles_y, tiles_x, chunk, mxu, run_groups, slots, workspace, stream
+    # tid, tiles_y, tiles_x, tile_h, chunk, mxu, run_groups, slots,
+    # workspace, stream
     "sailor_raster_stream": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _I, _P, _P),
+                             _I, _I, _I, _I, _I, _I, _I, _P, _P),
     # table, width, ids, starts, counts, zlo, zhi, depth, tid, tiles_y,
-    # tiles_x, run_groups, slots, workspace, stream
+    # tiles_x, tile_h, run_groups, slots, workspace, stream
     "sailor_raster_dense": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _P, _P),
+                            _I, _P, _P),
     # rows, ncols, big_rows, nbig_rows, tid, starts, counts, c0, spt, par,
-    # out, n_out, tiles_y, tiles_x, chunk, stream
+    # out, n_out, tiles_y, tiles_x, tile_h, chunk, stream
     "sailor_resolve_stream": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _I, _P),
+                              _I, _I, _I, _I, _I, _P),
     # rows, ncols, big_rows, nbig_rows, tid, starts, counts, par, out,
-    # n_out, mode, tiles_y, tiles_x, stream
+    # n_out, mode, tiles_y, tiles_x, tile_h, stream
     "sailor_resolve_worklist": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I,
-                                _I, _I, _P),
+                                _I, _I, _I, _P),
     # table, n_lights, indices, counts, albedo, metallic, roughness, normal,
     # wpos, shadow, cam, out, K, height, width, stream
     "sailor_shade_forward_plus": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,

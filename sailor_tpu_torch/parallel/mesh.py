@@ -435,15 +435,18 @@ def sharded_forward_frame(scene, *, width: int, height: int, mesh: Mesh,
     passes by a strictly greater depth, resolves with its global pixel
     rays, culls lights on its tiles, shades (``pbr.shade_forward_plus``),
     adds its histogram to the others' (``psum``), and blooms and tonemaps
-    the gathered frame. The height must split into 32-row slices (the
-    reference asks for whole 64-row tile rows; a slice's last tile row is
-    rastered padded and cropped, so 1920 x 1088 splits over 2 shards). Returns the (H, W, 3) sRGB frame on the first
-    shard's device. ``stats``, when given, receives "bin_overflow": the
-    candidates each shard's binning dropped (a list in shard order)."""
+    the gathered frame. Each shard's slice of ``height // n`` rows must
+    be whole tile rows (``tile_raster.TILE_H`` at the call), as the
+    reference asks, or whole 32-row rows, which the port also admits at
+    any tile height: a slice's last tile row is rastered padded and
+    cropped, so 1920 x 1088 splits over 2 shards at the default 64. Returns the (H, W, 3) sRGB frame on the first shard's device.
+    ``stats``, when given, receives "bin_overflow": the candidates each
+    shard's binning dropped (a list in shard order)."""
     n = mesh.size
-    th, tw = tile_raster.TILE_H, tile_raster.TILE_W
-    if height % (n * 32) != 0:
-        raise ValueError(f"height {height} must split into 32-px tile rows across {n} shards")
+    th, tw = tile_raster.check_tile_h(), tile_raster.TILE_W
+    if height % (n * th) and height % (n * 32):
+        raise ValueError(f"height {height} must split into whole {th}-row tile rows "
+                         f"(SAILOR_RASTER_TILE_H) or 32-row rows across {n} shards")
     h_local = height // n
     tiles_y = round_up(h_local, th) // th
     tiles_x = round_up(width, tw) // tw

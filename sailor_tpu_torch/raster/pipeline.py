@@ -53,14 +53,17 @@ def rasterize(geometry, view_projection, camera_position=None, *, width: int,
     from inv(view_projection). ``stats``: "bin_overflow" (candidates past
     rounds * capacity, and big triangles past the big pass) and
     "tile_tri_counts" (the last pass's per-tile counts, as the reference
-    returns them)."""
+    returns them). Tiles are ``tile_raster.TILE_W`` x ``TILE_H`` as the
+    module holds it at the call (ValueError naming SAILOR_RASTER_TILE_H,
+    before anything runs, unless a positive multiple of 8)."""
+    th = tile_raster.check_tile_h()
     dev = resolve_device(device)
     geometry = dataclasses.replace(geometry, **{
         f.name: getattr(geometry, f.name).to(dev) for f in dataclasses.fields(geometry)})
     inv_vp = m3.inverse(view_projection).to(dev)  # on the caller's copy
     view_projection = view_projection.to(dev, torch.float32)
     tiles_x = round_up(width, tile_raster.TILE_W) // tile_raster.TILE_W
-    tiles_y = round_up(height, tile_raster.TILE_H) // tile_raster.TILE_H
+    tiles_y = round_up(height, th) // th
 
     if camera_position is None:
         # the eye maps to clip (0, 0, c, 0) under a perspective VP, so
@@ -74,7 +77,7 @@ def rasterize(geometry, view_projection, camera_position=None, *, width: int,
                                       zplane_rounding="standalone")
     passes, overflow = rsetup.bin_all(
         tri.valid, aabb, tiles_x=tiles_x, tiles_y=tiles_y,
-        tile_w=tile_raster.TILE_W, tile_h=tile_raster.TILE_H,
+        tile_w=tile_raster.TILE_W, tile_h=th,
         capacity=capacity, rounds=rounds)
     depth, tid = raster_merge(tri, passes, tiles_y, tiles_x)
     depth = depth[:height, :width]

@@ -5,8 +5,8 @@ Each TPU kernel has a wrapper that launches its CUDA kernel for a CUDA
 tensor and runs its plain PyTorch twin for a CPU tensor; any other device
 raises and nothing falls back:
 
-- B1 ``rasterize_worklist`` (``_raster_kernel_worklist``): per 64x128 tile,
-  the tile's binned candidates over a flat work list of windows;
+- B1 ``rasterize_worklist`` (``_raster_kernel_worklist``): per TILE_H x 128
+  tile, the tile's binned candidates over a flat work list of windows;
   ``csrc/raster.cu``.
 - B7 ``rasterize_stream`` (``_raster_kernel_stream`` and
   ``_raster_kernel_stream_mxu``): B1's math over each tile's first
@@ -28,9 +28,17 @@ tested in groups (32 rows, 128 for the MXU form); within a group the max
 reverse-Z wins and equal z goes to the larger id, a later group takes a
 pixel only with strictly greater z. Which rows share a group is part of
 each variant's walk, so each twin walks its own.
+
+The tile height ``TILE_H`` is read from ``SAILOR_RASTER_TILE_H`` at import
+(64 by default), as the reference reads it, and by every function here and
+every caller at call time, so setting the module's ``TILE_H`` takes effect
+at the next call. It must be a positive multiple of 8 (``check_tile_h``):
+the kernels give each 8-row strip of a tile a block of its own.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -38,7 +46,7 @@ from sailor_tpu_torch.core.math3d import fma
 from sailor_tpu_torch.kernels import common
 from sailor_tpu_torch.kernels import cuda_lib
 
-TILE_H = 64
+TILE_H = int(os.environ.get("SAILOR_RASTER_TILE_H", "64"))
 TILE_W = 128
 CHUNK = 32  # candidate rows merged per group (the tie-break unit)
 EPS = -0.05  # edge tolerance in pixels (watertightness)
@@ -46,6 +54,26 @@ EPS = -0.05  # edge tolerance in pixels (watertightness)
 #: attribute column groups (see interpolate.pack_triangle_attributes)
 A_BASE = 37
 A_MAT = 49
+STRIP_H = 8  # pixel rows of a strip: one block of the raster kernel
+
+
+def check_tile_h() -> int:
+    """TILE_H as the module holds it now, or ValueError naming
+    SAILOR_RASTER_TILE_H when it is not a positive multiple of 8 (the
+    reference asserts the multiple of 8 at import and fails later on 0)."""
+    th = TILE_H
+    if isinstance(th, bool) or int(th) != th or th < STRIP_H or th % STRIP_H:
+        raise ValueError(f"SAILOR_RASTER_TILE_H={th!r}: the raster tile height must be a "
+                         f"positive multiple of {STRIP_H}")
+    return int(th)
+
+
+check_tile_h()
+
+
+def strips() -> int:
+    """The 8-row strips of a tile at the current TILE_H, one block each."""
+    return check_tile_h() // STRIP_H
 
 
 def _plane(a, b, c, px, py):
@@ -173,7 +201,6 @@ RUN_GROUPS = 4
 STREAM_RUN_ROWS = 512
 DMA_RUN_ROWS = 256
 DENSE_RUN_ROWS = 64
-STRIPS = TILE_H // 8  # B1's 8-row strips, one block each
 
 
 def worklist_slots(ntiles: int) -> int:
@@ -186,7 +213,8 @@ def _worklist_workspace(ntiles: int, slots: int) -> int:
     """int32 words of the run kernel's workspace (csrc/raster.cu ``carve``): the run
     records (8 words each), the arrival counts and the runs' partial depth
     and id."""
-    return 8 * (ntiles + slots) + ntiles * STRIPS + 2 * slots * STRIPS * 8 * TILE_W
+    n = strips()
+    return 8 * (ntiles + slots) + ntiles * n + 2 * slots * n * STRIP_H * TILE_W
 
 
 def rasterize_worklist_cuda(rows, big_rows, starts, counts, n_big, *,
@@ -196,7 +224,8 @@ def rasterize_worklist_cuda(rows, big_rows, starts, counts, n_big, *,
     as one launch; no host synchronisation."""
     dev = rows.device
     ntiles = tiles_y * tiles_x
-    H, W = tiles_y * TILE_H, tiles_x * TILE_W
+    th = check_tile_h()
+    H, W = tiles_y * th, tiles_x * TILE_W
     ncols = rows.shape[1]
     if ncols < 17 or big_rows.shape[1] != ncols:
         raise ValueError("rows and big_rows need the same >= 17 columns")
@@ -217,7 +246,7 @@ def rasterize_worklist_cuda(rows, big_rows, starts, counts, n_big, *,
         rows.data_ptr(), ncols, big_rows.data_ptr(), big_rows.shape[0],
         n_big.data_ptr(), starts.data_ptr(), counts.data_ptr(),
         cuda_lib.ptr(zlo), cuda_lib.ptr(zhi), depth.data_ptr(), tid.data_ptr(),
-        tiles_y, tiles_x, RUN_GROUPS, slots, ws.data_ptr(), cuda_lib.stream_of(rows))
+        tiles_y, tiles_x, th, RUN_GROUPS, slots, ws.data_ptr(), cuda_lib.stream_of(rows))
     cuda_lib.check(err, "sailor_raster_worklist")
     cuda_lib.count("raster_worklist")
     return depth, tid
@@ -230,6 +259,7 @@ def rasterize_worklist(setup, screen_aabb, order, starts, counts, big_ids,
 
     Returns (depth (H, W) f32 reverse-Z, tid (H, W) int32 table row or -1,
     overflow=0) with H, W padded to whole tiles."""
+    check_tile_h()
     if prebuilt is not None:
         rows, big_rows = prebuilt
     else:
@@ -299,7 +329,8 @@ def _empty_best(dev):
 def _raster_tiles_plain(tiles_y, tiles_x, z_bounds, dev, tile_rows):
     """Run ``tile_rows(t, px, py, zl, zh) -> (depth, tid)`` per tile and
     assemble the (H, W) outputs."""
-    H, W = tiles_y * TILE_H, tiles_x * TILE_W
+    th = check_tile_h()
+    H, W = tiles_y * th, tiles_x * TILE_W
     zlo = zhi = None
     if z_bounds is not None:
         zlo, zhi = _pad_bounds(z_bounds, H, W)
@@ -307,14 +338,13 @@ def _raster_tiles_plain(tiles_y, tiles_x, z_bounds, dev, tile_rows):
     tid = torch.full((H, W), -1, dtype=torch.int32, device=dev)
     for t in range(tiles_y * tiles_x):
         ti, tj = divmod(t, tiles_x)
-        win = (slice(ti * TILE_H, (ti + 1) * TILE_H),
-               slice(tj * TILE_W, (tj + 1) * TILE_W))
+        win = (slice(ti * th, (ti + 1) * th), slice(tj * TILE_W, (tj + 1) * TILE_W))
         px, py = _tile_pixels(t, tiles_x, dev)
         zl = zlo[win].reshape(-1) if zlo is not None else None
         zh = zhi[win].reshape(-1) if zhi is not None else None
         d, i = tile_rows(t, px, py, zl, zh)
-        depth[win] = d.reshape(TILE_H, TILE_W)
-        tid[win] = i.reshape(TILE_H, TILE_W)
+        depth[win] = d.reshape(th, TILE_W)
+        tid[win] = i.reshape(th, TILE_W)
     return depth, tid
 
 
@@ -402,7 +432,8 @@ def rasterize_stream_cuda(rows, big_rows, c0, spt, n_big, *, tiles_y: int,
     each tile's windows, counted as one launch; no host synchronisation."""
     dev = rows.device
     ntiles = tiles_y * tiles_x
-    H, W = tiles_y * TILE_H, tiles_x * TILE_W
+    th = check_tile_h()
+    H, W = tiles_y * th, tiles_x * TILE_W
     _raster_window_checks(rows, big_rows, chunk, CHUNK_MXU if mxu else CHUNK)
     cuda_lib.require(rows, "rows", torch.float32)
     cuda_lib.require(big_rows, "big_rows", torch.float32, device=dev)
@@ -418,7 +449,7 @@ def rasterize_stream_cuda(rows, big_rows, c0, spt, n_big, *, tiles_y: int,
     err = cuda_lib.launch(rows, lib.sailor_raster_stream,
         rows.data_ptr(), rows.shape[1], big_rows.data_ptr(), big_rows.shape[0],
         n_big.data_ptr(), c0.data_ptr(), spt.data_ptr(), cuda_lib.ptr(zlo),
-        cuda_lib.ptr(zhi), depth.data_ptr(), tid.data_ptr(), tiles_y, tiles_x,
+        cuda_lib.ptr(zhi), depth.data_ptr(), tid.data_ptr(), tiles_y, tiles_x, th,
         chunk, 1 if mxu else 0, STREAM_RUN_ROWS // (CHUNK_MXU if mxu else CHUNK), slots,
         ws.data_ptr(), cuda_lib.stream_of(rows))
     cuda_lib.check(err, "sailor_raster_stream")
@@ -437,10 +468,9 @@ def rasterize_stream(setup, screen_aabb, order, starts, counts, big_ids,
     ``prebuilt``: (rows, big_rows) from build_stream_rows, shared with the
     fused resolve. Returns (depth, tid, overflow): the candidates past the
     kmax cap are not tested, and overflow counts them."""
+    check_tile_h()
     if mxu and (chunk % CHUNK_MXU or chunk < CHUNK_MXU):
         raise ValueError(f"mxu=True requires chunk % {CHUNK_MXU} == 0, got {chunk}")
-    if mxu and TILE_H % MXU_STRIP:
-        raise ValueError(f"mxu=True requires TILE_H % {MXU_STRIP} == 0, got {TILE_H}")
     if prebuilt is not None:
         rows, big_rows = prebuilt
     else:
@@ -490,7 +520,8 @@ def rasterize_dma_cuda(rows, big_rows, w0, nw, n_big, *, tiles_y: int,
     DMA_RUN_ROWS rows, counted as one launch; no host synchronisation."""
     dev = rows.device
     ntiles = tiles_y * tiles_x
-    H, W = tiles_y * TILE_H, tiles_x * TILE_W
+    th = check_tile_h()
+    H, W = tiles_y * th, tiles_x * TILE_W
     _raster_window_checks(rows, big_rows, dchunk, CHUNK)
     if big_rows.shape[0] % CHUNK:
         raise ValueError(f"big_rows must pad to whole groups of {CHUNK}")
@@ -509,7 +540,7 @@ def rasterize_dma_cuda(rows, big_rows, w0, nw, n_big, *, tiles_y: int,
     err = cuda_lib.launch(rows, lib.sailor_raster_worklist,
         rows.data_ptr(), rows.shape[1], big_rows.data_ptr(), big_rows.shape[0],
         n_big.data_ptr(), starts.data_ptr(), counts.data_ptr(), cuda_lib.ptr(zlo),
-        cuda_lib.ptr(zhi), depth.data_ptr(), tid.data_ptr(), tiles_y, tiles_x,
+        cuda_lib.ptr(zhi), depth.data_ptr(), tid.data_ptr(), tiles_y, tiles_x, th,
         DMA_RUN_ROWS // CHUNK, slots, ws.data_ptr(), cuda_lib.stream_of(rows))
     cuda_lib.check(err, "sailor_raster_worklist")
     cuda_lib.count("raster_dma")
@@ -521,6 +552,7 @@ def rasterize_dma(setup, screen_aabb, order, starts, counts, big_ids, n_big,
                   dchunk: int = 128):
     """Raster from bin_sorted's ragged bins, each tile walking its exact
     window span (B8). No per-tile cap: returns (depth, tid, overflow=0)."""
+    check_tile_h()
     rows, big_rows, _ = build_stream_rows(setup, screen_aabb, order, big_ids,
                                           attrs=None, chunk=dchunk)
     w0, nw = dma_windows(starts, counts, dchunk)
@@ -579,7 +611,8 @@ def rasterize_tiles_cuda(table, ids, counts, *, tiles_y: int, tiles_x: int,
     as one launch, no host synchronisation."""
     dev = table.device
     ntiles = tiles_y * tiles_x
-    H, W = tiles_y * TILE_H, tiles_x * TILE_W
+    th = check_tile_h()
+    H, W = tiles_y * th, tiles_x * TILE_W
     width = table.shape[-1]
     if table.dim() != 2 or width not in (12, 16) or ids.shape[0] % ntiles:
         raise ValueError("the table needs 12 or 16 columns and the ids one bin per tile")
@@ -601,7 +634,7 @@ def rasterize_tiles_cuda(table, ids, counts, *, tiles_y: int, tiles_x: int,
     err = cuda_lib.launch(table, lib.sailor_raster_dense,
         table.data_ptr(), width, ids.data_ptr(), starts.data_ptr(), counts.data_ptr(),
         cuda_lib.ptr(zlo), cuda_lib.ptr(zhi), depth.data_ptr(), tid.data_ptr(), tiles_y,
-        tiles_x, DENSE_RUN_ROWS // CHUNK, slots, ws.data_ptr(), cuda_lib.stream_of(table))
+        tiles_x, th, DENSE_RUN_ROWS // CHUNK, slots, ws.data_ptr(), cuda_lib.stream_of(table))
     cuda_lib.check(err, "sailor_raster_dense")
     cuda_lib.count("raster_dense")
     return depth, tid
@@ -615,6 +648,7 @@ def rasterize_tiles(setup, bins, *, tiles_y: int, tiles_x: int, counts=None,
     clamp applies, without it none. ``prebuilt``: ``dense_table(setup,
     screen_aabb)``, shared by a frame's passes. Returns (depth (H, W), tid
     (H, W))."""
+    check_tile_h()
     if bins.shape[-1] % CHUNK:
         raise ValueError("bin capacity must be a CHUNK multiple")
     table = prebuilt if prebuilt is not None else dense_table(setup, screen_aabb)
@@ -734,18 +768,18 @@ def _resolve_plain(rows, big_rows, tid, starts, ends, par, *, tiles_y: int,
     accumulate its winner row (pixels with none, tid < 0 among them, get
     all-zero planes); the emit then interpolates."""
     dev = rows.device
-    H, W = tiles_y * TILE_H, tiles_x * TILE_W
+    th = check_tile_h()
+    H, W = tiles_y * th, tiles_x * TILE_W
     n_out = n_planes(na, mode)
     st, en = starts.tolist(), ends.tolist()
     acc = torch.zeros(na, H, W, dtype=torch.float32, device=dev)
     for t in range(tiles_y * tiles_x):
         ti, tj = divmod(t, tiles_x)
-        win = (slice(ti * TILE_H, (ti + 1) * TILE_H),
-               slice(tj * TILE_W, (tj + 1) * TILE_W))
+        win = (slice(ti * th, (ti + 1) * th), slice(tj * TILE_W, (tj + 1) * TILE_W))
         tid_f = tid[win].reshape(-1).to(torch.float32)
         s = torch.cat([big_rows[:, :17 + na], rows[st[t]:max(en[t], st[t]), :17 + na]])
         match = ((s[:, 16:17] == tid_f[None]) & (s[:, 16:17] >= 0)).to(torch.float32)
-        acc[(slice(None),) + win] = (s[:, 17:].T @ match).reshape(-1, TILE_H, TILE_W)
+        acc[(slice(None),) + win] = (s[:, 17:].T @ match).reshape(-1, th, TILE_W)
     a = acc.reshape(na, -1)
     ys = torch.arange(H, dtype=torch.float32, device=dev) + 0.5
     xs = torch.arange(W, dtype=torch.float32, device=dev) + 0.5
@@ -773,7 +807,8 @@ def resolve_worklist_cuda(rows, big_rows, tid, starts, counts, par, *,
     the same rows the reference's one-hot selects — then emits."""
     dev = rows.device
     ntiles = tiles_y * tiles_x
-    H, W = tiles_y * TILE_H, tiles_x * TILE_W
+    th = check_tile_h()
+    H, W = tiles_y * th, tiles_x * TILE_W
     n_out = n_planes(na, mode)
     ncols = rows.shape[1]
     if ncols < 17 + na or big_rows.shape[1] != ncols:
@@ -789,7 +824,7 @@ def resolve_worklist_cuda(rows, big_rows, tid, starts, counts, par, *,
     err = cuda_lib.launch(rows, lib.sailor_resolve_worklist,
         rows.data_ptr(), ncols, big_rows.data_ptr(), big_rows.shape[0],
         tid.data_ptr(), starts.data_ptr(), counts.data_ptr(), par.data_ptr(),
-        out.data_ptr(), n_out, 1 if mode == "alpha" else 0, tiles_y, tiles_x,
+        out.data_ptr(), n_out, 1 if mode == "alpha" else 0, tiles_y, tiles_x, th,
         cuda_lib.stream_of(rows))
     cuda_lib.check(err, "sailor_resolve_worklist")
     cuda_lib.count("resolve_worklist")
@@ -806,7 +841,8 @@ def resolve_worklist(rows, big_rows, tid, starts, counts, n_big,
     (H, W) planes in the reference's write order: full mode 13 planes for
     the 37-column rows (world position 3, normal 3, uv 2, vertex colour 4,
     material id) or 29 for 49 columns; alpha mode 5."""
-    H, W = tiles_y * TILE_H, tiles_x * TILE_W
+    th = check_tile_h()
+    H, W = tiles_y * th, tiles_x * TILE_W
     if tuple(tid.shape) != (H, W):
         tid = torch.nn.functional.pad(
             tid, (0, W - tid.shape[1], 0, H - tid.shape[0]), value=-1)
@@ -836,7 +872,8 @@ def resolve_stream_cuda(rows, big_rows, tid, starts, counts, c0, spt, par, *,
     pixel; B2's row search bounded by the tile's kmax cap."""
     dev = rows.device
     ntiles = tiles_y * tiles_x
-    H, W = tiles_y * TILE_H, tiles_x * TILE_W
+    th = check_tile_h()
+    H, W = tiles_y * th, tiles_x * TILE_W
     n_out = n_planes(na, "full")
     ncols = rows.shape[1]
     if ncols < 17 + na or big_rows.shape[1] != ncols:
@@ -853,7 +890,7 @@ def resolve_stream_cuda(rows, big_rows, tid, starts, counts, c0, spt, par, *,
         rows.data_ptr(), ncols, big_rows.data_ptr(), big_rows.shape[0],
         tid.data_ptr(), starts.data_ptr(), counts.data_ptr(), c0.data_ptr(),
         spt.data_ptr(), par.data_ptr(), out.data_ptr(), n_out, tiles_y,
-        tiles_x, chunk, cuda_lib.stream_of(rows))
+        tiles_x, th, chunk, cuda_lib.stream_of(rows))
     cuda_lib.check(err, "sailor_resolve_stream")
     cuda_lib.count("resolve_stream")
     return list(out.unbind(0))
@@ -866,7 +903,8 @@ def resolve_stream(rows, big_rows, tid, starts, counts, n_big, inv_vp,
     """The fused resolve over B7's grid-k windows (full mode): expand each
     pixel's winning row from the tile's first ``kmax`` windows and
     interpolate. Returns the planes in resolve_worklist's order."""
-    H, W = tiles_y * TILE_H, tiles_x * TILE_W
+    th = check_tile_h()
+    H, W = tiles_y * th, tiles_x * TILE_W
     if tuple(tid.shape) != (H, W):
         tid = torch.nn.functional.pad(
             tid, (0, W - tid.shape[1], 0, H - tid.shape[0]), value=-1)

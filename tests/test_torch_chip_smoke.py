@@ -927,3 +927,116 @@ def test_sweep_rayblocks_phase_rehearsal(rehearsal, monkeypatch, capsys):
     assert out.count("b4_equal=True b5_equal=True b6_equal=True tied_equal=True") == 2 * len(keys)
     assert "sweep-rayblocks[8192/1024] sample_batch=4" in out and "route=bvh8" not in out, out
     assert "rays=192 " in out, out
+
+
+# --- the raster tile height (SAILOR_RASTER_TILE_H) ------------------------------------
+
+@pytest.fixture(scope="module")
+def height_rows():
+    """The 256x128 flagship frame's inputs at a tile height, made at that
+    height by the frame's own nodes (``frame_inputs``), each height once."""
+    made = {}
+
+    def get(th):
+        if th not in made:
+            with chip_smoke.tile_height(th):
+                scene = flagship_scene(W, H, 24, 10, device="cpu")
+                sb, targets, *_, tiles_y, tiles_x = chip_smoke.frame_inputs(scene, W, H)
+                made[th] = scene, sb, targets, tiles_y, tiles_x
+        return made[th]
+
+    return get
+
+
+@pytest.mark.parametrize("kernel", ["worklist", "stream", "stream_mxu", "dma", "dense"])
+@pytest.mark.parametrize("th", [16, 128])
+def test_mappings_match_twins_at_tile_height(height_rows, th, kernel):
+    """worklist_runs (with worklist_plan), stream_runs in both forms,
+    dma_runs and dense_runs at tile heights 16 and 128 (2 strips and 16
+    of 8 warp rectangles each) bit-equal to the twins, with runs short
+    enough that tiles split."""
+    scene, sb, targets, ty, tx = height_rows(th)
+    kw = dict(tiles_y=ty, tiles_x=tx)
+    rows, big, starts, counts = sb["rows"], sb["big_rows"], sb["starts"], sb["counts"]
+    n_big = sb["n_big"].to(torch.int32).reshape(())
+    with chip_smoke.tile_height(th):
+        if kernel == "worklist":
+            args = (rows, big, starts, counts, n_big)
+            want = tr.rasterize_worklist_plain(*args, **kw)
+            model = lambda **k: chip_smoke.worklist_runs(*args, **kw, run_groups=1, **k)  # noqa
+        elif kernel.startswith("stream"):
+            mxu = kernel == "stream_mxu"
+            c0, spt, _ = tr.stream_windows(starts, counts, 256, 16)
+            args, k7 = (rows, big, c0, spt, n_big), dict(kw, chunk=256, mxu=mxu)
+            want = tr.rasterize_stream_plain(*args, **k7)
+            model = lambda **k: chip_smoke.stream_runs(*args, **k7, run_rows=128, **k)  # noqa
+        elif kernel == "dma":
+            w0, nw = tr.dma_windows(starts, counts, 128)
+            args, k8 = (rows, big, w0, nw, n_big), dict(kw, dchunk=128)
+            want = tr.rasterize_dma_plain(*args, **k8)
+            model = lambda **k: chip_smoke.dma_runs(*args, **k8, run_rows=32, **k)  # noqa
+        else:
+            tri, aabb = targets["TriSetup"], targets["TriAABB"]
+            passes, _ = rsetup.bin_all(tri.valid, aabb, tile_w=tr.TILE_W, tile_h=th,
+                                       capacity=256, rounds=2, **kw)
+            bins, pcounts = passes[0]
+            args = (tr.dense_table(tri, aabb), bins.reshape(-1).to(torch.int32).contiguous(),
+                    pcounts.reshape(-1).to(torch.int32).contiguous())
+            want = tr.rasterize_tiles_plain(*args, **kw)
+            model = lambda **k: chip_smoke.dense_runs(*args, **kw, run_rows=tr.CHUNK, **k)  # noqa
+        stats = {}
+        got = model(stats=stats)
+    assert got[0].shape == (ty * th, W)
+    assert int((want[1] >= 0).sum()) > (100 if kernel == "dense" else 1000)
+    assert stats["runs"] > ty * tx  # a tile is split
+    _same_raster(got, want)
+
+
+def test_raster_tile_heights_phase_rehearsal(rehearsal, monkeypatch, capsys):
+    """run_raster_tile_heights on the 256x128 flagship scene at heights 16
+    and 128: every frame's launches (the work-list frame's B1-B3, one frame
+    each of B7 in both forms, B8, B9 and B10), the twins held to
+    themselves and the bounds at each height and at the default; the small
+    frame stubbed (it is asked at SMALL_TILE_HEIGHT); the height
+    restored."""
+    from sailor_tpu_torch.kernels import cuda_lib
+
+    def counting(plain, key):
+        def twin(*args, **kw):
+            cuda_lib.LAUNCHES[key + ("_mxu" if kw.get("mxu") else "")] += 1
+            return plain(*args, **kw)
+        return twin
+
+    for wrapper, plain, key in (("rasterize_stream_cuda", tr.rasterize_stream_plain,
+                                 "raster_stream"),
+                                ("rasterize_dma_cuda", tr.rasterize_dma_plain, "raster_dma"),
+                                ("resolve_stream_cuda", tr.resolve_stream_plain,
+                                 "resolve_stream")):
+        monkeypatch.setattr(tr, wrapper, counting(plain, key))
+    monkeypatch.setattr(chip_smoke, "profiled_us", lambda fns, reps=5, per_call=False: {
+        k: (fn() and 1.0, "profiler") for k, fn in fns.items()})
+    monkeypatch.setattr(chip_smoke, "TILE_HEIGHTS", (16, 128))
+    small = []
+
+    def small_frame(change=None):
+        small.append(tr.TILE_H)
+        cuda_lib.LAUNCHES.update(chip_smoke.CONFIG_KERNELS["worklist"])  # as a frame would
+
+    monkeypatch.setattr(chip_smoke, "check_small_frame", small_frame)
+    scene = flagship_scene(W, H, 24, 4, device="cpu")
+    default = tr.TILE_H
+    rows, launches = chip_smoke.run_raster_tile_heights(scene, W, H, rehearsal)
+    assert tr.TILE_H == default and small == [16]
+    assert set(rows) == set(chip_smoke.TILE_HEIGHT_KERNELS)
+    for name, by_height in rows.items():
+        assert list(by_height) == [str(default), "16", "128"], name
+        for h, r in by_height.items():
+            assert r["bound_ms"] > 0 and r["max_abs_err"] == 0.0, name
+            assert r["launches"] > 0 or (h == str(default) and "worklist" not in name), name
+    # the default height's frame, 1 warm-up and TILE_HEIGHT_FRAMES frames at
+    # each other, then the small frame
+    assert launches["raster_worklist"] == 1 + 2 * (1 + chip_smoke.TILE_HEIGHT_FRAMES) + 1
+    assert launches["raster_dense"] == 2 * 5  # the dense frame's five passes
+    out = capsys.readouterr().out
+    assert out.count("bit_equal=True") == 3 * len(rows), out
+    assert "raster-tile-heights[128] 256x128: tiles=1x2 " in out, out

@@ -70,7 +70,10 @@ card against the CPU path at cluster 37 and of the dense scene's
 sizes (``sweep.RAY_BLOCK``/``SUB`` set to (1024, 128) and (8192, 2048),
 the passes recorded anew at each pair): the same tests of B4-B6, the
 sparse passes, the cluster sizes and the global-scratch tables again at
-each pair. The BVH8 traversal (``csrc/bvh8.cu``) is held to its twin bit for bit
+each pair. The raster at other tile heights (``tile_raster.TILE_H`` set to
+8, 24, 72, 128 and 2048, the frame's inputs made anew at each height by
+its own nodes; 2048 on a 640x1088 frame, one padded tile row): the B1,
+B2, B7 (both forms), B8, B9 and B10 tests above again at each height. The BVH8 traversal (``csrc/bvh8.cu``) is held to its twin bit for bit
 (t, u, v bits and ids: the same float32 operations, -fmad=false), closest
 and any hit, with and without a finite t_max and an active mask, on the
 soups of ``tests/torch_bvh8_soups.py`` (the deep one drops pushes at
@@ -106,7 +109,7 @@ from chip_smoke import (bits_equal, cascade_inputs, check_culled_frame, check_sm
                         evsm_shadow_factor, frame_inputs, heavy_tile_cases, heavy_tile_rows,
                         queue_inputs,
                         sparse_pass, stream_runs, tables_equal, textured_sky_balls,
-                        tied_clusters, tracer_passes, worklist_runs)
+                        tied_clusters, tile_height, tracer_passes, worklist_runs)
 from sailor_tpu_torch.framegraph import nodes
 from sailor_tpu_torch.kernels import cuda_lib, pbr_kernel
 from sailor_tpu_torch.raster import setup as rsetup
@@ -129,9 +132,63 @@ def card_frame():
     return scene, frame_inputs(scene, W, H)
 
 
-@pytest.mark.parametrize("bounded", [False, True], ids=["no_bounds", "z_bounds"])
-def test_raster_kernel_matches_plain(card_frame, bounded):
-    _, (sb, targets, *_rest, tiles_y, tiles_x) = card_frame
+# the raster tile heights the raster and resolve tests also run at (None:
+# the default): one strip, two heights no power of two, a taller tile, and
+# one taller than its frame (TALL_H rows: one tile row, padded)
+HEIGHTS = [None, 8, 24, 72, 128, 2048]
+TALL_H = 1088
+
+
+def over_setting(name, settings, label):
+    """A ``parametrize`` of a test's ``argnames`` and the setting ``name``:
+    every value at the default setting (None) under its own id, then at each
+    other setting (its id followed by ``label(setting)``)."""
+    def over(argnames, argvalues, ids):
+        values, all_ids = [], []
+        for setting in settings:
+            for v, i in zip(argvalues, ids):
+                values.append((*(v if isinstance(v, tuple) else (v,)), setting))
+                all_ids.append(i if setting is None else f"{i}-{label(setting)}")
+        return pytest.mark.parametrize(f"{argnames},{name}", values, ids=all_ids)
+    return over
+
+
+over_heights = over_setting("tile_h", HEIGHTS, lambda th: f"h{th}")
+
+
+def _size(tile_h):
+    return (W, TALL_H) if tile_h == 2048 else (W, H)
+
+
+@pytest.fixture(scope="module")
+def height_frames(card_frame):
+    """``card_frame`` at a tile height: the scene and the inputs its own nodes
+    make at that height, each height once."""
+    made = {None: card_frame}
+
+    def get(tile_h):
+        if tile_h not in made:
+            w, h = _size(tile_h)
+            with tile_height(tile_h):
+                scene = flagship_scene(w, h, 64, 24)
+                made[tile_h] = scene, frame_inputs(scene, w, h)
+        return made[tile_h]
+
+    return get
+
+
+@pytest.fixture
+def frame_at(tile_h, height_frames):
+    """The raster at the test's tile height for the length of the test; the
+    frame's (scene, inputs) there."""
+    frame = height_frames(tile_h)
+    with tile_height(tile_h):
+        yield frame
+
+
+@over_heights("bounded", [False, True], ids=["no_bounds", "z_bounds"])
+def test_raster_kernel_matches_plain(frame_at, bounded):
+    _, (sb, targets, *_rest, tiles_y, tiles_x) = frame_at
     args = (sb["rows"], sb["big_rows"], sb["starts"], sb["counts"], sb["n_big"])
     kw = dict(tiles_y=tiles_y, tiles_x=tiles_x, chunk=128)
     if bounded:
@@ -147,9 +204,10 @@ def test_raster_kernel_matches_plain(card_frame, bounded):
     assert torch.equal(d_k, d_p)
 
 
-@pytest.mark.parametrize("na,mode", [(37, "full"), (49, "full"), (49, "alpha")])
-def test_resolve_kernel_matches_plain(card_frame, na, mode):
-    scene, (sb, targets, inv_vp, _gb, tiles_y, tiles_x) = card_frame
+@over_heights("na,mode", [(37, "full"), (49, "full"), (49, "alpha")],
+              ["37-full", "49-full", "49-alpha"])
+def test_resolve_kernel_matches_plain(frame_at, na, mode, tile_h):
+    scene, (sb, targets, inv_vp, _gb, tiles_y, tiles_x) = frame_at
     rows, big = sb["rows"], sb["big_rows"]
     if na == 49:
         gen = torch.Generator(device=rows.device).manual_seed(5)
@@ -158,7 +216,8 @@ def test_resolve_kernel_matches_plain(card_frame, na, mode):
     tid = tr.rasterize_worklist_cuda(rows.contiguous(), big.contiguous(), sb["starts"],
                                      sb["counts"], sb["n_big"], tiles_y=tiles_y,
                                      tiles_x=tiles_x)[1]
-    par = tr._resolve_params(inv_vp, scene.frame.camera_position, W, H, 0, rows.device)
+    par = tr._resolve_params(inv_vp, scene.frame.camera_position, *_size(tile_h), 0,
+                             rows.device)
     kw = dict(tiles_y=tiles_y, tiles_x=tiles_x, na=na, chunk=int(sb["chunk"]), mode=mode)
     args = (rows.contiguous(), big.contiguous(), tid, sb["starts"], sb["counts"], par)
     got = torch.stack(tr.resolve_worklist_cuda(*args, **kw))
@@ -193,9 +252,9 @@ def _equal_launch(name, kernel, plain, args, kw, bounded, model=None):
 
 
 @pytest.mark.parametrize("bounded", [False, True], ids=["no_bounds", "z_bounds"])
-@pytest.mark.parametrize("mxu", [False, True], ids=["vpu", "mxu"])
-def test_raster_stream_kernel_matches_plain(card_frame, mxu, bounded):
-    _, (sb, *_rest, tiles_y, tiles_x) = card_frame
+@over_heights("mxu", [False, True], ids=["vpu", "mxu"])
+def test_raster_stream_kernel_matches_plain(frame_at, mxu, bounded):
+    _, (sb, *_rest, tiles_y, tiles_x) = frame_at
     c0, spt, _ = tr.stream_windows(sb["starts"], sb["counts"], 256, 16)
     args = (sb["rows"], sb["big_rows"], c0, spt, sb["n_big"])
     kw = dict(tiles_y=tiles_y, tiles_x=tiles_x, chunk=256, mxu=mxu)
@@ -252,9 +311,9 @@ def test_raster_stream_makes_no_host_sync(card_frame, mxu):
     assert torch.equal(d_m, d0) and torch.equal(t_m, t0)
 
 
-@pytest.mark.parametrize("bounded", [False, True], ids=["no_bounds", "z_bounds"])
-def test_raster_dma_kernel_matches_plain(card_frame, bounded):
-    _, (sb, *_rest, tiles_y, tiles_x) = card_frame
+@over_heights("bounded", [False, True], ids=["no_bounds", "z_bounds"])
+def test_raster_dma_kernel_matches_plain(frame_at, bounded):
+    _, (sb, *_rest, tiles_y, tiles_x) = frame_at
     w0, nw = tr.dma_windows(sb["starts"], sb["counts"], 128)
     args = (sb["rows"], sb["big_rows"], w0, nw, sb["n_big"])
     kw = dict(tiles_y=tiles_y, tiles_x=tiles_x, dchunk=128)
@@ -276,11 +335,11 @@ def test_raster_dma_kernel_matches_plain_on_heavy_tile(card_frame, bounded):
 
 @pytest.mark.parametrize("bounded", [False, True], ids=["no_bounds", "z_bounds"])
 @pytest.mark.parametrize("clamp", [False, True], ids=["no_aabb", "aabb"])
-@pytest.mark.parametrize("npass", [0, -1], ids=["first_pass", "big_pass"])
-def test_raster_dense_kernel_matches_plain(card_frame, npass, clamp, bounded):
+@over_heights("npass", [0, -1], ids=["first_pass", "big_pass"])
+def test_raster_dense_kernel_matches_plain(frame_at, npass, clamp, bounded):
     """B9 on bin_all's first pass and on its big-triangle pass (64 slots,
     the ground plane over every pixel)."""
-    _, (sb, targets, *_rest, tiles_y, tiles_x) = card_frame
+    _, (sb, targets, *_rest, tiles_y, tiles_x) = frame_at
     tri, aabb = targets["TriSetup"], targets["TriAABB"]
     passes, _ = rsetup.bin_all(tri.valid, aabb, tiles_x=tiles_x, tiles_y=tiles_y,
                                tile_w=tr.TILE_W, tile_h=tr.TILE_H, capacity=256, rounds=2)
@@ -332,12 +391,22 @@ def test_raster_dense_dead_slot_reads_no_table_row(card_frame):
 
 
 def test_resolve_stream_kernel_matches_plain(card_frame):
-    scene, (sb, targets, inv_vp, _gb, tiles_y, tiles_x) = card_frame
+    _resolve_stream_matches_plain(card_frame, None)
+
+
+@pytest.mark.parametrize("tile_h", HEIGHTS[1:], ids=[f"h{h}" for h in HEIGHTS[1:]])
+def test_resolve_stream_kernel_matches_plain_at_tile_height(frame_at, tile_h):
+    _resolve_stream_matches_plain(frame_at, tile_h)
+
+
+def _resolve_stream_matches_plain(frame, tile_h):
+    scene, (sb, targets, inv_vp, _gb, tiles_y, tiles_x) = frame
     rows, big = sb["rows"], sb["big_rows"]
     c0, spt, _ = tr.stream_windows(sb["starts"], sb["counts"], 256, 16)
     tid = tr.rasterize_stream_cuda(rows, big, c0, spt, sb["n_big"], tiles_y=tiles_y,
                                    tiles_x=tiles_x)[1]
-    par = tr._resolve_params(inv_vp, scene.frame.camera_position, W, H, 0, rows.device)
+    par = tr._resolve_params(inv_vp, scene.frame.camera_position, *_size(tile_h), 0,
+                             rows.device)
     args = (rows, big, tid, sb["starts"], sb["counts"], c0, spt, par)
     kw = dict(tiles_y=tiles_y, tiles_x=tiles_x, na=37, chunk=256)
     before = cuda_lib.LAUNCHES["resolve_stream"]
@@ -619,16 +688,7 @@ def tracer_rays():
 PAIRS = [None, (1024, 128), (8192, 2048)]
 
 
-def over_pairs(argnames, argvalues, ids):
-    """``parametrize`` of ``argnames`` and the sweep's ``pair``: every value
-    at the default pair under its own id, then at each other pair (its id
-    followed by the pair's)."""
-    values, all_ids = [], []
-    for pair in PAIRS:
-        for v, i in zip(argvalues, ids):
-            values.append((*(v if isinstance(v, tuple) else (v,)), pair))
-            all_ids.append(i if pair is None else f"{i}-{pair[0]}-{pair[1]}")
-    return pytest.mark.parametrize(f"{argnames},pair", values, ids=all_ids)
+over_pairs = over_setting("pair", PAIRS, lambda pair: f"{pair[0]}-{pair[1]}")
 
 
 @pytest.fixture(scope="module")

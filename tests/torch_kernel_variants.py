@@ -144,8 +144,8 @@ def main():
                 cuda_lib.check(lib.sailor_raster_worklist(
                     rows.data_ptr(), rows.shape[1], big.data_ptr(), big.shape[0],
                     n_big.data_ptr(), starts.data_ptr(), counts.data_ptr(), None, None,
-                    depth.data_ptr(), tid.data_ptr(), tiles_y, tiles_x, groups, slots,
-                    ws.data_ptr(), stream), name)
+                    depth.data_ptr(), tid.data_ptr(), tiles_y, tiles_x, tr.TILE_H, groups,
+                    slots, ws.data_ptr(), stream), name)
 
             ms = chip_smoke._time_ms(run, 50)
             same = bool(torch.equal(depth, d_ref)) and bool(torch.equal(tid, t_ref))
@@ -213,8 +213,8 @@ def stream_run_lengths(lib, scene, targets, tiles_y, tiles_x, card, stream):
                 cuda_lib.check(lib.sailor_raster_stream(
                     rows.data_ptr(), rows.shape[1], big.data_ptr(), big.shape[0],
                     n_big.data_ptr(), c0.data_ptr(), spt.data_ptr(), None, None,
-                    depth.data_ptr(), tid.data_ptr(), tiles_y, tiles_x, chunk, int(mxu),
-                    groups, slots, ws.data_ptr(), stream), name)
+                    depth.data_ptr(), tid.data_ptr(), tiles_y, tiles_x, tr.TILE_H, chunk,
+                    int(mxu), groups, slots, ws.data_ptr(), stream), name)
 
             ms = chip_smoke._time_ms(run, 50)
             same = bool(torch.equal(depth, d_ref)) and bool(torch.equal(tid, t_ref))
@@ -258,7 +258,7 @@ def span_run_lengths(lib, scene, targets, tiles_y, tiles_x, card, stream):
             lambda depth, tid, groups: lib.sailor_raster_worklist(
                 rows.data_ptr(), rows.shape[1], big.data_ptr(), big.shape[0], n_big.data_ptr(),
                 s8.data_ptr(), c8.data_ptr(), None, None, depth.data_ptr(), tid.data_ptr(),
-                tiles_y, tiles_x, groups, slots, ws.data_ptr(), stream))
+                tiles_y, tiles_x, tr.TILE_H, groups, slots, ws.data_ptr(), stream))
 
     width, height = tiles_x * tr.TILE_W, tiles_y * tr.TILE_H
     dtri, daabb = rsetup.triangle_setup(scene.geometry, scene.frame.view_projection,
@@ -282,7 +282,7 @@ def span_run_lengths(lib, scene, targets, tiles_y, tiles_x, card, stream):
                     lambda depth, tid, groups: lib.sailor_raster_dense(
                         table.data_ptr(), table.shape[1], ids.data_ptr(), s9.data_ptr(),
                         pcounts.data_ptr(), None, None, depth.data_ptr(), tid.data_ptr(),
-                        tiles_y, tiles_x, groups, slots, ws.data_ptr(), stream))
+                        tiles_y, tiles_x, tr.TILE_H, groups, slots, ws.data_ptr(), stream))
 
 
 def slab_variants(libs, card, stream):
